@@ -15,13 +15,23 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
            each: the median, the kernel's window spread beside it), and
            the bound (the least time the card could take for the same
            work).
+           The paged kernel has no single-call library counterpart: a
+           gather of the rows plus SDPA (two calls) is timed beside it.
 4. engine  GPT-2 small at full width (random weights from a seed)
            served by ``DecodeEngine(slots=8, max_len=1024)``: 8 greedy
            requests, some joining mid-flight; checks that both kernels'
            launch counts moved on that run, and holds every step's logits
            teacher-forced against the plain full forward on the card.
-5. profile torch.profiler over a decode step (8 active slots) and a
-           990-token prefill: wall vs device-busy time, top device ops.
+5. paged   the same model through the paged engine with speculation
+           (``block_size=16, spec_tokens=4``, prefix index on, max_len
+           1016): three runs of 8 requests — width 4 with the n-gram
+           drafter, width 4 with a drafter replaying run 1 (prefix hits,
+           accepted drafts), width 1 (the paged kernel every step);
+           checks launches, lengths, no shed, hits and acceptance, and
+           every emitted token teacher-forced.
+6. profile torch.profiler over a decode step (8 active slots), a
+           990-token prefill, and the paged step at width 1 and 4 (8
+           slots at position 500): wall vs device-busy time, top ops.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -54,6 +64,13 @@ LOGIT_ATOL = 1e-3
 
 PROMPT_LENS = (5, 31, 64, 130, 257, 500, 700, 990)
 NEW_TOKENS = 32
+# The paged engine: max_len 1016 leaves room for the width-4 verify's
+# positions (max_len + k - 1 <= 1024), so tables are 64 blocks of 16 (a
+# key span of 1024) and the pool 8 * 64 + 1 blocks; the longest prompt
+# is cut from 990 to 960 to fit. 192 MiB lets the prefix index pin 170
+# blocks of 1.125 MiB, more than the 165 full blocks the prompts have.
+PAGED_PROMPT_LENS = (5, 31, 64, 130, 257, 500, 700, 960)
+PAGED_MAX_LEN, PAGED_BLOCK, SPEC_K, PAGED_PREFIX_MB = 1016, 16, 4, 192.0
 
 
 def emit(obj):
@@ -219,6 +236,73 @@ def kernel_flash_decode(dev, peaks):
                    "bound_ms": bms, "bound_by": by}
 
 
+def kernel_flash_decode_paged(dev, peaks):
+    """The paged decode kernel at the paged engine's shape: 8 slots, 12
+    heads, tables of 64 blocks of 16 positions into a 513-block pool.
+    Tables are a random permutation of the pool; slots 0 and 1 share
+    their first 8 blocks (a prefix hit); slot 7 is all sink and fully
+    masked (an inactive slot); live lengths are mixed."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(2)
+    B, N, D, blk, MB = 8, 12, 64, 16, 64
+    S, NB = MB * blk, B * MB + 1
+    scale = 1.0 / np.sqrt(D)
+    copies = 4  # 4 x 50 MB of pools: each timed call reads cold data
+    q = torch.randn(B, N, 1, D, generator=gen).to(dev)
+    pools = [(torch.randn(NB, N, blk, D, generator=gen).to(dev),
+              torch.randn(NB, N, blk, D, generator=gen).to(dev))
+             for _ in range(copies)]
+    tables = (torch.randperm(NB - 1, generator=gen) + 1).reshape(B, MB)
+    tables[1, :8] = tables[0, :8]
+    tables[7] = 0
+    kb = torch.zeros(B, S)
+    for b, live in enumerate((1, 17, 512, 1024, 100, 333, 1000)):
+        kb[b, live:] = -1e4
+    kb[7, :] = -1e4
+    mapped = int(torch.unique(tables).numel())
+    tables = tables.to(torch.int32).to(dev)
+    kb = kb.to(dev)
+    worst = 0.0
+    for k_pool, v_pool in pools:
+        out = fa.flash_decode_paged_attention(q, k_pool, v_pool, tables, kb,
+                                              scale=scale)
+        ref = fa.flash_decode_paged_attention_plain(q, k_pool, v_pool, tables,
+                                                    key_bias=kb, scale=scale)
+        torch.cuda.synchronize()
+        check_close("flash_decode_paged", out, ref)
+        worst = max(worst, max_err(out, ref))
+    args = [(q, k, v, tables, kb) for k, v in pools]
+    ms, spread = cuda_ms(lambda a, b, c, t, d: fa.flash_decode_paged_attention(
+        a, b, c, t, d, scale=scale), args)
+    plain_ms, _ = cuda_ms(
+        lambda a, b, c, t, d: fa.flash_decode_paged_attention_plain(
+            a, b, c, t, key_bias=d, scale=scale), args)
+    sdpa_mask = kb.reshape(B, 1, 1, S)
+    # no single PyTorch call reads K/V through a block table: the
+    # yardstick is two, a gather of the logical rows (index_select)
+    # then scaled_dot_product_attention over them
+    lib_ms, _ = cuda_ms(
+        lambda a, b, c, t, d: torch.nn.functional.scaled_dot_product_attention(
+            a, fa.gather_paged_rows(b, t), fa.gather_paged_rows(c, t),
+            attn_mask=sdpa_mask, scale=scale), args)
+    BN = B * N
+    # q, o [B, N, D]; K and V of every mapped block once; tables [B, MB]
+    # int32; key bias [B, S]
+    nbytes = 4 * (2 * BN * D + 2 * mapped * N * blk * D + B * MB + B * S)
+    bms, by = bound_ms(nbytes, 4 * D * BN * S, peaks)
+    fa.flash_decode_paged_attention.launches = 0
+    return worst, {"max_abs_err": worst, "ms": ms, "ms_window_spread": spread,
+                   "plain_ms": plain_ms, "library_ms": None,
+                   "gather_sdpa_ms": lib_ms,
+                   "gather_sdpa_calls": "two: index_select gather of the K "
+                                        "and V rows, then "
+                                        "scaled_dot_product_attention",
+                   "bound_ms": bms, "bound_by": by, "mapped_blocks": mapped,
+                   "shape": {"q": [B, N, 1, D], "pool": [NB, N, blk, D],
+                             "tables": [B, MB]}}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine
 # ---------------------------------------------------------------------------
@@ -244,37 +328,50 @@ def make_recording_engine():
     return RecordingEngine
 
 
-def serve(model, prompt_lens, new_tokens, slots, max_len, seed=1):
-    """Drive the engine with greedy requests; the second half is
-    submitted once the first stream is decoding, so it joins mid-flight.
-    Returns (streams, stats, launches, seconds)."""
-    from paddle_tpu_torch.fluid import profiler
-    from paddle_tpu_torch.kernels import flash_attention as fa
-
+def make_prompts(model, prompt_lens, seed=1):
     rng = np.random.default_rng(seed)
     vocab = model.cfg.vocab_size
-    prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
+    return [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
+
+
+def drive(engine, prompts, new_tokens):
+    """Submit greedy requests to a started engine; the second half is
+    submitted once the first stream is decoding, so it joins mid-flight.
+    Returns (streams, seconds, tokens the first stream had when the
+    second half joined)."""
+    from paddle_tpu_torch.fluid import profiler
+
+    profiler.reset_histograms()
+    t0 = time.perf_counter()
+    half = len(prompts) // 2
+    streams = [engine.submit(p, max_new_tokens=new_tokens)
+               for p in prompts[:half]]
+    deadline = time.monotonic() + 300
+    while len(streams[0]._tokens) < 4 and not streams[0].done:
+        if time.monotonic() > deadline:
+            raise TimeoutError("first stream never started decoding")
+        time.sleep(0.001)
+    joined_at = len(streams[0]._tokens)
+    streams += [engine.submit(p, max_new_tokens=new_tokens)
+                for p in prompts[half:]]
+    for s in streams:
+        s.tokens(timeout=600)
+    return streams, time.perf_counter() - t0, joined_at
+
+
+def serve(model, prompt_lens, new_tokens, slots, max_len, seed=1):
+    """The contiguous engine's run: launch counts zeroed just before the
+    engine is built, read just after its requests finish. Returns
+    (streams, stats, launches, seconds)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    prompts = make_prompts(model, prompt_lens, seed)
     fa.flash_attention_lse.launches = 0
     fa.flash_decode_attention.launches = 0
     engine = make_recording_engine()(model, slots=slots, max_len=max_len)
     engine.start()
     try:
-        profiler.reset_histograms()
-        t0 = time.perf_counter()
-        half = len(prompts) // 2
-        streams = [engine.submit(p, max_new_tokens=new_tokens)
-                   for p in prompts[:half]]
-        deadline = time.monotonic() + 300
-        while len(streams[0]._tokens) < 4 and not streams[0].done:
-            if time.monotonic() > deadline:
-                raise TimeoutError("first stream never started decoding")
-            time.sleep(0.001)
-        joined_at = len(streams[0]._tokens)
-        streams += [engine.submit(p, max_new_tokens=new_tokens)
-                    for p in prompts[half:]]
-        for s in streams:
-            s.tokens(timeout=600)
-        seconds = time.perf_counter() - t0
+        streams, seconds, joined_at = drive(engine, prompts, new_tokens)
         launches = {"flash_fwd": fa.flash_attention_lse.launches,
                     "flash_decode": fa.flash_decode_attention.launches}
         stats = engine.stats()
@@ -282,6 +379,13 @@ def serve(model, prompt_lens, new_tokens, slots, max_len, seed=1):
         engine.stop()
     stats["joined_after_tokens"] = joined_at
     return streams, stats, launches, seconds
+
+
+def check_streams(streams, new_tokens):
+    for s in streams:
+        if len(s.tokens()) != new_tokens or s.finish_reason != "length":
+            raise AssertionError("stream ended early: %d tokens, %s"
+                                 % (len(s.tokens()), s.finish_reason))
 
 
 def teacher_forced_check(model, streams):
@@ -379,7 +483,22 @@ def profile_phase(model):
     step = _profile(lambda: sess.decode_step([1] * slots, [500] * slots,
                                              [True] * slots), reps=10)
     prefill = _profile(lambda: sess.prefill(0, prompt), reps=3)
-    return {"phase": "profile", "decode_step": step, "prefill_990": prefill}
+    del sess
+    # the paged engine's steps at the same positions: each slot's table
+    # its own 64 blocks of the pool
+    psess = decode.DecodeSession(model, slots=8, max_len=PAGED_MAX_LEN,
+                                 block_size=PAGED_BLOCK, spec_tokens=SPEC_K)
+    mb = psess.max_blocks
+    tables = [list(range(1 + s * mb, 1 + (s + 1) * mb)) for s in range(slots)]
+    paged = {}
+    for width in (1, SPEC_K):
+        toks = np.ones((slots, width), "int64")
+        paged[width] = _profile(
+            lambda: psess.paged_step(toks, [500] * slots, tables,
+                                     [True] * slots, width=width), reps=10)
+    return {"phase": "profile", "decode_step": step, "prefill_990": prefill,
+            "paged_step_width1": paged[1],
+            "paged_verify_width%d" % SPEC_K: paged[SPEC_K]}
 
 
 def engine_phase(dev):
@@ -405,10 +524,7 @@ def engine_phase(dev):
     if launches["flash_decode"] < n_layers * stats["steps"]:
         raise AssertionError("flash_decode launched %d times for %d steps"
                              % (launches["flash_decode"], stats["steps"]))
-    for s in streams:
-        if len(s.tokens()) != NEW_TOKENS or s.finish_reason != "length":
-            raise AssertionError("stream ended early: %d tokens, %s"
-                                 % (len(s.tokens()), s.finish_reason))
+    check_streams(streams, NEW_TOKENS)
     logit_err, exact_share = teacher_forced_check(model, streams)
     step = profiler.summarize_histogram("decode_step_ms")
     tokens = sum(len(s.tokens()) for s in streams)
@@ -424,6 +540,112 @@ def engine_phase(dev):
         "peak_mem_mib": peak_mib, "stats": stats, "launches": launches,
         "teacher_forced_max_logit_err": logit_err,
         "logit_atol": LOGIT_ATOL, "exact_argmax_share": exact_share,
+    }, launches
+
+
+def replay_drafter(prompts, runs):
+    """A drafter that proposes what an earlier run emitted after the same
+    prompt: ``runs`` maps each prompt (a tuple) to its tokens."""
+    def fn(history, k):
+        for p in prompts:
+            if len(history) >= len(p) and history[:len(p)] == p:
+                done = len(history) - len(p)
+                d = list(runs[tuple(p)][done:done + k])
+                return d + [d[-1] if d else 0] * (k - len(d))
+        return [0] * k
+    return fn
+
+
+def paged_engine_phase(model):
+    """GPT-2 small through the paged engine with speculation: three runs
+    of the same 8 prompts on one engine, launch counts zeroed just before
+    the engine is built and read after the last run. Run 1 verifies at
+    width 4 with the n-gram drafter (prefix misses, blocks published);
+    run 2 at width 4 with a drafter replaying run 1's tokens (prefix hits,
+    accepted drafts); run 3 at width 1, where every step is the paged
+    flash decode kernel."""
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import decode
+
+    cfg = model.cfg
+    prompts = make_prompts(model, PAGED_PROMPT_LENS)
+    draft = {"fn": decode._ngram_draft}
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_lse.launches = 0
+    fa.flash_decode_attention.launches = 0
+    fa.flash_decode_paged_attention.launches = 0
+    engine = make_recording_engine()(
+        model, slots=8, max_len=PAGED_MAX_LEN, block_size=PAGED_BLOCK,
+        spec_tokens=SPEC_K, prefix_cache_mb=PAGED_PREFIX_MB,
+        drafter=lambda h, k: draft["fn"](h, k))
+    t0 = time.perf_counter()
+    engine.start()
+    runs, all_streams = [], []
+    try:
+        start_s = time.perf_counter() - t0
+        for name, width in (("width4_ngram", SPEC_K),
+                            ("width4_replay", SPEC_K), ("width1", 1)):
+            if name == "width4_replay":
+                draft["fn"] = replay_drafter(prompts, {
+                    tuple(s.prompt_ids): s.tokens() for s in all_streams})
+            engine.set_spec_width(width)
+            before = dict(engine.stats(),
+                          paged_launches=fa.flash_decode_paged_attention.launches)
+            streams, seconds, joined_at = drive(engine, prompts, NEW_TOKENS)
+            after = engine.stats()
+            check_streams(streams, NEW_TOKENS)
+            steps = after["steps"] - before["steps"]
+            launches = (fa.flash_decode_paged_attention.launches
+                        - before["paged_launches"])
+            if width == 1 and launches < cfg.num_layers * steps:
+                raise AssertionError(
+                    "flash_decode_paged launched %d times for %d width-1 "
+                    "steps" % (launches, steps))
+            step = profiler.summarize_histogram("decode_step_ms")
+            drafted = sum(s.spec_drafted for s in streams)
+            accepted = sum(s.spec_accepted for s in streams)
+            runs.append({
+                "run": name, "width": width, "serve_s": seconds,
+                "tokens_per_s": NEW_TOKENS * len(streams) / seconds,
+                "decode_step_ms_p50": step["p50"],
+                "decode_step_ms_mean": step["mean"], "decode_steps": steps,
+                "ttft_ms_mean": float(np.mean([s.ttft_ms for s in streams])),
+                "spec_drafted": drafted, "spec_accepted": accepted,
+                "spec_acceptance": accepted / drafted if drafted else None,
+                "cached_prefix_tokens": sum(s.cached_prefix_tokens
+                                            for s in streams),
+                "prefix_hits": after["prefix_hits"] - before["prefix_hits"],
+                "flash_decode_paged_launches": launches,
+                "joined_after_tokens": joined_at,
+            })
+            all_streams += streams
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    launches = {"flash_fwd": fa.flash_attention_lse.launches,
+                "flash_decode": fa.flash_decode_attention.launches,
+                "flash_decode_paged": fa.flash_decode_paged_attention.launches}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if launches["flash_decode_paged"] < 1:
+        raise AssertionError("the paged kernel never launched")
+    if stats["oom_sheds"]:
+        raise AssertionError("%d requests shed for a full pool"
+                             % stats["oom_sheds"])
+    if runs[1]["cached_prefix_tokens"] <= 0 or runs[1]["spec_accepted"] <= 0:
+        raise AssertionError("run 2 had no prefix hit or no accepted draft: "
+                             "%r" % (runs[1],))
+    logit_err, exact_share = teacher_forced_check(model, all_streams)
+    return {
+        "phase": "paged_engine", "model": "gpt2-small", "slots": 8,
+        "max_len": PAGED_MAX_LEN, "block_size": PAGED_BLOCK,
+        "spec_tokens": SPEC_K, "prefix_cache_mb": PAGED_PREFIX_MB,
+        "pool_blocks": stats["paged"]["blocks"],
+        "prompt_lens": list(PAGED_PROMPT_LENS), "new_tokens": NEW_TOKENS,
+        "start_s": start_s, "runs": runs, "peak_mem_mib": peak_mib,
+        "stats": stats, "launches": launches,
+        "teacher_forced_max_logit_err": logit_err, "logit_atol": LOGIT_ATOL,
+        "exact_argmax_share": exact_share,
     }, launches
 
 
@@ -464,11 +686,15 @@ def main():
 
     fwd_err, fwd_rows = kernel_flash_fwd(dev, peaks)
     dec_err, dec_row = kernel_flash_decode(dev, peaks)
+    paged_err, paged_row = kernel_flash_decode_paged(dev, peaks)
     emit({"phase": "kernels", "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
-          "flash_fwd": fwd_rows, "flash_decode": dec_row})
+          "flash_fwd": fwd_rows, "flash_decode": dec_row,
+          "flash_decode_paged": paged_row})
 
     model, engine, launches = engine_phase(dev)
     emit(dict(engine, device=name, nvidia_smi=smi))
+    paged_engine, paged_launches = paged_engine_phase(model)
+    emit(dict(paged_engine, device=name, nvidia_smi=smi))
     emit(dict(profile_phase(model), device=name, nvidia_smi=smi))
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
@@ -487,6 +713,14 @@ def main():
          "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
          "bound_ms": dec_row["bound_ms"], "bound_by": dec_row["bound_by"],
          "library_ms": dec_row["library_ms"]},
+        {"name": "flash_decode_paged", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
+         "replaces": "paddle_tpu/kernels/flash_attention.py:459",
+         "launches": paged_launches["flash_decode_paged"],
+         "max_abs_err": paged_err, "ms": paged_row["ms"],
+         "plain_ms": paged_row["plain_ms"], "bound_ms": paged_row["bound_ms"],
+         "bound_by": paged_row["bound_by"],
+         "library_ms": paged_row["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

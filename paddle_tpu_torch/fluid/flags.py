@@ -21,6 +21,19 @@ _DEFAULTS = {
     "decode_max_len": 0,
     "decode_prefill_buckets": "",
     "decode_queue_depth": 64,
+    # paged engine (engine v2): decode_block_size > 0 switches to block
+    # tables over ONE shared KV pool (0 = the contiguous slot pool);
+    # decode_spec_tokens = k > 1 arms speculative decoding on top of it
+    # (a k-1-token draft per slot per tick, one batched verify);
+    # decode_spec_draft names the drafter ("ngram" or "repeat");
+    # decode_prefill_chunk caps the prompt tokens one tick prefills (0 =
+    # one window per prompt); decode_prefix_cache_mb caps the pool
+    # blocks the zero-copy prefix index may pin (0 = no prefix caching)
+    "decode_block_size": 0,
+    "decode_spec_tokens": 0,
+    "decode_spec_draft": "ngram",
+    "decode_prefill_chunk": 0,
+    "decode_prefix_cache_mb": 0.0,
 }
 
 _flags = {}

@@ -1,12 +1,22 @@
 """Attention and KV-cache op lowerings (port of the ``flash_attention``,
-``flash_decode_attention`` and ``kv_cache_write`` lowerings in
+``flash_decode_attention``, ``flash_decode_paged_attention``,
+``kv_cache_write`` and paged KV-pool lowerings in
 ``paddle_tpu/fluid/ops/nn_ops.py``) as plain functions on tensors."""
 
 import torch
 
 from ...kernels import flash_attention as _fa
 
-__all__ = ["flash_attention", "flash_decode_attention", "kv_cache_write"]
+__all__ = [
+    "flash_attention",
+    "flash_decode_attention",
+    "flash_decode_paged_attention",
+    "kv_cache_write",
+    "kv_cache_write_paged",
+    "kv_cache_gather_paged",
+    "kv_cache_block_copy",
+    "paged_write_index",
+]
 
 
 def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
@@ -37,6 +47,70 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=0.0):
     key bias. Inference only."""
     return _fa.flash_decode_attention(
         q, k, v, key_bias=key_bias, scale=float(scale) if scale else None)
+
+
+def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
+                                 scale=0.0):
+    """The ``flash_decode_paged_attention`` op: one live token per slot
+    against the shared paged pool read through the block tables, all
+    masking in the key bias. Inference only."""
+    return _fa.flash_decode_paged_attention(
+        q, k_pool, v_pool, tables, key_bias=key_bias,
+        scale=float(scale) if scale else None)
+
+
+def paged_write_index(tables, pos, T, block):
+    """Where ``kv_cache_write_paged`` puts each token: token j of slot s
+    lands at logical position ``pos[s] + j``, i.e. pool block
+    ``tables[s, (pos[s]+j) // block]`` at offset ``(pos[s]+j) % block``.
+    Returns (pool blocks, offsets), each [slots * T] int64 in (slot,
+    token) order. Every layer of a step writes the same positions, so a
+    caller computes this once per step and passes it to each write."""
+    tables = torch.as_tensor(tables)
+    pos = torch.as_tensor(pos, device=tables.device).reshape(-1, 1).long()
+    abs_pos = pos + torch.arange(T, device=tables.device).reshape(1, T)
+    blk = tables.gather(1, abs_pos // block).reshape(-1).long()
+    return blk, (abs_pos % block).reshape(-1)
+
+
+def kv_cache_write_paged(cache, new, tables, pos, index=None):
+    """Scatter each slot's token window ``new`` [slots, heads, T, d_head]
+    into the shared pool ``cache`` [blocks, heads, block, d_head] IN
+    PLACE through the block ``tables`` [slots, max_blocks], slot s
+    starting at logical position ``pos[s]`` (see ``paged_write_index``;
+    ``index`` is its result when the caller already has it). Returns
+    ``cache``.
+
+    One ``index_put_``, no per-slot loop. Duplicate targets (inactive
+    slots all parked on the sink block) are garbage by contract, so the
+    order the card resolves them in does not matter. Unlike the
+    reference's scatter, which drops out-of-range indices, an index past
+    the table raises here: the caller's tables must cover
+    ``(pos + T - 1) // block`` (unused entries point at the sink)."""
+    S, H, T, D = new.shape
+    blk, off = index if index is not None else paged_write_index(
+        tables, pos, T, cache.shape[2])
+    cache[blk, :, off, :] = new.to(cache.dtype).transpose(1, 2).reshape(
+        S * T, H, D)
+    return cache
+
+
+def kv_cache_gather_paged(cache, tables):
+    """Each slot's logical cache row through its block table: [slots,
+    heads, max_blocks*block, d_head]. Positions past a slot's live
+    length read whatever the mapped blocks hold; the caller's key bias
+    masks them."""
+    return _fa.gather_paged_rows(cache, tables)
+
+
+def kv_cache_block_copy(cache, src, dst):
+    """``cache[dst[i]] = cache[src[i]]`` in place for each pair — the
+    copy-on-write primitive; a src == dst pair is a no-op. Returns
+    ``cache``."""
+    src = torch.as_tensor(src, device=cache.device).reshape(-1).long()
+    dst = torch.as_tensor(dst, device=cache.device).reshape(-1).long()
+    cache[dst] = cache[src]
+    return cache
 
 
 def kv_cache_write(cache, new, pos, slot_mode=False):

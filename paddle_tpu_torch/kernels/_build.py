@@ -34,6 +34,9 @@ KERNELS = {
                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_decode": ("paddle_flash_decode_f32",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "flash_decode_paged": ("paddle_flash_decode_paged_f32",
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _P]),
 }
 
 NVCC_FLAGS = [

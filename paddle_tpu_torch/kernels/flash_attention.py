@@ -5,7 +5,7 @@ Layout [B, N, S, D] (batch, heads, seq, head_dim), heads flattened to
 B·N inside the kernels, fp32 accumulation, masked scores at ``_NEG``
 (-1e30) and ``l`` clamped at 1e-30 — the reference's conventions.
 
-Two kernels, each behind a wrapper in the reference's name and
+Three kernels, each behind a wrapper in the reference's name and
 signature, with a plain integer launch count:
 
 - ``flash_attention_lse`` launches ``flash_fwd`` (``csrc/flash_fwd.cu``),
@@ -16,6 +16,11 @@ signature, with a plain integer launch count:
   (``csrc/flash_decode.cu``), which replaces the Pallas
   ``_decode_kernel``: one query token per (slot, head) against the
   contiguous KV cache, all masking in the key bias.
+- ``flash_decode_paged_attention`` launches ``flash_decode_paged``
+  (``csrc/flash_decode_paged.cu``), which replaces the Pallas
+  ``_decode_paged_kernel``: the same math with K/V read from the shared
+  paged pool through each slot's block table — the paged engine's
+  width-1 step.
 
 A wrapper given CPU tensors runs its plain version (the functions named
 ``*_plain`` here), which the CPU tests hold against the JAX package;
@@ -37,8 +42,11 @@ __all__ = [
     "flash_attention_lse",
     "flash_attention",
     "flash_decode_attention",
+    "flash_decode_paged_attention",
     "flash_attention_lse_plain",
     "flash_decode_attention_plain",
+    "flash_decode_paged_attention_plain",
+    "gather_paged_rows",
 ]
 
 _NEG = -1e30
@@ -233,6 +241,44 @@ def flash_decode_attention_plain(q, k, v, key_bias=None, scale=None):
     return torch.einsum("bnqk,bnkd->bnqd", p.to(q.dtype), v)
 
 
+def gather_paged_rows(pool, tables):
+    """Each slot's logical KV row read through its block table: pool
+    [blocks, N, blk, D] and tables [B, MB] (int32 or int64) -> [B, N,
+    MB·blk, D], row ``b`` the concatenation of ``pool[tables[b, i]]``
+    over its logical blocks ``i`` (a copy)."""
+    B, MB = tables.shape
+    _blocks, N, blk, D = pool.shape
+    rows = pool.index_select(0, tables.reshape(-1))
+    return rows.view(B, MB, N, blk, D).transpose(1, 2).reshape(
+        B, N, MB * blk, D)
+
+
+def _check_paged(q, k_pool, tables):
+    B, N, Sq, D = q.shape
+    _blocks, Np, blk, Dp = k_pool.shape
+    if Sq != 1:
+        raise ValueError("flash_decode_paged_attention is the single-query "
+                         "path, got Sq=%d" % Sq)
+    if (Np, Dp) != (N, D):
+        raise ValueError("pool geometry %r does not match q heads/depth "
+                         "(%d, %d)" % (tuple(k_pool.shape), N, D))
+    if tables.dim() != 2 or tables.shape[0] != B:
+        raise ValueError("tables must be [B, max_blocks] with B = %d, got %r"
+                         % (B, tuple(tables.shape)))
+    return B, N, D, blk, tables.shape[1]
+
+
+def flash_decode_paged_attention_plain(q, k_pool, v_pool, tables,
+                                       key_bias=None, scale=None):
+    """Plain PyTorch version of the paged decode kernel (the reference's
+    dense fallback): gather each slot's logical rows through ``tables``,
+    then the decode math of ``flash_decode_attention_plain``."""
+    _check_paged(q, k_pool, tables)
+    return flash_decode_attention_plain(
+        q, gather_paged_rows(k_pool, tables), gather_paged_rows(v_pool, tables),
+        key_bias=key_bias, scale=scale)
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers: the public entry points, in the reference's signatures
 # --------------------------------------------------------------------------
@@ -371,3 +417,56 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
 
 
 flash_decode_attention.launches = 0
+
+# the kernel stages a slot's table row in shared memory (4 bytes an
+# entry, within the 48 KB a block gets without opting in)
+_MAX_TABLE_BLOCKS = 8192
+
+
+def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
+                                 scale=None):
+    """Decode-mode attention reading K/V through a block table: q
+    [B, N, 1, D] (one live token per slot) against the shared pool
+    ``k_pool``/``v_pool`` [blocks, N, blk, D], ``tables`` [B, MB] mapping
+    slot ``b``'s logical block ``i`` to pool block ``tables[b, i]``.
+    ``key_bias`` ([B, MB·blk] / [B*N, MB·blk] / broadcastable) carries
+    all masking, sink-block garbage past the live length included.
+    Forward only, fp32 accumulation.
+
+    The wrapper of the ``flash_decode_paged`` CUDA kernel. CPU tensors
+    run the plain version (``flash_decode_paged_attention_plain``); CUDA
+    tensors launch the kernel on the current stream (fp32 contiguous q,
+    pools and bias, int32 contiguous tables — the caller builds them
+    once per step, so nothing is cast here — head_dim in {32, 64, 128})
+    or raise. ``flash_decode_paged_attention.launches`` counts kernel
+    launches."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_attention_plain(
+            q, k_pool, v_pool, tables, key_bias=key_bias, scale=scale)
+    B, N, D, blk, MB = _check_paged(q, k_pool, tables)
+    if tuple(v_pool.shape) != tuple(k_pool.shape):
+        raise ValueError("k_pool %r and v_pool %r differ"
+                         % (tuple(k_pool.shape), tuple(v_pool.shape)))
+    if tables.dtype != torch.int32 or not tables.is_contiguous():
+        raise TypeError("flash_decode_paged kernel needs contiguous int32 "
+                        "tables, got %s" % tables.dtype)
+    if tables.device != q.device:
+        raise ValueError("flash_decode_paged: tables on %s, q on %s"
+                         % (tables.device, q.device))
+    if MB > _MAX_TABLE_BLOCKS:
+        raise ValueError("flash_decode_paged kernel takes at most %d "
+                         "logical blocks per slot, got %d"
+                         % (_MAX_TABLE_BLOCKS, MB))
+    S = MB * blk
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kb, bias_heads = _kernel_key_bias(key_bias, B, N, S)
+    _cuda_operands("flash_decode_paged", D, q, k_pool, v_pool, kb)
+    out = torch.empty_like(q)
+    _launch("flash_decode_paged", q.device, q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), tables.data_ptr(), _ptr(kb), out.data_ptr(),
+            B * N, N, bias_heads, MB, blk, k_pool.shape[0], D, float(scale))
+    flash_decode_paged_attention.launches += 1
+    return out
+
+
+flash_decode_paged_attention.launches = 0

@@ -1,7 +1,8 @@
 """Shared transformer pieces (port of the parts of
 ``paddle_tpu/models/bert.py`` the GPT serving path uses): the flash
 policy, the key-only padding bias, the FFN, and multi-head attention
-with its KV-cache ``prefill`` and ``decode`` modes.
+with its KV-cache modes: ``prefill`` and ``decode`` over the contiguous
+slot pool, ``paged_window`` and ``paged_step`` over the paged pool.
 
 The projections and the FFN are plain products (``nn.Linear``), as the
 reference left them to XLA outside any Pallas kernel; the score /
@@ -78,6 +79,20 @@ class MultiHeadAttention(nn.Module):
         under ``cache["key_bias"]`` [slots, max_len] (-1e4 beyond each
         slot's live length, which is also the causal mask) — the flash
         decode op when ``use_flash``, dense otherwise.
+
+      For the paged pool, ``k``/``v`` are the layer's shared pools
+      [blocks, heads, block, d_head], ``cache["tables"]`` the int32 block
+      tables [N, max_blocks], ``cache["write_index"]`` where this call's
+      tokens land (``nn_ops.paged_write_index``, computed once per step)
+      and ``cache["bias"]`` the additive mask [N, T, max_blocks*block]:
+
+      * ``"paged_window"``: one prompt window (N = 1) is written through
+        the table, then attends dense over the gathered logical row;
+      * ``"paged_step"``: every slot's T-token window is written through
+        its table; at T = 1 with ``use_flash`` the paged flash op reads
+        the pool through the tables, otherwise (the T = k speculative
+        verify, or no flash) the logical rows are gathered and attended
+        dense.
     """
 
     def __init__(self, hidden_size, num_heads, device=None):
@@ -112,6 +127,29 @@ class MultiHeadAttention(nn.Module):
                                   slot_mode=True)
             nn_ops.kv_cache_write(cache["v"], v, cache["slot_idx"],
                                   slot_mode=True)
+        elif mode in ("paged_window", "paged_step"):
+            pk, pv, tables = cache["k"], cache["v"], cache["tables"]
+            nn_ops.kv_cache_write_paged(pk, k, tables, None,
+                                        index=cache["write_index"])
+            nn_ops.kv_cache_write_paged(pv, v, tables, None,
+                                        index=cache["write_index"])
+            if mode == "paged_step" and use_flash and q.shape[2] == 1:
+                # the width-1 step: the paged kernel chases the tables,
+                # the logical rows never materialize; the kernel reads
+                # bias row bh // heads of the [slots, S] step bias
+                kb = cache["bias"].reshape(q.shape[0], -1)
+                ctxt = nn_ops.flash_decode_paged_attention(
+                    q, pk, pv, tables, key_bias=kb, scale=scale)
+            else:
+                # the paged window and the width-k verify: gather the
+                # logical rows, then dense attention under the fed bias
+                # [N, T, S] (offset-shifted causal, sink garbage masked)
+                rows_k = nn_ops.kv_cache_gather_paged(pk, tables)
+                rows_v = nn_ops.kv_cache_gather_paged(pv, tables)
+                scores = torch.matmul(q, rows_k.transpose(-1, -2)) * scale
+                bias4 = cache["bias"].unsqueeze(1)
+                ctxt = torch.matmul(math_ops.softmax(scores + bias4), rows_v)
+            return self.out(self._merge_heads(ctxt))
         elif mode == "decode":
             k = nn_ops.kv_cache_write(cache["k"], k, cache["pos"])
             v = nn_ops.kv_cache_write(cache["v"], v, cache["pos"])

@@ -2,12 +2,16 @@
 ``paddle_tpu/models/gpt.py``, serving slice).
 
 ``GPTLM`` is the post-LN decoder of the reference (``gpt_decoder`` +
-``gpt_lm_logits``) as an ``nn.Module`` with three entry points: the
-full forward, ``prefill`` (mirrors ``build_gpt_prefill``) and
-``decode_step`` (mirrors ``build_gpt_decode_step``). The KV caches are
-plain tensors the caller owns and passes in; the model writes them in
-place. Inference only: dropout is never applied (the reference's
-serving programs run with ``is_test``).
+``gpt_lm_logits``) as an ``nn.Module`` with five entry points: the full
+forward; over the contiguous slot pool, ``prefill`` (mirrors
+``build_gpt_prefill``) and ``decode_step`` (``build_gpt_decode_step``);
+over the paged pool, ``paged_window`` (``build_gpt_paged_window``, one
+prompt window written through a block table) and ``paged_step``
+(``build_gpt_paged_step``, every slot's width-1 step or width-k
+speculative verify). The KV caches and pools are plain tensors the
+caller owns and passes in; the model writes them in place. Inference
+only: dropout is never applied (the reference's serving programs run
+with ``is_test``).
 
 Weights carry across from the reference as ``{fluid_param_name:
 np.ndarray}`` through ``load_fluid_params``; ``init_fluid_params``
@@ -21,7 +25,7 @@ import torch
 from torch import nn
 
 from ..fluid.core import resolve_device
-from ..fluid.ops import math_ops
+from ..fluid.ops import math_ops, nn_ops
 from . import bert as _bert
 
 __all__ = [
@@ -29,6 +33,9 @@ __all__ = [
     "GPTLM",
     "decode_cache_names",
     "decode_cache_shape",
+    "paged_pool_names",
+    "paged_pool_shape",
+    "paged_block_bytes",
     "fluid_param_shapes",
     "load_fluid_params",
     "init_fluid_params",
@@ -124,9 +131,11 @@ class GPTLM(nn.Module):
         with flash it becomes a key-only bias and causality rides the
         kernel flag, otherwise a dense causal + padding bias is built.
         ``use_flash`` None resolves the config's policy from T.
-        Decode (``kv_cache["mode"] == "decode"``): the per-slot cache key
-        bias carries all masking, and the policy keys on the cache
-        length."""
+        Decode and the paged step (``kv_cache["mode"]`` ``"decode"`` /
+        ``"paged_step"``): the fed per-slot bias carries all masking, and
+        the policy keys on the cache length. The paged window attends
+        dense by design, as in the reference (the causal flash kernel
+        assumes an aligned q/k diagonal)."""
         N = ids.shape[0]
         ids = ids.reshape(N, -1)
         pos_ids = pos_ids.reshape(N, -1)
@@ -134,9 +143,11 @@ class GPTLM(nn.Module):
         h = self.tok_embedding(ids) + self.pos_embedding(pos_ids)
         mode = kv_cache["mode"] if kv_cache is not None else None
         key_bias = attn_bias = None
-        if mode == "decode":
+        if mode in ("decode", "paged_step"):
             use_flash = _bert.flash_wanted(self.cfg,
                                            seq_len=int(kv_cache["max_len"]))
+        elif mode == "paged_window":
+            use_flash = False
         else:
             if use_flash is None:
                 use_flash = _bert.flash_wanted(self.cfg, seq_len=T)
@@ -152,6 +163,9 @@ class GPTLM(nn.Module):
                 cache_i = {"k": k_c, "v": v_c, "mode": mode}
                 if mode == "prefill":
                     cache_i["slot_idx"] = kv_cache["slot_idx"]
+                elif mode in ("paged_window", "paged_step"):
+                    for key in ("tables", "write_index", "bias"):
+                        cache_i[key] = kv_cache[key]
                 else:
                     cache_i["pos"] = kv_cache["pos"]
                     cache_i["key_bias"] = kv_cache["key_bias"]
@@ -196,6 +210,49 @@ class GPTLM(nn.Module):
                          })
         return self.lm_head(h).reshape(slots, -1)
 
+    def _paged(self, mode, ids, pos_ids, tables, write_pos, bias, pools):
+        """Decoder run over the paged pools: tables [N, max_blocks] int32
+        on the model's device, bias [N, T, max_blocks*block]; the write
+        index is computed once for every layer."""
+        T = ids.numel() // ids.shape[0]
+        block = pools[0][0].shape[2]
+        return self.decoder(ids, pos_ids, kv_cache={
+            "mode": mode, "caches": pools, "tables": tables, "bias": bias,
+            "write_index": nn_ops.paged_write_index(tables, write_pos, T,
+                                                    block),
+            "max_len": tables.shape[1] * block,
+        })
+
+    def paged_window(self, ids, pos_ids, table, window_pos, resume_bias,
+                     last_onehot, pools):
+        """One prompt window (batch 1, padded to its bucket T) whose
+        token i lands at logical position ``window_pos + i`` through the
+        block ``table`` [1, max_blocks] (int32) into ``pools`` (a list of
+        per-layer (k, v) pools [blocks, heads, block, d_head]); its
+        queries attend over the gathered logical row under
+        ``resume_bias`` [1, T, max_blocks*block]. ``last_onehot`` [1, T]
+        selects the window's last real token; returns its logits
+        [1, vocab] (the hidden row is selected before the LM head, as in
+        ``prefill``)."""
+        h = self._paged("paged_window", ids, pos_ids, table, window_pos,
+                        resume_bias, pools)
+        last = (h * last_onehot.reshape(1, -1, 1).to(h.dtype)).sum(dim=1)
+        return self.lm_head(last)
+
+    def paged_step(self, step_ids, step_pos, tables, step_bias, pools):
+        """Every slot advances a width-T window: ``step_ids``/``step_pos``
+        [slots, T] (any shape with slots * T entries, positions
+        contiguous per slot), written through ``tables`` [slots,
+        max_blocks] (int32) into ``pools``; query i of slot s attends
+        under ``step_bias`` [slots, T, max_blocks*block]. T = 1 is the
+        decode step (the paged flash kernel on the card), T = k the
+        speculative verify. Returns logits [slots, T, vocab]."""
+        slots = tables.shape[0]
+        step_pos = step_pos.reshape(slots, -1)
+        h = self._paged("paged_step", step_ids.reshape(slots, -1), step_pos,
+                        tables, step_pos[:, 0], step_bias, pools)
+        return self.lm_head(h)
+
 
 # ---------------------------------------------------------------------------
 # KV-cache geometry (shared with the serving session)
@@ -217,6 +274,30 @@ def decode_cache_shape(cfg, slots, max_len):
         int(slots), cfg.num_heads, int(max_len),
         cfg.hidden_size // cfg.num_heads,
     ]
+
+
+def paged_pool_names(cfg, blocks, block):
+    """Per-layer (K, V) paged-pool names, the pool geometry part of the
+    name as in the reference."""
+    return [
+        ("gpt_paged_k_%d_n%dx%d" % (i, blocks, block),
+         "gpt_paged_v_%d_n%dx%d" % (i, blocks, block))
+        for i in range(cfg.num_layers)
+    ]
+
+
+def paged_pool_shape(cfg, blocks, block):
+    return [
+        int(blocks), cfg.num_heads, int(block),
+        cfg.hidden_size // cfg.num_heads,
+    ]
+
+
+def paged_block_bytes(cfg, block):
+    """Device bytes one pool block costs across all layers (K + V,
+    fp32): a slot costs ``ceil(len / block)`` of these."""
+    d_head = cfg.hidden_size // cfg.num_heads
+    return cfg.num_layers * 2 * cfg.num_heads * int(block) * d_head * 4
 
 
 # ---------------------------------------------------------------------------

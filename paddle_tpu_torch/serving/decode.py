@@ -1,5 +1,8 @@
-"""Autoregressive decode runtime: KV-cache slot pool + continuous batching
-(port of ``paddle_tpu/serving/decode.py``, contiguous pool).
+"""Autoregressive decode runtime: KV cache + continuous batching (port of
+``paddle_tpu/serving/decode.py``: the contiguous slot pool and the paged
+engine with speculative decoding).
+
+Contiguous pool (``block_size`` 0):
 
   prefill  one prompt, padded to its bucket of the prompt-length ladder,
            runs the causal forward and writes its per-layer K/V into a
@@ -8,36 +11,53 @@
            slots, each slot masked by its own length through the key bias
            (the flash decode kernel on the card).
 
-The cache is a fixed pool of ``slots`` rows per layer, device tensors
-[slots, heads, max_len, d_head] written in place. Admission writes a
-slot row, retirement frees the index; neither changes a tensor shape.
+  The cache is a fixed pool of ``slots`` rows per layer, device tensors
+  [slots, heads, max_len, d_head] written in place. Admission writes a
+  slot row, retirement frees the index; neither changes a tensor shape.
 
-``DecodeSession`` is the synchronous core (caches, prefill, fused step);
-``DecodeEngine`` owns the loop thread (FIFO admission queue, mid-flight
-joins, streaming, retirement). Left for later slices, as in ROADMAP.md:
-preemption and weighted-fair scheduling, the prefix cache, chunked
-prefill, resume, the paged/speculative runtime, the host KV tier, tensor
-parallelism and the strict compile gate.
+Paged pool (``block_size`` > 0, engine v2):
+
+  one pool per layer [pool_blocks, heads, block, d_head] shared by every
+  slot and the prefix index, addressed through per-slot block tables
+  (host lists, ``BlockAllocator`` refcounts; block 0 is the sink that
+  idle slots write into). Prompts prefill as bucket-shaped windows
+  through the table (``prefill_chunk`` caps a window); a prefix hit is a
+  table edit (``PagedPrefixIndex``, zero copy). Each tick runs ONE fused
+  step: width 1 is the decode step (the paged flash decode kernel on the
+  card), width ``spec_tokens`` = k the speculative verify of the pending
+  token plus a k-1-token draft, accepted on the host up to the first
+  mismatch and rolled back by table edit.
+
+``DecodeSession`` is the synchronous core (caches or pools, prefill,
+windows, fused step); ``DecodeEngine`` owns the loop thread (FIFO
+admission queue, mid-flight joins, streaming, retirement). Left for
+later slices, as in ROADMAP.md: preemption and weighted-fair scheduling,
+the contiguous pool's prefix cache and chunked prefill, resume, the host
+KV tier, tensor parallelism and the strict compile gate.
 """
 
+import hashlib
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
 
 from ..fluid import flags as _flags
 from ..fluid import profiler as _profiler
+from ..fluid.ops import nn_ops as _nn_ops
 from ..models import gpt as _gpt
 from ..observability import trace as _trace
 from .batcher import ServerOverloadedError, ServingError
 
 __all__ = [
+    "BlockAllocator",
     "DecodeSession",
     "DecodeEngine",
     "GenerationStream",
+    "PagedPrefixIndex",
     "fast_forward_rng",
     "prefill_ladder",
     "sample_token",
@@ -84,16 +104,236 @@ def prefill_ladder(max_len, buckets=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# paged pool bookkeeping — host side, loop thread only
+# ---------------------------------------------------------------------------
+
+
+def _block_hash(prev_key, tokens):
+    """Chain digest of one prompt block: block i's key folds in block
+    i-1's, so equal keys mean equal whole prefixes. sha256 over the
+    previous digest and the token bytes, not ``hash()``: prompts are
+    client data, and a short searchable key would let one request
+    engineer a match into another's K/V. No consumer trusts the key
+    alone: every match re-compares the stored (prev, tokens) link."""
+    h = hashlib.sha256()
+    h.update(repr(prev_key).encode())
+    h.update(np.asarray(tokens, np.int64).tobytes())
+    return h.hexdigest()
+
+
+class _PrefixEntry(object):
+    __slots__ = ("key", "prev", "tokens", "block_idx")
+
+    def __init__(self, key, prev, tokens, block_idx):
+        self.key = key
+        self.prev = prev
+        self.tokens = tokens
+        self.block_idx = block_idx
+
+
+class BlockAllocator(object):
+    """Free list + refcounts over the paged pool's physical blocks. Block
+    0 is the SINK: idle and prefilling slots park their tables on it, so
+    the fused step's unconditional writes never touch a live block; it
+    is never handed out. Sharing is a refcount: a prefix-index entry and
+    any number of slots may reference one block, and whoever drops the
+    last reference returns it to the free list."""
+
+    SINK = 0
+
+    def __init__(self, blocks):
+        if blocks < 2:
+            raise ValueError(
+                "paged pool needs >= 2 blocks (sink + 1), got %d" % blocks)
+        self.blocks = int(blocks)
+        self._free = list(range(self.blocks - 1, 0, -1))  # pop() -> low ids
+        self._refs = [0] * self.blocks
+        self._refs[self.SINK] = 1  # permanently pinned
+
+    def alloc(self, n):
+        """Take ``n`` fresh blocks (refcount 1 each), or None when the
+        free list cannot cover all of them: all or nothing, so a half
+        admitted slot never holds a partial table."""
+        if n < 0:
+            raise ValueError("alloc(%d)" % n)
+        if n == 0:
+            return []
+        if len(self._free) < n:
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._refs[b] = 1
+        return out
+
+    def incref(self, block_ids):
+        for b in block_ids:
+            if not 0 < b < self.blocks or self._refs[b] <= 0:
+                raise ValueError("incref on dead/sink block %d" % b)
+            self._refs[b] += 1
+
+    def decref(self, block_ids):
+        """Drop one reference per id; blocks reaching zero return to the
+        free list. Returns the number freed."""
+        freed = 0
+        for b in block_ids:
+            if not 0 < b < self.blocks or self._refs[b] <= 0:
+                raise ValueError("decref on dead/sink block %d" % b)
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                self._free.append(b)
+                freed += 1
+        return freed
+
+    def refs(self, block_id):
+        return self._refs[block_id]
+
+    @property
+    def free_blocks(self):
+        return len(self._free)
+
+    @property
+    def shared_blocks(self):
+        return sum(1 for r in self._refs[1:] if r > 1)
+
+    def stats(self):
+        return {"blocks": self.blocks, "free": self.free_blocks,
+                "shared": self.shared_blocks}
+
+
+class PagedPrefixIndex(object):
+    """Hash-chain prefix index over the paged pool, zero copy: an entry
+    points at the pool block a slot wrote when it prefilled that prompt
+    block, held alive by one allocator reference. A hit puts the entry's
+    block into the admitted slot's table and increfs it; no device copy
+    moves. Eviction is a decref: a block live slots still share survives
+    until the last of them retires. ``max_blocks`` caps how many blocks
+    the index itself may pin (the paged reading of
+    ``decode_prefix_cache_mb``)."""
+
+    def __init__(self, block, max_blocks, allocator):
+        if block < 1 or max_blocks < 1:
+            raise ValueError(
+                "need block >= 1 and max_blocks >= 1, got %d / %d"
+                % (block, max_blocks))
+        self.block = int(block)
+        self.max_blocks = int(max_blocks)
+        self.allocator = allocator
+        self._entries = OrderedDict()  # key -> _PrefixEntry, LRU order
+        self.evictions = 0
+
+    def __len__(self):
+        return len(self._entries)
+
+    def lookup(self, prompt):
+        """Longest cached block-chain prefix of ``prompt``, capped at
+        ``len(prompt) - 1`` tokens so admission always recomputes the
+        last prompt token (its logits give the first emitted token).
+        Every matched entry's block is increfed for the caller: those
+        references become the slot's table entries, and a failed
+        admission must decref them. Returns (entries, tokens)."""
+        usable = (len(prompt) - 1) // self.block
+        out = []
+        prev = 0
+        for b in range(usable):
+            toks = tuple(prompt[b * self.block:(b + 1) * self.block])
+            key = _block_hash(prev, toks)
+            e = self._entries.get(key)
+            # verify the whole chain link, not only this block's tokens:
+            # a key collision with equal tokens but another parent would
+            # otherwise splice another prompt's K/V into this request
+            if e is None or e.tokens != toks or e.prev != prev:
+                break
+            out.append(e)
+            prev = key
+        for e in out:
+            self.allocator.incref([e.block_idx])
+            self._entries.move_to_end(e.key)
+        return out, len(out) * self.block
+
+    def publish(self, prompt, slot_blocks):
+        """Index every full block of ``prompt`` not indexed yet, each new
+        entry pointing at the slot's own block ``slot_blocks[b]`` (one
+        incref, the index's reference). Stops at a collision, a missing
+        slot block, or a pin budget full of shared blocks. Returns the
+        new entries."""
+        new = []
+        prev = 0
+        for b in range(len(prompt) // self.block):
+            toks = tuple(prompt[b * self.block:(b + 1) * self.block])
+            key = _block_hash(prev, toks)
+            e = self._entries.get(key)
+            if e is not None:
+                if e.tokens != toks or e.prev != prev:
+                    break  # collision squatting on the key
+                self._entries.move_to_end(key)
+                prev = key
+                continue
+            if b >= len(slot_blocks):
+                break
+            if len(self._entries) >= self.max_blocks:
+                if not self.evict_one():
+                    break
+            e = _PrefixEntry(key, prev, toks, slot_blocks[b])
+            self.allocator.incref([e.block_idx])
+            self._entries[key] = e
+            new.append(e)
+            prev = key
+        return new
+
+    def forget(self, entry):
+        if self._entries.get(entry.key) is entry:
+            del self._entries[entry.key]
+            self.allocator.decref([entry.block_idx])
+
+    def evict_one(self, need_free=False):
+        """Drop the least recently used entry, preferring one whose block
+        the index alone references (the decref frees it). With
+        ``need_free`` only such entries are taken (the allocator-pressure
+        path: evicting a block a slot shares frees nothing). Returns True
+        when an entry was dropped."""
+        victim = None
+        for e in self._entries.values():  # oldest first
+            if self.allocator.refs(e.block_idx) == 1:
+                victim = e
+                break
+        if victim is None:
+            if need_free:
+                return False
+            victim = next(iter(self._entries.values()), None)
+            if victim is None:
+                return False
+        del self._entries[victim.key]
+        self.allocator.decref([victim.block_idx])
+        self.evictions += 1
+        _profiler.bump_counter("decode_prefix_evictions")
+        return True
+
+    def stats(self):
+        return {"block": self.block, "max_blocks": self.max_blocks,
+                "cached_blocks": len(self._entries),
+                "evictions": self.evictions}
+
+
 class DecodeSession(object):
     """Synchronous KV-cache decode core over one ``GPTLM``.
 
     Owns the per-layer cache tensors (on the model's device, zeroed at
     construction) and exposes ``prefill`` / ``decode_step`` with the
     reference's feeds. One caller at a time: the engine's loop thread,
-    or a ``greedy_generate`` caller holding ``lock``."""
+    or a ``greedy_generate`` caller holding ``lock``.
+
+    ``block_size`` > 0 (default ``FLAGS_decode_block_size``) makes it a
+    paged session instead: one pool per layer [pool_blocks, heads,
+    block_size, d_head] (default ``slots * max_blocks + 1``, the sink
+    included), prompt windows through ``paged_window``, the fused step
+    through ``paged_step`` at width 1 and, with ``spec_tokens`` = k > 1,
+    at width k, and ``block_copy`` for copy-on-write. The prompt ladder
+    then shapes windows, capped at ``window_cap`` (0 = ``max_len``)."""
 
     def __init__(self, model, slots=None, max_len=None,
-                 prefill_buckets=None):
+                 prefill_buckets=None, block_size=None, spec_tokens=None,
+                 pool_blocks=0, window_cap=0):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -109,28 +349,62 @@ class DecodeSession(object):
             raise ValueError("need slots >= 1 and max_len >= 2, got %d / %d"
                              % (self.slots, max_len))
         self.max_len = max_len
+        self.block_size = int(_flag("decode_block_size", block_size))
+        self.spec_tokens = max(int(_flag("decode_spec_tokens", spec_tokens)),
+                               0)
+        self.paged = self.block_size > 0
+        ladder_top = max_len
+        if self.paged:
+            width = max(self.spec_tokens, 1)
+            # the verify writes and embeds positions up to max_len + k - 2
+            # (a slot one token from the wall still feeds a full window)
+            if max_len + width - 1 > self.cfg.max_position_embeddings:
+                raise ValueError(
+                    "paged decode needs max_len + spec_tokens - 1 <= "
+                    "max_position_embeddings (%d + %d - 1 > %d): lower "
+                    "decode_max_len or decode_spec_tokens"
+                    % (max_len, width, self.cfg.max_position_embeddings))
+            self.max_blocks = -(-(max_len + width - 1) // self.block_size)
+            self.pool_blocks = int(pool_blocks) or (
+                self.slots * self.max_blocks + 1)
+            if self.pool_blocks < 2:
+                raise ValueError("paged pool needs >= 2 blocks (sink + 1), "
+                                 "got %d" % self.pool_blocks)
+            self.widths = [1] + ([self.spec_tokens]
+                                 if self.spec_tokens > 1 else [])
+            ladder_top = min(max_len, max(int(window_cap) or max_len, 1))
+            names = _gpt.paged_pool_names(self.cfg, self.pool_blocks,
+                                          self.block_size)
+            shape = _gpt.paged_pool_shape(self.cfg, self.pool_blocks,
+                                          self.block_size)
+            self._cols = np.arange(self.max_blocks * self.block_size)
+        else:
+            names = _gpt.decode_cache_names(self.cfg, self.slots, max_len)
+            shape = _gpt.decode_cache_shape(self.cfg, self.slots, max_len)
+            self._cols = np.arange(max_len)
         self.buckets = prefill_ladder(
-            max_len, _flag("decode_prefill_buckets", prefill_buckets) or None)
+            ladder_top,
+            _flag("decode_prefill_buckets", prefill_buckets) or None)
         self.prefills = 0
         self.steps = 0
         self.lock = threading.RLock()
-        shape = _gpt.decode_cache_shape(self.cfg, self.slots, max_len)
+        # per-layer (k, v): the contiguous caches, or the paged pools
         self.caches = [
             (torch.zeros(shape, dtype=torch.float32, device=self.device),
              torch.zeros(shape, dtype=torch.float32, device=self.device))
             for _ in range(self.cfg.num_layers)
         ]
-        self._cols = np.arange(max_len)
+        self._names = names
         self._pos_cache = {
             T: torch.arange(T, device=self.device).reshape(1, T, 1)
             for T in self.buckets
         }
 
     def cache_tensors(self):
-        """{cache name: tensor}, under the reference's cache names."""
+        """{cache name: tensor}, under the reference's cache (or paged
+        pool) names."""
         out = {}
-        names = _gpt.decode_cache_names(self.cfg, self.slots, self.max_len)
-        for (k_name, v_name), (k, v) in zip(names, self.caches):
+        for (k_name, v_name), (k, v) in zip(self._names, self.caches):
             out[k_name] = k
             out[v_name] = v
         return out
@@ -159,6 +433,8 @@ class DecodeSession(object):
         ``slot``'s cache row; returns the next-token logits [vocab] at the
         last real prompt position (a host numpy array)."""
         P = len(prompt_ids)
+        if self.paged:
+            raise RuntimeError("prefill on a paged session (paged_window)")
         if not 0 <= slot < self.slots:
             raise ValueError("slot %d out of range" % slot)
         if P < 1:
@@ -190,6 +466,8 @@ class DecodeSession(object):
         their caller-chosen position (a free slot's dead row tolerates
         any landing spot) and a fully masked key bias; their output is
         ignored. Returns logits [slots, vocab] (host numpy)."""
+        if self.paged:
+            raise RuntimeError("decode_step on a paged session (paged_step)")
         act = np.asarray(active, bool)
         pos = np.asarray(positions, "int64")
         tok = np.where(act, np.asarray(tokens, "int64"), 0)
@@ -211,6 +489,113 @@ class DecodeSession(object):
                                  (time.perf_counter() - t0) * 1e3)
         return out
 
+    # -- paged device steps --------------------------------------------------
+    def _table_rows(self, tables):
+        """[len(tables), max_blocks] int32 block tables on the device,
+        built once per call and shared by every layer; unused entries are
+        the sink."""
+        tbl = np.zeros((len(tables), self.max_blocks), np.int32)
+        for s, row in enumerate(tables):
+            if len(row):
+                tbl[s, :len(row)] = row
+        return self._to_device(tbl)
+
+    def paged_window(self, table, window_ids, offset):
+        """Prefill one prompt window (batch 1) through the block ``table``
+        (the slot's pool block ids, logical block order): window token i
+        lands at logical position ``offset + i``. The paged runtime's
+        only prefill form (offset 0 = the whole prompt). Returns the
+        logits [vocab] at the window's last real token (host numpy)."""
+        P = len(window_ids)
+        if not self.paged:
+            raise RuntimeError("paged_window on a non-paged session")
+        if P < 1:
+            raise ValueError("empty prefill window")
+        T = self.bucket_for(P)
+        offset = int(offset)
+        span = self.max_blocks * self.block_size
+        if offset < 0 or offset + T > span:
+            raise ValueError(
+                "paged window bucket [%d, %d) exceeds the table span %d"
+                % (offset, offset + T, span))
+        ids = np.zeros((1, T), "int64")
+        ids[0, :P] = window_ids
+        # offset-shifted causal mask over the gathered logical row; the
+        # -1e4 side also buries sink garbage past the live length
+        allow = self._cols[None, :] <= (offset + np.arange(T))[:, None]
+        bias = np.where(allow, 0.0, -1e4).astype("float32")[None]
+        last_onehot = np.zeros((1, T), "float32")
+        last_onehot[0, P - 1] = 1.0
+        t0 = time.perf_counter()
+        with _trace.span("decode_paged_window", cat="serving", bucket=T,
+                         rows=P, offset=offset), torch.inference_mode():
+            lv = self.model.paged_window(
+                self._to_device(ids), self._pos_cache[T] + offset,
+                self._table_rows([table]), offset,
+                self._to_device(bias), self._to_device(last_onehot),
+                self.caches)
+            out = lv.cpu().numpy()[0]
+        _profiler.bump_counter("decode_prefills")
+        self.prefills += 1
+        _profiler.bump_histogram("decode_prefill_ms",
+                                 (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def paged_step(self, tokens, positions, tables, active, width=1):
+        """ONE fused paged step over all slots: slot s advances the
+        ``width``-token window ``tokens[s]`` at logical positions
+        ``positions[s] .. positions[s] + width - 1`` through its block
+        table ``tables[s]``. Width 1 is the decode step; width k the
+        speculative verify (all k positions scored in one call).
+        Inactive slots feed an all-sink table (their writes land in
+        block 0) and a fully masked bias; their output is ignored.
+        Returns logits [slots, width, vocab] (host numpy)."""
+        if not self.paged:
+            raise RuntimeError("paged_step on a non-paged session")
+        if width not in self.widths:
+            raise ValueError("no paged step of width %d (this session has "
+                             "%s)" % (width, self.widths))
+        act = np.asarray(active, bool)
+        pos = np.asarray(positions, "int64")
+        tok = np.where(act[:, None], np.asarray(tokens, "int64").reshape(
+            self.slots, width), 0)
+        qpos = pos[:, None] + np.arange(width)[None, :]
+        # query i of slot s sees logical positions <= qpos[s, i]
+        bias = (
+            ((self._cols[None, None, :] > qpos[:, :, None])
+             | ~act[:, None, None]).astype("float32") * -1e4
+        )
+        rows = [tables[s] if tables is not None else ()
+                for s in range(self.slots)]
+        t0 = time.perf_counter()
+        with _trace.span("decode_paged_step", cat="serving",
+                         active=int(act.sum()), width=width), \
+                torch.inference_mode():
+            lv = self.model.paged_step(
+                self._to_device(tok), self._to_device(qpos),
+                self._table_rows(rows), self._to_device(bias),
+                self.caches)
+            out = lv.cpu().numpy()
+        _profiler.bump_counter("decode_steps")
+        self.steps += 1
+        _profiler.bump_histogram("decode_step_ms",
+                                 (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def block_copy(self, src_blocks, dst_blocks):
+        """``pool[dst[i]] = pool[src[i]]`` in every layer's K and V pool —
+        the copy-on-write device op. All pairs move in one copy per pool,
+        so no dst may be a later pair's src."""
+        if not self.paged:
+            raise RuntimeError("block_copy on a non-paged session")
+        with _trace.span("decode_block_copy", cat="serving",
+                         pairs=len(src_blocks)), torch.inference_mode():
+            src = self._to_device(np.asarray(src_blocks, "int64"))
+            dst = self._to_device(np.asarray(dst_blocks, "int64"))
+            for k, v in self.caches:
+                _nn_ops.kv_cache_block_copy(k, src, dst)
+                _nn_ops.kv_cache_block_copy(v, src, dst)
+
 
 def session_for_generate(model, max_len):
     """The 1-slot session ``greedy_generate`` drives, cached on the model
@@ -220,8 +605,10 @@ def session_for_generate(model, max_len):
     with lock:
         sess = cache.get(int(max_len))
         if sess is None:
+            # always the contiguous pool, whatever the paged flags say
             sess = cache[int(max_len)] = DecodeSession(
-                model, slots=1, max_len=max_len)
+                model, slots=1, max_len=max_len, block_size=0,
+                spec_tokens=0)
         return sess
 
 
@@ -310,6 +697,14 @@ class GenerationStream(object):
         self.last_tick = None
         # submit -> first generated token, engine-stamped
         self.ttft_ms = None
+        # paged engine facts, engine-stamped: prompt tokens the prefix
+        # index served, prefill windows the admission ran (1 = the whole
+        # prompt at once), and the draft tokens the verify scored for
+        # this stream and accepted
+        self.cached_prefix_tokens = 0
+        self.admit_windows = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self._t_submit = time.monotonic()
         self._q = queue.Queue()
         self._tokens = []
@@ -400,13 +795,68 @@ class _Slot(object):
         self.generated = generated          # tokens generated so far
 
 
+class _PrefillJob(object):
+    """A paged slot mid-prefill: its prompt's bucket-shaped windows
+    (after the cached prefix) and the next one to run. Multi-window jobs
+    (chunked prefill) advance one window per engine tick."""
+
+    __slots__ = ("stream", "windows", "wi")
+
+    def __init__(self, stream, windows):
+        self.stream = stream
+        self.windows = windows
+        self.wi = 0
+
+
+# ---------------------------------------------------------------------------
+# speculative drafters — host side, correctness-neutral proposals
+# ---------------------------------------------------------------------------
+
+
+def _ngram_draft(history, k):
+    """Self-draft from the stream's own history: find the most recent
+    earlier occurrence of the trailing n-gram (n = 3 shrinking to 1) and
+    propose the continuation that followed it, padded with its last
+    token to exactly ``k`` tokens. A wrong draft costs only verify work:
+    the accept loop keeps the emitted tokens those of sequential
+    decoding."""
+    hist = [int(t) for t in history]
+    draft = []
+    for n in (3, 2, 1):
+        if len(hist) <= n:
+            continue
+        key = tuple(hist[-n:])
+        for i in range(len(hist) - n - 1, -1, -1):
+            if tuple(hist[i:i + n]) == key:
+                draft = hist[i + n:i + n + k]
+                break
+        if draft:
+            break
+    if not draft:
+        draft = [hist[-1]] if hist else [0]
+    while len(draft) < k:
+        draft.append(draft[-1])
+    return draft[:k]
+
+
+def _repeat_draft(history, k):
+    """Propose the last token ``k`` times: right exactly on runs."""
+    last = int(history[-1]) if history else 0
+    return [last] * k
+
+
+# ``decode_spec_draft`` names one of these; a model-based drafter plugs
+# in as DecodeEngine(drafter=callable(history, k) -> k tokens)
+_SPEC_DRAFTERS = {"ngram": _ngram_draft, "repeat": _repeat_draft}
+
+
 # ---------------------------------------------------------------------------
 # continuous-batching engine
 # ---------------------------------------------------------------------------
 
 
 class DecodeEngine(object):
-    """Continuous batching over a ``DecodeSession`` slot pool.
+    """Continuous batching over a ``DecodeSession``.
 
     One loop thread ticks: reap cancelled streams, admit queued requests
     (FIFO) into free slots via prefill — mid-flight, active streams keep
@@ -415,31 +865,83 @@ class DecodeEngine(object):
     max-new-tokens / max-length. Greedy decoding is token-exact with
     ``gpt._reference_generate``.
 
-    ``start()`` runs every prefill bucket and the decode step once
-    (building the kernels and warming the card), then starts the loop.
-    ``stream_class`` is the handle type ``submit`` creates."""
+    ``block_size`` > 0 (default ``FLAGS_decode_block_size``) serves from
+    the paged pool instead: admission takes ``ceil(len(prompt) / block)``
+    pool blocks (a prefix-index hit supplies the leading ones without a
+    copy, ``prefix_cache_mb`` > 0 arms the index), prefills them in
+    bucket-shaped windows of at most ``prefill_chunk`` tokens (0 = one
+    window), one window per tick for a multi-window prompt; tables grow
+    a block at a time as streams decode, and a pool that cannot cover a
+    request sheds it with ``ServerOverloadedError``. ``spec_tokens`` = k
+    > 1 makes every tick a speculative verify of the pending token plus
+    ``drafter(history, k - 1)`` (default ``decode_spec_draft``'s
+    built-in), accepted up to the first mismatch; ``set_spec_width``
+    switches between width 1 and k at run time. Tokens are the same
+    either way.
+
+    ``start()`` runs every prefill bucket (or window bucket) and step
+    width once (building the kernels and warming the card), then starts
+    the loop. ``stream_class`` is the handle type ``submit`` creates."""
 
     stream_class = GenerationStream
 
     def __init__(self, model, slots=None, max_len=None, prefill_buckets=None,
-                 queue_depth=None):
+                 queue_depth=None, block_size=None, spec_tokens=None,
+                 spec_draft=None, drafter=None, pool_blocks=0,
+                 prefill_chunk=None, prefix_cache_mb=None):
         self.model = model
         self._slots_arg = slots
         self._max_len_arg = max_len
         self._buckets_arg = prefill_buckets
         self.queue_depth = int(_flag("decode_queue_depth", queue_depth))
+        self.prefix_cache_mb = float(_flag("decode_prefix_cache_mb",
+                                           prefix_cache_mb))
+        self.prefill_chunk = int(_flag("decode_prefill_chunk",
+                                       prefill_chunk))
+        if self.prefill_chunk < 0 or self.prefix_cache_mb < 0:
+            raise ValueError("prefill_chunk and prefix_cache_mb must be >= 0")
+        self.block_size = int(_flag("decode_block_size", block_size))
+        self.spec_tokens = int(_flag("decode_spec_tokens", spec_tokens))
+        self._paged = self.block_size > 0
+        if self.spec_tokens > 1 and not self._paged:
+            raise ValueError(
+                "speculative decoding rides the paged runtime: set "
+                "decode_block_size > 0 alongside decode_spec_tokens")
+        if not self._paged and (self.prefill_chunk or self.prefix_cache_mb):
+            raise NotImplementedError(
+                "the contiguous pool's prefix cache and chunked prefill are "
+                "not ported yet; set block_size > 0 for the paged engine's")
+        self._spec_width = self.spec_tokens if self.spec_tokens > 1 else 1
+        self._pool_blocks_arg = int(pool_blocks or 0)
+        if drafter is not None:
+            self._drafter = drafter
+        else:
+            name = str(_flag("decode_spec_draft", spec_draft) or "ngram")
+            if name not in _SPEC_DRAFTERS:
+                raise ValueError(
+                    "unknown decode_spec_draft %r (built-ins: %s; pass "
+                    "drafter= for a model-based one)"
+                    % (name, sorted(_SPEC_DRAFTERS)))
+            self._drafter = _SPEC_DRAFTERS[name]
+        self.pindex = None     # PagedPrefixIndex once started, if armed
+        self.allocator = None  # BlockAllocator once started (paged)
+        self._slot_blocks = {}  # slot index -> [pool block ids] (paged)
         self.session = None
         self.started = False
         self.tick = 0
         self._pending = deque()
         self._active = {}
+        self._prefilling = {}  # slot index -> _PrefillJob (paged)
         self._free = []
         self._cond = threading.Condition()
         self._stop = False
         self._thread = None
         # engine-local tallies (the profiler counters are process-global)
         self._counts = {"requests": 0, "admissions": 0, "retirements": 0,
-                        "tokens": 0, "prompt_tokens": 0}
+                        "tokens": 0, "prompt_tokens": 0, "prefix_hits": 0,
+                        "prefix_misses": 0, "prefix_cached_tokens": 0,
+                        "spec_drafted": 0, "spec_accepted": 0,
+                        "oom_sheds": 0}
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, loop=True):
@@ -453,7 +955,21 @@ class DecodeEngine(object):
                 "previous decode-engine loop thread has not exited yet")
         self.session = DecodeSession(
             self.model, slots=self._slots_arg, max_len=self._max_len_arg,
-            prefill_buckets=self._buckets_arg)
+            prefill_buckets=self._buckets_arg, block_size=self.block_size,
+            spec_tokens=self.spec_tokens if self._paged else 0,
+            pool_blocks=self._pool_blocks_arg,
+            window_cap=self.prefill_chunk)
+        self.pindex = None
+        self._slot_blocks.clear()
+        if self._paged:
+            self.allocator = BlockAllocator(self.session.pool_blocks)
+            if self.prefix_cache_mb > 0:
+                # zero copy: the budget caps the pool blocks the index
+                # may pin, it allocates nothing of its own
+                cap = max(1, int(self.prefix_cache_mb * 2 ** 20 // (
+                    _gpt.paged_block_bytes(self.model.cfg, self.block_size))))
+                self.pindex = PagedPrefixIndex(self.block_size, cap,
+                                               self.allocator)
         self._warmup()
         self._free = list(range(self.session.slots))
         self._stop = False
@@ -465,13 +981,24 @@ class DecodeEngine(object):
         return self
 
     def _warmup(self):
-        """Run each prefill bucket once and the decode step once, then
-        zero the caches."""
+        """Run each prefill bucket once and the decode step once (paged:
+        each window bucket and each step width through all-sink tables,
+        and the block copy), then zero the caches."""
         sess = self.session
-        for T in sess.buckets:
-            sess.prefill(0, [0] * min(T, sess.max_len - 1))
-        sess.decode_step([0] * sess.slots, [0] * sess.slots,
-                         [False] * sess.slots)
+        if sess.paged:
+            sink = [BlockAllocator.SINK] * sess.max_blocks
+            for T in sess.buckets:
+                sess.paged_window(sink, [0] * T, 0)
+            for w in sess.widths:
+                sess.paged_step(np.zeros((sess.slots, w), "int64"),
+                                [0] * sess.slots, None,
+                                [False] * sess.slots, width=w)
+            sess.block_copy([BlockAllocator.SINK], [BlockAllocator.SINK])
+        else:
+            for T in sess.buckets:
+                sess.prefill(0, [0] * min(T, sess.max_len - 1))
+            sess.decode_step([0] * sess.slots, [0] * sess.slots,
+                             [False] * sess.slots)
         sess.reset_caches()
 
     def stop(self):
@@ -489,9 +1016,14 @@ class DecodeEngine(object):
         # failed here) or sees the engine stopped and raises
         with self._cond:
             failed = [s.stream for s in self._active.values()]
+            failed += [j.stream for j in self._prefilling.values()]
             self._active.clear()
+            self._prefilling.clear()
             pending = list(self._pending)
             self._pending.clear()
+            # block ownership dies with the allocator the next start()
+            # builds
+            self._slot_blocks.clear()
             self.started = False
         err = ServingError("decode engine stopped")
         for stream in failed + pending:
@@ -513,7 +1045,10 @@ class DecodeEngine(object):
             raise ValueError("prompt of %d tokens leaves no room to generate "
                              "(max_len %d)" % (len(prompt),
                                                self.session.max_len))
-        self.session.bucket_for(len(prompt))
+        if not self._paged:
+            # paged windows tile any prompt length below max_len; the
+            # contiguous pool prefills the whole prompt in one bucket
+            self.session.bucket_for(len(prompt))
         if max_new_tokens is not None and max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         stream = self.stream_class(
@@ -538,29 +1073,61 @@ class DecodeEngine(object):
                            eos_id=eos_id, temperature=temperature,
                            top_k=top_k, top_p=top_p, seed=seed)
 
+    def set_spec_width(self, width):
+        """Switch a paged engine's fused step between its two warmed
+        widths at run time: 1 (plain decode, the drafter is never called)
+        and ``spec_tokens`` (the verify). Tokens are the same either way;
+        this is the lever for a workload whose acceptance makes drafting
+        a loss."""
+        w = int(width)
+        if not self._paged:
+            raise ValueError("spec width is a paged-engine knob")
+        if w != 1 and w != max(self.spec_tokens, 1):
+            raise ValueError(
+                "width %d not warmed (this engine has 1%s)"
+                % (w, " and %d" % self.spec_tokens
+                   if self.spec_tokens > 1 else ""))
+        self._spec_width = w
+
     def stats(self):
         """THIS engine's counters and live occupancy."""
         sess = self.session
-        return {
+        c = self._counts
+        out = {
             "slots": sess.slots if sess else 0,
             "active": len(self._active),
+            "prefilling": len(self._prefilling),
             "queued": len(self._pending),
             "ticks": self.tick,
-            "requests": self._counts["requests"],
+            "requests": c["requests"],
             "prefills": sess.prefills if sess else 0,
             "steps": sess.steps if sess else 0,
-            "tokens": self._counts["tokens"],
-            "admissions": self._counts["admissions"],
-            "retirements": self._counts["retirements"],
-            "prompt_tokens": self._counts["prompt_tokens"],
+            "tokens": c["tokens"],
+            "admissions": c["admissions"],
+            "retirements": c["retirements"],
+            "prompt_tokens": c["prompt_tokens"],
+            "prefix_hits": c["prefix_hits"],
+            "prefix_misses": c["prefix_misses"],
+            "prefix_cached_tokens": c["prefix_cached_tokens"],
+            "spec_drafted": c["spec_drafted"],
+            "spec_accepted": c["spec_accepted"],
+            "oom_sheds": c["oom_sheds"],
         }
+        if c["spec_drafted"]:
+            out["spec_acceptance"] = c["spec_accepted"] / c["spec_drafted"]
+        if self.allocator is not None:
+            out["paged"] = dict(self.allocator.stats(),
+                                block_size=self.block_size)
+        if self.pindex is not None:
+            out["prefix_store"] = self.pindex.stats()
+        return out
 
     # -- engine loop ---------------------------------------------------------
     def _loop(self):
         while True:
             with self._cond:
                 while not self._stop and not self._pending \
-                        and not self._active:
+                        and not self._active and not self._prefilling:
                     self._cond.wait()
                 if self._stop:
                     return
@@ -570,19 +1137,29 @@ class DecodeEngine(object):
                 # a failed device step fails the requests it was serving;
                 # the engine stays up for the next submission. Freed slots
                 # count as retirements (admissions == retirements +
-                # occupancy holds across recovered failures)
+                # occupancy holds across recovered failures); prefilling
+                # slots were never admitted and free without a tally
                 for idx, slot in list(self._active.items()):
                     slot.stream._fail(e)
+                    self._release_slot_blocks(idx)
                     self._counts["retirements"] += 1
+                for idx, job in list(self._prefilling.items()):
+                    job.stream._fail(e)
+                    self._release_slot_blocks(idx)
                 self._free.extend(self._active.keys())
+                self._free.extend(self._prefilling.keys())
                 self._active.clear()
+                self._prefilling.clear()
 
     def _tick(self):
         """One engine tick: reap cancellations, admit queued requests
-        into free slots (each prefills inline and emits its first token),
-        then ONE fused decode step over every active slot."""
+        into free slots (a prompt that fits one window prefills inline
+        and emits its first token), advance ONE window of a multi-window
+        paged prefill, then ONE fused decode step over every active
+        slot."""
         self._reap_cancelled()
         self._admit()
+        self._advance_prefills()
         if self._active:
             self._step()
 
@@ -594,8 +1171,16 @@ class DecodeEngine(object):
             if slot.stream._cancelled:
                 self._active.pop(idx, None)
                 self._free.append(idx)
+                self._release_slot_blocks(idx)
                 self._counts["retirements"] += 1
                 slot.stream._finish("cancelled")
+        for idx, job in list(self._prefilling.items()):
+            if job.stream._cancelled:
+                # never admitted (no token emitted): no retirement tally
+                self._prefilling.pop(idx, None)
+                self._free.append(idx)
+                self._release_slot_blocks(idx)
+                job.stream._finish("cancelled")
         with self._cond:
             if any(s._cancelled for s in self._pending):
                 live = deque()
@@ -608,9 +1193,10 @@ class DecodeEngine(object):
 
     def _admit(self):
         """Admit queued requests (FIFO) into free slots — mid-flight,
-        between decode steps, never evicting an active stream. Each
-        admission prefills its prompt into the slot row and emits the
-        first token."""
+        between decode steps, never evicting an active stream. On the
+        contiguous pool each admission prefills its prompt into the slot
+        row and emits the first token; on the paged pool see
+        ``_admit_paged``."""
         while self._free:
             with self._cond:
                 stream = self._pending.popleft() if self._pending else None
@@ -620,6 +1206,9 @@ class DecodeEngine(object):
                 stream._finish("cancelled")
                 continue
             slot_idx = self._free.pop()
+            if self._paged:
+                self._admit_paged(slot_idx, stream)
+                continue
             prompt = stream.prompt_ids
             try:
                 logits = self.session.prefill(slot_idx, prompt)
@@ -646,6 +1235,196 @@ class DecodeEngine(object):
             stream.ttft_ms = (time.monotonic() - stream._t_submit) * 1e3
             self._emit(slot_idx, slot, tok)
 
+    # -- paged admission -----------------------------------------------------
+    def _plan_windows(self, prompt_len, prefix_tokens):
+        """Bucket-shaped windows covering [prefix, prompt_len): returns
+        (usable prefix, [(start, end), ...]). Every window's bucket must
+        end within max_len; when the suffix's cannot after the cached
+        prefix, the prefix shrinks a block at a time (recompute beats
+        corrupt). A ladder too sparse to tile the prompt degrades to one
+        window from 0."""
+        sess = self.session
+        chunk = self.prefill_chunk
+        prefix = prefix_tokens
+        while prefix >= 0:
+            s, wins, ok = prefix, [], True
+            while s < prompt_len:
+                cand = [b for b in sess.buckets if s + b <= sess.max_len]
+                if not cand:
+                    ok = False
+                    break
+                length = prompt_len - s
+                if chunk:
+                    length = min(length, chunk)
+                length = min(length, max(cand))
+                wins.append((s, s + length))
+                s += length
+            if ok:
+                return prefix, wins
+            prefix -= self.block_size
+        return 0, [(0, prompt_len)]
+
+    def _admit_paged(self, slot_idx, stream):
+        """Paged admission: a prefix hit puts the matched index blocks
+        into the slot's table (increfed, no copy), fresh blocks cover the
+        rest of ``ceil(len(prompt) / block)``, and the prompt prefills
+        through bucket-shaped windows fed the table — inline when it is
+        one window, else as a ``_PrefillJob`` advanced one window per
+        tick. A pool that cannot cover the prompt (after evicting
+        index-only blocks) sheds the request with the overload error."""
+        prompt = stream.prompt_ids
+        entries, hit_tokens = [], 0
+        if self.pindex is not None:
+            entries, hit_tokens = self.pindex.lookup(prompt)
+        prefix_tokens, wins = self._plan_windows(len(prompt), hit_tokens)
+        bs = self.block_size
+        if prefix_tokens < hit_tokens:
+            keep = prefix_tokens // bs
+            self.allocator.decref([e.block_idx for e in entries[keep:]])
+            entries = entries[:keep]
+        blocks = [e.block_idx for e in entries]
+        need = -(-len(prompt) // bs) - len(blocks)
+        owned = self._alloc_blocks(need)
+        if owned is None:
+            if blocks:
+                self.allocator.decref(blocks)
+            self._free.append(slot_idx)
+            _profiler.bump_counter("decode_paged_oom_sheds")
+            self._counts["oom_sheds"] += 1
+            stream._fail(ServerOverloadedError(
+                "paged KV pool exhausted (%d blocks short after eviction)"
+                % need, retry_after_ms=50))
+            return
+        self._slot_blocks[slot_idx] = blocks + owned
+        stream.cached_prefix_tokens = prefix_tokens
+        _profiler.bump_counter("decode_prompt_tokens", len(prompt))
+        self._counts["prompt_tokens"] += len(prompt)
+        if self.pindex is not None:
+            if prefix_tokens:
+                _profiler.bump_counter("decode_prefix_hits")
+                _profiler.bump_counter("decode_prefix_cached_tokens",
+                                       prefix_tokens)
+                self._counts["prefix_hits"] += 1
+                self._counts["prefix_cached_tokens"] += prefix_tokens
+            else:
+                _profiler.bump_counter("decode_prefix_misses")
+                self._counts["prefix_misses"] += 1
+        stream.admit_windows = len(wins)
+        job = _PrefillJob(stream, wins)
+        if len(wins) == 1:
+            self._run_prefill_window(slot_idx, job)
+            return
+        with self._cond:
+            if self._stop or not self.started:
+                self._free.append(slot_idx)
+                self._release_slot_blocks(slot_idx)
+                stream._fail(ServingError("decode engine stopped"))
+                return
+            self._prefilling[slot_idx] = job
+
+    def _advance_prefills(self):
+        """Run ONE window of ONE multi-window prefill, oldest first: live
+        streams pay at most one window plus one fused step per token."""
+        if self._prefilling:
+            slot_idx = next(iter(self._prefilling))
+            self._run_prefill_window(slot_idx, self._prefilling[slot_idx])
+
+    def _run_prefill_window(self, slot_idx, job):
+        """Advance ``job`` by one window; after the prompt's last window,
+        publish its full blocks to the prefix index, emit the first
+        token, and join the decode batch."""
+        stream = job.stream
+        prompt = stream.prompt_ids
+        s, e = job.windows[job.wi]
+        try:
+            logits = self.session.paged_window(self._slot_blocks[slot_idx],
+                                               prompt[s:e], s)
+            job.wi += 1
+            if job.wi < len(job.windows):
+                # re-park under the drain lock, as _active insertion
+                with self._cond:
+                    if self._stop or not self.started:
+                        self._prefilling.pop(slot_idx, None)
+                        self._free.append(slot_idx)
+                        self._release_slot_blocks(slot_idx)
+                        stream._fail(ServingError("decode engine stopped"))
+                        return
+                    self._prefilling[slot_idx] = job
+                return
+            tok = stream.pick(logits)
+        except Exception as exc:  # noqa: BLE001 - per-request failure
+            self._prefilling.pop(slot_idx, None)
+            self._free.append(slot_idx)
+            self._release_slot_blocks(slot_idx)
+            stream._fail(exc)
+            return
+        self._prefilling.pop(slot_idx, None)
+        if self.pindex is not None:
+            self.pindex.publish(prompt, self._slot_blocks[slot_idx])
+        slot = _Slot(stream, tok, next_pos=len(prompt))
+        with self._cond:
+            if self._stop or not self.started:
+                self._free.append(slot_idx)
+                self._release_slot_blocks(slot_idx)
+                stream._fail(ServingError("decode engine stopped"))
+                return
+            self._active[slot_idx] = slot
+        self._counts["admissions"] += 1
+        stream.first_tick = self.tick
+        stream.ttft_ms = (time.monotonic() - stream._t_submit) * 1e3
+        self._emit(slot_idx, slot, tok)
+
+    # -- paged block bookkeeping ---------------------------------------------
+    def _alloc_blocks(self, n):
+        """Allocator take with prefix-index relief: while the free list
+        is short, evict index entries whose block the index alone holds
+        (each decref frees one) and retry. None = out of memory; the
+        caller sheds."""
+        got = self.allocator.alloc(n)
+        while got is None:
+            if self.pindex is None or not self.pindex.evict_one(
+                    need_free=True):
+                return None
+            got = self.allocator.alloc(n)
+        return got
+
+    def _release_slot_blocks(self, slot_idx):
+        """Drop the slot's reference on every block of its table: owned
+        blocks free, blocks the index or another slot shares survive."""
+        blocks = self._slot_blocks.pop(slot_idx, None)
+        if blocks:
+            self.allocator.decref(blocks)
+
+    def _ensure_writable(self, slot_idx, block_i):
+        """Copy-on-write: if logical block ``block_i`` of the slot's table
+        is shared, copy it into a fresh block and swap the table entry
+        before this tick writes it. Block-aligned admission never shares
+        a block a writer touches, so this guards an invariant."""
+        blocks = self._slot_blocks[slot_idx]
+        blk = blocks[block_i]
+        if self.allocator.refs(blk) <= 1:
+            return
+        got = self._alloc_blocks(1)
+        if got is None:
+            raise ServerOverloadedError(
+                "paged KV pool exhausted during copy-on-write",
+                retry_after_ms=50)
+        self.session.block_copy([blk], got)
+        blocks[block_i] = got[0]
+        self.allocator.decref([blk])
+
+    def _trim_blocks(self, slot_idx, next_pos):
+        """Speculative rollback by table edit: free the slot's blocks past
+        the one its next write lands in; the rejected tail's K/V becomes
+        unreferenced garbage no bias ever exposed."""
+        blocks = self._slot_blocks.get(slot_idx)
+        keep = next_pos // self.block_size + 1
+        if blocks and len(blocks) > keep:
+            tail = blocks[keep:]
+            del blocks[keep:]
+            self.allocator.decref(tail)
+
+    # -- decode --------------------------------------------------------------
     def _emit(self, slot_idx, slot, tok):
         """Stream one generated token and retire the slot if finished."""
         stream = slot.stream
@@ -665,11 +1444,15 @@ class DecodeEngine(object):
             # _active concurrently
             self._active.pop(slot_idx, None)
             self._free.append(slot_idx)
+            self._release_slot_blocks(slot_idx)
             self._counts["retirements"] += 1
             stream._finish(reason)
 
     def _step(self):
         """One fused decode step over every active slot."""
+        if self._paged:
+            self._step_paged()
+            return
         sess = self.session
         tokens = [0] * sess.slots
         positions = [0] * sess.slots
@@ -685,12 +1468,108 @@ class DecodeEngine(object):
             try:
                 tok = slot.stream.pick(logits[idx])
             except Exception as e:  # noqa: BLE001 - fail THIS stream only
-                self._active.pop(idx, None)
-                self._free.append(idx)
-                self._counts["retirements"] += 1
-                slot.stream._fail(e)
+                self._shed_active(idx, e)
                 continue
             slot.next_pos += 1
             slot.generated += 1
             slot.pending_token = tok
             self._emit(idx, slot, tok)
+
+    def _shed_active(self, idx, exc):
+        """Retire active slot ``idx``, failing its stream with ``exc``."""
+        slot = self._active.pop(idx)
+        self._free.append(idx)
+        self._release_slot_blocks(idx)
+        self._counts["retirements"] += 1
+        slot.stream._fail(exc)
+
+    def _step_paged(self):
+        """One fused paged tick over every active slot: the plain decode
+        step at width 1, or the batched verify at width k — each slot's
+        window is its pending token plus a k-1-token draft, one call
+        scores all k positions, and the host emits up to the first
+        position where the draft differs from what was picked.
+
+        Token exactness: query j's logits see positions <= next_pos + j
+        holding exactly the window's tokens, and the accept loop uses
+        logits[j + 1] only after confirming that draft token j + 1 is the
+        token it just emitted — so every consumed row is the one
+        sequential decoding would have produced. Each emitted token costs
+        one ``pick`` (one uniform draw when sampling), so seeded sampling
+        replays unchanged. ``_trim_blocks`` rolls whole rejected blocks
+        back by table edit."""
+        sess = self.session
+        width = self._spec_width
+        bs = self.block_size
+        # grow each table through this window's last write; a slot the
+        # pool cannot cover (even after index eviction) sheds
+        for idx, slot in list(self._active.items()):
+            need = (slot.next_pos + width - 1) // bs + 1
+            blocks = self._slot_blocks[idx]
+            try:
+                if need > len(blocks):
+                    got = self._alloc_blocks(need - len(blocks))
+                    if got is None:
+                        raise ServerOverloadedError(
+                            "paged KV pool exhausted mid-generation",
+                            retry_after_ms=50)
+                    blocks.extend(got)
+                for bi in range(slot.next_pos // bs, need):
+                    self._ensure_writable(idx, bi)
+            except Exception as exc:  # noqa: BLE001 - shed this slot
+                _profiler.bump_counter("decode_paged_oom_sheds")
+                self._counts["oom_sheds"] += 1
+                self._shed_active(idx, exc)
+        if not self._active:
+            return
+        tokens = np.zeros((sess.slots, width), "int64")
+        positions = [0] * sess.slots
+        active = [False] * sess.slots
+        tables = [()] * sess.slots
+        windows = {}
+        for idx, slot in self._active.items():
+            win = [slot.pending_token]
+            if width > 1:
+                hist = slot.stream.prompt_ids + slot.stream._tokens
+                win += [int(t) for t in self._drafter(hist, width - 1)]
+            windows[idx] = win
+            tokens[idx, :] = win
+            positions[idx] = slot.next_pos
+            active[idx] = True
+            tables[idx] = self._slot_blocks[idx]
+        # idle and mid-prefill slots keep the all-sink table: their
+        # writes land in block 0
+        logits = sess.paged_step(tokens, positions, tables, active,
+                                 width=width)
+        self.tick += 1
+        for idx in list(self._active.keys()):
+            slot = self._active[idx]
+            win = windows[idx]
+            emitted = 0
+            failed = False
+            for j in range(width):
+                try:
+                    tok = slot.stream.pick(logits[idx, j])
+                except Exception as e:  # noqa: BLE001 - this stream only
+                    self._shed_active(idx, e)
+                    failed = True
+                    break
+                emitted += 1
+                slot.next_pos += 1
+                slot.generated += 1
+                slot.pending_token = tok
+                self._emit(idx, slot, tok)
+                if idx not in self._active:
+                    break  # retired: eos or length mid-window
+                if j < width - 1 and tok != win[j + 1]:
+                    break  # the draft diverged: the tail is dead weight
+            if width > 1 and not failed:
+                drafted, accepted = width - 1, emitted - 1
+                _profiler.bump_counter("decode_spec_drafted", drafted)
+                _profiler.bump_counter("decode_spec_accepted", accepted)
+                self._counts["spec_drafted"] += drafted
+                self._counts["spec_accepted"] += accepted
+                slot.stream.spec_drafted += drafted
+                slot.stream.spec_accepted += accepted
+            if idx in self._active:
+                self._trim_blocks(idx, slot.next_pos)

@@ -72,6 +72,51 @@ def test_flash_decode_kernel_matches_plain(D, S):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("blk", [4, 16, 64])
+def test_flash_decode_paged_kernel_matches_plain(D, blk):
+    """A permuted table, two slots sharing their first two blocks (a
+    prefix hit), one all-sink fully masked slot, mixed live lengths."""
+    gen = torch.Generator().manual_seed(D * 7 + blk)
+    B, N, MB = 4, 3, 5
+    S, blocks = MB * blk, B * MB + 1
+    q = _randn(gen, B, N, 1, D)
+    k_pool, v_pool = _randn(gen, blocks, N, blk, D), \
+        _randn(gen, blocks, N, blk, D)
+    tables = (torch.randperm(blocks - 1, generator=gen) + 1).reshape(B, MB)
+    tables[1, :2] = tables[0, :2]
+    tables[3] = 0
+    kb = torch.zeros(B, S)
+    for b, live in enumerate((1, S // 2 + 1, S, 0)):
+        kb[b, live:] = -1e4
+    tables = tables.to(torch.int32).cuda()
+    kb = kb.cuda()
+    n0 = fa.flash_decode_paged_attention.launches
+    out = fa.flash_decode_paged_attention(q, k_pool, v_pool, tables, kb)
+    assert fa.flash_decode_paged_attention.launches == n0 + 1
+    ref = fa.flash_decode_paged_attention_plain(q, k_pool, v_pool, tables,
+                                                key_bias=kb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+
+
+def test_flash_decode_paged_wrapper_raises_on_what_it_does_not_take():
+    gen = torch.Generator().manual_seed(5)
+    q = _randn(gen, 2, 2, 1, 64)
+    pool = _randn(gen, 5, 2, 4, 64)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32).cuda()
+    with pytest.raises(TypeError):
+        fa.flash_decode_paged_attention(q, pool, pool, tables.long())
+    with pytest.raises(ValueError):
+        fa.flash_decode_paged_attention(_randn(gen, 2, 2, 3, 64), pool, pool,
+                                        tables)
+    with pytest.raises(ValueError):
+        fa.flash_decode_paged_attention(q, _randn(gen, 5, 3, 4, 64),
+                                        _randn(gen, 5, 3, 4, 64), tables)
+    with pytest.raises(ValueError):
+        fa.flash_decode_paged_attention(q, pool, pool, tables.cpu())
+
+
 @pytest.mark.parametrize("rows", [None, "vector", "per_head"])
 def test_kernels_take_every_key_bias_form(rows):
     gen = torch.Generator().manual_seed(11)
@@ -133,3 +178,39 @@ def test_engine_on_card_matches_plain_reference():
         want = tgpt._reference_generate(model, p, len(p) + 12,
                                         use_flash=False)
         assert got == want
+
+
+def test_paged_engine_on_card_matches_legacy_engine():
+    """The paged engine (block 4, chunked windows, prefix index) at
+    width 1 — the paged kernel every step — and at width 4, greedy
+    tokens equal to the contiguous engine's; a resubmitted prompt hits
+    the prefix index."""
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, use_flash_attention=True,
+                              max_position_embeddings=64)
+    model = tgpt.GPTLM(cfg)
+    tgpt.load_fluid_params(model, tgpt.init_fluid_params(cfg, seed=1))
+    prompts = [[3, 1, 4], [1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2], [7],
+               [1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2]]
+    legacy = tdecode.DecodeEngine(model, slots=2, max_len=56).start()
+    try:
+        want = [legacy.generate(p, max_new_tokens=12).result(timeout=300)
+                for p in prompts]
+    finally:
+        legacy.stop()
+    paged = tdecode.DecodeEngine(
+        model, slots=2, max_len=56, block_size=4, spec_tokens=4,
+        prefill_chunk=8, prefix_cache_mb=1.0).start()
+    try:
+        for width in (1, 4):
+            paged.set_spec_width(width)
+            n0 = fa.flash_decode_paged_attention.launches
+            s0 = paged.stats()["steps"]
+            streams = [paged.generate(p, max_new_tokens=12) for p in prompts]
+            got = [s.result(timeout=300) for s in streams]
+            assert got == want, width
+            launches = fa.flash_decode_paged_attention.launches - n0
+            steps = paged.stats()["steps"] - s0
+            assert launches == (cfg.num_layers * steps if width == 1 else 0)
+        assert streams[-1].cached_prefix_tokens > 0
+    finally:
+        paged.stop()

@@ -303,17 +303,24 @@ def test_decode_knobs_match_reference_defaults_and_env_bridge(monkeypatch):
 
     for key, default in tflags._DEFAULTS.items():
         assert jflags._DEFAULTS[key] == default, key
+    for key in ("decode_block_size", "decode_spec_tokens",
+                "decode_spec_draft", "decode_prefill_chunk",
+                "decode_prefix_cache_mb"):
+        assert key in tflags._DEFAULTS, key
     want = {}
     for key, default in tflags._DEFAULTS.items():
-        want[key] = 7 if isinstance(default, int) else "8,16"
+        if isinstance(default, float):
+            want[key] = 7.5
+        else:
+            want[key] = 7 if isinstance(default, int) else "8,16"
         monkeypatch.setenv("FLAGS_" + key, str(want[key]))
     tflags._read_env()
     try:
         assert {k: tflags.get_flag(k) for k in want} == want
         tflags.set_flags({"FLAGS_" + k: "5" for k in want
-                          if isinstance(want[k], int)})
+                          if not isinstance(want[k], str)})
         assert all(tflags.get_flag(k) == 5 for k in want
-                   if isinstance(want[k], int))
+                   if not isinstance(want[k], str))
         with pytest.raises(ValueError):
             tflags.set_flags({"no_such_knob": 1})
     finally:

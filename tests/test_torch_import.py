@@ -22,6 +22,15 @@ import json, sys
 import paddle_tpu_torch
 from paddle_tpu_torch.serving import decode
 from paddle_tpu_torch.kernels import _build, flash_attention
+from paddle_tpu_torch.fluid.ops import nn_ops
+from paddle_tpu_torch.models import bert, gpt
+# the paged engine's names (the paged slice)
+for fn in (decode.BlockAllocator, decode.PagedPrefixIndex,
+           decode._ngram_draft, flash_attention.flash_decode_paged_attention,
+           nn_ops.kv_cache_write_paged, nn_ops.kv_cache_gather_paged,
+           nn_ops.kv_cache_block_copy, gpt.GPTLM.paged_step,
+           gpt.paged_pool_names):
+    assert callable(fn)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -53,6 +62,15 @@ def test_port_sources_never_import_jax_or_the_reference():
                             or "paddle_tpu." in s):
                         offenders.append((os.path.relpath(path, REPO), s))
     assert offenders == []
+
+
+def test_every_kernel_source_is_built_and_every_build_has_a_source():
+    from paddle_tpu_torch.kernels import _build
+
+    sources = sorted(fn[:-3] for fn in os.listdir(_build.SRC_DIR)
+                     if fn.endswith(".cu"))
+    assert sources == sorted(_build.KERNELS)
+    assert "flash_decode_paged" in sources
 
 
 @pytest.mark.skipif("torch.cuda.is_available()",
