@@ -9,14 +9,19 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 1. env     torch / CUDA / nvcc versions, the card, TF32 turned off.
 2. build   compiles every kernel from ``paddle_tpu_torch/csrc`` (sm_90a).
 3. kernels each kernel against its plain PyTorch version on the card at
-           the serving path's shapes: max abs error against the stated
-           tolerance, kernel / plain / library (SDPA) device times (a
-           CUDA graph of 20 calls replayed over five windows of >= 100 ms
-           each: the median, the kernel's window spread beside it), and
-           the bound (the least time the card could take for the same
-           work).
+           the shapes its path gives it (serving: prefill and decode;
+           training: the forward with dropout 0.1 and both backward
+           kernels at [8, 12, 1024, 64], causal, padded key bias): max
+           abs error against the stated tolerance, kernel / plain /
+           library (SDPA) device times (a CUDA graph of 20 calls
+           replayed over five windows of >= 100 ms each: the median, the
+           kernel's window spread beside it), and the bound (the least
+           time the card could take for the same work).
            The paged kernel has no single-call library counterpart: a
            gather of the rows plus SDPA (two calls) is timed beside it.
+           Neither have the backward kernels: one SDPA forward+backward
+           through autograd is timed beside them as a yardstick (another
+           function: it also runs the forward and draws its own mask).
 4. engine  GPT-2 small at full width (random weights from a seed)
            served by ``DecodeEngine(slots=8, max_len=1024)``: 8 greedy
            requests, some joining mid-flight; checks that both kernels'
@@ -32,6 +37,15 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 6. profile torch.profiler over a decode step (8 active slots), a
            990-token prefill, and the paged step at width 1 and 4 (8
            slots at position 500): wall vs device-busy time, top ops.
+7. train   GPT-2 small's train step (``build_gpt_lm_train``) at batch
+           8 x 1024: at dropout 0, every parameter's step-1 gradient
+           through the kernels against the dense path
+           (``use_flash_attention=False``) as a relative norm; at
+           dropout 0.1, 20 Adam steps on a learnable token stream whose
+           loss must stay finite and fall, with each of the three flash
+           kernels launched 12 times a step; step ms, tokens/s, peak
+           memory, and one profiled step (device busy and idle share,
+           top device ops).
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -55,6 +69,11 @@ import torch
 # few ulps per term; 2e-5 absolute leaves ~100 ulps of room, while a
 # masking or indexing error shows as O(0.1).
 KERNEL_ATOL, KERNEL_RTOL = 2e-5, 1e-4
+# The backward kernels against their plain versions: dq, dk and dv sum
+# up to 1024 products per entry and dkey_bias sums ds over every query
+# row, so ~1e-6 of honest difference; one wrong mask entry or tile bound
+# moves them by O(0.01-1).
+BWD_ATOL, BWD_RTOL = 1e-4, 1e-4
 # Engine logits vs the plain full forward, teacher-forced: 12 fp32
 # layers whose products run as different cuBLAS shapes (one row vs the
 # whole sequence) and whose attention runs kernel vs dense. Observed
@@ -64,6 +83,16 @@ LOGIT_ATOL = 1e-3
 
 PROMPT_LENS = (5, 31, 64, 130, 257, 500, 700, 990)
 NEW_TOKENS = 32
+# The train step: GPT-2's sequence length at a batch of 8 sequences
+# (GPT-2 trained with 512). Step-1 gradients through the kernels vs the
+# dense path, per parameter ||g_flash - g_dense|| / ||g_dense||: fp32 both
+# ways, 12 layers of products summed in other orders give ~1e-6 to 1e-5;
+# a masking or dropout error in a kernel gives O(1). The denominator is
+# floored at 1e-6 of the whole gradient's norm: the k-projection biases
+# have an exact gradient of zero (softmax ignores a shift shared by all
+# keys of a query), so both paths return rounding noise for them.
+TRAIN_BATCH, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 8, 1024, 20, 3e-4
+GRAD_REL_TOL, GRAD_NORM_FLOOR = 1e-3, 1e-6
 # The paged engine: max_len 1016 leaves room for the width-4 verify's
 # positions (max_len + k - 1 <= 1024), so tables are 64 blocks of 16 (a
 # key span of 1024) and the pool 8 * 64 + 1 blocks; the longest prompt
@@ -138,10 +167,28 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def check_close(name, got, want):
-    if not torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+def check_close(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
         raise AssertionError("%s disagrees with its plain version: max abs "
                              "err %.3g" % (name, max_err(got, want)))
+
+
+def event_ms(fn, reps=10):
+    """Per-call device ms of ``fn`` run eagerly ``reps`` times between two
+    CUDA events, after three warmup calls: for work that a CUDA graph
+    cannot hold (a backward through autograd) and that is long enough
+    (milliseconds) for the host's per-call cost to hide behind it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +350,105 @@ def kernel_flash_decode_paged(dev, peaks):
                              "tables": [B, MB]}}
 
 
+def kernel_flash_train(dev, peaks):
+    """The train step's three kernels at its attention shape: q/k/v/dO
+    [8, 12, 1024, 64], causal, a key-padding bias with ragged tails on
+    two rows, dropout 0.1 with a fixed seed. The backward kernels run
+    from the forward's own out and lse, as in the step."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(3)
+    B, N, T, D = TRAIN_BATCH, 12, TRAIN_T, 64
+    rate, seed = 0.1, 1234567
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, g = (torch.randn(B, N, T, D, generator=gen).to(dev)
+                  for _ in range(4))
+    kb = torch.zeros(B, T)
+    kb[1, 700:] = -1e4
+    kb[5, 1000:] = -1e4
+    kb = kb.to(dev)
+    kw = dict(causal=True, scale=scale, dropout_rate=rate)
+    out, lse = fa.flash_attention_lse(q, k, v, kb, dropout_seed=seed, **kw)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(
+        q, k, v, key_bias=kb, dropout_seed=seed, **kw)
+    torch.cuda.synchronize()
+    check_close("flash_fwd dropout out", out, ref_out)
+    check_close("flash_fwd dropout lse", lse, ref_lse)
+    fwd_err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+    delta = (g * out).sum(-1)
+    bwd_args = (q, k, v, kb, g, lse, delta)
+    bkw = dict(kw, dropout_seed=seed)
+    dq = fa.flash_bwd_dq(*bwd_args, **bkw)
+    dk, dv, dkb = fa.flash_bwd_dkv(*bwd_args, **bkw)
+    ref_dq = fa.flash_bwd_dq_plain(*bwd_args, **bkw)
+    ref_dk, ref_dv, ref_dkb = fa.flash_bwd_dkv_plain(*bwd_args, **bkw)
+    torch.cuda.synchronize()
+    check_close("flash_bwd_dq", dq, ref_dq, BWD_ATOL, BWD_RTOL)
+    for name, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv),
+                            ("dkey_bias", dkb, ref_dkb)):
+        check_close("flash_bwd_dkv " + name, got, want, BWD_ATOL, BWD_RTOL)
+    dq_err = max_err(dq, ref_dq)
+    dkv_err = max(max_err(dk, ref_dk), max_err(dv, ref_dv),
+                  max_err(dkb, ref_dkb))
+    del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, ref_dkb
+
+    fwd = lambda a, b, c, d: fa.flash_attention_lse(      # noqa: E731
+        a, b, c, d, dropout_seed=seed, **kw)
+    fwd_plain = lambda a, b, c, d: fa.flash_attention_lse_plain(  # noqa
+        a, b, c, key_bias=d, dropout_seed=seed, **kw)
+    # the plain versions hold several [8, 12, 1024, 1024] intermediates a
+    # call: a shorter graph keeps the capture's memory in bounds
+    rows = {}
+    pairs = B * N * T * (T + 1) // 2              # causal (q, k) pairs
+    tensor = 4 * B * N * T * D                    # bytes of one [B,N,T,D]
+    vec = 4 * B * N * T                           # bytes of lse or delta
+    kb_bytes = 4 * B * T
+    causal_mask = torch.full((T, T), float("-inf"), device=dev).triu(1)
+    sdpa_mask = causal_mask[None, None] + kb.reshape(B, 1, 1, T)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, fn, plain, nbytes, flops, err, lib in (
+            ("flash_fwd_dropout", fwd, fwd_plain,
+             4 * tensor + kb_bytes + vec, 4 * D * pairs, fwd_err,
+             lambda: sdpa(q, k, v, attn_mask=sdpa_mask, dropout_p=rate,
+                          scale=scale)),
+            ("flash_bwd_dq",
+             lambda *a: fa.flash_bwd_dq(*a, **bkw),
+             lambda *a: fa.flash_bwd_dq_plain(*a, **bkw),
+             5 * tensor + kb_bytes + 2 * vec, 6 * D * pairs, dq_err, None),
+            ("flash_bwd_dkv",
+             lambda *a: fa.flash_bwd_dkv(*a, **bkw),
+             lambda *a: fa.flash_bwd_dkv_plain(*a, **bkw),
+             6 * tensor + kb_bytes + 2 * vec + 4 * B * N * T, 8 * D * pairs,
+             dkv_err, None)):
+        args = [(q, k, v, kb)] if name == "flash_fwd_dropout" else [bwd_args]
+        ms, spread = cuda_ms(fn, args)
+        plain_ms, _ = cuda_ms(plain, args, calls=3)
+        bms, by = bound_ms(nbytes, flops, peaks)
+        rows[name] = {"max_abs_err": err, "ms": ms, "ms_window_spread": spread,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      # SDPA draws its own dropout mask: timed eagerly,
+                      # outside a graph, as milliseconds of work
+                      "library_ms": event_ms(lib) if lib else None}
+    # yardstick for the backward: SDPA forward + backward through autograd
+    # with the same additive mask and its own dropout (another function)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = sdpa(ql, kl, vl, attn_mask=sdpa_mask, dropout_p=rate, scale=scale)
+        o.backward(g)
+
+    yard = event_ms(sdpa_fwd_bwd)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name]["sdpa_fwd_bwd_ms"] = yard
+    rows["shape"] = [B, N, T, D]
+    rows["dropout_rate"] = rate
+    rows["atol_bwd"] = BWD_ATOL
+    fa.flash_attention_lse.launches = 0      # comparison launches do not count
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine
 # ---------------------------------------------------------------------------
@@ -430,7 +576,9 @@ def _profile(fn, reps):
     """Wall ms per call of ``fn`` (host clock, unprofiled, ending in a
     synchronize), then ``reps`` calls under torch.profiler for the
     device-busy ms per call (kernel and copy time; one stream, so nothing
-    overlaps) and the top device ops. The idle share compares the two:
+    overlaps), split into matrix products (``gemm`` in the kernel's
+    name), the port's flash kernels and everything else, and the top
+    device ops. The idle share compares the two:
     the profiler itself slows the host, so its own wall time is reported
     apart and not used."""
     from torch.autograd import DeviceType
@@ -461,10 +609,16 @@ def _profile(fn, reps):
         dev_events.append((us / reps, e.count / reps, e.key))
     busy_ms = sum(us for us, _n, _k in dev_events) / 1e3
     dev_events.sort(reverse=True)
+    by_class = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
+    for us, _n, key in dev_events:
+        cls = ("flash" if "flash_" in key else
+               "gemm" if "gemm" in key.lower() else "other")
+        by_class[cls] += us / 1e3
     return {
         "wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_ms_by_class": by_class,
         "launches_per_call": sum(n for _us, n, _k in dev_events),
         "top": [{"kernel": k[:70], "us": us, "calls": n}
                 for us, n, k in dev_events[:8]],
@@ -649,6 +803,143 @@ def paged_engine_phase(model):
     }, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the train step
+# ---------------------------------------------------------------------------
+
+
+def train_feed(vocab, seed, counting=False):
+    """[8, 1024, 1] feeds: random ids with two padded rows, or (counting)
+    a learnable stream, token t+1 = token t + 1 (mod vocab) from a random
+    start per row, no padding."""
+    rng = np.random.default_rng(seed)
+    B, T = TRAIN_BATCH, TRAIN_T
+    mask = np.ones((B, T, 1), np.float32)
+    if counting:
+        ids = (rng.integers(0, vocab, (B, 1)) + np.arange(T)) % vocab
+    else:
+        ids = rng.integers(0, vocab, (B, T))
+        mask[1, 700:] = 0.0
+        mask[5, 1000:] = 0.0
+    return {"ids": ids.reshape(B, T, 1).astype("int64"),
+            "pos_ids": np.tile(np.arange(T).reshape(1, T, 1), (B, 1, 1)),
+            "input_mask": mask}
+
+
+def flash_launches():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_attention_lse.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def zero_flash_launches():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    fa.flash_attention_lse.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+
+
+def step1_grads(model, feed, use_flash):
+    """Every parameter's gradient of the step-1 loss (no update)."""
+    from paddle_tpu_torch.models import gpt
+
+    dev = model.device
+    ids, pos, mask = (torch.as_tensor(feed[n], device=dev)
+                      for n in ("ids", "pos_ids", "input_mask"))
+    loss = gpt.gpt_lm_loss(model(ids, pos, mask, use_flash=use_flash), ids,
+                           mask)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def train_phase(dev):
+    """GPT-2 small's train step at batch 8 x 1024, full width and depth,
+    fp32, weights from ``init_fluid_params(cfg, 0)``."""
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.models import gpt
+
+    n_layers = gpt.GPTConfig().num_layers
+    # dropout 0: the kernels' gradients against the dense path's
+    cfg0 = gpt.GPTConfig(use_flash_attention=True, hidden_dropout=0.0,
+                         attention_dropout=0.0)
+    model, _opt, _names, _step = gpt.build_gpt_lm_train(
+        cfg0, TRAIN_T, learning_rate=TRAIN_LR, device=dev, seed=0)
+    feed = train_feed(cfg0.vocab_size, seed=2)
+    zero_flash_launches()
+    loss_flash, g_flash = step1_grads(model, feed, None)
+    launches_bwd = flash_launches()
+    if any(n != n_layers for n in launches_bwd.values()):
+        raise AssertionError("one backward launched %r, expected %d each"
+                             % (launches_bwd, n_layers))
+    loss_dense, g_dense = step1_grads(model, feed, False)
+    total = float(torch.stack([g.norm() for g in g_dense.values()]).norm())
+    floor = GRAD_NORM_FLOOR * total
+    rel = {n: float((g_flash[n] - g_dense[n]).norm()
+                    / max(float(g_dense[n].norm()), floor)) for n in g_dense}
+    worst = max(rel, key=rel.get)
+    floored = sorted(n for n in g_dense if float(g_dense[n].norm()) < floor)
+    worst_own = max((n for n in rel if n not in floored), key=rel.get)
+    if rel[worst] > GRAD_REL_TOL or not np.isfinite(rel[worst]):
+        raise AssertionError("step-1 gradient of %s: kernels vs dense path "
+                             "relative norm %.3g > %g"
+                             % (worst, rel[worst], GRAD_REL_TOL))
+    grad_check = {"loss_kernels": loss_flash, "loss_dense": loss_dense,
+                  "max_rel_norm": rel[worst], "worst_param": worst,
+                  "median_rel_norm": float(np.median(list(rel.values()))),
+                  "max_rel_norm_unfloored": rel[worst_own],
+                  "worst_unfloored_param": worst_own,
+                  "params": len(rel), "tolerance": GRAD_REL_TOL,
+                  "grad_norm": total, "floored": floored}
+    del model, _opt, _step, g_flash, g_dense
+    torch.cuda.empty_cache()
+
+    # dropout 0.1 (GPT-2's recipe): 20 Adam steps, launches read around
+    # exactly these steps
+    cfg = gpt.GPTConfig(use_flash_attention=True)
+    model, _opt, _names, step = gpt.build_gpt_lm_train(
+        cfg, TRAIN_T, learning_rate=TRAIN_LR, device=dev, seed=0)
+    feed = train_feed(cfg.vocab_size, seed=3, counting=True)
+    profiler.reset_histograms()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()
+    t0 = time.perf_counter()
+    losses = [step(feed) for _ in range(TRAIN_STEPS)]
+    seconds = time.perf_counter() - t0
+    launches = flash_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite train loss: %r" % (losses,))
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1:
+        raise AssertionError("train loss did not fall: %r" % (losses,))
+    for name, n in launches.items():
+        if n != n_layers * TRAIN_STEPS:
+            raise AssertionError("%s launched %d times in %d steps, expected "
+                                 "%d a step" % (name, n, TRAIN_STEPS,
+                                                n_layers))
+    step_ms = profiler.summarize_histogram("train_step_ms")
+    prof = _profile(lambda: step(feed), reps=1)
+    tokens = TRAIN_BATCH * TRAIN_T
+    return {
+        "phase": "train", "model": "gpt2-small", "batch": TRAIN_BATCH,
+        "seq_len": TRAIN_T, "dropout": [cfg.hidden_dropout,
+                                        cfg.attention_dropout],
+        "learning_rate": TRAIN_LR, "steps": TRAIN_STEPS,
+        "grad_check_dropout0": grad_check, "losses": losses,
+        "seconds": seconds, "step_ms_p50": step_ms["p50"],
+        "step_ms_mean": step_ms["mean"], "step_ms_max": step_ms["max"],
+        "tokens_per_s_p50": tokens / (step_ms["p50"] / 1e3),
+        "peak_mem_mib": peak_mib, "launches": launches,
+        "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
+        "profile_step": prof,
+    }, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -687,25 +978,52 @@ def main():
     fwd_err, fwd_rows = kernel_flash_fwd(dev, peaks)
     dec_err, dec_row = kernel_flash_decode(dev, peaks)
     paged_err, paged_row = kernel_flash_decode_paged(dev, peaks)
+    train_rows = kernel_flash_train(dev, peaks)
     emit({"phase": "kernels", "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
           "flash_fwd": fwd_rows, "flash_decode": dec_row,
-          "flash_decode_paged": paged_row})
+          "flash_decode_paged": paged_row, "train": train_rows})
 
     model, engine, launches = engine_phase(dev)
     emit(dict(engine, device=name, nvidia_smi=smi))
     paged_engine, paged_launches = paged_engine_phase(model)
     emit(dict(paged_engine, device=name, nvidia_smi=smi))
     emit(dict(profile_phase(model), device=name, nvidia_smi=smi))
+    del model
+    torch.cuda.empty_cache()
+    train, train_launches = train_phase(dev)
+    emit(dict(train, device=name, nvidia_smi=smi))
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
+    fwd_drop = train_rows["flash_fwd_dropout"]
+
+    def train_row(kname):
+        r = train_rows[kname]
+        return {"name": kname, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
+                "launches": train_launches[kname],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"]}
+
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:149",
-         "launches": launches["flash_fwd"], "max_abs_err": fwd_err,
+         "launches": launches["flash_fwd"] + train_launches["flash_fwd"],
+         "launches_by_path": {"engine": launches["flash_fwd"],
+                              "train": train_launches["flash_fwd"]},
+         "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
-         "library_ms": fwd_main["library_ms"]},
+         "library_ms": fwd_main["library_ms"],
+         "train_dropout": {k: fwd_drop[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "max_abs_err")}},
+        dict(train_row("flash_bwd_dq"),
+             replaces="paddle_tpu/kernels/flash_attention.py:207"),
+        dict(train_row("flash_bwd_dkv"),
+             replaces="paddle_tpu/kernels/flash_attention.py:262"),
         {"name": "flash_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_decode.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:363",

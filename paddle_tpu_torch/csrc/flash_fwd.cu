@@ -3,18 +3,26 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (paddle_tpu/kernels/flash_attention.py:149, launched by
 // `_flash_fwd_impl` at :701 behind `flash_attention_lse` /
-// `flash_attention`) for the case GPT prefill runs: dropout rate 0, no
-// general bias, a key-only additive bias and the causal flag.
+// `flash_attention`) for a key-only additive bias, the causal flag and
+// the in-kernel hash dropout: GPT prefill (rate 0) and the GPT train
+// step (rate 0.1). The general [G, Sq, Sk] bias is not taken here.
 //
-//   O   = softmax(Q K^T * scale + key_bias, causal) V
-//   lse = m + log(l)            (per query row; kept for the backward)
+//   P   = softmax(Q K^T * scale + key_bias, causal)
+//   O   = (keep o P) V / (1 - rate)   (keep: the reference's hash mask)
+//   lse = m + log(l)            (per query row, unmasked; for the backward)
+//
+// Dropout masks P after `l` has accumulated, so `l` and `lse` describe
+// the undropped distribution and the backward's rowsum(dO o O) trick
+// still gives delta. At rate 0 the dropout-free instantiation runs, the
+// same arithmetic as before dropout was added (serving prefill relies on
+// it).
 //
 // Layout: q/o [BH, Sq, D], k/v [BH, Sk, D], lse [BH, Sq], all fp32,
 // contiguous. key_bias is [BH / bias_heads, Sk]: head bh reads row
 // bh / bias_heads, so the model's [batch, Sk] padding bias (bias_heads =
 // heads) is read as it is, with no per-head copy; a null key_bias means
-// no bias. Conventions of the reference: masked
-// scores are -1e30, `l` is clamped at 1e-30, accumulation is fp32.
+// no bias. Conventions of the reference: masked scores are -1e30, `l` is
+// clamped at 1e-30, accumulation is fp32.
 //
 // Bound on this card: operations. At the prefill shape (12 heads,
 // T = 1024, D = 64, causal) the kernel moves ~13 MB but does
@@ -30,32 +38,27 @@
 //     16 KB at D = 64) and read by all 64 rows of the block;
 //   - under `causal` the whole key tiles above the diagonal are skipped,
 //     which halves the work at T = 1024;
-//   - four threads share a query row, each owning D/4 of its dimensions
-//     as float4s, so shared-memory reads are 16-byte vectors without bank
-//     conflicts and a score needs two warp shuffles to reduce.
+//   - four threads share a query row (flash_common.cuh).
+// The dropout hash costs ~10 integer operations per (row, key) and
+// thread; each of a row's four threads computes it, which is simpler
+// than sharing the bits and cheaper than storing a mask.
 // A tensor-core (wgmma, bf16/TF32) version with TMA-fed pipelined tiles
 // is the later fast design.
 
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kBlockQ = 64;       // query rows per block
-constexpr int kRowThreads = 4;    // threads sharing one query row
-constexpr int kThreads = kBlockQ * kRowThreads;
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
+using namespace flash;
 
 // D: head dim (multiple of 16). BK: key rows per shared-memory tile.
-template <int D, int BK>
+template <int D, int BK, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ kb,
                  float* __restrict__ o, float* __restrict__ lse,
-                 int bias_heads, int sq, int sk, float scale, int causal) {
+                 int bias_heads, int sq, int sk, float scale, int causal,
+                 unsigned seed, unsigned thresh, float keep_prob) {
   constexpr int kVec = D / 16;   // float4s per thread: d = 16c + 4*lane
   constexpr int kRow4 = D / 4;   // float4s per K/V row
   __shared__ float4 ks[BK][kRow4];
@@ -63,11 +66,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float kbs[BK];
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kTileRows;
   const int tid = threadIdx.x;
   const int lane = tid & (kRowThreads - 1);
   const int qi = q0 + tid / kRowThreads;
   const bool row_ok = qi < sq;
+  const unsigned head_s = head_seed(seed, (unsigned)bh);
+  const unsigned row_h = row_hash((unsigned)qi);
 
   // rows past Sq still run (they take part in the shuffles and the
   // barriers) on row 0's data and store nothing
@@ -88,7 +93,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
   // key tiles starting past the block's last row are masked for every
   // row of the block: skip them
-  const int kend = causal ? min(sk, q0 + kBlockQ) : sk;
+  const int kend = causal ? min(sk, q0 + kTileRows) : sk;
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile has been consumed
@@ -134,6 +139,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       psum += s[j];
     }
     l = l * alpha + psum;
+    if (kDropout) {
+      // after `l`: dropout leaves the normalizer undropped
+#pragma unroll
+      for (int j = 0; j < BK; ++j) {
+        if (!hash_keep(row_h, (unsigned)(k0 + j), head_s, thresh)) s[j] = 0.f;
+      }
+    }
 #pragma unroll
     for (int c = 0; c < kVec; ++c) {
       acc[c].x *= alpha;
@@ -159,10 +171,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (row_ok) {
     const float l_safe = fmaxf(l, 1e-30f);
     float4* op = reinterpret_cast<float4*>(o + ((size_t)bh * sq + qi) * D);
+    if (kDropout) {
+      // the reference scales the normalizer, not the output: l * (1 - rate)
+      const float l_out = l_safe * keep_prob;
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      op[4 * c + lane] = make_float4(acc[c].x / l_safe, acc[c].y / l_safe,
-                                     acc[c].z / l_safe, acc[c].w / l_safe);
+      for (int c = 0; c < kVec; ++c) {
+        op[4 * c + lane] = make_float4(acc[c].x / l_out, acc[c].y / l_out,
+                                       acc[c].z / l_out, acc[c].w / l_out);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        op[4 * c + lane] = make_float4(acc[c].x / l_safe, acc[c].y / l_safe,
+                                       acc[c].z / l_safe, acc[c].w / l_safe);
+      }
     }
     if (lane == 0) lse[(size_t)bh * sq + qi] = m + logf(l_safe);
   }
@@ -172,10 +194,18 @@ template <int D, int BK>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* kb, float* o, float* lse, int bh,
                    int bias_heads, int sq, int sk, float scale, int causal,
-                   cudaStream_t stream) {
-  dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<D, BK><<<grid, kThreads, 0, stream>>>(
-      q, k, v, kb, o, lse, bias_heads, sq, sk, scale, causal);
+                   int dropout, unsigned seed, unsigned thresh,
+                   float keep_prob, cudaStream_t stream) {
+  dim3 grid((sq + kTileRows - 1) / kTileRows, bh);
+  if (dropout) {
+    flash_fwd_kernel<D, BK, true><<<grid, kThreads, 0, stream>>>(
+        q, k, v, kb, o, lse, bias_heads, sq, sk, scale, causal, seed, thresh,
+        keep_prob);
+  } else {
+    flash_fwd_kernel<D, BK, false><<<grid, kThreads, 0, stream>>>(
+        q, k, v, kb, o, lse, bias_heads, sq, sk, scale, causal, seed, thresh,
+        keep_prob);
+  }
   return cudaGetLastError();
 }
 
@@ -185,10 +215,14 @@ extern "C" {
 
 // Returns a cudaError_t: 0 on a successful launch. The launch is
 // asynchronous on `stream`; nothing is allocated or synchronised here.
+// `dropout` 0 ignores seed, thresh and keep_prob; otherwise `seed` is the
+// 23-bit normalized seed, `thresh` the keep threshold and `keep_prob`
+// 1 - rate (as fp32).
 int paddle_flash_fwd_f32(const void* q, const void* k, const void* v,
                          const void* key_bias, void* o, void* lse, int bh,
                          int bias_heads, int sq, int sk, int d, float scale,
-                         int causal, void* stream) {
+                         int causal, int dropout, unsigned seed,
+                         unsigned thresh, float keep_prob, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
       bh % bias_heads != 0) {
     return (int)cudaErrorInvalidValue;
@@ -203,13 +237,16 @@ int paddle_flash_fwd_f32(const void* q, const void* k, const void* v,
   switch (d) {
     case 32:
       return (int)launch<32, 64>(qf, kf, vf, bf, of, lf, bh, bias_heads, sq,
-                                 sk, scale, causal, s);
+                                 sk, scale, causal, dropout, seed, thresh,
+                                 keep_prob, s);
     case 64:
       return (int)launch<64, 64>(qf, kf, vf, bf, of, lf, bh, bias_heads, sq,
-                                 sk, scale, causal, s);
+                                 sk, scale, causal, dropout, seed, thresh,
+                                 keep_prob, s);
     case 128:
       return (int)launch<128, 32>(qf, kf, vf, bf, of, lf, bh, bias_heads, sq,
-                                 sk, scale, causal, s);
+                                  sk, scale, causal, dropout, seed, thresh,
+                                  keep_prob, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

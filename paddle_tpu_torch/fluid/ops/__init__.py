@@ -1,5 +1,6 @@
-"""Op lowerings of the serving slice as plain functions on tensors."""
+"""Op lowerings of the serving and training slices as plain functions on
+tensors."""
 
-from . import math_ops, nn_ops
+from . import math_ops, nn_ops, optimizer_ops
 
-__all__ = ["math_ops", "nn_ops"]
+__all__ = ["math_ops", "nn_ops", "optimizer_ops"]

@@ -1,4 +1,5 @@
-"""Attention and KV-cache op lowerings (port of the ``flash_attention``,
+"""Attention, dropout and KV-cache op lowerings (port of the
+``flash_attention`` / ``flash_attention_grad``, ``dropout``,
 ``flash_decode_attention``, ``flash_decode_paged_attention``,
 ``kv_cache_write`` and paged KV-pool lowerings in
 ``paddle_tpu/fluid/ops/nn_ops.py``) as plain functions on tensors."""
@@ -9,6 +10,8 @@ from ...kernels import flash_attention as _fa
 
 __all__ = [
     "flash_attention",
+    "flash_attention_lse",
+    "dropout",
     "flash_decode_attention",
     "flash_decode_paged_attention",
     "kv_cache_write",
@@ -19,26 +22,125 @@ __all__ = [
 ]
 
 
+def _unbroadcast_key_bias(dkb, raw_shape, B, N, Sk):
+    """[B*N, Sk] key-bias gradient summed back onto the raw key-bias
+    shape (``flash_attention_grad``, :1184-1205): the forward collapses
+    any accepted shape to (r0, Sk) with r0 in {1, B, B*N} before
+    broadcasting, so the gradient sums the broadcast axes back."""
+    r0 = 1
+    for dim in raw_shape[:-1]:
+        r0 *= int(dim)
+    if r0 == B * N:
+        d = dkb
+    elif r0 == B and N > 1:
+        d = dkb.reshape(B, N, Sk).sum(1)
+    else:
+        d = dkb.reshape(B, N, Sk).sum((0, 1))
+    return d.reshape(raw_shape)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``flash_attention`` op made differentiable: the forward is the
+    flash forward (kernel on the card) and saves q, k, v, the key bias,
+    out, lse and the integer seed; the backward is the
+    ``flash_attention_grad`` op, driven from those residuals through both
+    backward kernels, so the forward never runs twice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, causal, scale, rate, seed):
+        out, lse = _fa.flash_attention_lse(
+            q, k, v, key_bias=key_bias, causal=causal, scale=scale,
+            dropout_rate=rate, dropout_seed=seed)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.attrs = (causal, scale, rate, seed)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        causal, scale, rate, seed = ctx.attrs
+        if g is None:
+            g = torch.zeros_like(out)
+        # autograd hands dO as the transposed view _merge_heads' backward
+        # makes; the kernels read contiguous rows
+        dq, dk, dv, dkb = _fa.flash_attention_bwd_from_residuals(
+            q, k, v, key_bias, seed, out, lse, g.contiguous(), causal=causal,
+            scale=scale, dropout_rate=rate, g_lse=g_lse)
+        dkey_bias = None
+        if key_bias is not None and ctx.needs_input_grad[3]:
+            B, N, _Sq, _D = q.shape
+            dkey_bias = _unbroadcast_key_bias(
+                dkb, tuple(key_bias.shape), B, N, k.shape[2]
+            ).to(key_bias.dtype)
+        return dq, dk, dv, dkey_bias, None, None, None, None
+
+
+def flash_attention_lse(q, k, v, key_bias=None, causal=False, scale=None,
+                        dropout_rate=0.0, dropout_seed=None):
+    """(out, lse [N, heads, Sq]) of the fused attention, differentiable in
+    q, k, v and the key bias; a cotangent of ``lse`` folds into the
+    backward's delta. When no input needs a gradient (or under
+    ``no_grad`` / ``inference_mode``) autograd records nothing and this
+    is one forward launch."""
+    return _FlashAttention.apply(q, k, v, key_bias, causal, scale,
+                                 dropout_rate, dropout_seed)
+
+
 def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
                     scale=0.0, dropout_rate=0.0, is_test=False,
                     generator=None):
-    """The ``flash_attention`` op on [N, heads, S, d_head] inputs.
+    """The ``flash_attention`` op on [N, heads, S, d_head] inputs,
+    differentiable through the residual-driven backward kernels (the
+    ``flash_attention_grad`` op).
 
     ``scale`` 0 means 1/sqrt(d_head), as the op attribute. Attention
     dropout applies only when ``dropout_rate > 0`` and not ``is_test``;
-    its 23-bit seed is drawn from ``generator`` (the reference draws it
-    from the executor's key stream). Returns the output; the reference
-    stashes the lse beside it for its backward, which the training slice
-    ports."""
+    its 23-bit seed is drawn from ``generator``, a CPU ``torch.Generator``
+    (the reference draws it from the executor's key stream), as a Python
+    int: a draw on the card would cost a host sync per layer. A general
+    ``bias`` runs the plain version on CPU tensors (differentiable through
+    its dense ops) and raises on the card (the Fluid-layers slice ports
+    it)."""
     rate = float(dropout_rate or 0.0)
     seed = None
     if rate > 0.0 and not is_test:
         seed = int(torch.randint(0, 1 << 23, (), generator=generator))
-    out, _lse = _fa.flash_attention_lse(
-        q, k, v, key_bias=key_bias, bias=bias, causal=bool(causal),
-        scale=float(scale) if scale else None,
-        dropout_rate=rate if seed is not None else 0.0, dropout_seed=seed)
+    rate = rate if seed is not None else 0.0
+    scale = float(scale) if scale else None
+    if bias is not None:
+        out, _lse = _fa.flash_attention_lse(
+            q, k, v, key_bias=key_bias, bias=bias, causal=bool(causal),
+            scale=scale, dropout_rate=rate, dropout_seed=seed)
+        return out
+    out, _lse = flash_attention_lse(q, k, v, key_bias=key_bias,
+                                    causal=bool(causal), scale=scale,
+                                    dropout_rate=rate, dropout_seed=seed)
     return out
+
+
+def dropout(x, dropout_prob=0.5, is_test=False,
+            dropout_implementation="downgrade_in_infer", generator=None):
+    """The ``dropout`` op (``nn_ops.py:467``).
+
+    Training: keep each element with probability 1 − p, drawn from
+    ``generator`` (on ``x``'s device); ``downgrade_in_infer`` returns
+    x·mask, ``upscale_in_train`` x·mask/(1 − p). Test: ``downgrade_in_infer``
+    returns x·(1 − p), ``upscale_in_train`` x. The gradient is dOut·mask,
+    as ``dropout_grad``. The masks come from torch's generator, not the
+    reference's JAX key stream, so the two drop different elements."""
+    p = float(dropout_prob)
+    upscale = dropout_implementation == "upscale_in_train"
+    if not upscale and dropout_implementation != "downgrade_in_infer":
+        raise ValueError("unknown dropout_implementation %r"
+                         % (dropout_implementation,))
+    if is_test:
+        return x if upscale else x * (1.0 - p)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    mask = keep.to(x.dtype)
+    if upscale:
+        mask = mask / max(1.0 - p, 1e-12)
+    return x * mask
 
 
 def flash_decode_attention(q, k, v, key_bias=None, scale=0.0):

@@ -2,7 +2,9 @@
 ``paddle_tpu/fluid/profiler.py``).
 
 The decode session bumps ``decode_prefills`` / ``decode_steps`` and
-records ``decode_prefill_ms`` / ``decode_step_ms`` here. Thread-safe:
+records ``decode_prefill_ms`` / ``decode_step_ms`` here; the GPT train
+step (``models.gpt.build_gpt_lm_train``) bumps ``train_steps`` and
+records ``train_step_ms``, as the reference's trainer does. Thread-safe:
 the engine's loop thread bumps while callers read. Each histogram keeps
 a bounded window of its newest samples.
 """

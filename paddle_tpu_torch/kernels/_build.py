@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use, into ``paddle_tpu_torch/_build/`` (listed in
 ``.gitignore``), from the sources in the checkout alone. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build()`` starts one
-``nvcc`` per source, all at once.
+file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a
+stale library is never loaded. ``build()`` starts one ``nvcc`` per
+source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine that has no ``nvcc``.
@@ -27,11 +28,16 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> C entry point and its argument types (pointers and the
-# stream as c_void_p: ctypes would otherwise pass them as 32-bit ints)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# stream as c_void_p: ctypes would otherwise pass them as 32-bit ints;
+# and unsigned ints as c_uint32)
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# the flash training kernels' trailing arguments: bh, bias_heads, sq, sk,
+# d, scale, causal, dropout, seed, thresh, keep_prob / inv_keep, stream
+_FLASH_TAIL = [_I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F, _P]
 KERNELS = {
-    "flash_fwd": ("paddle_flash_fwd_f32",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "flash_fwd": ("paddle_flash_fwd_f32", [_P] * 6 + _FLASH_TAIL),
+    "flash_bwd_dq": ("paddle_flash_bwd_dq_f32", [_P] * 8 + _FLASH_TAIL),
+    "flash_bwd_dkv": ("paddle_flash_bwd_dkv_f32", [_P] * 10 + _FLASH_TAIL),
     "flash_decode": ("paddle_flash_decode_f32",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "flash_decode_paged": ("paddle_flash_decode_paged_f32",
@@ -65,10 +71,14 @@ def nvcc_path():
 
 
 def _lib_path(name):
+    """(source, library path); the hash covers the source, every shared
+    header of ``csrc/`` and the flags."""
     src = os.path.join(SRC_DIR, name + ".cu")
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(fn for fn in os.listdir(SRC_DIR) if fn.endswith(".cuh"))
+    for path in [src] + [os.path.join(SRC_DIR, fn) for fn in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:16]))
 

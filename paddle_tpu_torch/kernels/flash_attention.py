@@ -5,13 +5,20 @@ Layout [B, N, S, D] (batch, heads, seq, head_dim), heads flattened to
 B·N inside the kernels, fp32 accumulation, masked scores at ``_NEG``
 (-1e30) and ``l`` clamped at 1e-30 — the reference's conventions.
 
-Three kernels, each behind a wrapper in the reference's name and
-signature, with a plain integer launch count:
+Five kernels, each behind a wrapper with a plain integer launch count:
 
 - ``flash_attention_lse`` launches ``flash_fwd`` (``csrc/flash_fwd.cu``),
-  which replaces the Pallas ``_fwd_kernel`` for a key-only bias and the
-  causal flag, without dropout — the GPT prefill. It returns (out, lse);
-  ``flash_attention`` drops the lse.
+  which replaces the Pallas ``_fwd_kernel`` for a key-only bias, the
+  causal flag and the in-kernel hash dropout — the GPT prefill (rate 0)
+  and the GPT train step. It returns (out, lse); ``flash_attention``
+  drops the lse.
+- ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch ``flash_bwd_dq``
+  (``csrc/flash_bwd_dq.cu``) and ``flash_bwd_dkv``
+  (``csrc/flash_bwd_dkv.cu``), which replace the Pallas
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (key bias, causal,
+  dropout; no general-bias gradient). ``flash_attention_bwd_from_residuals``
+  drives both from the forward's saved out, lse and seed, as the
+  reference's ``flash_attention_grad`` op does.
 - ``flash_decode_attention`` launches ``flash_decode``
   (``csrc/flash_decode.cu``), which replaces the Pallas
   ``_decode_kernel``: one query token per (slot, head) against the
@@ -25,9 +32,9 @@ signature, with a plain integer launch count:
 A wrapper given CPU tensors runs its plain version (the functions named
 ``*_plain`` here), which the CPU tests hold against the JAX package;
 given CUDA tensors it launches its kernel or raises. There is no
-fallback from one to the other. The general ``bias`` and in-kernel
-dropout run only in the plain version, and on a CUDA tensor they raise
-until the training slice ports them.
+fallback from one to the other. The general ``bias`` of the forward runs
+only in the plain version, and on a CUDA tensor it raises until the
+Fluid-layers slice ports it.
 """
 
 import math
@@ -41,9 +48,15 @@ __all__ = [
     "reference_attention",
     "flash_attention_lse",
     "flash_attention",
+    "flash_bwd_dq",
+    "flash_bwd_dkv",
+    "flash_attention_bwd_from_residuals",
     "flash_decode_attention",
     "flash_decode_paged_attention",
     "flash_attention_lse_plain",
+    "flash_bwd_dq_plain",
+    "flash_bwd_dkv_plain",
+    "flash_attention_bwd_plain",
     "flash_decode_attention_plain",
     "flash_decode_paged_attention_plain",
     "gather_paged_rows",
@@ -74,7 +87,7 @@ def reference_attention(q, k, v, bias=None, causal=False, scale=None):
 
 
 # --------------------------------------------------------------------------
-# dropout hash (plain version only: the kernels do not take dropout yet)
+# dropout hash (the kernels compute the same in uint32, flash_common.cuh)
 # --------------------------------------------------------------------------
 
 
@@ -89,13 +102,20 @@ def _hash_keep(rows, cols, head, seed_u32, rate):
     n = n ^ (n >> 12)
     n = (n * _M2) & _U32
     n = n ^ (n >> 15)
-    thresh = int((1.0 - float(rate)) * 4294967296.0)
-    return n < min(thresh, _U32)
+    return n < _keep_threshold(rate)
+
+
+def _keep_threshold(rate):
+    """keep iff hash < this: (1 - rate) * 2^32 in double precision, as
+    the reference computes it (fp32 would round it to another integer)."""
+    return min(int((1.0 - float(rate)) * 4294967296.0), _U32)
 
 
 def _norm_seed(dropout_seed):
     """Any user seed -> a 23-bit int, avalanche-mixed the reference's way
-    (``_norm_seed``: a plain modulus would alias seeds)."""
+    (``_norm_seed``: a plain modulus would alias seeds). A tensor seed is
+    read with ``.item()``, a host sync on the card: the training path
+    hands Python ints."""
     s = 0 if dropout_seed is None else dropout_seed
     if isinstance(s, torch.Tensor):
         s = s.reshape(()).item()
@@ -165,14 +185,14 @@ def _normalize_bias(bias, B, N, Sq, Sk):
                      % (tuple(b.shape),))
 
 
-def _check_args(q, k, causal, dropout_rate, dropout_seed):
+def _check_args(q, k, causal, dropout_rate, dropout_seed, warn=True):
     Sq, Sk = q.shape[2], k.shape[2]
     if causal and Sq != Sk:
         raise ValueError("causal flash attention needs Sq == Sk")
     rate = float(dropout_rate or 0.0)
     if not 0.0 <= rate < 1.0:
         raise ValueError("dropout_rate must be in [0, 1), got %r" % rate)
-    if rate > 0.0 and dropout_seed is None:
+    if warn and rate > 0.0 and dropout_seed is None:
         warnings.warn(
             "flash_attention: dropout_rate > 0 with dropout_seed=None "
             "reuses ONE fixed dropout mask on every call; pass a "
@@ -222,6 +242,100 @@ def flash_attention_lse_plain(q, k, v, key_bias=None, bias=None,
         p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
     out = torch.einsum("bnqk,bnkd->bnqd", p.to(q.dtype), v)
     return out, lse
+
+
+def _bwd_delta(out, g, g_lse=None):
+    """delta = rowsum(dO∘O) [B, N, Sq] fp32, less the lse cotangent where
+    there is one (``_flash_bwd_core``, :748-751): ds_ij gains p_ij·g_lse_i,
+    which folds into delta."""
+    delta = (g.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float().reshape(delta.shape)
+    return delta
+
+
+def _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale, rate,
+               dropout_seed):
+    """The backward kernels' math on dense tensors: (ds, pv), each
+    [B, N, Sq, Sk] fp32, with p = exp(s − lse) from the forward's masked
+    scores, dp = keep∘(dO·Vᵀ)/(1−rate), ds = p∘(dp − delta) and pv =
+    keep∘p/(1−rate) (p itself without dropout)."""
+    B, N, Sq, _D = q.shape
+    Sk = k.shape[2]
+    kb = _normalize_key_bias(key_bias, B, N, Sk)
+    s = torch.einsum("bnqd,bnkd->bnqk", q, k).float() * scale
+    if kb is not None:
+        s = s + kb.reshape(B, N, 1, Sk)
+    if causal:
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, _NEG)
+    p = torch.exp(s - lse.float().reshape(B, N, Sq, 1))
+    dp = torch.einsum("bnqd,bnkd->bnqk", g, v).float()
+    pv = p
+    if rate > 0.0:
+        keep = _fallback_keep(B, N, Sq, Sk, _norm_seed(dropout_seed), rate,
+                              q.device)
+        inv_keep = 1.0 / (1.0 - rate)
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        dp = torch.where(keep, dp * inv_keep, zero)
+        pv = torch.where(keep, p * inv_keep, zero)
+    ds = p * (dp - delta.float().reshape(B, N, Sq, 1))
+    return ds, pv
+
+
+def _bwd_dq(q, k, ds, scale):
+    return (torch.einsum("bnqk,bnkd->bnqd", ds, k.float()) * scale).to(q.dtype)
+
+
+def _bwd_dkv(q, k, v, g, ds, pv, scale):
+    B, N, _Sq, _D = q.shape
+    Sk = k.shape[2]
+    dk = torch.einsum("bnqk,bnqd->bnkd", ds, q.float()) * scale
+    dv = torch.einsum("bnqk,bnqd->bnkd", pv, g.float())
+    return dk.to(k.dtype), dv.to(v.dtype), ds.sum(2).reshape(B * N, Sk)
+
+
+def flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta, causal=False,
+                       scale=None, dropout_rate=0.0, dropout_seed=None):
+    """Plain PyTorch version of the dq kernel: dq = scale · ds·K, ds as
+    in ``_bwd_dq_kernel``. ``g`` is dO [B, N, Sq, D]; ``lse`` and
+    ``delta`` are [B, N, Sq] (or [B·N, Sq]); ``dropout_seed`` is the raw
+    seed the forward was given."""
+    rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    ds, _pv = _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale,
+                         rate, dropout_seed)
+    return _bwd_dq(q, k, ds, scale)
+
+
+def flash_bwd_dkv_plain(q, k, v, key_bias, g, lse, delta, causal=False,
+                        scale=None, dropout_rate=0.0, dropout_seed=None):
+    """Plain PyTorch version of the dk/dv kernel: (dk, dv, dkey_bias
+    [B·N, Sk] fp32) as ``_bwd_dkv_kernel`` computes them; arguments as
+    ``flash_bwd_dq_plain``."""
+    rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    ds, pv = _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale,
+                        rate, dropout_seed)
+    return _bwd_dkv(q, k, v, g, ds, pv, scale)
+
+
+def flash_attention_bwd_plain(q, k, v, key_bias, seed, out, lse, g,
+                              causal=False, scale=None, dropout_rate=0.0,
+                              g_lse=None):
+    """Plain PyTorch version of both backward kernels: the explicit math
+    of ``_flash_bwd_core`` on dense tensors, driven from the forward's
+    residuals (``out``, ``lse`` and the raw dropout ``seed``). ``g`` is
+    dO; ``g_lse`` an optional lse cotangent [B, N, Sq]. Returns (dq, dk,
+    dv, dkey_bias [B·N, Sk] fp32); the keep mask is regenerated from the
+    seed with the forward's hash."""
+    rate = _check_args(q, k, causal, dropout_rate, seed, warn=False)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    delta = _bwd_delta(out, g, g_lse)
+    ds, pv = _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale,
+                        rate, seed)
+    dk, dv, dkb = _bwd_dkv(q, k, v, g, ds, pv, scale)
+    return _bwd_dq(q, k, ds, scale), dk, dv, dkb
 
 
 def flash_decode_attention_plain(q, k, v, key_bias=None, scale=None):
@@ -332,6 +446,17 @@ def _launch(name, device, *args):
                            % (name, err, fn.error_string(err).decode()))
 
 
+def _dropout_args(rate, dropout_seed):
+    """The kernels' dropout arguments: (on, 23-bit seed, keep threshold,
+    1 − rate, 1 / (1 − rate)). The threshold is computed here in double
+    precision as the reference does; ctypes rounds the two rates to fp32,
+    the type the reference multiplies in."""
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0, 1.0
+    return (1, _norm_seed(dropout_seed), _keep_threshold(rate), 1.0 - rate,
+            1.0 / (1.0 - rate))
+
+
 def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
                         scale=None, dropout_rate=0.0, dropout_seed=None):
     """(out [B, N, Sq, D], lse [B, N, Sq]) — see ``flash_attention``.
@@ -339,30 +464,32 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
     The wrapper of the ``flash_fwd`` CUDA kernel. CPU tensors run the
     plain version (``flash_attention_lse_plain``). CUDA tensors launch
     the kernel on the current stream (fp32, contiguous, head_dim in
-    {32, 64, 128}) or raise: the kernel takes a key bias and the causal
-    flag, and a general ``bias`` or ``dropout_rate > 0`` raises there
-    until the training slice ports them. ``flash_attention_lse.launches``
-    counts kernel launches."""
+    {32, 64, 128}) or raise: the kernel takes a key bias, the causal flag
+    and the hash dropout; a general ``bias`` raises there until the
+    Fluid-layers slice ports it. ``flash_attention_lse.launches`` counts
+    kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(
             q, k, v, key_bias=key_bias, bias=bias, causal=causal,
             scale=scale, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed)
-    if bias is not None or rate > 0.0:
+    if bias is not None:
         raise NotImplementedError(
-            "the CUDA flash kernel takes a key bias and the causal flag; "
-            "the general-bias and in-kernel dropout variants are not "
-            "ported yet (run them on CPU tensors for the plain version)")
+            "the CUDA flash kernel takes a key bias, the causal flag and "
+            "dropout; the general-bias variant is not ported yet (run it "
+            "on CPU tensors for the plain version)")
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
     _cuda_operands("flash_fwd", D, q, k, v, kb)
+    on, seed, thresh, keep_prob, _inv = _dropout_args(rate, dropout_seed)
     out = torch.empty_like(q)
     lse = torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kb), out.data_ptr(), lse.data_ptr(), B * N, bias_heads, Sq,
-            Sk, D, float(scale), int(bool(causal)))
+            Sk, D, float(scale), int(bool(causal)), on, seed, thresh,
+            keep_prob)
     flash_attention_lse.launches += 1
     return out, lse
 
@@ -383,6 +510,124 @@ def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
         q, k, v, key_bias=key_bias, bias=bias, causal=causal, scale=scale,
         dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     return out
+
+
+def _bwd_operands(name, q, k, v, key_bias, g, lse, delta, causal,
+                  dropout_rate, dropout_seed):
+    """Shared checks of the two backward wrappers on CUDA tensors; returns
+    (rate, key-bias rows, heads per row)."""
+    rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
+    B, N, Sq, D = q.shape
+    Sk = k.shape[2]
+    if tuple(g.shape) != tuple(q.shape):
+        raise ValueError("%s: dO %r does not match q %r"
+                         % (name, tuple(g.shape), tuple(q.shape)))
+    for t in (lse, delta):
+        if t.numel() != B * N * Sq:
+            raise ValueError("%s: lse/delta need B*N*Sq = %d entries, got %r"
+                             % (name, B * N * Sq, tuple(t.shape)))
+    kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
+    _cuda_operands(name, D, q, k, v, kb, g, lse, delta)
+    return rate, kb, bias_heads
+
+
+def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
+                 dropout_rate=0.0, dropout_seed=None):
+    """dq [B, N, Sq, D] of flash attention, from dO ``g``, the forward's
+    ``lse`` and ``delta`` = rowsum(dO∘O) (both [B, N, Sq]) and the raw
+    dropout seed the forward was given.
+
+    The wrapper of the ``flash_bwd_dq`` CUDA kernel. CPU tensors run the
+    plain version (``flash_bwd_dq_plain``); CUDA tensors launch the
+    kernel on the current stream (fp32, contiguous, head_dim in {32, 64,
+    128}) or raise. ``flash_bwd_dq.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta,
+                                  causal=causal, scale=scale,
+                                  dropout_rate=dropout_rate,
+                                  dropout_seed=dropout_seed)
+    rate, kb, bias_heads = _bwd_operands("flash_bwd_dq", q, k, v, key_bias, g,
+                                         lse, delta, causal, dropout_rate,
+                                         dropout_seed)
+    B, N, Sq, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    on, seed, thresh, _keep, inv_keep = _dropout_args(rate, dropout_seed)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(kb), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B * N, bias_heads, Sq,
+            k.shape[2], D, float(scale), int(bool(causal)), on, seed, thresh,
+            inv_keep)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
+                  scale=None, dropout_rate=0.0, dropout_seed=None):
+    """(dk, dv [B, N, Sk, D], dkey_bias [B·N, Sk] fp32) of flash
+    attention; arguments as ``flash_bwd_dq``.
+
+    The wrapper of the ``flash_bwd_dkv`` CUDA kernel. CPU tensors run the
+    plain version (``flash_bwd_dkv_plain``); CUDA tensors launch the
+    kernel on the current stream (fp32, contiguous, head_dim in {32, 64,
+    128}) or raise. ``flash_bwd_dkv.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, key_bias, g, lse, delta,
+                                   causal=causal, scale=scale,
+                                   dropout_rate=dropout_rate,
+                                   dropout_seed=dropout_seed)
+    rate, kb, bias_heads = _bwd_operands("flash_bwd_dkv", q, k, v, key_bias,
+                                         g, lse, delta, causal, dropout_rate,
+                                         dropout_seed)
+    B, N, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    on, seed, thresh, _keep, inv_keep = _dropout_args(rate, dropout_seed)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dkb = torch.empty(B * N, Sk, dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(kb), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dkb.data_ptr(),
+            B * N, bias_heads, Sq, Sk, D, float(scale), int(bool(causal)), on,
+            seed, thresh, inv_keep)
+    flash_bwd_dkv.launches += 1
+    return dk, dv, dkb
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_from_residuals(q, k, v, key_bias, seed, out, lse, g,
+                                       causal=False, scale=None,
+                                       dropout_rate=0.0, g_lse=None):
+    """Backward of flash attention driven by the forward's SAVED
+    residuals (``out``, ``lse`` [B, N, Sq] and the raw dropout ``seed``,
+    None when dropout was off) instead of a forward replay — the
+    reference's entry of the same name (:991), which its
+    ``flash_attention_grad`` op calls. ``g`` is dO; ``g_lse`` an optional
+    lse cotangent (the reference's custom VJP folds it into delta; it
+    has no interpreter flag here). Key-bias-only: no general bias.
+    Returns (dq, dk, dv, dkey_bias [B·N, Sk] fp32).
+
+    CPU tensors run the plain version (``flash_attention_bwd_plain``).
+    CUDA tensors compute delta = rowsum(dO∘O) with a torch op, as the
+    reference leaves it to XLA, then launch ``flash_bwd_dq`` and
+    ``flash_bwd_dkv``, or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, key_bias, seed, out, lse, g, causal=causal, scale=scale,
+            dropout_rate=dropout_rate, g_lse=g_lse)
+    delta = _bwd_delta(out, g, g_lse)
+    lse = lse.reshape(delta.shape)
+    kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate,
+              dropout_seed=seed)
+    dq = flash_bwd_dq(q, k, v, key_bias, g, lse, delta, **kw)
+    dk, dv, dkb = flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, **kw)
+    return dq, dk, dv, dkb
 
 
 def flash_decode_attention(q, k, v, key_bias=None, scale=None):

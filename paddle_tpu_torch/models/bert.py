@@ -1,8 +1,10 @@
 """Shared transformer pieces (port of the parts of
-``paddle_tpu/models/bert.py`` the GPT serving path uses): the flash
-policy, the key-only padding bias, the FFN, and multi-head attention
-with its KV-cache modes: ``prefill`` and ``decode`` over the contiguous
-slot pool, ``paged_window`` and ``paged_step`` over the paged pool.
+``paddle_tpu/models/bert.py`` the GPT serving and training paths use):
+the flash policy, the key-only padding bias, the dropout helper and
+where a training forward draws its random numbers, the FFN, and
+multi-head attention with attention dropout in training and its
+KV-cache modes: ``prefill`` and ``decode`` over the contiguous slot
+pool, ``paged_window`` and ``paged_step`` over the paged pool.
 
 The projections and the FFN are plain products (``nn.Linear``), as the
 reference left them to XLA outside any Pallas kernel; the score /
@@ -21,6 +23,7 @@ __all__ = [
     "FLASH_AUTO_SEQ_THRESHOLD",
     "flash_wanted",
     "mask_to_key_bias",
+    "DropoutRNG",
     "FFN",
     "MultiHeadAttention",
 ]
@@ -47,6 +50,29 @@ def mask_to_key_bias(mask):
     return mask.reshape(mask.shape[0], -1).float() * 1e4 - 1e4
 
 
+class DropoutRNG(object):
+    """Where a training forward draws its random numbers: ``masks``, a
+    ``torch.Generator`` on the model's device for the dropout op's masks,
+    and ``seeds``, a CPU generator for the flash kernel's per-layer
+    dropout seeds, drawn as Python ints so that no draw waits on the card.
+    Both seeded from ``seed``."""
+
+    def __init__(self, device, seed=0):
+        self.masks = torch.Generator(device=device).manual_seed(int(seed))
+        self.seeds = torch.Generator().manual_seed(int(seed) + 1)
+
+
+def _dropout(x, rate, is_test, rng=None):
+    """``bert._dropout`` (:51): the dropout op with its default
+    ``downgrade_in_infer`` (x·mask in training, no upscale), skipped
+    entirely at ``is_test`` or rate 0 — the reference's train/infer
+    mismatch, kept as it is."""
+    if is_test or rate <= 0.0:
+        return x
+    return nn_ops.dropout(x, dropout_prob=rate,
+                          generator=None if rng is None else rng.masks)
+
+
 class FFN(nn.Module):
     """fc0 (exact-erf GELU) -> fc1."""
 
@@ -62,11 +88,18 @@ class FFN(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention on [N, S, H] inputs with q/k/v/out projections.
 
-    ``forward(x, attn_bias, key_bias, causal, use_flash, cache)``:
+    ``forward(x, attn_bias, key_bias, causal, use_flash, cache,
+    dropout_rate, rng)``:
 
     - ``use_flash`` (the caller's resolved policy, as in the reference)
       with a ``key_bias`` [N, S] runs the fused flash op under the
       ``causal`` flag; otherwise dense attention adds ``attn_bias``.
+    - ``dropout_rate`` > 0 (a training forward; only without ``cache``):
+      the flash op drops attention probabilities in the kernel from a
+      seed drawn from ``rng.seeds``; the dense branch drops the attention
+      weights with the dropout op (``downgrade_in_infer``, masks from
+      ``rng.masks``), as the reference does (:373). ``rng`` None draws
+      from torch's default generators.
     - ``cache``: None outside serving, else a dict with the layer's
       ``k``/``v`` cache tensors [slots, heads, max_len, d_head] and a
       ``mode``:
@@ -116,7 +149,7 @@ class MultiHeadAttention(nn.Module):
         return ctxt.transpose(1, 2).reshape(N, S, self.hidden_size)
 
     def forward(self, x, attn_bias=None, key_bias=None, causal=False,
-                use_flash=False, cache=None):
+                use_flash=False, cache=None, dropout_rate=0.0, rng=None):
         scale = 1.0 / math.sqrt(self.d_head)
         q = self._split_heads(self.q(x))
         k = self._split_heads(self.k(x))
@@ -163,13 +196,17 @@ class MultiHeadAttention(nn.Module):
             return self.out(self._merge_heads(ctxt))
         elif mode is not None:
             raise ValueError("unknown KV-cache mode %r" % (mode,))
+        training = dropout_rate > 0.0
         if use_flash and key_bias is not None:
-            ctxt = nn_ops.flash_attention(q, k, v, key_bias=key_bias,
-                                          causal=causal, scale=scale,
-                                          is_test=True)
+            ctxt = nn_ops.flash_attention(
+                q, k, v, key_bias=key_bias, causal=causal, scale=scale,
+                dropout_rate=dropout_rate, is_test=not training,
+                generator=None if rng is None else rng.seeds)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) * scale
             if attn_bias is not None:
                 scores = scores + attn_bias
-            ctxt = torch.matmul(math_ops.softmax(scores), v)
+            weights = _dropout(math_ops.softmax(scores), dropout_rate,
+                               not training, rng)
+            ctxt = torch.matmul(weights, v)
         return self.out(self._merge_heads(ctxt))

@@ -1,5 +1,5 @@
 """Decoder-only causal language model, GPT-2 style (port of
-``paddle_tpu/models/gpt.py``, serving slice).
+``paddle_tpu/models/gpt.py``: serving and the train step).
 
 ``GPTLM`` is the post-LN decoder of the reference (``gpt_decoder`` +
 ``gpt_lm_logits``) as an ``nn.Module`` with five entry points: the full
@@ -9,9 +9,15 @@ over the paged pool, ``paged_window`` (``build_gpt_paged_window``, one
 prompt window written through a block table) and ``paged_step``
 (``build_gpt_paged_step``, every slot's width-1 step or width-k
 speculative verify). The KV caches and pools are plain tensors the
-caller owns and passes in; the model writes them in place. Inference
-only: dropout is never applied (the reference's serving programs run
-with ``is_test``).
+caller owns and passes in; the model writes them in place. The serving
+modes never drop (the reference's serving programs run with
+``is_test``); the full forward applies hidden and attention dropout
+only in training mode with ``cfg.is_test`` false.
+
+``build_gpt_lm_train`` is the counterpart of the reference's
+``build_gpt_lm_train``: the model, the Adam optimizer and a ``step``
+that runs forward, the masked next-token loss (``gpt_lm_loss``),
+backward through the flash kernels and the update.
 
 Weights carry across from the reference as ``{fluid_param_name:
 np.ndarray}`` through ``load_fluid_params``; ``init_fluid_params``
@@ -19,13 +25,17 @@ makes such a dict from a seed.
 """
 
 import copy
+import time
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..fluid import optimizer as _optimizer
+from ..fluid import profiler
 from ..fluid.core import resolve_device
 from ..fluid.ops import math_ops, nn_ops
+from ..observability import trace
 from . import bert as _bert
 
 __all__ = [
@@ -40,6 +50,8 @@ __all__ = [
     "load_fluid_params",
     "init_fluid_params",
     "greedy_generate",
+    "gpt_lm_loss",
+    "build_gpt_lm_train",
 ]
 
 
@@ -89,13 +101,17 @@ class GPTLayer(nn.Module):
         self.ffn = _bert.FFN(H, cfg.intermediate_size, device=device)
         self.ln2 = nn.LayerNorm(H, eps=1e-5, device=device)
 
-    def forward(self, h, attn_bias, key_bias, use_flash, cache):
+    def forward(self, h, attn_bias, key_bias, use_flash, cache,
+                hidden_dropout=0.0, attention_dropout=0.0, rng=None):
         a = self.att(h, attn_bias=attn_bias, key_bias=key_bias, causal=True,
-                     use_flash=use_flash, cache=cache)
+                     use_flash=use_flash, cache=cache,
+                     dropout_rate=attention_dropout, rng=rng)
+        a = _bert._dropout(a, hidden_dropout, False, rng)
         h = math_ops.layer_norm(h + a, self.ln1.weight, self.ln1.bias,
                                 begin_norm_axis=2)
-        return math_ops.layer_norm(h + self.ffn(h), self.ln2.weight,
-                                   self.ln2.bias, begin_norm_axis=2)
+        ff = _bert._dropout(self.ffn(h), hidden_dropout, False, rng)
+        return math_ops.layer_norm(h + ff, self.ln2.weight, self.ln2.bias,
+                                   begin_norm_axis=2)
 
 
 class GPTLM(nn.Module):
@@ -103,13 +119,16 @@ class GPTLM(nn.Module):
     blocks, an untied LM head.
 
     ``device``: where the weights live; ``None`` means the card (and
-    raises without one), ``"cpu"`` runs the plain path on the CPU."""
+    raises without one), ``"cpu"`` runs the plain path on the CPU. The
+    model starts in eval mode; in training mode (``.train()``) with
+    ``cfg.is_test`` false the full forward drops, drawing from ``rng``
+    (a ``bert.DropoutRNG``; None means torch's default generators)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = copy.copy(cfg)
-        self.cfg.is_test = True
+        self.rng = None
         H = cfg.hidden_size
         self.tok_embedding = nn.Embedding(cfg.vocab_size, H, device=dev)
         self.pos_embedding = nn.Embedding(cfg.max_position_embeddings, H,
@@ -142,6 +161,12 @@ class GPTLM(nn.Module):
         T = ids.shape[1]
         h = self.tok_embedding(ids) + self.pos_embedding(pos_ids)
         mode = kv_cache["mode"] if kv_cache is not None else None
+        # dropout at the reference's three places (gpt.py:80, 159, 164)
+        # and in attention, only in a training forward
+        drop = self.training and not self.cfg.is_test and mode is None
+        hidden_p = self.cfg.hidden_dropout if drop else 0.0
+        attn_p = self.cfg.attention_dropout if drop else 0.0
+        h = _bert._dropout(h, hidden_p, False, self.rng)
         key_bias = attn_bias = None
         if mode in ("decode", "paged_step"):
             use_flash = _bert.flash_wanted(self.cfg,
@@ -169,7 +194,9 @@ class GPTLM(nn.Module):
                 else:
                     cache_i["pos"] = kv_cache["pos"]
                     cache_i["key_bias"] = kv_cache["key_bias"]
-            h = layer(h, attn_bias, key_bias, use_flash, cache_i)
+            h = layer(h, attn_bias, key_bias, use_flash, cache_i,
+                      hidden_dropout=hidden_p, attention_dropout=attn_p,
+                      rng=self.rng)
         return h
 
     def forward(self, ids, pos_ids, input_mask, use_flash=None):
@@ -433,3 +460,71 @@ def greedy_generate(model, prompt_ids, max_len):
             step = sess.decode_step([ids[-1]], [len(ids) - 1], [True])
             ids.append(int(np.asarray(step)[0].argmax()))
     return ids
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def gpt_lm_loss(logits, ids, input_mask):
+    """The loss of the reference's ``build_gpt_lm_train`` (:197-210):
+    logits[:, t] predict ids[:, t + 1], the per-token cross entropy is
+    masked at padded TARGET positions, and the sum is divided by the
+    number of real targets. ``ids``/``input_mask``: [N, T] or
+    [N, T, 1]."""
+    N, T = ids.shape[0], ids.shape[1]
+    loss = math_ops.softmax_with_cross_entropy(
+        logits[:, :T - 1], ids.reshape(N, T, 1)[:, 1:])
+    tgt_mask = input_mask.reshape(N, T, 1)[:, 1:].to(loss.dtype)
+    return (loss * tgt_mask).sum() / tgt_mask.sum()
+
+
+def build_gpt_lm_train(cfg, seq_len, learning_rate=3e-4, use_amp=False,
+                       device=None, seed=0):
+    """The next-token LM train step, eagerly (the reference builds it as
+    a program: ``build_gpt_lm_train``, gpt.py:183).
+
+    Returns ``(model, optimizer, feed_names, step)``: a ``GPTLM`` in
+    training mode with weights from ``init_fluid_params(cfg, seed)`` (load
+    others with ``load_fluid_params``), an ``Adam`` over its parameters,
+    the reference's feed names, and ``step(feed) -> loss``. ``feed``
+    maps ``ids`` and ``pos_ids`` ([N, seq_len, 1] int64) and
+    ``input_mask`` ([N, seq_len, 1] float32) to arrays or tensors; a
+    step runs the forward, ``gpt_lm_loss``, the backward and one Adam
+    update, and returns the loss as a float, read after the update. It
+    runs under a ``train_step`` span and bumps the ``train_steps``
+    counter and the ``train_step_ms`` histogram. Dropout draws its masks
+    and flash seeds from a ``bert.DropoutRNG`` seeded with ``seed``.
+    ``use_amp`` raises: mixed precision is its own slice."""
+    if use_amp:
+        raise NotImplementedError("use_amp: the port trains in fp32 only; "
+                                  "AMP is a later slice")
+    model = GPTLM(cfg, device=device)
+    load_fluid_params(model, init_fluid_params(cfg, seed))
+    model.rng = _bert.DropoutRNG(model.device, seed)
+    model.train()
+    opt = _optimizer.Adam(learning_rate=learning_rate,
+                          parameter_list=model.parameters())
+    feed_names = ["ids", "pos_ids", "input_mask"]
+    steps = [0]
+
+    def step(feed):
+        t0 = time.perf_counter()
+        with trace.span("train_step", cat="train", step=steps[0]):
+            ids, pos_ids, mask = (
+                torch.as_tensor(feed[n], device=model.device)
+                for n in feed_names)
+            if ids.shape[1] != seq_len:
+                raise ValueError("feed has %d positions, the step was built "
+                                 "for %d" % (ids.shape[1], seq_len))
+            loss = gpt_lm_loss(model(ids, pos_ids, mask), ids, mask)
+            opt.minimize(loss)
+            value = float(loss.detach())
+        profiler.bump_histogram("train_step_ms",
+                                (time.perf_counter() - t0) * 1e3)
+        profiler.bump_counter("train_steps")
+        steps[0] += 1
+        return value
+
+    return model, opt, feed_names, step

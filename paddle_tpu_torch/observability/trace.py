@@ -3,7 +3,8 @@
 
 ``with span("decode_step", cat="serving", active=3): ...`` records one
 timed span into a bounded ring buffer with its thread, nesting depth and
-parent. The serving slice opens ``decode_prefill`` and ``decode_step``.
+parent. The serving slice opens ``decode_prefill`` and ``decode_step``;
+the GPT train step opens ``train_step`` (cat ``train``, arg ``step``).
 Spans time the host: a span around device work measures device time
 only where the work ends in a synchronisation (the decode session's
 spans do, since they fetch the logits to the host). Distributed trace

@@ -5,9 +5,12 @@ a machine without them:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-fp32 on both sides; atol 2e-5 / rtol 1e-4 (the kernels sum in another
-order than the dense plain version; a masking or indexing error is
-O(0.1)).
+fp32 on both sides; atol 2e-5 / rtol 1e-4 for the forward kernels (they
+sum in another order than the dense plain version; a masking or indexing
+error is O(0.1)); atol 1e-4 for the backward ones, whose outputs are sums
+of up to a few hundred products of O(1) terms (dkey_bias sums ds over
+every query row), and whose dropout mask, if it differed by one entry,
+would move a gradient by O(0.1).
 """
 
 import pytest
@@ -26,6 +29,7 @@ pytestmark = [
 ]
 
 ATOL, RTOL = 2e-5, 1e-4
+BWD_ATOL = 1e-4
 
 
 def _randn(gen, *shape):
@@ -51,6 +55,56 @@ def test_flash_fwd_kernel_matches_plain(D, causal, Sq, Sk):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(lse, ref_lse, atol=ATOL, rtol=RTOL)
+
+
+_KEY_BIAS_FORMS = [None, "vector", "per_batch", "per_head"]
+
+
+def _key_bias(gen, form, B, N, S):
+    if form is None:
+        return None
+    if form == "per_batch":        # the model's padding bias, -1e4 tails
+        kb = torch.zeros(B, S)
+        kb[-1, max(S - 23, 1):] = -1e4
+        return kb.cuda()
+    return _randn(gen, *((S,) if form == "vector" else (B * N, S)))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
+                                          (True, 64, 64)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("form", _KEY_BIAS_FORMS)
+def test_flash_training_kernels_match_plain(D, causal, Sq, Sk, rate, form):
+    """The forward with the hash dropout and both backward kernels,
+    through the residual-driven entry the train step uses, against their
+    plain versions on the same inputs; the lse cotangent folds into
+    delta."""
+    gen = torch.Generator().manual_seed(D + Sq + int(rate * 10))
+    B, N = 2, 3
+    q, k, v = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sk, D), \
+        _randn(gen, B, N, Sk, D)
+    g, g_lse = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sq)
+    kb = _key_bias(gen, form, B, N, Sk)
+    seed = 987654321 if rate else None
+    kw = dict(causal=causal, dropout_rate=rate)
+    n0 = (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+          fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_attention_lse(q, k, v, kb, dropout_seed=seed, **kw)
+    grads = fa.flash_attention_bwd_from_residuals(q, k, v, kb, seed, out, lse,
+                                                  g, g_lse=g_lse, **kw)
+    assert (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, key_bias=kb,
+                                                    dropout_seed=seed, **kw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, kb, seed, ref_out, ref_lse,
+                                       g, g_lse=g_lse, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=ATOL, rtol=RTOL)
+    for name, got, want in zip(("dq", "dk", "dv", "dkey_bias"), grads, ref):
+        torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=RTOL,
+                                   msg=name)
 
 
 @pytest.mark.parametrize("D", [32, 64, 128])
@@ -143,7 +197,8 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take():
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q, q, q, bias=torch.zeros(16, 16).cuda())
     with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=3)
+        fa.flash_attention(q, q, q, bias=torch.zeros(16, 16).cuda(),
+                           dropout_rate=0.1, dropout_seed=3)
     odd = _randn(gen, 1, 2, 16, 48)
     with pytest.raises(ValueError):
         fa.flash_attention_lse(odd, odd, odd)
@@ -214,3 +269,64 @@ def test_paged_engine_on_card_matches_legacy_engine():
         assert streams[-1].cached_prefix_tokens > 0
     finally:
         paged.stop()
+
+
+def _train_feed(N, T, vocab, seed=0):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    mask = np.ones((N, T, 1), np.float32)
+    mask[-1, T // 2:] = 0.0
+    return {"ids": rs.randint(0, vocab, (N, T, 1)).astype("int64"),
+            "pos_ids": np.tile(np.arange(T).reshape(1, T, 1), (N, 1, 1)),
+            "input_mask": mask}
+
+
+def test_train_step_on_card_matches_cpu_plain_path():
+    """Two Adam steps of a 12-layer narrow GPT (head_dim 32), dropout 0,
+    on the card (the three flash kernels) and on the CPU (their plain
+    versions) from the same weights: each kernel launches 12 times per
+    step, the losses agree and so do the updated weights. fp32 both
+    sides, 12 layers summed in other orders: atol 1e-4 on losses of ~5
+    and on weights moved by ~lr."""
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, num_layers=12,
+                              use_flash_attention=True,
+                              max_position_embeddings=64, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    feed = _train_feed(3, 64, cfg.vocab_size)
+    arrays = tgpt.init_fluid_params(cfg, seed=4)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model, _opt, _names, step = tgpt.build_gpt_lm_train(
+            cfg, 64, learning_rate=1e-3,
+            device=None if device == "cuda" else "cpu")
+        assert model.device.type == device
+        tgpt.load_fluid_params(model, arrays)
+        n0 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        losses = [step(feed) for _ in range(2)]
+        n1 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        want = 2 * cfg.num_layers if device == "cuda" else 0
+        assert [b - a for a, b in zip(n0, n1)] == [want] * 3
+        runs[device] = (losses, {n: p.detach().cpu()
+                                 for n, p in model.named_parameters()})
+    torch.testing.assert_close(torch.tensor(runs["cuda"][0]),
+                               torch.tensor(runs["cpu"][0]), atol=1e-4,
+                               rtol=0)
+    for name, p in runs["cuda"][1].items():
+        torch.testing.assert_close(p, runs["cpu"][1][name], atol=1e-4,
+                                   rtol=0, msg=name)
+
+
+def test_train_step_with_dropout_on_card_is_seeded_and_finite():
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, use_flash_attention=True,
+                              max_position_embeddings=64)
+    feed = _train_feed(2, 64, cfg.vocab_size, seed=1)
+    runs = []
+    for _ in range(2):
+        _model, _opt, _names, step = tgpt.build_gpt_lm_train(
+            cfg, 64, learning_rate=1e-3, seed=9)
+        runs.append([step(feed) for _ in range(3)])
+    assert runs[0] == runs[1]
+    assert all(torch.isfinite(torch.tensor(runs[0])))

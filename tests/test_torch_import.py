@@ -24,12 +24,22 @@ from paddle_tpu_torch.serving import decode
 from paddle_tpu_torch.kernels import _build, flash_attention
 from paddle_tpu_torch.fluid.ops import nn_ops
 from paddle_tpu_torch.models import bert, gpt
+from paddle_tpu_torch.fluid import optimizer
+from paddle_tpu_torch.fluid.ops import math_ops, optimizer_ops
 # the paged engine's names (the paged slice)
 for fn in (decode.BlockAllocator, decode.PagedPrefixIndex,
            decode._ngram_draft, flash_attention.flash_decode_paged_attention,
            nn_ops.kv_cache_write_paged, nn_ops.kv_cache_gather_paged,
            nn_ops.kv_cache_block_copy, gpt.GPTLM.paged_step,
            gpt.paged_pool_names):
+    assert callable(fn)
+# the train step's names (the training slice)
+for fn in (flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv,
+           flash_attention.flash_attention_bwd_from_residuals,
+           flash_attention.flash_attention_bwd_plain, nn_ops.dropout,
+           nn_ops.flash_attention_lse, math_ops.softmax_with_cross_entropy,
+           optimizer_ops.adam, optimizer.Adam, bert.DropoutRNG,
+           gpt.build_gpt_lm_train, gpt.gpt_lm_loss):
     assert callable(fn)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
@@ -70,7 +80,8 @@ def test_every_kernel_source_is_built_and_every_build_has_a_source():
     sources = sorted(fn[:-3] for fn in os.listdir(_build.SRC_DIR)
                      if fn.endswith(".cu"))
     assert sources == sorted(_build.KERNELS)
-    assert "flash_decode_paged" in sources
+    assert {"flash_decode_paged", "flash_bwd_dq",
+            "flash_bwd_dkv"} <= set(sources)
 
 
 @pytest.mark.skipif("torch.cuda.is_available()",

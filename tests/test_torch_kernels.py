@@ -159,6 +159,120 @@ def test_dropout_hash_and_seed_bit_identical():
         np.testing.assert_array_equal(got, want)
 
 
+# (B, N, Sq, Sk, D, causal, key-bias form, dropout rate)
+_BWD_CASES = {
+    "causal": (2, 2, 32, 32, 16, True, None, 0.0),
+    "causal_per_batch_bias": (2, 3, 24, 24, 16, True, "per_batch", 0.0),
+    "per_head_bias_dropout": (2, 2, 24, 24, 16, False, "per_head", 0.1),
+    "ragged_causal_dropout": (2, 2, 20, 20, 16, True, "per_batch", 0.1),
+    "cross_ragged": (1, 2, 13, 40, 32, False, "per_batch", 0.0),
+}
+
+
+def _kb(rs, form, B, N, Sk):
+    if form is None:
+        return None
+    if form == "per_batch":            # the model's padding bias
+        kb = np.zeros((B, Sk), np.float32)
+        kb[-1, Sk // 2:] = -1e4
+        return kb
+    return _randn(rs, *((Sk,) if form == "vector" else (B * N, Sk)))
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_flash_attention_bwd_plain_matches_jax_kernels(case):
+    """The plain version of both backward kernels against the Pallas
+    backward kernels in interpret mode, from the same residuals (the JAX
+    forward's out and lse) and the same raw seed: the keep mask must be
+    regenerated bit for bit. Gradients are sums of a few dozen fp32
+    products of magnitude ~1, so honest differences are ~1e-6; a wrong
+    mask entry moves them by O(0.1)."""
+    B, N, Sq, Sk, D, causal, form, rate = _BWD_CASES[case]
+    rs = np.random.RandomState(len(case) + 20)
+    q, k, v = _randn(rs, B, N, Sq, D), _randn(rs, B, N, Sk, D), \
+        _randn(rs, B, N, Sk, D)
+    g = _randn(rs, B, N, Sq, D)
+    kb = _kb(rs, form, B, N, Sk)
+    seed = 424242 if rate else None
+    j_kb = None if kb is None else jnp.asarray(kb)
+    j_out, j_lse = jfa.flash_attention_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_bias=j_kb,
+        causal=causal, dropout_rate=rate, dropout_seed=seed, interpret=True)
+    want = jfa.flash_attention_bwd_from_residuals(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_kb, seed, j_out,
+        j_lse, jnp.asarray(g), causal=causal, dropout_rate=rate,
+        interpret=True)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    t_kb = None if kb is None else torch.from_numpy(kb)
+    out = torch.from_numpy(np.array(j_out))
+    lse = torch.from_numpy(np.array(j_lse))
+    kw = dict(causal=causal, dropout_rate=rate)
+    launches = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    got = tfa.flash_attention_bwd_from_residuals(tq, tk, tv, t_kb, seed, out,
+                                                 lse, tg, **kw)
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == launches
+    plain = tfa.flash_attention_bwd_plain(tq, tk, tv, t_kb, seed, out, lse,
+                                          tg, **kw)
+    # each kernel's own wrapper (CPU: its plain version) from delta
+    delta = (tg * out).sum(-1)
+    dq = tfa.flash_bwd_dq(tq, tk, tv, t_kb, tg, lse, delta, dropout_seed=seed,
+                          **kw)
+    dkv = tfa.flash_bwd_dkv(tq, tk, tv, t_kb, tg, lse, delta,
+                            dropout_seed=seed, **kw)
+    for name, w, a, b, c in zip(("dq", "dk", "dv", "dkey_bias"), want, got,
+                                plain, (dq,) + tuple(dkv)):
+        assert tuple(a.shape) == tuple(np.shape(w)), name
+        for x in (a, b, c):
+            _close(x, w)
+
+
+@pytest.mark.parametrize("form,rate", [("per_batch", 0.0), ("per_head", 0.0),
+                                       ("vector", 0.1)])
+def test_flash_attention_autograd_matches_jax_grad(form, rate):
+    """The differentiable op (autograd through the residual-driven
+    backward) against ``jax.grad`` through the reference's custom VJP and
+    its Pallas kernels in interpret mode: a loss reading both out and lse
+    (the lse cotangent folds into delta), gradients for q, k, v and the
+    key bias in its raw shape. Same tolerance reasoning as above."""
+    import jax
+
+    rs = np.random.RandomState(31 + len(form))
+    B, N, S, D = 2, 2, 20, 16
+    q, k, v = (_randn(rs, B, N, S, D) for _ in range(3))
+    w_out, w_lse = _randn(rs, B, N, S, D), _randn(rs, B, N, S)
+    kb = _kb(rs, form, B, N, S)
+    seed = 77 if rate else None
+
+    def jloss(q, k, v, kb):
+        out, lse = jfa.flash_attention_lse(
+            q, k, v, key_bias=kb, causal=True, dropout_rate=rate,
+            dropout_seed=seed, interpret=True)
+        return (out * w_out).sum() + (lse * w_lse).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (q, k, v, kb)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, kb)]
+    out, lse = tnn.flash_attention_lse(*leaves, causal=True,
+                                       dropout_rate=rate, dropout_seed=seed)
+    ((out * torch.from_numpy(w_out)).sum()
+     + (lse * torch.from_numpy(w_lse)).sum()).backward()
+    for leaf, w in zip(leaves, want):
+        assert tuple(leaf.grad.shape) == tuple(w.shape)
+        _close(leaf.grad, w)
+    if rate == 0.0:
+        # the op itself (out only; is_test off, rate 0: no seed drawn)
+        leaves2 = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        (tnn.flash_attention(*leaves2, key_bias=torch.from_numpy(kb),
+                             causal=True) * torch.from_numpy(w_out)
+         ).sum().backward()
+        want2 = jax.grad(lambda q, k, v: (jfa.flash_attention(
+            q, k, v, key_bias=jnp.asarray(kb), causal=True, interpret=True)
+            * w_out).sum(), argnums=(0, 1, 2))(
+            *(jnp.asarray(a) for a in (q, k, v)))
+        for leaf, w in zip(leaves2, want2):
+            _close(leaf.grad, w)
+
+
 def test_reference_attention_matches_jax():
     rs = np.random.RandomState(3)
     q, k, v = (_randn(rs, 2, 2, 12, 8) for _ in range(3))
