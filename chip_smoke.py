@@ -37,15 +37,35 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 6. profile torch.profiler over a decode step (8 active slots), a
            990-token prefill, and the paged step at width 1 and 4 (8
            slots at position 500): wall vs device-busy time, top ops.
-7. train   GPT-2 small's train step (``build_gpt_lm_train``) at batch
-           8 x 1024: at dropout 0, every parameter's step-1 gradient
-           through the kernels against the dense path
+7. train   GPT-2 small's eager train step (``build_gpt_lm_train_eager``)
+           at batch 8 x 1024: at dropout 0, every parameter's step-1
+           gradient through the kernels against the dense path
            (``use_flash_attention=False``) as a relative norm; at
            dropout 0.1, 20 Adam steps on a learnable token stream whose
            loss must stay finite and fall, with each of the three flash
            kernels launched 12 times a step; step ms, tokens/s, peak
            memory, and one profiled step (device busy and idle share,
            top device ops).
+8. program_train  the same train step as a Fluid Program
+           (``build_gpt_lm_train``) run by ``fluid.Executor(CUDAPlace(0))``
+           from the same weights (``load_fluid_scope``): at dropout 0, 10
+           Adam steps whose losses must equal the eager step's within
+           1e-4 relative, step p50, a profiled step of each (idle share,
+           launches by class: GEMM, flash, other; the program must launch
+           as many GEMMs as the eager step and each flash kernel 12
+           times), peak memory; then 20 program steps at dropout 0.1 on
+           the learnable stream: the loss falls and each flash kernel
+           launches 12 x 20 times.
+9. bias    a program with a learnable per-head attention bias
+           (``fluid.layers.create_parameter([1, 12, 1024, 1024])`` fed to
+           ``fluid.layers.flash_attention(q, k, v, bias=...)``, q/k/v from
+           fc over a [8, 1024, 768] input, causal) trained 5 Adam steps;
+           the step-1 dq/dk/dv/dbias the kernels gave held against the
+           plain versions on the same tensors.
+
+The kernels phase also checks and times the general-bias
+instantiations at the train shape with dropout 0.1, for the per-head
+[1, 12, 1024, 1024] and the [1024, 1024] bias.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -93,6 +113,15 @@ NEW_TOKENS = 32
 # keys of a query), so both paths return rounding noise for them.
 TRAIN_BATCH, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 8, 1024, 20, 3e-4
 GRAD_REL_TOL, GRAD_NORM_FLOOR = 1e-3, 1e-6
+# The program step vs the eager step at dropout 0, per step: the same
+# fp32 functions summed in other orders (ops vs modules: separate bias
+# adds, the loss over a sliced view) move a loss of ~10 by ~1e-6.
+PROGRAM_STEPS, PROGRAM_LOSS_RTOL = 10, 1e-4
+# dbias of a per-head bias shared by the 8 sequences of the batch: the
+# kernel adds each head's ds with float atomics in no fixed order, so it
+# differs from the plain version's ordered sum by rounding of 8-term
+# sums (~1e-7 relative); held at the backward tolerance.
+BIAS_STEPS = 5
 # The paged engine: max_len 1016 leaves room for the width-4 verify's
 # positions (max_len + k - 1 <= 1024), so tables are 64 blocks of 16 (a
 # key span of 1024) and the pool 8 * 64 + 1 blocks; the longest prompt
@@ -449,6 +478,131 @@ def kernel_flash_train(dev, peaks):
     return rows
 
 
+def kernel_flash_bias(dev, peaks):
+    """The general-bias instantiations of the three training kernels at
+    the train shape ([8, 12, 1024, 64], causal, padded key bias, dropout
+    0.1): a learnable per-head bias [1, 12, 1024, 1024] (every row shared
+    by the batch's 8 sequences: dbias by atomics) and a [1024, 1024] one
+    (shared by all 96 heads). Each against its plain version, timed
+    beside it; the yardstick is SDPA with the same float mask (bias +
+    causal + padding) that requires grad, forward alone and forward +
+    backward."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(4)
+    B, N, T, D = TRAIN_BATCH, 12, TRAIN_T, 64
+    rate, seed = 0.1, 7654321
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, g = (torch.randn(B, N, T, D, generator=gen).to(dev)
+                  for _ in range(4))
+    kb = torch.zeros(B, T)
+    kb[1, 700:] = -1e4
+    kb[5, 1000:] = -1e4
+    kb = kb.to(dev)
+    kw = dict(causal=True, scale=scale, dropout_rate=rate)
+    pairs = B * N * T * (T + 1) // 2
+    tensor = 4 * B * N * T * D
+    vec = 4 * B * N * T
+    kb_bytes = 4 * B * T
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    causal_mask = torch.full((T, T), float("-inf"), device=dev).triu(1)
+    forms = {}
+    for form, shape in (("per_head", (1, N, T, T)), ("square", (T, T))):
+        bias = (torch.randn(*shape, generator=gen) * 0.5).to(dev)
+        G = shape[0] * shape[1] if len(shape) == 4 else 1
+        out, lse = fa.flash_attention_lse(q, k, v, kb, bias=bias,
+                                          dropout_seed=seed, **kw)
+        ref_out, ref_lse = fa.flash_attention_lse_plain(
+            q, k, v, key_bias=kb, bias=bias, dropout_seed=seed, **kw)
+        torch.cuda.synchronize()
+        check_close("flash_fwd+bias %s out" % form, out, ref_out)
+        check_close("flash_fwd+bias %s lse" % form, lse, ref_lse)
+        fwd_err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+        del ref_out, ref_lse
+        delta = (g * out).sum(-1)
+        bwd_args = (q, k, v, kb, g, lse, delta)
+        bkw = dict(kw, dropout_seed=seed, bias=bias)
+        dq = fa.flash_bwd_dq(*bwd_args, **bkw)
+        ref_dq = fa.flash_bwd_dq_plain(*bwd_args, **bkw)
+        torch.cuda.synchronize()
+        check_close("flash_bwd_dq+bias %s" % form, dq, ref_dq, BWD_ATOL,
+                    BWD_RTOL)
+        dq_err = max_err(dq, ref_dq)
+        del dq, ref_dq
+        got = fa.flash_bwd_dkv(*bwd_args, **bkw)
+        want = fa.flash_bwd_dkv_plain(*bwd_args, **bkw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dk", "dv", "dkey_bias", "dbias"), got, want):
+            check_close("flash_bwd_dkv+dbias %s %s" % (form, name), a, b,
+                        BWD_ATOL, BWD_RTOL)
+        dkv_err = max(max_err(a, b) for a, b in zip(got, want))
+        dbias_err = max_err(got[3], want[3])
+        del got, want
+        bias_bytes = 4 * G * T * T
+        # SDPA with the same additive mask as a float tensor that
+        # requires grad (dbias is its gradient), its own dropout
+        mask = (bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape))
+                + causal_mask + kb.reshape(B, 1, 1, T)).detach()
+        ql, kl, vl, ml = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v, mask))
+
+        def sdpa_fwd():
+            return sdpa(ql, kl, vl, attn_mask=ml, dropout_p=rate, scale=scale)
+
+        def sdpa_fwd_bwd():
+            sdpa_fwd().backward(g)
+
+        try:
+            lib_fwd, lib_fwd_bwd = event_ms(sdpa_fwd), event_ms(sdpa_fwd_bwd)
+        except RuntimeError as e:  # this PyTorch cannot run it: say so
+            lib_fwd = lib_fwd_bwd = None
+            lib_note = "SDPA with a grad-requiring float mask: %s" % (
+                str(e).splitlines()[0][:160],)
+        else:
+            lib_note = None
+        del ql, kl, vl, ml, mask
+        rows = {}
+        for name, fn, plain, nbytes, flops, err, lib, args in (
+                ("flash_fwd+bias",
+                 lambda a, b, c, d: fa.flash_attention_lse(
+                     a, b, c, d, bias=bias, dropout_seed=seed, **kw),
+                 lambda a, b, c, d: fa.flash_attention_lse_plain(
+                     a, b, c, key_bias=d, bias=bias, dropout_seed=seed,
+                     **kw),
+                 4 * tensor + kb_bytes + vec + bias_bytes, 4 * D * pairs,
+                 fwd_err, lib_fwd, [(q, k, v, kb)]),
+                ("flash_bwd_dq+bias",
+                 lambda *a: fa.flash_bwd_dq(*a, **bkw),
+                 lambda *a: fa.flash_bwd_dq_plain(*a, **bkw),
+                 5 * tensor + kb_bytes + 2 * vec + bias_bytes, 6 * D * pairs,
+                 dq_err, None, [bwd_args]),
+                ("flash_bwd_dkv+dbias",
+                 lambda *a: fa.flash_bwd_dkv(*a, **bkw),
+                 lambda *a: fa.flash_bwd_dkv_plain(*a, **bkw),
+                 6 * tensor + kb_bytes + 2 * vec + 4 * B * N * T
+                 + 2 * bias_bytes, 8 * D * pairs, dkv_err, None,
+                 [bwd_args])):
+            ms, spread = cuda_ms(fn, args)
+            plain_ms, _ = cuda_ms(plain, args, calls=3)
+            bms, by = bound_ms(nbytes, flops, peaks)
+            rows[name] = {"max_abs_err": err, "ms": ms,
+                          "ms_window_spread": spread, "plain_ms": plain_ms,
+                          "bound_ms": bms, "bound_by": by,
+                          "library_ms": lib,
+                          "sdpa_fwd_bwd_ms": lib_fwd_bwd}
+            if lib_note:
+                rows[name]["library_note"] = lib_note
+        rows["flash_bwd_dkv+dbias"]["dbias_max_abs_err"] = dbias_err
+        forms[form] = {"bias_shape": list(shape), "rows": G,
+                       "kernels": rows}
+        torch.cuda.empty_cache()
+    fa.flash_attention_lse.launches = 0      # comparison launches do not count
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    return {"shape": [B, N, T, D], "dropout_rate": rate, "causal": True,
+            "atol_fwd": KERNEL_ATOL, "atol_bwd": BWD_ATOL, "forms": forms}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine
 # ---------------------------------------------------------------------------
@@ -610,16 +764,19 @@ def _profile(fn, reps):
     busy_ms = sum(us for us, _n, _k in dev_events) / 1e3
     dev_events.sort(reverse=True)
     by_class = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
-    for us, _n, key in dev_events:
+    launches_by_class = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
+    for us, n, key in dev_events:
         cls = ("flash" if "flash_" in key else
                "gemm" if "gemm" in key.lower() else "other")
         by_class[cls] += us / 1e3
+        launches_by_class[cls] += n
     return {
         "wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_ms_by_class": by_class,
         "launches_per_call": sum(n for _us, n, _k in dev_events),
+        "launches_by_class": launches_by_class,
         "top": [{"kernel": k[:70], "us": us, "calls": n}
                 for us, n, k in dev_events[:8]],
     }
@@ -867,7 +1024,7 @@ def train_phase(dev):
     # dropout 0: the kernels' gradients against the dense path's
     cfg0 = gpt.GPTConfig(use_flash_attention=True, hidden_dropout=0.0,
                          attention_dropout=0.0)
-    model, _opt, _names, _step = gpt.build_gpt_lm_train(
+    model, _opt, _names, _step = gpt.build_gpt_lm_train_eager(
         cfg0, TRAIN_T, learning_rate=TRAIN_LR, device=dev, seed=0)
     feed = train_feed(cfg0.vocab_size, seed=2)
     zero_flash_launches()
@@ -901,7 +1058,7 @@ def train_phase(dev):
     # dropout 0.1 (GPT-2's recipe): 20 Adam steps, launches read around
     # exactly these steps
     cfg = gpt.GPTConfig(use_flash_attention=True)
-    model, _opt, _names, step = gpt.build_gpt_lm_train(
+    model, _opt, _names, step = gpt.build_gpt_lm_train_eager(
         cfg, TRAIN_T, learning_rate=TRAIN_LR, device=dev, seed=0)
     feed = train_feed(cfg.vocab_size, seed=3, counting=True)
     profiler.reset_histograms()
@@ -938,6 +1095,222 @@ def train_phase(dev):
         "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
         "profile_step": prof,
     }, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the train step as a Fluid Program
+# ---------------------------------------------------------------------------
+
+
+def build_program(cfg):
+    """GPT-2 small's train program, startup run on the card, weights
+    ``init_fluid_params(cfg, 0)`` copied into the scope (the eager
+    builder's default). Returns (main, loss, executor, scope)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    with fluid.unique_name.guard():
+        main, startup, _feeds, loss = gpt.build_gpt_lm_train(
+            cfg, TRAIN_T, learning_rate=TRAIN_LR)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    gpt.load_fluid_scope(scope, gpt.init_fluid_params(cfg, 0))
+    return main, loss, exe, scope
+
+
+def timed_steps(step, n):
+    """(losses, per-step wall ms): each step ends in its loss read (a
+    host sync), so the host clock covers its device work."""
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(step())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def program_train_phase(dev):
+    """The program step against the eager step at dropout 0 (10 steps
+    from the same weights and feed), each profiled; then 20 program
+    steps at dropout 0.1. Launch counts zeroed just before the dropout
+    run, read just after."""
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import gpt
+
+    n_layers = gpt.GPTConfig().num_layers
+    cfg0 = gpt.GPTConfig(use_flash_attention=True, hidden_dropout=0.0,
+                         attention_dropout=0.0)
+    feed = train_feed(cfg0.vocab_size, seed=3, counting=True)
+    t0 = time.perf_counter()
+    main, loss, exe, scope = build_program(cfg0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_ops = len(main.global_block().ops)
+    torch.cuda.reset_peak_memory_stats()
+    replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+
+    def prog_step():
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0].reshape(-1)[0])
+
+    zero_flash_launches()
+    prog_losses, prog_ms = timed_steps(prog_step, PROGRAM_STEPS)
+    prog_launches = flash_launches()
+    prog_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+    for name, n in prog_launches.items():
+        if n != n_layers * PROGRAM_STEPS:
+            raise AssertionError("program: %s launched %d times in %d steps"
+                                 % (name, n, PROGRAM_STEPS))
+    if replays:
+        raise AssertionError("program step replayed %d forwards" % replays)
+    prog_prof = _profile(prog_step, reps=1)
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+
+    model, _opt, _names, step = gpt.build_gpt_lm_train_eager(
+        cfg0, TRAIN_T, learning_rate=TRAIN_LR, device=dev, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses, eager_ms = timed_steps(lambda: step(feed), PROGRAM_STEPS)
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    eager_prof = _profile(lambda: step(feed), reps=1)
+    del model, _opt, step
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(prog_losses, eager_losses)]
+    if max(rel) > PROGRAM_LOSS_RTOL or not all(np.isfinite(prog_losses)):
+        raise AssertionError("program losses %r vs eager %r"
+                             % (prog_losses, eager_losses))
+    gemms = (prog_prof["launches_by_class"]["gemm"],
+             eager_prof["launches_by_class"]["gemm"])
+    if gemms[0] != gemms[1]:
+        raise AssertionError("program step launched %d GEMMs, eager %d"
+                             % gemms)
+    if prog_prof["launches_by_class"]["flash"] != 3 * n_layers:
+        raise AssertionError("profiled program step launched %r flash "
+                             "kernels" % prog_prof["launches_by_class"])
+
+    # dropout 0.1 (GPT-2's recipe): the program's main path
+    cfg = gpt.GPTConfig(use_flash_attention=True)
+    main, loss, exe, scope = build_program(cfg)
+    zero_flash_launches()
+    drop_losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0].reshape(-1)[0])
+                   for _ in range(TRAIN_STEPS)]
+    launches = flash_launches()
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(drop_losses)):
+        raise AssertionError("non-finite program loss: %r" % (drop_losses,))
+    if not np.mean(drop_losses[-5:]) < np.mean(drop_losses[:5]) - 0.1:
+        raise AssertionError("program loss did not fall: %r" % (drop_losses,))
+    for name, n in launches.items():
+        if n != n_layers * TRAIN_STEPS:
+            raise AssertionError("program: %s launched %d times in %d steps"
+                                 % (name, n, TRAIN_STEPS))
+    tokens = TRAIN_BATCH * TRAIN_T
+    return {
+        "phase": "program_train", "model": "gpt2-small",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+        "learning_rate": TRAIN_LR, "program_ops": n_ops,
+        "build_and_startup_s": build_s,
+        "dropout0": {
+            "steps": PROGRAM_STEPS, "program_losses": prog_losses,
+            "eager_losses": eager_losses, "max_rel_diff": max(rel),
+            "rtol": PROGRAM_LOSS_RTOL,
+            "program_step_ms": prog_ms, "eager_step_ms": eager_ms,
+            "program_step_ms_p50": float(np.median(prog_ms)),
+            "eager_step_ms_p50": float(np.median(eager_ms)),
+            "program_tokens_per_s_p50": tokens / (np.median(prog_ms) / 1e3),
+            "program_peak_mem_mib": prog_peak, "eager_peak_mem_mib": eager_peak,
+            "generic_grad_replays": replays,
+            "program_launches": prog_launches,
+            "program_profile_step": prog_prof,
+            "eager_profile_step": eager_prof},
+        "dropout01": {"steps": TRAIN_STEPS, "losses": drop_losses,
+                      "dropout": [cfg.hidden_dropout, cfg.attention_dropout]},
+    }, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: a learnable attention bias through the program
+# ---------------------------------------------------------------------------
+
+
+def bias_phase(dev):
+    """``fluid.layers.flash_attention(q, k, v, bias=b)`` with ``b`` a
+    ``create_parameter([1, 12, 1024, 1024])`` per-head bias, q/k/v from
+    fc over a fed [8, 1024, 768] input, causal, loss = sum(out · w):
+    5 Adam steps through the Executor on the card, launch counts zeroed
+    just before them and read just after. The step-1 gradients the
+    kernels gave (dq, dk, dv of the split heads, dbias) are held against
+    the plain backward on the same tensors."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    B, N, T, D = TRAIN_BATCH, 12, TRAIN_T, 64
+    H = N * D
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[T, H], dtype="float32")
+        w = fluid.layers.data(name="w", shape=[N, T, D], dtype="float32")
+        bias = fluid.layers.create_parameter([1, N, T, T], "float32",
+                                             name="attn_bias")
+
+        def heads(name):
+            h = fluid.layers.fc(x, size=H, num_flatten_dims=2, name=name)
+            h = fluid.layers.reshape(h, shape=[0, 0, N, D])
+            return fluid.layers.transpose(h, perm=[0, 2, 1, 3])
+
+        qv, kv, vv = heads("q"), heads("k"), heads("v")
+        out = fluid.layers.flash_attention(qv, kv, vv, bias=bias, causal=True)
+        loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(out, w))
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(5)
+    feed = {"x": rng.standard_normal((B, T, H), dtype=np.float32),
+            "w": rng.standard_normal((B, N, T, D), dtype=np.float32)}
+    names = [t.name for t in (qv, kv, vv)]
+    fetch = [loss.name, out.name] + names + [n + "@GRAD" for n in names] + [
+        "attn_bias@GRAD"]
+    bias0 = scope.get("attn_bias").clone()
+    zero_flash_launches()
+    first = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+    losses = [float(first[0].reshape(-1)[0])]
+    losses += [float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0].reshape(-1)[0])
+               for _ in range(BIAS_STEPS - 1)]
+    launches = flash_launches()
+    for name, n in launches.items():
+        if n != BIAS_STEPS:
+            raise AssertionError("bias program: %s launched %d times in %d "
+                                 "steps" % (name, n, BIAS_STEPS))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite bias-program loss %r" % (losses,))
+    _loss, got_out, q, k, v, dq, dk, dv, dbias = first
+    g = torch.as_tensor(feed["w"], device=dev)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, bias=bias0,
+                                                    causal=True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, None, None, ref_out, ref_lse,
+                                       g, causal=True, bias=bias0)
+    torch.cuda.synchronize()
+    check_close("bias program out", got_out, ref_out)
+    errs = {"out": max_err(got_out, ref_out)}
+    for name, a, b in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                       ("dv", dv, ref[2]),
+                       ("dbias", dbias, ref[4].reshape(dbias.shape))):
+        check_close("bias program " + name, a, b, BWD_ATOL, BWD_RTOL)
+        errs[name] = max_err(a, b)
+    del first, ref, ref_out, ref_lse, scope, exe
+    torch.cuda.empty_cache()
+    return {"phase": "bias", "shape": [B, N, T, D], "bias_shape": [1, N, T, T],
+            "causal": True, "steps": BIAS_STEPS, "losses": losses,
+            "step1_max_abs_err": errs, "atol": BWD_ATOL, "rtol": BWD_RTOL,
+            "launches": launches}, launches
 
 
 def main():
@@ -979,9 +1352,11 @@ def main():
     dec_err, dec_row = kernel_flash_decode(dev, peaks)
     paged_err, paged_row = kernel_flash_decode_paged(dev, peaks)
     train_rows = kernel_flash_train(dev, peaks)
+    bias_rows = kernel_flash_bias(dev, peaks)
     emit({"phase": "kernels", "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
           "flash_fwd": fwd_rows, "flash_decode": dec_row,
-          "flash_decode_paged": paged_row, "train": train_rows})
+          "flash_decode_paged": paged_row, "train": train_rows,
+          "bias": bias_rows})
 
     model, engine, launches = engine_phase(dev)
     emit(dict(engine, device=name, nvidia_smi=smi))
@@ -992,6 +1367,10 @@ def main():
     torch.cuda.empty_cache()
     train, train_launches = train_phase(dev)
     emit(dict(train, device=name, nvidia_smi=smi))
+    program, program_launches = program_train_phase(dev)
+    emit(dict(program, device=name, nvidia_smi=smi))
+    bias_run, bias_launches = bias_phase(dev)
+    emit(dict(bias_run, device=name, nvidia_smi=smi))
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
     fwd_drop = train_rows["flash_fwd_dropout"]
@@ -1000,19 +1379,46 @@ def main():
         r = train_rows[kname]
         return {"name": kname, "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
-                "launches": train_launches[kname],
+                "launches": train_launches[kname] + program_launches[kname],
+                "launches_by_path": {"train_eager": train_launches[kname],
+                                     "train_program": program_launches[kname]},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"]}
 
+    replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:149",
+                "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:207",
+                "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:262"}
+
+    def bias_row(kname, inst):
+        per_head = bias_rows["forms"]["per_head"]["kernels"][inst]
+        square = bias_rows["forms"]["square"]["kernels"][inst]
+        return {"name": inst, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
+                "replaces": replaces[kname],
+                "launches": bias_launches[kname],
+                "max_abs_err": max(per_head["max_abs_err"],
+                                   square["max_abs_err"]),
+                "ms": per_head["ms"], "plain_ms": per_head["plain_ms"],
+                "bound_ms": per_head["bound_ms"],
+                "bound_by": per_head["bound_by"],
+                "library_ms": per_head["library_ms"],
+                "sdpa_fwd_bwd_ms": per_head["sdpa_fwd_bwd_ms"],
+                "bias": "per-head [1, 12, 1024, 1024]",
+                "square_bias": {k: square[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "sdpa_fwd_bwd_ms", "max_abs_err")}}
+
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:149",
-         "launches": launches["flash_fwd"] + train_launches["flash_fwd"],
+         "launches": launches["flash_fwd"] + train_launches["flash_fwd"]
+         + program_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
-                              "train": train_launches["flash_fwd"]},
+                              "train_eager": train_launches["flash_fwd"],
+                              "train_program": program_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -1020,10 +1426,11 @@ def main():
          "train_dropout": {k: fwd_drop[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "max_abs_err")}},
-        dict(train_row("flash_bwd_dq"),
-             replaces="paddle_tpu/kernels/flash_attention.py:207"),
-        dict(train_row("flash_bwd_dkv"),
-             replaces="paddle_tpu/kernels/flash_attention.py:262"),
+        bias_row("flash_fwd", "flash_fwd+bias"),
+        dict(train_row("flash_bwd_dq"), replaces=replaces["flash_bwd_dq"]),
+        bias_row("flash_bwd_dq", "flash_bwd_dq+bias"),
+        dict(train_row("flash_bwd_dkv"), replaces=replaces["flash_bwd_dkv"]),
+        bias_row("flash_bwd_dkv", "flash_bwd_dkv+dbias"),
         {"name": "flash_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_decode.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:363",

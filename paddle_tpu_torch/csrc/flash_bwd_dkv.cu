@@ -4,10 +4,10 @@
 // Replaces the Pallas TPU kernel `_bwd_dkv_kernel`
 // (paddle_tpu/kernels/flash_attention.py:262, launched by
 // `_flash_bwd_core` at :856 behind `flash_attention_bwd_from_residuals`)
-// in its key-bias-only form (the reference's head-major grid, `:787`),
-// with the causal flag and the hash dropout: the GPT train step's
-// backward. The general-bias gradient (dbias, summed over the heads that
-// share a bias row) is not produced here.
+// with the causal flag, the hash dropout, the key bias and the general
+// bias [G, Sq, Sk] with its gradient dbias, summed over the heads that
+// share a bias row: the GPT train step's backward and that of
+// `fluid.layers.flash_attention(bias=...)`.
 //
 //   p    = exp(s - lse)                  s: the forward's masked scores
 //   dp   = keep o (dO V^T) / (1 - rate)
@@ -15,19 +15,35 @@
 //   dk   = scale * sum_q ds^T Q
 //   dv   = sum_q (keep o p / (1 - rate))^T dO
 //   dkb  = sum_q ds                      (per head and key: [BH, Sk])
+//   dbias[row(bh)] += ds                  (per bias row: [G, Sq, Sk])
 //
 // One block owns a (head, 64-row key tile) and sweeps the query tiles in
 // a loop; under `causal` it starts at the tile holding its first key row.
 // On the TPU the grid runs in order; here blocks run in parallel in no
 // order, and nothing carries over between them: every block writes only
-// its own dk/dv/dkb rows, so no atomics are needed. Four threads share a
+// its own dk/dv/dkb rows, so those need no atomics. Four threads share a
 // key row and hold its k, v, dk and dv parts in registers
 // (flash_common.cuh); the query tile (Q and dO rows, lse, delta) is
 // staged once in shared memory for the block's 64 key rows.
 //
 // Layout: q/dout [BH, Sq, D], k/v/dk/dv [BH, Sk, D], lse/delta [BH, Sq],
-// key_bias [BH / bias_heads, Sk] (null = none), dkb [BH, Sk], all fp32,
-// contiguous.
+// key_bias [BH / bias_heads, Sk] (null = none), dkb [BH, Sk], bias and
+// dbias [G, Sq, Sk] with head bh on row (bh / bias_div) % bias_rows (null
+// = none; see flash_fwd.cu), all fp32, contiguous.
+//
+// dbias. The TPU kernel runs its grid transposed (heads innermost) so
+// that the heads sharing a bias row revisit its gradient block in order;
+// here the blocks of those heads run at the same time. When every head
+// owns its row (G = BH), each (row, query, key) entry belongs to one
+// thread of one block and is stored plainly. When heads share a row, the
+// thread adds its ds with a float atomicAdd into dbias, which the wrapper
+// zeroes first (causal tiles the kernel skips must read 0, as the
+// reference's ds = 0 there gives); masked causal entries add nothing.
+// The summation order over the sharing heads is then not fixed: results
+// agree with the plain version to rounding, not bit for bit. The
+// deterministic alternatives (one block per (row, key tile) looping over
+// the heads, or a per-head scratch reduced afterwards) cost parallelism
+// or memory and are later work.
 //
 // Bound on this card: operations. Per (query, key) pair: two dot
 // products over D (scores, dO V^T) and two D-wide axpys (dk, dv): 8D
@@ -42,16 +58,19 @@ namespace {
 using namespace flash;
 
 // D: head dim (multiple of 16). BQ: query rows per shared-memory tile.
-template <int D, int BQ, bool kDropout>
+template <int D, int BQ, bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ kb,
+                     const float* __restrict__ bias,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ dkb,
-                     int bias_heads, int sq, int sk, float scale, int causal,
-                     unsigned seed, unsigned thresh, float inv_keep) {
+                     float* __restrict__ dbias, int bias_heads, int bias_div,
+                     int bias_rows, int dbias_atomic, int sq, int sk,
+                     float scale, int causal, unsigned seed, unsigned thresh,
+                     float inv_keep) {
   constexpr int kVec = D / 16;
   constexpr int kRow4 = D / 4;
   __shared__ float4 qs[BQ][kRow4];
@@ -92,6 +111,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dout + (size_t)bh * sq * D);
   const float* lp = lse + (size_t)bh * sq;
   const float* dlp = delta + (size_t)bh * sq;
+  // this head's bias and dbias rows at key column `col`, stepped by sk
+  const size_t bcol =
+      kBias ? (size_t)((bh / bias_div) % bias_rows) * sq * sk + col : 0;
   // query tiles that end before the block's first key row are masked for
   // every key of the block: start at the tile holding row k0
   const int qstart = causal ? (k0 / BQ) * BQ : 0;
@@ -131,7 +153,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dp = group_sum(part_dp);
       const int qi = q0 + r;
       float s = part_s * scale + kb_j;
-      if (!col_ok || (causal && kj > qi)) s = kNeg;
+      if (kBias && qi < sq) s += __ldg(bias + bcol + (size_t)qi * sk);
+      const bool masked = !col_ok || (causal && kj > qi);
+      if (masked) s = kNeg;
       // padded query rows (past Sq) contribute nothing, as the
       // reference's zero-padded rows do
       const float p = qi < sq ? expf(s - lses[r]) : 0.f;
@@ -144,6 +168,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       const float ds = p * (dp - deltas[r]);
       dkb_acc += ds;
+      if (kBias && lane == 0 && qi < sq && col_ok) {
+        float* dst = dbias + bcol + (size_t)qi * sk;
+        if (!dbias_atomic) {
+          *dst = ds;
+        } else if (!masked) {
+          atomicAdd(dst, ds);
+        }
+      }
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
         axpy4(dv_acc[c], pv, dos[r][4 * c + lane]);
@@ -167,22 +199,39 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+struct Args {
+  const float *q, *k, *v, *kb, *bias, *dout, *lse, *delta;
+  float *dk, *dv, *dkb, *dbias;
+  int bias_heads, bias_div, bias_rows, dbias_atomic, sq, sk;
+  float scale;
+  int causal;
+  unsigned seed, thresh;
+  float inv_keep;
+};
+
+template <int D, int BQ, bool kDropout, bool kBias>
+void launch_one(dim3 grid, const Args& a, cudaStream_t stream) {
+  flash_bwd_dkv_kernel<D, BQ, kDropout, kBias><<<grid, kThreads, 0, stream>>>(
+      a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dk, a.dv, a.dkb,
+      a.dbias, a.bias_heads, a.bias_div, a.bias_rows, a.dbias_atomic, a.sq,
+      a.sk, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+}
+
 template <int D, int BQ>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* kb, const float* dout, const float* lse,
-                   const float* delta, float* dk, float* dv, float* dkb,
-                   int bh, int bias_heads, int sq, int sk, float scale,
-                   int causal, int dropout, unsigned seed, unsigned thresh,
-                   float inv_keep, cudaStream_t stream) {
-  dim3 grid((sk + kTileRows - 1) / kTileRows, bh);
+cudaError_t launch(const Args& a, int bh, int dropout, cudaStream_t stream) {
+  dim3 grid((a.sk + kTileRows - 1) / kTileRows, bh);
   if (dropout) {
-    flash_bwd_dkv_kernel<D, BQ, true><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, dout, lse, delta, dk, dv, dkb, bias_heads, sq, sk, scale,
-        causal, seed, thresh, inv_keep);
+    if (a.bias) {
+      launch_one<D, BQ, true, true>(grid, a, stream);
+    } else {
+      launch_one<D, BQ, true, false>(grid, a, stream);
+    }
   } else {
-    flash_bwd_dkv_kernel<D, BQ, false><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, dout, lse, delta, dk, dv, dkb, bias_heads, sq, sk, scale,
-        causal, seed, thresh, inv_keep);
+    if (a.bias) {
+      launch_one<D, BQ, false, true>(grid, a, stream);
+    } else {
+      launch_one<D, BQ, false, false>(grid, a, stream);
+    }
   }
   return cudaGetLastError();
 }
@@ -194,41 +243,56 @@ extern "C" {
 // Returns a cudaError_t: 0 on a successful launch (asynchronous on
 // `stream`; nothing allocated or synchronised). `dropout` 0 ignores seed,
 // thresh and inv_keep; otherwise `inv_keep` is 1 / (1 - rate) as fp32.
+// `bias` null means no general bias and `dbias` is not touched; otherwise
+// `dbias` [G, Sq, Sk] receives the bias gradient: stored when every head
+// owns its row (bias_rows == bh, bias_div == 1), else added atomically,
+// in which case the caller zeroes it first.
 int paddle_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                             const void* key_bias, const void* dout,
-                             const void* lse, const void* delta, void* dk,
-                             void* dv, void* dkb, int bh, int bias_heads,
-                             int sq, int sk, int d, float scale, int causal,
-                             int dropout, unsigned seed, unsigned thresh,
-                             float inv_keep, void* stream) {
+                             const void* key_bias, const void* bias,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             void* dkb, void* dbias, int bh, int bias_heads,
+                             int bias_div, int bias_rows, int sq, int sk,
+                             int d, float scale, int causal, int dropout,
+                             unsigned seed, unsigned thresh, float inv_keep,
+                             void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
-      bh % bias_heads != 0) {
+      bh % bias_heads != 0 || bias_div <= 0 || bias_rows <= 0 ||
+      (bias != nullptr) != (dbias != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* bf = static_cast<const float*>(key_bias);
-  const float* gf = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  float* dbf = static_cast<float*>(dkb);
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.kb = static_cast<const float*>(key_bias);
+  a.bias = static_cast<const float*>(bias);
+  a.dout = static_cast<const float*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.dkb = static_cast<float*>(dkb);
+  a.dbias = static_cast<float*>(dbias);
+  a.bias_heads = bias_heads;
+  a.bias_div = bias_div;
+  a.bias_rows = bias_rows;
+  a.dbias_atomic = !(bias_rows == bh && bias_div == 1);
+  a.sq = sq;
+  a.sk = sk;
+  a.scale = scale;
+  a.causal = causal;
+  a.seed = seed;
+  a.thresh = thresh;
+  a.inv_keep = inv_keep;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return (int)launch<32, 64>(qf, kf, vf, bf, gf, lf, df, dkf, dvf, dbf,
-                                 bh, bias_heads, sq, sk, scale, causal,
-                                 dropout, seed, thresh, inv_keep, s);
+      return (int)launch<32, 64>(a, bh, dropout, s);
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, bf, gf, lf, df, dkf, dvf, dbf,
-                                 bh, bias_heads, sq, sk, scale, causal,
-                                 dropout, seed, thresh, inv_keep, s);
+      return (int)launch<64, 64>(a, bh, dropout, s);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, bf, gf, lf, df, dkf, dvf, dbf,
-                                  bh, bias_heads, sq, sk, scale, causal,
-                                  dropout, seed, thresh, inv_keep, s);
+      return (int)launch<128, 32>(a, bh, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

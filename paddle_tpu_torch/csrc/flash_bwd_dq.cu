@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernel `_bwd_dq_kernel`
 // (paddle_tpu/kernels/flash_attention.py:207, launched by
 // `_flash_bwd_core` at :771 behind `flash_attention_bwd_from_residuals`)
-// for a key-only additive bias, the causal flag and the hash dropout: the
-// GPT train step's backward.
+// for a key-only additive bias, the general additive bias [G, Sq, Sk],
+// the causal flag and the hash dropout: the GPT train step's backward and
+// that of `fluid.layers.flash_attention(bias=...)`.
 //
 //   p   = exp(s - lse)              s: the forward's masked scores
 //   dp  = keep o (dO V^T) / (1 - rate)
@@ -18,7 +19,10 @@
 // does.
 //
 // Layout: q/dout/dq [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq],
-// key_bias [BH / bias_heads, Sk] (null = none), all fp32, contiguous.
+// key_bias [BH / bias_heads, Sk] (null = none), bias [G, Sq, Sk] with head
+// bh reading row (bh / bias_div) % bias_rows (null = none; see
+// flash_fwd.cu), all fp32, contiguous. The scores add the bias as the
+// forward does, so p = exp(s - lse) is the forward's probability.
 //
 // Bound on this card: operations. Per (query, key) pair the kernel does
 // two dot products over D (scores, dO V^T) and one D-wide axpy (dq): 6D
@@ -35,15 +39,17 @@ namespace {
 
 using namespace flash;
 
-template <int D, int BK, bool kDropout>
+template <int D, int BK, bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ kb,
+                    const float* __restrict__ bias,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int bias_heads, int sq, int sk, float scale, int causal,
-                    unsigned seed, unsigned thresh, float inv_keep) {
+                    int bias_heads, int bias_div, int bias_rows, int sq,
+                    int sk, float scale, int causal, unsigned seed,
+                    unsigned thresh, float inv_keep) {
   constexpr int kVec = D / 16;
   constexpr int kRow4 = D / 4;
   __shared__ float4 ks[BK][kRow4];
@@ -79,6 +85,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float4* kp = reinterpret_cast<const float4*>(k + (size_t)bh * sk * D);
   const float4* vp = reinterpret_cast<const float4*>(v + (size_t)bh * sk * D);
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
+  const float* brow =
+      kBias ? bias + ((size_t)((bh / bias_div) % bias_rows) * sq + row) * sk
+            : nullptr;
   const int kend = causal ? min(sk, q0 + kTileRows) : sk;
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
@@ -115,6 +124,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dp = group_sum(part_dp);
       const int kj = k0 + j;
       float s = part_s * scale + kbs[j];
+      if (kBias && kj < sk) s += __ldg(brow + kj);
       if (kj >= sk || (causal && kj > qi)) s = kNeg;
       const float p = expf(s - lse_i);
       if (kDropout) {
@@ -137,22 +147,42 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D, int BK, bool kDropout>
+void launch_bias(dim3 grid, const float* q, const float* k, const float* v,
+                 const float* kb, const float* bias, const float* dout,
+                 const float* lse, const float* delta, float* dq,
+                 int bias_heads, int bias_div, int bias_rows, int sq, int sk,
+                 float scale, int causal, unsigned seed, unsigned thresh,
+                 float inv_keep, cudaStream_t stream) {
+  if (bias) {
+    flash_bwd_dq_kernel<D, BK, kDropout, true><<<grid, kThreads, 0, stream>>>(
+        q, k, v, kb, bias, dout, lse, delta, dq, bias_heads, bias_div,
+        bias_rows, sq, sk, scale, causal, seed, thresh, inv_keep);
+  } else {
+    flash_bwd_dq_kernel<D, BK, kDropout, false>
+        <<<grid, kThreads, 0, stream>>>(
+            q, k, v, kb, bias, dout, lse, delta, dq, bias_heads, bias_div,
+            bias_rows, sq, sk, scale, causal, seed, thresh, inv_keep);
+  }
+}
+
 template <int D, int BK>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* kb, const float* dout, const float* lse,
-                   const float* delta, float* dq, int bh, int bias_heads,
-                   int sq, int sk, float scale, int causal, int dropout,
+                   const float* kb, const float* bias, const float* dout,
+                   const float* lse, const float* delta, float* dq, int bh,
+                   int bias_heads, int bias_div, int bias_rows, int sq,
+                   int sk, float scale, int causal, int dropout,
                    unsigned seed, unsigned thresh, float inv_keep,
                    cudaStream_t stream) {
   dim3 grid((sq + kTileRows - 1) / kTileRows, bh);
   if (dropout) {
-    flash_bwd_dq_kernel<D, BK, true><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, dout, lse, delta, dq, bias_heads, sq, sk, scale, causal,
-        seed, thresh, inv_keep);
+    launch_bias<D, BK, true>(grid, q, k, v, kb, bias, dout, lse, delta, dq,
+                             bias_heads, bias_div, bias_rows, sq, sk, scale,
+                             causal, seed, thresh, inv_keep, stream);
   } else {
-    flash_bwd_dq_kernel<D, BK, false><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, dout, lse, delta, dq, bias_heads, sq, sk, scale, causal,
-        seed, thresh, inv_keep);
+    launch_bias<D, BK, false>(grid, q, k, v, kb, bias, dout, lse, delta, dq,
+                              bias_heads, bias_div, bias_rows, sq, sk, scale,
+                              causal, seed, thresh, inv_keep, stream);
   }
   return cudaGetLastError();
 }
@@ -164,21 +194,24 @@ extern "C" {
 // Returns a cudaError_t: 0 on a successful launch (asynchronous on
 // `stream`; nothing allocated or synchronised). `dropout` 0 ignores seed,
 // thresh and inv_keep; otherwise `inv_keep` is 1 / (1 - rate) as fp32.
+// `bias` null means no general bias (see paddle_flash_fwd_f32).
 int paddle_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
-                            const void* key_bias, const void* dout,
-                            const void* lse, const void* delta, void* dq,
-                            int bh, int bias_heads, int sq, int sk, int d,
-                            float scale, int causal, int dropout,
-                            unsigned seed, unsigned thresh, float inv_keep,
-                            void* stream) {
+                            const void* key_bias, const void* bias,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int bh,
+                            int bias_heads, int bias_div, int bias_rows,
+                            int sq, int sk, int d, float scale, int causal,
+                            int dropout, unsigned seed, unsigned thresh,
+                            float inv_keep, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
-      bh % bias_heads != 0) {
+      bh % bias_heads != 0 || bias_div <= 0 || bias_rows <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const float* bf = static_cast<const float*>(key_bias);
+  const float* gb = static_cast<const float*>(bias);
   const float* gf = static_cast<const float*>(dout);
   const float* lf = static_cast<const float*>(lse);
   const float* df = static_cast<const float*>(delta);
@@ -186,17 +219,20 @@ int paddle_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return (int)launch<32, 64>(qf, kf, vf, bf, gf, lf, df, out, bh,
-                                 bias_heads, sq, sk, scale, causal, dropout,
-                                 seed, thresh, inv_keep, s);
+      return (int)launch<32, 64>(qf, kf, vf, bf, gb, gf, lf, df, out, bh,
+                                 bias_heads, bias_div, bias_rows, sq, sk,
+                                 scale, causal, dropout, seed, thresh,
+                                 inv_keep, s);
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, bf, gf, lf, df, out, bh,
-                                 bias_heads, sq, sk, scale, causal, dropout,
-                                 seed, thresh, inv_keep, s);
+      return (int)launch<64, 64>(qf, kf, vf, bf, gb, gf, lf, df, out, bh,
+                                 bias_heads, bias_div, bias_rows, sq, sk,
+                                 scale, causal, dropout, seed, thresh,
+                                 inv_keep, s);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, bf, gf, lf, df, out, bh,
-                                  bias_heads, sq, sk, scale, causal, dropout,
-                                  seed, thresh, inv_keep, s);
+      return (int)launch<128, 32>(qf, kf, vf, bf, gb, gf, lf, df, out, bh,
+                                 bias_heads, bias_div, bias_rows, sq, sk,
+                                 scale, causal, dropout, seed, thresh,
+                                 inv_keep, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,11 +3,12 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (paddle_tpu/kernels/flash_attention.py:149, launched by
 // `_flash_fwd_impl` at :701 behind `flash_attention_lse` /
-// `flash_attention`) for a key-only additive bias, the causal flag and
-// the in-kernel hash dropout: GPT prefill (rate 0) and the GPT train
-// step (rate 0.1). The general [G, Sq, Sk] bias is not taken here.
+// `flash_attention`): a key-only additive bias, the general additive bias
+// [G, Sq, Sk], the causal flag and the in-kernel hash dropout. GPT
+// prefill (rate 0), the GPT train step (rate 0.1) and
+// `fluid.layers.flash_attention(bias=...)` (a learnable per-head bias).
 //
-//   P   = softmax(Q K^T * scale + key_bias, causal)
+//   P   = softmax(Q K^T * scale + key_bias + bias, causal)
 //   O   = (keep o P) V / (1 - rate)   (keep: the reference's hash mask)
 //   lse = m + log(l)            (per query row, unmasked; for the backward)
 //
@@ -23,6 +24,18 @@
 // heads) is read as it is, with no per-head copy; a null key_bias means
 // no bias. Conventions of the reference: masked scores are -1e30, `l` is
 // clamped at 1e-30, accumulation is fp32.
+//
+// The general bias is [G, Sq, Sk] fp32 (null = none): head bh = b*N + n
+// reads row (bh / bias_div) % bias_rows, which maps every broadcast form
+// of the reference straight onto the caller's heads ([Sq, Sk] -> row 0,
+// [B, 1, ..] -> bh / N, [B, N, ..] -> bh, [1, N, ..] -> bh % N). The TPU
+// kernel swaps B and N for the per-head form so that heads sharing a row
+// are consecutive on its sequential grid; CUDA blocks run in no order, so
+// no swap is needed, and the dropout hash keeps the caller's head index.
+// Each thread reads its own row's bias entries from global memory (the
+// four threads of a row read the same address; a warp's eight rows are
+// eight sectors); bias = false is the instantiation without it, the same
+// arithmetic as before the bias was added.
 //
 // Bound on this card: operations. At the prefill shape (12 heads,
 // T = 1024, D = 64, causal) the kernel moves ~13 MB but does
@@ -52,12 +65,13 @@ namespace {
 using namespace flash;
 
 // D: head dim (multiple of 16). BK: key rows per shared-memory tile.
-template <int D, int BK, bool kDropout>
+template <int D, int BK, bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ kb,
-                 float* __restrict__ o, float* __restrict__ lse,
-                 int bias_heads, int sq, int sk, float scale, int causal,
+                 const float* __restrict__ bias, float* __restrict__ o,
+                 float* __restrict__ lse, int bias_heads, int bias_div,
+                 int bias_rows, int sq, int sk, float scale, int causal,
                  unsigned seed, unsigned thresh, float keep_prob) {
   constexpr int kVec = D / 16;   // float4s per thread: d = 16c + 4*lane
   constexpr int kRow4 = D / 4;   // float4s per K/V row
@@ -91,6 +105,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float4* kp = reinterpret_cast<const float4*>(k + (size_t)bh * sk * D);
   const float4* vp = reinterpret_cast<const float4*>(v + (size_t)bh * sk * D);
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
+  const float* brow =
+      kBias ? bias + ((size_t)((bh / bias_div) % bias_rows) * sq +
+                      (row_ok ? qi : 0)) * sk
+            : nullptr;
   // key tiles starting past the block's last row are masked for every
   // row of the block: skip them
   const int kend = causal ? min(sk, q0 + kTileRows) : sk;
@@ -127,6 +145,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kj = k0 + j;
       float sj = part * scale + kbs[j];
+      if (kBias && kj < sk) sj += __ldg(brow + kj);
       if (kj >= sk || (causal && kj > qi)) sj = kNeg;
       s[j] = sj;
       m_new = fmaxf(m_new, sj);
@@ -190,21 +209,39 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D, int BK, bool kDropout>
+void launch_bias(dim3 grid, const float* q, const float* k, const float* v,
+                 const float* kb, const float* bias, float* o, float* lse,
+                 int bias_heads, int bias_div, int bias_rows, int sq, int sk,
+                 float scale, int causal, unsigned seed, unsigned thresh,
+                 float keep_prob, cudaStream_t stream) {
+  if (bias) {
+    flash_fwd_kernel<D, BK, kDropout, true><<<grid, kThreads, 0, stream>>>(
+        q, k, v, kb, bias, o, lse, bias_heads, bias_div, bias_rows, sq, sk,
+        scale, causal, seed, thresh, keep_prob);
+  } else {
+    flash_fwd_kernel<D, BK, kDropout, false><<<grid, kThreads, 0, stream>>>(
+        q, k, v, kb, bias, o, lse, bias_heads, bias_div, bias_rows, sq, sk,
+        scale, causal, seed, thresh, keep_prob);
+  }
+}
+
 template <int D, int BK>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* kb, float* o, float* lse, int bh,
-                   int bias_heads, int sq, int sk, float scale, int causal,
-                   int dropout, unsigned seed, unsigned thresh,
-                   float keep_prob, cudaStream_t stream) {
+                   const float* kb, const float* bias, float* o, float* lse,
+                   int bh, int bias_heads, int bias_div, int bias_rows,
+                   int sq, int sk, float scale, int causal, int dropout,
+                   unsigned seed, unsigned thresh, float keep_prob,
+                   cudaStream_t stream) {
   dim3 grid((sq + kTileRows - 1) / kTileRows, bh);
   if (dropout) {
-    flash_fwd_kernel<D, BK, true><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, o, lse, bias_heads, sq, sk, scale, causal, seed, thresh,
-        keep_prob);
+    launch_bias<D, BK, true>(grid, q, k, v, kb, bias, o, lse, bias_heads,
+                             bias_div, bias_rows, sq, sk, scale, causal,
+                             seed, thresh, keep_prob, stream);
   } else {
-    flash_fwd_kernel<D, BK, false><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, o, lse, bias_heads, sq, sk, scale, causal, seed, thresh,
-        keep_prob);
+    launch_bias<D, BK, false>(grid, q, k, v, kb, bias, o, lse, bias_heads,
+                              bias_div, bias_rows, sq, sk, scale, causal,
+                              seed, thresh, keep_prob, stream);
   }
   return cudaGetLastError();
 }
@@ -217,36 +254,39 @@ extern "C" {
 // asynchronous on `stream`; nothing is allocated or synchronised here.
 // `dropout` 0 ignores seed, thresh and keep_prob; otherwise `seed` is the
 // 23-bit normalized seed, `thresh` the keep threshold and `keep_prob`
-// 1 - rate (as fp32).
+// 1 - rate (as fp32). `bias` null means no general bias; otherwise head
+// bh reads its row (bh / bias_div) % bias_rows.
 int paddle_flash_fwd_f32(const void* q, const void* k, const void* v,
-                         const void* key_bias, void* o, void* lse, int bh,
-                         int bias_heads, int sq, int sk, int d, float scale,
+                         const void* key_bias, const void* bias, void* o,
+                         void* lse, int bh, int bias_heads, int bias_div,
+                         int bias_rows, int sq, int sk, int d, float scale,
                          int causal, int dropout, unsigned seed,
                          unsigned thresh, float keep_prob, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
-      bh % bias_heads != 0) {
+      bh % bias_heads != 0 || bias_div <= 0 || bias_rows <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const float* bf = static_cast<const float*>(key_bias);
+  const float* gb = static_cast<const float*>(bias);
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return (int)launch<32, 64>(qf, kf, vf, bf, of, lf, bh, bias_heads, sq,
-                                 sk, scale, causal, dropout, seed, thresh,
-                                 keep_prob, s);
+      return (int)launch<32, 64>(qf, kf, vf, bf, gb, of, lf, bh, bias_heads,
+                                 bias_div, bias_rows, sq, sk, scale, causal,
+                                 dropout, seed, thresh, keep_prob, s);
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, bf, of, lf, bh, bias_heads, sq,
-                                 sk, scale, causal, dropout, seed, thresh,
-                                 keep_prob, s);
+      return (int)launch<64, 64>(qf, kf, vf, bf, gb, of, lf, bh, bias_heads,
+                                 bias_div, bias_rows, sq, sk, scale, causal,
+                                 dropout, seed, thresh, keep_prob, s);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, bf, of, lf, bh, bias_heads, sq,
-                                  sk, scale, causal, dropout, seed, thresh,
-                                  keep_prob, s);
+      return (int)launch<128, 32>(qf, kf, vf, bf, gb, of, lf, bh, bias_heads,
+                                 bias_div, bias_rows, sq, sk, scale, causal,
+                                 dropout, seed, thresh, keep_prob, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

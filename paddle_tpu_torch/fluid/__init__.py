@@ -1,10 +1,33 @@
-"""The slice of ``paddle_tpu.fluid`` the serving and training paths
-need: places, flags, the always-on profiler tallies, the op lowerings as
-plain functions on tensors, and the Adam optimizer. The Program/Executor
-IR is not ported yet."""
+"""The slice of ``paddle_tpu.fluid`` the serving and training paths need:
+places, flags, the always-on profiler tallies, the Program IR
+(``framework``), the Executor, desc-level autodiff (``backward``), the
+layers of the GPT train program, initializers, the Adam optimizer in
+its program and eager forms, and the op lowerings, which the eager
+models also call as plain functions on tensors."""
 
-from . import core, flags, ops, optimizer, profiler
-from .core import CPUPlace, CUDAPlace, resolve_device
+from . import core, flags, ops, profiler, unique_name  # noqa: F401
+from . import framework, initializer, param_attr  # noqa: F401
+from . import backward, clip, executor, layers, optimizer, regularizer  # noqa: F401
+from .backward import append_backward, gradients
+from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
+from .executor import Executor, global_scope, scope_guard
+from .framework import (
+    Parameter,
+    Program,
+    Variable,
+    default_main_program,
+    default_startup_program,
+    name_scope,
+    program_guard,
+)
+from .param_attr import ParamAttr
 
-__all__ = ["core", "flags", "ops", "optimizer", "profiler", "CPUPlace",
-           "CUDAPlace", "resolve_device"]
+__all__ = [
+    "core", "flags", "ops", "profiler", "unique_name", "framework",
+    "initializer", "param_attr", "backward", "clip", "executor", "layers",
+    "optimizer", "regularizer", "append_backward", "gradients", "CPUPlace",
+    "CUDAPlace", "LoDTensor", "Scope", "resolve_device", "Executor",
+    "global_scope", "scope_guard", "Parameter", "Program", "Variable",
+    "default_main_program", "default_startup_program", "name_scope",
+    "program_guard", "ParamAttr",
+]

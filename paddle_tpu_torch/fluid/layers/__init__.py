@@ -1,0 +1,7 @@
+"""Layers DSL, the slice the GPT train program uses (port of
+``paddle_tpu/fluid/layers/``)."""
+
+from . import io, nn, tensor  # noqa: F401
+from .io import *  # noqa: F401,F403
+from .nn import *  # noqa: F401,F403
+from .tensor import *  # noqa: F401,F403

@@ -1,0 +1,378 @@
+"""Neural-network layer functions the GPT train program uses (port of
+the matching functions of ``paddle_tpu/fluid/layers/nn.py``, names and
+signatures as there; each builds ops through LayerHelper.append_op).
+"""
+
+import numpy as np
+
+from ..initializer import Constant
+from ..layer_helper import LayerHelper
+
+__all__ = [
+    "fc", "embedding", "layer_norm", "dropout", "softmax", "matmul",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "mean", "reduce_sum", "reduce_mean", "reshape",
+    "unsqueeze", "transpose", "slice", "flash_attention", "scale",
+    "softmax_with_cross_entropy",
+]
+
+
+def fc(
+    input,
+    size,
+    num_flatten_dims=1,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+):
+    """Fully connected (reference: layers/nn.py:233 fc — mul + elementwise_add
+    + activation; multiple inputs are summed)."""
+    helper = LayerHelper("fc", **locals())
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, param_attr_ in helper.iter_inputs_and_params():
+        input_shape = input_var.shape
+        param_shape = [
+            int(np.prod(input_shape[num_flatten_dims:])),
+            size,
+        ]
+        w = helper.create_parameter(
+            attr=param_attr_, shape=param_shape, dtype=dtype
+        )
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [input_var], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]}
+        )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(
+    input,
+    size,
+    is_sparse=False,
+    is_distributed=False,
+    padding_idx=None,
+    param_attr=None,
+    dtype="float32",
+):
+    """reference: layers/nn.py embedding -> lookup_table op; the gradient
+    is dense (``is_sparse`` is recorded, SelectedRows is not ported)."""
+    helper = LayerHelper("embedding", **locals())
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=size, dtype=dtype, is_bias=False
+    )
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (
+        -1
+        if padding_idx is None
+        else padding_idx
+        if padding_idx >= 0
+        else (size[0] + padding_idx)
+    )
+    helper.append_op(
+        type="lookup_table",
+        inputs={"Ids": [input], "W": [w]},
+        outputs={"Out": [tmp]},
+        attrs={
+            "is_sparse": is_sparse,
+            "is_distributed": is_distributed,
+            "padding_idx": padding_idx,
+        },
+    )
+    return tmp
+
+
+def layer_norm(
+    input,
+    scale=True,
+    shift=True,
+    begin_norm_axis=1,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    act=None,
+    name=None,
+):
+    helper = LayerHelper("layer_norm", **locals())
+    dtype = helper.input_dtype()
+    param_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            attr=helper.param_attr,
+            shape=param_shape,
+            dtype=dtype,
+            default_initializer=Constant(1.0),
+        )
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(
+            attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True
+        )
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    variance_out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="layer_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [variance_out]},
+        attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(out)
+
+
+def dropout(
+    x,
+    dropout_prob,
+    is_test=False,
+    seed=None,
+    name=None,
+    dropout_implementation="downgrade_in_infer",
+):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(
+        dtype=x.dtype, stop_gradient=True
+    )
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "fix_seed": seed is not None,
+            "seed": seed if seed is not None else 0,
+            "dropout_implementation": dropout_implementation,
+        },
+    )
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="softmax",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis, "use_cudnn": use_cudnn},
+    )
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="matmul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={
+            "transpose_X": transpose_x,
+            "transpose_Y": transpose_y,
+            "alpha": float(alpha),
+        },
+    )
+    return out
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name, act=act)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type=op_type,
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
+    return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    helper.append_op(
+        type=op_type,
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "dim": dim if dim is not None else [0],
+            "keep_dim": keep_dim,
+            "reduce_all": dim is None,
+        },
+    )
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="reshape2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [x_shape]},
+        attrs={"shape": list(shape)},
+    )
+    return helper.append_activation(out)
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="unsqueeze2",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "XShape": [x_shape]},
+        attrs={"axes": axes},
+    )
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="transpose2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [x_shape]},
+        attrs={"axis": list(perm)},
+    )
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="slice",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"axes": list(axes), "starts": list(starts), "ends": list(ends)},
+    )
+    return out
+
+
+def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
+                    scale=0.0, dropout_rate=0.0, is_test=False,
+                    interpret=False, name=None):
+    """Fused online-softmax attention over [N, heads, S, d_head] tensors
+    (the hand-written CUDA flash kernels on the card, forward and
+    backward, no [S, S] tensor ever reaches device memory; their plain
+    versions on the CPU). ``key_bias``: optional [N, S] additive key mask;
+    ``bias``: optional general additive bias broadcastable to
+    [N, heads, S, S] (relative-position / ALiBi), differentiable: its
+    gradient comes from the same backward kernels; ``scale`` 0 means
+    1/sqrt(d_head). ``dropout_rate``: in-kernel attention-probability
+    dropout (seeded per step from the run's generator; disabled when
+    ``is_test``). ``interpret`` is the reference's switch for its Pallas
+    interpreter, recorded and unused here."""
+    helper = LayerHelper("flash_attention", **locals())
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if key_bias is not None:
+        inputs["KeyBias"] = [key_bias]
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    helper.append_op(
+        type="flash_attention",
+        inputs=inputs,
+        outputs={"Out": [out]},
+        attrs={"causal": causal, "scale": float(scale),
+               "dropout_rate": float(dropout_rate), "is_test": bool(is_test),
+               "interpret": bool(interpret)},
+    )
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    """reference: layers/nn.py scale."""
+    helper = LayerHelper("scale", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="scale",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"scale": float(scale), "bias": float(bias),
+               "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out) if act else out
+
+
+def softmax_with_cross_entropy(
+    logits,
+    label,
+    soft_label=False,
+    ignore_index=-100,
+    numeric_stable_mode=True,
+    return_softmax=False,
+    axis=-1,
+):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax], "Loss": [loss]},
+        attrs={
+            "soft_label": soft_label,
+            "ignore_index": ignore_index,
+            "numeric_stable_mode": numeric_stable_mode,
+            "axis": axis,
+        },
+    )
+    if return_softmax:
+        return loss, softmax
+    return loss

@@ -1,6 +1,7 @@
-"""Op lowerings of the serving and training slices as plain functions on
-tensors."""
+"""Op lowerings: plain functions on tensors, and the registered rules the
+Executor runs (importing the modules registers them)."""
 
-from . import math_ops, nn_ops, optimizer_ops
+from . import registry  # noqa: F401  (first: the others register into it)
+from . import math_ops, nn_ops, optimizer_ops, tensor_ops
 
-__all__ = ["math_ops", "nn_ops", "optimizer_ops"]
+__all__ = ["registry", "math_ops", "nn_ops", "optimizer_ops", "tensor_ops"]

@@ -1,16 +1,23 @@
-"""Attention, dropout and KV-cache op lowerings (port of the
-``flash_attention`` / ``flash_attention_grad``, ``dropout``,
-``flash_decode_attention``, ``flash_decode_paged_attention``,
-``kv_cache_write`` and paged KV-pool lowerings in
-``paddle_tpu/fluid/ops/nn_ops.py``) as plain functions on tensors."""
+"""Attention, dropout and KV-cache ops (port of the
+``flash_attention`` / ``flash_attention_grad``, ``dropout`` /
+``dropout_grad``, ``flash_decode_attention``,
+``flash_decode_paged_attention``, ``kv_cache_write`` and paged KV-pool
+lowerings in ``paddle_tpu/fluid/ops/nn_ops.py``): plain functions on
+tensors, which the eager models and the serving session call, and the
+registered lowerings of ``dropout`` and ``flash_attention`` with their
+grads, which the Executor runs."""
 
 import torch
 
 from ...kernels import flash_attention as _fa
+from .registry import (EMPTY_VAR, SkipInferShape, _generic_grad_lower,
+                       in_var, op, set_out)
 
 __all__ = [
     "flash_attention",
     "flash_attention_lse",
+    "flash_attention_grad",
+    "flash_dropout",
     "dropout",
     "flash_decode_attention",
     "flash_decode_paged_attention",
@@ -42,48 +49,72 @@ def _unbroadcast_key_bias(dkb, raw_shape, B, N, Sk):
 class _FlashAttention(torch.autograd.Function):
     """The ``flash_attention`` op made differentiable: the forward is the
     flash forward (kernel on the card) and saves q, k, v, the key bias,
-    out, lse and the integer seed; the backward is the
+    the general bias, out, lse and the integer seed; the backward is the
     ``flash_attention_grad`` op, driven from those residuals through both
-    backward kernels, so the forward never runs twice."""
+    backward kernels, so the forward never runs twice. ``forward`` and
+    ``setup_context`` are separate, PyTorch's form for a Function that
+    ``torch.func`` transforms (``vjp``, ``grad``) can go through."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, causal, scale, rate, seed):
-        out, lse = _fa.flash_attention_lse(
-            q, k, v, key_bias=key_bias, causal=causal, scale=scale,
-            dropout_rate=rate, dropout_seed=seed)
-        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+    def forward(q, k, v, key_bias, bias, causal, scale, rate, seed):
+        return _fa.flash_attention_lse(
+            q, k, v, key_bias=key_bias, bias=bias, causal=causal,
+            scale=scale, dropout_rate=rate, dropout_seed=seed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_bias, bias, causal, scale, rate, seed = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, key_bias, bias, out, lse)
         ctx.attrs = (causal, scale, rate, seed)
         ctx.set_materialize_grads(False)
-        return out, lse
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        q, k, v, key_bias, bias, out, lse = ctx.saved_tensors
         causal, scale, rate, seed = ctx.attrs
-        if g is None:
-            g = torch.zeros_like(out)
-        # autograd hands dO as the transposed view _merge_heads' backward
-        # makes; the kernels read contiguous rows
-        dq, dk, dv, dkb = _fa.flash_attention_bwd_from_residuals(
-            q, k, v, key_bias, seed, out, lse, g.contiguous(), causal=causal,
-            scale=scale, dropout_rate=rate, g_lse=g_lse)
-        dkey_bias = None
-        if key_bias is not None and ctx.needs_input_grad[3]:
-            B, N, _Sq, _D = q.shape
-            dkey_bias = _unbroadcast_key_bias(
-                dkb, tuple(key_bias.shape), B, N, k.shape[2]
-            ).to(key_bias.dtype)
-        return dq, dk, dv, dkey_bias, None, None, None, None
+        return flash_attention_grad(q, k, v, key_bias, bias, seed, out, lse,
+                                    g, g_lse, causal, scale, rate,
+                                    ctx.needs_input_grad[3:5]) + (None,) * 4
+
+
+def flash_attention_grad(q, k, v, key_bias, bias, seed, out, lse, g,
+                         g_lse=None, causal=False, scale=None, rate=0.0,
+                         bias_grads=(True, True)):
+    """The ``flash_attention_grad`` op (``nn_ops.py:1133``) from the
+    forward's residuals: (dq, dk, dv, d key_bias, d bias), the last two
+    on the raw shapes of ``key_bias`` and ``bias`` (None where there is
+    none or ``bias_grads`` says it is not wanted). The reference replays
+    the forward under its generic vjp when there is a general bias; the
+    residual-driven kernels give the same gradient without a second
+    forward."""
+    if g is None:
+        g = torch.zeros_like(out)
+    # autograd hands dO as the transposed view _merge_heads' backward
+    # makes; the kernels read contiguous rows
+    grads = _fa.flash_attention_bwd_from_residuals(
+        q, k, v, key_bias, seed, out, lse, g.contiguous(), causal=causal,
+        scale=scale, dropout_rate=rate, g_lse=g_lse, bias=bias)
+    dq, dk, dv, dkb = grads[:4]
+    dkey_bias = dbias = None
+    if key_bias is not None and bias_grads[0]:
+        B, N, _Sq, _D = q.shape
+        dkey_bias = _unbroadcast_key_bias(
+            dkb, tuple(key_bias.shape), B, N, k.shape[2]
+        ).to(key_bias.dtype)
+    if bias is not None and bias_grads[1]:
+        dbias = grads[4].reshape(bias.shape).to(bias.dtype)
+    return dq, dk, dv, dkey_bias, dbias
 
 
 def flash_attention_lse(q, k, v, key_bias=None, causal=False, scale=None,
-                        dropout_rate=0.0, dropout_seed=None):
+                        dropout_rate=0.0, dropout_seed=None, bias=None):
     """(out, lse [N, heads, Sq]) of the fused attention, differentiable in
-    q, k, v and the key bias; a cotangent of ``lse`` folds into the
-    backward's delta. When no input needs a gradient (or under
-    ``no_grad`` / ``inference_mode``) autograd records nothing and this
-    is one forward launch."""
-    return _FlashAttention.apply(q, k, v, key_bias, causal, scale,
+    q, k, v, the key bias and the general ``bias``; a cotangent of
+    ``lse`` folds into the backward's delta. When no input needs a
+    gradient (or under ``no_grad`` / ``inference_mode``) autograd records
+    nothing and this is one forward launch."""
+    return _FlashAttention.apply(q, k, v, key_bias, bias, causal, scale,
                                  dropout_rate, dropout_seed)
 
 
@@ -99,24 +130,24 @@ def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
     its 23-bit seed is drawn from ``generator``, a CPU ``torch.Generator``
     (the reference draws it from the executor's key stream), as a Python
     int: a draw on the card would cost a host sync per layer. A general
-    ``bias`` runs the plain version on CPU tensors (differentiable through
-    its dense ops) and raises on the card (the Fluid-layers slice ports
-    it)."""
-    rate = float(dropout_rate or 0.0)
-    seed = None
-    if rate > 0.0 and not is_test:
-        seed = int(torch.randint(0, 1 << 23, (), generator=generator))
-    rate = rate if seed is not None else 0.0
-    scale = float(scale) if scale else None
-    if bias is not None:
-        out, _lse = _fa.flash_attention_lse(
-            q, k, v, key_bias=key_bias, bias=bias, causal=bool(causal),
-            scale=scale, dropout_rate=rate, dropout_seed=seed)
-        return out
-    out, _lse = flash_attention_lse(q, k, v, key_bias=key_bias,
-                                    causal=bool(causal), scale=scale,
-                                    dropout_rate=rate, dropout_seed=seed)
+    ``bias`` is differentiable like the other inputs; its gradient comes
+    from the same backward kernels."""
+    out, _lse = flash_attention_lse(
+        q, k, v, key_bias=key_bias, causal=bool(causal),
+        scale=float(scale) if scale else None, bias=bias,
+        **flash_dropout(dropout_rate, is_test, generator))
     return out
+
+
+def flash_dropout(dropout_rate, is_test=False, generator=None):
+    """The flash op's dropout arguments: ``{"dropout_rate", "dropout_seed"}``
+    with the 23-bit seed drawn from the CPU ``generator`` as a Python int
+    when dropout is live (rate > 0 and not ``is_test``), else rate 0."""
+    rate = float(dropout_rate or 0.0)
+    if rate <= 0.0 or is_test:
+        return {"dropout_rate": 0.0, "dropout_seed": None}
+    seed = int(torch.randint(0, 1 << 23, (), generator=generator))
+    return {"dropout_rate": rate, "dropout_seed": seed}
 
 
 def dropout(x, dropout_prob=0.5, is_test=False,
@@ -249,3 +280,123 @@ def kv_cache_write(cache, new, pos, slot_mode=False):
     # at position start[s] + t (a broadcast index, no per-slot loop)
     cache.scatter_(2, idx.expand(new.shape), new)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# op lowerings
+# ---------------------------------------------------------------------------
+def _dropout_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", x.shape, x.dtype)
+    set_out(op_, block, "Mask", x.shape, x.dtype)
+
+
+def _dropout_grad_maker(op_):
+    return [dict(
+        type="dropout_grad",
+        inputs={"Mask": op_.output("Mask"),
+                "Out@GRAD": [n + "@GRAD" for n in op_.output("Out")]},
+        outputs={"X@GRAD": [n + "@GRAD" for n in op_.input("X")]},
+        attrs=dict(op_.attrs),
+    )]
+
+
+@op("dropout", infer_shape=_dropout_infer, grad=_dropout_grad_maker)
+def _dropout_op(ctx, op_):
+    """Out = X·Mask with the Mask kept as the op's output (the keep draw
+    from the run's device generator, or from the op's own ``seed``), as
+    ``nn_ops.py:467``; the grad multiplies by that Mask and never draws."""
+    x = ctx.in1(op_, "X")
+    p = float(op_.attr("dropout_prob", 0.5))
+    impl = op_.attr("dropout_implementation", "downgrade_in_infer")
+    if bool(op_.attr("is_test", False)):
+        ctx.out(op_, "Out", dropout(x, p, is_test=True,
+                                    dropout_implementation=impl))
+        ctx.out(op_, "Mask", torch.ones_like(x))
+        return
+    keep = torch.rand(x.shape, generator=ctx.generator(op_),
+                      device=x.device) < 1.0 - p
+    mask = keep.to(x.dtype)
+    if impl == "upscale_in_train":
+        mask = mask / max(1.0 - p, 1e-12)
+    ctx.out(op_, "Out", x * mask)
+    ctx.out(op_, "Mask", mask)
+
+
+@op("dropout_grad")
+def _dropout_grad(ctx, op_):
+    ctx.out(op_, "X@GRAD", ctx.in1(op_, "Out@GRAD") * ctx.in1(op_, "Mask"))
+
+
+def _flash_attention_infer(op_, block):
+    q = in_var(op_, block, "Q")
+    if q is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", list(q.shape), q.dtype)
+
+
+_LSE, _SEED = "@FLASH_LSE", "@FLASH_SEED"
+
+
+@op("flash_attention", infer_shape=_flash_attention_infer, grad="generic")
+def _flash_attention_op(ctx, op_):
+    """Fused attention on [N, heads, S, d_head] through the flash kernels
+    (the plain versions on the CPU). The softmax statistics and the
+    dropout seed are kept as companions of the output var, from which
+    ``flash_attention_grad`` drives the backward kernels; the seed is
+    drawn from the run's CPU generator as a Python int, so no draw waits
+    on the card."""
+    q, k, v = (ctx.in1(op_, s).contiguous() for s in ("Q", "K", "V"))
+    # the contiguous copies replace the transposed views in the run's
+    # environment: the grad op reads them without copying again
+    for slot, t in (("Q", q), ("K", k), ("V", v)):
+        ctx.set(op_.input(slot)[0], t)
+    key_bias = ctx.in1(op_, "KeyBias", optional=True)
+    bias = ctx.in1(op_, "Bias", optional=True)
+    scale = op_.attr("scale", 0.0)
+    drop = flash_dropout(op_.attr("dropout_rate", 0.0),
+                         bool(op_.attr("is_test", False)),
+                         ctx.host_generator() if ctx.rng else None)
+    out, lse = flash_attention_lse(
+        q, k, v, key_bias=key_bias, bias=bias,
+        causal=bool(op_.attr("causal", False)),
+        scale=float(scale) if scale else None, **drop)
+    ctx.out(op_, "Out", out)
+    oname = op_.output("Out")[0]
+    ctx.set(oname + _LSE, lse)
+    ctx.set(oname + _SEED, drop["dropout_seed"])
+
+
+@op("flash_attention_grad")
+def _flash_attention_grad_op(ctx, op_):
+    """The backward kernels from the forward's residuals (Out and the
+    lse/seed companions), a general bias included: the forward never
+    runs twice. Without the companions (a grad op run apart from its
+    forward) it falls back to the counted generic replay."""
+    oname = op_.input("Out")[0]
+    lse = ctx.get_opt(oname + _LSE)
+    if lse is None:
+        return _generic_grad_lower(ctx, op_)
+    rate = float(op_.attr("dropout_rate", 0.0))
+    live = rate > 0.0 and not bool(op_.attr("is_test", False))
+    seed = ctx.get_opt(oname + _SEED)
+    key_bias = ctx.in1(op_, "KeyBias", optional=True)
+    bias = ctx.in1(op_, "Bias", optional=True)
+    wants = [any(n != EMPTY_VAR for n in op_.output(slot))
+             for slot in ("KeyBias@GRAD", "Bias@GRAD")]
+    scale = op_.attr("scale", 0.0)
+    q, k, v = (ctx.in1(op_, s).contiguous() for s in ("Q", "K", "V"))
+    dq, dk, dv, dkb, dbias = flash_attention_grad(
+        q, k, v, key_bias, bias, seed if live else None, ctx.in1(op_, "Out"),
+        lse, ctx.in1(op_, "Out@GRAD"), causal=bool(op_.attr("causal", False)),
+        scale=float(scale) if scale else None, rate=rate if live else 0.0,
+        bias_grads=wants)
+    ctx.out(op_, "Q@GRAD", dq)
+    ctx.out(op_, "K@GRAD", dk)
+    ctx.out(op_, "V@GRAD", dv)
+    if dkb is not None:
+        ctx.out(op_, "KeyBias@GRAD", dkb)
+    if dbias is not None:
+        ctx.out(op_, "Bias@GRAD", dbias)

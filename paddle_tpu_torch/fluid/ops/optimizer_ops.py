@@ -1,16 +1,22 @@
 """Optimizer update ops (port of ``adam`` in
 ``paddle_tpu/fluid/ops/optimizer_ops.py``) as in-place updates of lists
-of tensors.
+of tensors, and the registered ``adam`` op lowering.
 
-The reference's update is one XLA-fused op, not a Pallas kernel; here it
-is a handful of ``torch._foreach_*`` calls over every parameter at once,
-which keeps the launches per step to a few dozen instead of several per
-parameter.
+The reference's update is one XLA-fused op, not a Pallas kernel. The
+eager step runs a handful of ``torch._foreach_*`` calls over every
+parameter at once (``adam``); the program runs one ``adam`` op per
+parameter, as the reference's program does (``adam_one``), each 16
+elementwise launches.
 """
 
+import functools
+
+import numpy as np
 import torch
 
-__all__ = ["adam"]
+from .registry import op
+
+__all__ = ["adam", "adam_one"]
 
 
 def adam(params, grads, moment1, moment2, beta1_pow, beta2_pow,
@@ -48,3 +54,46 @@ def adam(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                             [-float(x) for x in lr_t.tolist()])
     beta1_pow.mul_(b1)
     beta2_pow.mul_(b2)
+
+
+@functools.lru_cache(maxsize=None)
+def _fp32_constants(beta1, beta2, epsilon):
+    """(β₁, 1 − β₁, β₂, 1 − β₂, ε) rounded to fp32, as Python floats."""
+    f32 = np.float32
+    return (float(f32(beta1)), float(f32(1) - f32(beta1)), float(f32(beta2)),
+            float(f32(1) - f32(beta2)), float(f32(epsilon)))
+
+
+def adam_one(param, grad, moment1, moment2, beta1_pow, beta2_pow,
+             learning_rate, beta1=0.9, beta2=0.999, epsilon=1e-8):
+    """``adam`` on one parameter whose state lives on its device, as the
+    program's scope holds it: ``beta1_pow`` / ``beta2_pow`` [1] and
+    ``learning_rate`` are tensors there, so ``lr_t`` stays a device tensor
+    and the update reads nothing back. Same rule and fp32 constants as
+    ``adam``; plain tensor methods, since a one-element ``_foreach`` call
+    costs the host more for the same launches."""
+    b1, one_b1, b2, one_b2, eps = _fp32_constants(beta1, beta2, epsilon)
+    moment1.mul_(b1).add_(grad, alpha=one_b1)
+    moment2.mul_(b2).addcmul_(grad, grad, value=one_b2)
+    denom = moment2.sqrt().add_(eps)
+    lr_t = learning_rate * torch.sqrt(1.0 - beta2_pow) / (1.0 - beta1_pow)
+    param.sub_(lr_t * moment1 / denom)
+    beta1_pow.mul_(b1)
+    beta2_pow.mul_(b2)
+
+
+@op("adam")
+def _adam_op(ctx, op_):
+    """The ``adam`` op on one parameter (``optimizer_ops.py:87``): the
+    parameter, its moments and β-pow accumulators are updated in place in
+    the scope's tensors, which the outputs name again."""
+    p = ctx.in1(op_, "Param")
+    m1, m2 = ctx.in1(op_, "Moment1"), ctx.in1(op_, "Moment2")
+    b1p, b2p = ctx.in1(op_, "Beta1Pow"), ctx.in1(op_, "Beta2Pow")
+    adam_one(p, ctx.in1(op_, "Grad").to(p.dtype), m1, m2, b1p, b2p,
+             ctx.in1(op_, "LearningRate").reshape(()).to(p.dtype),
+             float(op_.attr("beta1", 0.9)), float(op_.attr("beta2", 0.999)),
+             float(op_.attr("epsilon", 1e-8)))
+    for slot, t in (("ParamOut", p), ("Moment1Out", m1), ("Moment2Out", m2),
+                    ("Beta1PowOut", b1p), ("Beta2PowOut", b2p)):
+        ctx.out(op_, slot, t)

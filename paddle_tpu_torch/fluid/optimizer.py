@@ -1,38 +1,230 @@
-"""Optimizers (port of ``AdamOptimizer`` / ``Adam`` in
-``paddle_tpu/fluid/optimizer.py``) over ``nn.Module`` parameters.
+"""Optimizers (port of ``Optimizer`` and ``AdamOptimizer`` / ``Adam`` in
+``paddle_tpu/fluid/optimizer.py``).
 
-The reference appends update ops to a static program; the port's train
-step runs eagerly, so ``minimize(loss)`` runs the backward and the
-update at once.
+As in the reference, one class serves both uses:
+
+- static: ``minimize(loss_var)`` on a Program appends the backward
+  (``append_backward``), gradient clip and regularization ops, then one
+  update op per parameter, with the accumulators created in the startup
+  program (reference: optimizer.py ``_create_optimization_pass``);
+- eager: given ``parameter_list`` tensors, ``minimize(loss_tensor)`` runs
+  autograd's backward and the update at once over every parameter
+  (``optimizer_ops.adam``, the reference's rule).
 """
+
+from collections import defaultdict
 
 import torch
 
+from . import unique_name
+from .backward import append_backward
+from .framework import (
+    OP_ROLE_KEY,
+    OpRole,
+    Variable,
+    default_main_program,
+    default_startup_program,
+    op_role_guard,
+    program_guard,
+)
+from .initializer import Constant
+from .layer_helper import LayerHelper
 from .ops import optimizer_ops
 
-__all__ = ["AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "AdamOptimizer", "Adam"]
 
 
-class AdamOptimizer(object):
-    """Adam with the reference's update rule (``optimizer_ops.adam``):
-    per-parameter moments, created at zero, and β-pow accumulators that
-    start at β₁ and β₂ (``optimizer.py:454``). Every parameter is updated
-    every step, as the reference's dense update does: a parameter whose
-    gradient is None is updated with zeros.
+class Optimizer(object):
+    """The program form of the reference's ``Optimizer``: learning-rate
+    var, per-parameter accumulators, and ``minimize`` = backward + clip +
+    regularization + one update op per parameter."""
 
-    ``parameter_list``: the parameters to train (an iterable of tensors,
-    e.g. ``model.parameters()``), given here or to ``minimize``."""
+    def __init__(self, learning_rate, regularization=None, name=None,
+                 grad_clip=None):
+        self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._name = name
+        self._learning_rate_map = {}
+        self._accumulators = defaultdict(dict)
+        self.helper = None
+        self._grad_clip = grad_clip
+
+    # -- learning rate --
+    def _create_global_learning_rate(self):
+        program = default_main_program()
+        if self._learning_rate_map.get(program) is not None:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_map[program] = self._learning_rate
+            return
+        lr_var = program.global_block().create_var(
+            name=unique_name.generate("learning_rate"), shape=[1],
+            dtype="float32", persistable=True)
+        lr_var.stop_gradient = True
+        self.helper.set_variable_initializer(
+            lr_var, Constant(value=float(self._learning_rate)))
+        self._learning_rate_map[program] = lr_var
+
+    def _global_learning_rate(self, program=None):
+        return self._learning_rate_map.get(program or default_main_program())
+
+    def _create_param_lr(self, param_and_grad):
+        param = param_and_grad[0]
+        param_lr = (param.optimize_attr or {}).get("learning_rate", 1.0)
+        base = self._global_learning_rate()
+        if param_lr == 1.0:
+            return base
+        helper = LayerHelper("param_lr")
+        out = helper.create_variable_for_type_inference("float32")
+        helper.append_op(
+            type="scale", inputs={"X": [base]}, outputs={"Out": [out]},
+            attrs={"scale": float(param_lr), OP_ROLE_KEY: OpRole.Optimize})
+        return out
+
+    # -- accumulators (reference: Optimizer._add_accumulator) --
+    def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
+                         shape=None):
+        if param.name in self._accumulators[name]:
+            return self._accumulators[name][param.name]
+        var = default_main_program().global_block().create_var(
+            name=unique_name.generate(param.name + "_" + name),
+            shape=shape if shape is not None else param.shape,
+            dtype=dtype or param.dtype, persistable=True)
+        var.stop_gradient = True
+        var.belong_to_optimizer = True
+        self.helper.set_variable_initializer(
+            var, Constant(value=float(fill_value)))
+        self._accumulators[name][param.name] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        if param.name not in self._accumulators[name]:
+            raise LookupError("accumulator %s for parameter %s not created"
+                              % (name, param.name))
+        return self._accumulators[name][param.name]
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+    def _finish_update(self, block, parameters_and_grads):
+        pass
+
+    # -- main passes (reference: _create_optimization_pass at :385) --
+    def _create_optimization_pass(self, parameters_and_grads):
+        block = default_main_program().current_block()
+        self.helper = LayerHelper(self.__class__.__name__)
+        with op_role_guard(OpRole.Optimize):
+            self._create_global_learning_rate()
+            self._create_accumulators(
+                block, [p for p, g in parameters_and_grads if g is not None])
+            optimize_ops = []
+            for param_and_grad in parameters_and_grads:
+                if param_and_grad[1] is None:
+                    continue
+                if param_and_grad[0].trainable:
+                    optimize_ops.append(
+                        self._append_optimize_op(block, param_and_grad))
+            self._finish_update(block, parameters_and_grads)
+        return optimize_ops
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return append_backward(loss, parameter_list, no_grad_set, callbacks)
+
+    def apply_gradients(self, params_grads):
+        from . import clip as _clip
+        from . import regularizer as _regularizer
+
+        params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        params_grads = _clip.append_gradient_clip_ops(params_grads)
+        params_grads = _regularizer.append_regularization_ops(
+            params_grads, self.regularization)
+        return self._create_optimization_pass(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        with program_guard(default_main_program(),
+                           startup_program or default_startup_program()):
+            return self.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, grad_clip=None):
+        """Append the backward and the update ops for the program
+        variable ``loss``; returns (optimize ops, [(param, grad)])."""
+        params_grads = self.backward(loss, startup_program=startup_program,
+                                     parameter_list=parameter_list,
+                                     no_grad_set=no_grad_set)
+        if grad_clip is not None:
+            from . import clip as _clip
+
+            params_grads = _clip.append_clip_with(params_grads, grad_clip)
+        optimize_ops = self.apply_optimize(loss, startup_program,
+                                           params_grads)
+        return optimize_ops, params_grads
+
+
+class AdamOptimizer(Optimizer):
+    """Adam with the reference's update rule (``optimizer_ops.adam``, ε
+    not bias-corrected): per-parameter moments created at zero and β-pow
+    accumulators that start at β₁ and β₂ (``optimizer.py:454``).
+
+    Static: ``minimize(loss_var)`` appends one ``adam`` op per parameter.
+    Eager: ``parameter_list`` (an iterable of tensors, e.g.
+    ``model.parameters()``, given here or to ``minimize``) and
+    ``minimize(loss_tensor)``; every parameter is updated every step, as
+    the reference's dense update does: a parameter whose gradient is None
+    is updated with zeros."""
+
+    _moment1_acc_str = "moment1"
+    _moment2_acc_str = "moment2"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+    _beta2_pow_acc_str = "beta2_pow_acc"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameter_list=None):
-        self._learning_rate = float(learning_rate)
+                 epsilon=1e-8, lazy_mode=False, parameter_list=None,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._lazy_mode = lazy_mode
         self._params = None
         if parameter_list is not None:
             self._bind(parameter_list)
 
+    # -- static (program) form --
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment1_acc_str, p)
+            self._add_accumulator(self._moment2_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+            self._add_accumulator(self._beta2_pow_acc_str, p,
+                                  fill_value=self._beta2, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment1 = self._get_accumulator(self._moment1_acc_str, param)
+        moment2 = self._get_accumulator(self._moment2_acc_str, param)
+        beta1_pow = self._get_accumulator(self._beta1_pow_acc_str, param)
+        beta2_pow = self._get_accumulator(self._beta2_pow_acc_str, param)
+        return block.append_op(
+            type="adam",
+            inputs={"Param": [param], "Grad": [grad], "Moment1": [moment1],
+                    "Moment2": [moment2], "Beta1Pow": [beta1_pow],
+                    "Beta2Pow": [beta2_pow],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "Moment1Out": [moment1],
+                     "Moment2Out": [moment2], "Beta1PowOut": [beta1_pow],
+                     "Beta2PowOut": [beta2_pow]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, "lazy_mode": self._lazy_mode,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+    # -- eager form --
     def _bind(self, parameter_list):
         self._params = [p for p in parameter_list]
         self._moment1 = [torch.zeros_like(p) for p in self._params]
@@ -48,7 +240,7 @@ class AdamOptimizer(object):
                 "beta1_pow": self._beta1_pow, "beta2_pow": self._beta2_pow}
 
     def step(self):
-        """One update from the parameters' ``.grad``."""
+        """One eager update from the parameters' ``.grad``."""
         if self._params is None:
             raise ValueError("AdamOptimizer needs parameter_list (pass it to "
                              "the constructor or minimize)")
@@ -56,15 +248,22 @@ class AdamOptimizer(object):
             optimizer_ops.adam(
                 self._params, [p.grad for p in self._params], self._moment1,
                 self._moment2, self._beta1_pow, self._beta2_pow,
-                self._learning_rate, self._beta1, self._beta2, self._epsilon)
+                float(self._learning_rate), self._beta1, self._beta2,
+                self._epsilon)
 
     def clear_grad(self):
         for p in self._params:
             p.grad = None
 
-    def minimize(self, loss, parameter_list=None):
-        """Backward from ``loss``, one update, then the grads are cleared
-        (set to None). Binds ``parameter_list`` on first use."""
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, grad_clip=None):
+        """A program variable ``loss``: the static form (see
+        ``Optimizer.minimize``). A tensor ``loss``: backward, one update,
+        then the grads are cleared (set to None); binds
+        ``parameter_list`` on first use."""
+        if isinstance(loss, Variable):
+            return super().minimize(loss, startup_program, parameter_list,
+                                    no_grad_set, grad_clip)
         if self._params is None and parameter_list is not None:
             self._bind(parameter_list)
         loss.backward()

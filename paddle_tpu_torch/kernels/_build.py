@@ -31,13 +31,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # stream as c_void_p: ctypes would otherwise pass them as 32-bit ints;
 # and unsigned ints as c_uint32)
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-# the flash training kernels' trailing arguments: bh, bias_heads, sq, sk,
-# d, scale, causal, dropout, seed, thresh, keep_prob / inv_keep, stream
-_FLASH_TAIL = [_I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F, _P]
+# the flash training kernels' trailing arguments: bh, bias_heads,
+# bias_div, bias_rows, sq, sk, d, scale, causal, dropout, seed, thresh,
+# keep_prob / inv_keep, stream
+_FLASH_TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F, _P]
 KERNELS = {
-    "flash_fwd": ("paddle_flash_fwd_f32", [_P] * 6 + _FLASH_TAIL),
-    "flash_bwd_dq": ("paddle_flash_bwd_dq_f32", [_P] * 8 + _FLASH_TAIL),
-    "flash_bwd_dkv": ("paddle_flash_bwd_dkv_f32", [_P] * 10 + _FLASH_TAIL),
+    "flash_fwd": ("paddle_flash_fwd_f32", [_P] * 7 + _FLASH_TAIL),
+    "flash_bwd_dq": ("paddle_flash_bwd_dq_f32", [_P] * 9 + _FLASH_TAIL),
+    "flash_bwd_dkv": ("paddle_flash_bwd_dkv_f32", [_P] * 12 + _FLASH_TAIL),
     "flash_decode": ("paddle_flash_decode_f32",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "flash_decode_paged": ("paddle_flash_decode_paged_f32",

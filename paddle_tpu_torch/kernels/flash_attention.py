@@ -8,17 +8,19 @@ B·N inside the kernels, fp32 accumulation, masked scores at ``_NEG``
 Five kernels, each behind a wrapper with a plain integer launch count:
 
 - ``flash_attention_lse`` launches ``flash_fwd`` (``csrc/flash_fwd.cu``),
-  which replaces the Pallas ``_fwd_kernel`` for a key-only bias, the
-  causal flag and the in-kernel hash dropout — the GPT prefill (rate 0)
-  and the GPT train step. It returns (out, lse); ``flash_attention``
-  drops the lse.
+  which replaces the Pallas ``_fwd_kernel``: a key-only bias, the general
+  additive bias [G, Sq, Sk] in every broadcast form, the causal flag and
+  the in-kernel hash dropout — the GPT prefill (rate 0), the GPT train
+  step and ``fluid.layers.flash_attention(bias=...)``. It returns (out,
+  lse); ``flash_attention`` drops the lse.
 - ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch ``flash_bwd_dq``
   (``csrc/flash_bwd_dq.cu``) and ``flash_bwd_dkv``
   (``csrc/flash_bwd_dkv.cu``), which replace the Pallas
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (key bias, causal,
-  dropout; no general-bias gradient). ``flash_attention_bwd_from_residuals``
-  drives both from the forward's saved out, lse and seed, as the
-  reference's ``flash_attention_grad`` op does.
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (key bias, general bias
+  with its gradient dbias, causal, dropout).
+  ``flash_attention_bwd_from_residuals`` drives both from the forward's
+  saved out, lse and seed, as the reference's ``flash_attention_grad``
+  op does.
 - ``flash_decode_attention`` launches ``flash_decode``
   (``csrc/flash_decode.cu``), which replaces the Pallas
   ``_decode_kernel``: one query token per (slot, head) against the
@@ -32,9 +34,9 @@ Five kernels, each behind a wrapper with a plain integer launch count:
 A wrapper given CPU tensors runs its plain version (the functions named
 ``*_plain`` here), which the CPU tests hold against the JAX package;
 given CUDA tensors it launches its kernel or raises. There is no
-fallback from one to the other. The general ``bias`` of the forward runs
-only in the plain version, and on a CUDA tensor it raises until the
-Fluid-layers slice ports it.
+fallback from one to the other. Where a general ``bias`` is given, the
+backward entry points return its gradient dbias after their other
+outputs.
 """
 
 import math
@@ -185,6 +187,58 @@ def _normalize_bias(bias, B, N, Sq, Sk):
                      % (tuple(b.shape),))
 
 
+def _bias_layout(bias, B, N, Sq, Sk):
+    """The general bias as the kernels read it: (bias [G, Sq, Sk] fp32,
+    contiguous; div; rows), head h = b·N + n reading row (h // div) %
+    rows. Every broadcast form maps straight onto the caller's heads —
+    [Sq, Sk] and [1, 1, ..] row 0, [B, 1, ..] row h // N, [B, N, ..] row
+    h, [1, N, ..] row h % N — so nothing is transposed; the reference's
+    B↔N swap only orders its sequential grid."""
+    nb, swap = _normalize_bias(bias, B, N, Sq, Sk)
+    G = nb.shape[0]
+    if swap:
+        div, rows = 1, N
+    elif G == B * N:
+        div, rows = 1, G
+    elif G == 1:
+        div, rows = 1, 1
+    else:
+        div, rows = N, B
+    return nb.contiguous(), div, rows
+
+
+def _bias_axes(div, rows, B, N):
+    """(b, n), b·n = G: the [B, N] shape a bias row broadcasts from."""
+    if rows == 1:
+        return 1, 1
+    if div == 1 and rows == B * N:
+        return B, N
+    if div == 1:
+        return 1, N
+    return B, 1
+
+
+def _add_bias(s, bias, B, N, Sq, Sk):
+    """Scores [B, N, Sq, Sk] plus the general bias broadcast onto the
+    heads that read each of its rows (``s`` itself when there is none)."""
+    if bias is None:
+        return s
+    nb, div, rows = _bias_layout(bias, B, N, Sq, Sk)
+    b, n = _bias_axes(div, rows, B, N)
+    return s + nb.reshape(b, n, Sq, Sk)
+
+
+def _sum_bias_grad(ds, bias, B, N, Sq, Sk):
+    """dbias [G, Sq, Sk] fp32: ds [B, N, Sq, Sk] summed over the heads
+    that read each bias row."""
+    _nb, div, rows = _bias_layout(bias, B, N, Sq, Sk)
+    b, n = _bias_axes(div, rows, B, N)
+    dims = [axis for axis, m in ((0, b), (1, n)) if m == 1]
+    if dims:
+        ds = ds.sum(dims, keepdim=True)
+    return ds.reshape(b * n, Sq, Sk)
+
+
 def _check_args(q, k, causal, dropout_rate, dropout_seed, warn=True):
     Sq, Sk = q.shape[2], k.shape[2]
     if causal and Sq != Sk:
@@ -220,17 +274,7 @@ def flash_attention_lse_plain(q, k, v, key_bias=None, bias=None,
     s = torch.einsum("bnqd,bnkd->bnqk", q, k).float() * scale
     if kb is not None:
         s = s + kb.reshape(B, N, 1, Sk)
-    if bias is not None:
-        nb, swap = _normalize_bias(bias, B, N, Sq, Sk)
-        G = nb.shape[0]
-        if swap:
-            s = s + nb.reshape(1, N, Sq, Sk)
-        elif G == 1:
-            s = s + nb.reshape(1, 1, Sq, Sk)
-        elif G == B * N:
-            s = s + nb.reshape(B, N, Sq, Sk)
-        else:
-            s = s + nb.reshape(B, 1, Sq, Sk)
+    s = _add_bias(s, bias, B, N, Sq, Sk)
     if causal:
         mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, _NEG)
@@ -255,7 +299,7 @@ def _bwd_delta(out, g, g_lse=None):
 
 
 def _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale, rate,
-               dropout_seed):
+               dropout_seed, bias=None):
     """The backward kernels' math on dense tensors: (ds, pv), each
     [B, N, Sq, Sk] fp32, with p = exp(s − lse) from the forward's masked
     scores, dp = keep∘(dO·Vᵀ)/(1−rate), ds = p∘(dp − delta) and pv =
@@ -266,6 +310,7 @@ def _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale, rate,
     s = torch.einsum("bnqd,bnkd->bnqk", q, k).float() * scale
     if kb is not None:
         s = s + kb.reshape(B, N, 1, Sk)
+    s = _add_bias(s, bias, B, N, Sq, Sk)
     if causal:
         mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, _NEG)
@@ -287,55 +332,62 @@ def _bwd_dq(q, k, ds, scale):
     return (torch.einsum("bnqk,bnkd->bnqd", ds, k.float()) * scale).to(q.dtype)
 
 
-def _bwd_dkv(q, k, v, g, ds, pv, scale):
-    B, N, _Sq, _D = q.shape
+def _bwd_dkv(q, k, v, g, ds, pv, scale, bias=None):
+    B, N, Sq, _D = q.shape
     Sk = k.shape[2]
     dk = torch.einsum("bnqk,bnqd->bnkd", ds, q.float()) * scale
     dv = torch.einsum("bnqk,bnqd->bnkd", pv, g.float())
-    return dk.to(k.dtype), dv.to(v.dtype), ds.sum(2).reshape(B * N, Sk)
+    out = (dk.to(k.dtype), dv.to(v.dtype), ds.sum(2).reshape(B * N, Sk))
+    if bias is None:
+        return out
+    return out + (_sum_bias_grad(ds, bias, B, N, Sq, Sk),)
 
 
 def flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta, causal=False,
-                       scale=None, dropout_rate=0.0, dropout_seed=None):
+                       scale=None, dropout_rate=0.0, dropout_seed=None,
+                       bias=None):
     """Plain PyTorch version of the dq kernel: dq = scale · ds·K, ds as
     in ``_bwd_dq_kernel``. ``g`` is dO [B, N, Sq, D]; ``lse`` and
     ``delta`` are [B, N, Sq] (or [B·N, Sq]); ``dropout_seed`` is the raw
-    seed the forward was given."""
+    seed the forward was given; ``bias`` the forward's general bias."""
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     ds, _pv = _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale,
-                         rate, dropout_seed)
+                         rate, dropout_seed, bias)
     return _bwd_dq(q, k, ds, scale)
 
 
 def flash_bwd_dkv_plain(q, k, v, key_bias, g, lse, delta, causal=False,
-                        scale=None, dropout_rate=0.0, dropout_seed=None):
+                        scale=None, dropout_rate=0.0, dropout_seed=None,
+                        bias=None):
     """Plain PyTorch version of the dk/dv kernel: (dk, dv, dkey_bias
-    [B·N, Sk] fp32) as ``_bwd_dkv_kernel`` computes them; arguments as
-    ``flash_bwd_dq_plain``."""
+    [B·N, Sk] fp32) as ``_bwd_dkv_kernel`` computes them, and dbias
+    [G, Sq, Sk] fp32 (summed over the heads sharing a bias row) after
+    them when ``bias`` is given; arguments as ``flash_bwd_dq_plain``."""
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     ds, pv = _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale,
-                        rate, dropout_seed)
-    return _bwd_dkv(q, k, v, g, ds, pv, scale)
+                        rate, dropout_seed, bias)
+    return _bwd_dkv(q, k, v, g, ds, pv, scale, bias)
 
 
 def flash_attention_bwd_plain(q, k, v, key_bias, seed, out, lse, g,
                               causal=False, scale=None, dropout_rate=0.0,
-                              g_lse=None):
+                              g_lse=None, bias=None):
     """Plain PyTorch version of both backward kernels: the explicit math
     of ``_flash_bwd_core`` on dense tensors, driven from the forward's
     residuals (``out``, ``lse`` and the raw dropout ``seed``). ``g`` is
-    dO; ``g_lse`` an optional lse cotangent [B, N, Sq]. Returns (dq, dk,
-    dv, dkey_bias [B·N, Sk] fp32); the keep mask is regenerated from the
-    seed with the forward's hash."""
+    dO; ``g_lse`` an optional lse cotangent [B, N, Sq]; ``bias`` the
+    forward's general bias. Returns (dq, dk, dv, dkey_bias [B·N, Sk]
+    fp32), and dbias [G, Sq, Sk] fp32 after them when ``bias`` is given;
+    the keep mask is regenerated from the seed with the forward's hash."""
     rate = _check_args(q, k, causal, dropout_rate, seed, warn=False)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     delta = _bwd_delta(out, g, g_lse)
     ds, pv = _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale,
-                        rate, seed)
-    dk, dv, dkb = _bwd_dkv(q, k, v, g, ds, pv, scale)
-    return _bwd_dq(q, k, ds, scale), dk, dv, dkb
+                        rate, seed, bias)
+    dkv = _bwd_dkv(q, k, v, g, ds, pv, scale, bias)
+    return (_bwd_dq(q, k, ds, scale),) + dkv
 
 
 def flash_decode_attention_plain(q, k, v, key_bias=None, scale=None):
@@ -412,6 +464,14 @@ def _kernel_key_bias(key_bias, B, N, Sk):
     return kb, B * N // kb.shape[0]
 
 
+def _kernel_bias(bias, B, N, Sq, Sk):
+    """(bias [G, Sq, Sk] fp32 contiguous, div, rows) for the kernels (see
+    ``_bias_layout``), or (None, 1, 1) for none."""
+    if bias is None:
+        return None, 1, 1
+    return _bias_layout(bias, B, N, Sq, Sk)
+
+
 def _cuda_operands(name, D, *tensors):
     """Validate what the kernel takes; raise on anything else."""
     if D not in _KERNEL_HEAD_DIMS:
@@ -464,32 +524,27 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
     The wrapper of the ``flash_fwd`` CUDA kernel. CPU tensors run the
     plain version (``flash_attention_lse_plain``). CUDA tensors launch
     the kernel on the current stream (fp32, contiguous, head_dim in
-    {32, 64, 128}) or raise: the kernel takes a key bias, the causal flag
-    and the hash dropout; a general ``bias`` raises there until the
-    Fluid-layers slice ports it. ``flash_attention_lse.launches`` counts
-    kernel launches."""
+    {32, 64, 128}) or raise: the kernel takes a key bias, the general
+    ``bias`` in every broadcast form, the causal flag and the hash
+    dropout. ``flash_attention_lse.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(
             q, k, v, key_bias=key_bias, bias=bias, causal=causal,
             scale=scale, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed)
-    if bias is not None:
-        raise NotImplementedError(
-            "the CUDA flash kernel takes a key bias, the causal flag and "
-            "dropout; the general-bias variant is not ported yet (run it "
-            "on CPU tensors for the plain version)")
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
-    _cuda_operands("flash_fwd", D, q, k, v, kb)
+    nb, div, rows = _kernel_bias(bias, B, N, Sq, Sk)
+    _cuda_operands("flash_fwd", D, q, k, v, kb, nb)
     on, seed, thresh, keep_prob, _inv = _dropout_args(rate, dropout_seed)
     out = torch.empty_like(q)
     lse = torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(kb), out.data_ptr(), lse.data_ptr(), B * N, bias_heads, Sq,
-            Sk, D, float(scale), int(bool(causal)), on, seed, thresh,
-            keep_prob)
+            _ptr(kb), _ptr(nb), out.data_ptr(), lse.data_ptr(), B * N,
+            bias_heads, div, rows, Sq, Sk, D, float(scale),
+            int(bool(causal)), on, seed, thresh, keep_prob)
     flash_attention_lse.launches += 1
     return out, lse
 
@@ -513,9 +568,9 @@ def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
 
 
 def _bwd_operands(name, q, k, v, key_bias, g, lse, delta, causal,
-                  dropout_rate, dropout_seed):
+                  dropout_rate, dropout_seed, bias):
     """Shared checks of the two backward wrappers on CUDA tensors; returns
-    (rate, key-bias rows, heads per row)."""
+    (rate, key-bias rows, heads per row, (bias rows, div, rows))."""
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
@@ -527,15 +582,16 @@ def _bwd_operands(name, q, k, v, key_bias, g, lse, delta, causal,
             raise ValueError("%s: lse/delta need B*N*Sq = %d entries, got %r"
                              % (name, B * N * Sq, tuple(t.shape)))
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
-    _cuda_operands(name, D, q, k, v, kb, g, lse, delta)
-    return rate, kb, bias_heads
+    gbias = _kernel_bias(bias, B, N, Sq, Sk)
+    _cuda_operands(name, D, q, k, v, kb, gbias[0], g, lse, delta)
+    return rate, kb, bias_heads, gbias
 
 
 def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
-                 dropout_rate=0.0, dropout_seed=None):
+                 dropout_rate=0.0, dropout_seed=None, bias=None):
     """dq [B, N, Sq, D] of flash attention, from dO ``g``, the forward's
-    ``lse`` and ``delta`` = rowsum(dO∘O) (both [B, N, Sq]) and the raw
-    dropout seed the forward was given.
+    ``lse`` and ``delta`` = rowsum(dO∘O) (both [B, N, Sq]), the raw
+    dropout seed the forward was given and its general ``bias``.
 
     The wrapper of the ``flash_bwd_dq`` CUDA kernel. CPU tensors run the
     plain version (``flash_bwd_dq_plain``); CUDA tensors launch the
@@ -545,19 +601,19 @@ def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
         return flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta,
                                   causal=causal, scale=scale,
                                   dropout_rate=dropout_rate,
-                                  dropout_seed=dropout_seed)
-    rate, kb, bias_heads = _bwd_operands("flash_bwd_dq", q, k, v, key_bias, g,
-                                         lse, delta, causal, dropout_rate,
-                                         dropout_seed)
+                                  dropout_seed=dropout_seed, bias=bias)
+    rate, kb, bias_heads, (nb, div, rows) = _bwd_operands(
+        "flash_bwd_dq", q, k, v, key_bias, g, lse, delta, causal,
+        dropout_rate, dropout_seed, bias)
     B, N, Sq, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     on, seed, thresh, _keep, inv_keep = _dropout_args(rate, dropout_seed)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(kb), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), B * N, bias_heads, Sq,
-            k.shape[2], D, float(scale), int(bool(causal)), on, seed, thresh,
-            inv_keep)
+            v.data_ptr(), _ptr(kb), _ptr(nb), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B * N, bias_heads, div, rows,
+            Sq, k.shape[2], D, float(scale), int(bool(causal)), on, seed,
+            thresh, inv_keep)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -566,22 +622,26 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
-                  scale=None, dropout_rate=0.0, dropout_seed=None):
+                  scale=None, dropout_rate=0.0, dropout_seed=None, bias=None):
     """(dk, dv [B, N, Sk, D], dkey_bias [B·N, Sk] fp32) of flash
-    attention; arguments as ``flash_bwd_dq``.
+    attention, and dbias [G, Sq, Sk] fp32 after them when a general
+    ``bias`` is given (summed over the heads that share a bias row);
+    arguments as ``flash_bwd_dq``.
 
     The wrapper of the ``flash_bwd_dkv`` CUDA kernel. CPU tensors run the
     plain version (``flash_bwd_dkv_plain``); CUDA tensors launch the
     kernel on the current stream (fp32, contiguous, head_dim in {32, 64,
-    128}) or raise. ``flash_bwd_dkv.launches`` counts kernel launches."""
+    128}) or raise. dbias is zeroed first, then stored per head (G = B·N)
+    or added atomically (shared rows, in no fixed order).
+    ``flash_bwd_dkv.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, key_bias, g, lse, delta,
                                    causal=causal, scale=scale,
                                    dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_seed)
-    rate, kb, bias_heads = _bwd_operands("flash_bwd_dkv", q, k, v, key_bias,
-                                         g, lse, delta, causal, dropout_rate,
-                                         dropout_seed)
+                                   dropout_seed=dropout_seed, bias=bias)
+    rate, kb, bias_heads, (nb, div, rows) = _bwd_operands(
+        "flash_bwd_dkv", q, k, v, key_bias, g, lse, delta, causal,
+        dropout_rate, dropout_seed, bias)
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -589,13 +649,16 @@ def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dkb = torch.empty(B * N, Sk, dtype=torch.float32, device=q.device)
+    dbias = None if nb is None else torch.zeros_like(nb)
     _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(kb), g.data_ptr(), lse.data_ptr(),
+            v.data_ptr(), _ptr(kb), _ptr(nb), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dkb.data_ptr(),
-            B * N, bias_heads, Sq, Sk, D, float(scale), int(bool(causal)), on,
-            seed, thresh, inv_keep)
+            _ptr(dbias), B * N, bias_heads, div, rows, Sq, Sk, D,
+            float(scale), int(bool(causal)), on, seed, thresh, inv_keep)
     flash_bwd_dkv.launches += 1
-    return dk, dv, dkb
+    if dbias is None:
+        return dk, dv, dkb
+    return dk, dv, dkb, dbias
 
 
 flash_bwd_dkv.launches = 0
@@ -603,15 +666,18 @@ flash_bwd_dkv.launches = 0
 
 def flash_attention_bwd_from_residuals(q, k, v, key_bias, seed, out, lse, g,
                                        causal=False, scale=None,
-                                       dropout_rate=0.0, g_lse=None):
+                                       dropout_rate=0.0, g_lse=None,
+                                       bias=None):
     """Backward of flash attention driven by the forward's SAVED
     residuals (``out``, ``lse`` [B, N, Sq] and the raw dropout ``seed``,
     None when dropout was off) instead of a forward replay — the
     reference's entry of the same name (:991), which its
     ``flash_attention_grad`` op calls. ``g`` is dO; ``g_lse`` an optional
     lse cotangent (the reference's custom VJP folds it into delta; it
-    has no interpreter flag here). Key-bias-only: no general bias.
-    Returns (dq, dk, dv, dkey_bias [B·N, Sk] fp32).
+    has no interpreter flag here); ``bias`` the forward's general bias,
+    which the reference's entry does not take (its op replays the forward
+    for it). Returns (dq, dk, dv, dkey_bias [B·N, Sk] fp32), and dbias
+    [G, Sq, Sk] fp32 after them when ``bias`` is given.
 
     CPU tensors run the plain version (``flash_attention_bwd_plain``).
     CUDA tensors compute delta = rowsum(dO∘O) with a torch op, as the
@@ -620,14 +686,13 @@ def flash_attention_bwd_from_residuals(q, k, v, key_bias, seed, out, lse, g,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, key_bias, seed, out, lse, g, causal=causal, scale=scale,
-            dropout_rate=dropout_rate, g_lse=g_lse)
+            dropout_rate=dropout_rate, g_lse=g_lse, bias=bias)
     delta = _bwd_delta(out, g, g_lse)
     lse = lse.reshape(delta.shape)
     kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate,
-              dropout_seed=seed)
+              dropout_seed=seed, bias=bias)
     dq = flash_bwd_dq(q, k, v, key_bias, g, lse, delta, **kw)
-    dk, dv, dkb = flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, **kw)
-    return dq, dk, dv, dkb
+    return (dq,) + flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, **kw)
 
 
 def flash_decode_attention(q, k, v, key_bias=None, scale=None):

@@ -1,13 +1,23 @@
 """Shared transformer pieces (port of the parts of
-``paddle_tpu/models/bert.py`` the GPT serving and training paths use):
-the flash policy, the key-only padding bias, the dropout helper and
-where a training forward draws its random numbers, the FFN, and
-multi-head attention with attention dropout in training and its
-KV-cache modes: ``prefill`` and ``decode`` over the contiguous slot
-pool, ``paged_window`` and ``paged_step`` over the paged pool.
+``paddle_tpu/models/bert.py`` the GPT serving and training paths use),
+in two forms.
 
-The projections and the FFN are plain products (``nn.Linear``), as the
-reference left them to XLA outside any Pallas kernel; the score /
+Program builders under the reference's names, for the Fluid
+Program/Executor path: ``multi_head_attention`` (the training/encoder
+form, flash or dense), ``_ffn``, ``_dropout`` (the dropout layer) and
+``flash_engages``.
+
+Eager modules for serving and the eager train step: where a training
+forward draws its random numbers (``DropoutRNG``), the eager dropout
+helper ``_dropout_eager``, the FFN, and multi-head attention with
+attention dropout in training and its KV-cache modes: ``prefill`` and
+``decode`` over the contiguous slot pool, ``paged_window`` and
+``paged_step`` over the paged pool.
+
+Both share the flash policy (``flash_wanted``) and the key-only padding
+bias (``mask_to_key_bias``, which builds ops for a program variable and
+computes for a tensor). The projections and the FFN are plain products,
+as the reference left them to XLA outside any Pallas kernel; the score /
 softmax / context chain goes through the flash ops, which run the
 hand-written kernels on the card.
 """
@@ -17,12 +27,16 @@ import math
 import torch
 from torch import nn
 
+from .. import fluid
+from ..fluid.framework import Variable
 from ..fluid.ops import math_ops, nn_ops
 
 __all__ = [
     "FLASH_AUTO_SEQ_THRESHOLD",
     "flash_wanted",
+    "flash_engages",
     "mask_to_key_bias",
+    "multi_head_attention",
     "DropoutRNG",
     "FFN",
     "MultiHeadAttention",
@@ -44,9 +58,22 @@ def flash_wanted(cfg, seq_len=None):
     return bool(want)
 
 
+def flash_engages(cfg, key_bias, seq_len=None):
+    """True when ``multi_head_attention`` will run the fused flash path:
+    the policy wants it and the key-only mask it needs was built."""
+    return bool(flash_wanted(cfg, seq_len) and key_bias is not None)
+
+
 def mask_to_key_bias(mask):
     """[N, S, 1] (or [N, S]) 0/1 token mask -> key-only additive bias
-    [N, S]: 0 where attendable, -1e4 on padded keys."""
+    [N, S]: 0 where attendable, -1e4 on padded keys. A program variable
+    gets the reference's ops (reshape, scale; no gradient), a tensor is
+    computed."""
+    if isinstance(mask, Variable):
+        b = fluid.layers.scale(fluid.layers.reshape(mask, shape=[0, -1]),
+                               scale=1e4, bias=-1e4)
+        b.stop_gradient = True
+        return b
     return mask.reshape(mask.shape[0], -1).float() * 1e4 - 1e4
 
 
@@ -62,15 +89,92 @@ class DropoutRNG(object):
         self.seeds = torch.Generator().manual_seed(int(seed) + 1)
 
 
-def _dropout(x, rate, is_test, rng=None):
-    """``bert._dropout`` (:51): the dropout op with its default
-    ``downgrade_in_infer`` (x·mask in training, no upscale), skipped
-    entirely at ``is_test`` or rate 0 — the reference's train/infer
-    mismatch, kept as it is."""
+def _dropout(x, rate, is_test):
+    """``bert._dropout`` (:51), program form: the dropout layer with its
+    default ``downgrade_in_infer`` (x·mask in training, no upscale),
+    skipped entirely at ``is_test`` or rate 0 — the reference's
+    train/infer mismatch, kept as it is."""
+    if is_test or rate <= 0.0:
+        return x
+    return fluid.layers.dropout(x, dropout_prob=rate)
+
+
+def _dropout_eager(x, rate, is_test, rng=None):
+    """``_dropout`` on a tensor: the dropout op's function, masks drawn
+    from ``rng.masks`` (torch's default generator when ``rng`` is
+    None)."""
     if is_test or rate <= 0.0:
         return x
     return nn_ops.dropout(x, dropout_prob=rate,
                           generator=None if rng is None else rng.masks)
+
+
+def multi_head_attention(q_in, kv_in, attn_bias, cfg, name, key_bias=None,
+                         causal=False, use_flash=None, cache=None):
+    """Self/cross attention on [N, S, H] program variables, the
+    reference's builder (``bert.py:185``) in its training/encoder form:
+    q/k/v fc projections split into heads, then either ONE fused
+    ``flash_attention`` op (``key_bias`` [N, S] carrying the padding
+    mask, ``causal`` the kernel flag, attention dropout in the kernel) or
+    the dense chain matmul → (+ ``attn_bias``) → softmax → dropout →
+    matmul, then the output projection.
+
+    ``use_flash`` is the builder's resolved policy (None re-resolves it
+    from the static query length). The KV-cache modes (``cache``) of
+    the reference's serving programs are served by the eager
+    ``MultiHeadAttention`` in the port; here they raise."""
+    if cache is not None:
+        raise NotImplementedError(
+            "multi_head_attention: the KV-cache serving modes run in the "
+            "eager MultiHeadAttention of the port, not as a program")
+    d_head = cfg.hidden_size // cfg.num_heads
+
+    def _proj(x, suffix):
+        return fluid.layers.fc(input=x, size=cfg.hidden_size,
+                               num_flatten_dims=2,
+                               name="%s_%s" % (name, suffix))
+
+    def _split_heads(x):
+        # [N, S, H] -> [N, heads, S, d_head]
+        x = fluid.layers.reshape(x, shape=[0, 0, cfg.num_heads, d_head])
+        return fluid.layers.transpose(x, perm=[0, 2, 1, 3])
+
+    q = _split_heads(_proj(q_in, "q"))
+    k = _split_heads(_proj(kv_in, "k"))
+    v = _split_heads(_proj(kv_in, "v"))
+    if use_flash is None:
+        _sq = q_in.shape[1] if len(q_in.shape) >= 2 else -1
+        use_flash = flash_engages(
+            cfg, key_bias, seq_len=None if _sq in (-1, None) else int(_sq))
+    else:
+        # the kernel still needs the key-side mask to ride along
+        use_flash = bool(use_flash) and key_bias is not None
+    if use_flash:
+        ctxt = fluid.layers.flash_attention(
+            q, k, v, key_bias=key_bias, causal=causal,
+            scale=1.0 / math.sqrt(d_head),
+            dropout_rate=cfg.attention_dropout, is_test=cfg.is_test)
+    else:
+        scores = fluid.layers.matmul(q, k, transpose_y=True,
+                                     alpha=1.0 / math.sqrt(d_head))
+        if attn_bias is not None:
+            scores = fluid.layers.elementwise_add(scores, attn_bias)
+        weights = fluid.layers.softmax(scores, axis=-1)
+        weights = _dropout(weights, cfg.attention_dropout, cfg.is_test)
+        ctxt = fluid.layers.matmul(weights, v)  # [N, heads, S, d_head]
+    ctxt = fluid.layers.transpose(ctxt, perm=[0, 2, 1, 3])
+    ctxt = fluid.layers.reshape(ctxt, shape=[0, 0, cfg.hidden_size])
+    return fluid.layers.fc(input=ctxt, size=cfg.hidden_size,
+                           num_flatten_dims=2, name="%s_out" % name)
+
+
+def _ffn(x, cfg, name):
+    """fc0 (GELU) -> fc1 on a program variable (``bert.py:383``)."""
+    h = fluid.layers.fc(input=x, size=cfg.intermediate_size,
+                        num_flatten_dims=2, act="gelu",
+                        name="%s_fc0" % name)
+    return fluid.layers.fc(input=h, size=cfg.hidden_size, num_flatten_dims=2,
+                           name="%s_fc1" % name)
 
 
 class FFN(nn.Module):
@@ -206,7 +310,7 @@ class MultiHeadAttention(nn.Module):
             scores = torch.matmul(q, k.transpose(-1, -2)) * scale
             if attn_bias is not None:
                 scores = scores + attn_bias
-            weights = _dropout(math_ops.softmax(scores), dropout_rate,
-                               not training, rng)
+            weights = _dropout_eager(math_ops.softmax(scores), dropout_rate,
+                                     not training, rng)
             ctxt = torch.matmul(weights, v)
         return self.out(self._merge_heads(ctxt))

@@ -14,14 +14,20 @@ modes never drop (the reference's serving programs run with
 ``is_test``); the full forward applies hidden and attention dropout
 only in training mode with ``cfg.is_test`` false.
 
-``build_gpt_lm_train`` is the counterpart of the reference's
-``build_gpt_lm_train``: the model, the Adam optimizer and a ``step``
-that runs forward, the masked next-token loss (``gpt_lm_loss``),
-backward through the flash kernels and the update.
+Training comes in two forms. ``build_gpt_lm_train`` is the reference's
+program builder under its name and signature: ``gpt_decoder`` and
+``gpt_lm_logits`` build the forward into a Fluid Program, Adam's
+``minimize`` appends the backward and the updates, and it returns
+``(main, startup, feeds, avg_loss)`` for ``fluid.Executor``.
+``build_gpt_lm_train_eager`` runs the same step on torch autograd: the
+model, the Adam optimizer and a ``step`` that runs forward, the masked
+next-token loss (``gpt_lm_loss``), backward through the flash kernels
+and the update.
 
 Weights carry across from the reference as ``{fluid_param_name:
-np.ndarray}`` through ``load_fluid_params``; ``init_fluid_params``
-makes such a dict from a seed.
+np.ndarray}``: into a model with ``load_fluid_params``, into a program's
+scope with ``load_fluid_scope``; ``init_fluid_params`` makes such a dict
+from a seed.
 """
 
 import copy
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import fluid
 from ..fluid import optimizer as _optimizer
 from ..fluid import profiler
 from ..fluid.core import resolve_device
@@ -48,10 +55,14 @@ __all__ = [
     "paged_block_bytes",
     "fluid_param_shapes",
     "load_fluid_params",
+    "load_fluid_scope",
     "init_fluid_params",
     "greedy_generate",
-    "gpt_lm_loss",
+    "gpt_decoder",
+    "gpt_lm_logits",
     "build_gpt_lm_train",
+    "gpt_lm_loss",
+    "build_gpt_lm_train_eager",
 ]
 
 
@@ -83,7 +94,7 @@ class GPTConfig(object):
         return cls(**kw)
 
 
-def _causal_bias(seq_len, device):
+def _causal_bias_eager(seq_len, device):
     """[1, 1, T, T] additive bias (0 attendable / -1e4 future) for the
     dense path; the flash path masks inside the kernel instead."""
     tri = torch.ones(seq_len, seq_len, device=device).tril()
@@ -106,10 +117,10 @@ class GPTLayer(nn.Module):
         a = self.att(h, attn_bias=attn_bias, key_bias=key_bias, causal=True,
                      use_flash=use_flash, cache=cache,
                      dropout_rate=attention_dropout, rng=rng)
-        a = _bert._dropout(a, hidden_dropout, False, rng)
+        a = _bert._dropout_eager(a, hidden_dropout, False, rng)
         h = math_ops.layer_norm(h + a, self.ln1.weight, self.ln1.bias,
                                 begin_norm_axis=2)
-        ff = _bert._dropout(self.ffn(h), hidden_dropout, False, rng)
+        ff = _bert._dropout_eager(self.ffn(h), hidden_dropout, False, rng)
         return math_ops.layer_norm(h + ff, self.ln2.weight, self.ln2.bias,
                                    begin_norm_axis=2)
 
@@ -166,7 +177,7 @@ class GPTLM(nn.Module):
         drop = self.training and not self.cfg.is_test and mode is None
         hidden_p = self.cfg.hidden_dropout if drop else 0.0
         attn_p = self.cfg.attention_dropout if drop else 0.0
-        h = _bert._dropout(h, hidden_p, False, self.rng)
+        h = _bert._dropout_eager(h, hidden_p, False, self.rng)
         key_bias = attn_bias = None
         if mode in ("decode", "paged_step"):
             use_flash = _bert.flash_wanted(self.cfg,
@@ -180,7 +191,7 @@ class GPTLM(nn.Module):
                 key_bias = _bert.mask_to_key_bias(input_mask)
             else:
                 pad = input_mask.reshape(N, 1, 1, T).float() * 1e4 - 1e4
-                attn_bias = _causal_bias(T, h.device) + pad
+                attn_bias = _causal_bias_eager(T, h.device) + pad
         for i, layer in enumerate(self.layers):
             cache_i = None
             if kv_cache is not None:
@@ -402,6 +413,43 @@ def load_fluid_params(model, arrays):
     return model
 
 
+def load_fluid_scope(scope, arrays):
+    """Fill a program scope (after its startup run) from
+    ``{fluid var name: np.ndarray}``, the layout the reference's scope
+    holds after its startup run: every GPT parameter the scope holds must
+    be given (the names of ``fluid_param_shapes`` for the model whose
+    embeddings and layers the scope holds), every given name must be a
+    variable of the scope (optimizer accumulators and the learning rate
+    may be given too) with the scope's shape. Values are copied into the
+    scope's tensors in place, on their device."""
+    tok, pos = scope.get("tok_embedding"), scope.get("pos_embedding")
+    if tok is None or pos is None:
+        raise KeyError("scope holds no GPT embeddings: run the startup "
+                       "program first")
+    layers = 0
+    while scope.get("gpt_%d_att_q.w_0" % layers) is not None:
+        layers += 1
+    ffn = scope.get("gpt_0_ffn_fc0.w_0")
+    cfg = GPTConfig(vocab_size=tok.shape[0], hidden_size=tok.shape[1],
+                    num_layers=layers,
+                    intermediate_size=ffn.shape[1] if ffn is not None else 0,
+                    max_position_embeddings=pos.shape[0])
+    missing = sorted(set(fluid_param_shapes(cfg)) - set(arrays))
+    unknown = sorted(n for n in arrays if scope.get(n) is None)
+    if missing or unknown:
+        raise KeyError("fluid scope: missing %s, unknown %s"
+                       % (missing[:5], unknown[:5]))
+    with torch.no_grad():
+        for name, arr in arrays.items():
+            t = scope.get(name)
+            arr = np.asarray(arr)
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError("fluid var %s: shape %s, the scope holds %s"
+                                 % (name, arr.shape, tuple(t.shape)))
+            t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))
+    return scope
+
+
 def init_fluid_params(cfg, seed):
     """A reference-layout parameter dict made with numpy from ``seed``:
     weights N(0, 0.02), biases 0, layer-norm scales 1."""
@@ -463,7 +511,115 @@ def greedy_generate(model, prompt_ids, max_len):
 
 
 # ---------------------------------------------------------------------------
-# training
+# training: the program form
+# ---------------------------------------------------------------------------
+
+
+def _causal_bias(seq_len):
+    """[1, 1, T, T] additive bias program variable (0 attendable / -1e4
+    future) for the dense path; the flash path masks inside the kernel
+    instead."""
+    tri = np.tril(np.ones((1, seq_len, seq_len), np.float32))
+    bias = fluid.layers.assign((tri - 1.0) * 1e4)
+    bias = fluid.layers.unsqueeze(bias, axes=[1])  # [1, 1, T, T]
+    bias.stop_gradient = True
+    return bias
+
+
+def gpt_decoder(ids, pos_ids, input_mask, cfg, kv_cache=None):
+    """Decoder stack on [N, T, 1] int64 id variables; returns hidden
+    [N, T, H] (the reference's builder, ``gpt.py:63``, in its training /
+    full-forward form). With flash the padding mask becomes a key-only
+    bias and causality rides the kernel flag; otherwise a dense causal +
+    padding bias is built. ``kv_cache`` (the serving programs' cache
+    plumbing) raises: the port serves through the eager ``GPTLM``."""
+    if kv_cache is not None:
+        raise NotImplementedError(
+            "gpt_decoder: the KV-cache serving programs run in the eager "
+            "GPTLM of the port")
+    emb = fluid.layers.embedding(
+        input=ids, size=[cfg.vocab_size, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="tok_embedding"))
+    pos = fluid.layers.embedding(
+        input=pos_ids, size=[cfg.max_position_embeddings, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="pos_embedding"))
+    h = fluid.layers.elementwise_add(emb, pos)
+    h = _bert._dropout(h, cfg.hidden_dropout, cfg.is_test)
+    key_bias = attn_bias = None
+    _s = ids.shape[1] if len(ids.shape) >= 2 else -1
+    use_flash = _bert.flash_wanted(
+        cfg, seq_len=None if _s in (-1, None) else int(_s))
+    if use_flash:
+        key_bias = _bert.mask_to_key_bias(input_mask)
+    else:
+        pad = fluid.layers.scale(
+            fluid.layers.reshape(input_mask, shape=[0, 1, 1, -1]),
+            scale=1e4, bias=-1e4)
+        pad.stop_gradient = True
+        attn_bias = fluid.layers.elementwise_add(_causal_bias(ids.shape[1]),
+                                                 pad)
+    for i in range(cfg.num_layers):
+        name = "gpt_%d" % i
+        attn = _bert.multi_head_attention(
+            h, h, attn_bias, cfg, name + "_att", key_bias=key_bias,
+            causal=True, use_flash=use_flash)
+        attn = _bert._dropout(attn, cfg.hidden_dropout, cfg.is_test)
+        h = fluid.layers.layer_norm(fluid.layers.elementwise_add(h, attn),
+                                    begin_norm_axis=2, name=name + "_ln1")
+        ff = _bert._dropout(_bert._ffn(h, cfg, name + "_ffn"),
+                            cfg.hidden_dropout, cfg.is_test)
+        h = fluid.layers.layer_norm(fluid.layers.elementwise_add(h, ff),
+                                    begin_norm_axis=2, name=name + "_ln2")
+    return h
+
+
+def gpt_lm_logits(ids, pos_ids, input_mask, cfg, kv_cache=None):
+    """[N, T, vocab] next-token logits variable."""
+    h = gpt_decoder(ids, pos_ids, input_mask, cfg, kv_cache=kv_cache)
+    return fluid.layers.fc(input=h, size=cfg.vocab_size, num_flatten_dims=2,
+                           name="lm_head")
+
+
+def build_gpt_lm_train(cfg, seq_len, learning_rate=3e-4, use_amp=False):
+    """Next-token LM training program (the reference's builder,
+    ``gpt.py:183``): positions t predict tokens t+1, padded target
+    positions masked out of the loss, Adam over every parameter.
+
+    Returns (main, startup, feeds, avg_loss): run ``startup`` once, then
+    ``main`` with feeds ``ids`` / ``pos_ids`` ([N, seq_len, 1] int64) and
+    ``input_mask`` ([N, seq_len, 1] float32) through ``fluid.Executor``.
+    Parameter names are the reference's (build under a fresh
+    ``fluid.unique_name.guard()`` for its ``_0`` suffixes). ``use_amp``
+    raises: mixed precision is its own slice."""
+    if use_amp:
+        raise NotImplementedError("use_amp: the port trains in fp32 only; "
+                                  "AMP is a later slice")
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[seq_len, 1], dtype="int64")
+        pos_ids = fluid.layers.data(name="pos_ids", shape=[seq_len, 1],
+                                    dtype="int64")
+        input_mask = fluid.layers.data(name="input_mask", shape=[seq_len, 1],
+                                       dtype="float32")
+        logits = gpt_lm_logits(ids, pos_ids, input_mask, cfg)
+        # shift: logits[:, :-1] predict ids[:, 1:]
+        pred = fluid.layers.slice(logits, axes=[1], starts=[0],
+                                  ends=[seq_len - 1])
+        tgt = fluid.layers.slice(ids, axes=[1], starts=[1], ends=[seq_len])
+        loss = fluid.layers.softmax_with_cross_entropy(pred, tgt)
+        # mask the loss at padded TARGET positions
+        tgt_mask = fluid.layers.slice(input_mask, axes=[1], starts=[1],
+                                      ends=[seq_len])
+        loss = fluid.layers.elementwise_mul(loss, tgt_mask)
+        denom = fluid.layers.reduce_sum(tgt_mask)
+        avg_loss = fluid.layers.elementwise_div(fluid.layers.reduce_sum(loss),
+                                                denom)
+        fluid.optimizer.Adam(learning_rate=learning_rate).minimize(avg_loss)
+    return main, startup, [ids, pos_ids, input_mask], avg_loss
+
+
+# ---------------------------------------------------------------------------
+# training: the eager form
 # ---------------------------------------------------------------------------
 
 
@@ -480,10 +636,10 @@ def gpt_lm_loss(logits, ids, input_mask):
     return (loss * tgt_mask).sum() / tgt_mask.sum()
 
 
-def build_gpt_lm_train(cfg, seq_len, learning_rate=3e-4, use_amp=False,
-                       device=None, seed=0):
-    """The next-token LM train step, eagerly (the reference builds it as
-    a program: ``build_gpt_lm_train``, gpt.py:183).
+def build_gpt_lm_train_eager(cfg, seq_len, learning_rate=3e-4,
+                             use_amp=False, device=None, seed=0):
+    """The next-token LM train step of ``build_gpt_lm_train``, eagerly on
+    torch autograd.
 
     Returns ``(model, optimizer, feed_names, step)``: a ``GPTLM`` in
     training mode with weights from ``init_fluid_params(cfg, seed)`` (load

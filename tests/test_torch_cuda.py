@@ -107,6 +107,59 @@ def test_flash_training_kernels_match_plain(D, causal, Sq, Sk, rate, form):
                                    msg=name)
 
 
+# the general bias's broadcast forms: shape given (B, N, Sq, Sk)
+_BIAS_FORMS = {
+    "square": lambda B, N, Sq, Sk: (Sq, Sk),
+    "shared": lambda B, N, Sq, Sk: (1, 1, Sq, Sk),
+    "per_batch": lambda B, N, Sq, Sk: (B, 1, Sq, Sk),
+    "per_head_of_batch": lambda B, N, Sq, Sk: (B, N, Sq, Sk),
+    "per_head": lambda B, N, Sq, Sk: (1, N, Sq, Sk),
+    "flat_heads": lambda B, N, Sq, Sk: (B * N, Sq, Sk),
+}
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("form", sorted(_BIAS_FORMS))
+def test_flash_bias_kernels_match_plain(D, causal, Sq, Sk, rate, form):
+    """The general-bias instantiations of the three training kernels (with
+    a per-batch key bias beside the bias) against their plain versions:
+    forward, dq, dk, dv, dkey_bias and dbias. dbias of a shared row is
+    summed with atomics in no fixed order over at most B·N = 6 heads of
+    O(1) entries, so it differs from the plain sum by rounding (~1e-7);
+    it is held at the backward tolerance."""
+    gen = torch.Generator().manual_seed(D + Sq + int(rate * 10) + len(form))
+    B, N = 2, 3
+    q, k, v = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sk, D), \
+        _randn(gen, B, N, Sk, D)
+    g, g_lse = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sq)
+    kb = _key_bias(gen, "per_batch", B, N, Sk)
+    bias = _randn(gen, *_BIAS_FORMS[form](B, N, Sq, Sk))
+    seed = 123456789 if rate else None
+    kw = dict(causal=causal, dropout_rate=rate)
+    n0 = (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+          fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_attention_lse(q, k, v, kb, bias=bias,
+                                      dropout_seed=seed, **kw)
+    grads = fa.flash_attention_bwd_from_residuals(
+        q, k, v, kb, seed, out, lse, g, g_lse=g_lse, bias=bias, **kw)
+    assert (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(
+        q, k, v, key_bias=kb, bias=bias, dropout_seed=seed, **kw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, kb, seed, ref_out, ref_lse,
+                                       g, g_lse=g_lse, bias=bias, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=ATOL, rtol=RTOL)
+    assert len(grads) == len(ref) == 5
+    for name, got, want in zip(("dq", "dk", "dv", "dkey_bias", "dbias"),
+                               grads, ref):
+        torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=RTOL,
+                                   msg=name)
+
+
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", [1, 300, 1024])
 def test_flash_decode_kernel_matches_plain(D, S):
@@ -194,10 +247,10 @@ def test_kernels_take_every_key_bias_form(rows):
 def test_kernel_wrappers_raise_on_what_they_do_not_take():
     gen = torch.Generator().manual_seed(0)
     q = _randn(gen, 1, 2, 16, 64)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q, bias=torch.zeros(16, 16).cuda())
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q, bias=torch.zeros(16, 16).cuda(),
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q, bias=torch.zeros(3, 16, 16).cuda())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q, bias=torch.zeros(2, 2, 16, 16).cuda(),
                            dropout_rate=0.1, dropout_seed=3)
     odd = _randn(gen, 1, 2, 16, 48)
     with pytest.raises(ValueError):
@@ -297,7 +350,7 @@ def test_train_step_on_card_matches_cpu_plain_path():
     arrays = tgpt.init_fluid_params(cfg, seed=4)
     runs = {}
     for device in ("cuda", "cpu"):
-        model, _opt, _names, step = tgpt.build_gpt_lm_train(
+        model, _opt, _names, step = tgpt.build_gpt_lm_train_eager(
             cfg, 64, learning_rate=1e-3,
             device=None if device == "cuda" else "cpu")
         assert model.device.type == device
@@ -325,8 +378,55 @@ def test_train_step_with_dropout_on_card_is_seeded_and_finite():
     feed = _train_feed(2, 64, cfg.vocab_size, seed=1)
     runs = []
     for _ in range(2):
-        _model, _opt, _names, step = tgpt.build_gpt_lm_train(
+        _model, _opt, _names, step = tgpt.build_gpt_lm_train_eager(
             cfg, 64, learning_rate=1e-3, seed=9)
         runs.append([step(feed) for _ in range(3)])
     assert runs[0] == runs[1]
     assert all(torch.isfinite(torch.tensor(runs[0])))
+
+
+def test_program_train_step_on_card_matches_cpu():
+    """The GPT train program (``build_gpt_lm_train``, 12 narrow layers,
+    head_dim 32, dropout 0) through ``fluid.Executor`` on the card and on
+    the CPU from the same weights: each flash kernel launches 12 times a
+    step on the card, no forward is replayed, and the losses of two Adam
+    steps and the updated weights agree (atol 1e-4, as the eager test)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, num_layers=12,
+                              use_flash_attention=True,
+                              max_position_embeddings=64, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    feed = _train_feed(3, 64, cfg.vocab_size)
+    arrays = tgpt.init_fluid_params(cfg, seed=4)
+    runs = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        with fluid.unique_name.guard():
+            main, startup, _f, loss = tgpt.build_gpt_lm_train(
+                cfg, 64, learning_rate=1e-3)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        tgpt.load_fluid_scope(scope, arrays)
+        n0 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        r0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0].reshape(-1)[0])
+                  for _ in range(2)]
+        n1 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        want = 2 * cfg.num_layers if isinstance(place, fluid.CUDAPlace) else 0
+        assert [b - a for a, b in zip(n0, n1)] == [want] * 3
+        assert profiler.get_counter(registry.REPLAY_COUNTER) == r0
+        runs[str(place)] = (losses, {n: scope.get(n).detach().cpu()
+                                     for n in arrays})
+    (l_cuda, p_cuda), (l_cpu, p_cpu) = runs.values()
+    np.testing.assert_allclose(l_cuda, l_cpu, atol=1e-4, rtol=0)
+    for name, p in p_cuda.items():
+        torch.testing.assert_close(p, p_cpu[name], atol=1e-4, rtol=0,
+                                   msg=name)

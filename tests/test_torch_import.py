@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from paddle_tpu_torch import fluid
 from paddle_tpu_torch.fluid.core import CPUPlace, CUDAPlace, resolve_device
 from paddle_tpu_torch.models import gpt as tgpt
 
@@ -39,7 +40,16 @@ for fn in (flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv,
            flash_attention.flash_attention_bwd_plain, nn_ops.dropout,
            nn_ops.flash_attention_lse, math_ops.softmax_with_cross_entropy,
            optimizer_ops.adam, optimizer.Adam, bert.DropoutRNG,
-           gpt.build_gpt_lm_train, gpt.gpt_lm_loss):
+           gpt.build_gpt_lm_train_eager, gpt.gpt_lm_loss):
+    assert callable(fn)
+# the Program/Executor slice
+from paddle_tpu_torch import fluid
+from paddle_tpu_torch.fluid import backward, executor, framework, layers
+for fn in (framework.Program, framework.program_guard, executor.Executor,
+           executor.scope_guard, backward.append_backward, layers.fc,
+           layers.flash_attention, layers.create_parameter, fluid.Executor,
+           gpt.build_gpt_lm_train, gpt.gpt_decoder, gpt.load_fluid_scope,
+           bert.multi_head_attention, bert._dropout, bert.flash_engages):
     assert callable(fn)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
@@ -96,6 +106,8 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu():
         resolve_device(CUDAPlace(0))
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
+    with pytest.raises(RuntimeError):
+        fluid.Executor()
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(CPUPlace()) == torch.device("cpu")
     assert tgpt.GPTLM(cfg, device="cpu").device == torch.device("cpu")

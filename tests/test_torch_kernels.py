@@ -363,3 +363,125 @@ def test_math_ops_match_jax_semantics():
     _close(tmath.gelu(torch.from_numpy(x)),
            jax.nn.gelu(jnp.asarray(x), approximate=False))
     _close(tmath.softmax(torch.from_numpy(x)), jax.nn.softmax(jnp.asarray(x)))
+
+
+# the reference's general-bias forms (``test_flash_grad_general_bias``)
+_BIAS_SHAPES = {
+    "2d": lambda B, N, S: (S, S),
+    "full": lambda B, N, S: (B, N, S, S),
+    "batch": lambda B, N, S: (B, 1, S, S),
+    "head": lambda B, N, S: (1, N, S, S),
+}
+
+
+def _bias_case_grads(q, k, v, kb, bias, w_out, w_lse, causal, rate, seed):
+    """(JAX out, lse, grads of q, k, v, bias through the Pallas kernels in
+    interpret mode) and the port's (out, lse, grads through the op's
+    autograd Function, whose backward is the plain version on the CPU),
+    for a loss reading both out and lse."""
+    import jax
+
+    j_kb = None if kb is None else jnp.asarray(kb)
+
+    def jloss(q, k, v, b):
+        out, lse = jfa.flash_attention_lse(
+            q, k, v, key_bias=j_kb, bias=b, causal=causal, dropout_rate=rate,
+            dropout_seed=seed, interpret=True)
+        return (out * w_out).sum() + (lse * w_lse).sum(), (out, lse)
+
+    (_l, (j_out, j_lse)), j_grads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+            *(jnp.asarray(a) for a in (q, k, v, bias)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias)]
+    out, lse = tnn.flash_attention_lse(
+        *leaves[:3], key_bias=None if kb is None else torch.from_numpy(kb),
+        bias=leaves[3], causal=causal, dropout_rate=rate, dropout_seed=seed)
+    ((out * torch.from_numpy(w_out)).sum()
+     + (lse * torch.from_numpy(w_lse)).sum()).backward()
+    return (j_out, j_lse, j_grads), (out, lse, [t.grad for t in leaves])
+
+
+@pytest.mark.parametrize("shape", sorted(_BIAS_SHAPES))
+def test_flash_bias_plain_matches_jax_kernels(shape):
+    """The plain forward with a general bias in each broadcast form
+    against the Pallas forward in interpret mode (rtol 2e-5 / atol 2e-6,
+    the reference test's forward tolerance), and its backward — dq, dk,
+    dv and dbias summed over the heads sharing a bias row, in the bias's
+    raw shape — against ``jax.grad`` through the Pallas backward kernels
+    (atol/rtol 1e-5: sums of a few dozen fp32 products of size ~1)."""
+    rs = np.random.RandomState(11 + len(shape))
+    B, N, S, D = 2, 3, 32, 8
+    q, k, v = (_randn(rs, B, N, S, D) * 0.5 for _ in range(3))
+    bias = _randn(rs, *_BIAS_SHAPES[shape](B, N, S)) * 0.3
+    w_out, w_lse = _randn(rs, B, N, S, D), _randn(rs, B, N, S)
+    (j_out, j_lse, j_grads), (out, lse, grads) = _bias_case_grads(
+        q, k, v, None, bias, w_out, w_lse, False, 0.0, None)
+    _close(out.detach(), j_out, atol=2e-6, rtol=2e-5)
+    _close(lse.detach(), j_lse, atol=2e-6, rtol=2e-5)
+    for name, got, want in zip(("dq", "dk", "dv", "dbias"), grads, j_grads):
+        assert tuple(got.shape) == tuple(want.shape), name
+        _close(got, want)
+    # the plain backward entry returns dbias [G, Sq, Sk] after the rest
+    tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    t_out, t_lse = tfa.flash_attention_lse_plain(tq, tk, tv, bias=tb)
+    plain = tfa.flash_attention_bwd_plain(
+        tq, tk, tv, None, None, t_out, t_lse, torch.from_numpy(w_out),
+        g_lse=torch.from_numpy(w_lse), bias=tb)
+    assert len(plain) == 5
+    _close(plain[4].reshape(bias.shape), j_grads[3])
+
+
+def test_flash_bias_causal_key_bias_odd_length_dropout_per_head_swap():
+    """All masking paths at once (the reference's
+    ``test_flash_grad_causal_with_bias_and_key_bias`` and
+    ``test_flash_dropout_per_head_bias_swap_parity`` cases): causal, a
+    per-head bias shared across the batch ([1, N, S, S], which the TPU
+    kernels run head-major with B and N swapped), a key padding bias, an
+    odd length S = 37 and dropout 0.3. The port maps heads to bias rows
+    without a swap, and the dropout hash keeps the caller's head index,
+    so the masks and gradients agree with the Pallas kernels in interpret
+    mode (atol/rtol 1e-5)."""
+    rs = np.random.RandomState(16)
+    B, N, S, D = 3, 2, 37, 8
+    q, k, v = (_randn(rs, B, N, S, D) * 0.5 for _ in range(3))
+    bias = _randn(rs, 1, N, S, S) * 0.2
+    kb = np.zeros((B, S), np.float32)
+    kb[1, 30:] = -1e4
+    w_out, w_lse = _randn(rs, B, N, S, D), _randn(rs, B, N, S)
+    (j_out, j_lse, j_grads), (out, lse, grads) = _bias_case_grads(
+        q, k, v, kb, bias, w_out, w_lse, True, 0.3, 21)
+    _close(out.detach(), j_out)
+    _close(lse.detach(), j_lse)
+    for name, got, want in zip(("dq", "dk", "dv", "dbias"), grads, j_grads):
+        assert tuple(got.shape) == tuple(want.shape), name
+        _close(got, want)
+
+
+def test_flash_attention_op_vjp_matches_autograd():
+    """``torch.func.vjp`` through the op (general bias, key bias, causal,
+    dropout) gives the gradients ``torch.autograd.grad`` gives: the
+    Function splits ``forward`` and ``setup_context``, so the program's
+    generic grad lowering can differentiate through it. Same Function,
+    same backward: the two agree exactly."""
+    rs = np.random.RandomState(41)
+    B, N, S, D = 2, 2, 19, 8
+    q, k, v = (torch.from_numpy(_randn(rs, B, N, S, D)) for _ in range(3))
+    bias = torch.from_numpy(_randn(rs, 1, N, S, S))
+    kb = torch.from_numpy(_randn(rs, B, S))
+    g = torch.from_numpy(_randn(rs, B, N, S, D))
+    gen_seed = 5
+
+    def f(q, k, v, bias):
+        gen = torch.Generator().manual_seed(gen_seed)
+        return tnn.flash_attention(q, k, v, key_bias=kb, bias=bias,
+                                   causal=True, dropout_rate=0.2,
+                                   generator=gen)
+
+    out, vjp_fn = torch.func.vjp(f, q, k, v, bias)
+    got = vjp_fn(g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out2 = f(*leaves)
+    want = torch.autograd.grad(out2, leaves, g)
+    torch.testing.assert_close(out, out2.detach(), atol=0, rtol=0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

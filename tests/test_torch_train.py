@@ -85,7 +85,7 @@ def _reference_run(flash, steps, interpret=False):
 
 
 def _port_step(flash, arrays):
-    model, opt, feed_names, step = tgpt.build_gpt_lm_train(
+    model, opt, feed_names, step = tgpt.build_gpt_lm_train_eager(
         _tiny(tgpt, flash), T, learning_rate=LR, device="cpu", seed=3)
     tgpt.load_fluid_params(model, arrays)
     assert feed_names == ["ids", "pos_ids", "input_mask"]
@@ -186,7 +186,7 @@ def test_dropout_training_is_seeded_and_learns():
     assert cfg.hidden_dropout == cfg.attention_dropout == 0.1
 
     def run(seed):
-        _model, _opt, _names, step = tgpt.build_gpt_lm_train(
+        _model, _opt, _names, step = tgpt.build_gpt_lm_train_eager(
             cfg, T, learning_rate=3e-3, device="cpu", seed=seed)
         return [step(_counting_stream(i, cfg.vocab_size)) for i in range(12)]
 
@@ -219,8 +219,8 @@ def test_train_mode_drops_and_serving_does_not():
 
 def test_use_amp_raises():
     with pytest.raises(NotImplementedError):
-        tgpt.build_gpt_lm_train(tgpt.GPTConfig.tiny(), T, use_amp=True,
-                                device="cpu")
+        tgpt.build_gpt_lm_train_eager(tgpt.GPTConfig.tiny(), T,
+                                      use_amp=True, device="cpu")
 
 
 # ---------------------------------------------------------------------------
