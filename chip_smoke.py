@@ -51,9 +51,9 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
            from the same weights (``load_fluid_scope``): at dropout 0, 10
            Adam steps whose losses must equal the eager step's within
            1e-4 relative, step p50, a profiled step of each (idle share,
-           launches by class: GEMM, flash, other; the program must launch
-           as many GEMMs as the eager step and each flash kernel 12
-           times), peak memory; then 20 program steps at dropout 0.1 on
+           launches by class: GEMM, flash, copy, other; the program must
+           launch as many GEMMs as the eager step and each flash kernel
+           12 times), peak memory; then 20 program steps at dropout 0.1 on
            the learnable stream: the loss falls and each flash kernel
            launches 12 x 20 times.
 9. bias    a program with a learnable per-head attention bias
@@ -62,10 +62,25 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
            fc over a [8, 1024, 768] input, causal) trained 5 Adam steps;
            the step-1 dq/dk/dv/dbias the kernels gave held against the
            plain versions on the same tensors.
+10. amp_train  the AMP (bf16) train step, ``build_gpt_lm_train(cfg,
+           1024, use_amp=True)`` through ``fluid.Executor(CUDAPlace(0))``
+           at 8 x 1024 from phase 8's weights and feed: 10 steps at
+           dropout 0 whose step-1 loss (1e-4 relative) and step-1
+           gradients of the first and last layers' weights and the LM
+           head (1e-1 relative norm) must match the fp32 program's, with
+           each bf16 flash kernel launched 12 times a step and no generic
+           replay; step p50, a profiled step (idle share, launches by
+           class, the GEMM and flash kernels by name), peak memory; the
+           eager AMP step beside it (step-1 loss within 1e-6 of the
+           program's, bf16 flash kernels); then 20 program steps at
+           dropout 0.1 that must learn.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
-[1, 12, 1024, 1024] and the [1024, 1024] bias.
+[1, 12, 1024, 1024] and the [1024, 1024] bias; the bf16 forms of the
+three training kernels at the train shape (timed, with their bf16 bound
+and SDPA in bf16 beside them); fp16 and bf16 at small shapes; and a head
+dim of 48 on all five kernels, each against its plain version.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -122,6 +137,28 @@ PROGRAM_STEPS, PROGRAM_LOSS_RTOL = 10, 1e-4
 # differs from the plain version's ordered sum by rounding of 8-term
 # sums (~1e-7 relative); held at the backward tolerance.
 BIAS_STEPS = 5
+# The bf16 and fp16 kernels against their plain versions on the same
+# low-precision inputs are held to the limits of
+# ``paddle_tpu_torch/tools/lowp_limits.py``: out per element to the bound
+# of its p rounding and per 64-row block to 1 eps of relative norm; dq,
+# dk and dv per element to 2 ulps of their row's largest entry and per
+# block to 0.1 eps; lse, dkey_bias and dbias (fp32 sums) to 1e-4.
+# The AMP train step (bf16 products and attention, fp32 layer norms, loss
+# and master weights) against the fp32 program step on the same weights
+# and feed, at dropout 0. With random weights the step-1 loss sits near
+# ln(vocab) whatever attention does, so it is held loosely (read: 3.3e-6
+# relative, NVIDIA H100 80GB HBM3, 700 W) and the step-1 gradients of the
+# attention and FFN weights of the first and last layers and of the LM
+# head carry the check: bf16 products move them by ~1e-2 of their norm
+# (1.0e-2 to 1.8e-2 on a 12-layer GPT of width 128 on the CPU), a masking
+# or indexing error in a bf16 kernel by O(1). The eager AMP
+# step runs the same functions in the same order as the program: its
+# step-1 loss read equal to the program's to the last bit.
+AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_EAGER_RTOL = 1e-4, 1e-1, 1e-6
+AMP_GRAD_PARAMS = ("gpt_0_att_q.w_0", "gpt_0_att_k.w_0", "gpt_0_att_v.w_0",
+                   "gpt_0_att_out.w_0", "gpt_0_ffn_fc0.w_0",
+                   "gpt_11_att_q.w_0", "gpt_11_att_k.w_0", "gpt_11_att_v.w_0",
+                   "gpt_11_att_out.w_0", "gpt_11_ffn_fc1.w_0", "lm_head.w_0")
 # The paged engine: max_len 1016 leaves room for the width-4 verify's
 # positions (max_len + k - 1 <= 1024), so tables are 64 blocks of 16 (a
 # key span of 1024) and the pool 8 * 64 + 1 blocks; the longest prompt
@@ -186,10 +223,17 @@ def cuda_ms(fn, inputs, calls=20, window_ms=100.0, windows=5):
     return times[len(times) // 2], [times[0], times[-1]]
 
 
-def bound_ms(nbytes, flops, peaks):
+def bound_ms(nbytes, flops, peaks, flops_rate=None):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over ``flops_rate`` (default: the card's fp32 rate)."""
     bw, fp32, _src = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+    rate = fp32 if flops_rate is None else flops_rate
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / rate * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# dense bf16/fp16 tensor-core peak of the H100 SXM (NVIDIA's data sheet)
+BF16_PEAK = 989e12
 
 
 def max_err(a, b):
@@ -197,7 +241,8 @@ def max_err(a, b):
 
 
 def check_close(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
-    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+    # in fp32: a bf16 or fp16 difference would itself be rounded
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
         raise AssertionError("%s disagrees with its plain version: max abs "
                              "err %.3g" % (name, max_err(got, want)))
 
@@ -603,6 +648,204 @@ def kernel_flash_bias(dev, peaks):
             "atol_fwd": KERNEL_ATOL, "atol_bwd": BWD_ATOL, "forms": forms}
 
 
+def check_low_precision(name, dtype, q, k, v, kb, g, rate, seed, bias=None,
+                        causal=True):
+    """The three training kernels on ``dtype`` inputs against their plain
+    versions at the limits of ``tools/lowp_limits.py``; returns
+    ({"fwd", "dq", "dkv"}: max abs err, "ratios": each output's readings
+    over its limits}, (out, lse, delta))."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools import lowp_limits as lowp
+
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed, bias=bias)
+    out, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, key_bias=kb,
+                                                    **kw)
+    torch.cuda.synchronize()
+    if out.dtype != dtype or lse.dtype != torch.float32:
+        raise AssertionError("%s: out %s, lse %s" % (name, out.dtype,
+                                                     lse.dtype))
+    bound = lowp.out_bound(dtype, q, k, v, ref_out, key_bias=kb, **kw)
+    ratios = {"out": lowp.out_ratios(dtype, out, ref_out, bound)}
+    lowp.check("%s out" % name, ratios["out"])
+    check_close("%s lse" % name, lse, ref_lse, lowp.FP32_ATOL, lowp.FP32_ATOL)
+    errs = {"fwd": max(max_err(out, ref_out), max_err(lse, ref_lse)),
+            "ratios": ratios}
+    del ref_out, ref_lse, bound
+    delta = (g.float() * out.float()).sum(-1)
+    bwd_args = (q, k, v, kb, g, lse, delta)
+    dq = fa.flash_bwd_dq(*bwd_args, **kw)
+    ref_dq = fa.flash_bwd_dq_plain(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    got = fa.flash_bwd_dkv(*bwd_args, **kw)
+    want = fa.flash_bwd_dkv_plain(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    bounds = dict(zip(("dq", "dk", "dv"), lowp.grad_bounds(
+        dtype, *bwd_args, (ref_dq,) + tuple(want[:2]), **kw)))
+    ratios["dq"] = lowp.grad_ratios(dtype, dq, ref_dq, bounds["dq"])
+    lowp.check("%s dq" % name, ratios["dq"])
+    errs["dq"] = max_err(dq, ref_dq)
+    del dq, ref_dq
+    errs["dkv"] = 0.0
+    for oname, a, b in zip(("dk", "dv", "dkey_bias", "dbias"), got, want):
+        low = oname in ("dk", "dv")
+        if (a.dtype == dtype) != low:
+            raise AssertionError("%s %s comes back %s" % (name, oname,
+                                                          a.dtype))
+        if low:
+            ratios[oname] = lowp.grad_ratios(dtype, a, b, bounds[oname])
+            lowp.check("%s %s" % (name, oname), ratios[oname])
+        else:
+            check_close("%s %s" % (name, oname), a, b, lowp.FP32_ATOL,
+                        lowp.FP32_ATOL)
+        errs["dkv"] = max(errs["dkv"], max_err(a, b))
+    del got, want, bounds
+    return errs, (out, lse, delta)
+
+
+def kernel_flash_train_bf16(dev, peaks):
+    """The bf16 forms of the three training kernels at the AMP train
+    step's attention shape (q/k/v/dO [8, 12, 1024, 64] bf16, causal, the
+    padded key bias, dropout 0.1), each against its plain version on the
+    same bf16 inputs, timed beside it; the bound counts bf16 bytes over
+    the memory rate against the FLOPs over the bf16 tensor-core peak.
+    The library yardstick is SDPA in bf16 with the same mask and its own
+    dropout (forward; forward + backward for the backward kernels)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(6)
+    B, N, T, D = TRAIN_BATCH, 12, TRAIN_T, 64
+    rate, seed = 0.1, 1357911
+    scale = 1.0 / np.sqrt(D)
+    dt = torch.bfloat16
+    q, k, v, g = (torch.randn(B, N, T, D, generator=gen).to(dev, dt)
+                  for _ in range(4))
+    kb = torch.zeros(B, T)
+    kb[1, 700:] = -1e4
+    kb[5, 1000:] = -1e4
+    kb = kb.to(dev)
+    errs, (out, lse, delta) = check_low_precision(
+        "bf16", dt, q, k, v, kb, g, rate, seed)
+    kw = dict(causal=True, scale=scale, dropout_rate=rate,
+              dropout_seed=seed)
+    bwd_args = (q, k, v, kb, g, lse, delta)
+    pairs = B * N * T * (T + 1) // 2
+    tensor = 2 * B * N * T * D                    # bytes of one bf16 tensor
+    vec = 4 * B * N * T
+    kb_bytes = 4 * B * T
+    causal_mask = torch.full((T, T), float("-inf"), device=dev).triu(1)
+    sdpa_mask = (causal_mask[None, None] + kb.reshape(B, 1, 1, T)).to(dt)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, fn, plain, nbytes, flops, err, lib, args in (
+            ("flash_fwd",
+             lambda a, b, c, d: fa.flash_attention_lse(a, b, c, d, **kw),
+             lambda a, b, c, d: fa.flash_attention_lse_plain(
+                 a, b, c, key_bias=d, **kw),
+             4 * tensor + kb_bytes + vec, 4 * D * pairs, errs["fwd"],
+             lambda: sdpa(q, k, v, attn_mask=sdpa_mask, dropout_p=rate,
+                          scale=scale), [(q, k, v, kb)]),
+            ("flash_bwd_dq", lambda *a: fa.flash_bwd_dq(*a, **kw),
+             lambda *a: fa.flash_bwd_dq_plain(*a, **kw),
+             5 * tensor + kb_bytes + 2 * vec, 6 * D * pairs, errs["dq"],
+             None, [bwd_args]),
+            ("flash_bwd_dkv", lambda *a: fa.flash_bwd_dkv(*a, **kw),
+             lambda *a: fa.flash_bwd_dkv_plain(*a, **kw),
+             6 * tensor + kb_bytes + 2 * vec + 4 * B * N * T, 8 * D * pairs,
+             errs["dkv"], None, [bwd_args])):
+        ms, spread = cuda_ms(fn, args)
+        plain_ms, _ = cuda_ms(plain, args, calls=3)
+        bms, by = bound_ms(nbytes, flops, peaks, BF16_PEAK)
+        rows[name] = {"max_abs_err": err, "ms": ms, "ms_window_spread": spread,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": event_ms(lib) if lib else None}
+    rows["limit_ratios"] = errs["ratios"]
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        sdpa(ql, kl, vl, attn_mask=sdpa_mask, dropout_p=rate,
+             scale=scale).backward(g)
+
+    yard = event_ms(sdpa_fwd_bwd)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name]["sdpa_fwd_bwd_ms"] = yard
+    rows["shape"] = [B, N, T, D]
+    rows["dtype"] = "bf16"
+    rows["dropout_rate"] = rate
+    zero_flash_launches()          # comparison launches do not count
+    return rows
+
+
+def kernel_other_forms(dev):
+    """fp16 once at a small shape (with a general bias), bf16 at a ragged
+    one, and a head dim of 48 (not instantiated: the training kernels pad
+    it to 64, the decode kernels have a D = 48 instantiation) on all five
+    kernels in fp32, each against its plain version. Returns max abs
+    errors by check."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(7)
+    out = {}
+    B, N, S = 2, 3, 130
+    kb = torch.zeros(B, S)
+    kb[1, 100:] = -1e4
+    kb = kb.to(dev)
+    for name, dt, D, bias in (("fp16_d64_bias", torch.float16, 64, True),
+                              ("bf16_d48_bias", torch.bfloat16, 48, True),
+                              ("fp16_d128", torch.float16, 128, False)):
+        q, k, v, g = (torch.randn(B, N, S, D, generator=gen).to(dev, dt)
+                      for _ in range(4))
+        gb = ((torch.randn(1, N, S, S, generator=gen) * 0.5).to(dev)
+              if bias else None)
+        errs, _res = check_low_precision(name, dt, q, k, v, kb, g, 0.1, 99,
+                                         bias=gb)
+        out[name] = errs
+    # D = 48, fp32, the training kernels (padded to 64) ...
+    D = 48
+    q, k, v, g = (torch.randn(B, N, S, D, generator=gen).to(dev)
+                  for _ in range(4))
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=5)
+    o, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
+    ro, rl = fa.flash_attention_lse_plain(q, k, v, key_bias=kb, **kw)
+    grads = fa.flash_attention_bwd_from_residuals(q, k, v, kb, 5, o, lse, g,
+                                                  causal=True,
+                                                  dropout_rate=0.1)
+    ref = fa.flash_attention_bwd_plain(q, k, v, kb, 5, o, lse, g, causal=True,
+                                       dropout_rate=0.1)
+    torch.cuda.synchronize()
+    check_close("flash_fwd D=48 out", o, ro)
+    check_close("flash_fwd D=48 lse", lse, rl)
+    for n, a, b in zip(("dq", "dk", "dv", "dkey_bias"), grads, ref):
+        check_close("flash_bwd D=48 " + n, a, b, BWD_ATOL, BWD_RTOL)
+    out["fp32_d48_train"] = {"fwd": max(max_err(o, ro), max_err(lse, rl)),
+                             "bwd": max(max_err(a, b)
+                                        for a, b in zip(grads, ref))}
+    # ... and the decode kernels (instantiated at 48)
+    q1 = torch.randn(B, N, 1, D, generator=gen).to(dev)
+    dec = fa.flash_decode_attention(q1, k, v, kb)
+    rdec = fa.flash_decode_attention_plain(q1, k, v, key_bias=kb)
+    blk, MB = 16, 9
+    pool_k, pool_v = (torch.randn(B * MB + 1, N, blk, D, generator=gen)
+                      .to(dev) for _ in range(2))
+    tables = (torch.randperm(B * MB, generator=gen) + 1).reshape(B, MB)
+    tables = tables.to(torch.int32).to(dev)
+    pkb = torch.zeros(B, MB * blk)
+    pkb[0, 50:] = -1e4
+    pkb = pkb.to(dev)
+    pdec = fa.flash_decode_paged_attention(q1, pool_k, pool_v, tables, pkb)
+    rpdec = fa.flash_decode_paged_attention_plain(q1, pool_k, pool_v, tables,
+                                                  key_bias=pkb)
+    torch.cuda.synchronize()
+    check_close("flash_decode D=48", dec, rdec)
+    check_close("flash_decode_paged D=48", pdec, rpdec)
+    out["fp32_d48_decode"] = {"flash_decode": max_err(dec, rdec),
+                              "flash_decode_paged": max_err(pdec, rpdec)}
+    zero_flash_launches()
+    fa.flash_decode_attention.launches = 0
+    fa.flash_decode_paged_attention.launches = 0
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine
 # ---------------------------------------------------------------------------
@@ -726,13 +969,26 @@ def teacher_forced_check(model, streams):
     return worst, exact / max(total, 1)
 
 
+def _kernel_class(name):
+    """A device kernel's class by its name: the port's flash kernels,
+    matrix products (cuBLAS's ``*gemm*`` kernels and its Hopper ``nvjet``
+    ones), PyTorch's copy kernel (dtype casts and layout copies), and
+    everything else."""
+    low = name.lower()
+    if "flash_" in name:
+        return "flash"
+    if "gemm" in low or "nvjet" in low:
+        return "gemm"
+    if "copy_kernel" in low:
+        return "copy"
+    return "other"
+
+
 def _profile(fn, reps):
     """Wall ms per call of ``fn`` (host clock, unprofiled, ending in a
     synchronize), then ``reps`` calls under torch.profiler for the
     device-busy ms per call (kernel and copy time; one stream, so nothing
-    overlaps), split into matrix products (``gemm`` in the kernel's
-    name), the port's flash kernels and everything else, and the top
-    device ops. The idle share compares the two:
+    overlaps), split by ``_kernel_class``, and the top device ops. The idle share compares the two:
     the profiler itself slows the host, so its own wall time is reported
     apart and not used."""
     from torch.autograd import DeviceType
@@ -763,13 +1019,15 @@ def _profile(fn, reps):
         dev_events.append((us / reps, e.count / reps, e.key))
     busy_ms = sum(us for us, _n, _k in dev_events) / 1e3
     dev_events.sort(reverse=True)
-    by_class = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
-    launches_by_class = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
+    by_class = {"gemm": 0.0, "flash": 0.0, "copy": 0.0, "other": 0.0}
+    launches_by_class = dict(by_class)
+    gemm_kernels = {}
     for us, n, key in dev_events:
-        cls = ("flash" if "flash_" in key else
-               "gemm" if "gemm" in key.lower() else "other")
+        cls = _kernel_class(key)
         by_class[cls] += us / 1e3
         launches_by_class[cls] += n
+        if cls == "gemm":
+            gemm_kernels[key[:100]] = gemm_kernels.get(key[:100], 0.0) + us
     return {
         "wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
         "device_busy_ms": busy_ms,
@@ -777,6 +1035,13 @@ def _profile(fn, reps):
         "device_ms_by_class": by_class,
         "launches_per_call": sum(n for _us, n, _k in dev_events),
         "launches_by_class": launches_by_class,
+        "gemm_kernels_us": dict(sorted(gemm_kernels.items(),
+                                       key=lambda kv: -kv[1])[:6]),
+        "top_other": [{"kernel": k[:90], "us": us, "calls": n}
+                      for us, n, k in dev_events
+                      if _kernel_class(k) == "other"][:6],
+        "flash_kernels": sorted({k[:90] for _us, _n, k in dev_events
+                                 if "flash_" in k}),
         "top": [{"kernel": k[:70], "us": us, "calls": n}
                 for us, n, k in dev_events[:8]],
     }
@@ -1102,7 +1367,7 @@ def train_phase(dev):
 # ---------------------------------------------------------------------------
 
 
-def build_program(cfg):
+def build_program(cfg, use_amp=False):
     """GPT-2 small's train program, startup run on the card, weights
     ``init_fluid_params(cfg, 0)`` copied into the scope (the eager
     builder's default). Returns (main, loss, executor, scope)."""
@@ -1111,12 +1376,26 @@ def build_program(cfg):
 
     with fluid.unique_name.guard():
         main, startup, _feeds, loss = gpt.build_gpt_lm_train(
-            cfg, TRAIN_T, learning_rate=TRAIN_LR)
+            cfg, TRAIN_T, learning_rate=TRAIN_LR, use_amp=use_amp)
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
     gpt.load_fluid_scope(scope, gpt.init_fluid_params(cfg, 0))
     return main, loss, exe, scope
+
+
+def grad_fetching_step(exe, main, loss, feed, scope):
+    """(step() -> loss, grads): the first call also fetches the step-1
+    gradients of ``AMP_GRAD_PARAMS`` into ``grads`` (numpy, fp32)."""
+    grads = {}
+
+    def step():
+        names = [] if grads else [n + "@GRAD" for n in AMP_GRAD_PARAMS]
+        out = exe.run(main, feed=feed, fetch_list=[loss] + names, scope=scope)
+        grads.update(zip(AMP_GRAD_PARAMS, out[1:]))
+        return float(out[0].reshape(-1)[0])
+
+    return step, grads
 
 
 def timed_steps(step, n):
@@ -1150,11 +1429,7 @@ def program_train_phase(dev):
     n_ops = len(main.global_block().ops)
     torch.cuda.reset_peak_memory_stats()
     replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
-
-    def prog_step():
-        return float(exe.run(main, feed=feed, fetch_list=[loss],
-                             scope=scope)[0].reshape(-1)[0])
-
+    prog_step, grads = grad_fetching_step(exe, main, loss, feed, scope)
     zero_flash_launches()
     prog_losses, prog_ms = timed_steps(prog_step, PROGRAM_STEPS)
     prog_launches = flash_launches()
@@ -1167,7 +1442,7 @@ def program_train_phase(dev):
     if replays:
         raise AssertionError("program step replayed %d forwards" % replays)
     prog_prof = _profile(prog_step, reps=1)
-    del main, loss, exe, scope
+    del main, loss, exe, scope, prog_step     # the step holds the scope
     torch.cuda.empty_cache()
 
     model, _opt, _names, step = gpt.build_gpt_lm_train_eager(
@@ -1230,7 +1505,143 @@ def program_train_phase(dev):
             "eager_profile_step": eager_prof},
         "dropout01": {"steps": TRAIN_STEPS, "losses": drop_losses,
                       "dropout": [cfg.hidden_dropout, cfg.attention_dropout]},
-    }, launches
+    }, launches, grads
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the AMP train step (bf16)
+# ---------------------------------------------------------------------------
+
+
+def amp_train_phase(dev, fp32_step1_loss, fp32_grads):
+    """GPT-2 small's AMP train step, ``build_gpt_lm_train(use_amp=True)``
+    through ``fluid.Executor(CUDAPlace(0))``, from the fp32 program
+    phase's weights and feed: at dropout 0, 10 steps (the step-1 loss
+    within ``AMP_LOSS_RTOL`` and the step-1 gradients of
+    ``AMP_GRAD_PARAMS`` within ``AMP_GRAD_RTOL`` relative norm of the
+    fp32 program's, each bf16 flash kernel 12 launches a step, no generic
+    replay), a profiled step (idle, launches by class, the GEMM and flash
+    kernels by name), beside the eager AMP step
+    (``build_gpt_lm_train_eager(use_amp=True)``, its step-1 loss within
+    ``AMP_EAGER_RTOL`` of the program's); then 20 program steps at
+    dropout 0.1 that must learn. Launch counts zeroed just before each
+    run, read just after; returns them by run."""
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import gpt
+
+    n_layers = gpt.GPTConfig().num_layers
+    cfg0 = gpt.GPTConfig(use_flash_attention=True, hidden_dropout=0.0,
+                         attention_dropout=0.0)
+    feed = train_feed(cfg0.vocab_size, seed=3, counting=True)
+    main, loss, exe, scope = build_program(cfg0, use_amp=True)
+    n_ops = len(main.global_block().ops)
+    casts = sum(op.type == "cast" for op in main.global_block().ops)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+    prog_step, grads = grad_fetching_step(exe, main, loss, feed, scope)
+    zero_flash_launches()
+    prog_losses, prog_ms = timed_steps(prog_step, PROGRAM_STEPS)
+    prog_launches = flash_launches()
+    prog_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+    for name, n in prog_launches.items():
+        if n != n_layers * PROGRAM_STEPS:
+            raise AssertionError("amp program: %s launched %d times in %d "
+                                 "steps" % (name, n, PROGRAM_STEPS))
+    grad_rel = {n: float(np.linalg.norm(grads[n] - fp32_grads[n])
+                         / np.linalg.norm(fp32_grads[n]))
+                for n in AMP_GRAD_PARAMS}
+    if not max(grad_rel.values()) <= AMP_GRAD_RTOL:
+        raise AssertionError("amp step-1 gradients vs fp32: %r" % grad_rel)
+    if replays:
+        raise AssertionError("amp program step replayed %d forwards"
+                             % replays)
+    rel = abs(prog_losses[0] - fp32_step1_loss) / abs(fp32_step1_loss)
+    if rel > AMP_LOSS_RTOL or not all(np.isfinite(prog_losses)):
+        raise AssertionError("amp step-1 loss %r vs fp32 %r (rel %.3g)"
+                             % (prog_losses[0], fp32_step1_loss, rel))
+    if not prog_losses[-1] < prog_losses[0]:
+        raise AssertionError("amp program loss did not fall: %r"
+                             % (prog_losses,))
+    prog_prof = _profile(prog_step, reps=1)
+    if not prog_prof["flash_kernels"] or not all(
+            "bfloat16" in k for k in prog_prof["flash_kernels"]):
+        raise AssertionError("amp step ran flash kernels %r"
+                             % (prog_prof["flash_kernels"],))
+    del main, loss, exe, scope, prog_step     # the step holds the scope
+    torch.cuda.empty_cache()
+
+    model, _opt, _names, step = gpt.build_gpt_lm_train_eager(
+        cfg0, TRAIN_T, learning_rate=TRAIN_LR, use_amp=True, device=dev,
+        seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()
+    eager_losses, eager_ms = timed_steps(lambda: step(feed), PROGRAM_STEPS)
+    eager_launches = flash_launches()
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    eager_prof = _profile(lambda: step(feed), reps=1)
+    del model, _opt, step
+    torch.cuda.empty_cache()
+    eager_rel = abs(eager_losses[0] - prog_losses[0]) / abs(prog_losses[0])
+    if eager_rel > AMP_EAGER_RTOL or any(
+            n != n_layers * PROGRAM_STEPS for n in eager_launches.values()):
+        raise AssertionError("eager amp step: losses %r vs program %r, "
+                             "launches %r" % (eager_losses, prog_losses,
+                                              eager_launches))
+    if not eager_prof["flash_kernels"] or not all(
+            "bfloat16" in k for k in eager_prof["flash_kernels"]):
+        raise AssertionError("eager amp step ran flash kernels %r"
+                             % (eager_prof["flash_kernels"],))
+
+    # dropout 0.1 (GPT-2's recipe): the AMP program's main path
+    cfg = gpt.GPTConfig(use_flash_attention=True)
+    main, loss, exe, scope = build_program(cfg, use_amp=True)
+    zero_flash_launches()
+    drop_losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0].reshape(-1)[0])
+                   for _ in range(TRAIN_STEPS)]
+    launches = flash_launches()
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(drop_losses)):
+        raise AssertionError("non-finite amp loss: %r" % (drop_losses,))
+    if not np.mean(drop_losses[-5:]) < np.mean(drop_losses[:5]) - 0.1:
+        raise AssertionError("amp loss did not fall: %r" % (drop_losses,))
+    for name, n in launches.items():
+        if n != n_layers * TRAIN_STEPS:
+            raise AssertionError("amp program: %s launched %d times in %d "
+                                 "steps" % (name, n, TRAIN_STEPS))
+    tokens = TRAIN_BATCH * TRAIN_T
+    return {
+        "phase": "amp_train", "model": "gpt2-small", "dtype": "bf16",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+        "learning_rate": TRAIN_LR, "program_ops": n_ops,
+        "program_cast_ops": casts,
+        "dropout0": {
+            "steps": PROGRAM_STEPS, "program_losses": prog_losses,
+            "eager_losses": eager_losses,
+            "fp32_program_step1_loss": fp32_step1_loss,
+            "step1_rel_vs_fp32": rel, "rtol": AMP_LOSS_RTOL,
+            "step1_grad_rel_vs_fp32": grad_rel, "grad_rtol": AMP_GRAD_RTOL,
+            "eager_step1_rel_vs_program": eager_rel,
+            "eager_rtol": AMP_EAGER_RTOL,
+            "program_step_ms": prog_ms, "eager_step_ms": eager_ms,
+            "program_step_ms_p50": float(np.median(prog_ms)),
+            "eager_step_ms_p50": float(np.median(eager_ms)),
+            "program_tokens_per_s_p50": tokens / (np.median(prog_ms) / 1e3),
+            "program_peak_mem_mib": prog_peak, "eager_peak_mem_mib": eager_peak,
+            "generic_grad_replays": replays,
+            "program_launches": prog_launches,
+            "eager_launches": eager_launches,
+            "program_profile_step": prog_prof,
+            "eager_profile_step": eager_prof},
+        "dropout01": {"steps": TRAIN_STEPS, "losses": drop_losses,
+                      "dropout": [cfg.hidden_dropout, cfg.attention_dropout],
+                      "launches": launches},
+    }, {"amp_program": prog_launches, "amp_eager": eager_launches,
+        "amp_program_dropout": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1353,10 +1764,13 @@ def main():
     paged_err, paged_row = kernel_flash_decode_paged(dev, peaks)
     train_rows = kernel_flash_train(dev, peaks)
     bias_rows = kernel_flash_bias(dev, peaks)
+    bf16_rows = kernel_flash_train_bf16(dev, peaks)
+    other_forms = kernel_other_forms(dev)
     emit({"phase": "kernels", "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
           "flash_fwd": fwd_rows, "flash_decode": dec_row,
           "flash_decode_paged": paged_row, "train": train_rows,
-          "bias": bias_rows})
+          "bias": bias_rows, "train_bf16": bf16_rows,
+          "other_forms": other_forms})
 
     model, engine, launches = engine_phase(dev)
     emit(dict(engine, device=name, nvidia_smi=smi))
@@ -1367,10 +1781,14 @@ def main():
     torch.cuda.empty_cache()
     train, train_launches = train_phase(dev)
     emit(dict(train, device=name, nvidia_smi=smi))
-    program, program_launches = program_train_phase(dev)
+    program, program_launches, fp32_grads = program_train_phase(dev)
     emit(dict(program, device=name, nvidia_smi=smi))
     bias_run, bias_launches = bias_phase(dev)
     emit(dict(bias_run, device=name, nvidia_smi=smi))
+    amp_run, amp_launches = amp_train_phase(
+        dev, program["dropout0"]["program_losses"][0], fp32_grads)
+    del fp32_grads
+    emit(dict(amp_run, device=name, nvidia_smi=smi))
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
     fwd_drop = train_rows["flash_fwd_dropout"]
@@ -1410,6 +1828,25 @@ def main():
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "sdpa_fwd_bwd_ms", "max_abs_err")}}
 
+    def bf16_row(kname):
+        r = bf16_rows[kname]
+        row = {"name": kname + "[bf16]", "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
+               "replaces": replaces[kname],
+               "launches": sum(run[kname] for run in amp_launches.values()),
+               "launches_by_path": {path: run[kname] for path, run
+                                    in amp_launches.items()},
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "dtype": "bf16", "shape": bf16_rows["shape"],
+               "limit_ratios": {o: bf16_rows["limit_ratios"][o] for o in
+                                {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
+                                 "flash_bwd_dkv": ("dk", "dv")}[kname]}}
+        if "sdpa_fwd_bwd_ms" in r:
+            row["sdpa_fwd_bwd_ms"] = r["sdpa_fwd_bwd_ms"]
+        return row
+
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -1431,6 +1868,8 @@ def main():
         bias_row("flash_bwd_dq", "flash_bwd_dq+bias"),
         dict(train_row("flash_bwd_dkv"), replaces=replaces["flash_bwd_dkv"]),
         bias_row("flash_bwd_dkv", "flash_bwd_dkv+dbias"),
+        bf16_row("flash_fwd"), bf16_row("flash_bwd_dq"),
+        bf16_row("flash_bwd_dkv"),
         {"name": "flash_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_decode.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:363",

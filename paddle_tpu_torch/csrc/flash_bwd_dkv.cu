@@ -1,5 +1,5 @@
-// Flash-attention backward, dK / dV / d(key bias), fp32, written by hand
-// for Hopper (sm_90a).
+// Flash-attention backward, dK / dV / d(key bias), fp32, bf16 and fp16,
+// written by hand for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_bwd_dkv_kernel`
 // (paddle_tpu/kernels/flash_attention.py:262, launched by
@@ -26,10 +26,14 @@
 // (flash_common.cuh); the query tile (Q and dO rows, lse, delta) is
 // staged once in shared memory for the block's 64 key rows.
 //
-// Layout: q/dout [BH, Sq, D], k/v/dk/dv [BH, Sk, D], lse/delta [BH, Sq],
-// key_bias [BH / bias_heads, Sk] (null = none), dkb [BH, Sk], bias and
-// dbias [G, Sq, Sk] with head bh on row (bh / bias_div) % bias_rows (null
-// = none; see flash_fwd.cu), all fp32, contiguous.
+// Layout: q/dout [BH, Sq, D], k/v/dk/dv [BH, Sk, D] in the element type T
+// (fp32, bf16 or fp16; flash_common.cuh), lse/delta [BH, Sq], key_bias
+// [BH / bias_heads, Sk] (null = none), dkb [BH, Sk], bias and dbias
+// [G, Sq, Sk] with head bh on row (bh / bias_div) % bias_rows (null =
+// none; see flash_fwd.cu), those fp32; all contiguous. In bf16 and fp16,
+// keep*p/keep rounds to T before the P^T.dO product and ds before the
+// ds^T.Q product, as the reference's kernel rounds them; dk and dv are
+// stored in T, while dkey_bias and dbias sum the unrounded fp32 ds.
 //
 // dbias. The TPU kernel runs its grid transposed (heads innermost) so
 // that the heads sharing a bias row revisit its gradient block in order;
@@ -57,16 +61,17 @@ namespace {
 
 using namespace flash;
 
-// D: head dim (multiple of 16). BQ: query rows per shared-memory tile.
-template <int D, int BQ, bool kDropout, bool kBias>
+// T: element type of q/k/v/dO/dk/dv. D: head dim (multiple of 16). BQ:
+// query rows per shared-memory tile.
+template <typename T, int D, int BQ, bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ kb,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ kb,
                      const float* __restrict__ bias,
-                     const float* __restrict__ dout,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, float* __restrict__ dkb,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, float* __restrict__ dkb,
                      float* __restrict__ dbias, int bias_heads, int bias_div,
                      int bias_rows, int dbias_atomic, int sq, int sk,
                      float scale, int causal, unsigned seed, unsigned thresh,
@@ -87,18 +92,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int col = col_ok ? kj : 0;   // key rows past Sk run on row 0's data
   const unsigned head_s = head_seed(seed, (unsigned)bh);
 
-  const float4* kp = reinterpret_cast<const float4*>(
-      k + ((size_t)bh * sk + col) * D);
-  const float4* vp = reinterpret_cast<const float4*>(
-      v + ((size_t)bh * sk + col) * D);
+  const T* kp = k + ((size_t)bh * sk + col) * D;
+  const T* vp = v + ((size_t)bh * sk + col) * D;
   float4 kr[kVec];
   float4 vr[kVec];
   float4 dk_acc[kVec];
   float4 dv_acc[kVec];
 #pragma unroll
   for (int c = 0; c < kVec; ++c) {
-    kr[c] = kp[4 * c + lane];
-    vr[c] = vp[4 * c + lane];
+    kr[c] = load4(kp + 16 * c + 4 * lane);
+    vr[c] = load4(vp + 16 * c + 4 * lane);
     dk_acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     dv_acc[c] = dk_acc[c];
   }
@@ -106,9 +109,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float kb_j =
       kb ? __ldg(kb + (size_t)(bh / bias_heads) * sk + col) : 0.f;
 
-  const float4* qp = reinterpret_cast<const float4*>(q + (size_t)bh * sq * D);
-  const float4* gp = reinterpret_cast<const float4*>(
-      dout + (size_t)bh * sq * D);
+  const T* qp = q + (size_t)bh * sq * D;
+  const T* gp = dout + (size_t)bh * sq * D;
   const float* lp = lse + (size_t)bh * sq;
   const float* dlp = delta + (size_t)bh * sq;
   // this head's bias and dbias rows at key column `col`, stepped by sk
@@ -127,8 +129,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float4 qq = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 gg = qq;
       if (qi < sq) {
-        qq = __ldg(qp + (size_t)qi * kRow4 + c);
-        gg = __ldg(gp + (size_t)qi * kRow4 + c);
+        qq = load4(qp + (size_t)qi * D + 4 * c);
+        gg = load4(gp + (size_t)qi * D + 4 * c);
       }
       qs[r][c] = qq;
       dos[r][c] = gg;
@@ -176,32 +178,39 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           atomicAdd(dst, ds);
         }
       }
+      // the products' operands round to T, as the reference's kernel
+      // rounds them for the MXU; the identity in fp32
+      const float pv_t = round_to<T>(pv);
+      const float ds_t = round_to<T>(ds);
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
-        axpy4(dv_acc[c], pv, dos[r][4 * c + lane]);
-        axpy4(dk_acc[c], ds, qs[r][4 * c + lane]);
+        axpy4(dv_acc[c], pv_t, dos[r][4 * c + lane]);
+        axpy4(dk_acc[c], ds_t, qs[r][4 * c + lane]);
       }
     }
   }
 
   if (col_ok) {
     const size_t off = ((size_t)bh * sk + kj) * D;
-    float4* dkp = reinterpret_cast<float4*>(dk + off);
-    float4* dvp = reinterpret_cast<float4*>(dv + off);
 #pragma unroll
     for (int c = 0; c < kVec; ++c) {
-      dkp[4 * c + lane] =
-          make_float4(dk_acc[c].x * scale, dk_acc[c].y * scale,
-                      dk_acc[c].z * scale, dk_acc[c].w * scale);
-      dvp[4 * c + lane] = dv_acc[c];
+      store4(dk + off + 16 * c + 4 * lane,
+             make_float4(dk_acc[c].x * scale, dk_acc[c].y * scale,
+                         dk_acc[c].z * scale, dk_acc[c].w * scale));
+      store4(dv + off + 16 * c + 4 * lane, dv_acc[c]);
     }
     if (lane == 0) dkb[(size_t)bh * sk + kj] = dkb_acc;
   }
 }
 
+template <typename T>
 struct Args {
-  const float *q, *k, *v, *kb, *bias, *dout, *lse, *delta;
-  float *dk, *dv, *dkb, *dbias;
+  const T *q, *k, *v;
+  const float *kb, *bias;
+  const T* dout;
+  const float *lse, *delta;
+  T *dk, *dv;
+  float *dkb, *dbias;
   int bias_heads, bias_div, bias_rows, dbias_atomic, sq, sk;
   float scale;
   int causal;
@@ -209,36 +218,35 @@ struct Args {
   float inv_keep;
 };
 
-template <int D, int BQ, bool kDropout, bool kBias>
-void launch_one(dim3 grid, const Args& a, cudaStream_t stream) {
-  flash_bwd_dkv_kernel<D, BQ, kDropout, kBias><<<grid, kThreads, 0, stream>>>(
-      a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dk, a.dv, a.dkb,
-      a.dbias, a.bias_heads, a.bias_div, a.bias_rows, a.dbias_atomic, a.sq,
-      a.sk, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+template <typename T, int D, int BQ, bool kDropout, bool kBias>
+void launch_one(dim3 grid, const Args<T>& a, cudaStream_t stream) {
+  flash_bwd_dkv_kernel<T, D, BQ, kDropout, kBias>
+      <<<grid, kThreads, 0, stream>>>(
+          a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dk, a.dv,
+          a.dkb, a.dbias, a.bias_heads, a.bias_div, a.bias_rows,
+          a.dbias_atomic, a.sq, a.sk, a.scale, a.causal, a.seed, a.thresh,
+          a.inv_keep);
 }
 
-template <int D, int BQ>
-cudaError_t launch(const Args& a, int bh, int dropout, cudaStream_t stream) {
+template <typename T, int D, int BQ>
+cudaError_t launch(const Args<T>& a, int bh, int dropout,
+                   cudaStream_t stream) {
   dim3 grid((a.sk + kTileRows - 1) / kTileRows, bh);
   if (dropout) {
     if (a.bias) {
-      launch_one<D, BQ, true, true>(grid, a, stream);
+      launch_one<T, D, BQ, true, true>(grid, a, stream);
     } else {
-      launch_one<D, BQ, true, false>(grid, a, stream);
+      launch_one<T, D, BQ, true, false>(grid, a, stream);
     }
   } else {
     if (a.bias) {
-      launch_one<D, BQ, false, true>(grid, a, stream);
+      launch_one<T, D, BQ, false, true>(grid, a, stream);
     } else {
-      launch_one<D, BQ, false, false>(grid, a, stream);
+      launch_one<T, D, BQ, false, false>(grid, a, stream);
     }
   }
   return cudaGetLastError();
 }
-
-}  // namespace
-
-extern "C" {
 
 // Returns a cudaError_t: 0 on a successful launch (asynchronous on
 // `stream`; nothing allocated or synchronised). `dropout` 0 ignores seed,
@@ -246,32 +254,32 @@ extern "C" {
 // `bias` null means no general bias and `dbias` is not touched; otherwise
 // `dbias` [G, Sq, Sk] receives the bias gradient: stored when every head
 // owns its row (bias_rows == bh, bias_div == 1), else added atomically,
-// in which case the caller zeroes it first.
-int paddle_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                             const void* key_bias, const void* bias,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv,
-                             void* dkb, void* dbias, int bh, int bias_heads,
-                             int bias_div, int bias_rows, int sq, int sk,
-                             int d, float scale, int causal, int dropout,
-                             unsigned seed, unsigned thresh, float inv_keep,
-                             void* stream) {
+// in which case the caller zeroes it first. q/k/v/dout/dk/dv are T; the
+// rest fp32. `d` is 32, 64 or 128.
+template <typename T>
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* key_bias, const void* bias, const void* dout,
+                  const void* lse, const void* delta, void* dk, void* dv,
+                  void* dkb, void* dbias, int bh, int bias_heads,
+                  int bias_div, int bias_rows, int sq, int sk, int d,
+                  float scale, int causal, int dropout, unsigned seed,
+                  unsigned thresh, float inv_keep, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
       bh % bias_heads != 0 || bias_div <= 0 || bias_rows <= 0 ||
       (bias != nullptr) != (dbias != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
   a.kb = static_cast<const float*>(key_bias);
   a.bias = static_cast<const float*>(bias);
-  a.dout = static_cast<const float*>(dout);
+  a.dout = static_cast<const T*>(dout);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
+  a.dk = static_cast<T*>(dk);
+  a.dv = static_cast<T*>(dv);
   a.dkb = static_cast<float*>(dkb);
   a.dbias = static_cast<float*>(dbias);
   a.bias_heads = bias_heads;
@@ -288,18 +296,30 @@ int paddle_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return (int)launch<32, 64>(a, bh, dropout, s);
+      return (int)launch<T, 32, 64>(a, bh, dropout, s);
     case 64:
-      return (int)launch<64, 64>(a, bh, dropout, s);
+      return (int)launch<T, 64, 64>(a, bh, dropout, s);
     case 128:
-      return (int)launch<128, 32>(a, bh, dropout, s);
+      return (int)launch<T, 128, 32>(a, bh, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-const char* paddle_cuda_error_string(int err) {
+}  // namespace
+
+FLASH_ENTRY_POINTS(
+    paddle_flash_bwd_dkv, flash_bwd_dkv,
+    (const void* q, const void* k, const void* v, const void* key_bias,
+     const void* bias, const void* dout, const void* lse, const void* delta,
+     void* dk, void* dv, void* dkb, void* dbias, int bh, int bias_heads,
+     int bias_div, int bias_rows, int sq, int sk, int d, float scale,
+     int causal, int dropout, unsigned seed, unsigned thresh,
+     float inv_keep, void* stream),
+    (q, k, v, key_bias, bias, dout, lse, delta, dk, dv, dkb, dbias, bh,
+     bias_heads, bias_div, bias_rows, sq, sk, d, scale, causal, dropout,
+     seed, thresh, inv_keep, stream))
+
+extern "C" const char* paddle_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-}  // extern "C"

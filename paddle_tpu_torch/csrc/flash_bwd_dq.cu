@@ -1,4 +1,5 @@
-// Flash-attention backward, dQ, fp32, written by hand for Hopper (sm_90a).
+// Flash-attention backward, dQ, fp32, bf16 and fp16, written by hand for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_bwd_dq_kernel`
 // (paddle_tpu/kernels/flash_attention.py:207, launched by
@@ -18,10 +19,13 @@
 // kv loop; under `causal` it stops at the diagonal tile, as the forward
 // does.
 //
-// Layout: q/dout/dq [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq],
-// key_bias [BH / bias_heads, Sk] (null = none), bias [G, Sq, Sk] with head
-// bh reading row (bh / bias_div) % bias_rows (null = none; see
-// flash_fwd.cu), all fp32, contiguous. The scores add the bias as the
+// Layout: q/dout/dq [BH, Sq, D], k/v [BH, Sk, D] in the element type T
+// (fp32, bf16 or fp16; flash_common.cuh), lse/delta [BH, Sq], key_bias
+// [BH / bias_heads, Sk] (null = none), bias [G, Sq, Sk] with head bh
+// reading row (bh / bias_div) % bias_rows (null = none; see flash_fwd.cu),
+// those four fp32; all contiguous. In bf16 and fp16, ds rounds to T
+// before the ds.K product, as the reference's ds.astype(k.dtype), and dq
+// is stored in T. The scores add the bias as the
 // forward does, so p = exp(s - lse) is the forward's probability.
 //
 // Bound on this card: operations. Per (query, key) pair the kernel does
@@ -39,14 +43,14 @@ namespace {
 
 using namespace flash;
 
-template <int D, int BK, bool kDropout, bool kBias>
+template <typename T, int D, int BK, bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ kb,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ kb,
                     const float* __restrict__ bias,
-                    const float* __restrict__ dout,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int bias_heads, int bias_div, int bias_rows, int sq,
                     int sk, float scale, int causal, unsigned seed,
                     unsigned thresh, float inv_keep) {
@@ -66,24 +70,22 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned head_s = head_seed(seed, (unsigned)bh);
   const unsigned row_h = row_hash((unsigned)qi);
 
-  const float4* qp = reinterpret_cast<const float4*>(
-      q + ((size_t)bh * sq + row) * D);
-  const float4* dop = reinterpret_cast<const float4*>(
-      dout + ((size_t)bh * sq + row) * D);
+  const T* qp = q + ((size_t)bh * sq + row) * D;
+  const T* dop = dout + ((size_t)bh * sq + row) * D;
   float4 qr[kVec];
   float4 dor[kVec];
   float4 acc[kVec];
 #pragma unroll
   for (int c = 0; c < kVec; ++c) {
-    qr[c] = qp[4 * c + lane];
-    dor[c] = dop[4 * c + lane];
+    qr[c] = load4(qp + 16 * c + 4 * lane);
+    dor[c] = load4(dop + 16 * c + 4 * lane);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const float lse_i = lse[(size_t)bh * sq + row];
   const float delta_i = delta[(size_t)bh * sq + row];
 
-  const float4* kp = reinterpret_cast<const float4*>(k + (size_t)bh * sk * D);
-  const float4* vp = reinterpret_cast<const float4*>(v + (size_t)bh * sk * D);
+  const T* kp = k + (size_t)bh * sk * D;
+  const T* vp = v + (size_t)bh * sk * D;
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
   const float* brow =
       kBias ? bias + ((size_t)((bh / bias_div) % bias_rows) * sq + row) * sk
@@ -99,8 +101,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = kk;
       if (kj < sk) {
-        kk = __ldg(kp + (size_t)kj * kRow4 + c);
-        vv = __ldg(vp + (size_t)kj * kRow4 + c);
+        kk = load4(kp + (size_t)kj * D + 4 * c);
+        vv = load4(vp + (size_t)kj * D + 4 * c);
       }
       ks[j][c] = kk;
       vs[j][c] = vv;
@@ -131,115 +133,128 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dp = hash_keep(row_h, (unsigned)kj, head_s, thresh) ? dp * inv_keep
                                                              : 0.f;
       }
-      const float ds = p * (dp - delta_i);
+      const float ds = round_to<T>(p * (dp - delta_i));
 #pragma unroll
       for (int c = 0; c < kVec; ++c) axpy4(acc[c], ds, ks[j][4 * c + lane]);
     }
   }
 
   if (row_ok) {
-    float4* out = reinterpret_cast<float4*>(dq + ((size_t)bh * sq + qi) * D);
+    T* out = dq + ((size_t)bh * sq + qi) * D;
 #pragma unroll
     for (int c = 0; c < kVec; ++c) {
-      out[4 * c + lane] = make_float4(acc[c].x * scale, acc[c].y * scale,
-                                      acc[c].z * scale, acc[c].w * scale);
+      store4(out + 16 * c + 4 * lane,
+             make_float4(acc[c].x * scale, acc[c].y * scale,
+                         acc[c].z * scale, acc[c].w * scale));
     }
   }
 }
 
-template <int D, int BK, bool kDropout>
-void launch_bias(dim3 grid, const float* q, const float* k, const float* v,
-                 const float* kb, const float* bias, const float* dout,
-                 const float* lse, const float* delta, float* dq,
-                 int bias_heads, int bias_div, int bias_rows, int sq, int sk,
-                 float scale, int causal, unsigned seed, unsigned thresh,
-                 float inv_keep, cudaStream_t stream) {
-  if (bias) {
-    flash_bwd_dq_kernel<D, BK, kDropout, true><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, bias, dout, lse, delta, dq, bias_heads, bias_div,
-        bias_rows, sq, sk, scale, causal, seed, thresh, inv_keep);
-  } else {
-    flash_bwd_dq_kernel<D, BK, kDropout, false>
-        <<<grid, kThreads, 0, stream>>>(
-            q, k, v, kb, bias, dout, lse, delta, dq, bias_heads, bias_div,
-            bias_rows, sq, sk, scale, causal, seed, thresh, inv_keep);
-  }
+template <typename T>
+struct Args {
+  const T *q, *k, *v;
+  const float *kb, *bias;
+  const T* dout;
+  const float *lse, *delta;
+  T* dq;
+  int bias_heads, bias_div, bias_rows, sq, sk;
+  float scale;
+  int causal;
+  unsigned seed, thresh;
+  float inv_keep;
+};
+
+template <typename T, int D, int BK, bool kDropout, bool kBias>
+void launch_one(dim3 grid, const Args<T>& a, cudaStream_t stream) {
+  flash_bwd_dq_kernel<T, D, BK, kDropout, kBias>
+      <<<grid, kThreads, 0, stream>>>(
+          a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dq,
+          a.bias_heads, a.bias_div, a.bias_rows, a.sq, a.sk, a.scale,
+          a.causal, a.seed, a.thresh, a.inv_keep);
 }
 
-template <int D, int BK>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* kb, const float* bias, const float* dout,
-                   const float* lse, const float* delta, float* dq, int bh,
-                   int bias_heads, int bias_div, int bias_rows, int sq,
-                   int sk, float scale, int causal, int dropout,
-                   unsigned seed, unsigned thresh, float inv_keep,
+template <typename T, int D, int BK>
+cudaError_t launch(const Args<T>& a, int bh, int dropout,
                    cudaStream_t stream) {
-  dim3 grid((sq + kTileRows - 1) / kTileRows, bh);
+  dim3 grid((a.sq + kTileRows - 1) / kTileRows, bh);
   if (dropout) {
-    launch_bias<D, BK, true>(grid, q, k, v, kb, bias, dout, lse, delta, dq,
-                             bias_heads, bias_div, bias_rows, sq, sk, scale,
-                             causal, seed, thresh, inv_keep, stream);
+    if (a.bias) {
+      launch_one<T, D, BK, true, true>(grid, a, stream);
+    } else {
+      launch_one<T, D, BK, true, false>(grid, a, stream);
+    }
   } else {
-    launch_bias<D, BK, false>(grid, q, k, v, kb, bias, dout, lse, delta, dq,
-                              bias_heads, bias_div, bias_rows, sq, sk, scale,
-                              causal, seed, thresh, inv_keep, stream);
+    if (a.bias) {
+      launch_one<T, D, BK, false, true>(grid, a, stream);
+    } else {
+      launch_one<T, D, BK, false, false>(grid, a, stream);
+    }
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
 // Returns a cudaError_t: 0 on a successful launch (asynchronous on
 // `stream`; nothing allocated or synchronised). `dropout` 0 ignores seed,
 // thresh and inv_keep; otherwise `inv_keep` is 1 / (1 - rate) as fp32.
-// `bias` null means no general bias (see paddle_flash_fwd_f32).
-int paddle_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
-                            const void* key_bias, const void* bias,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, int bh,
-                            int bias_heads, int bias_div, int bias_rows,
-                            int sq, int sk, int d, float scale, int causal,
-                            int dropout, unsigned seed, unsigned thresh,
-                            float inv_keep, void* stream) {
+// `bias` null means no general bias (see flash_fwd.cu). q/k/v/dout/dq are
+// T; key_bias, bias, lse and delta fp32. `d` is 32, 64 or 128.
+template <typename T>
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* key_bias, const void* bias, const void* dout,
+                 const void* lse, const void* delta, void* dq, int bh,
+                 int bias_heads, int bias_div, int bias_rows, int sq, int sk,
+                 int d, float scale, int causal, int dropout, unsigned seed,
+                 unsigned thresh, float inv_keep, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
       bh % bias_heads != 0 || bias_div <= 0 || bias_rows <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* bf = static_cast<const float*>(key_bias);
-  const float* gb = static_cast<const float*>(bias);
-  const float* gf = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  float* out = static_cast<float*>(dq);
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.kb = static_cast<const float*>(key_bias);
+  a.bias = static_cast<const float*>(bias);
+  a.dout = static_cast<const T*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = static_cast<T*>(dq);
+  a.bias_heads = bias_heads;
+  a.bias_div = bias_div;
+  a.bias_rows = bias_rows;
+  a.sq = sq;
+  a.sk = sk;
+  a.scale = scale;
+  a.causal = causal;
+  a.seed = seed;
+  a.thresh = thresh;
+  a.inv_keep = inv_keep;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return (int)launch<32, 64>(qf, kf, vf, bf, gb, gf, lf, df, out, bh,
-                                 bias_heads, bias_div, bias_rows, sq, sk,
-                                 scale, causal, dropout, seed, thresh,
-                                 inv_keep, s);
+      return (int)launch<T, 32, 64>(a, bh, dropout, s);
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, bf, gb, gf, lf, df, out, bh,
-                                 bias_heads, bias_div, bias_rows, sq, sk,
-                                 scale, causal, dropout, seed, thresh,
-                                 inv_keep, s);
+      return (int)launch<T, 64, 64>(a, bh, dropout, s);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, bf, gb, gf, lf, df, out, bh,
-                                 bias_heads, bias_div, bias_rows, sq, sk,
-                                 scale, causal, dropout, seed, thresh,
-                                 inv_keep, s);
+      return (int)launch<T, 128, 32>(a, bh, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-const char* paddle_cuda_error_string(int err) {
+}  // namespace
+
+FLASH_ENTRY_POINTS(
+    paddle_flash_bwd_dq, flash_bwd_dq,
+    (const void* q, const void* k, const void* v, const void* key_bias,
+     const void* bias, const void* dout, const void* lse, const void* delta,
+     void* dq, int bh, int bias_heads, int bias_div, int bias_rows, int sq,
+     int sk, int d, float scale, int causal, int dropout, unsigned seed,
+     unsigned thresh, float inv_keep, void* stream),
+    (q, k, v, key_bias, bias, dout, lse, delta, dq, bh, bias_heads, bias_div,
+     bias_rows, sq, sk, d, scale, causal, dropout, seed, thresh, inv_keep,
+     stream))
+
+extern "C" const char* paddle_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-}  // extern "C"

@@ -1,6 +1,7 @@
 // Pieces shared by the flash-attention training kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu), so that the forward and both
-// backward kernels can never disagree on masking or on the dropout mask.
+// backward kernels can never disagree on masking, on the dropout mask or
+// on where a low-precision form rounds.
 //
 // Layout of all three: one block of 256 threads owns a 64-row tile (query
 // rows in the forward and dq kernels, key rows in the dk/dv kernel); four
@@ -10,9 +11,23 @@
 // shuffles. Conventions of the reference
 // (paddle_tpu/kernels/flash_attention.py): masked scores are -1e30,
 // accumulation is fp32.
+//
+// Element types. q/k/v/o and dO/dq/dk/dv are fp32, bf16 or fp16 (all of
+// one call in one type); lse, delta, the key bias, the general bias and
+// their gradients stay fp32. A low-precision operand is widened to fp32
+// as it is loaded (four elements, one 8-byte access) and every product
+// and sum runs in fp32: a bf16 or fp16 product is exact in fp32, so this
+// is the reference's bf16 x bf16 -> fp32 dot up to the order of the sum.
+// Where the reference rounds an fp32 intermediate to the operand type
+// before a dot (p before P.V, ds before ds.K and ds^T.Q, keep*p/keep
+// before P^T.dO), the kernels round with `round_to<T>`, the identity for
+// fp32. Outputs are rounded to T once, at the store. Conversions go
+// through the CUDA intrinsics only.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -38,6 +53,76 @@ __device__ __forceinline__ void axpy4(float4& acc, float a, const float4& x) {
   acc.y += a * x.y;
   acc.z += a * x.z;
   acc.w += a * x.w;
+}
+
+// Four consecutive elements at `p` (16-byte aligned for fp32, 8-byte for
+// the 16-bit types) as fp32, from the read-only path.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.x & 0xffffu))),
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.x >> 16))),
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.y & 0xffffu))),
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.y >> 16))));
+}
+
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(
+      __half2float(__ushort_as_half((unsigned short)(u.x & 0xffffu))),
+      __half2float(__ushort_as_half((unsigned short)(u.x >> 16))),
+      __half2float(__ushort_as_half((unsigned short)(u.y & 0xffffu))),
+      __half2float(__ushort_as_half((unsigned short)(u.y >> 16))));
+}
+
+// Four fp32 values stored at `p` in the element type, rounded to nearest
+// even.
+__device__ __forceinline__ void store4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) |
+         ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ unsigned pack2(__half lo, __half hi) {
+  return (unsigned)__half_as_ushort(lo) | ((unsigned)__half_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
+  uint2 u;
+  u.x = pack2(__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y));
+  u.y = pack2(__float2bfloat16_rn(v.z), __float2bfloat16_rn(v.w));
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void store4(__half* p, const float4& v) {
+  uint2 u;
+  u.x = pack2(__float2half_rn(v.x), __float2half_rn(v.y));
+  u.y = pack2(__float2half_rn(v.z), __float2half_rn(v.w));
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// An fp32 intermediate rounded to the operand type T and widened back:
+// what the reference's `.astype(T)` before a dot gives.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <>
+__device__ __forceinline__ float round_to<__half>(float x) {
+  return __half2float(__float2half_rn(x));
 }
 
 // The stateless dropout mask of the reference (`_hash_keep`): a
@@ -67,3 +152,13 @@ __device__ __forceinline__ bool hash_keep(unsigned row_h, unsigned col,
 }
 
 }  // namespace flash
+
+// The C entry points of one kernel in its three element types: `NAME_f32`,
+// `NAME_bf16` and `NAME_f16` each call `FN<T>` with the same arguments
+// (pointers as void*), so the host binds one argument list per kernel.
+#define FLASH_ENTRY_POINTS(NAME, FN, PARAMS, ARGS)              \
+  extern "C" int NAME##_f32 PARAMS { return FN<float> ARGS; }   \
+  extern "C" int NAME##_bf16 PARAMS {                           \
+    return FN<__nv_bfloat16> ARGS;                              \
+  }                                                             \
+  extern "C" int NAME##_f16 PARAMS { return FN<__half> ARGS; }

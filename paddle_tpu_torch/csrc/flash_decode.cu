@@ -8,7 +8,8 @@
 //
 //   o = softmax(q . K^T * scale + key_bias) V
 //
-// Layout: q/o [BH, D], k/v [BH, S, D], fp32, contiguous. key_bias is
+// Layout: q/o [BH, D], k/v [BH, S, D], fp32, contiguous, D any multiple
+// of 8 up to 128 (one instantiation each). key_bias is
 // [BH / bias_heads, S]: head bh reads row bh / bias_heads, so the
 // engine's [slots, S] bias (bias_heads = heads) is read as it is, with no
 // per-head copy; a null key_bias means no bias. There is no causal flag:
@@ -25,7 +26,9 @@
 // keeping enough loads in flight:
 //   - one block per (slot, head); its 256 threads split the S cache
 //     positions, D/4 threads per key row with one float4 each, so a warp
-//     reads whole 256-byte rows (coalesced, 16 bytes per thread);
+//     reads whole 256-byte rows (coalesced, 16 bytes per thread); where
+//     D/4 is not a power of two (D = 24, 40, 48, ...) the row's group is
+//     padded to the next one with idle lanes that read nothing;
 //   - each thread issues the K and V loads of four keys before it uses
 //     any of them, so every block keeps 32 KB of reads in flight;
 //   - each thread group keeps a partial online-softmax state
@@ -48,13 +51,22 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// The smallest power of two >= n: the shuffle reduction over a key row's
+// threads needs a power-of-two group.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ kb, float* __restrict__ o,
                     int bias_heads, int s_len, float scale) {
-  constexpr int kLanes = D / 4;               // threads per key row
+  constexpr int kVecs = D / 4;                // float4s per key row
+  // threads per key row: D/4, padded to a power of two (D = 24, 40, 48,
+  // ...); the padding lanes hold zeros and store nothing
+  constexpr int kLanes = pow2_at_least(kVecs);
   constexpr int kGroups = kThreads / kLanes;  // key rows in flight per pass
   __shared__ float m_s[kGroups];
   __shared__ float l_s[kGroups];
@@ -63,8 +75,11 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x;
   const int g = threadIdx.x / kLanes;
   const int lane = threadIdx.x - g * kLanes;
+  const bool lane_ok = kVecs == kLanes || lane < kVecs;
 
-  const float4 qv = __ldg(reinterpret_cast<const float4*>(q + (size_t)bh * D) + lane);
+  const float4 qv =
+      lane_ok ? __ldg(reinterpret_cast<const float4*>(q + (size_t)bh * D) + lane)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
   const float4* kp = reinterpret_cast<const float4*>(k + (size_t)bh * s_len * D);
   const float4* vp = reinterpret_cast<const float4*>(v + (size_t)bh * s_len * D);
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * s_len : nullptr;
@@ -83,8 +98,12 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + u * kGroups + g;
       if (j < s_len) {
-        kk[u] = __ldg(kp + (size_t)j * kLanes + lane);
-        vv[u] = __ldg(vp + (size_t)j * kLanes + lane);
+        kk[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        vv[u] = kk[u];
+        if (lane_ok) {
+          kk[u] = __ldg(kp + (size_t)j * kVecs + lane);
+          vv[u] = __ldg(vp + (size_t)j * kVecs + lane);
+        }
         bb[u] = kbp ? __ldg(kbp + j) : 0.f;
       } else {
         kk[u] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -122,7 +141,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // merge the group states: rescale each to the block-wide max
-  if (threadIdx.x < kLanes) {
+  if (threadIdx.x < kVecs) {
     float m_all = kNeg;
 #pragma unroll 4
     for (int i = 0; i < kGroups; ++i) m_all = fmaxf(m_all, m_s[i]);
@@ -154,6 +173,22 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// The instantiation for head dim d: every multiple of 8 from 8 to 128
+// (one per width, as padding would copy the whole cache every step).
+template <int D>
+cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
+                     const float* kb, float* o, int bh, int bias_heads,
+                     int s_len, float scale, cudaStream_t stream) {
+  if (d == D) {
+    return launch<D>(q, k, v, kb, o, bh, bias_heads, s_len, scale, stream);
+  }
+  if constexpr (D < 128) {
+    return launch_d<D + 8>(d, q, k, v, kb, o, bh, bias_heads, s_len, scale,
+                           stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -173,19 +208,8 @@ int paddle_flash_decode_f32(const void* q, const void* k, const void* v,
   const float* bf = static_cast<const float*>(key_bias);
   float* of = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return (int)launch<32>(qf, kf, vf, bf, of, bh, bias_heads, s_len, scale,
-                              s);
-    case 64:
-      return (int)launch<64>(qf, kf, vf, bf, of, bh, bias_heads, s_len, scale,
-                              s);
-    case 128:
-      return (int)launch<128>(qf, kf, vf, bf, of, bh, bias_heads, s_len, scale,
-                              s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_d<8>(d, qf, kf, vf, bf, of, bh, bias_heads, s_len,
+                          scale, s);
 }
 
 const char* paddle_cuda_error_string(int err) {

@@ -14,7 +14,9 @@
 // blk, D]; tables [B, max_blocks] int32; key_bias [BH / bias_heads, S]
 // with S = max_blocks * blk (head bh reads row bh / bias_heads, so the
 // engine's [slots, S] bias is read as it is); a null key_bias means no
-// bias. All fp32 (tables int32), contiguous. There is no causal flag: the
+// bias. All fp32 (tables int32), contiguous; D any multiple of 8 up to
+// 128 (one instantiation each; D/4 threads per key row, padded to a power
+// of two with idle lanes). There is no causal flag: the
 // key bias carries all masking, including the garbage that sink blocks
 // and not-yet-written positions hold (-1e4 there). A fully masked slot
 // still gets a finite softmax over garbage, which the caller ignores.
@@ -50,6 +52,12 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// The smallest power of two >= n: the shuffle reduction over a key row's
+// threads needs a power-of-two group.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_paged_kernel(const float* __restrict__ q,
@@ -59,7 +67,10 @@ flash_decode_paged_kernel(const float* __restrict__ q,
                           const float* __restrict__ kb, float* __restrict__ o,
                           int heads, int bias_heads, int max_blocks, int blk,
                           int pool_blocks, float scale) {
-  constexpr int kLanes = D / 4;               // threads per key row
+  constexpr int kVecs = D / 4;                // float4s per key row
+  // threads per key row: D/4, padded to a power of two (D = 24, 40, 48,
+  // ...); the padding lanes hold zeros and store nothing
+  constexpr int kLanes = pow2_at_least(kVecs);
   constexpr int kGroups = kThreads / kLanes;  // key rows in flight per pass
   extern __shared__ int table_s[];            // [max_blocks]
   __shared__ float m_s[kGroups];
@@ -71,6 +82,7 @@ flash_decode_paged_kernel(const float* __restrict__ q,
   const int n = bh - b * heads;
   const int g = threadIdx.x / kLanes;
   const int lane = threadIdx.x - g * kLanes;
+  const bool lane_ok = kVecs == kLanes || lane < kVecs;
   const int s_len = max_blocks * blk;
 
   const int* trow = tables + (size_t)b * max_blocks;
@@ -79,7 +91,9 @@ flash_decode_paged_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
-  const float4 qv = __ldg(reinterpret_cast<const float4*>(q + (size_t)bh * D) + lane);
+  const float4 qv =
+      lane_ok ? __ldg(reinterpret_cast<const float4*>(q + (size_t)bh * D) + lane)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
   const float4* kp = reinterpret_cast<const float4*>(k_pool);
   const float4* vp = reinterpret_cast<const float4*>(v_pool);
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * s_len : nullptr;
@@ -101,8 +115,12 @@ flash_decode_paged_kernel(const float* __restrict__ q,
         const int lb = j / blk;
         // float4 index of (pool block, head n, in-block row, lane)
         const size_t row = ((size_t)table_s[lb] * heads + n) * blk + (j - lb * blk);
-        kk[u] = __ldg(kp + row * kLanes + lane);
-        vv[u] = __ldg(vp + row * kLanes + lane);
+        kk[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        vv[u] = kk[u];
+        if (lane_ok) {
+          kk[u] = __ldg(kp + row * kVecs + lane);
+          vv[u] = __ldg(vp + row * kVecs + lane);
+        }
         bb[u] = kbp ? __ldg(kbp + j) : 0.f;
       } else {
         kk[u] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -140,7 +158,7 @@ flash_decode_paged_kernel(const float* __restrict__ q,
   __syncthreads();
 
   // merge the group states: rescale each to the block-wide max
-  if (threadIdx.x < kLanes) {
+  if (threadIdx.x < kVecs) {
     float m_all = kNeg;
 #pragma unroll 4
     for (int i = 0; i < kGroups; ++i) m_all = fmaxf(m_all, m_s[i]);
@@ -175,6 +193,26 @@ cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
   return cudaGetLastError();
 }
 
+// The instantiation for head dim d: every multiple of 8 from 8 to 128
+// (one per width, as padding would copy the whole cache every step).
+template <int D>
+cudaError_t launch_d(int d, const float* q, const float* k_pool,
+                     const float* v_pool, const int* tables,
+                     const float* kb, float* o, int bh, int heads,
+                     int bias_heads, int max_blocks, int blk,
+                     int pool_blocks, float scale, cudaStream_t stream) {
+  if (d == D) {
+    return launch<D>(q, k_pool, v_pool, tables, kb, o, bh, heads,
+                     bias_heads, max_blocks, blk, pool_blocks, scale, stream);
+  }
+  if constexpr (D < 128) {
+    return launch_d<D + 8>(d, q, k_pool, v_pool, tables, kb, o, bh, heads,
+                           bias_heads, max_blocks, blk, pool_blocks, scale,
+                           stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -199,19 +237,8 @@ int paddle_flash_decode_paged_f32(const void* q, const void* k_pool,
   const float* bf = static_cast<const float*>(key_bias);
   float* of = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return (int)launch<32>(qf, kf, vf, tf, bf, of, bh, heads, bias_heads,
-                             max_blocks, blk, pool_blocks, scale, s);
-    case 64:
-      return (int)launch<64>(qf, kf, vf, tf, bf, of, bh, heads, bias_heads,
-                             max_blocks, blk, pool_blocks, scale, s);
-    case 128:
-      return (int)launch<128>(qf, kf, vf, tf, bf, of, bh, heads, bias_heads,
-                              max_blocks, blk, pool_blocks, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_d<8>(d, qf, kf, vf, tf, bf, of, bh, heads, bias_heads,
+                          max_blocks, blk, pool_blocks, scale, s);
 }
 
 const char* paddle_cuda_error_string(int err) {

@@ -1,4 +1,5 @@
-// Forward flash attention, fp32, written by hand for Hopper (sm_90a).
+// Forward flash attention, fp32, bf16 and fp16, written by hand for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (paddle_tpu/kernels/flash_attention.py:149, launched by
@@ -18,8 +19,8 @@
 // same arithmetic as before dropout was added (serving prefill relies on
 // it).
 //
-// Layout: q/o [BH, Sq, D], k/v [BH, Sk, D], lse [BH, Sq], all fp32,
-// contiguous. key_bias is [BH / bias_heads, Sk]: head bh reads row
+// Layout: q/o [BH, Sq, D], k/v [BH, Sk, D] in the element type T (fp32,
+// bf16 or fp16; flash_common.cuh), lse [BH, Sq] fp32, all contiguous. key_bias is [BH / bias_heads, Sk]: head bh reads row
 // bh / bias_heads, so the model's [batch, Sk] padding bias (bias_heads =
 // heads) is read as it is, with no per-head copy; a null key_bias means
 // no bias. Conventions of the reference: masked scores are -1e30, `l` is
@@ -55,8 +56,11 @@
 // The dropout hash costs ~10 integer operations per (row, key) and
 // thread; each of a row's four threads computes it, which is simpler
 // than sharing the bits and cheaper than storing a mask.
-// A tensor-core (wgmma, bf16/TF32) version with TMA-fed pipelined tiles
-// is the later fast design.
+// The bf16 and fp16 forms (the AMP train step) widen q/k/v to fp32 on
+// load into the same fp32 tiles, round p to T before the P.V product as
+// the reference does, and store o in T: the same scalar arithmetic, half
+// the bytes. A tensor-core (wgmma or mma.sync) version of the bf16 form
+// with TMA-fed pipelined tiles is the later fast design.
 
 #include "flash_common.cuh"
 
@@ -64,12 +68,13 @@ namespace {
 
 using namespace flash;
 
-// D: head dim (multiple of 16). BK: key rows per shared-memory tile.
-template <int D, int BK, bool kDropout, bool kBias>
+// T: element type of q/k/v/o. D: head dim (multiple of 16). BK: key rows
+// per shared-memory tile.
+template <typename T, int D, int BK, bool kDropout, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ kb,
-                 const float* __restrict__ bias, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ kb,
+                 const float* __restrict__ bias, T* __restrict__ o,
                  float* __restrict__ lse, int bias_heads, int bias_div,
                  int bias_rows, int sq, int sk, float scale, int causal,
                  unsigned seed, unsigned thresh, float keep_prob) {
@@ -90,20 +95,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // rows past Sq still run (they take part in the shuffles and the
   // barriers) on row 0's data and store nothing
-  const float4* qp = reinterpret_cast<const float4*>(
-      q + ((size_t)bh * sq + (row_ok ? qi : 0)) * D);
+  const T* qp = q + ((size_t)bh * sq + (row_ok ? qi : 0)) * D;
   float4 qr[kVec];
   float4 acc[kVec];
 #pragma unroll
   for (int c = 0; c < kVec; ++c) {
-    qr[c] = qp[4 * c + lane];
+    qr[c] = load4(qp + 16 * c + 4 * lane);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = kNeg;
   float l = 0.f;
 
-  const float4* kp = reinterpret_cast<const float4*>(k + (size_t)bh * sk * D);
-  const float4* vp = reinterpret_cast<const float4*>(v + (size_t)bh * sk * D);
+  const T* kp = k + (size_t)bh * sk * D;
+  const T* vp = v + (size_t)bh * sk * D;
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
   const float* brow =
       kBias ? bias + ((size_t)((bh / bias_div) % bias_rows) * sq +
@@ -122,8 +126,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = kk;
       if (kj < sk) {
-        kk = __ldg(kp + (size_t)kj * kRow4 + c);
-        vv = __ldg(vp + (size_t)kj * kRow4 + c);
+        kk = load4(kp + (size_t)kj * D + 4 * c);
+        vv = load4(vp + (size_t)kj * D + 4 * c);
       }
       ks[j][c] = kk;
       vs[j][c] = vv;
@@ -174,7 +178,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float p = s[j];
+      // p rounds to the value type for the P.V product, as the
+      // reference's p.astype(v.dtype); the identity in fp32
+      const float p = round_to<T>(s[j]);
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
         const float4 vv = vs[j][4 * c + lane];
@@ -189,111 +195,130 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (row_ok) {
     const float l_safe = fmaxf(l, 1e-30f);
-    float4* op = reinterpret_cast<float4*>(o + ((size_t)bh * sq + qi) * D);
+    T* op = o + ((size_t)bh * sq + qi) * D;
     if (kDropout) {
       // the reference scales the normalizer, not the output: l * (1 - rate)
       const float l_out = l_safe * keep_prob;
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
-        op[4 * c + lane] = make_float4(acc[c].x / l_out, acc[c].y / l_out,
-                                       acc[c].z / l_out, acc[c].w / l_out);
+        store4(op + 16 * c + 4 * lane,
+               make_float4(acc[c].x / l_out, acc[c].y / l_out,
+                           acc[c].z / l_out, acc[c].w / l_out));
       }
     } else {
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
-        op[4 * c + lane] = make_float4(acc[c].x / l_safe, acc[c].y / l_safe,
-                                       acc[c].z / l_safe, acc[c].w / l_safe);
+        store4(op + 16 * c + 4 * lane,
+               make_float4(acc[c].x / l_safe, acc[c].y / l_safe,
+                           acc[c].z / l_safe, acc[c].w / l_safe));
       }
     }
     if (lane == 0) lse[(size_t)bh * sq + qi] = m + logf(l_safe);
   }
 }
 
-template <int D, int BK, bool kDropout>
-void launch_bias(dim3 grid, const float* q, const float* k, const float* v,
-                 const float* kb, const float* bias, float* o, float* lse,
-                 int bias_heads, int bias_div, int bias_rows, int sq, int sk,
-                 float scale, int causal, unsigned seed, unsigned thresh,
-                 float keep_prob, cudaStream_t stream) {
-  if (bias) {
-    flash_fwd_kernel<D, BK, kDropout, true><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, bias, o, lse, bias_heads, bias_div, bias_rows, sq, sk,
-        scale, causal, seed, thresh, keep_prob);
-  } else {
-    flash_fwd_kernel<D, BK, kDropout, false><<<grid, kThreads, 0, stream>>>(
-        q, k, v, kb, bias, o, lse, bias_heads, bias_div, bias_rows, sq, sk,
-        scale, causal, seed, thresh, keep_prob);
-  }
+template <typename T>
+struct Args {
+  const T *q, *k, *v;
+  const float *kb, *bias;
+  T* o;
+  float* lse;
+  int bias_heads, bias_div, bias_rows, sq, sk;
+  float scale;
+  int causal;
+  unsigned seed, thresh;
+  float keep_prob;
+};
+
+template <typename T, int D, int BK, bool kDropout, bool kBias>
+void launch_one(dim3 grid, const Args<T>& a, cudaStream_t stream) {
+  flash_fwd_kernel<T, D, BK, kDropout, kBias><<<grid, kThreads, 0, stream>>>(
+      a.q, a.k, a.v, a.kb, a.bias, a.o, a.lse, a.bias_heads, a.bias_div,
+      a.bias_rows, a.sq, a.sk, a.scale, a.causal, a.seed, a.thresh,
+      a.keep_prob);
 }
 
-template <int D, int BK>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* kb, const float* bias, float* o, float* lse,
-                   int bh, int bias_heads, int bias_div, int bias_rows,
-                   int sq, int sk, float scale, int causal, int dropout,
-                   unsigned seed, unsigned thresh, float keep_prob,
+template <typename T, int D, int BK>
+cudaError_t launch(const Args<T>& a, int bh, int dropout,
                    cudaStream_t stream) {
-  dim3 grid((sq + kTileRows - 1) / kTileRows, bh);
+  dim3 grid((a.sq + kTileRows - 1) / kTileRows, bh);
   if (dropout) {
-    launch_bias<D, BK, true>(grid, q, k, v, kb, bias, o, lse, bias_heads,
-                             bias_div, bias_rows, sq, sk, scale, causal,
-                             seed, thresh, keep_prob, stream);
+    if (a.bias) {
+      launch_one<T, D, BK, true, true>(grid, a, stream);
+    } else {
+      launch_one<T, D, BK, true, false>(grid, a, stream);
+    }
   } else {
-    launch_bias<D, BK, false>(grid, q, k, v, kb, bias, o, lse, bias_heads,
-                              bias_div, bias_rows, sq, sk, scale, causal,
-                              seed, thresh, keep_prob, stream);
+    if (a.bias) {
+      launch_one<T, D, BK, false, true>(grid, a, stream);
+    } else {
+      launch_one<T, D, BK, false, false>(grid, a, stream);
+    }
   }
   return cudaGetLastError();
 }
-
-}  // namespace
-
-extern "C" {
 
 // Returns a cudaError_t: 0 on a successful launch. The launch is
 // asynchronous on `stream`; nothing is allocated or synchronised here.
 // `dropout` 0 ignores seed, thresh and keep_prob; otherwise `seed` is the
 // 23-bit normalized seed, `thresh` the keep threshold and `keep_prob`
 // 1 - rate (as fp32). `bias` null means no general bias; otherwise head
-// bh reads its row (bh / bias_div) % bias_rows.
-int paddle_flash_fwd_f32(const void* q, const void* k, const void* v,
-                         const void* key_bias, const void* bias, void* o,
-                         void* lse, int bh, int bias_heads, int bias_div,
-                         int bias_rows, int sq, int sk, int d, float scale,
-                         int causal, int dropout, unsigned seed,
-                         unsigned thresh, float keep_prob, void* stream) {
+// bh reads its row (bh / bias_div) % bias_rows. q/k/v/o are T; key_bias,
+// bias and lse fp32. `d` is 32, 64 or 128: the wrapper zero-pads any
+// other head dim up to one of these.
+template <typename T>
+int flash_fwd(const void* q, const void* k, const void* v,
+              const void* key_bias, const void* bias, void* o, void* lse,
+              int bh, int bias_heads, int bias_div, int bias_rows, int sq,
+              int sk, int d, float scale, int causal, int dropout,
+              unsigned seed, unsigned thresh, float keep_prob, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bias_heads <= 0 ||
       bh % bias_heads != 0 || bias_div <= 0 || bias_rows <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* bf = static_cast<const float*>(key_bias);
-  const float* gb = static_cast<const float*>(bias);
-  float* of = static_cast<float*>(o);
-  float* lf = static_cast<float*>(lse);
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.kb = static_cast<const float*>(key_bias);
+  a.bias = static_cast<const float*>(bias);
+  a.o = static_cast<T*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.bias_heads = bias_heads;
+  a.bias_div = bias_div;
+  a.bias_rows = bias_rows;
+  a.sq = sq;
+  a.sk = sk;
+  a.scale = scale;
+  a.causal = causal;
+  a.seed = seed;
+  a.thresh = thresh;
+  a.keep_prob = keep_prob;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return (int)launch<32, 64>(qf, kf, vf, bf, gb, of, lf, bh, bias_heads,
-                                 bias_div, bias_rows, sq, sk, scale, causal,
-                                 dropout, seed, thresh, keep_prob, s);
+      return (int)launch<T, 32, 64>(a, bh, dropout, s);
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, bf, gb, of, lf, bh, bias_heads,
-                                 bias_div, bias_rows, sq, sk, scale, causal,
-                                 dropout, seed, thresh, keep_prob, s);
+      return (int)launch<T, 64, 64>(a, bh, dropout, s);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, bf, gb, of, lf, bh, bias_heads,
-                                 bias_div, bias_rows, sq, sk, scale, causal,
-                                 dropout, seed, thresh, keep_prob, s);
+      return (int)launch<T, 128, 32>(a, bh, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-const char* paddle_cuda_error_string(int err) {
+}  // namespace
+
+FLASH_ENTRY_POINTS(
+    paddle_flash_fwd, flash_fwd,
+    (const void* q, const void* k, const void* v, const void* key_bias,
+     const void* bias, void* o, void* lse, int bh, int bias_heads,
+     int bias_div, int bias_rows, int sq, int sk, int d, float scale,
+     int causal, int dropout, unsigned seed, unsigned thresh,
+     float keep_prob, void* stream),
+    (q, k, v, key_bias, bias, o, lse, bh, bias_heads, bias_div, bias_rows,
+     sq, sk, d, scale, causal, dropout, seed, thresh, keep_prob, stream))
+
+extern "C" const char* paddle_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-}  // extern "C"

@@ -1,13 +1,16 @@
 """The slice of ``paddle_tpu.fluid`` the serving and training paths need:
 places, flags, the always-on profiler tallies, the Program IR
-(``framework``), the Executor, desc-level autodiff (``backward``), the
-layers of the GPT train program, initializers, the Adam optimizer in
-its program and eager forms, and the op lowerings, which the eager
-models also call as plain functions on tensors."""
+(``framework``) with its pass registry (``ir``), the Executor, desc-level
+autodiff (``backward``), the layers of the GPT train program,
+initializers, the Adam optimizer in its program and eager forms,
+automatic mixed precision (``contrib.mixed_precision``), and the op
+lowerings, which the eager models also call as plain functions on
+tensors."""
 
 from . import core, flags, ops, profiler, unique_name  # noqa: F401
 from . import framework, initializer, param_attr  # noqa: F401
 from . import backward, clip, executor, layers, optimizer, regularizer  # noqa: F401
+from . import contrib, ir  # noqa: F401
 from .backward import append_backward, gradients
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
 from .executor import Executor, global_scope, scope_guard
@@ -25,7 +28,7 @@ from .param_attr import ParamAttr
 __all__ = [
     "core", "flags", "ops", "profiler", "unique_name", "framework",
     "initializer", "param_attr", "backward", "clip", "executor", "layers",
-    "optimizer", "regularizer", "append_backward", "gradients", "CPUPlace",
+    "optimizer", "regularizer", "contrib", "ir", "append_backward", "gradients", "CPUPlace",
     "CUDAPlace", "LoDTensor", "Scope", "resolve_device", "Executor",
     "global_scope", "scope_guard", "Parameter", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",

@@ -140,6 +140,13 @@ def _as_tensor(value, device):
     return torch.as_tensor(np.asarray(value)).to(device)
 
 
+def _to_numpy(t):
+    """A fetched tensor as a numpy array on the host; bf16, which numpy
+    has no type for, comes back as fp32 (every bf16 value is one)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 class Executor(object):
     """Drop-in for fluid.Executor (reference:
     python/paddle/fluid/executor.py:418). ``place`` None means the card
@@ -171,7 +178,8 @@ class Executor(object):
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True):
         """Run ``program``'s global block once; returns the fetched values
-        (numpy arrays, or tensors with ``return_numpy=False``)."""
+        (numpy arrays, bf16 as fp32; or tensors with
+        ``return_numpy=False``)."""
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else core.global_scope()
         fetch_list = fetch_list or []
@@ -212,6 +220,6 @@ class Executor(object):
                 v = scope.get(n)
             if v is None:
                 raise ValueError("fetch variable %r was not computed" % n)
-            outs.append(v.detach().cpu().numpy() if return_numpy else v)
+            outs.append(_to_numpy(v) if return_numpy else v)
         profiler.bump_counter("executor_runs")
         return outs

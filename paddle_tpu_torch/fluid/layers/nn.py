@@ -5,6 +5,7 @@ signatures as there; each builds ops through LayerHelper.append_op).
 
 import numpy as np
 
+from .. import core
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
@@ -13,7 +14,7 @@ __all__ = [
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "mean", "reduce_sum", "reduce_mean", "reshape",
     "unsqueeze", "transpose", "slice", "flash_attention", "scale",
-    "softmax_with_cross_entropy",
+    "softmax_with_cross_entropy", "where", "logical_and",
 ]
 
 
@@ -376,3 +377,26 @@ def softmax_with_cross_entropy(
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def where(condition, x, y):
+    """``condition ? x : y`` elementwise, broadcast (``nn.py:1269``)."""
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="where",
+        inputs={"Condition": [condition], "X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    """Elementwise ``x and y`` of bool variables (``nn.py:1311``)."""
+    helper = LayerHelper("logical_and", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=core.VarDesc.VarType.BOOL)
+    helper.append_op(type="logical_and", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out

@@ -8,7 +8,7 @@ from ..framework import Variable
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "create_global_var", "cast", "sums",
-           "assign", "fill_constant"]
+           "assign", "fill_constant", "isfinite"]
 
 
 def create_parameter(
@@ -100,4 +100,13 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         },
     )
     out.stop_gradient = True
+    return out
+
+
+def isfinite(x):
+    """One bool [1]: every element of ``x`` finite."""
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference(
+        dtype=core.VarDesc.VarType.BOOL)
+    helper.append_op(type="isfinite", inputs={"X": [x]}, outputs={"Out": [out]})
     return out

@@ -286,6 +286,11 @@ register_op("gelu", infer_shape=same_shape_infer("X"),
             vjp=_gelu_vjp)
 
 
+@op("relu", infer_shape=same_shape_infer("X"), grad="generic")
+def _relu(ctx, op_):
+    ctx.out(op_, "Out", torch.relu(ctx.in1(op_, "X")))
+
+
 @op("sqrt", infer_shape=same_shape_infer("X"), grad="generic")
 def _sqrt(ctx, op_):
     ctx.out(op_, "Out", torch.sqrt(ctx.in1(op_, "X")))

@@ -103,9 +103,28 @@ def _cast_infer(op_, block):
     set_out(op_, block, "Out", v.shape, op_.attr("out_dtype"))
 
 
-@op("cast", infer_shape=_cast_infer, grad="generic")
-def _cast(ctx, op_):
-    ctx.out(op_, "Out", ctx.in1(op_, "X").to(_dtype(op_.attr("out_dtype"))))
+def _cast_vjp(ctx, op_, slots):
+    """``cast`` across fp32, bf16, fp16 (and the rest of the enum) with
+    its pullback: Out's cotangent cast back to X's type."""
+    x = ctx.in1(op_, "X")
+    ctx.out(op_, "Out", x.to(_dtype(op_.attr("out_dtype"))))
+    in_dtype = x.dtype
+    return lambda g: {"X": g.to(in_dtype)}
+
+
+register_op("cast", infer_shape=_cast_infer,
+            lower=lambda ctx, op_: _cast_vjp(ctx, op_, ()), grad="generic",
+            vjp=_cast_vjp)
+
+
+@op("isfinite")
+def _isfinite(ctx, op_):
+    """One bool [1]: every element of every input finite (the
+    reference's ``math_ops.py:662``)."""
+    ok = torch.ones((), dtype=torch.bool, device=ctx.device)
+    for x in ctx.ins(op_, "X"):
+        ok = ok & torch.isfinite(x).all()
+    ctx.out(op_, "Out", ok.reshape((1,)))
 
 
 @op("scale", infer_shape=same_shape_infer("X"), grad="generic")

@@ -27,21 +27,25 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel name -> C entry point and its argument types (pointers and the
-# stream as c_void_p: ctypes would otherwise pass them as 32-bit ints;
-# and unsigned ints as c_uint32)
+# kernel name -> (C entry point prefix, element types it is built for,
+# argument types). The entry point of element type ``t`` is
+# ``<prefix>_<t>``: ``f32``, ``bf16`` or ``f16``, one argument list for
+# all. Pointers and the stream are c_void_p (ctypes would otherwise pass
+# them as 32-bit ints), unsigned ints c_uint32.
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # the flash training kernels' trailing arguments: bh, bias_heads,
 # bias_div, bias_rows, sq, sk, d, scale, causal, dropout, seed, thresh,
 # keep_prob / inv_keep, stream
 _FLASH_TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _U, _U, _F, _P]
+_ALL = ("f32", "bf16", "f16")
 KERNELS = {
-    "flash_fwd": ("paddle_flash_fwd_f32", [_P] * 7 + _FLASH_TAIL),
-    "flash_bwd_dq": ("paddle_flash_bwd_dq_f32", [_P] * 9 + _FLASH_TAIL),
-    "flash_bwd_dkv": ("paddle_flash_bwd_dkv_f32", [_P] * 12 + _FLASH_TAIL),
-    "flash_decode": ("paddle_flash_decode_f32",
+    "flash_fwd": ("paddle_flash_fwd", _ALL, [_P] * 7 + _FLASH_TAIL),
+    "flash_bwd_dq": ("paddle_flash_bwd_dq", _ALL, [_P] * 9 + _FLASH_TAIL),
+    "flash_bwd_dkv": ("paddle_flash_bwd_dkv", _ALL,
+                      [_P] * 12 + _FLASH_TAIL),
+    "flash_decode": ("paddle_flash_decode", ("f32",),
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "flash_decode_paged": ("paddle_flash_decode_paged_f32",
+    "flash_decode_paged": ("paddle_flash_decode_paged", ("f32",),
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P]),
 }
@@ -126,19 +130,23 @@ def build(names=None):
     return out
 
 
-def load(name):
-    """The kernel's C entry point as a ctypes function with its
+def load(name, dtype="f32"):
+    """The kernel's C entry point for element type ``dtype`` (``f32``,
+    ``bf16`` or ``f16``) as a ctypes function with its
     ``argtypes``/``restype`` set, building the library first if needed."""
     with _lock:
-        fn = _libs.get(name)
+        fn = _libs.get((name, dtype))
         if fn is not None:
             return fn
+        prefix, dtypes, argtypes = KERNELS[name]
+        if dtype not in dtypes:
+            raise TypeError("%s kernel is built for %s, not %s"
+                            % (name, "/".join(dtypes), dtype))
         _src, lib_path = _lib_path(name)
         if not os.path.exists(lib_path):
             build([name])
         lib = ctypes.CDLL(lib_path)
-        sym, argtypes = KERNELS[name]
-        fn = getattr(lib, sym)
+        fn = getattr(lib, "%s_%s" % (prefix, dtype))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         err_fn = lib.paddle_cuda_error_string
@@ -146,5 +154,5 @@ def load(name):
         err_fn.restype = ctypes.c_char_p
         fn.error_string = err_fn
         fn.library = lib  # keeps the CDLL alive beside the function
-        _libs[name] = fn
+        _libs[(name, dtype)] = fn
         return fn

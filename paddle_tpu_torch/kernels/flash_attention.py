@@ -65,7 +65,14 @@ __all__ = [
 ]
 
 _NEG = -1e30
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+# head dims the training kernels are instantiated for: any other D up to
+# 128 is zero-padded to the next one (``_pad_head_dim``); the decode
+# kernels take every multiple of 8 up to 128 as it is
+_TRAIN_HEAD_DIMS = (32, 64, 128)
+_DECODE_HEAD_DIMS = tuple(range(8, 129, 8))
+# element types of q/k/v (and dO): the C entry point's suffix
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.float16: "f16"}
 
 # splitmix32-style avalanche constants for the stateless dropout hash
 _H1, _H2, _H3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
@@ -271,7 +278,7 @@ def flash_attention_lse_plain(q, k, v, key_bias=None, bias=None,
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kb = _normalize_key_bias(key_bias, B, N, Sk)
-    s = torch.einsum("bnqd,bnkd->bnqk", q, k).float() * scale
+    s = _scores(q, k, scale)
     if kb is not None:
         s = s + kb.reshape(B, N, 1, Sk)
     s = _add_bias(s, bias, B, N, Sq, Sk)
@@ -284,8 +291,23 @@ def flash_attention_lse_plain(q, k, v, key_bias=None, bias=None,
         keep = _fallback_keep(B, N, Sq, Sk, _norm_seed(dropout_seed), rate,
                               q.device)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
-    out = torch.einsum("bnqk,bnkd->bnqd", p.to(q.dtype), v)
+    out = _dot(p, v, "bnqk,bnkd->bnqd").to(q.dtype)
     return out, lse
+
+
+def _scores(q, k, scale):
+    """Masked-score input Q·Kᵀ·scale [B, N, Sq, Sk] in fp32 from operands
+    of any float type: products of bf16 or fp16 values are exact in fp32,
+    so this is the kernels' (and the reference kernel's) low x low -> fp32
+    dot, up to the order of the sum."""
+    return torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
+
+
+def _dot(a, b, spec):
+    """``einsum(spec)`` of ``a`` rounded to ``b``'s type and ``b``, summed
+    in fp32: the reference kernel's ``a.astype(b.dtype)`` before a dot
+    with fp32 accumulation. The identity casts in fp32."""
+    return torch.einsum(spec, a.to(b.dtype).float(), b.float())
 
 
 def _bwd_delta(out, g, g_lse=None):
@@ -302,12 +324,14 @@ def _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale, rate,
                dropout_seed, bias=None):
     """The backward kernels' math on dense tensors: (ds, pv), each
     [B, N, Sq, Sk] fp32, with p = exp(s − lse) from the forward's masked
-    scores, dp = keep∘(dO·Vᵀ)/(1−rate), ds = p∘(dp − delta) and pv =
-    keep∘p/(1−rate) (p itself without dropout)."""
+    scores, dp = keep∘(dO·Vᵀ)/(1−rate) (V rounded to dO's type, summed in
+    fp32), ds = p∘(dp − delta) and pv = keep∘p/(1−rate) (p itself without
+    dropout). The products that use ds and pv round them to their other
+    operand's type (``_bwd_dq``, ``_bwd_dkv``), where the kernels do."""
     B, N, Sq, _D = q.shape
     Sk = k.shape[2]
     kb = _normalize_key_bias(key_bias, B, N, Sk)
-    s = torch.einsum("bnqd,bnkd->bnqk", q, k).float() * scale
+    s = _scores(q, k, scale)
     if kb is not None:
         s = s + kb.reshape(B, N, 1, Sk)
     s = _add_bias(s, bias, B, N, Sq, Sk)
@@ -315,7 +339,7 @@ def _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale, rate,
         mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, _NEG)
     p = torch.exp(s - lse.float().reshape(B, N, Sq, 1))
-    dp = torch.einsum("bnqd,bnkd->bnqk", g, v).float()
+    dp = torch.einsum("bnqd,bnkd->bnqk", g.float(), v.to(g.dtype).float())
     pv = p
     if rate > 0.0:
         keep = _fallback_keep(B, N, Sq, Sk, _norm_seed(dropout_seed), rate,
@@ -329,14 +353,18 @@ def _bwd_terms(q, k, v, key_bias, g, lse, delta, causal, scale, rate,
 
 
 def _bwd_dq(q, k, ds, scale):
-    return (torch.einsum("bnqk,bnkd->bnqd", ds, k.float()) * scale).to(q.dtype)
+    """dq = scale · ds·K, ds rounded to K's type, in q's type."""
+    return (_dot(ds, k, "bnqk,bnkd->bnqd") * scale).to(q.dtype)
 
 
 def _bwd_dkv(q, k, v, g, ds, pv, scale, bias=None):
+    """dk = scale · dsᵀ·Q (ds rounded to Q's type) and dv = pvᵀ·dO (pv
+    rounded to dO's type) in k's and v's types; dkey_bias and dbias sum
+    the fp32 ds."""
     B, N, Sq, _D = q.shape
     Sk = k.shape[2]
-    dk = torch.einsum("bnqk,bnqd->bnkd", ds, q.float()) * scale
-    dv = torch.einsum("bnqk,bnqd->bnkd", pv, g.float())
+    dk = _dot(ds, q, "bnqk,bnqd->bnkd") * scale
+    dv = _dot(pv, g, "bnqk,bnqd->bnkd")
     out = (dk.to(k.dtype), dv.to(v.dtype), ds.sum(2).reshape(B * N, Sk))
     if bias is None:
         return out
@@ -472,32 +500,72 @@ def _kernel_bias(bias, B, N, Sq, Sk):
     return _bias_layout(bias, B, N, Sq, Sk)
 
 
-def _cuda_operands(name, D, *tensors):
-    """Validate what the kernel takes; raise on anything else."""
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError("%s kernel supports head_dim %s, got %d"
-                         % (name, _KERNEL_HEAD_DIMS, D))
-    dev = tensors[0].device
+def _cuda_operands(name, data, fp32=()):
+    """Validate what the kernel takes, raise on anything else, and return
+    the entry point's element-type suffix. ``data`` (q/k/v, dO; the
+    pools) must share one of fp32, bf16 and fp16; ``fp32`` (lse, delta,
+    the biases; None entries skipped) must be fp32. All contiguous and
+    on one CUDA device; ``data`` aligned to four elements (the kernels
+    read four at a time)."""
+    dev = data[0].device
     if dev.type != "cuda":
         raise ValueError("%s kernel runs on CUDA tensors, got %s" % (name, dev))
-    for t in tensors:
-        if t is None:
-            continue
+    dtype = data[0].dtype
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError("%s kernel takes fp32, bf16 or fp16, got %s"
+                        % (name, dtype))
+    for t in data:
+        if t.dtype != dtype:
+            raise TypeError("%s kernel takes one element type for q/k/v/dO, "
+                            "got %s and %s" % (name, dtype, t.dtype))
+    for t in fp32:
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError("%s kernel takes fp32 lse, delta and biases, "
+                            "got %s" % (name, t.dtype))
+    for t in list(data) + [t for t in fp32 if t is not None]:
         if t.device != dev:
             raise ValueError("%s: operands on different devices (%s, %s)"
                              % (name, dev, t.device))
-        if t.dtype != torch.float32:
-            raise TypeError("%s kernel is fp32-only, got %s" % (name, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s kernel needs contiguous operands" % name)
+    for t in data:
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError("%s kernel needs q/k/v/dO aligned to four "
+                             "elements" % name)
+    return _KERNEL_DTYPES[dtype]
+
+
+def _train_head_dim(name, D):
+    """The instantiated head dim a training kernel runs D at: D itself or
+    the next of ``_TRAIN_HEAD_DIMS``; raises past 128."""
+    for width in _TRAIN_HEAD_DIMS:
+        if 1 <= D <= width:
+            return width
+    raise ValueError("%s kernel supports head_dim 1..%d, got %d"
+                     % (name, _TRAIN_HEAD_DIMS[-1], D))
+
+
+def _pad_head_dim(width, *tensors):
+    """Each [.., D] tensor zero-padded to [.., width] (itself when D is
+    the width). Zero columns leave every score, probability and delta as
+    they are, and come out as zero columns of out, dq, dk and dv."""
+    return [t if t.shape[-1] == width
+            else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
+def _decode_head_dim(name, D):
+    if D not in _DECODE_HEAD_DIMS:
+        raise ValueError("%s kernel supports head_dim 8..128 in steps of 8, "
+                         "got %d" % (name, D))
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, device, *args):
-    fn = _build.load(name)
+def _launch(name, dtype, device, *args):
+    fn = _build.load(name, dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -523,10 +591,12 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
 
     The wrapper of the ``flash_fwd`` CUDA kernel. CPU tensors run the
     plain version (``flash_attention_lse_plain``). CUDA tensors launch
-    the kernel on the current stream (fp32, contiguous, head_dim in
-    {32, 64, 128}) or raise: the kernel takes a key bias, the general
-    ``bias`` in every broadcast form, the causal flag and the hash
-    dropout. ``flash_attention_lse.launches`` counts kernel launches."""
+    the kernel on the current stream (q/k/v contiguous, all fp32, bf16 or
+    fp16; out in their type, lse fp32; any head_dim up to 128, zero-padded
+    to 32, 64 or 128 with ``scale`` from the real one) or raise: the
+    kernel takes a key bias, the general ``bias`` in every broadcast
+    form, the causal flag and the hash dropout.
+    ``flash_attention_lse.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(
             q, k, v, key_bias=key_bias, bias=bias, causal=causal,
@@ -537,15 +607,19 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
     nb, div, rows = _kernel_bias(bias, B, N, Sq, Sk)
-    _cuda_operands("flash_fwd", D, q, k, v, kb, nb)
+    width = _train_head_dim("flash_fwd", D)
+    et = _cuda_operands("flash_fwd", (q, k, v), (kb, nb))
+    q, k, v = _pad_head_dim(width, q, k, v)
     on, seed, thresh, keep_prob, _inv = _dropout_args(rate, dropout_seed)
     out = torch.empty_like(q)
     lse = torch.empty(B, N, Sq, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(kb), _ptr(nb), out.data_ptr(), lse.data_ptr(), B * N,
-            bias_heads, div, rows, Sq, Sk, D, float(scale),
+    _launch("flash_fwd", et, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(kb), _ptr(nb), out.data_ptr(), lse.data_ptr(),
+            B * N, bias_heads, div, rows, Sq, Sk, width, float(scale),
             int(bool(causal)), on, seed, thresh, keep_prob)
     flash_attention_lse.launches += 1
+    if width != D:
+        out = out[..., :D].contiguous()
     return out, lse
 
 
@@ -570,7 +644,8 @@ def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
 def _bwd_operands(name, q, k, v, key_bias, g, lse, delta, causal,
                   dropout_rate, dropout_seed, bias):
     """Shared checks of the two backward wrappers on CUDA tensors; returns
-    (rate, key-bias rows, heads per row, (bias rows, div, rows))."""
+    (rate, key-bias rows, heads per row, (bias rows, div, rows), the
+    instantiated head dim, the element-type suffix)."""
     rate = _check_args(q, k, causal, dropout_rate, dropout_seed, warn=False)
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
@@ -583,8 +658,9 @@ def _bwd_operands(name, q, k, v, key_bias, g, lse, delta, causal,
                              % (name, B * N * Sq, tuple(t.shape)))
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
     gbias = _kernel_bias(bias, B, N, Sq, Sk)
-    _cuda_operands(name, D, q, k, v, kb, gbias[0], g, lse, delta)
-    return rate, kb, bias_heads, gbias
+    width = _train_head_dim(name, D)
+    et = _cuda_operands(name, (q, k, v, g), (kb, gbias[0], lse, delta))
+    return rate, kb, bias_heads, gbias, width, et
 
 
 def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
@@ -595,27 +671,30 @@ def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
 
     The wrapper of the ``flash_bwd_dq`` CUDA kernel. CPU tensors run the
     plain version (``flash_bwd_dq_plain``); CUDA tensors launch the
-    kernel on the current stream (fp32, contiguous, head_dim in {32, 64,
-    128}) or raise. ``flash_bwd_dq.launches`` counts kernel launches."""
+    kernel on the current stream (q/k/v/dO contiguous in one of fp32,
+    bf16 and fp16, dq in their type; lse and delta fp32; any head_dim up
+    to 128, zero-padded as in ``flash_attention_lse``) or raise.
+    ``flash_bwd_dq.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta,
                                   causal=causal, scale=scale,
                                   dropout_rate=dropout_rate,
                                   dropout_seed=dropout_seed, bias=bias)
-    rate, kb, bias_heads, (nb, div, rows) = _bwd_operands(
+    rate, kb, bias_heads, (nb, div, rows), width, et = _bwd_operands(
         "flash_bwd_dq", q, k, v, key_bias, g, lse, delta, causal,
         dropout_rate, dropout_seed, bias)
     B, N, Sq, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q, k, v, g = _pad_head_dim(width, q, k, v, g)
     on, seed, thresh, _keep, inv_keep = _dropout_args(rate, dropout_seed)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+    _launch("flash_bwd_dq", et, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(kb), _ptr(nb), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), B * N, bias_heads, div, rows,
-            Sq, k.shape[2], D, float(scale), int(bool(causal)), on, seed,
+            Sq, k.shape[2], width, float(scale), int(bool(causal)), on, seed,
             thresh, inv_keep)
     flash_bwd_dq.launches += 1
-    return dq
+    return dq if width == D else dq[..., :D].contiguous()
 
 
 flash_bwd_dq.launches = 0
@@ -630,32 +709,37 @@ def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
 
     The wrapper of the ``flash_bwd_dkv`` CUDA kernel. CPU tensors run the
     plain version (``flash_bwd_dkv_plain``); CUDA tensors launch the
-    kernel on the current stream (fp32, contiguous, head_dim in {32, 64,
-    128}) or raise. dbias is zeroed first, then stored per head (G = B·N)
-    or added atomically (shared rows, in no fixed order).
-    ``flash_bwd_dkv.launches`` counts kernel launches."""
+    kernel on the current stream (q/k/v/dO contiguous in one of fp32,
+    bf16 and fp16, dk and dv in their type; lse, delta, dkey_bias and
+    dbias fp32; any head_dim up to 128, zero-padded as in
+    ``flash_attention_lse``) or raise. dbias is zeroed first, then stored
+    per head (G = B·N) or added atomically (shared rows, in no fixed
+    order). ``flash_bwd_dkv.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, key_bias, g, lse, delta,
                                    causal=causal, scale=scale,
                                    dropout_rate=dropout_rate,
                                    dropout_seed=dropout_seed, bias=bias)
-    rate, kb, bias_heads, (nb, div, rows) = _bwd_operands(
+    rate, kb, bias_heads, (nb, div, rows), width, et = _bwd_operands(
         "flash_bwd_dkv", q, k, v, key_bias, g, lse, delta, causal,
         dropout_rate, dropout_seed, bias)
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q, k, v, g = _pad_head_dim(width, q, k, v, g)
     on, seed, thresh, _keep, inv_keep = _dropout_args(rate, dropout_seed)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dkb = torch.empty(B * N, Sk, dtype=torch.float32, device=q.device)
     dbias = None if nb is None else torch.zeros_like(nb)
-    _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
+    _launch("flash_bwd_dkv", et, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(kb), _ptr(nb), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dkb.data_ptr(),
-            _ptr(dbias), B * N, bias_heads, div, rows, Sq, Sk, D,
+            _ptr(dbias), B * N, bias_heads, div, rows, Sq, Sk, width,
             float(scale), int(bool(causal)), on, seed, thresh, inv_keep)
     flash_bwd_dkv.launches += 1
+    if width != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     if dbias is None:
         return dk, dv, dkb
     return dk, dv, dkb, dbias
@@ -704,9 +788,9 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
 
     The wrapper of the ``flash_decode`` CUDA kernel. CPU tensors run the
     plain version (``flash_decode_attention_plain``); CUDA tensors launch
-    the kernel on the current stream (fp32, contiguous, head_dim in
-    {32, 64, 128}) or raise. ``flash_decode_attention.launches`` counts
-    kernel launches."""
+    the kernel on the current stream (fp32, contiguous, head_dim a
+    multiple of 8 up to 128) or raise. ``flash_decode_attention.launches``
+    counts kernel launches."""
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k, v, key_bias=key_bias,
                                             scale=scale)
@@ -717,9 +801,10 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
             "flash_decode_attention is the single-query path, got Sq=%d" % Sq)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
-    _cuda_operands("flash_decode", D, q, k, v, kb)
+    _decode_head_dim("flash_decode", D)
+    et = _cuda_operands("flash_decode", (q, k, v), (kb,))
     out = torch.empty_like(q)
-    _launch("flash_decode", q.device, q.data_ptr(), k.data_ptr(),
+    _launch("flash_decode", et, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(kb), out.data_ptr(), B * N, bias_heads, Sk, D,
             float(scale))
     flash_decode_attention.launches += 1
@@ -747,8 +832,8 @@ def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
     run the plain version (``flash_decode_paged_attention_plain``); CUDA
     tensors launch the kernel on the current stream (fp32 contiguous q,
     pools and bias, int32 contiguous tables — the caller builds them
-    once per step, so nothing is cast here — head_dim in {32, 64, 128})
-    or raise. ``flash_decode_paged_attention.launches`` counts kernel
+    once per step, so nothing is cast here — head_dim a multiple of 8
+    up to 128) or raise. ``flash_decode_paged_attention.launches`` counts kernel
     launches."""
     if q.device.type == "cpu":
         return flash_decode_paged_attention_plain(
@@ -770,11 +855,13 @@ def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
     S = MB * blk
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, S)
-    _cuda_operands("flash_decode_paged", D, q, k_pool, v_pool, kb)
+    _decode_head_dim("flash_decode_paged", D)
+    et = _cuda_operands("flash_decode_paged", (q, k_pool, v_pool), (kb,))
     out = torch.empty_like(q)
-    _launch("flash_decode_paged", q.device, q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), tables.data_ptr(), _ptr(kb), out.data_ptr(),
-            B * N, N, bias_heads, MB, blk, k_pool.shape[0], D, float(scale))
+    _launch("flash_decode_paged", et, q.device, q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            _ptr(kb), out.data_ptr(), B * N, N, bias_heads, MB, blk,
+            k_pool.shape[0], D, float(scale))
     flash_decode_paged_attention.launches += 1
     return out
 

@@ -177,6 +177,17 @@ def _ffn(x, cfg, name):
                            name="%s_fc1" % name)
 
 
+def linear(x, lin, amp_dtype=None):
+    """``lin(x)``; with ``amp_dtype`` (bf16 or fp16) the fc of the AMP
+    program rewrite instead: the product of ``x`` and the weight, both
+    cast to ``amp_dtype``, then the bias cast to it added, as its ``mul``
+    and ``elementwise_add`` ops do. The parameters stay fp32."""
+    if amp_dtype is None:
+        return lin(x)
+    return (torch.matmul(x.to(amp_dtype), lin.weight.to(amp_dtype).t())
+            + lin.bias.to(amp_dtype))
+
+
 class FFN(nn.Module):
     """fc0 (exact-erf GELU) -> fc1."""
 
@@ -185,8 +196,9 @@ class FFN(nn.Module):
         self.fc0 = nn.Linear(hidden_size, intermediate_size, device=device)
         self.fc1 = nn.Linear(intermediate_size, hidden_size, device=device)
 
-    def forward(self, x):
-        return self.fc1(math_ops.gelu(self.fc0(x)))
+    def forward(self, x, amp_dtype=None):
+        return linear(math_ops.gelu(linear(x, self.fc0, amp_dtype)),
+                      self.fc1, amp_dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -230,6 +242,10 @@ class MultiHeadAttention(nn.Module):
         the pool through the tables, otherwise (the T = k speculative
         verify, or no flash) the logical rows are gathered and attended
         dense.
+    - ``amp_dtype`` (bf16 or fp16; without ``cache``): the casts of the
+      AMP program rewrite. The projections run as ``linear`` on
+      ``amp_dtype`` operands, the flash op follows its ``amp_dtype``
+      q/k/v, and dense attention runs its softmax in fp32.
     """
 
     def __init__(self, hidden_size, num_heads, device=None):
@@ -253,11 +269,12 @@ class MultiHeadAttention(nn.Module):
         return ctxt.transpose(1, 2).reshape(N, S, self.hidden_size)
 
     def forward(self, x, attn_bias=None, key_bias=None, causal=False,
-                use_flash=False, cache=None, dropout_rate=0.0, rng=None):
+                use_flash=False, cache=None, dropout_rate=0.0, rng=None,
+                amp_dtype=None):
         scale = 1.0 / math.sqrt(self.d_head)
-        q = self._split_heads(self.q(x))
-        k = self._split_heads(self.k(x))
-        v = self._split_heads(self.v(x))
+        q = self._split_heads(linear(x, self.q, amp_dtype))
+        k = self._split_heads(linear(x, self.k, amp_dtype))
+        v = self._split_heads(linear(x, self.v, amp_dtype))
         mode = cache["mode"] if cache is not None else None
         if mode == "prefill":
             nn_ops.kv_cache_write(cache["k"], k, cache["slot_idx"],
@@ -307,10 +324,12 @@ class MultiHeadAttention(nn.Module):
                 dropout_rate=dropout_rate, is_test=not training,
                 generator=None if rng is None else rng.seeds)
         else:
+            # under AMP the bias add follows the scores' type, the softmax
+            # and dropout run in fp32 and the weights are cast for P·V
             scores = torch.matmul(q, k.transpose(-1, -2)) * scale
             if attn_bias is not None:
-                scores = scores + attn_bias
-            weights = _dropout_eager(math_ops.softmax(scores), dropout_rate,
-                                     not training, rng)
-            ctxt = torch.matmul(weights, v)
-        return self.out(self._merge_heads(ctxt))
+                scores = scores + attn_bias.to(scores.dtype)
+            weights = _dropout_eager(math_ops.softmax(scores.float()),
+                                     dropout_rate, not training, rng)
+            ctxt = torch.matmul(weights.to(v.dtype), v)
+        return linear(self._merge_heads(ctxt), self.out, amp_dtype)

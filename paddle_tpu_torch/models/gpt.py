@@ -102,7 +102,11 @@ def _causal_bias_eager(seq_len, device):
 
 
 class GPTLayer(nn.Module):
-    """One post-LN block: h = LN1(h + attn(h)); h = LN2(h + ffn(h))."""
+    """One post-LN block: h = LN1(h + attn(h)); h = LN2(h + ffn(h)).
+
+    With ``amp_dtype`` (the AMP program's casts) the block's input is cast
+    to it, the products and the residual adds run in it, and each layer
+    norm casts its input back to fp32."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -113,16 +117,23 @@ class GPTLayer(nn.Module):
         self.ln2 = nn.LayerNorm(H, eps=1e-5, device=device)
 
     def forward(self, h, attn_bias, key_bias, use_flash, cache,
-                hidden_dropout=0.0, attention_dropout=0.0, rng=None):
+                hidden_dropout=0.0, attention_dropout=0.0, rng=None,
+                amp_dtype=None):
+        if amp_dtype is not None:
+            h = h.to(amp_dtype)
         a = self.att(h, attn_bias=attn_bias, key_bias=key_bias, causal=True,
                      use_flash=use_flash, cache=cache,
-                     dropout_rate=attention_dropout, rng=rng)
+                     dropout_rate=attention_dropout, rng=rng,
+                     amp_dtype=amp_dtype)
         a = _bert._dropout_eager(a, hidden_dropout, False, rng)
-        h = math_ops.layer_norm(h + a, self.ln1.weight, self.ln1.bias,
-                                begin_norm_axis=2)
-        ff = _bert._dropout_eager(self.ffn(h), hidden_dropout, False, rng)
-        return math_ops.layer_norm(h + ff, self.ln2.weight, self.ln2.bias,
-                                   begin_norm_axis=2)
+        h = math_ops.layer_norm((h + a).float(), self.ln1.weight,
+                                self.ln1.bias, begin_norm_axis=2)
+        if amp_dtype is not None:
+            h = h.to(amp_dtype)
+        ff = _bert._dropout_eager(self.ffn(h, amp_dtype), hidden_dropout,
+                                  False, rng)
+        return math_ops.layer_norm((h + ff).float(), self.ln2.weight,
+                                   self.ln2.bias, begin_norm_axis=2)
 
 
 class GPTLM(nn.Module):
@@ -154,8 +165,10 @@ class GPTLM(nn.Module):
         return self.lm_head.weight.device
 
     def decoder(self, ids, pos_ids, input_mask=None, use_flash=None,
-                kv_cache=None):
+                kv_cache=None, amp_dtype=None):
         """Hidden states [N, T, H] for ids/pos_ids [N, T] (or [N, T, 1]).
+        ``amp_dtype`` (full forward only) runs each block with the AMP
+        program's casts (``GPTLayer``).
 
         Full forward / prefill: ``input_mask`` [N, T] marks real tokens;
         with flash it becomes a key-only bias and causality rides the
@@ -207,13 +220,22 @@ class GPTLM(nn.Module):
                     cache_i["key_bias"] = kv_cache["key_bias"]
             h = layer(h, attn_bias, key_bias, use_flash, cache_i,
                       hidden_dropout=hidden_p, attention_dropout=attn_p,
-                      rng=self.rng)
+                      rng=self.rng, amp_dtype=amp_dtype)
         return h
 
-    def forward(self, ids, pos_ids, input_mask, use_flash=None):
-        """Full forward: next-token logits [N, T, vocab]."""
-        return self.lm_head(self.decoder(ids, pos_ids, input_mask,
-                                         use_flash=use_flash))
+    def forward(self, ids, pos_ids, input_mask, use_flash=None,
+                amp_dtype=None):
+        """Full forward: next-token logits [N, T, vocab]. ``amp_dtype``
+        (bf16 or fp16) applies the casts of the AMP program rewrite
+        (``contrib.mixed_precision``): the products run on ``amp_dtype``
+        operands, the ops that follow their inputs (bias adds, GELU,
+        dropout, head split/merge, the residual adds, flash attention)
+        stay in it, layer norm and the softmax run in fp32, and the
+        logits come back in ``amp_dtype``. The embeddings and parameters
+        stay fp32; each use casts."""
+        h = self.decoder(ids, pos_ids, input_mask, use_flash=use_flash,
+                         amp_dtype=amp_dtype)
+        return _bert.linear(h, self.lm_head, amp_dtype)
 
     def prefill(self, ids, pos_ids, input_mask, slot_idx, last_onehot,
                 caches):
@@ -590,10 +612,11 @@ def build_gpt_lm_train(cfg, seq_len, learning_rate=3e-4, use_amp=False):
     ``input_mask`` ([N, seq_len, 1] float32) through ``fluid.Executor``.
     Parameter names are the reference's (build under a fresh
     ``fluid.unique_name.guard()`` for its ``_0`` suffixes). ``use_amp``
-    raises: mixed precision is its own slice."""
-    if use_amp:
-        raise NotImplementedError("use_amp: the port trains in fp32 only; "
-                                  "AMP is a later slice")
+    decorates Adam with ``contrib.mixed_precision.decorate`` (bf16, loss
+    scale 1, no dynamic scaling), as the reference does: the AMP rewrite
+    casts the products' operands to bf16, the flash op follows its bf16
+    Q/K/V, layer norm and the loss stay fp32, and the scope keeps fp32
+    parameters that the rewrite's ``cast`` ops copy to bf16 every step."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         ids = fluid.layers.data(name="ids", shape=[seq_len, 1], dtype="int64")
@@ -614,7 +637,10 @@ def build_gpt_lm_train(cfg, seq_len, learning_rate=3e-4, use_amp=False):
         denom = fluid.layers.reduce_sum(tgt_mask)
         avg_loss = fluid.layers.elementwise_div(fluid.layers.reduce_sum(loss),
                                                 denom)
-        fluid.optimizer.Adam(learning_rate=learning_rate).minimize(avg_loss)
+        opt = fluid.optimizer.Adam(learning_rate=learning_rate)
+        if use_amp:
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+        opt.minimize(avg_loss)
     return main, startup, [ids, pos_ids, input_mask], avg_loss
 
 
@@ -652,10 +678,9 @@ def build_gpt_lm_train_eager(cfg, seq_len, learning_rate=3e-4,
     runs under a ``train_step`` span and bumps the ``train_steps``
     counter and the ``train_step_ms`` histogram. Dropout draws its masks
     and flash seeds from a ``bert.DropoutRNG`` seeded with ``seed``.
-    ``use_amp`` raises: mixed precision is its own slice."""
-    if use_amp:
-        raise NotImplementedError("use_amp: the port trains in fp32 only; "
-                                  "AMP is a later slice")
+    ``use_amp`` runs the forward with ``amp_dtype=torch.bfloat16`` (bf16
+    products and attention, fp32 layer norms, loss and parameters: the
+    casts of the AMP program) and the loss in fp32."""
     model = GPTLM(cfg, device=device)
     load_fluid_params(model, init_fluid_params(cfg, seed))
     model.rng = _bert.DropoutRNG(model.device, seed)
@@ -663,6 +688,7 @@ def build_gpt_lm_train_eager(cfg, seq_len, learning_rate=3e-4,
     opt = _optimizer.Adam(learning_rate=learning_rate,
                           parameter_list=model.parameters())
     feed_names = ["ids", "pos_ids", "input_mask"]
+    amp_dtype = torch.bfloat16 if use_amp else None
     steps = [0]
 
     def step(feed):
@@ -674,7 +700,8 @@ def build_gpt_lm_train_eager(cfg, seq_len, learning_rate=3e-4,
             if ids.shape[1] != seq_len:
                 raise ValueError("feed has %d positions, the step was built "
                                  "for %d" % (ids.shape[1], seq_len))
-            loss = gpt_lm_loss(model(ids, pos_ids, mask), ids, mask)
+            logits = model(ids, pos_ids, mask, amp_dtype=amp_dtype).float()
+            loss = gpt_lm_loss(logits, ids, mask)
             opt.minimize(loss)
             value = float(loss.detach())
         profiler.bump_histogram("train_step_ms",

@@ -1,1 +1,1 @@
-"""Scripts run by hand on a machine with a card (see each module)."""
+"""Scripts run by hand (see each module for where: the card or the CPU)."""

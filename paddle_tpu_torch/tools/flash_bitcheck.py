@@ -1,15 +1,19 @@
-"""Hold the no-bias flash kernels of this tree against an older tree's,
-bit for bit, on the card.
+"""Hold the fp32 flash training kernels of this tree against an older
+tree's, bit for bit, on the card.
 
-The general-bias forms of ``flash_fwd``, ``flash_bwd_dq`` and
-``flash_bwd_dkv`` are template instantiations beside the no-bias ones,
-which must keep their arithmetic statement for statement. This script
-builds both trees' three kernels, runs them on the same inputs (key
-bias, causal, dropout 0 and 0.1, at the train and prefill shapes and two
-ragged ones) and compares out, lse, dq, dk, dv and dkey_bias with
-``torch.equal``. It prints the ``ptxas`` register and spill lines of
-this tree's builds, one ``bitcheck`` line per shape, and ``BITCHECK
-PASS`` or ``BITCHECK FAIL`` last; it exits 1 on a mismatch.
+The bf16 and fp16 forms of ``flash_fwd``, ``flash_bwd_dq`` and
+``flash_bwd_dkv`` are template instantiations beside the fp32 ones, which
+must keep their arithmetic statement for statement. This script builds
+both trees' three kernels, runs them on the same fp32 inputs (key bias,
+causal, dropout 0 and 0.1, with and without a per-head general bias, at
+the train and prefill shapes and ragged ones) and compares out, lse, dq,
+dk, dv, dkey_bias and dbias with ``torch.equal``. A head dim of 48 runs
+through this tree's wrappers, which zero-pad it to 64, and through the
+older tree's D = 64 kernels on the same padded operands with the scale of
+D = 48: the padding must not move a bit either. It prints the ``ptxas``
+register and spill lines of this tree's builds, one ``bitcheck`` line per
+shape, and ``BITCHECK PASS`` or ``BITCHECK FAIL`` last; it exits 1 on a
+mismatch.
 
 Usage, from the repo root on a machine with a card and ``nvcc``::
 
@@ -17,8 +21,8 @@ Usage, from the repo root on a machine with a card and ``nvcc``::
     git archive <older commit> paddle_tpu_torch | tar -x -C _archive/parent
     python3 -m paddle_tpu_torch.tools.flash_bitcheck _archive/parent
 
-The older tree's kernels must take the argument list they had before the
-general bias was added (as in the commit that ported the backward).
+The older tree's kernels must take the argument list they had once the
+general bias was added (key bias, bias, bias rows; fp32 only).
 """
 
 import argparse
@@ -32,9 +36,15 @@ import torch
 from paddle_tpu_torch.kernels import _build, flash_attention as fa
 
 KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
-SHAPES = [(8, 12, 1024, 64, 0.1, "batch"), (8, 12, 1024, 64, 0.0, "batch"),
-          (1, 12, 1024, 64, 0.0, "batch"), (2, 3, 100, 128, 0.1, None),
-          (2, 3, 37, 32, 0.0, "batch")]
+# (B, N, S, D, dropout rate, key-bias form, per-head general bias)
+SHAPES = [(8, 12, 1024, 64, 0.1, "batch", False),
+          (8, 12, 1024, 64, 0.0, "batch", False),
+          (1, 12, 1024, 64, 0.0, "batch", False),
+          (2, 3, 100, 128, 0.1, None, False),
+          (2, 3, 37, 32, 0.0, "batch", False),
+          (2, 3, 100, 64, 0.1, "batch", True),
+          (2, 3, 70, 48, 0.1, "batch", False),
+          (2, 3, 70, 48, 0.0, None, True)]
 
 
 def load_parent_build(parent):
@@ -45,7 +55,7 @@ def load_parent_build(parent):
     return mod
 
 
-def check(pb, B, N, S, D, rate, kbform, dev):
+def check(pb, B, N, S, D, rate, kbform, with_bias, dev):
     """Run both trees' kernels on one shape; {output: equal}."""
     def parent_call(name, *args):
         err = pb.load(name)(*args, torch.cuda.current_stream().cuda_stream)
@@ -58,35 +68,52 @@ def check(pb, B, N, S, D, rate, kbform, dev):
     if kbform:
         kb = torch.zeros(B, S, device=dev)
         kb[-1, S // 2:] = -1e4
+    bias = (torch.randn(1, N, S, S, device=dev, generator=g) * 0.5
+            if with_bias else None)
     seed = 4242 if rate else None
     on, sd, th, kp, inv = fa._dropout_args(rate, seed)
-    kw = dict(causal=True, dropout_rate=rate, dropout_seed=seed)
+    kw = dict(causal=True, dropout_rate=rate, dropout_seed=seed, bias=bias)
     out, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
     delta = (do * out).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, kb, do, lse, delta, **kw)
-    dk, dv, dkb = fa.flash_bwd_dkv(q, k, v, kb, do, lse, delta, **kw)
+    dkv = fa.flash_bwd_dkv(q, k, v, kb, do, lse, delta, **kw)
+    # the older tree's kernels at the width this tree runs D at, on the
+    # same operands zero-padded to it, with the scale of the real D
+    width = fa._train_head_dim("bitcheck", D)
+    pq, pk, pv, pdo = fa._pad_head_dim(width, q, k, v, do)
     kbp = 0 if kb is None else kb.data_ptr()
     heads = 1 if kb is None else N
+    nb, div, rows = fa._kernel_bias(bias, B, N, S, S)
+    bp = 0 if nb is None else nb.data_ptr()
     scale = 1.0 / D ** 0.5
-    pout, plse = torch.empty_like(q), torch.empty_like(lse)
-    parent_call("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), kbp,
-                pout.data_ptr(), plse.data_ptr(), B * N, heads, S, S, D,
-                scale, 1, on, sd, th, kp)
-    pdq = torch.empty_like(q)
-    parent_call("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), kbp,
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                pdq.data_ptr(), B * N, heads, S, S, D, scale, 1, on, sd, th,
-                inv)
-    pdk, pdv, pdkb = (torch.empty_like(k), torch.empty_like(v),
-                      torch.empty_like(dkb))
-    parent_call("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kbp, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                pdk.data_ptr(), pdv.data_ptr(), pdkb.data_ptr(), B * N, heads,
-                S, S, D, scale, 1, on, sd, th, inv)
+    pout, plse = torch.empty_like(pq), torch.empty_like(lse)
+    parent_call("flash_fwd", pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                kbp, bp, pout.data_ptr(), plse.data_ptr(), B * N, heads, div,
+                rows, S, S, width, scale, 1, on, sd, th, kp)
+    pdq = torch.empty_like(pq)
+    parent_call("flash_bwd_dq", pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                kbp, bp, pdo.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                pdq.data_ptr(), B * N, heads, div, rows, S, S, width, scale,
+                1, on, sd, th, inv)
+    pdk, pdv = torch.empty_like(pk), torch.empty_like(pv)
+    pdkb = torch.empty_like(dkv[2])
+    pdbias = None if nb is None else torch.zeros_like(nb)
+    parent_call("flash_bwd_dkv", pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                kbp, bp, pdo.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                pdk.data_ptr(), pdv.data_ptr(), pdkb.data_ptr(),
+                0 if pdbias is None else pdbias.data_ptr(), B * N, heads,
+                div, rows, S, S, width, scale, 1, on, sd, th, inv)
     torch.cuda.synchronize()
-    return {n: torch.equal(a, b) for n, a, b in (
-        ("out", out, pout), ("lse", lse, plse), ("dq", dq, pdq),
-        ("dk", dk, pdk), ("dv", dv, pdv), ("dkb", dkb, pdkb))}
+    pairs = [("out", out, pout[..., :D]), ("lse", lse, plse),
+             ("dq", dq, pdq[..., :D]), ("dk", dkv[0], pdk[..., :D]),
+             ("dv", dkv[1], pdv[..., :D]), ("dkb", dkv[2], pdkb)]
+    if with_bias:
+        # per-head rows shared by the batch: float atomics in no fixed
+        # order, so dbias is held to rounding, not bits (see the kernel)
+        err = float((dkv[3] - pdbias).abs().max())
+        pairs.append(("dbias<=1e-5", torch.tensor(err <= 1e-5),
+                      torch.tensor(True)))
+    return {n: torch.equal(a, b) for n, a, b in pairs}
 
 
 def main(argv=None):

@@ -10,7 +10,8 @@ sum in another order than the dense plain version; a masking or indexing
 error is O(0.1)); atol 1e-4 for the backward ones, whose outputs are sums
 of up to a few hundred products of O(1) terms (dkey_bias sums ds over
 every query row), and whose dropout mask, if it differed by one entry,
-would move a gradient by O(0.1).
+would move a gradient by O(0.1). The bf16 and fp16 forms are held to
+the limits of ``paddle_tpu_torch/tools/lowp_limits.py``.
 """
 
 import pytest
@@ -19,6 +20,7 @@ import torch
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.serving import decode as tdecode
+from paddle_tpu_torch.tools import lowp_limits as lowp
 
 torch.set_num_threads(2)
 
@@ -36,7 +38,7 @@ def _randn(gen, *shape):
     return torch.randn(*shape, generator=gen).cuda()
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
 @pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
                                           (True, 1, 1)])
 def test_flash_fwd_kernel_matches_plain(D, causal, Sq, Sk):
@@ -70,7 +72,7 @@ def _key_bias(gen, form, B, N, S):
     return _randn(gen, *((S,) if form == "vector" else (B * N, S)))
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 48, 64, 128])
 @pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
                                           (True, 64, 64)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -105,6 +107,56 @@ def test_flash_training_kernels_match_plain(D, causal, Sq, Sk, rate, form):
     for name, got, want in zip(("dq", "dk", "dv", "dkey_bias"), grads, ref):
         torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=RTOL,
                                    msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("D", [16, 48, 64, 128])
+@pytest.mark.parametrize("causal,Sq,Sk,rate,bias", [
+    (True, 100, 100, 0.1, False), (False, 37, 150, 0.0, True),
+    (True, 130, 130, 0.1, True)])
+def test_flash_training_kernels_low_precision_match_plain(
+        dtype, D, causal, Sq, Sk, rate, bias):
+    """The bf16 and fp16 forms of the three training kernels (a per-batch
+    key bias, causal or not, dropout, a per-head general bias) against
+    their plain versions on the same low-precision inputs, at the limits
+    of ``tools/lowp_limits.py``: out, dq, dk and dv come back in the
+    input type, lse, dkey_bias and dbias in fp32."""
+    gen = torch.Generator().manual_seed(D + Sq + int(rate * 10) + bias)
+    B, N = 2, 3
+    q, k, v = (_randn(gen, B, N, S, D).to(dtype) for S in (Sq, Sk, Sk))
+    g = _randn(gen, B, N, Sq, D).to(dtype)
+    kb = _key_bias(gen, "per_batch", B, N, Sk)
+    gb = _randn(gen, 1, N, Sq, Sk) * 0.5 if bias else None
+    seed = 24680 if rate else None
+    kw = dict(causal=causal, dropout_rate=rate, bias=gb)
+    out, lse = fa.flash_attention_lse(q, k, v, kb, dropout_seed=seed, **kw)
+    grads = fa.flash_attention_bwd_from_residuals(q, k, v, kb, seed, out, lse,
+                                                  g, **kw)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, key_bias=kb,
+                                                    dropout_seed=seed, **kw)
+    # the plain backward from the kernel's own residuals: the same
+    # rounding points, so only summation order differs
+    ref = fa.flash_attention_bwd_plain(q, k, v, kb, seed, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    bound = lowp.out_bound(dtype, q, k, v, ref_out, key_bias=kb,
+                           dropout_seed=seed, **kw)
+    lowp.check("out", lowp.out_ratios(dtype, out, ref_out, bound))
+    torch.testing.assert_close(lse, ref_lse, atol=lowp.FP32_ATOL,
+                               rtol=lowp.FP32_ATOL)
+    delta = (g.float() * out.float()).sum(-1)
+    bounds = lowp.grad_bounds(dtype, q, k, v, kb, g, lse, delta, ref[:3],
+                              dropout_seed=seed, **kw)
+    names = ("dq", "dk", "dv", "dkey_bias", "dbias")
+    for name, got, want, bound in zip(names, grads, ref, bounds + (None,) * 2):
+        if name in ("dq", "dk", "dv"):
+            assert got.dtype == dtype, name
+            lowp.check(name, lowp.grad_ratios(dtype, got, want, bound))
+        else:
+            assert got.dtype == torch.float32, name
+            torch.testing.assert_close(got, want, atol=BWD_ATOL,
+                                       rtol=RTOL, msg=name)
 
 
 # the general bias's broadcast forms: shape given (B, N, Sq, Sk)
@@ -160,7 +212,7 @@ def test_flash_bias_kernels_match_plain(D, causal, Sq, Sk, rate, form):
                                    msg=name)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [8, 24, 32, 48, 64, 120, 128])
 @pytest.mark.parametrize("S", [1, 300, 1024])
 def test_flash_decode_kernel_matches_plain(D, S):
     gen = torch.Generator().manual_seed(D + S)
@@ -179,7 +231,7 @@ def test_flash_decode_kernel_matches_plain(D, S):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [8, 24, 32, 48, 64, 128])
 @pytest.mark.parametrize("blk", [4, 16, 64])
 def test_flash_decode_paged_kernel_matches_plain(D, blk):
     """A permuted table, two slots sharing their first two blocks (a
@@ -245,6 +297,10 @@ def test_kernels_take_every_key_bias_form(rows):
 
 
 def test_kernel_wrappers_raise_on_what_they_do_not_take():
+    """bf16, fp16 and a head dim of 48 run (the training kernels pad D to
+    64; the decode kernels take every multiple of 8); fp64, a mix of
+    element types, D = 136 and a decode D off the multiples of 8
+    raise."""
     gen = torch.Generator().manual_seed(0)
     q = _randn(gen, 1, 2, 16, 64)
     with pytest.raises(ValueError):
@@ -252,11 +308,27 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take():
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, bias=torch.zeros(2, 2, 16, 16).cuda(),
                            dropout_rate=0.1, dropout_seed=3)
-    odd = _randn(gen, 1, 2, 16, 48)
-    with pytest.raises(ValueError):
-        fa.flash_attention_lse(odd, odd, odd)
+    n0 = fa.flash_attention_lse.launches
+    for t in (q.bfloat16(), q.half(), _randn(gen, 1, 2, 16, 48)):
+        out, lse = fa.flash_attention_lse(t, t, t)
+        assert out.dtype == t.dtype and out.shape == t.shape
+        assert lse.dtype == torch.float32
+    assert fa.flash_attention_lse.launches == n0 + 3
+    q48 = _randn(gen, 1, 2, 1, 48)
+    assert fa.flash_decode_attention(q48, q48, q48).shape == q48.shape
     with pytest.raises(TypeError):
-        fa.flash_attention_lse(q.half(), q.half(), q.half())
+        fa.flash_attention_lse(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_lse(q, q.bfloat16(), q)
+    with pytest.raises(TypeError):
+        fa.flash_decode_attention(q[:, :, :1].bfloat16(), q.bfloat16(),
+                                  q.bfloat16())
+    wide = _randn(gen, 1, 2, 16, 136)
+    with pytest.raises(ValueError):
+        fa.flash_attention_lse(wide, wide, wide)
+    odd = _randn(gen, 1, 2, 16, 20)
+    with pytest.raises(ValueError):
+        fa.flash_decode_attention(odd[:, :, :1].contiguous(), odd, odd)
     strided = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         fa.flash_attention_lse(strided, strided, strided)
@@ -265,7 +337,7 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take():
 
 
 def test_engine_on_card_matches_plain_reference():
-    # head_dim 32: the kernels take head_dim 32, 64 or 128
+    # head_dim 32 (GPTConfig.tiny's 16 runs too, zero-padded to 32)
     cfg = tgpt.GPTConfig.tiny(num_heads=2, use_flash_attention=True,
                               max_position_embeddings=64)
     model = tgpt.GPTLM(cfg)                   # default device: the card
@@ -430,3 +502,47 @@ def test_program_train_step_on_card_matches_cpu():
     for name, p in p_cuda.items():
         torch.testing.assert_close(p, p_cpu[name], atol=1e-4, rtol=0,
                                    msg=name)
+
+
+def test_amp_program_step_on_card_matches_cpu():
+    """The AMP program (``build_gpt_lm_train(use_amp=True)``, 12 narrow
+    layers, head_dim 16, zero-padded to 32 in the kernels; dropout 0) on
+    the card through the bf16 flash kernels and cuBLAS bf16 products, and
+    on the CPU through the plain versions, from the same weights: each
+    flash kernel launches 12 times a step with bf16 operands, no forward
+    is replayed, and three losses agree within 2e-2 relative (bf16
+    products summed in other orders on either side) while falling."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+
+    cfg = tgpt.GPTConfig.tiny(num_layers=12, use_flash_attention=True,
+                              max_position_embeddings=64, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    feed = _train_feed(3, 64, cfg.vocab_size)
+    arrays = tgpt.init_fluid_params(cfg, seed=4)
+    runs = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        with fluid.unique_name.guard():
+            main, startup, _f, loss = tgpt.build_gpt_lm_train(
+                cfg, 64, learning_rate=1e-3, use_amp=True)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        tgpt.load_fluid_scope(scope, arrays)
+        n0 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        r0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        runs[str(place)] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                          scope=scope)[0].reshape(-1)[0])
+                            for _ in range(3)]
+        n1 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        want = 3 * cfg.num_layers if isinstance(place, fluid.CUDAPlace) else 0
+        assert [b - a for a, b in zip(n0, n1)] == [want] * 3
+        assert profiler.get_counter(registry.REPLAY_COUNTER) == r0
+    card, cpu = runs["CUDAPlace(0)"], runs["CPUPlace"]
+    np.testing.assert_allclose(card, cpu, rtol=2e-2)
+    assert card[2] < card[0] and cpu[2] < cpu[0]

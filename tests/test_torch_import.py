@@ -51,6 +51,23 @@ for fn in (framework.Program, framework.program_guard, executor.Executor,
            gpt.build_gpt_lm_train, gpt.gpt_decoder, gpt.load_fluid_scope,
            bert.multi_head_attention, bert._dropout, bert.flash_engages):
     assert callable(fn)
+# the AMP slice
+from paddle_tpu_torch.fluid import ir
+from paddle_tpu_torch.fluid.contrib import mixed_precision
+from paddle_tpu_torch.fluid.contrib.mixed_precision import fp16_lists, fp16_utils
+from paddle_tpu_torch.fluid.ops import controlflow_ops, registry
+from paddle_tpu_torch.tools import lowp_limits
+for fn in (lowp_limits.out_bound, lowp_limits.grad_bounds,
+           lowp_limits.planted_faults, mixed_precision.decorate, mixed_precision.AutoMixedPrecisionLists,
+           fp16_utils.rewrite_program, fp16_utils.update_loss_scaling,
+           fp16_utils.cast_parameters_to_bf16, ir.get_pass, ir.PassBuilder,
+           ir.IrGraph, layers.isfinite, layers.where, layers.logical_and,
+           layers.greater_equal, bert.linear, fluid.contrib.decorate):
+    assert callable(fn)
+for op_type in ("cast", "isfinite", "where", "greater_equal", "logical_and",
+                "logical_not", "relu"):
+    assert registry.has_op(op_type), op_type
+assert "amp_rewrite_pass" in ir.all_registered_passes()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))

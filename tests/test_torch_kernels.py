@@ -9,6 +9,7 @@ a few dozen fp32 terms of magnitude ~1, so honest differences are
 ~1e-6 while a masking or indexing error is O(0.1)).
 """
 
+import functools
 import importlib
 
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ import paddle_tpu.fluid as fluid
 from paddle_tpu_torch.fluid.ops import math_ops as tmath
 from paddle_tpu_torch.fluid.ops import nn_ops as tnn
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.tools import lowp_limits as lowp
 
 # the reference package re-exports the function under the module's name
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
@@ -485,3 +487,107 @@ def test_flash_attention_op_vjp_matches_autograd():
     torch.testing.assert_close(out, out2.detach(), atol=0, rtol=0)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# (B, N, S, D, causal, key bias, per-head general bias, dropout rate)
+_LOW_CASES = {
+    "d16_causal_key_bias": (2, 2, 32, 16, True, True, False, 0.0),
+    "d48_causal_key_bias_dropout": (2, 2, 40, 48, True, True, False, 0.1),
+    "d64_key_bias_general_bias": (2, 2, 32, 64, False, True, True, 0.0),
+    "d48_causal_general_bias_dropout": (1, 2, 24, 48, True, False, True, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LOW_CASES))
+def test_flash_plain_bf16_matches_jax_kernels(case):
+    """The plain versions on bf16 inputs against the Pallas kernels in
+    interpret mode on the same bf16 inputs: the forward, then both
+    backward kernels (``jax.vjp`` through the custom VJP) against the
+    port's residual backward driven by the JAX forward's out and lse.
+
+    lse, dkey_bias and dbias are fp32: within 1e-4. dq, dk and dv round
+    ds and p at the kernels' points and sum exact bf16 products in fp32,
+    as XLA's CPU dots do in the same order: equal bit for bit. out: the
+    Pallas kernel rounds the running, unnormalised p to bf16 before P·V,
+    the plain version the normalised softmax (as the reference's dense
+    fallback does), so out is held to the limits of
+    ``tools/lowp_limits.py``: per element the bound of those roundings,
+    per 64-row block 1 eps of relative norm (read: ~0.41 eps). The
+    dropout hash is the same bit for bit
+    (``test_dropout_hash_and_seed_bit_identical``)."""
+    import jax
+
+    B, N, S, D, causal, with_kb, with_bias, rate = _LOW_CASES[case]
+    rs = np.random.RandomState(D + S)
+    q, k, v, g = (_randn(rs, B, N, S, D) for _ in range(4))
+    kb = None
+    if with_kb:
+        kb = np.zeros((B, S), np.float32)
+        kb[-1, S // 2:] = -1e4
+    bias = _randn(rs, 1, N, S, S) * 0.3 if with_bias else None
+    seed = 77 if rate else None
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    j_kb = None if kb is None else jnp.asarray(kb)
+
+    def fwd(a, b, c, *bias_arg):
+        return jfa.flash_attention_lse(
+            a, b, c, key_bias=j_kb, bias=bias_arg[0] if bias_arg else None,
+            causal=causal, dropout_rate=rate, dropout_seed=seed,
+            interpret=True)
+
+    args = (jq, jk, jv) + ((jnp.asarray(bias),) if with_bias else ())
+    (j_out, j_lse), vjp = jax.vjp(fwd, *args)
+    j_grads = vjp((jg, jnp.zeros_like(j_lse)))
+    tq, tk, tv, tg = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+                      for a in (jq, jk, jv, jg))
+    t_kb = None if kb is None else torch.from_numpy(kb)
+    t_bias = None if bias is None else torch.from_numpy(bias)
+    kw = dict(causal=causal, dropout_rate=rate, bias=t_bias)
+    out, lse = tfa.flash_attention_lse(tq, tk, tv, key_bias=t_kb,
+                                       dropout_seed=seed, **kw)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want_out = torch.from_numpy(np.asarray(j_out, np.float32))
+    bound = lowp.out_bound(torch.bfloat16, tq, tk, tv, want_out,
+                           key_bias=t_kb, dropout_seed=seed, **kw)
+    lowp.check("out", lowp.out_ratios(torch.bfloat16, out, want_out, bound))
+    _close(lse, j_lse, atol=1e-4, rtol=1e-4)
+    res_out = want_out.bfloat16()
+    res_lse = torch.from_numpy(np.array(j_lse))
+    got = tfa.flash_attention_bwd_from_residuals(tq, tk, tv, t_kb, seed,
+                                                 res_out, res_lse, tg, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got[:3], j_grads[:3]):
+        assert a.dtype == torch.bfloat16, name
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(w, np.float32), err_msg=name)
+    if with_bias:
+        assert got[4].dtype == torch.float32
+        _close(got[4].reshape(bias.shape), j_grads[3], atol=1e-4, rtol=1e-4)
+    if with_kb:
+        # the key bias's gradient: [B·N, Sk] fp32, the reference's
+        # dkey_bias from its residual entry (bf16 inputs, fp32 out)
+        j_dkb = jfa.flash_attention_bwd_from_residuals(
+            jq, jk, jv, j_kb, seed, j_out, j_lse, jg, causal=causal,
+            dropout_rate=rate, interpret=True)[3] if not with_bias else None
+        if j_dkb is not None:
+            assert got[3].dtype == torch.float32
+            _close(got[3], j_dkb, atol=1e-4, rtol=1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _planted_faults():
+    return lowp.planted_faults(N=2, S=256)
+
+
+@pytest.mark.parametrize("fault", [
+    "late_rows_2pct", "first_key_tile_skipped", "diagonal_tile_skipped",
+    "one_key_dropped", "ds_p_unrounded"])
+def test_lowp_limits_catch_planted_faults(fault):
+    """The limits the bf16 kernels are held to (``tools/lowp_limits.py``)
+    fail each planted fault on at least one output, with the plain
+    version on the same inputs as the correct side (causal, a padded key
+    tail, dropout 0.1, [1, 2, 256, 64] bf16). The forward's p left
+    unrounded is the one fault they cannot see: it moves out by less than
+    the two sides' roundings of p already do."""
+    ratios = _planted_faults()[fault]
+    assert max(ratios.values()) > 1.0, ratios
+    assert max(_planted_faults()["p_unrounded"].values()) <= 1.0

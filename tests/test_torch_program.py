@@ -428,8 +428,18 @@ def test_load_fluid_scope_checks_names_and_shapes():
 
 
 def test_program_builder_rejects_what_it_does_not_port():
-    with pytest.raises(NotImplementedError):
-        tgpt.build_gpt_lm_train(_cfg(tgpt, True), T, use_amp=True)
+    """``use_amp`` builds and runs (the AMP program; held against the
+    reference in ``test_torch_amp.py``); recompute checkpoints still
+    raise."""
+    with tfluid.unique_name.guard():
+        main, startup, _feeds, loss = tgpt.build_gpt_lm_train(
+            _cfg(tgpt, True), T, use_amp=True)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    value = exe.run(main, feed=_feed(), fetch_list=[loss], scope=scope)[0]
+    assert np.isfinite(value).all()
+    assert _ops(main)["cast"] > 0
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data(name="x", shape=[3], dtype="float32")

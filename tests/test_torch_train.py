@@ -217,10 +217,30 @@ def test_train_mode_drops_and_serving_does_not():
     assert not torch.equal(t1, t2) and not torch.equal(t1, e1)
 
 
+def test_eager_use_amp_builds_and_runs():
+    """The eager AMP step builds and runs: a finite loss, fp32 parameters
+    and optimizer state after the update."""
+    cfg = tgpt.GPTConfig.tiny(use_flash_attention=True,
+                              max_position_embeddings=T)
+    model, opt, _names, step = tgpt.build_gpt_lm_train_eager(
+        cfg, T, use_amp=True, device="cpu")
+    loss = step(_feed())
+    assert np.isfinite(loss)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(m.dtype == torch.float32 for m in opt.state()["moment1"])
+
+
 def test_use_amp_raises():
-    with pytest.raises(NotImplementedError):
-        tgpt.build_gpt_lm_train_eager(tgpt.GPTConfig.tiny(), T,
-                                      use_amp=True, device="cpu")
+    """The eager AMP step refuses a feed of another length than it was
+    built for, as the fp32 step does, and takes no update from it."""
+    cfg = tgpt.GPTConfig.tiny(use_flash_attention=True,
+                              max_position_embeddings=T)
+    model, _opt, _names, step = tgpt.build_gpt_lm_train_eager(
+        cfg, T - 1, use_amp=True, device="cpu")
+    before = [p.detach().clone() for p in model.parameters()]
+    with pytest.raises(ValueError):
+        step(_feed())
+    assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
 
 
 # ---------------------------------------------------------------------------
