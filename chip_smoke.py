@@ -79,8 +79,13 @@ The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
 [1, 12, 1024, 1024] and the [1024, 1024] bias; the bf16 forms of the
 three training kernels at the train shape (timed, with their bf16 bound
-and SDPA in bf16 beside them); fp16 and bf16 at small shapes; and a head
-dim of 48 on all five kernels, each against its plain version.
+and SDPA in bf16 beside them; the forward and dk/dv on the tensor
+cores); the bf16 forms of both decode kernels at their serving shapes
+(timed beside SDPA in bf16, held to ``lowp_limits.out_bound``); fp16 and
+bf16 at small shapes; a head dim of 48 on all five kernels; and both
+decode kernels at head dims 200, 256, 20 and 3 in fp32 and bf16, each
+against its plain version. The amp_train phase reports the flash
+kernels' device ms a step, by kernel.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -90,6 +95,7 @@ before printing anything.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -234,6 +240,9 @@ def bound_ms(nbytes, flops, peaks, flops_rate=None):
 
 # dense bf16/fp16 tensor-core peak of the H100 SXM (NVIDIA's data sheet)
 BF16_PEAK = 989e12
+# the bf16 training kernels: how each computes
+BF16_DESIGN = {"flash_fwd": "mma.sync", "flash_bwd_dq": "scalar (CUDA cores)",
+               "flash_bwd_dkv": "mma.sync"}
 
 
 def max_err(a, b):
@@ -245,6 +254,22 @@ def check_close(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
     if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
         raise AssertionError("%s disagrees with its plain version: max abs "
                              "err %.3g" % (name, max_err(got, want)))
+
+
+def decode_lowp_ratio(name, got, want, q, k, v, key_bias, scale):
+    """A bf16 or fp16 decode kernel's out against its plain version's,
+    per element within ``lowp_limits.out_bound`` at rate 0 (the kernel
+    rounds the running p, the plain version the normalised one); ``k``
+    and ``v`` are the cache rows it reads. Returns the largest ratio
+    (1 or less passes) and raises above 1."""
+    from paddle_tpu_torch.tools import lowp_limits as lowp
+
+    if got.dtype != q.dtype:
+        raise AssertionError("%s returned %s" % (name, got.dtype))
+    bound = lowp.out_bound(q.dtype, q, k, v, want, key_bias=key_bias,
+                           scale=scale)
+    return lowp.check(name, {
+        "elem": lowp.out_ratios(q.dtype, got, want, bound)["elem"]})
 
 
 def event_ms(fn, reps=10):
@@ -351,10 +376,37 @@ def kernel_flash_decode(dev, peaks):
     # q, o [B, N, D]; k, v [B, N, S, D]; key bias [B, S]
     nbytes = 4 * (2 * BN * D + 2 * BN * S * D + B * S)
     bms, by = bound_ms(nbytes, 4 * D * BN * S, peaks)
+    # the bf16 form on the same inputs rounded to bf16: within out_bound
+    dt = torch.bfloat16
+    args16 = [(q.to(dt), k.to(dt), v.to(dt), kb) for k, v in kvs]
+    ratio = err16 = 0.0
+    for a, b, c, d in args16:
+        out = fa.flash_decode_attention(a, b, c, d, scale=scale)
+        ref = fa.flash_decode_attention_plain(a, b, c, key_bias=d,
+                                              scale=scale)
+        torch.cuda.synchronize()
+        ratio = max(ratio, decode_lowp_ratio("flash_decode[bf16]", out, ref,
+                                             a, b, c, d, scale))
+        err16 = max(err16, max_err(out, ref))
+    ms16, spread16 = cuda_ms(lambda a, b, c, d: fa.flash_decode_attention(
+        a, b, c, d, scale=scale), args16)
+    plain16, _ = cuda_ms(lambda a, b, c, d: fa.flash_decode_attention_plain(
+        a, b, c, key_bias=d, scale=scale), args16)
+    mask16 = sdpa_mask.to(dt)
+    lib16, _ = cuda_ms(
+        lambda a, b, c, d: torch.nn.functional.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask16, scale=scale), args16)
+    bms16, by16 = bound_ms(2 * (2 * BN * D + 2 * BN * S * D) + 4 * B * S,
+                           4 * D * BN * S, peaks, BF16_PEAK)
     fa.flash_decode_attention.launches = 0
     return worst, {"max_abs_err": worst, "ms": ms, "ms_window_spread": spread,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bms, "bound_by": by}
+                   "bound_ms": bms, "bound_by": by,
+                   "bf16": {"max_abs_err": err16, "out_bound_ratio": ratio,
+                            "ms": ms16,
+                            "ms_window_spread": spread16,
+                            "plain_ms": plain16, "library_ms": lib16,
+                            "bound_ms": bms16, "bound_by": by16}}
 
 
 def kernel_flash_decode_paged(dev, peaks):
@@ -412,6 +464,33 @@ def kernel_flash_decode_paged(dev, peaks):
     # int32; key bias [B, S]
     nbytes = 4 * (2 * BN * D + 2 * mapped * N * blk * D + B * MB + B * S)
     bms, by = bound_ms(nbytes, 4 * D * BN * S, peaks)
+    dt = torch.bfloat16
+    args16 = [(q.to(dt), k.to(dt), v.to(dt), tables, kb) for k, v in pools]
+    ratio = err16 = 0.0
+    for a, b, c, t, d in args16:
+        out = fa.flash_decode_paged_attention(a, b, c, t, d, scale=scale)
+        ref = fa.flash_decode_paged_attention_plain(a, b, c, t, key_bias=d,
+                                                    scale=scale)
+        torch.cuda.synchronize()
+        rows = [fa.gather_paged_rows(x, t) for x in (b, c)]
+        ratio = max(ratio, decode_lowp_ratio("flash_decode_paged[bf16]", out,
+                                             ref, a, rows[0], rows[1], d,
+                                             scale))
+        err16 = max(err16, max_err(out, ref))
+    ms16, spread16 = cuda_ms(
+        lambda a, b, c, t, d: fa.flash_decode_paged_attention(
+            a, b, c, t, d, scale=scale), args16)
+    plain16, _ = cuda_ms(
+        lambda a, b, c, t, d: fa.flash_decode_paged_attention_plain(
+            a, b, c, t, key_bias=d, scale=scale), args16)
+    mask16 = sdpa_mask.to(dt)
+    lib16, _ = cuda_ms(
+        lambda a, b, c, t, d: torch.nn.functional.scaled_dot_product_attention(
+            a, fa.gather_paged_rows(b, t), fa.gather_paged_rows(c, t),
+            attn_mask=mask16, scale=scale), args16)
+    bms16, by16 = bound_ms(2 * (2 * BN * D + 2 * mapped * N * blk * D)
+                           + 4 * (B * MB + B * S), 4 * D * BN * S, peaks,
+                           BF16_PEAK)
     fa.flash_decode_paged_attention.launches = 0
     return worst, {"max_abs_err": worst, "ms": ms, "ms_window_spread": spread,
                    "plain_ms": plain_ms, "library_ms": None,
@@ -421,7 +500,13 @@ def kernel_flash_decode_paged(dev, peaks):
                                         "scaled_dot_product_attention",
                    "bound_ms": bms, "bound_by": by, "mapped_blocks": mapped,
                    "shape": {"q": [B, N, 1, D], "pool": [NB, N, blk, D],
-                             "tables": [B, MB]}}
+                             "tables": [B, MB]},
+                   "bf16": {"max_abs_err": err16, "out_bound_ratio": ratio,
+                            "ms": ms16,
+                            "ms_window_spread": spread16,
+                            "plain_ms": plain16, "library_ms": None,
+                            "gather_sdpa_ms": lib16, "bound_ms": bms16,
+                            "bound_by": by16}}
 
 
 def kernel_flash_train(dev, peaks):
@@ -769,6 +854,14 @@ def kernel_flash_train_bf16(dev, peaks):
     yard = event_ms(sdpa_fwd_bwd)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         rows[name]["sdpa_fwd_bwd_ms"] = yard
+    for name, r in rows.items():
+        if not isinstance(r, dict) or "ms" not in r:
+            continue
+        r["design"] = BF16_DESIGN[name]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        # forward: against SDPA's forward; backward kernels: against
+        # SDPA's forward + backward, the nearest one-call yardstick
+        r["sdpa_ratio"] = r["ms"] / (r["library_ms"] or r["sdpa_fwd_bwd_ms"])
     rows["shape"] = [B, N, T, D]
     rows["dtype"] = "bf16"
     rows["dropout_rate"] = rate
@@ -780,8 +873,10 @@ def kernel_other_forms(dev):
     """fp16 once at a small shape (with a general bias), bf16 at a ragged
     one, and a head dim of 48 (not instantiated: the training kernels pad
     it to 64, the decode kernels have a D = 48 instantiation) on all five
-    kernels in fp32, each against its plain version. Returns max abs
-    errors by check."""
+    kernels in fp32; then both decode kernels at D = 200 and 256 and at
+    the ragged D = 20 and 3, in fp32 and bf16; each against its plain
+    version. Returns max abs errors (bf16 decode: out_bound ratios) by
+    check."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator().manual_seed(7)
@@ -840,6 +935,50 @@ def kernel_other_forms(dev):
     check_close("flash_decode_paged D=48", pdec, rpdec)
     out["fp32_d48_decode"] = {"flash_decode": max_err(dec, rdec),
                               "flash_decode_paged": max_err(pdec, rpdec)}
+    # the decode kernels past D = 128 and off the multiples of 8 (the
+    # run-time-D instantiation), fp32 at the kernel tolerance and bf16
+    # within lowp_limits.out_bound
+    S = 300
+    for D in (200, 256, 20, 3):
+        for dt in (torch.float32, torch.bfloat16):
+            q1 = torch.randn(B, N, 1, D, generator=gen).to(dev, dt)
+            k, v = (torch.randn(B, N, S, D, generator=gen).to(dev, dt)
+                    for _ in range(2))
+            dkb = torch.zeros(B, S)
+            dkb[1, 111:] = -1e4
+            dkb = dkb.to(dev)
+            MB = (S + blk - 1) // blk
+            pools = [torch.randn(B * MB + 1, N, blk, D, generator=gen)
+                     .to(dev, dt) for _ in range(2)]
+            tables = (torch.randperm(B * MB, generator=gen) + 1).reshape(
+                B, MB).to(torch.int32).to(dev)
+            pkb = torch.zeros(B, MB * blk)
+            pkb[0, 50:] = -1e4
+            pkb = pkb.to(dev)
+            dec = fa.flash_decode_attention(q1, k, v, dkb)
+            rdec = fa.flash_decode_attention_plain(q1, k, v, key_bias=dkb)
+            pdec = fa.flash_decode_paged_attention(q1, pools[0], pools[1],
+                                                   tables, pkb)
+            rpdec = fa.flash_decode_paged_attention_plain(
+                q1, pools[0], pools[1], tables, key_bias=pkb)
+            torch.cuda.synchronize()
+            name = "%s_d%d_decode" % ("fp32" if dt == torch.float32
+                                      else "bf16", D)
+            if dt == torch.float32:
+                check_close("flash_decode D=%d" % D, dec, rdec)
+                check_close("flash_decode_paged D=%d" % D, pdec, rpdec)
+                out[name] = {"flash_decode": max_err(dec, rdec),
+                             "flash_decode_paged": max_err(pdec, rpdec)}
+            else:
+                rows = [fa.gather_paged_rows(x, tables) for x in pools]
+                scale = 1.0 / np.sqrt(D)
+                out[name] = {
+                    "flash_decode_out_bound_ratio": decode_lowp_ratio(
+                        "flash_decode[bf16] D=%d" % D, dec, rdec, q1, k, v,
+                        dkb, scale),
+                    "flash_decode_paged_out_bound_ratio": decode_lowp_ratio(
+                        "flash_decode_paged[bf16] D=%d" % D, pdec, rpdec, q1,
+                        rows[0], rows[1], pkb, scale)}
     zero_flash_launches()
     fa.flash_decode_attention.launches = 0
     fa.flash_decode_paged_attention.launches = 0
@@ -1022,12 +1161,17 @@ def _profile(fn, reps):
     by_class = {"gemm": 0.0, "flash": 0.0, "copy": 0.0, "other": 0.0}
     launches_by_class = dict(by_class)
     gemm_kernels = {}
+    flash_ms = {}
     for us, n, key in dev_events:
         cls = _kernel_class(key)
         by_class[cls] += us / 1e3
         launches_by_class[cls] += n
         if cls == "gemm":
             gemm_kernels[key[:100]] = gemm_kernels.get(key[:100], 0.0) + us
+        if cls == "flash":
+            base = re.search(r"(flash_\w+?)_kernel", key)
+            base = base.group(1) if base else key[:60]
+            flash_ms[base] = flash_ms.get(base, 0.0) + us / 1e3
     return {
         "wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
         "device_busy_ms": busy_ms,
@@ -1042,6 +1186,7 @@ def _profile(fn, reps):
                       if _kernel_class(k) == "other"][:6],
         "flash_kernels": sorted({k[:90] for _us, _n, k in dev_events
                                  if "flash_" in k}),
+        "flash_ms_by_kernel": flash_ms,
         "top": [{"kernel": k[:70], "us": us, "calls": n}
                 for us, n, k in dev_events[:8]],
     }
@@ -1636,7 +1781,12 @@ def amp_train_phase(dev, fp32_step1_loss, fp32_grads):
             "program_launches": prog_launches,
             "eager_launches": eager_launches,
             "program_profile_step": prog_prof,
-            "eager_profile_step": eager_prof},
+            "eager_profile_step": eager_prof,
+            "flash_device_ms_per_step": {
+                "program": prog_prof["device_ms_by_class"]["flash"],
+                "eager": eager_prof["device_ms_by_class"]["flash"],
+                "program_by_kernel": prog_prof["flash_ms_by_kernel"],
+                "eager_by_kernel": eager_prof["flash_ms_by_kernel"]}},
         "dropout01": {"steps": TRAIN_STEPS, "losses": drop_losses,
                       "dropout": [cfg.hidden_dropout, cfg.attention_dropout],
                       "launches": launches},
@@ -1840,12 +1990,29 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "dtype": "bf16", "shape": bf16_rows["shape"],
+               "design": r["design"],
+               "bound_share": r["bound_share"], "sdpa_ratio": r["sdpa_ratio"],
                "limit_ratios": {o: bf16_rows["limit_ratios"][o] for o in
                                 {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
                                  "flash_bwd_dkv": ("dk", "dv")}[kname]}}
         if "sdpa_fwd_bwd_ms" in r:
             row["sdpa_fwd_bwd_ms"] = r["sdpa_fwd_bwd_ms"]
         return row
+
+    def decode_bf16_row(kname, row):
+        # no path of the port (nor of the reference) serves in bf16: the
+        # form is measured in the kernels phase alone, so it sits under
+        # its kernel's row with no launches of its own on a main path
+        r = row["bf16"]
+        return {"name": kname + "[bf16]", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
+                "launches": 0, "main_path": None,
+                "max_abs_err": r["max_abs_err"],
+                "out_bound_ratio": r["out_bound_ratio"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "gather_sdpa_ms": r.get("gather_sdpa_ms")}
 
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -1876,7 +2043,8 @@ def main():
          "launches": launches["flash_decode"], "max_abs_err": dec_err,
          "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
          "bound_ms": dec_row["bound_ms"], "bound_by": dec_row["bound_by"],
-         "library_ms": dec_row["library_ms"]},
+         "library_ms": dec_row["library_ms"],
+         "bf16": decode_bf16_row("flash_decode", dec_row)},
         {"name": "flash_decode_paged", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:459",
@@ -1884,7 +2052,8 @@ def main():
          "max_abs_err": paged_err, "ms": paged_row["ms"],
          "plain_ms": paged_row["plain_ms"], "bound_ms": paged_row["bound_ms"],
          "bound_by": paged_row["bound_by"],
-         "library_ms": paged_row["library_ms"]},
+         "library_ms": paged_row["library_ms"],
+         "bf16": decode_bf16_row("flash_decode_paged", paged_row)},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

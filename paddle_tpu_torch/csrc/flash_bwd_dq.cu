@@ -197,7 +197,7 @@ cudaError_t launch(const Args<T>& a, int bh, int dropout,
 // `stream`; nothing allocated or synchronised). `dropout` 0 ignores seed,
 // thresh and inv_keep; otherwise `inv_keep` is 1 / (1 - rate) as fp32.
 // `bias` null means no general bias (see flash_fwd.cu). q/k/v/dout/dq are
-// T; key_bias, bias, lse and delta fp32. `d` is 32, 64 or 128.
+// T; key_bias, bias, lse and delta fp32. `d` is 32, 64, 128 or 256.
 template <typename T>
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* key_bias, const void* bias, const void* dout,
@@ -237,6 +237,8 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
       return (int)launch<T, 64, 64>(a, bh, dropout, s);
     case 128:
       return (int)launch<T, 128, 32>(a, bh, dropout, s);
+    case 256:
+      return (int)launch<T, 256, 16>(a, bh, dropout, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

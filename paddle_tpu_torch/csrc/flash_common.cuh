@@ -1,9 +1,12 @@
-// Pieces shared by the flash-attention training kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu), so that the forward and both
+// Pieces shared by the flash-attention kernels (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu, and the decode kernels'
+// flash_decode.cu and flash_decode_paged.cu), so that the forward and both
 // backward kernels can never disagree on masking, on the dropout mask or
-// on where a low-precision form rounds.
+// on where a low-precision form rounds. The tensor-core forms add
+// flash_mma.cuh.
 //
-// Layout of all three: one block of 256 threads owns a 64-row tile (query
+// Layout of the three fp32 training kernels (and of dq in every type): one
+// block of 256 threads owns a 64-row tile (query
 // rows in the forward and dq kernels, key rows in the dk/dv kernel); four
 // threads share a row, each holding D/4 of its dimensions as float4s
 // (d = 16c + 4*lane), so shared-memory rows are read as 16-byte vectors
@@ -14,21 +17,28 @@
 //
 // Element types. q/k/v/o and dO/dq/dk/dv are fp32, bf16 or fp16 (all of
 // one call in one type); lse, delta, the key bias, the general bias and
-// their gradients stay fp32. A low-precision operand is widened to fp32
-// as it is loaded (four elements, one 8-byte access) and every product
-// and sum runs in fp32: a bf16 or fp16 product is exact in fp32, so this
-// is the reference's bf16 x bf16 -> fp32 dot up to the order of the sum.
+// their gradients stay fp32. The scalar fwd and dk/dv kernels are fp32
+// only: their bf16/fp16 forms are the tensor-core kernels, which feed the
+// 16-bit operands to the tensor cores as they are, with fp32 accumulators
+// (flash_mma.cuh). The dq and decode kernels take all three types on the
+// CUDA cores: a low-precision operand is widened to fp32 as it is loaded
+// (four elements, one 8-byte access) and every product and sum runs in
+// fp32. A bf16 or fp16 product is exact in fp32, so either way this is the
+// reference's bf16 x bf16 -> fp32 dot up to the order of the sum.
 // Where the reference rounds an fp32 intermediate to the operand type
 // before a dot (p before P.V, ds before ds.K and ds^T.Q, keep*p/keep
-// before P^T.dO), the kernels round with `round_to<T>`, the identity for
-// fp32. Outputs are rounded to T once, at the store. Conversions go
-// through the CUDA intrinsics only.
+// before P^T.dO), the CUDA-core kernels round with `round_to<T>`, the
+// identity for fp32, and the tensor-core kernels round the same values
+// as they repack them into fragments. Outputs are rounded to T once, at
+// the store. Conversions go through the CUDA intrinsics only.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -61,22 +71,32 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// Four 16-bit values packed in 8 bytes (the lower index in the low half),
+// widened to fp32 exactly.
+template <typename T>
+__device__ __forceinline__ float4 widen(const uint2& u);
+
+template <>
+__device__ __forceinline__ float4 widen<__nv_bfloat16>(const uint2& u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <>
+__device__ __forceinline__ float4 widen<__half>(const uint2& u) {
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(
-      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.x & 0xffffu))),
-      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.x >> 16))),
-      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.y & 0xffffu))),
-      __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.y >> 16))));
+  return widen<__nv_bfloat16>(__ldg(reinterpret_cast<const uint2*>(p)));
 }
 
 __device__ __forceinline__ float4 load4(const __half* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(
-      __half2float(__ushort_as_half((unsigned short)(u.x & 0xffffu))),
-      __half2float(__ushort_as_half((unsigned short)(u.x >> 16))),
-      __half2float(__ushort_as_half((unsigned short)(u.y & 0xffffu))),
-      __half2float(__ushort_as_half((unsigned short)(u.y >> 16))));
+  return widen<__half>(__ldg(reinterpret_cast<const uint2*>(p)));
 }
 
 // Four fp32 values stored at `p` in the element type, rounded to nearest
@@ -106,6 +126,30 @@ __device__ __forceinline__ void store4(__half* p, const float4& v) {
   u.x = pack2(__float2half_rn(v.x), __float2half_rn(v.y));
   u.y = pack2(__float2half_rn(v.z), __float2half_rn(v.w));
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// One element as fp32, and one fp32 value rounded to nearest even in T.
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // An fp32 intermediate rounded to the operand type T and widened back:
@@ -149,6 +193,83 @@ __device__ __forceinline__ bool hash_keep(unsigned row_h, unsigned col,
   n *= 0x297A2D39u;
   n ^= n >> 15;
   return n < thresh;
+}
+
+// --- the decode kernels (flash_decode.cu, flash_decode_paged.cu) ---
+//
+// Threads of a key row: each holds kP four-element pieces of the row, piece
+// p at elements 4 (p lanes + lane) .. + 3, so a warp reads consecutive
+// 16-byte (fp32) or 8-byte (bf16, fp16) pieces. One piece a lane up to D =
+// 128 (D/4 lanes), two past it (D/8 lanes): a row's lanes, padded to a
+// power of two, stay within one warp, whose shuffles sum its dot product.
+// The kernel that takes D at run time (D = 0) holds two.
+
+// The smallest power of two >= n: the shuffle reduction over a key row's
+// threads needs a power-of-two group.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+__host__ __device__ constexpr int decode_pieces(int D) {
+  return D > 0 && D <= 128 ? 1 : 2;
+}
+
+__host__ __device__ constexpr int decode_lanes(int d) {
+  return pow2_at_least(d <= 128 ? (d + 3) / 4 : (d + 7) / 8);
+}
+
+// A piece at `p` holding `n` (>= 1) of the row's elements, as fp32: one
+// vector load when D is a compile-time multiple of 8 (n >= 4 then), else
+// element by element with those past n read as zero.
+template <typename T, int D>
+__device__ __forceinline__ float4 load_piece(const T* p, int n) {
+  if constexpr (D > 0) {
+    return load4(p);
+  } else {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = i < n ? to_float(__ldg(p + i)) : 0.f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// The loop's K and V pieces as loaded, widened to fp32 only where they
+// are used, so that nothing between a pass's loads waits on one of them:
+// 8 raw bytes for the 16-bit types at a compile-time D, else the fp32
+// piece itself.
+template <typename T, int D>
+using RawPiece = typename std::conditional<(D > 0 && sizeof(T) == 2), uint2,
+                                           float4>::type;
+
+template <typename T, int D>
+__device__ __forceinline__ RawPiece<T, D> load_raw(const T* p, int n) {
+  if constexpr (D > 0 && sizeof(T) == 2) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  } else {
+    return load_piece<T, D>(p, n);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ float4 widen_piece(const RawPiece<T, D>& x) {
+  if constexpr (D > 0 && sizeof(T) == 2) {
+    return widen<T>(x);
+  } else {
+    return x;
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_piece(T* p, const float4& v, int n) {
+  if constexpr (D > 0) {
+    store4(p, v);
+  } else {
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < n) p[i] = from_float<T>(x[i]);
+    }
+  }
 }
 
 }  // namespace flash

@@ -43,9 +43,9 @@ KERNELS = {
     "flash_bwd_dq": ("paddle_flash_bwd_dq", _ALL, [_P] * 9 + _FLASH_TAIL),
     "flash_bwd_dkv": ("paddle_flash_bwd_dkv", _ALL,
                       [_P] * 12 + _FLASH_TAIL),
-    "flash_decode": ("paddle_flash_decode", ("f32",),
+    "flash_decode": ("paddle_flash_decode", _ALL,
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "flash_decode_paged": ("paddle_flash_decode_paged", ("f32",),
+    "flash_decode_paged": ("paddle_flash_decode_paged", _ALL,
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P]),
 }

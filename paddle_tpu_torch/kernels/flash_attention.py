@@ -37,6 +37,14 @@ given CUDA tensors it launches its kernel or raises. There is no
 fallback from one to the other. Where a general ``bias`` is given, the
 backward entry points return its gradient dbias after their other
 outputs.
+
+Element types: every kernel takes fp32, bf16 or fp16 (one type for
+q/k/v, dO and the pools; lse, delta and the biases fp32). The training
+kernels take any head dim up to 256 (zero-padded to 32, 64, 128 or 256);
+their bf16 and fp16 forms of ``flash_fwd`` and ``flash_bwd_dkv`` run on
+the tensor cores (``mma.sync``), ``flash_bwd_dq`` and every fp32 form on
+the CUDA cores. The decode kernels take any head dim from 1 to 256 as it
+is (a pad would copy the cache every step).
 """
 
 import math
@@ -66,10 +74,12 @@ __all__ = [
 
 _NEG = -1e30
 # head dims the training kernels are instantiated for: any other D up to
-# 128 is zero-padded to the next one (``_pad_head_dim``); the decode
-# kernels take every multiple of 8 up to 128 as it is
-_TRAIN_HEAD_DIMS = (32, 64, 128)
-_DECODE_HEAD_DIMS = tuple(range(8, 129, 8))
+# 256 is zero-padded to the next one (``_pad_head_dim``). Past 256 they
+# raise: no model of either package goes there (GPT-2 and BERT-base use
+# 64), and the fp32 kernels' register-resident rows end there. The decode
+# kernels take every D up to ``_MAX_DECODE_HEAD_DIM`` as it is.
+_TRAIN_HEAD_DIMS = (32, 64, 128, 256)
+_MAX_DECODE_HEAD_DIM = 256
 # element types of q/k/v (and dO): the C entry point's suffix
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.float16: "f16"}
@@ -419,8 +429,14 @@ def flash_attention_bwd_plain(q, k, v, key_bias, seed, out, lse, g,
 
 
 def flash_decode_attention_plain(q, k, v, key_bias=None, scale=None):
-    """Plain PyTorch version of the decode kernel (the reference's dense
-    fallback): q [B, N, 1, D] against the cache k/v [B, N, S, D]."""
+    """Plain PyTorch version of the decode kernel: q [B, N, 1, D] against
+    the cache k/v [B, N, S, D], out in q's type. Scores are fp32 from the
+    operands of any float type and P·V sums in fp32 on p rounded to v's
+    type, as the training plain versions do; in fp32 this is the
+    reference's dense fallback. In bf16 and fp16 the kernels (as the
+    reference's) round the running, unnormalised p, this version the
+    normalised one: outs differ within ``tools/lowp_limits.out_bound`` at
+    rate 0."""
     B, N, Sq, D = q.shape
     Sk = k.shape[2]
     if Sq != 1:
@@ -428,11 +444,11 @@ def flash_decode_attention_plain(q, k, v, key_bias=None, scale=None):
             "flash_decode_attention is the single-query path, got Sq=%d" % Sq)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb = _normalize_key_bias(key_bias, B, N, Sk)
-    s = torch.einsum("bnqd,bnkd->bnqk", q, k).float() * scale
+    s = _scores(q, k, scale)
     if kb is not None:
         s = s + kb.reshape(B, N, 1, Sk)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bnqk,bnkd->bnqd", p.to(q.dtype), v)
+    return _dot(p, v, "bnqk,bnkd->bnqd").to(q.dtype)
 
 
 def gather_paged_rows(pool, tables):
@@ -500,13 +516,14 @@ def _kernel_bias(bias, B, N, Sq, Sk):
     return _bias_layout(bias, B, N, Sq, Sk)
 
 
-def _cuda_operands(name, data, fp32=()):
+def _cuda_operands(name, data, fp32=(), align=16):
     """Validate what the kernel takes, raise on anything else, and return
     the entry point's element-type suffix. ``data`` (q/k/v, dO; the
     pools) must share one of fp32, bf16 and fp16; ``fp32`` (lse, delta,
     the biases; None entries skipped) must be fp32. All contiguous and
-    on one CUDA device; ``data`` aligned to four elements (the kernels
-    read four at a time)."""
+    on one CUDA device; ``data`` aligned to ``align`` bytes (the training
+    kernels copy 16 bytes at a time; the decode kernels read four
+    elements at a time, or one where D is not a multiple of 8)."""
     dev = data[0].device
     if dev.type != "cuda":
         raise ValueError("%s kernel runs on CUDA tensors, got %s" % (name, dev))
@@ -529,15 +546,15 @@ def _cuda_operands(name, data, fp32=()):
         if not t.is_contiguous():
             raise ValueError("%s kernel needs contiguous operands" % name)
     for t in data:
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError("%s kernel needs q/k/v/dO aligned to four "
-                             "elements" % name)
+        if t.data_ptr() % align:
+            raise ValueError("%s kernel needs q/k/v/dO aligned to %d bytes"
+                             % (name, align))
     return _KERNEL_DTYPES[dtype]
 
 
 def _train_head_dim(name, D):
     """The instantiated head dim a training kernel runs D at: D itself or
-    the next of ``_TRAIN_HEAD_DIMS``; raises past 128."""
+    the next of ``_TRAIN_HEAD_DIMS``; raises past 256."""
     for width in _TRAIN_HEAD_DIMS:
         if 1 <= D <= width:
             return width
@@ -554,10 +571,14 @@ def _pad_head_dim(width, *tensors):
             for t in tensors]
 
 
-def _decode_head_dim(name, D):
-    if D not in _DECODE_HEAD_DIMS:
-        raise ValueError("%s kernel supports head_dim 8..128 in steps of 8, "
-                         "got %d" % (name, D))
+def _decode_align(name, D, size):
+    """Bytes the decode kernels need q and the cache aligned to at head
+    dim D (four elements of ``size`` bytes where D is a multiple of 8,
+    one otherwise); raises outside 1..256."""
+    if not 1 <= D <= _MAX_DECODE_HEAD_DIM:
+        raise ValueError("%s kernel supports head_dim 1..%d, got %d"
+                         % (name, _MAX_DECODE_HEAD_DIM, D))
+    return size * (4 if D % 8 == 0 else 1)
 
 
 def _ptr(t):
@@ -591,9 +612,10 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
 
     The wrapper of the ``flash_fwd`` CUDA kernel. CPU tensors run the
     plain version (``flash_attention_lse_plain``). CUDA tensors launch
-    the kernel on the current stream (q/k/v contiguous, all fp32, bf16 or
-    fp16; out in their type, lse fp32; any head_dim up to 128, zero-padded
-    to 32, 64 or 128 with ``scale`` from the real one) or raise: the
+    the kernel on the current stream (q/k/v contiguous and 16-byte
+    aligned, all fp32, bf16 or fp16; out in their type, lse fp32; any
+    head_dim up to 256, zero-padded to 32, 64, 128 or 256 with ``scale``
+    from the real one; bf16 and fp16 on the tensor cores) or raise: the
     kernel takes a key bias, the general ``bias`` in every broadcast
     form, the causal flag and the hash dropout.
     ``flash_attention_lse.launches`` counts kernel launches."""
@@ -673,7 +695,7 @@ def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
     plain version (``flash_bwd_dq_plain``); CUDA tensors launch the
     kernel on the current stream (q/k/v/dO contiguous in one of fp32,
     bf16 and fp16, dq in their type; lse and delta fp32; any head_dim up
-    to 128, zero-padded as in ``flash_attention_lse``) or raise.
+    to 256, zero-padded as in ``flash_attention_lse``) or raise.
     ``flash_bwd_dq.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta,
@@ -711,10 +733,11 @@ def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
     plain version (``flash_bwd_dkv_plain``); CUDA tensors launch the
     kernel on the current stream (q/k/v/dO contiguous in one of fp32,
     bf16 and fp16, dk and dv in their type; lse, delta, dkey_bias and
-    dbias fp32; any head_dim up to 128, zero-padded as in
-    ``flash_attention_lse``) or raise. dbias is zeroed first, then stored
-    per head (G = B·N) or added atomically (shared rows, in no fixed
-    order). ``flash_bwd_dkv.launches`` counts kernel launches."""
+    dbias fp32; any head_dim up to 256, zero-padded as in
+    ``flash_attention_lse``; bf16 and fp16 on the tensor cores) or raise.
+    dbias is zeroed first, then stored per head (G = B·N) or added
+    atomically (shared rows, in no fixed order).
+    ``flash_bwd_dkv.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, key_bias, g, lse, delta,
                                    causal=causal, scale=scale,
@@ -784,13 +807,13 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
     [B, N, 1, D], against the fixed-shape cache k/v [B, N, S, D].
     ``key_bias`` ([B, S] / [B*N, S] / broadcastable) carries all masking
     (-1e4 at positions at or past each slot's live length). Forward only,
-    fp32 accumulation.
+    fp32 accumulation, out in q's type.
 
     The wrapper of the ``flash_decode`` CUDA kernel. CPU tensors run the
     plain version (``flash_decode_attention_plain``); CUDA tensors launch
-    the kernel on the current stream (fp32, contiguous, head_dim a
-    multiple of 8 up to 128) or raise. ``flash_decode_attention.launches``
-    counts kernel launches."""
+    the kernel on the current stream (q/k/v contiguous in one of fp32,
+    bf16 and fp16, any head_dim from 1 to 256) or raise.
+    ``flash_decode_attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k, v, key_bias=key_bias,
                                             scale=scale)
@@ -801,8 +824,8 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
             "flash_decode_attention is the single-query path, got Sq=%d" % Sq)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
-    _decode_head_dim("flash_decode", D)
-    et = _cuda_operands("flash_decode", (q, k, v), (kb,))
+    align = _decode_align("flash_decode", D, q.element_size())
+    et = _cuda_operands("flash_decode", (q, k, v), (kb,), align)
     out = torch.empty_like(q)
     _launch("flash_decode", et, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(kb), out.data_ptr(), B * N, bias_heads, Sk, D,
@@ -826,15 +849,15 @@ def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
     slot ``b``'s logical block ``i`` to pool block ``tables[b, i]``.
     ``key_bias`` ([B, MB·blk] / [B*N, MB·blk] / broadcastable) carries
     all masking, sink-block garbage past the live length included.
-    Forward only, fp32 accumulation.
+    Forward only, fp32 accumulation, out in q's type.
 
     The wrapper of the ``flash_decode_paged`` CUDA kernel. CPU tensors
     run the plain version (``flash_decode_paged_attention_plain``); CUDA
-    tensors launch the kernel on the current stream (fp32 contiguous q,
-    pools and bias, int32 contiguous tables — the caller builds them
-    once per step, so nothing is cast here — head_dim a multiple of 8
-    up to 128) or raise. ``flash_decode_paged_attention.launches`` counts kernel
-    launches."""
+    tensors launch the kernel on the current stream (q and pools
+    contiguous in one of fp32, bf16 and fp16, an fp32 bias, int32
+    contiguous tables — the caller builds them once per step, so nothing
+    is cast here — any head_dim from 1 to 256) or raise.
+    ``flash_decode_paged_attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_decode_paged_attention_plain(
             q, k_pool, v_pool, tables, key_bias=key_bias, scale=scale)
@@ -855,8 +878,9 @@ def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
     S = MB * blk
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, S)
-    _decode_head_dim("flash_decode_paged", D)
-    et = _cuda_operands("flash_decode_paged", (q, k_pool, v_pool), (kb,))
+    align = _decode_align("flash_decode_paged", D, q.element_size())
+    et = _cuda_operands("flash_decode_paged", (q, k_pool, v_pool), (kb,),
+                        align)
     out = torch.empty_like(q)
     _launch("flash_decode_paged", et, q.device, q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),

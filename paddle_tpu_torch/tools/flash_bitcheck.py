@@ -1,19 +1,27 @@
-"""Hold the fp32 flash training kernels of this tree against an older
-tree's, bit for bit, on the card.
+"""Hold the fp32 flash kernels of this tree against an older tree's, bit
+for bit, on the card.
 
-The bf16 and fp16 forms of ``flash_fwd``, ``flash_bwd_dq`` and
-``flash_bwd_dkv`` are template instantiations beside the fp32 ones, which
-must keep their arithmetic statement for statement. This script builds
-both trees' three kernels, runs them on the same fp32 inputs (key bias,
-causal, dropout 0 and 0.1, with and without a per-head general bias, at
-the train and prefill shapes and ragged ones) and compares out, lse, dq,
-dk, dv, dkey_bias and dbias with ``torch.equal``. A head dim of 48 runs
-through this tree's wrappers, which zero-pad it to 64, and through the
-older tree's D = 64 kernels on the same padded operands with the scale of
-D = 48: the padding must not move a bit either. It prints the ``ptxas``
-register and spill lines of this tree's builds, one ``bitcheck`` line per
-shape, and ``BITCHECK PASS`` or ``BITCHECK FAIL`` last; it exits 1 on a
-mismatch.
+The fp32 forms of the five kernels must keep their arithmetic statement
+for statement while other forms grow beside them: the bf16 and fp16
+forms of ``flash_fwd`` and ``flash_bwd_dkv`` are separate tensor-core
+kernels, that of ``flash_bwd_dq`` a template instantiation beside the
+fp32 one, and the decode kernels are templates on the element type with
+head dims past 128 and off the multiples of 8. This script builds both
+trees' kernels, runs them on the same fp32 inputs and compares every
+output with ``torch.equal``:
+
+- the training kernels (key bias, causal, dropout 0 and 0.1, with and
+  without a per-head general bias, at the train and prefill shapes and
+  ragged ones): out, lse, dq, dk, dv, dkey_bias and dbias. A head dim of
+  48 runs through this tree's wrappers, which zero-pad it to 64, and
+  through the older tree's D = 64 kernels on the same padded operands
+  with the scale of D = 48: the padding must not move a bit either;
+- the decode kernels, contiguous and paged (the serving shapes and
+  ragged ones, head dims 8 to 128).
+
+It prints the ``ptxas`` register and spill lines of this tree's builds,
+one ``bitcheck`` line per shape, and ``BITCHECK PASS`` or ``BITCHECK
+FAIL`` last; it exits 1 on a mismatch.
 
 Usage, from the repo root on a machine with a card and ``nvcc``::
 
@@ -21,8 +29,9 @@ Usage, from the repo root on a machine with a card and ``nvcc``::
     git archive <older commit> paddle_tpu_torch | tar -x -C _archive/parent
     python3 -m paddle_tpu_torch.tools.flash_bitcheck _archive/parent
 
-The older tree's kernels must take the argument list they had once the
-general bias was added (key bias, bias, bias rows; fp32 only).
+The older tree's training kernels must take the argument list they had
+once the general bias was added (key bias, bias, bias rows), and its
+decode kernels their fp32 entry points (``paddle_flash_decode_f32``).
 """
 
 import argparse
@@ -36,6 +45,7 @@ import torch
 from paddle_tpu_torch.kernels import _build, flash_attention as fa
 
 KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+DECODE_KERNELS = ["flash_decode", "flash_decode_paged"]
 # (B, N, S, D, dropout rate, key-bias form, per-head general bias)
 SHAPES = [(8, 12, 1024, 64, 0.1, "batch", False),
           (8, 12, 1024, 64, 0.0, "batch", False),
@@ -45,6 +55,9 @@ SHAPES = [(8, 12, 1024, 64, 0.1, "batch", False),
           (2, 3, 100, 64, 0.1, "batch", True),
           (2, 3, 70, 48, 0.1, "batch", False),
           (2, 3, 70, 48, 0.0, None, True)]
+# decode: (slots, heads, cache length, D, block size of the paged pool)
+DECODE_SHAPES = [(8, 12, 1024, 64, 16), (4, 3, 300, 48, 4), (3, 2, 77, 8, 16),
+                 (2, 3, 130, 128, 64), (4, 3, 1, 24, 1)]
 
 
 def load_parent_build(parent):
@@ -116,6 +129,42 @@ def check(pb, B, N, S, D, rate, kbform, with_bias, dev):
     return {n: torch.equal(a, b) for n, a, b in pairs}
 
 
+def check_decode(pb, B, N, S, D, blk, dev):
+    """Both trees' decode kernels on one shape; {output: equal}."""
+    g = torch.Generator(device=dev).manual_seed(S * 3 + D)
+    q = torch.randn(B, N, 1, D, device=dev, generator=g)
+    k, v = (torch.randn(B, N, S, D, device=dev, generator=g)
+            for _ in range(2))
+    kb = torch.zeros(B, S, device=dev)
+    for b in range(B):
+        kb[b, (b * 37) % S + 1:] = -1e4
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = 1.0 / D ** 0.5
+    out = fa.flash_decode_attention(q, k, v, kb)
+    pout = torch.empty_like(q)
+    err = pb.load("flash_decode")(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  kb.data_ptr(), pout.data_ptr(), B * N, N,
+                                  S, D, scale, stream)
+    assert err == 0, ("flash_decode", err)
+    MB = (S + blk - 1) // blk
+    pools = [torch.randn(B * MB + 1, N, blk, D, device=dev, generator=g)
+             for _ in range(2)]
+    tables = (torch.randperm(B * MB, device=dev, generator=g) + 1).reshape(
+        B, MB).to(torch.int32)
+    pkb = torch.zeros(B, MB * blk, device=dev)
+    pkb[:, S:] = -1e4
+    paged = fa.flash_decode_paged_attention(q, pools[0], pools[1], tables, pkb)
+    ppaged = torch.empty_like(q)
+    err = pb.load("flash_decode_paged")(
+        q.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr(),
+        tables.data_ptr(), pkb.data_ptr(), ppaged.data_ptr(), B * N, N, N, MB,
+        blk, pools[0].shape[0], D, scale, stream)
+    assert err == 0, ("flash_decode_paged", err)
+    torch.cuda.synchronize()
+    return {"decode": torch.equal(out, pout),
+            "decode_paged": torch.equal(paged, ppaged)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", help="directory holding the older tree's "
@@ -125,19 +174,23 @@ def main(argv=None):
         print("flash_bitcheck: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.time()
-    res = _build.build(KERNELS)
+    res = _build.build(KERNELS + DECODE_KERNELS)
     print("build s", round(time.time() - t0, 1))
     for name, r in res.items():
         for line in r["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 print(name, line.strip())
     pb = load_parent_build(args.parent)
-    pb.build(KERNELS)
+    pb.build(KERNELS + DECODE_KERNELS)
     dev = torch.device("cuda")
     ok = True
     for shape in SHAPES:
         same = check(pb, *shape, dev)
         print("bitcheck", shape, same)
+        ok = ok and all(same.values())
+    for shape in DECODE_SHAPES:
+        same = check_decode(pb, *shape, dev)
+        print("bitcheck decode", shape, same)
         ok = ok and all(same.values())
     print("BITCHECK", "PASS" if ok else "FAIL")
     return 0 if ok else 1

@@ -278,7 +278,7 @@ _CARD_CASES = [("train_bf16", torch.bfloat16, 8, 12, 1024, 64, True, 0.1,
     ("%s_%s_D%d" % (shape, name, D), dtype, B, N, S, D, causal, rate, bias,
      seed + D, pad)
     for name, dtype in (("bf16", torch.bfloat16), ("fp16", torch.float16))
-    for D in (16, 48, 64, 128)
+    for D in (16, 48, 64, 128, 256)
     for shape, B, N, S, causal, rate, bias, seed, pad in (
         ("S130_bias", 2, 3, 130, True, 0.1, True, 99, 100),
         ("S100", 2, 3, 100, True, 0.1, False, 7, 77),

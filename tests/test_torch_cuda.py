@@ -11,7 +11,10 @@ error is O(0.1)); atol 1e-4 for the backward ones, whose outputs are sums
 of up to a few hundred products of O(1) terms (dkey_bias sums ds over
 every query row), and whose dropout mask, if it differed by one entry,
 would move a gradient by O(0.1). The bf16 and fp16 forms are held to
-the limits of ``paddle_tpu_torch/tools/lowp_limits.py``.
+the limits of ``paddle_tpu_torch/tools/lowp_limits.py``: the training
+kernels to its per-element bounds and per-block norms, the decode
+kernels to its per-element ``out_bound`` at rate 0 (a decode block is one
+row of D elements).
 """
 
 import pytest
@@ -38,7 +41,7 @@ def _randn(gen, *shape):
     return torch.randn(*shape, generator=gen).cuda()
 
 
-@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 200, 256])
 @pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
                                           (True, 1, 1)])
 def test_flash_fwd_kernel_matches_plain(D, causal, Sq, Sk):
@@ -72,7 +75,7 @@ def _key_bias(gen, form, B, N, S):
     return _randn(gen, *((S,) if form == "vector" else (B * N, S)))
 
 
-@pytest.mark.parametrize("D", [32, 48, 64, 128])
+@pytest.mark.parametrize("D", [32, 48, 64, 128, 256])
 @pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
                                           (True, 64, 64)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -109,34 +112,25 @@ def test_flash_training_kernels_match_plain(D, causal, Sq, Sk, rate, form):
                                    msg=name)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
-                         ids=["bf16", "fp16"])
-@pytest.mark.parametrize("D", [16, 48, 64, 128])
-@pytest.mark.parametrize("causal,Sq,Sk,rate,bias", [
-    (True, 100, 100, 0.1, False), (False, 37, 150, 0.0, True),
-    (True, 130, 130, 0.1, True)])
-def test_flash_training_kernels_low_precision_match_plain(
-        dtype, D, causal, Sq, Sk, rate, bias):
-    """The bf16 and fp16 forms of the three training kernels (a per-batch
-    key bias, causal or not, dropout, a per-head general bias) against
-    their plain versions on the same low-precision inputs, at the limits
-    of ``tools/lowp_limits.py``: out, dq, dk and dv come back in the
-    input type, lse, dkey_bias and dbias in fp32."""
-    gen = torch.Generator().manual_seed(D + Sq + int(rate * 10) + bias)
-    B, N = 2, 3
-    q, k, v = (_randn(gen, B, N, S, D).to(dtype) for S in (Sq, Sk, Sk))
-    g = _randn(gen, B, N, Sq, D).to(dtype)
-    kb = _key_bias(gen, "per_batch", B, N, Sk)
-    gb = _randn(gen, 1, N, Sq, Sk) * 0.5 if bias else None
-    seed = 24680 if rate else None
+def _check_low_precision(dtype, q, k, v, kb, g, gb, causal, rate, seed):
+    """The three training kernels on ``dtype`` inputs through the
+    residual-driven entry the train step uses, against their plain
+    versions at the limits of ``tools/lowp_limits.py``: out, dq, dk and dv
+    come back in the input type, lse, dkey_bias and dbias in fp32. Both
+    backward kernels take the kernel forward's out and lse (dq, on the
+    CUDA cores, from the tensor-core forward's), and so do their plain
+    versions: the same rounding points, so only summation order
+    differs."""
     kw = dict(causal=causal, dropout_rate=rate, bias=gb)
+    n0 = (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+          fa.flash_bwd_dkv.launches)
     out, lse = fa.flash_attention_lse(q, k, v, kb, dropout_seed=seed, **kw)
     grads = fa.flash_attention_bwd_from_residuals(q, k, v, kb, seed, out, lse,
                                                   g, **kw)
+    assert (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
     ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, key_bias=kb,
                                                     dropout_seed=seed, **kw)
-    # the plain backward from the kernel's own residuals: the same
-    # rounding points, so only summation order differs
     ref = fa.flash_attention_bwd_plain(q, k, v, kb, seed, out, lse, g, **kw)
     torch.cuda.synchronize()
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -157,6 +151,67 @@ def test_flash_training_kernels_low_precision_match_plain(
             assert got.dtype == torch.float32, name
             torch.testing.assert_close(got, want, atol=BWD_ATOL,
                                        rtol=RTOL, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("D", [16, 48, 64, 128])
+@pytest.mark.parametrize("causal,Sq,Sk,rate,bias", [
+    (True, 100, 100, 0.1, False), (False, 37, 150, 0.0, True),
+    (True, 130, 130, 0.1, True)])
+def test_flash_training_kernels_low_precision_match_plain(
+        dtype, D, causal, Sq, Sk, rate, bias):
+    """The bf16 and fp16 forms of the three training kernels (a per-batch
+    key bias, causal or not, dropout, a per-head general bias) against
+    their plain versions on the same low-precision inputs, at the limits
+    of ``tools/lowp_limits.py`` (``_check_low_precision``)."""
+    gen = torch.Generator().manual_seed(D + Sq + int(rate * 10) + bias)
+    B, N = 2, 3
+    q, k, v = (_randn(gen, B, N, S, D).to(dtype) for S in (Sq, Sk, Sk))
+    g = _randn(gen, B, N, Sq, D).to(dtype)
+    kb = _key_bias(gen, "per_batch", B, N, Sk)
+    gb = _randn(gen, 1, N, Sq, Sk) * 0.5 if bias else None
+    _check_low_precision(dtype, q, k, v, kb, g, gb, causal, rate,
+                         24680 if rate else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("D", [16, 48, 64, 128, 200, 256])
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 37, 37), (False, 37, 150),
+                                          (True, 1000, 1000)])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_tensor_core_kernels_match_plain(dtype, D, causal, Sq, Sk, rate):
+    """The tensor-core forward and dk/dv kernels (bf16, fp16) at every
+    instantiated width (D 16, 48 and 200 zero-padded), causal or not, Sq
+    != Sk, tiles ragged at both ends (S = 37, 1000), with and without
+    dropout, against their plain versions (``_check_low_precision``)."""
+    gen = torch.Generator().manual_seed(D * 7 + Sq + int(rate * 10))
+    B, N = (1, 2) if Sq == 1000 else (2, 3)
+    q, k, v = (_randn(gen, B, N, S, D).to(dtype) for S in (Sq, Sk, Sk))
+    g = _randn(gen, B, N, Sq, D).to(dtype)
+    kb = _key_bias(gen, "per_batch", B, N, Sk)
+    _check_low_precision(dtype, q, k, v, kb, g, None, causal, rate,
+                         13579 if rate else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("form", _KEY_BIAS_FORMS)
+@pytest.mark.parametrize("bias", [None, "per_head", "shared"])
+def test_tensor_core_kernels_take_every_bias_form(dtype, form, bias):
+    """Every key-bias form, and a per-head ([1, N, S, S], stored per head
+    of the batch's rows with atomics) or shared ([S, S]) general bias,
+    through the tensor-core kernels with dropout 0.3, causal."""
+    gen = torch.Generator().manual_seed(len(str(form)) + len(str(bias)))
+    B, N, S, D = 2, 3, 100, 64
+    q, k, v, g = (_randn(gen, B, N, S, D).to(dtype) for _ in range(4))
+    kb = _key_bias(gen, form, B, N, S)
+    gb = None
+    if bias is not None:
+        gb = _randn(gen, *((1, N, S, S) if bias == "per_head" else (S, S)))
+        gb = gb * 0.5
+    _check_low_precision(dtype, q, k, v, kb, g, gb, True, 0.3, 97531)
 
 
 # the general bias's broadcast forms: shape given (B, N, Sq, Sk)
@@ -212,7 +267,8 @@ def test_flash_bias_kernels_match_plain(D, causal, Sq, Sk, rate, form):
                                    msg=name)
 
 
-@pytest.mark.parametrize("D", [8, 24, 32, 48, 64, 120, 128])
+@pytest.mark.parametrize("D", [8, 20, 24, 32, 48, 64, 120, 128, 136, 200,
+                               256])
 @pytest.mark.parametrize("S", [1, 300, 1024])
 def test_flash_decode_kernel_matches_plain(D, S):
     gen = torch.Generator().manual_seed(D + S)
@@ -231,7 +287,7 @@ def test_flash_decode_kernel_matches_plain(D, S):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("D", [8, 24, 32, 48, 64, 128])
+@pytest.mark.parametrize("D", [8, 20, 24, 32, 48, 64, 128, 200, 256])
 @pytest.mark.parametrize("blk", [4, 16, 64])
 def test_flash_decode_paged_kernel_matches_plain(D, blk):
     """A permuted table, two slots sharing their first two blocks (a
@@ -257,6 +313,50 @@ def test_flash_decode_paged_kernel_matches_plain(D, blk):
                                                 key_bias=kb)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("D", [8, 20, 64, 200, 256])
+def test_flash_decode_kernels_low_precision_match_plain(dtype, D):
+    """Both decode kernels on bf16 or fp16 q, cache and pools against
+    their plain versions, per element within ``lowp_limits.out_bound`` at
+    rate 0 (the kernels round the running p, the plain version the
+    normalised one); out comes back in the input type."""
+    gen = torch.Generator().manual_seed(D + 3)
+    B, N, S, blk = 4, 3, 300, 16
+    q = _randn(gen, B, N, 1, D).to(dtype)
+    k, v = (_randn(gen, B, N, S, D).to(dtype) for _ in range(2))
+    kb = torch.zeros(B, S)
+    for b, live in enumerate((1, S // 2, S, 0)):
+        kb[b, live:] = -1e4
+    kb = kb.cuda()
+    n0 = (fa.flash_decode_attention.launches,
+          fa.flash_decode_paged_attention.launches)
+    out = fa.flash_decode_attention(q, k, v, kb)
+    ref = fa.flash_decode_attention_plain(q, k, v, key_bias=kb)
+    MB = (S + blk - 1) // blk
+    pools = [_randn(gen, B * MB + 1, N, blk, D).to(dtype) for _ in range(2)]
+    tables = (torch.randperm(B * MB, generator=gen) + 1).reshape(B, MB)
+    tables = tables.to(torch.int32).cuda()
+    pkb = torch.zeros(B, MB * blk)
+    pkb[:, 200:] = -1e4
+    pkb = pkb.cuda()
+    pout = fa.flash_decode_paged_attention(q, pools[0], pools[1], tables, pkb)
+    pref = fa.flash_decode_paged_attention_plain(q, pools[0], pools[1],
+                                                 tables, key_bias=pkb)
+    torch.cuda.synchronize()
+    assert (fa.flash_decode_attention.launches,
+            fa.flash_decode_paged_attention.launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    rows = [fa.gather_paged_rows(p, tables.long()) for p in pools]
+    for name, got, want, kk, vv, bias in (
+            ("decode", out, ref, k, v, kb),
+            ("paged decode", pout, pref, rows[0], rows[1], pkb)):
+        assert got.dtype == dtype and got.shape == q.shape, name
+        bound = lowp.out_bound(dtype, q, kk, vv, want, key_bias=bias)
+        lowp.check(name, {
+            "elem": lowp.out_ratios(dtype, got, want, bound)["elem"]})
 
 
 def test_flash_decode_paged_wrapper_raises_on_what_it_does_not_take():
@@ -297,10 +397,10 @@ def test_kernels_take_every_key_bias_form(rows):
 
 
 def test_kernel_wrappers_raise_on_what_they_do_not_take():
-    """bf16, fp16 and a head dim of 48 run (the training kernels pad D to
-    64; the decode kernels take every multiple of 8); fp64, a mix of
-    element types, D = 136 and a decode D off the multiples of 8
-    raise."""
+    """bf16, fp16 and a head dim of 48 or 200 run (the training kernels
+    pad D to 64 or 256); the decode kernels take bf16 and every D from 1
+    to 256 (20 here); fp64, a mix of element types, a training D of 264,
+    a decode D of 264 and a misaligned or strided operand raise."""
     gen = torch.Generator().manual_seed(0)
     q = _randn(gen, 1, 2, 16, 64)
     with pytest.raises(ValueError):
@@ -309,31 +409,40 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take():
         fa.flash_attention(q, q, q, bias=torch.zeros(2, 2, 16, 16).cuda(),
                            dropout_rate=0.1, dropout_seed=3)
     n0 = fa.flash_attention_lse.launches
-    for t in (q.bfloat16(), q.half(), _randn(gen, 1, 2, 16, 48)):
+    for t in (q.bfloat16(), q.half(), _randn(gen, 1, 2, 16, 48),
+              _randn(gen, 1, 2, 16, 200).bfloat16()):
         out, lse = fa.flash_attention_lse(t, t, t)
         assert out.dtype == t.dtype and out.shape == t.shape
         assert lse.dtype == torch.float32
-    assert fa.flash_attention_lse.launches == n0 + 3
+    assert fa.flash_attention_lse.launches == n0 + 4
     q48 = _randn(gen, 1, 2, 1, 48)
     assert fa.flash_decode_attention(q48, q48, q48).shape == q48.shape
+    q1 = q[:, :, :1].contiguous()
+    dec = fa.flash_decode_attention(q1.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert dec.dtype == torch.bfloat16 and dec.shape == q1.shape
+    odd = _randn(gen, 1, 2, 16, 20)
+    dec = fa.flash_decode_attention(odd[:, :, :1].contiguous(), odd, odd)
+    assert dec.shape == (1, 2, 1, 20)
     with pytest.raises(TypeError):
         fa.flash_attention_lse(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         fa.flash_attention_lse(q, q.bfloat16(), q)
     with pytest.raises(TypeError):
-        fa.flash_decode_attention(q[:, :, :1].bfloat16(), q.bfloat16(),
-                                  q.bfloat16())
-    wide = _randn(gen, 1, 2, 16, 136)
+        fa.flash_decode_attention(q1.double(), q.double(), q.double())
+    wide = _randn(gen, 1, 2, 16, 264)
     with pytest.raises(ValueError):
         fa.flash_attention_lse(wide, wide, wide)
-    odd = _randn(gen, 1, 2, 16, 20)
     with pytest.raises(ValueError):
-        fa.flash_decode_attention(odd[:, :, :1].contiguous(), odd, odd)
+        fa.flash_decode_attention(wide[:, :, :1].contiguous(), wide, wide)
     strided = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         fa.flash_attention_lse(strided, strided, strided)
+    shifted = q.bfloat16().reshape(-1)[4:4 + 2 * 15 * 64].reshape(
+        1, 2, 15, 64)
+    with pytest.raises(ValueError):  # 8 bytes past a 16-byte boundary
+        fa.flash_attention_lse(shifted, shifted, shifted)
     with pytest.raises(ValueError):
-        fa.flash_decode_attention(q[:, :, :1].contiguous(), q.cpu(), q.cpu())
+        fa.flash_decode_attention(q1, q.cpu(), q.cpu())
 
 
 def test_engine_on_card_matches_plain_reference():

@@ -1,0 +1,211 @@
+"""The plain versions of the port's flash kernels at the element types and
+head dims the kernels take beyond fp32 at D <= 128, held against the JAX
+package's Pallas kernels in interpret mode on the CPU:
+
+- the decode kernels (contiguous and paged) in bf16 and fp16. Both sides
+  form scores in fp32 from the same low-precision operands; the Pallas
+  kernel (as the CUDA kernels) rounds the running, unnormalised p before
+  P·V, the plain version the normalised one, so out is held to
+  ``tools/lowp_limits.out_bound`` at rate 0: per element, eps times the
+  sum of p·|v| plus eps·|out|, the worst case of the two sides'
+  roundings;
+- the decode kernels in fp32 at head dims off the multiples of 8 and past
+  128 (20, 200): atol 1e-5, as the fp32 decode test (sums of a few dozen
+  fp32 terms of magnitude ~1);
+- the training forward and both backward kernels in fp32 at D = 200,
+  which the CUDA wrappers zero-pad to 256: atol 1e-5, as the other fp32
+  training tests;
+- the training wrappers' head-dim rule: any D up to 256 runs at the next
+  instantiated width, past 256 they raise.
+
+Inputs are made with numpy from a seed.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.tools import lowp_limits as lowp
+
+jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
+
+torch.set_num_threads(2)
+
+ATOL = RTOL = 1e-5
+_DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16),
+           "fp16": (torch.float16, jnp.float16)}
+
+
+def _randn(rs, *shape):
+    return rs.randn(*shape).astype(np.float32)
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+def _decode_inputs(rs, B, N, S, D):
+    """q [B, N, 1, D], k/v [B, N, S, D] and a bias with mixed live
+    lengths and one fully masked slot."""
+    q, k, v = _randn(rs, B, N, 1, D), _randn(rs, B, N, S, D), \
+        _randn(rs, B, N, S, D)
+    kb = np.zeros((B, S), np.float32)
+    for b, n in enumerate((1, S // 2 + 1, S, 0)[:B]):
+        kb[b, n:] = -1e4
+    return q, k, v, kb
+
+
+def _paged_inputs(rs, B, N, D, blk, MB):
+    """q, pools [B·MB + 1, N, blk, D], a permuted table (two slots
+    sharing their first block, one all-sink slot) and its bias."""
+    q = _randn(rs, B, N, 1, D)
+    k_pool, v_pool = (_randn(rs, B * MB + 1, N, blk, D) for _ in range(2))
+    tables = (rs.permutation(B * MB) + 1).reshape(B, MB).astype(np.int32)
+    tables[1, 0] = tables[0, 0]
+    tables[-1] = 0
+    kb = np.zeros((B, MB * blk), np.float32)
+    for b, n in enumerate((3, MB * blk // 2, MB * blk, 0)[:B]):
+        kb[b, n:] = -1e4
+    return q, k_pool, v_pool, tables, kb
+
+
+def _low(arrays, jdt, tdt):
+    """The arrays rounded to the low type, as JAX and torch tensors."""
+    j = [jnp.asarray(a, jdt) for a in arrays]
+    t = [torch.from_numpy(np.asarray(a, np.float32)).to(tdt) for a in j]
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("D", [8, 20, 64, 200])
+def test_flash_decode_plain_low_precision_matches_jax_kernel(dtype, D):
+    tdt, jdt = _DTYPES[dtype]
+    rs = np.random.RandomState(D + len(dtype))
+    q, k, v, kb = _decode_inputs(rs, 4, 2, 40, D)
+    (jq, jk, jv), (tq, tk, tv) = _low((q, k, v), jdt, tdt)
+    want = jfa.flash_decode_attention(jq, jk, jv, key_bias=jnp.asarray(kb),
+                                      interpret=True)
+    assert want.dtype == jdt
+    tkb = torch.from_numpy(kb)
+    got = tfa.flash_decode_attention(tq, tk, tv, key_bias=tkb)
+    assert got.dtype == tdt and got.shape == tq.shape
+    want_t = torch.from_numpy(np.asarray(want, np.float32))
+    bound = lowp.out_bound(tdt, tq, tk, tv, want_t, key_bias=tkb)
+    lowp.check("decode out", {
+        "elem": lowp.out_ratios(tdt, got, want_t, bound)["elem"]})
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("D,blk", [(8, 4), (20, 16), (64, 16), (200, 8)])
+def test_flash_decode_paged_plain_low_precision_matches_jax_kernel(dtype, D,
+                                                                   blk):
+    tdt, jdt = _DTYPES[dtype]
+    rs = np.random.RandomState(D * 3 + blk)
+    B, N, MB = 4, 2, 5
+    q, k_pool, v_pool, tables, kb = _paged_inputs(rs, B, N, D, blk, MB)
+    (jq, jk, jv), (tq, tk, tv) = _low((q, k_pool, v_pool), jdt, tdt)
+    want = jfa.flash_decode_paged_attention(
+        jq, jk, jv, jnp.asarray(tables), key_bias=jnp.asarray(kb),
+        interpret=True)
+    tt, tkb = torch.from_numpy(tables), torch.from_numpy(kb)
+    got = tfa.flash_decode_paged_attention(tq, tk, tv, tt, key_bias=tkb)
+    assert got.dtype == tdt and got.shape == tq.shape
+    want_t = torch.from_numpy(np.asarray(want, np.float32))
+    rows_k, rows_v = (tfa.gather_paged_rows(p, tt.long()) for p in (tk, tv))
+    bound = lowp.out_bound(tdt, tq, rows_k, rows_v, want_t, key_bias=tkb)
+    lowp.check("paged decode out", {
+        "elem": lowp.out_ratios(tdt, got, want_t, bound)["elem"]})
+
+
+@pytest.mark.parametrize("D", [20, 200])
+def test_flash_decode_plain_fp32_any_head_dim_matches_jax_kernel(D):
+    rs = np.random.RandomState(D)
+    q, k, v, kb = _decode_inputs(rs, 4, 3, 24, D)
+    want = jfa.flash_decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), key_bias=jnp.asarray(kb),
+                                      interpret=True)
+    tq, tk, tv, tkb = (torch.from_numpy(a) for a in (q, k, v, kb))
+    _close(tfa.flash_decode_attention(tq, tk, tv, key_bias=tkb), want)
+    _close(tfa.flash_decode_attention_plain(tq, tk, tv, key_bias=tkb), want)
+
+
+@pytest.mark.parametrize("D", [20, 200])
+def test_flash_decode_paged_plain_fp32_any_head_dim_matches_jax_kernel(D):
+    rs = np.random.RandomState(D + 1)
+    q, k_pool, v_pool, tables, kb = _paged_inputs(rs, 4, 2, D, 4, 6)
+    want = jfa.flash_decode_paged_attention(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(tables), key_bias=jnp.asarray(kb), interpret=True)
+    tq, tk, tv, tt, tkb = (torch.from_numpy(a)
+                           for a in (q, k_pool, v_pool, tables, kb))
+    _close(tfa.flash_decode_paged_attention(tq, tk, tv, tt, key_bias=tkb),
+           want)
+
+
+@pytest.mark.parametrize("causal,Sq,Sk,rate", [(True, 24, 24, 0.0),
+                                               (True, 20, 20, 0.1),
+                                               (False, 13, 30, 0.0)])
+def test_flash_training_plain_d200_matches_jax_kernels(causal, Sq, Sk, rate):
+    """D = 200 (the CUDA wrappers pad it to 256): the plain forward
+    against the Pallas forward, and the plain backward against the
+    Pallas backward kernels from the JAX forward's residuals."""
+    B, N, D = 1, 2, 200
+    rs = np.random.RandomState(Sq + Sk)
+    q, k, v = _randn(rs, B, N, Sq, D), _randn(rs, B, N, Sk, D), \
+        _randn(rs, B, N, Sk, D)
+    g = _randn(rs, B, N, Sq, D)
+    kb = np.zeros((B, Sk), np.float32)
+    kb[0, Sk - 5:] = -1e4
+    seed = 9191 if rate else None
+    jq, jk, jv, jkb = (jnp.asarray(a) for a in (q, k, v, kb))
+    j_out, j_lse = jfa.flash_attention_lse(
+        jq, jk, jv, key_bias=jkb, causal=causal, dropout_rate=rate,
+        dropout_seed=seed, interpret=True)
+    want = jfa.flash_attention_bwd_from_residuals(
+        jq, jk, jv, jkb, seed, j_out, j_lse, jnp.asarray(g), causal=causal,
+        dropout_rate=rate, interpret=True)
+    tq, tk, tv, tg, tkb = (torch.from_numpy(a) for a in (q, k, v, g, kb))
+    kw = dict(causal=causal, dropout_rate=rate)
+    out, lse = tfa.flash_attention_lse(tq, tk, tv, key_bias=tkb,
+                                       dropout_seed=seed, **kw)
+    _close(out, j_out)
+    _close(lse, j_lse)
+    got = tfa.flash_attention_bwd_from_residuals(
+        tq, tk, tv, tkb, seed, torch.from_numpy(np.array(j_out)),
+        torch.from_numpy(np.array(j_lse)), tg, **kw)
+    for name, a, w in zip(("dq", "dk", "dv", "dkey_bias"), got, want):
+        assert tuple(a.shape) == tuple(np.shape(w)), name
+        _close(a, w)
+
+
+@pytest.mark.parametrize("D,width", [(1, 32), (16, 32), (48, 64), (64, 64),
+                                     (136, 256), (200, 256), (256, 256)])
+def test_train_head_dim_pads_up_to_256(D, width):
+    assert tfa._train_head_dim("flash_fwd", D) == width
+
+
+@pytest.mark.parametrize("D", [0, 264, 512])
+def test_train_head_dim_raises_past_256(D):
+    with pytest.raises(ValueError):
+        tfa._train_head_dim("flash_fwd", D)
+
+
+@pytest.mark.parametrize("D,size,align", [(8, 2, 8), (20, 2, 2), (64, 4, 16),
+                                          (200, 2, 8), (3, 4, 4),
+                                          (256, 2, 8)])
+def test_decode_alignment_by_head_dim(D, size, align):
+    """Multiples of 8 read four elements at a time; any other D reads
+    element by element."""
+    assert tfa._decode_align("flash_decode", D, size) == align
+
+
+@pytest.mark.parametrize("D", [0, 264])
+def test_decode_head_dim_raises_outside_1_to_256(D):
+    with pytest.raises(ValueError):
+        tfa._decode_align("flash_decode", D, 4)
