@@ -19,9 +19,13 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
            time the card could take for the same work).
            The paged kernel has no single-call library counterpart: a
            gather of the rows plus SDPA (two calls) is timed beside it.
-           Neither have the backward kernels: one SDPA forward+backward
-           through autograd is timed beside them as a yardstick (another
-           function: it also runs the forward and draws its own mask).
+           The backward kernels' library call is SDPA's backward alone
+           (``backward(g, retain_graph=True)`` on a saved SDPA output with
+           the same mask and its own dropout), which returns dq, dk and
+           dv from the same residuals; SDPA forward + backward is kept
+           beside it. The fp32 forward (split TF32 on the tensor cores)
+           prints its bound at three TF32 products at 495 TFLOP/s beside
+           the 67 TFLOP/s fp32 bound of the table.
 4. engine  GPT-2 small at full width (random weights from a seed)
            served by ``DecodeEngine(slots=8, max_len=1024)``: 8 greedy
            requests, some joining mid-flight; checks that both kernels'
@@ -79,8 +83,8 @@ The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
 [1, 12, 1024, 1024] and the [1024, 1024] bias; the bf16 forms of the
 three training kernels at the train shape (timed, with their bf16 bound
-and SDPA in bf16 beside them; the forward and dk/dv on the tensor
-cores); the bf16 forms of both decode kernels at their serving shapes
+and SDPA in bf16 beside them; all three on the tensor cores); the bf16
+forms of both decode kernels at their serving shapes
 (timed beside SDPA in bf16, held to ``lowp_limits.out_bound``); fp16 and
 bf16 at small shapes; a head dim of 48 on all five kernels; and both
 decode kernels at head dims 200, 256, 20 and 3 in fp32 and bf16, each
@@ -106,7 +110,8 @@ import torch
 
 # Kernel vs plain version, both fp32 on the card: the kernels sum QK^T
 # and PV in another order (online softmax over key tiles and thread
-# groups vs one dense softmax), which moves outputs of magnitude ~1 by a
+# groups vs one dense softmax; the training forward in split TF32, whose
+# products keep ~2^-22 of fp32), which moves outputs of magnitude ~1 by a
 # few ulps per term; 2e-5 absolute leaves ~100 ulps of room, while a
 # masking or indexing error shows as O(0.1).
 KERNEL_ATOL, KERNEL_RTOL = 2e-5, 1e-4
@@ -238,11 +243,22 @@ def bound_ms(nbytes, flops, peaks, flops_rate=None):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# dense bf16/fp16 tensor-core peak of the H100 SXM (NVIDIA's data sheet)
+# dense bf16/fp16 and TF32 tensor-core peaks of the H100 SXM (NVIDIA's
+# data sheet)
 BF16_PEAK = 989e12
-# the bf16 training kernels: how each computes
-BF16_DESIGN = {"flash_fwd": "mma.sync", "flash_bwd_dq": "scalar (CUDA cores)",
-               "flash_bwd_dkv": "mma.sync"}
+TF32_PEAK = 495e12
+# the training kernels: how each computes, by element type
+BF16_DESIGN = {"flash_fwd": "mma.sync m16n8k16 (tensor cores)",
+               "flash_bwd_dq": "mma.sync m16n8k16 (tensor cores)",
+               "flash_bwd_dkv": "mma.sync m16n8k16 (tensor cores)"}
+FP32_DESIGN = {"flash_fwd": "split TF32: 3 x mma.sync m16n8k8 (tensor cores)",
+               "flash_bwd_dq": "CUDA cores", "flash_bwd_dkv": "CUDA cores"}
+
+
+def tf32_bound_ms(flops):
+    """The split-TF32 forward's bound on the tensor cores: each fp32
+    product taken as three TF32 products at the TF32 peak."""
+    return 3 * flops / TF32_PEAK * 1e3
 
 
 def max_err(a, b):
@@ -334,7 +350,9 @@ def kernel_flash_fwd(dev, peaks):
         bms, by = bound_ms(nbytes, 4 * D * pairs, peaks)
         rows.append({"T": T, "max_abs_err": err, "ms": ms,
                      "ms_window_spread": spread, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+                     "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                     "bound_tensor_core_ms": tf32_bound_ms(4 * D * pairs),
+                     "design": FP32_DESIGN["flash_fwd"]})
     fa.flash_attention_lse.launches = 0  # comparison launches do not count
     return worst, rows
 
@@ -587,18 +605,13 @@ def kernel_flash_train(dev, peaks):
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                       # SDPA draws its own dropout mask: timed eagerly,
                       # outside a graph, as milliseconds of work
-                      "library_ms": event_ms(lib) if lib else None}
-    # yardstick for the backward: SDPA forward + backward through autograd
-    # with the same additive mask and its own dropout (another function)
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        o = sdpa(ql, kl, vl, attn_mask=sdpa_mask, dropout_p=rate, scale=scale)
-        o.backward(g)
-
-    yard = event_ms(sdpa_fwd_bwd)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        rows[name]["sdpa_fwd_bwd_ms"] = yard
+                      "library_ms": event_ms(lib) if lib else None,
+                      "design": FP32_DESIGN[name.replace("_dropout", "")]}
+    rows["flash_fwd_dropout"]["bound_tensor_core_ms"] = tf32_bound_ms(
+        4 * D * pairs)
+    # the backward kernels' library call: SDPA's backward alone, with the
+    # same additive mask and its own dropout (dq, dk and dv in one call)
+    sdpa_backward_rows(rows, sdpa, q, k, v, g, sdpa_mask, rate, scale)
     rows["shape"] = [B, N, T, D]
     rows["dropout_rate"] = rate
     rows["atol_bwd"] = BWD_ATOL
@@ -606,6 +619,31 @@ def kernel_flash_train(dev, peaks):
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
     return rows
+
+
+def sdpa_backward_rows(rows, sdpa, q, k, v, g, mask, rate, scale):
+    """SDPA's backward alone (``library_ms``, ``sdpa_bwd_ms``) and SDPA
+    forward + backward (``sdpa_fwd_bwd_ms``) on the two backward rows:
+    one ``backward(g, retain_graph=True)`` on a saved SDPA output with the
+    same additive mask and its own dropout, the gradients dropped before
+    each call so that none is accumulated."""
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        sdpa(ql, kl, vl, attn_mask=mask, dropout_p=rate,
+             scale=scale).backward(g)
+
+    yard = event_ms(sdpa_fwd_bwd)
+    saved = sdpa(ql, kl, vl, attn_mask=mask, dropout_p=rate, scale=scale)
+
+    def sdpa_bwd():
+        ql.grad = kl.grad = vl.grad = None
+        saved.backward(g, retain_graph=True)
+
+    bwd = event_ms(sdpa_bwd)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name].update(library_ms=bwd, sdpa_bwd_ms=bwd,
+                          sdpa_fwd_bwd_ms=yard)
 
 
 def kernel_flash_bias(dev, peaks):
@@ -795,7 +833,8 @@ def kernel_flash_train_bf16(dev, peaks):
     same bf16 inputs, timed beside it; the bound counts bf16 bytes over
     the memory rate against the FLOPs over the bf16 tensor-core peak.
     The library yardstick is SDPA in bf16 with the same mask and its own
-    dropout (forward; forward + backward for the backward kernels)."""
+    dropout (forward; its backward alone for the backward kernels, with
+    forward + backward beside it)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator().manual_seed(6)
@@ -845,23 +884,15 @@ def kernel_flash_train_bf16(dev, peaks):
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                       "library_ms": event_ms(lib) if lib else None}
     rows["limit_ratios"] = errs["ratios"]
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        sdpa(ql, kl, vl, attn_mask=sdpa_mask, dropout_p=rate,
-             scale=scale).backward(g)
-
-    yard = event_ms(sdpa_fwd_bwd)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        rows[name]["sdpa_fwd_bwd_ms"] = yard
+    sdpa_backward_rows(rows, sdpa, q, k, v, g, sdpa_mask, rate, scale)
     for name, r in rows.items():
         if not isinstance(r, dict) or "ms" not in r:
             continue
         r["design"] = BF16_DESIGN[name]
         r["bound_share"] = r["bound_ms"] / r["ms"]
         # forward: against SDPA's forward; backward kernels: against
-        # SDPA's forward + backward, the nearest one-call yardstick
-        r["sdpa_ratio"] = r["ms"] / (r["library_ms"] or r["sdpa_fwd_bwd_ms"])
+        # SDPA's backward alone, which returns dq, dk and dv together
+        r["sdpa_ratio"] = r["ms"] / r["library_ms"]
     rows["shape"] = [B, N, T, D]
     rows["dtype"] = "bf16"
     rows["dropout_rate"] = rate
@@ -1953,7 +1984,9 @@ def main():
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"]}
+                "sdpa_bwd_ms": r["sdpa_bwd_ms"],
+                "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
+                "design": r["design"]}
 
     replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:149",
                 "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:207",
@@ -1995,7 +2028,8 @@ def main():
                "limit_ratios": {o: bf16_rows["limit_ratios"][o] for o in
                                 {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
                                  "flash_bwd_dkv": ("dk", "dv")}[kname]}}
-        if "sdpa_fwd_bwd_ms" in r:
+        if "sdpa_bwd_ms" in r:
+            row["sdpa_bwd_ms"] = r["sdpa_bwd_ms"]
             row["sdpa_fwd_bwd_ms"] = r["sdpa_fwd_bwd_ms"]
         return row
 
@@ -2027,9 +2061,11 @@ def main():
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
          "library_ms": fwd_main["library_ms"],
+         "bound_tensor_core_ms": fwd_main["bound_tensor_core_ms"],
+         "design": fwd_main["design"],
          "train_dropout": {k: fwd_drop[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "max_abs_err")}},
+             "bound_tensor_core_ms", "max_abs_err")}},
         bias_row("flash_fwd", "flash_fwd+bias"),
         dict(train_row("flash_bwd_dq"), replaces=replaces["flash_bwd_dq"]),
         bias_row("flash_bwd_dq", "flash_bwd_dq+bias"),

@@ -5,9 +5,9 @@
 // on where a low-precision form rounds. The tensor-core forms add
 // flash_mma.cuh.
 //
-// Layout of the three fp32 training kernels (and of dq in every type): one
-// block of 256 threads owns a 64-row tile (query
-// rows in the forward and dq kernels, key rows in the dk/dv kernel); four
+// Layout of the fp32 dq and dk/dv kernels (the CUDA-core training
+// kernels): one block of 256 threads owns a 64-row tile (query
+// rows in the dq kernel, key rows in the dk/dv kernel); four
 // threads share a row, each holding D/4 of its dimensions as float4s
 // (d = 16c + 4*lane), so shared-memory rows are read as 16-byte vectors
 // without bank conflicts and a dot product over D needs two warp
@@ -17,14 +17,16 @@
 //
 // Element types. q/k/v/o and dO/dq/dk/dv are fp32, bf16 or fp16 (all of
 // one call in one type); lse, delta, the key bias, the general bias and
-// their gradients stay fp32. The scalar fwd and dk/dv kernels are fp32
-// only: their bf16/fp16 forms are the tensor-core kernels, which feed the
-// 16-bit operands to the tensor cores as they are, with fp32 accumulators
-// (flash_mma.cuh). The dq and decode kernels take all three types on the
-// CUDA cores: a low-precision operand is widened to fp32 as it is loaded
-// (four elements, one 8-byte access) and every product and sum runs in
-// fp32. A bf16 or fp16 product is exact in fp32, so either way this is the
-// reference's bf16 x bf16 -> fp32 dot up to the order of the sum.
+// their gradients stay fp32. The scalar dq and dk/dv kernels are fp32
+// only: the bf16/fp16 forms of all three training kernels are the
+// tensor-core kernels, which feed the 16-bit operands to the tensor cores
+// as they are, with fp32 accumulators, and the fp32 forward is a
+// tensor-core kernel in split TF32 (flash_mma.cuh). The decode kernels
+// take all three types on the CUDA cores: a low-precision operand is
+// widened to fp32 as it is loaded (four elements, one 8-byte access) and
+// every product and sum runs in fp32. A bf16 or fp16 product is exact in
+// fp32, so either way this is the reference's bf16 x bf16 -> fp32 dot up
+// to the order of the sum.
 // Where the reference rounds an fp32 intermediate to the operand type
 // before a dot (p before P.V, ds before ds.K and ds^T.Q, keep*p/keep
 // before P^T.dO), the CUDA-core kernels round with `round_to<T>`, the

@@ -36,20 +36,33 @@
 // no swap is needed, and the dropout hash keeps the caller's head index.
 // bias = false is the instantiation without it.
 //
-// Two kernels, one per element type:
+// Two kernels on the tensor cores, one per element type (flash_mma.cuh);
+// dispatching by type is the design, not a fallback:
 //
-// fp32: `flash_fwd_kernel`, on the CUDA cores. Bound: operations. At the
-// prefill shape (12 heads, T = 1024, D = 64, causal) it moves ~13 MB but
-// does 4 * D * T(T+1)/2 * 12 = 1.6 GFLOP of fp32 multiply-adds: ~24 us
-// at the 67 TFLOP/s of non-tensor fp32 against ~4 us for the bytes at
-// 3.35 TB/s (data-sheet peaks of the NVIDIA H100 80GB HBM3 at 700.00 W).
-// fp32 operands cannot use the tensor cores' full rate (TF32 would round
-// the inputs), so it attacks the other costs: the [S, S] scores never
-// reach device memory (one block owns a 64-row query tile and sweeps key
-// tiles with an online softmax); each K/V tile is staged once into
-// shared memory for all 64 rows; under `causal` the key tiles above the
-// diagonal are skipped; four threads share a query row
-// (flash_common.cuh), each computing the dropout hash of its row.
+// fp32 (serving prefill, the fp32 train step): `flash_fwd_tf32_kernel`,
+// split TF32 ("3xTF32"). Bound at the fp32 train shape [8, 12, 1024,
+// 64], causal: 12.9 GFLOP of Q.K^T and P.V; at the 67 TFLOP/s of fp32 on
+// the CUDA cores that is 0.19 ms, but as three TF32 products at 495
+// TFLOP/s it is 0.078 ms, against 50 MB of q/k/v/o/lse at 3.35 TB/s
+// (0.015 ms). A single TF32 product rounds the operands to 11 bits and
+// misses the fp32 reference by ~1e-3; each operand is split into a TF32
+// big part and a TF32 small part, and every product is taken as three
+// `mma.sync.m16n8k8` TF32 products with the small*small term dropped
+// (~2^-22 relative), which keeps fp32's accuracy (CUTLASS's
+// OpMultiplyAddFastF32). Both products are split: S = Q.K^T, and O += P.V
+// with P in fp32, which the fp32 reference does not round. Each k-step's
+// three products are summed from zero and added to the running sums on
+// the CUDA cores: the tensor cores cut their sums to 24 bits, and adding
+// into the large running O that way biased out toward zero, enough to
+// move the train step's exactly-zero k-bias gradient past its check
+// (chip_smoke.py, train phase).
+// The rest is the bf16 kernel's design below, with fp32 tiles
+// (`swz_rows` for Q and K, `swz_pairs` for V; Q split once and kept in
+// registers up to D = 64, split as it is read from shared memory past it;
+// K/V tiles of 64 keys, 16 from D = 128 on, each split once for the
+// block into big and small parts in shared memory) and P.V reading key 2t
+// at k index t and key 2t+1 at t+4, so that P's accumulators are its A
+// fragment as they are.
 //
 // bf16 and fp16 (the AMP train step): `flash_fwd_mma_kernel`, on the
 // tensor cores (flash_mma.cuh). Bound at the AMP train shape [8, 12,
@@ -73,7 +86,7 @@
 //     scores -1e30, m starting at -1e30, `l` summing the undropped p,
 //     clamped at 1e-30, lse = m + log(l);
 //   - dropout after `l`, one hash per (row, key) element on the absolute
-//     (row, col, bh), as the fp32 kernel computes it;
+//     (row, col, bh), as the backward kernels compute it;
 //   - P.V with p rounded to T (the reference's p.astype(v.dtype)) and
 //     repacked from the accumulators straight into A fragments; V by
 //     `ldmatrix.trans`;
@@ -89,160 +102,6 @@
 namespace {
 
 using namespace flash;
-
-// The fp32 kernel. T is kept as a parameter so that the launch code is
-// shared with the tensor-core form, but only fp32 instantiates it (the
-// static_assert below); its round_to<T> points are then the identity.
-// T: element type of q/k/v/o. D: head dim (multiple of 16). BK: key rows
-// per shared-memory tile.
-template <typename T, int D, int BK, bool kDropout, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ kb,
-                 const float* __restrict__ bias, T* __restrict__ o,
-                 float* __restrict__ lse, int bias_heads, int bias_div,
-                 int bias_rows, int sq, int sk, float scale, int causal,
-                 unsigned seed, unsigned thresh, float keep_prob) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16/fp16 run the tensor-core kernel");
-  constexpr int kVec = D / 16;   // float4s per thread: d = 16c + 4*lane
-  constexpr int kRow4 = D / 4;   // float4s per K/V row
-  __shared__ float4 ks[BK][kRow4];
-  __shared__ float4 vs[BK][kRow4];
-  __shared__ float kbs[BK];
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTileRows;
-  const int tid = threadIdx.x;
-  const int lane = tid & (kRowThreads - 1);
-  const int qi = q0 + tid / kRowThreads;
-  const bool row_ok = qi < sq;
-  const unsigned head_s = head_seed(seed, (unsigned)bh);
-  const unsigned row_h = row_hash((unsigned)qi);
-
-  // rows past Sq still run (they take part in the shuffles and the
-  // barriers) on row 0's data and store nothing
-  const T* qp = q + ((size_t)bh * sq + (row_ok ? qi : 0)) * D;
-  float4 qr[kVec];
-  float4 acc[kVec];
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    qr[c] = load4(qp + 16 * c + 4 * lane);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = kNeg;
-  float l = 0.f;
-
-  const T* kp = k + (size_t)bh * sk * D;
-  const T* vp = v + (size_t)bh * sk * D;
-  const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
-  const float* brow =
-      kBias ? bias + ((size_t)((bh / bias_div) % bias_rows) * sq +
-                      (row_ok ? qi : 0)) * sk
-            : nullptr;
-  // key tiles starting past the block's last row are masked for every
-  // row of the block: skip them
-  const int kend = causal ? min(sk, q0 + kTileRows) : sk;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int i = tid; i < BK * kRow4; i += kThreads) {
-      const int j = i / kRow4;
-      const int c = i - j * kRow4;
-      const int kj = k0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (kj < sk) {
-        kk = load4(kp + (size_t)kj * D + 4 * c);
-        vv = load4(vp + (size_t)kj * D + 4 * c);
-      }
-      ks[j][c] = kk;
-      vs[j][c] = vv;
-    }
-    for (int j = tid; j < BK; j += kThreads) {
-      const int kj = k0 + j;
-      kbs[j] = kj >= sk ? kNeg : (kbp ? __ldg(kbp + kj) : 0.f);
-    }
-    __syncthreads();
-
-    float s[BK];
-    float m_new = m;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) part += dot4(qr[c], ks[j][4 * c + lane]);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kj = k0 + j;
-      float sj = part * scale + kbs[j];
-      if (kBias && kj < sk) sj += __ldg(brow + kj);
-      if (kj >= sk || (causal && kj > qi)) sj = kNeg;
-      s[j] = sj;
-      m_new = fmaxf(m_new, sj);
-    }
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-    if (kDropout) {
-      // after `l`: dropout leaves the normalizer undropped
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        if (!hash_keep(row_h, (unsigned)(k0 + j), head_s, thresh)) s[j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      acc[c].x *= alpha;
-      acc[c].y *= alpha;
-      acc[c].z *= alpha;
-      acc[c].w *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      // p rounds to the value type for the P.V product, as the
-      // reference's p.astype(v.dtype); the identity in fp32
-      const float p = round_to<T>(s[j]);
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        const float4 vv = vs[j][4 * c + lane];
-        acc[c].x += p * vv.x;
-        acc[c].y += p * vv.y;
-        acc[c].z += p * vv.z;
-        acc[c].w += p * vv.w;
-      }
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    T* op = o + ((size_t)bh * sq + qi) * D;
-    if (kDropout) {
-      // the reference scales the normalizer, not the output: l * (1 - rate)
-      const float l_out = l_safe * keep_prob;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        store4(op + 16 * c + 4 * lane,
-               make_float4(acc[c].x / l_out, acc[c].y / l_out,
-                           acc[c].z / l_out, acc[c].w / l_out));
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        store4(op + 16 * c + 4 * lane,
-               make_float4(acc[c].x / l_safe, acc[c].y / l_safe,
-                           acc[c].z / l_safe, acc[c].w / l_safe));
-      }
-    }
-    if (lane == 0) lse[(size_t)bh * sq + qi] = m + logf(l_safe);
-  }
-}
 
 // The tensor-core kernel (bf16, fp16). 4 warps, 16 query rows each.
 using flash::mma::kLog2e;
@@ -487,6 +346,291 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The split-TF32 kernel (fp32): the same block of 4 warps, 16 query rows
+// each.
+template <int D>
+__host__ __device__ constexpr int tf32_bk() {  // key rows per K/V tile
+  return D <= 64 ? 64 : 16;
+}
+
+// the Q tile, two stages of K and V, and the small parts of one K and V
+// tile, fp32
+template <int D>
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  return (kMmaRows * D + 6 * tf32_bk<D>() * D) * 4;
+}
+
+// Four fp32 values at `big` split into TF32 big parts, stored back in
+// place, and small parts, stored at `small`.
+__device__ __forceinline__ void split4_tf32(float* big, float* small) {
+  const float4 x = *reinterpret_cast<const float4*>(big);
+  uint4 b;
+  uint4 sm;
+  flash::mma::split_tf32(x.x, b.x, sm.x);
+  flash::mma::split_tf32(x.y, b.y, sm.y);
+  flash::mma::split_tf32(x.z, b.z, sm.z);
+  flash::mma::split_tf32(x.w, b.w, sm.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(small) = sm;
+}
+
+// The A fragment of rows [row0, row0 + 16), columns [c0, c0 + 8) of a
+// `swz_rows` tile, split into TF32 big and small parts.
+template <int D>
+__device__ __forceinline__ void load_a_tf32(unsigned (&big)[4],
+                                            unsigned (&small)[4],
+                                            const float* tile, int row0,
+                                            int c0, int g, int t4) {
+  using flash::mma::split_tf32;
+  using flash::mma::swz_rows;
+  split_tf32(tile[swz_rows<D>(row0 + g, c0 + t4)], big[0], small[0]);
+  split_tf32(tile[swz_rows<D>(row0 + g + 8, c0 + t4)], big[1], small[1]);
+  split_tf32(tile[swz_rows<D>(row0 + g, c0 + t4 + 4)], big[2], small[2]);
+  split_tf32(tile[swz_rows<D>(row0 + g + 8, c0 + t4 + 4)], big[3], small[3]);
+}
+
+template <int D, bool kDropout, bool kBias>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ kb,
+                      const float* __restrict__ bias, float* __restrict__ o,
+                      float* __restrict__ lse, int bias_heads, int bias_div,
+                      int bias_rows, int sq, int sk, float scale, int causal,
+                      unsigned seed, unsigned thresh, float keep_prob) {
+  using namespace flash::mma;
+  constexpr int BK = tf32_bk<D>();
+  constexpr int kKSteps = D / 8;  // k-steps of Q.K^T (8 columns each)
+  constexpr int kNT = BK / 8;     // n-tiles of S (8 keys each)
+  constexpr int kDT = D / 8;      // n-tiles of O (8 columns each)
+  constexpr bool kQRegs = D <= 64;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kMmaRows][D], swz_rows
+  float* ks = qs + kMmaRows * D;               // [2][BK][D], swz_rows
+  float* vs = ks + 2 * BK * D;                 // [2][BK][D], swz_pairs
+  float* kss = vs + 2 * BK * D;                // [BK][D], K's small parts
+  float* vss = kss + BK * D;                   // [BK][D], V's small parts
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wrow = (tid >> 5) * 16;  // the warp's first row in the tile
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // the thread's two rows: accumulator elements 0, 1 and 2, 3
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+  const unsigned head_s = head_seed(seed, (unsigned)bh);
+  const unsigned row_h[2] = {row_hash((unsigned)rows[0]),
+                             row_hash((unsigned)rows[1])};
+
+  const float* kp = k + (size_t)bh * sk * D;
+  const float* vp = v + (size_t)bh * sk * D;
+  const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
+  const float* brow[2] = {nullptr, nullptr};
+  if (kBias) {
+    const size_t base = (size_t)((bh / bias_div) % bias_rows) * sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // rows past Sq read row Sq - 1 and store nothing
+      brow[r] = bias + (base + min(rows[r], sq - 1)) * sk;
+    }
+  }
+  // key tiles starting past the block's last row are masked for every
+  // row of the block: skip them
+  const int kend = causal ? min(sk, q0 + kMmaRows) : sk;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  load_tile_f32<D, kMmaRows, kMmaThreads, false>(qs, q + (size_t)bh * sq * D,
+                                                 q0, sq, tid);
+  load_tile_f32<D, BK, kMmaThreads, false>(ks, kp, 0, sk, tid);
+  load_tile_f32<D, BK, kMmaThreads, true>(vs, vp, 0, sk, tid);
+  cp_async_commit();
+
+  unsigned qb[kQRegs ? kKSteps : 1][4];
+  unsigned qsm[kQRegs ? kKSteps : 1][4];
+  float acc[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    float* kst = ks + (t & 1) * BK * D;
+    float* vst = vs + (t & 1) * BK * D;
+    if (t + 1 < ntiles) {
+      // the stage it fills was last read in iteration t - 1, which ended
+      // in a barrier
+      load_tile_f32<D, BK, kMmaThreads, false>(ks + ((t + 1) & 1) * BK * D,
+                                               kp, k0 + BK, sk, tid);
+      load_tile_f32<D, BK, kMmaThreads, true>(vs + ((t + 1) & 1) * BK * D,
+                                              vp, k0 + BK, sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // K and V split once for the block, not once a warp: TF32 big parts
+    // in place, small parts beside them at the same (swizzled) offsets
+#pragma unroll
+    for (int i = 4 * tid; i < BK * D; i += 4 * kMmaThreads) {
+      split4_tf32(kst + i, kss + i);
+      split4_tf32(vst + i, vss + i);
+    }
+    __syncthreads();
+    if (kQRegs && t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (kQRegs ? kKSteps : 0); ++kk) {
+        load_a_tf32<D>(qb[kk], qsm[kk], qs, wrow, kk * 8, g, t4);
+      }
+    }
+
+    // the key bias of the thread's 16 keys, loaded ahead of the products
+    // that hide its latency
+    float kbv[kNT][2];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = k0 + 8 * j + 2 * t4 + h;
+        kbv[j][h] = kbp && col < sk ? __ldg(kbp + col) : 0.f;
+      }
+    }
+
+    // S = Q K^T in split TF32; K's "col" B fragment is row g, columns t
+    // and t + 4 of the tile
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      unsigned ab[4];
+      unsigned as[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ab[i] = qb[kk][i];
+          as[i] = qsm[kk][i];
+        }
+      } else {
+        load_a_tf32<D>(ab, as, qs, wrow, kk * 8, g, t4);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int o0 = swz_rows<D>(8 * j + g, kk * 8 + t4);
+        const int o1 = swz_rows<D>(8 * j + g, kk * 8 + t4 + 4);
+        mma_3xtf32(s[j], ab, as, __float_as_uint(kst[o0]),
+                   __float_as_uint(kst[o1]), __float_as_uint(kss[o0]),
+                   __float_as_uint(kss[o1]));
+      }
+    }
+
+    // scores, masks and the online softmax, in the accumulator layout:
+    // s[j][e] is row rows[e / 2], key k0 + 8j + 2 t4 + e % 2
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0 + wrow);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale + kbv[j][e & 1];
+        if (kBias && (!edge || col < sk)) x += __ldg(brow[r] + col);
+        if (edge && (col >= sk || (causal && col > rows[r]))) x = kNeg;
+        s[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+    // exponentials as in the bf16 kernel: exp2 of log2(e)-scaled
+    // differences; the product's rounding moves p = exp(x) by at most |x|
+    // fp32 ulps, within the forward's 2e-5 / 1e-4 of the reference
+    float alpha[2];
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m[e >> 1]) * kLog2e);
+        psum[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+    l[0] = l[0] * alpha[0] + psum[0];
+    l[1] = l[1] * alpha[1] + psum[1];
+    if (kDropout) {
+      // after `l`: dropout leaves the normalizer undropped
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const unsigned col = (unsigned)(k0 + 8 * j + 2 * t4 + (e & 1));
+          if (!hash_keep(row_h[e >> 1], col, head_s, thresh)) s[j][e] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V in split TF32, p in fp32 as the fp32 reference keeps it.
+    // The k-step over keys k0 + 8j .. + 7 reads key 2t at k index t and
+    // key 2t + 1 at t + 4: the accumulators (rows g, g + 8; keys 2t,
+    // 2t + 1) are then a0..a3 = s0, s2, s1, s3, and V's "col" B fragment
+    // is rows 2t, 2t + 1 of the tile at column g.
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      unsigned pb[4];
+      unsigned ps[4];
+      split_tf32(s[j][0], pb[0], ps[0]);
+      split_tf32(s[j][2], pb[1], ps[1]);
+      split_tf32(s[j][1], pb[2], ps[2]);
+      split_tf32(s[j][3], pb[3], ps[3]);
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) {
+        const int o0 = swz_pairs<D>(8 * j + 2 * t4, 8 * n + g);
+        const int o1 = swz_pairs<D>(8 * j + 2 * t4 + 1, 8 * n + g);
+        mma_3xtf32(acc[n], pb, ps, __float_as_uint(vst[o0]),
+                   __float_as_uint(vst[o1]), __float_as_uint(vss[o0]),
+                   __float_as_uint(vss[o1]));
+      }
+    }
+    __syncthreads();  // this stage is consumed
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (rows[r] >= sq) continue;
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    // the reference scales the normalizer, not the output: l * (1 - rate)
+    const float l_out = kDropout ? l_safe * keep_prob : l_safe;
+    float* op = o + ((size_t)bh * sq + rows[r]) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) {
+      *reinterpret_cast<float2*>(op + 8 * j) =
+          make_float2(acc[j][2 * r] / l_out, acc[j][2 * r + 1] / l_out);
+    }
+    if (t4 == 0) lse[(size_t)bh * sq + rows[r]] = m[r] + logf(l_safe);
+  }
+}
+
 template <typename T>
 struct Args {
   const T *q, *k, *v;
@@ -500,32 +644,31 @@ struct Args {
   float keep_prob;
 };
 
-template <typename T, int D, int BK, bool kDropout, bool kBias>
-void launch_one(dim3 grid, const Args<T>& a, cudaStream_t stream) {
-  flash_fwd_kernel<T, D, BK, kDropout, kBias><<<grid, kThreads, 0, stream>>>(
+template <int D, bool kDropout, bool kBias>
+cudaError_t launch_tf32_one(dim3 grid, const Args<float>& a,
+                            cudaStream_t stream) {
+  constexpr int smem = tf32_smem_bytes<D>();
+  auto kernel = flash_fwd_tf32_kernel<D, kDropout, kBias>;
+  static unsigned done = 0;
+  const cudaError_t err = flash::mma::allow_smem(kernel, smem, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
       a.q, a.k, a.v, a.kb, a.bias, a.o, a.lse, a.bias_heads, a.bias_div,
       a.bias_rows, a.sq, a.sk, a.scale, a.causal, a.seed, a.thresh,
       a.keep_prob);
+  return cudaGetLastError();
 }
 
-template <typename T, int D, int BK>
-cudaError_t launch(const Args<T>& a, int bh, int dropout,
-                   cudaStream_t stream) {
-  dim3 grid((a.sq + kTileRows - 1) / kTileRows, bh);
+template <int D>
+cudaError_t launch_tf32(const Args<float>& a, int bh, int dropout,
+                        cudaStream_t stream) {
+  dim3 grid((a.sq + kMmaRows - 1) / kMmaRows, bh);
   if (dropout) {
-    if (a.bias) {
-      launch_one<T, D, BK, true, true>(grid, a, stream);
-    } else {
-      launch_one<T, D, BK, true, false>(grid, a, stream);
-    }
-  } else {
-    if (a.bias) {
-      launch_one<T, D, BK, false, true>(grid, a, stream);
-    } else {
-      launch_one<T, D, BK, false, false>(grid, a, stream);
-    }
+    return a.bias ? launch_tf32_one<D, true, true>(grid, a, stream)
+                  : launch_tf32_one<D, true, false>(grid, a, stream);
   }
-  return cudaGetLastError();
+  return a.bias ? launch_tf32_one<D, false, true>(grid, a, stream)
+                : launch_tf32_one<D, false, false>(grid, a, stream);
 }
 
 template <typename T, int D, bool kDropout, bool kBias>
@@ -561,8 +704,8 @@ cudaError_t launch_mma(const Args<T>& a, int bh, int dropout,
 // 1 - rate (as fp32). `bias` null means no general bias; otherwise head
 // bh reads its row (bh / bias_div) % bias_rows. q/k/v/o are T; key_bias,
 // bias and lse fp32. `d` is 32, 64, 128 or 256: the wrapper zero-pads
-// any other head dim up to one of these. fp32 runs the CUDA-core kernel,
-// bf16 and fp16 the tensor-core one.
+// any other head dim up to one of these. fp32 runs the split-TF32 kernel,
+// bf16 and fp16 the bf16/fp16 tensor-core one.
 template <typename T>
 int flash_fwd(const void* q, const void* k, const void* v,
               const void* key_bias, const void* bias, void* o, void* lse,
@@ -595,13 +738,13 @@ int flash_fwd(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32:
-        return (int)launch<T, 32, 64>(a, bh, dropout, s);
+        return (int)launch_tf32<32>(a, bh, dropout, s);
       case 64:
-        return (int)launch<T, 64, 64>(a, bh, dropout, s);
+        return (int)launch_tf32<64>(a, bh, dropout, s);
       case 128:
-        return (int)launch<T, 128, 32>(a, bh, dropout, s);
+        return (int)launch_tf32<128>(a, bh, dropout, s);
       case 256:
-        return (int)launch<T, 256, 16>(a, bh, dropout, s);
+        return (int)launch_tf32<256>(a, bh, dropout, s);
       default:
         return (int)cudaErrorInvalidValue;
     }

@@ -1,9 +1,10 @@
-// Tensor-core pieces shared by the bf16 and fp16 forms of the flash
-// training kernels (flash_fwd.cu, flash_bwd_dkv.cu): their block of 4
-// warps, warp-level `mma.sync.m16n8k16` with fp32 accumulators,
-// `ldmatrix` fragment loads from shared memory, `cp.async` copies from
-// device memory, the swizzled tile layout they read, and the opt-in to
-// more than 48 KB of shared memory.
+// Tensor-core pieces shared by the flash training kernels' tensor-core
+// forms (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): their block of
+// 4 warps, warp-level `mma.sync` with fp32 accumulators (m16n8k16 on
+// bf16/fp16 operands, m16n8k8 on TF32 ones), `ldmatrix` fragment loads
+// from shared memory, `cp.async` copies from device memory, the swizzled
+// tile layouts they read, and the opt-in to more than 48 KB of shared
+// memory.
 //
 // Fragments of one m16n8k16 product (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane l of the warp, g = l / 4 and t = l % 4:
@@ -18,7 +19,25 @@
 // therefore an A fragment of the next product as it is (after rounding to
 // 16 bits): P or dS never leaves the registers.
 //
-// Tiles in shared memory are [rows][D] of 16-bit elements, rows of D/8
+// Fragments of one m16n8k8 TF32 product ("Matrix fragments for
+// mma.m16n8k8", .tf32), one 32-bit element a register:
+//   A (16 x 8, row-major): a0 = A[g][t], a1 = A[g+8][t],
+//                          a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8 x 8, "col"):      b0 = B[t][g], b1 = B[t+4][g]
+//   C, D (16 x 8, fp32):   as m16n8k16.
+// Here an accumulator pair (c0, c1) holds columns 2t and 2t+1, where A
+// wants t and t+4: the fp32 forward reads P.V's k index t as key 2t and
+// t+4 as key 2t+1, and loads V's rows in that order, so P still never
+// leaves the registers. The tensor cores read only the 19 high bits of a
+// TF32 element. An fp32 value x is held as big = tf32(x) and small =
+// tf32(x - big), each rounded to nearest (ties away); a product of two
+// such pairs as a_small b_big + a_big b_small + a_big b_big ("3xTF32",
+// small terms first) drops a_small b_small, ~2^-22 of the product, and
+// keeps fp32's accuracy at the tensor cores' TF32 rate, as long as each
+// k-step's three products are summed apart from the running sum
+// (`mma_3xtf32`).
+//
+// Tiles of 16-bit elements in shared memory are [rows][D], rows of D/8
 // 16-byte chunks. `ldmatrix` reads eight rows at one chunk column at a
 // time; a plain layout puts those eight 16-byte pieces in the same four
 // banks whenever a row is a multiple of 128 bytes. `swz` XORs the chunk
@@ -26,6 +45,14 @@
 // whose 64-byte rows pair up in a 128-byte line), so the eight rows of
 // one read, and the 16-byte `cp.async` writes of one row, fall in eight
 // different bank groups.
+//
+// fp32 tiles are [rows][D] of 4-byte elements, D a multiple of 32 (every
+// row starts at bank 0), read one element a lane with plain loads.
+// `swz_rows` XORs column bits 2-4 with row & 7: an A fragment or a "col"
+// B fragment (8 rows g by 4 columns t) then touches 32 different banks.
+// `swz_pairs` XORs column bits 3-4 with (row >> 1) & 3 for P.V's V: rows
+// 2t or 2t+1 by 8 columns g, 32 banks again. Both keep each 4-element
+// (16-byte) `cp.async` piece contiguous.
 
 #pragma once
 
@@ -52,6 +79,19 @@ __device__ __forceinline__ int swz(int row, int col) {
     chunk ^= (row >> 1) & 3;
   }
   return row * D + (chunk << 3) + (col & 7);
+}
+
+// Element offsets of (row, col) in the fp32 tiles (see above).
+template <int D>
+__device__ __forceinline__ int swz_rows(int row, int col) {
+  static_assert(D % 32 == 0, "fp32 tile width: a multiple of 32");
+  return row * D + (col ^ ((row & 7) << 2));
+}
+
+template <int D>
+__device__ __forceinline__ int swz_pairs(int row, int col) {
+  static_assert(D % 32 == 0, "fp32 tile width: a multiple of 32");
+  return row * D + (col ^ (((row >> 1) & 3) << 3));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -150,6 +190,54 @@ __device__ __forceinline__ unsigned pack_round<__half>(float lo, float hi) {
   return pack2(__float2half_rn(lo), __float2half_rn(hi));
 }
 
+// x rounded to TF32 (to nearest, ties away), as the tensor cores read it.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as big + small, both TF32 (see above).
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// d += a * b on the tensor cores, TF32 operands, fp32 accumulation.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in split TF32: a = (ab, as), b = ((b0b, b1b), (b0s, b1s)).
+// The tensor cores add a product's terms aligned to the largest of them
+// and cut, not rounded, to 24 bits, so adding small products straight
+// into a large running sum biases it toward zero, step after step. The
+// three products are summed from zero here, where no addend is much
+// larger than the others, and that sum is added to d on the CUDA cores,
+// rounded to nearest.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const unsigned (&ab)[4],
+                                           const unsigned (&as)[4],
+                                           unsigned b0b, unsigned b1b,
+                                           unsigned b0s, unsigned b1s) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma1688_tf32(t, as, b0b, b1b);
+  mma1688_tf32(t, ab, b0s, b1s);
+  mma1688_tf32(t, ab, b0b, b1b);
+  d[0] += t[0];
+  d[1] += t[1];
+  d[2] += t[2];
+  d[3] += t[3];
+}
+
 // Rows [row0, row0 + ROWS) of a [n_rows, D] matrix in device memory into
 // a swizzled [ROWS][D] tile, 16 bytes per copy spread over `threads`
 // threads; rows at or past `n_rows` are zero-filled (and read nothing).
@@ -164,6 +252,24 @@ __device__ __forceinline__ void load_tile(T* tile, const T* src, int row0,
     const bool valid = row0 + r < n_rows;
     const T* p = src + (size_t)(valid ? row0 + r : 0) * D + c;
     cp_async16(tile + swz<D>(r, c), p, valid);
+  }
+}
+
+// The fp32 form of `load_tile`: rows [row0, row0 + ROWS) of a [n_rows, D]
+// fp32 matrix into a [ROWS][D] tile laid out by `swz_pairs` (kPairs) or
+// `swz_rows`, 4 elements per copy; rows at or past `n_rows` zero-fill.
+template <int D, int ROWS, int THREADS, bool kPairs>
+__device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
+                                              int row0, int n_rows, int tid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks;
+    const int c = (i - r * kChunks) * 4;
+    const bool valid = row0 + r < n_rows;
+    const float* p = src + (size_t)(valid ? row0 + r : 0) * D + c;
+    cp_async16(tile + (kPairs ? swz_pairs<D>(r, c) : swz_rows<D>(r, c)), p,
+               valid);
   }
 }
 

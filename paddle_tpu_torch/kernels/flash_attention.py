@@ -41,9 +41,10 @@ outputs.
 Element types: every kernel takes fp32, bf16 or fp16 (one type for
 q/k/v, dO and the pools; lse, delta and the biases fp32). The training
 kernels take any head dim up to 256 (zero-padded to 32, 64, 128 or 256);
-their bf16 and fp16 forms of ``flash_fwd`` and ``flash_bwd_dkv`` run on
-the tensor cores (``mma.sync``), ``flash_bwd_dq`` and every fp32 form on
-the CUDA cores. The decode kernels take any head dim from 1 to 256 as it
+in bf16 and fp16 all three run on the tensor cores (``mma.sync``), the
+fp32 ``flash_fwd`` too, in split TF32 (three TF32 products for each fp32
+one), and the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkv`` on the CUDA
+cores. The decode kernels take any head dim from 1 to 256 as it
 is (a pad would copy the cache every step).
 """
 
@@ -615,7 +616,8 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
     the kernel on the current stream (q/k/v contiguous and 16-byte
     aligned, all fp32, bf16 or fp16; out in their type, lse fp32; any
     head_dim up to 256, zero-padded to 32, 64, 128 or 256 with ``scale``
-    from the real one; bf16 and fp16 on the tensor cores) or raise: the
+    from the real one; on the tensor cores, fp32 in split TF32) or
+    raise: the
     kernel takes a key bias, the general ``bias`` in every broadcast
     form, the causal flag and the hash dropout.
     ``flash_attention_lse.launches`` counts kernel launches."""
@@ -695,7 +697,8 @@ def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
     plain version (``flash_bwd_dq_plain``); CUDA tensors launch the
     kernel on the current stream (q/k/v/dO contiguous in one of fp32,
     bf16 and fp16, dq in their type; lse and delta fp32; any head_dim up
-    to 256, zero-padded as in ``flash_attention_lse``) or raise.
+    to 256, zero-padded as in ``flash_attention_lse``; bf16 and fp16 on
+    the tensor cores) or raise.
     ``flash_bwd_dq.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta,

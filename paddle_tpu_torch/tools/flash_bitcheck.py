@@ -1,27 +1,38 @@
-"""Hold the fp32 flash kernels of this tree against an older tree's, bit
-for bit, on the card.
+"""Hold the flash kernels of this tree against an older tree's on the
+card: bit for bit where the arithmetic is meant to be unchanged, within
+the card's limits against the plain versions where this tree redesigned
+a kernel.
 
-The fp32 forms of the five kernels must keep their arithmetic statement
-for statement while other forms grow beside them: the bf16 and fp16
-forms of ``flash_fwd`` and ``flash_bwd_dkv`` are separate tensor-core
-kernels, that of ``flash_bwd_dq`` a template instantiation beside the
-fp32 one, and the decode kernels are templates on the element type with
-head dims past 128 and off the multiples of 8. This script builds both
-trees' kernels, runs them on the same fp32 inputs and compares every
-output with ``torch.equal``:
+Each kernel form keeps its arithmetic statement for statement while
+other forms grow beside it, until a PR replaces that form. This script
+builds both trees' kernels, runs them on the same inputs and applies one
+check to each (kernel, element type), printed beside its result:
 
-- the training kernels (key bias, causal, dropout 0 and 0.1, with and
-  without a per-head general bias, at the train and prefill shapes and
-  ragged ones): out, lse, dq, dk, dv, dkey_bias and dbias. A head dim of
-  48 runs through this tree's wrappers, which zero-pad it to 64, and
-  through the older tree's D = 64 kernels on the same padded operands
-  with the scale of D = 48: the padding must not move a bit either;
-- the decode kernels, contiguous and paged (the serving shapes and
-  ragged ones, head dims 8 to 128).
+- ``bits``: this tree's output equals the older tree's (``torch.equal``),
+  on the same operands (the backward kernels on this tree's lse and
+  delta): the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (out of dq, dk,
+  dv, dkey_bias; dbias of heads sharing a row is summed with float
+  atomics in no fixed order and is held to 1e-5), the bf16 and fp16
+  ``flash_fwd`` (out, lse) and ``flash_bwd_dkv``, and both decode kernels
+  in fp32 and bf16;
+- ``limit``: the forms redesigned since the older tree are held to their
+  plain versions instead: the fp32 ``flash_fwd`` (split TF32 on the
+  tensor cores) at the forward's atol 2e-5 / rtol 1e-4, and the bf16 and
+  fp16 ``flash_bwd_dq`` (on the tensor cores) at the per-element and
+  per-block limits of ``tools/lowp_limits.py``; the largest difference
+  from the older tree's output is printed beside it.
+
+The training kernels run at the train and prefill shapes and ragged ones
+(key bias, causal, dropout 0 and 0.1, with and without a per-head
+general bias). A head dim of 48 runs through this tree's wrappers, which
+zero-pad it to 64, and through the older tree's D = 64 kernels on the
+same padded operands with the scale of D = 48. The decode kernels run,
+contiguous and paged, at the serving shape and ragged ones (head dims 8
+to 128).
 
 It prints the ``ptxas`` register and spill lines of this tree's builds,
-one ``bitcheck`` line per shape, and ``BITCHECK PASS`` or ``BITCHECK
-FAIL`` last; it exits 1 on a mismatch.
+one ``bitcheck`` line per shape and type, and ``BITCHECK PASS`` or
+``BITCHECK FAIL`` last; it exits 1 on a failed check.
 
 Usage, from the repo root on a machine with a card and ``nvcc``::
 
@@ -29,9 +40,10 @@ Usage, from the repo root on a machine with a card and ``nvcc``::
     git archive <older commit> paddle_tpu_torch | tar -x -C _archive/parent
     python3 -m paddle_tpu_torch.tools.flash_bitcheck _archive/parent
 
-The older tree's training kernels must take the argument list they had
-once the general bias was added (key bias, bias, bias rows), and its
-decode kernels their fp32 entry points (``paddle_flash_decode_f32``).
+The older tree's kernels must take the argument lists they had once the
+general bias was added (key bias, bias, bias rows) and have bf16 entry
+points (``paddle_flash_fwd_bf16``, ``paddle_flash_decode_bf16``): any
+tree from ``244609a`` on.
 """
 
 import argparse
@@ -43,6 +55,7 @@ import time
 import torch
 
 from paddle_tpu_torch.kernels import _build, flash_attention as fa
+from paddle_tpu_torch.tools import lowp_limits as lowp
 
 KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
 DECODE_KERNELS = ["flash_decode", "flash_decode_paged"]
@@ -55,6 +68,18 @@ SHAPES = [(8, 12, 1024, 64, 0.1, "batch", False),
           (2, 3, 100, 64, 0.1, "batch", True),
           (2, 3, 70, 48, 0.1, "batch", False),
           (2, 3, 70, 48, 0.0, None, True)]
+# the bf16 and fp16 forms: the AMP train shape and ragged ones
+LOWP_SHAPES = [(8, 12, 1024, 64, 0.1, "batch", False),
+               (2, 3, 100, 128, 0.1, None, False),
+               (2, 3, 100, 64, 0.1, "batch", True),
+               (2, 3, 70, 48, 0.0, "batch", False),
+               (1, 2, 130, 256, 0.1, "batch", False)]
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+# the (kernel, element type) forms redesigned since the older tree: held
+# to their plain versions; every other form is held to the older bits
+LIMIT_FORMS = {("flash_fwd", "f32"), ("flash_bwd_dq", "bf16"),
+               ("flash_bwd_dq", "f16")}
+FWD_ATOL, FWD_RTOL = 2e-5, 1e-4
 # decode: (slots, heads, cache length, D, block size of the paged pool)
 DECODE_SHAPES = [(8, 12, 1024, 64, 16), (4, 3, 300, 48, 4), (3, 2, 77, 8, 16),
                  (2, 3, 130, 128, 64), (4, 3, 1, 24, 1)]
@@ -68,14 +93,17 @@ def load_parent_build(parent):
     return mod
 
 
-def check(pb, B, N, S, D, rate, kbform, with_bias, dev):
-    """Run both trees' kernels on one shape; {output: equal}."""
+def check(pb, B, N, S, D, rate, kbform, with_bias, dev, et="f32"):
+    """Run both trees' training kernels on one shape in element type
+    ``et``; {output: (check, passed, max abs difference from the older
+    tree)}."""
     def parent_call(name, *args):
-        err = pb.load(name)(*args, torch.cuda.current_stream().cuda_stream)
+        err = pb.load(name, et)(*args, torch.cuda.current_stream().cuda_stream)
         assert err == 0, (name, err)
 
+    dt = DTYPES[et]
     g = torch.Generator(device=dev).manual_seed(S + D)
-    q, k, v, do = (torch.randn(B, N, S, D, device=dev, generator=g)
+    q, k, v, do = (torch.randn(B, N, S, D, device=dev, generator=g).to(dt)
                    for _ in range(4))
     kb = None
     if kbform:
@@ -87,7 +115,7 @@ def check(pb, B, N, S, D, rate, kbform, with_bias, dev):
     on, sd, th, kp, inv = fa._dropout_args(rate, seed)
     kw = dict(causal=True, dropout_rate=rate, dropout_seed=seed, bias=bias)
     out, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
-    delta = (do * out).sum(-1)
+    delta = (do.float() * out.float()).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, kb, do, lse, delta, **kw)
     dkv = fa.flash_bwd_dkv(q, k, v, kb, do, lse, delta, **kw)
     # the older tree's kernels at the width this tree runs D at, on the
@@ -117,23 +145,49 @@ def check(pb, B, N, S, D, rate, kbform, with_bias, dev):
                 0 if pdbias is None else pdbias.data_ptr(), B * N, heads,
                 div, rows, S, S, width, scale, 1, on, sd, th, inv)
     torch.cuda.synchronize()
-    pairs = [("out", out, pout[..., :D]), ("lse", lse, plse),
-             ("dq", dq, pdq[..., :D]), ("dk", dkv[0], pdk[..., :D]),
-             ("dv", dkv[1], pdv[..., :D]), ("dkb", dkv[2], pdkb)]
+    diff = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa
+    res = {}
+    for kname, pairs in (
+            ("flash_fwd", [("out", out, pout[..., :D]), ("lse", lse, plse)]),
+            ("flash_bwd_dq", [("dq", dq, pdq[..., :D])]),
+            ("flash_bwd_dkv", [("dk", dkv[0], pdk[..., :D]),
+                               ("dv", dkv[1], pdv[..., :D]),
+                               ("dkb", dkv[2], pdkb)])):
+        if (kname, et) not in LIMIT_FORMS:
+            for n, a, b in pairs:
+                res[n] = ("bits", torch.equal(a, b), diff(a, b))
     if with_bias:
         # per-head rows shared by the batch: float atomics in no fixed
         # order, so dbias is held to rounding, not bits (see the kernel)
-        err = float((dkv[3] - pdbias).abs().max())
-        pairs.append(("dbias<=1e-5", torch.tensor(err <= 1e-5),
-                      torch.tensor(True)))
-    return {n: torch.equal(a, b) for n, a, b in pairs}
+        err = diff(dkv[3], pdbias)
+        res["dbias"] = ("<=1e-5", err <= 1e-5, err)
+    if ("flash_fwd", et) in LIMIT_FORMS:
+        ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, key_bias=kb,
+                                                        **kw)
+        for n, a, b, p in (("out", out, ref_out, pout[..., :D]),
+                           ("lse", lse, ref_lse, plse)):
+            ok = torch.allclose(a, b, atol=FWD_ATOL, rtol=FWD_RTOL)
+            res[n] = ("limit %g/%g" % (FWD_ATOL, FWD_RTOL), ok, diff(a, p))
+        del ref_out, ref_lse
+    if ("flash_bwd_dq", et) in LIMIT_FORMS:
+        ref_dq = fa.flash_bwd_dq_plain(q, k, v, kb, do, lse, delta, **kw)
+        ref_dkv = fa.flash_bwd_dkv_plain(q, k, v, kb, do, lse, delta, **kw)
+        bound = lowp.grad_bounds(dt, q, k, v, kb, do, lse, delta,
+                                 (ref_dq,) + tuple(ref_dkv[:2]), **kw)[0]
+        ratios = lowp.grad_ratios(dt, dq, ref_dq, bound)
+        res["dq"] = ("limit lowp %s" % {n: round(r, 3)
+                                        for n, r in ratios.items()},
+                     max(ratios.values()) <= 1.0, diff(dq, pdq[..., :D]))
+    return res
 
 
-def check_decode(pb, B, N, S, D, blk, dev):
-    """Both trees' decode kernels on one shape; {output: equal}."""
+def check_decode(pb, B, N, S, D, blk, dev, et="f32"):
+    """Both trees' decode kernels on one shape in element type ``et``;
+    {output: ("bits", equal, max abs difference)}."""
+    dt = DTYPES[et]
     g = torch.Generator(device=dev).manual_seed(S * 3 + D)
-    q = torch.randn(B, N, 1, D, device=dev, generator=g)
-    k, v = (torch.randn(B, N, S, D, device=dev, generator=g)
+    q = torch.randn(B, N, 1, D, device=dev, generator=g).to(dt)
+    k, v = (torch.randn(B, N, S, D, device=dev, generator=g).to(dt)
             for _ in range(2))
     kb = torch.zeros(B, S, device=dev)
     for b in range(B):
@@ -142,27 +196,30 @@ def check_decode(pb, B, N, S, D, blk, dev):
     scale = 1.0 / D ** 0.5
     out = fa.flash_decode_attention(q, k, v, kb)
     pout = torch.empty_like(q)
-    err = pb.load("flash_decode")(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  kb.data_ptr(), pout.data_ptr(), B * N, N,
-                                  S, D, scale, stream)
+    err = pb.load("flash_decode", et)(q.data_ptr(), k.data_ptr(),
+                                      v.data_ptr(), kb.data_ptr(),
+                                      pout.data_ptr(), B * N, N, S, D, scale,
+                                      stream)
     assert err == 0, ("flash_decode", err)
     MB = (S + blk - 1) // blk
     pools = [torch.randn(B * MB + 1, N, blk, D, device=dev, generator=g)
-             for _ in range(2)]
+             .to(dt) for _ in range(2)]
     tables = (torch.randperm(B * MB, device=dev, generator=g) + 1).reshape(
         B, MB).to(torch.int32)
     pkb = torch.zeros(B, MB * blk, device=dev)
     pkb[:, S:] = -1e4
     paged = fa.flash_decode_paged_attention(q, pools[0], pools[1], tables, pkb)
     ppaged = torch.empty_like(q)
-    err = pb.load("flash_decode_paged")(
+    err = pb.load("flash_decode_paged", et)(
         q.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr(),
         tables.data_ptr(), pkb.data_ptr(), ppaged.data_ptr(), B * N, N, N, MB,
         blk, pools[0].shape[0], D, scale, stream)
     assert err == 0, ("flash_decode_paged", err)
     torch.cuda.synchronize()
-    return {"decode": torch.equal(out, pout),
-            "decode_paged": torch.equal(paged, ppaged)}
+    diff = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa
+    return {"decode": ("bits", torch.equal(out, pout), diff(out, pout)),
+            "decode_paged": ("bits", torch.equal(paged, ppaged),
+                             diff(paged, ppaged))}
 
 
 def main(argv=None):
@@ -184,14 +241,17 @@ def main(argv=None):
     pb.build(KERNELS + DECODE_KERNELS)
     dev = torch.device("cuda")
     ok = True
-    for shape in SHAPES:
-        same = check(pb, *shape, dev)
-        print("bitcheck", shape, same)
-        ok = ok and all(same.values())
-    for shape in DECODE_SHAPES:
-        same = check_decode(pb, *shape, dev)
-        print("bitcheck decode", shape, same)
-        ok = ok and all(same.values())
+    runs = ([(shape, "f32") for shape in SHAPES]
+            + [(shape, et) for et in ("bf16", "f16") for shape in LOWP_SHAPES])
+    for shape, et in runs:
+        res = check(pb, *shape, dev, et)
+        print("bitcheck", et, shape, res)
+        ok = ok and all(r[1] for r in res.values())
+    for et in ("f32", "bf16"):
+        for shape in DECODE_SHAPES:
+            res = check_decode(pb, *shape, dev, et)
+            print("bitcheck decode", et, shape, res)
+            ok = ok and all(r[1] for r in res.values())
     print("BITCHECK", "PASS" if ok else "FAIL")
     return 0 if ok else 1
 

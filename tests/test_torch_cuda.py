@@ -6,7 +6,8 @@ a machine without them:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 fp32 on both sides; atol 2e-5 / rtol 1e-4 for the forward kernels (they
-sum in another order than the dense plain version; a masking or indexing
+sum in another order than the dense plain version, the training forward
+in split TF32 whose products keep ~2^-22 of fp32; a masking or indexing
 error is O(0.1)); atol 1e-4 for the backward ones, whose outputs are sums
 of up to a few hundred products of O(1) terms (dkey_bias sums ds over
 every query row), and whose dropout mask, if it differed by one entry,
@@ -43,8 +44,11 @@ def _randn(gen, *shape):
 
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 200, 256])
 @pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
-                                          (True, 1, 1)])
+                                          (True, 1, 1), (False, 130, 77)])
 def test_flash_fwd_kernel_matches_plain(D, causal, Sq, Sk):
+    """The fp32 forward (split TF32 on the tensor cores) at every
+    instantiated width (D 16, 48 and 200 zero-padded), Sq != Sk both ways
+    with ragged tiles and a -1e4 key tail, at the fp32 limits."""
     gen = torch.Generator().manual_seed(D + Sq)
     B, N = 2, 3
     q, k, v = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sk, D), \
@@ -75,16 +79,16 @@ def _key_bias(gen, form, B, N, S):
     return _randn(gen, *((S,) if form == "vector" else (B * N, S)))
 
 
-@pytest.mark.parametrize("D", [32, 48, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 48, 64, 128, 200, 256])
 @pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
-                                          (True, 64, 64)])
+                                          (True, 64, 64), (False, 130, 77)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("form", _KEY_BIAS_FORMS)
 def test_flash_training_kernels_match_plain(D, causal, Sq, Sk, rate, form):
-    """The forward with the hash dropout and both backward kernels,
-    through the residual-driven entry the train step uses, against their
-    plain versions on the same inputs; the lse cotangent folds into
-    delta."""
+    """The fp32 forward (split TF32) with the hash dropout and both fp32
+    backward kernels, through the residual-driven entry the train step
+    uses, against their plain versions on the same inputs; the lse
+    cotangent folds into delta."""
     gen = torch.Generator().manual_seed(D + Sq + int(rate * 10))
     B, N = 2, 3
     q, k, v = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sk, D), \
@@ -117,10 +121,9 @@ def _check_low_precision(dtype, q, k, v, kb, g, gb, causal, rate, seed):
     residual-driven entry the train step uses, against their plain
     versions at the limits of ``tools/lowp_limits.py``: out, dq, dk and dv
     come back in the input type, lse, dkey_bias and dbias in fp32. Both
-    backward kernels take the kernel forward's out and lse (dq, on the
-    CUDA cores, from the tensor-core forward's), and so do their plain
-    versions: the same rounding points, so only summation order
-    differs."""
+    backward kernels take the kernel forward's out and lse, and so do
+    their plain versions: the same rounding points, so only summation
+    order differs."""
     kw = dict(causal=causal, dropout_rate=rate, bias=gb)
     n0 = (fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
           fa.flash_bwd_dkv.launches)
@@ -182,10 +185,12 @@ def test_flash_training_kernels_low_precision_match_plain(
                                           (True, 1000, 1000)])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_tensor_core_kernels_match_plain(dtype, D, causal, Sq, Sk, rate):
-    """The tensor-core forward and dk/dv kernels (bf16, fp16) at every
-    instantiated width (D 16, 48 and 200 zero-padded), causal or not, Sq
-    != Sk, tiles ragged at both ends (S = 37, 1000), with and without
-    dropout, against their plain versions (``_check_low_precision``)."""
+    """The three tensor-core kernels (bf16, fp16: the forward, dq and
+    dk/dv) at every instantiated width (D 16, 48 and 200 zero-padded; dq
+    with two warps sharing 16 rows at D = 256), causal or not, Sq != Sk,
+    tiles ragged at both ends (S = 37, 1000), with and without dropout,
+    against their plain versions at the limits of ``lowp_limits``
+    (``_check_low_precision``)."""
     gen = torch.Generator().manual_seed(D * 7 + Sq + int(rate * 10))
     B, N = (1, 2) if Sq == 1000 else (2, 3)
     q, k, v = (_randn(gen, B, N, S, D).to(dtype) for S in (Sq, Sk, Sk))
@@ -202,7 +207,8 @@ def test_tensor_core_kernels_match_plain(dtype, D, causal, Sq, Sk, rate):
 def test_tensor_core_kernels_take_every_bias_form(dtype, form, bias):
     """Every key-bias form, and a per-head ([1, N, S, S], stored per head
     of the batch's rows with atomics) or shared ([S, S]) general bias,
-    through the tensor-core kernels with dropout 0.3, causal."""
+    through the three tensor-core kernels (forward, dq, dk/dv) with
+    dropout 0.3, causal."""
     gen = torch.Generator().manual_seed(len(str(form)) + len(str(bias)))
     B, N, S, D = 2, 3, 100, 64
     q, k, v, g = (_randn(gen, B, N, S, D).to(dtype) for _ in range(4))
@@ -225,8 +231,9 @@ _BIAS_FORMS = {
 }
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150)])
+@pytest.mark.parametrize("D", [32, 64, 128, 200, 256])
+@pytest.mark.parametrize("causal,Sq,Sk", [(True, 100, 100), (False, 37, 150),
+                                          (False, 130, 77)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("form", sorted(_BIAS_FORMS))
 def test_flash_bias_kernels_match_plain(D, causal, Sq, Sk, rate, form):

@@ -25,8 +25,9 @@ from paddle_tpu_torch.fluid import profiler as tprofiler
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.observability import trace as ttrace
 from paddle_tpu_torch.serving import decode as tdecode
+from test_torch_cpu_math import pin_vector_math
 
-torch.set_num_threads(2)
+pin_vector_math(2)  # 2 threads, vector math set up on one (see there)
 
 MAX_LEN = 16
 SLOTS = 4

@@ -16,7 +16,14 @@ package's Pallas kernels in interpret mode on the CPU:
   which the CUDA wrappers zero-pad to 256: atol 1e-5, as the other fp32
   training tests;
 - the training wrappers' head-dim rule: any D up to 256 runs at the next
-  instantiated width, past 256 they raise.
+  instantiated width, past 256 they raise;
+- the fp32 forward's split-TF32 arithmetic (``csrc/flash_fwd.cu``),
+  emulated in numpy: each fp32 operand rounded to nearest (ties away) at
+  TF32's 10 mantissa bits as ``big`` and its remainder as ``small``, three
+  products with ``small·small`` dropped, fp32 sums, through the kernel's
+  tiled online softmax. It must stay within the card's forward limit
+  (atol 2e-5 / rtol 1e-4) of the Pallas forward, and a single TF32
+  product must not: the limit tells the two designs apart.
 
 Inputs are made with numpy from a seed.
 """
@@ -30,10 +37,11 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.tools import lowp_limits as lowp
+from test_torch_cpu_math import pin_vector_math
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 
-torch.set_num_threads(2)
+pin_vector_math(2)  # 2 threads, vector math set up on one (see there)
 
 ATOL = RTOL = 1e-5
 _DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16),
@@ -209,3 +217,71 @@ def test_decode_alignment_by_head_dim(D, size, align):
 def test_decode_head_dim_raises_outside_1_to_256(D):
     with pytest.raises(ValueError):
         tfa._decode_align("flash_decode", D, 4)
+
+
+def _tf32(x):
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32``: round to nearest, ties away
+    from zero, at 10 mantissa bits (the low 13 bits cleared)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b (fp32, [.., m, k] x [.., k, n]) as the tensor cores take it:
+    with ``split``, a_small·b_big + a_big·b_small + a_big·b_big summed in
+    fp32 in that order (a product of two TF32 values is exact in fp32);
+    without, one product of the TF32-rounded operands."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return np.matmul(ab, bb)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    out = np.matmul(asm, bb)
+    out += np.matmul(ab, bsm)
+    out += np.matmul(ab, bb)
+    return out
+
+
+def _tf32_forward(q, k, v, kb, causal, split, tile=16):
+    """The fp32 forward kernel's math in numpy: S = Q·Kᵀ and O += P·V on
+    the tensor cores (``_mm_tf32``), the reference's online softmax over
+    key tiles (masked scores -1e30, ``l`` of the undropped p clamped at
+    1e-30); returns (out, lse)."""
+    B, N, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale = np.float32(1.0 / np.sqrt(D))
+    m = np.full((B, N, Sq, 1), -1e30, np.float32)
+    l = np.zeros((B, N, Sq, 1), np.float32)
+    acc = np.zeros((B, N, Sq, D), np.float32)
+    rows = np.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        cols = np.arange(k0, min(k0 + tile, Sk))[None, :]
+        s = _mm_tf32(q, np.swapaxes(k[:, :, k0:k0 + tile], -1, -2), split)
+        s = s * scale + kb[:, None, None, k0:k0 + tile]
+        if causal:
+            s = np.where(cols > rows, np.float32(-1e30), s)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdims=True)
+        acc = acc * alpha + _mm_tf32(p, v[:, :, k0:k0 + tile], split)
+        m = m_new
+    l = np.maximum(l, np.float32(1e-30))
+    return acc / l, (m + np.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_split_tf32_forward_emulation_matches_jax_kernel(D):
+    B, N, S = 2, 2, 40
+    rs = np.random.RandomState(D + 3)
+    q, k, v = (_randn(rs, B, N, S, D) for _ in range(3))
+    kb = np.zeros((B, S), np.float32)
+    kb[1, 29:] = -1e4
+    want_out, want_lse = jfa.flash_attention_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        key_bias=jnp.asarray(kb), causal=True, interpret=True)
+    want_out, want_lse = np.asarray(want_out), np.asarray(want_lse)
+    out, lse = _tf32_forward(q, k, v, kb, True, split=True)
+    _close(out, want_out, atol=2e-5, rtol=1e-4)
+    _close(lse, want_lse, atol=2e-5, rtol=1e-4)
+    one_out, one_lse = _tf32_forward(q, k, v, kb, True, split=False)
+    assert not np.allclose(one_out, want_out, atol=2e-5, rtol=1e-4)

@@ -22,11 +22,12 @@ from paddle_tpu_torch.fluid.ops import math_ops as tmath
 from paddle_tpu_torch.fluid.ops import nn_ops as tnn
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.tools import lowp_limits as lowp
+from test_torch_cpu_math import pin_vector_math
 
 # the reference package re-exports the function under the module's name
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 
-torch.set_num_threads(2)
+pin_vector_math(2)  # 2 threads, vector math set up on one (see there)
 
 ATOL = RTOL = 1e-5
 

@@ -36,11 +36,12 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.serving import decode as tdecode
 from paddle_tpu_torch.serving.batcher import ServerOverloadedError
+from test_torch_cpu_math import pin_vector_math
 
 # the reference package re-exports the function under the module's name
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 
-torch.set_num_threads(2)
+pin_vector_math(2)  # 2 threads, vector math set up on one (see there)
 
 MAX_LEN = 20
 SLOTS = 3

@@ -24,8 +24,9 @@ from paddle_tpu_torch.fluid import profiler as tprofiler
 from paddle_tpu_torch.fluid.ops import registry as tregistry
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import gpt as tgpt
+from test_torch_cpu_math import pin_vector_math
 
-torch.set_num_threads(2)
+pin_vector_math(2)  # 2 threads, vector math set up on one (see there)
 
 T = 16
 BATCH = 2

@@ -27,8 +27,9 @@ from paddle_tpu_torch.fluid.ops import optimizer_ops as topt_ops
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.observability import trace as ttrace
+from test_torch_cpu_math import pin_vector_math
 
-torch.set_num_threads(2)
+pin_vector_math(2)  # 2 threads, vector math set up on one (see there)
 
 T = 16          # positions (the tiny GPT's max_position_embeddings)
 BATCH = 2
