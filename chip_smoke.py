@@ -7,7 +7,9 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. Phases, one JSON line each:
 
 1. env     torch / CUDA / nvcc versions, the card, TF32 turned off.
-2. build   compiles every kernel from ``paddle_tpu_torch/csrc`` (sm_90a).
+2. build   compiles every kernel from ``paddle_tpu_torch/csrc`` (sm_90a)
+           and reports each instantiation's ``ptxas`` registers and
+           spill stores.
 3. kernels each kernel against its plain PyTorch version on the card at
            the shapes its path gives it (serving: prefill and decode;
            training: the forward with dropout 0.1 and both backward
@@ -23,9 +25,10 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
            (``backward(g, retain_graph=True)`` on a saved SDPA output with
            the same mask and its own dropout), which returns dq, dk and
            dv from the same residuals; SDPA forward + backward is kept
-           beside it. The fp32 forward (split TF32 on the tensor cores)
-           prints its bound at three TF32 products at 495 TFLOP/s beside
-           the 67 TFLOP/s fp32 bound of the table.
+           beside it. The fp32 training kernels (split TF32 on the tensor
+           cores: the forward, dq and dk/dv) print their bound at three
+           TF32 products at 495 TFLOP/s beside the 67 TFLOP/s fp32 bound
+           of the table.
 4. engine  GPT-2 small at full width (random weights from a seed)
            served by ``DecodeEngine(slots=8, max_len=1024)``: 8 greedy
            requests, some joining mid-flight; checks that both kernels'
@@ -183,6 +186,37 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_report(log):
+    """{kernel instantiation: "R registers, S bytes spill stores"} from
+    nvcc's ``-Xptxas=-v`` report, the instantiation named from its
+    mangled name as ``kernel<type, D, dropout, bias>``."""
+    out, name = {}, None
+    spill = "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"(flash_\w+?_kernel)I(\w*?)EEv", m.group(1))
+            if k:
+                ty = re.match(r"(?:\d+(\w+?)|(f))L", k.group(2))
+                ty = ty and (ty.group(1) or "float")
+                args = ([ty] if ty else []) + re.findall(r"L[ib](\d+)",
+                                                         k.group(2))
+                kernel = k.group(1)[k.group(1).rfind("flash_"):]
+                name = "%s<%s>" % (kernel, ", ".join(args))
+            else:
+                name = m.group(1)[:80]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = "%s registers, %s bytes spill stores" % (
+                m.group(1), spill)
+            name, spill = None, "?"
+    return out
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -251,12 +285,13 @@ TF32_PEAK = 495e12
 BF16_DESIGN = {"flash_fwd": "mma.sync m16n8k16 (tensor cores)",
                "flash_bwd_dq": "mma.sync m16n8k16 (tensor cores)",
                "flash_bwd_dkv": "mma.sync m16n8k16 (tensor cores)"}
-FP32_DESIGN = {"flash_fwd": "split TF32: 3 x mma.sync m16n8k8 (tensor cores)",
-               "flash_bwd_dq": "CUDA cores", "flash_bwd_dkv": "CUDA cores"}
+FP32_DESIGN = dict.fromkeys(
+    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "split TF32: 3 x mma.sync m16n8k8 (tensor cores)")
 
 
 def tf32_bound_ms(flops):
-    """The split-TF32 forward's bound on the tensor cores: each fp32
+    """The split-TF32 fp32 kernels' bound on the tensor cores: each fp32
     product taken as three TF32 products at the TF32 peak."""
     return 3 * flops / TF32_PEAK * 1e3
 
@@ -603,12 +638,11 @@ def kernel_flash_train(dev, peaks):
         bms, by = bound_ms(nbytes, flops, peaks)
         rows[name] = {"max_abs_err": err, "ms": ms, "ms_window_spread": spread,
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "bound_tensor_core_ms": tf32_bound_ms(flops),
                       # SDPA draws its own dropout mask: timed eagerly,
                       # outside a graph, as milliseconds of work
                       "library_ms": event_ms(lib) if lib else None,
                       "design": FP32_DESIGN[name.replace("_dropout", "")]}
-    rows["flash_fwd_dropout"]["bound_tensor_core_ms"] = tf32_bound_ms(
-        4 * D * pairs)
     # the backward kernels' library call: SDPA's backward alone, with the
     # same additive mask and its own dropout (dq, dk and dv in one call)
     sdpa_backward_rows(rows, sdpa, q, k, v, g, sdpa_mask, rate, scale)
@@ -756,6 +790,7 @@ def kernel_flash_bias(dev, peaks):
             rows[name] = {"max_abs_err": err, "ms": ms,
                           "ms_window_spread": spread, "plain_ms": plain_ms,
                           "bound_ms": bms, "bound_by": by,
+                          "bound_tensor_core_ms": tf32_bound_ms(flops),
                           "library_ms": lib,
                           "sdpa_fwd_bwd_ms": lib_fwd_bwd}
             if lib_note:
@@ -1193,6 +1228,7 @@ def _profile(fn, reps):
     launches_by_class = dict(by_class)
     gemm_kernels = {}
     flash_ms = {}
+    flash_calls = {}
     for us, n, key in dev_events:
         cls = _kernel_class(key)
         by_class[cls] += us / 1e3
@@ -1203,6 +1239,7 @@ def _profile(fn, reps):
             base = re.search(r"(flash_\w+?)_kernel", key)
             base = base.group(1) if base else key[:60]
             flash_ms[base] = flash_ms.get(base, 0.0) + us / 1e3
+            flash_calls[base] = flash_calls.get(base, 0.0) + n
     return {
         "wall_ms": wall_ms, "wall_ms_under_profiler": profiled_ms,
         "device_busy_ms": busy_ms,
@@ -1218,6 +1255,7 @@ def _profile(fn, reps):
         "flash_kernels": sorted({k[:90] for _us, _n, k in dev_events
                                  if "flash_" in k}),
         "flash_ms_by_kernel": flash_ms,
+        "flash_launches_by_kernel": flash_calls,
         "top": [{"kernel": k[:70], "us": us, "calls": n}
                 for us, n, k in dev_events[:8]],
     }
@@ -1936,8 +1974,7 @@ def main():
     built = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"],
-                          "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                                    if "registers" in ln or "spill" in ln]}
+                          "ptxas": ptxas_report(v["log"])}
                       for k, v in built.items()}})
 
     fwd_err, fwd_rows = kernel_flash_fwd(dev, peaks)
@@ -1984,6 +2021,7 @@ def main():
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "bound_tensor_core_ms": r["bound_tensor_core_ms"],
                 "sdpa_bwd_ms": r["sdpa_bwd_ms"],
                 "sdpa_fwd_bwd_ms": r["sdpa_fwd_bwd_ms"],
                 "design": r["design"]}
@@ -2004,6 +2042,7 @@ def main():
                 "ms": per_head["ms"], "plain_ms": per_head["plain_ms"],
                 "bound_ms": per_head["bound_ms"],
                 "bound_by": per_head["bound_by"],
+                "bound_tensor_core_ms": per_head["bound_tensor_core_ms"],
                 "library_ms": per_head["library_ms"],
                 "sdpa_fwd_bwd_ms": per_head["sdpa_fwd_bwd_ms"],
                 "bias": "per-head [1, 12, 1024, 1024]",

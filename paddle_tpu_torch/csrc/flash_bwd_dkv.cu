@@ -17,14 +17,11 @@
 //   dkb  = sum_q ds                      (per head and key: [BH, Sk])
 //   dbias[row(bh)] += ds                  (per bias row: [G, Sq, Sk])
 //
-// One block owns a (head, 64-row key tile) and sweeps the query tiles in
-// a loop; under `causal` it starts at the tile holding its first key row.
-// On the TPU the grid runs in order; here blocks run in parallel in no
-// order, and nothing carries over between them: every block writes only
-// its own dk/dv/dkb rows, so those need no atomics. Four threads share a
-// key row and hold its k, v, dk and dv parts in registers
-// (flash_common.cuh); the query tile (Q and dO rows, lse, delta) is
-// staged once in shared memory for the block's 64 key rows.
+// One block owns a (head, key tile) and sweeps the query tiles in a loop;
+// under `causal` it starts at the tile holding its first key row. On the
+// TPU the grid runs in order; here blocks run in parallel in no order,
+// and nothing carries over between them: every block writes only its own
+// dk/dv/dkb rows, so those need no atomics.
 //
 // Layout: q/dout [BH, Sq, D], k/v/dk/dv [BH, Sk, D] in the element type T
 // (fp32, bf16 or fp16; flash_common.cuh), lse/delta [BH, Sq], key_bias
@@ -49,14 +46,34 @@
 // the heads, or a per-head scratch reduced afterwards) cost parallelism
 // or memory and are later work.
 //
-// Two kernels, one per element type:
+// Two kernels on the tensor cores, one per element type (flash_mma.cuh);
+// dispatching by type is the design, not a fallback:
 //
-// fp32: `flash_bwd_dkv_kernel`, on the CUDA cores, as described above.
-// Bound: operations. Per (query, key) pair: two dot products over D
-// (scores, dO V^T) and two D-wide axpys (dk, dv): 8D flops, 0.39 ms at
-// the training shape [8, 12, 1024, 64] causal (50 M pairs) against 67
-// TFLOP/s of non-tensor fp32, while it moves ~151 MB (q, k, v, dO in;
-// dk, dv out: 0.05 ms at 3.35 TB/s).
+// fp32 (the fp32 train step): `flash_bwd_dkv_tf32_kernel`, split TF32. Bound
+// at the fp32 train shape [8, 12, 1024, 64], causal (50 M pairs): two
+// products over D (scores, dO V^T) and two over the queries (dk, dv), 8D
+// flops a pair, 25.8 GFLOP; at the 67 TFLOP/s of fp32 on the CUDA cores that
+// is 0.39 ms, as three TF32 products at 495 TFLOP/s 0.16 ms, against ~151 MB
+// of q, k, v, dO, dk, dv, dkey_bias, lse and delta at 3.35 TB/s (0.05 ms).
+// All four products are split TF32 as in the fp32 forward: S^T = K.Q^T,
+// dP^T = V.dO^T, dV += (keep o p / (1 - rate))^T.dO and dK += ds^T.Q, with p
+// and ds in fp32 (the fp32 reference rounds neither); each k-step's three
+// products are summed from zero and added to the running sums on the CUDA
+// cores, since dk and dv sum over up to 1024 queries and the train step's
+// k-bias gradient is exactly sum_keys dk = 0: a biased sum shows there
+// first. They run stage by stage across four n-tiles (`mma_3xtf32_n`), so
+// that no product waits on the one before it. dkey_bias and dbias take the
+// fp32 ds before any split. The rest is the bf16 kernel's design below, with
+// fp32 tiles in one layout (`swz_tf32`): K and V come in once and are split
+// once into big parts (in place) and small parts in shared memory; the block
+// sweeps query tiles of 32 (16 from D = 128 on) in a two-stage `cp.async`
+// ring with lse and delta beside them, each Q and dO tile split once for the
+// block. Q and dO are each read in two roles (B operand over D of K.Q^T and
+// V.dO^T, over the queries of ds^T.Q and p^T.dO); the k index order of
+// flash_mma.cuh makes one conflict-free layout serve both, and the
+// accumulators are the A fragments of the second pair as they are. A warp
+// accumulates 64 of dk and dv's columns: at D = 128 two warps share 16 keys,
+// at D = 256 four, so the block owns 64, 32 or 16 keys.
 //
 // bf16 and fp16 (the AMP train step): `flash_bwd_dkv_mma_kernel`, on the
 // tensor cores (flash_mma.cuh). Bound at the AMP train shape: the same
@@ -94,158 +111,277 @@ namespace {
 
 using namespace flash;
 
-// The fp32 kernel. T is kept as a parameter so that the launch code is
-// shared with the tensor-core form, but only fp32 instantiates it (the
-// static_assert below); its round_to<T> points are then the identity.
-// T: element type of q/k/v/dO/dk/dv. D: head dim (multiple of 16). BQ:
-// query rows per shared-memory tile.
-template <typename T, int D, int BQ, bool kDropout, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ kb,
-                     const float* __restrict__ bias,
-                     const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, float* __restrict__ dkb,
-                     float* __restrict__ dbias, int bias_heads, int bias_div,
-                     int bias_rows, int dbias_atomic, int sq, int sk,
-                     float scale, int causal, unsigned seed, unsigned thresh,
-                     float inv_keep) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16/fp16 run the tensor-core kernel");
-  constexpr int kVec = D / 16;
-  constexpr int kRow4 = D / 4;
-  __shared__ float4 qs[BQ][kRow4];
-  __shared__ float4 dos[BQ][kRow4];
-  __shared__ float lses[BQ];
-  __shared__ float deltas[BQ];
+using flash::mma::kLog2e;
+using flash::mma::kMmaThreads;
+using flash::mma::kMmaWarps;
+
+// The split-TF32 kernel (fp32): 4 warps; kSplit warps share 16 keys, each
+// accumulating 64 columns of dk and dv (D / kSplit; D = 32 all of them).
+template <int D>
+__host__ __device__ constexpr int tf32_split() {
+  return D > 64 ? D / 64 : 1;
+}
+
+template <int D>
+__host__ __device__ constexpr int tf32_keys() {  // key rows a block owns
+  return 16 * kMmaWarps / tf32_split<D>();
+}
+
+template <int D>
+__host__ __device__ constexpr int tf32_bq() {  // query rows per tile
+  return D <= 64 ? 32 : 16;
+}
+
+// K and V in big and small parts, two stages of Q and dO, the small parts
+// of one Q and dO tile, two stages of lse and delta
+template <int D>
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  return (4 * tf32_keys<D>() * D + 6 * tf32_bq<D>() * D) * 4 +
+         4 * tf32_bq<D>() * 4;
+}
+
+template <int D, bool kDropout, bool kBias>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ kb,
+    const float* __restrict__ bias, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dkb,
+    float* __restrict__ dbias, int bias_heads, int bias_div, int bias_rows,
+    int dbias_atomic, int sq, int sk, float scale, int causal, unsigned seed,
+    unsigned thresh, float inv_keep) {
+  using namespace flash::mma;
+  constexpr int kSplit = tf32_split<D>();
+  constexpr int kKeys = tf32_keys<D>();
+  constexpr int BQ = tf32_bq<D>();
+  constexpr int kDS = D / kSplit;  // dk/dv columns a warp accumulates
+  constexpr int kKSteps = D / 8;   // k-steps of K.Q^T and V.dO^T
+  constexpr int kNQ = BQ / 8;      // n-tiles of S^T and dP^T
+  constexpr int kDP = kDS / 16;    // pairs of n-tiles of a warp's dk, dv
+  constexpr int kNC = 4;  // n-tiles of dk or dv taken together
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* kst = reinterpret_cast<float*>(smem);  // [kKeys][D], swz_tf32
+  float* kss = kst + kKeys * D;                 // K's small parts
+  float* vst = kss + kKeys * D;                 // [kKeys][D]
+  float* vss = vst + kKeys * D;                 // V's small parts
+  float* qs = vss + kKeys * D;                  // [2][BQ][D]
+  float* dos = qs + 2 * BQ * D;                 // [2][BQ][D]
+  float* qss = dos + 2 * BQ * D;                // [BQ][D], Q's small parts
+  float* doss = qss + BQ * D;                   // [BQ][D], dO's small parts
+  float* lses = doss + BQ * D;                  // [2][BQ]
+  float* dels = lses + 2 * BQ;                  // [2][BQ]
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTileRows;
+  const int k0 = blockIdx.x * kKeys;
   const int tid = threadIdx.x;
-  const int lane = tid & (kRowThreads - 1);
-  const int kj = k0 + tid / kRowThreads;
-  const bool col_ok = kj < sk;
-  const int col = col_ok ? kj : 0;   // key rows past Sk run on row 0's data
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int krow = (warp / kSplit) * 16;   // the warp's first key row
+  const int dcol = (warp % kSplit) * kDS;  // its first dk/dv column
+  const bool lead = warp % kSplit == 0;    // writes dkey_bias and dbias
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // the thread's two keys: accumulator elements 0, 1 and 2, 3
+  const int keys[2] = {k0 + krow + g, k0 + krow + g + 8};
   const unsigned head_s = head_seed(seed, (unsigned)bh);
-
-  const T* kp = k + ((size_t)bh * sk + col) * D;
-  const T* vp = v + ((size_t)bh * sk + col) * D;
-  float4 kr[kVec];
-  float4 vr[kVec];
-  float4 dk_acc[kVec];
-  float4 dv_acc[kVec];
+  float kbv[2];
+  size_t bcol[2];
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    kr[c] = load4(kp + 16 * c + 4 * lane);
-    vr[c] = load4(vp + 16 * c + 4 * lane);
-    dk_acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv_acc[c] = dk_acc[c];
+  for (int r = 0; r < 2; ++r) {
+    const int key = min(keys[r], sk - 1);  // keys past Sk store nothing
+    kbv[r] = kb ? __ldg(kb + (size_t)(bh / bias_heads) * sk + key) : 0.f;
+    // this head's bias and dbias rows at column `key`, stepped by sk
+    bcol[r] = kBias ? (size_t)((bh / bias_div) % bias_rows) * sq * sk + key
+                    : 0;
   }
-  float dkb_acc = 0.f;
-  const float kb_j =
-      kb ? __ldg(kb + (size_t)(bh / bias_heads) * sk + col) : 0.f;
 
-  const T* qp = q + (size_t)bh * sq * D;
-  const T* gp = dout + (size_t)bh * sq * D;
+  const float* qp = q + (size_t)bh * sq * D;
+  const float* gp = dout + (size_t)bh * sq * D;
   const float* lp = lse + (size_t)bh * sq;
   const float* dlp = delta + (size_t)bh * sq;
-  // this head's bias and dbias rows at key column `col`, stepped by sk
-  const size_t bcol =
-      kBias ? (size_t)((bh / bias_div) % bias_rows) * sq * sk + col : 0;
   // query tiles that end before the block's first key row are masked for
   // every key of the block: start at the tile holding row k0
   const int qstart = causal ? (k0 / BQ) * BQ : 0;
+  const int ntiles = (sq - qstart + BQ - 1) / BQ;
 
-  for (int q0 = qstart; q0 < sq; q0 += BQ) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int i = tid; i < BQ * kRow4; i += kThreads) {
-      const int r = i / kRow4;
-      const int c = i - r * kRow4;
-      const int qi = q0 + r;
-      float4 qq = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 gg = qq;
-      if (qi < sq) {
-        qq = load4(qp + (size_t)qi * D + 4 * c);
-        gg = load4(gp + (size_t)qi * D + 4 * c);
-      }
-      qs[r][c] = qq;
-      dos[r][c] = gg;
+  constexpr F32Layout kL = F32Layout::kTf32;
+  auto load_queries = [&](int stage, int q0) {
+    load_tile_f32<D, BQ, kMmaThreads, kL>(qs + stage * BQ * D, qp, q0, sq,
+                                          tid);
+    load_tile_f32<D, BQ, kMmaThreads, kL>(dos + stage * BQ * D, gp, q0, sq,
+                                          tid);
+    for (int i = tid; i < 2 * BQ; i += kMmaThreads) {
+      const int r = i % BQ;
+      const bool valid = q0 + r < sq;
+      const float* src = (i < BQ ? lp : dlp) + (valid ? q0 + r : 0);
+      cp_async4((i < BQ ? lses : dels) + stage * BQ + r, src, valid);
     }
-    for (int r = tid; r < BQ; r += kThreads) {
-      const int qi = q0 + r;
-      lses[r] = qi < sq ? __ldg(lp + qi) : 0.f;
-      deltas[r] = qi < sq ? __ldg(dlp + qi) : 0.f;
+  };
+  load_tile_f32<D, kKeys, kMmaThreads, kL>(kst, k + (size_t)bh * sk * D, k0,
+                                           sk, tid);
+  load_tile_f32<D, kKeys, kMmaThreads, kL>(vst, v + (size_t)bh * sk * D, k0,
+                                           sk, tid);
+  load_queries(0, qstart);
+  cp_async_commit();
+
+  float dka[2 * kDP][4];
+  float dva[2 * kDP][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kDP; ++j) {
+    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
+    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  }
+  float dkb_acc[2] = {0.f, 0.f};  // this thread's part of dkey_bias
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int q0 = qstart + t * BQ;
+    const int stage = t & 1;
+    if (t + 1 < ntiles) {
+      // the stage it fills was last read in iteration t - 1, which ended
+      // in a barrier
+      load_queries(stage ^ 1, q0 + BQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* qst = qs + stage * BQ * D;
+    const float* dost = dos + stage * BQ * D;
+    const float* ls = lses + stage * BQ;
+    const float* dl = dels + stage * BQ;
+    // every tile split once for the block: K and V on the first, Q and dO
+    // on each (their small parts were last read before the last barrier)
+    if (t == 0) {
+      split_tile_tf32<D, kKeys, kMmaThreads>(kst, kss, tid);
+      split_tile_tf32<D, kKeys, kMmaThreads>(vst, vss, tid);
+    }
+    split_tile_tf32<D, BQ, kMmaThreads>(qs + stage * BQ * D, qss, tid);
+    split_tile_tf32<D, BQ, kMmaThreads>(dos + stage * BQ * D, doss, tid);
+    __syncthreads();
 
-#pragma unroll 8
-    for (int r = 0; r < BQ; ++r) {
-      float part_s = 0.f;
-      float part_dp = 0.f;
+    // S^T = K Q^T and dP^T = V dO^T in split TF32
+    float st[kNQ][4];
+    float dpt[kNQ][4];
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        part_s += dot4(kr[c], qs[r][4 * c + lane]);
-        part_dp += dot4(vr[c], dos[r][4 * c + lane]);
+    for (int j = 0; j < kNQ; ++j) {
+      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      unsigned akb[4], aks[4], avb[4], avs[4];
+      frag_a_tf32<D>(akb, aks, kst, kss, krow, 8 * kk, g, t4);
+      frag_a_tf32<D>(avb, avs, vst, vss, krow, 8 * kk, g, t4);
+      uint2 qb2[kNQ], qs2[kNQ], gb2[kNQ], gs2[kNQ];
+#pragma unroll
+      for (int j = 0; j < kNQ; ++j) {
+        frag_b_tf32<D>(qb2[j], qs2[j], qst, qss, 8 * j, 8 * kk, g, t4);
+        frag_b_tf32<D>(gb2[j], gs2[j], dost, doss, 8 * j, 8 * kk, g, t4);
       }
-      part_s = group_sum(part_s);
-      float dp = group_sum(part_dp);
-      const int qi = q0 + r;
-      float s = part_s * scale + kb_j;
-      if (kBias && qi < sq) s += __ldg(bias + bcol + (size_t)qi * sk);
-      const bool masked = !col_ok || (causal && kj > qi);
-      if (masked) s = kNeg;
-      // padded query rows (past Sq) contribute nothing, as the
-      // reference's zero-padded rows do
-      const float p = qi < sq ? expf(s - lses[r]) : 0.f;
-      float pv = p;
-      if (kDropout) {
-        const bool keep =
-            hash_keep(row_hash((unsigned)qi), (unsigned)kj, head_s, thresh);
-        pv = keep ? p * inv_keep : 0.f;
-        dp = keep ? dp * inv_keep : 0.f;
-      }
-      const float ds = p * (dp - deltas[r]);
-      dkb_acc += ds;
-      if (kBias && lane == 0 && qi < sq && col_ok) {
-        float* dst = dbias + bcol + (size_t)qi * sk;
-        if (!dbias_atomic) {
-          *dst = ds;
-        } else if (!masked) {
-          atomicAdd(dst, ds);
+      mma_3xtf32_n<kNQ>(st, akb, aks, qb2, qs2);
+      mma_3xtf32_n<kNQ>(dpt, avb, avs, gb2, gs2);
+    }
+
+    // p, ds in the accumulator layout: st[j][e] is key keys[e / 2] and
+    // query q0 + 8j + 2 t4 + e % 2; st takes keep * p / (1 - rate), dpt ds
+    const bool edge = q0 + BQ > sq || k0 + krow + 16 > sk ||
+                      (causal && q0 < k0 + krow + 15);
+#pragma unroll
+    for (int j = 0; j < kNQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qr = 8 * j + 2 * t4 + (e & 1);  // query row in the tile
+        const int qi = q0 + qr;
+        float x = st[j][e] * scale + kbv[r];
+        if (kBias && (!edge || qi < sq)) {
+          x += __ldg(bias + bcol[r] + (size_t)qi * sk);
         }
-      }
-      // the products' operands round to T, as the reference's kernel
-      // rounds them for the MXU; the identity in fp32
-      const float pv_t = round_to<T>(pv);
-      const float ds_t = round_to<T>(ds);
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        axpy4(dv_acc[c], pv_t, dos[r][4 * c + lane]);
-        axpy4(dk_acc[c], ds_t, qs[r][4 * c + lane]);
+        const bool masked =
+            edge && (keys[r] >= sk || (causal && keys[r] > qi));
+        if (masked) x = kNeg;
+        // padded query rows (past Sq) contribute nothing, as the
+        // reference's zero-padded rows do; exp as exp2 of the
+        // log2(e)-scaled difference, as the forward
+        const float p =
+            (!edge || qi < sq) ? exp2f((x - ls[qr]) * kLog2e) : 0.f;
+        float dp = dpt[j][e];
+        float pv = p;
+        if (kDropout) {
+          const bool keep = hash_keep(row_hash((unsigned)qi),
+                                      (unsigned)keys[r], head_s, thresh);
+          pv = keep ? p * inv_keep : 0.f;
+          dp = keep ? dp * inv_keep : 0.f;
+        }
+        // dkey_bias and dbias take this fp32 ds before any split
+        const float ds = p * (dp - dl[qr]);
+        dkb_acc[r] += ds;
+        if (kBias && lead && (!edge || (qi < sq && keys[r] < sk))) {
+          float* dst = dbias + bcol[r] + (size_t)qi * sk;
+          if (!dbias_atomic) {
+            *dst = ds;
+          } else if (!masked) {
+            atomicAdd(dst, ds);
+          }
+        }
+        st[j][e] = pv;
+        dpt[j][e] = ds;
       }
     }
+
+    // dV += pv^T dO and dK += ds^T Q in split TF32, pv and ds in fp32 as
+    // the fp32 reference keeps them: the k-step over queries q0 + 8j .. + 7
+    // takes the accumulators as its A fragment, dO's and Q's rows as its k
+    // index and their even and odd columns as the n-tiles 2m and 2m + 1
+#pragma unroll
+    for (int j = 0; j < kNQ; ++j) {
+      unsigned apb[4], aps[4], asb[4], ass[4];
+      acc_a_tf32(apb, aps, st[j]);
+      acc_a_tf32(asb, ass, dpt[j]);
+#pragma unroll
+      for (int c = 0; c < 2 * kDP; c += kNC) {
+        uint2 bb[kNC], bs[kNC];
+#pragma unroll
+        for (int m = 0; m < kNC / 2; ++m) {
+          frag_b2_tf32<D>(bb + 2 * m, bs + 2 * m, dost, doss, 8 * j,
+                          dcol + 8 * c + 16 * m, g, t4);
+        }
+        mma_3xtf32_n<kNC>(dva + c, apb, aps, bb, bs);
+#pragma unroll
+        for (int m = 0; m < kNC / 2; ++m) {
+          frag_b2_tf32<D>(bb + 2 * m, bs + 2 * m, qst, qss, 8 * j,
+                          dcol + 8 * c + 16 * m, g, t4);
+        }
+        mma_3xtf32_n<kNC>(dka + c, asb, ass, bb, bs);
+      }
+    }
+    __syncthreads();  // this stage is consumed
   }
 
-  if (col_ok) {
-    const size_t off = ((size_t)bh * sk + kj) * D;
+  // n-tile 2m + e holds columns dcol + 16m + 2n + e (see flash_bwd_dq.cu)
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      store4(dk + off + 16 * c + 4 * lane,
-             make_float4(dk_acc[c].x * scale, dk_acc[c].y * scale,
-                         dk_acc[c].z * scale, dk_acc[c].w * scale));
-      store4(dv + off + 16 * c + 4 * lane, dv_acc[c]);
+  for (int r = 0; r < 2; ++r) {
+    dkb_acc[r] += __shfl_xor_sync(0xffffffffu, dkb_acc[r], 1);
+    dkb_acc[r] += __shfl_xor_sync(0xffffffffu, dkb_acc[r], 2);
+    if (keys[r] >= sk) continue;
+    const size_t off = ((size_t)bh * sk + keys[r]) * D + dcol + 4 * t4;
+#pragma unroll
+    for (int m = 0; m < kDP; ++m) {
+      *reinterpret_cast<float4*>(dk + off + 16 * m) = make_float4(
+          dka[2 * m][2 * r] * scale, dka[2 * m + 1][2 * r] * scale,
+          dka[2 * m][2 * r + 1] * scale, dka[2 * m + 1][2 * r + 1] * scale);
+      *reinterpret_cast<float4*>(dv + off + 16 * m) =
+          make_float4(dva[2 * m][2 * r], dva[2 * m + 1][2 * r],
+                      dva[2 * m][2 * r + 1], dva[2 * m + 1][2 * r + 1]);
     }
-    if (lane == 0) dkb[(size_t)bh * sk + kj] = dkb_acc;
+    if (lead && t4 == 0) dkb[(size_t)bh * sk + keys[r]] = dkb_acc[r];
   }
 }
 
 // The tensor-core kernel (bf16, fp16): 4 warps; kSplit warps share 16
 // keys, each accumulating D / kSplit columns of dk and dv.
-using flash::mma::kLog2e;
-using flash::mma::kMmaThreads;
-using flash::mma::kMmaWarps;
 
 template <int D>
 __host__ __device__ constexpr int mma_split() {
@@ -522,34 +658,31 @@ struct Args {
   float inv_keep;
 };
 
-template <typename T, int D, int BQ, bool kDropout, bool kBias>
-void launch_one(dim3 grid, const Args<T>& a, cudaStream_t stream) {
-  flash_bwd_dkv_kernel<T, D, BQ, kDropout, kBias>
-      <<<grid, kThreads, 0, stream>>>(
-          a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dk, a.dv,
-          a.dkb, a.dbias, a.bias_heads, a.bias_div, a.bias_rows,
-          a.dbias_atomic, a.sq, a.sk, a.scale, a.causal, a.seed, a.thresh,
-          a.inv_keep);
+template <int D, bool kDropout, bool kBias>
+cudaError_t launch_tf32_one(dim3 grid, const Args<float>& a,
+                            cudaStream_t stream) {
+  constexpr int smem = tf32_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_tf32_kernel<D, kDropout, kBias>;
+  static unsigned done = 0;
+  const cudaError_t err = flash::mma::allow_smem(kernel, smem, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dk, a.dv, a.dkb,
+      a.dbias, a.bias_heads, a.bias_div, a.bias_rows, a.dbias_atomic, a.sq,
+      a.sk, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+  return cudaGetLastError();
 }
 
-template <typename T, int D, int BQ>
-cudaError_t launch(const Args<T>& a, int bh, int dropout,
-                   cudaStream_t stream) {
-  dim3 grid((a.sk + kTileRows - 1) / kTileRows, bh);
+template <int D>
+cudaError_t launch_tf32(const Args<float>& a, int bh, int dropout,
+                        cudaStream_t stream) {
+  dim3 grid((a.sk + tf32_keys<D>() - 1) / tf32_keys<D>(), bh);
   if (dropout) {
-    if (a.bias) {
-      launch_one<T, D, BQ, true, true>(grid, a, stream);
-    } else {
-      launch_one<T, D, BQ, true, false>(grid, a, stream);
-    }
-  } else {
-    if (a.bias) {
-      launch_one<T, D, BQ, false, true>(grid, a, stream);
-    } else {
-      launch_one<T, D, BQ, false, false>(grid, a, stream);
-    }
+    return a.bias ? launch_tf32_one<D, true, true>(grid, a, stream)
+                  : launch_tf32_one<D, true, false>(grid, a, stream);
   }
-  return cudaGetLastError();
+  return a.bias ? launch_tf32_one<D, false, true>(grid, a, stream)
+                : launch_tf32_one<D, false, false>(grid, a, stream);
 }
 
 template <typename T, int D, bool kDropout, bool kBias>
@@ -585,8 +718,8 @@ cudaError_t launch_mma(const Args<T>& a, int bh, int dropout,
 // `dbias` [G, Sq, Sk] receives the bias gradient: stored when every head
 // owns its row (bias_rows == bh, bias_div == 1), else added atomically,
 // in which case the caller zeroes it first. q/k/v/dout/dk/dv are T; the
-// rest fp32. `d` is 32, 64, 128 or 256. fp32 runs the CUDA-core kernel,
-// bf16 and fp16 the tensor-core one.
+// rest fp32. `d` is 32, 64, 128 or 256. fp32 runs the split-TF32 kernel,
+// bf16 and fp16 the bf16/fp16 tensor-core one.
 template <typename T>
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* key_bias, const void* bias, const void* dout,
@@ -628,13 +761,13 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32:
-        return (int)launch<T, 32, 64>(a, bh, dropout, s);
+        return (int)launch_tf32<32>(a, bh, dropout, s);
       case 64:
-        return (int)launch<T, 64, 64>(a, bh, dropout, s);
+        return (int)launch_tf32<64>(a, bh, dropout, s);
       case 128:
-        return (int)launch<T, 128, 32>(a, bh, dropout, s);
+        return (int)launch_tf32<128>(a, bh, dropout, s);
       case 256:
-        return (int)launch<T, 256, 16>(a, bh, dropout, s);
+        return (int)launch_tf32<256>(a, bh, dropout, s);
       default:
         return (int)cudaErrorInvalidValue;
     }

@@ -29,16 +29,33 @@
 // is stored in T. The scores add the bias as the forward does, so
 // p = exp(s - lse) is the forward's probability.
 //
-// Two kernels, one per element type:
+// Two kernels on the tensor cores, one per element type (flash_mma.cuh);
+// dispatching by type is the design, not a fallback:
 //
-// fp32: `flash_bwd_dq_kernel`, on the CUDA cores. Bound: operations. Per
-// (query, key) pair it does two dot products over D (scores, dO V^T) and
-// one D-wide axpy (dq): 6D flops, 0.29 ms at the training shape [8, 12,
-// 1024, 64] causal (50 M pairs) against 67 TFLOP/s of non-tensor fp32,
-// while it moves ~126 MB (q, k, v, dO in, dq out: 0.04 ms at 3.35 TB/s).
-// The K/V tile is staged once in shared memory for the block's 64 rows;
-// four threads share a query row and hold its q, dO and dq parts in
-// registers (flash_common.cuh).
+// fp32 (the fp32 train step): `flash_bwd_dq_tf32_kernel`, split TF32. Bound
+// at the fp32 train shape [8, 12, 1024, 64], causal (50 M (query, key)
+// pairs): two products over D (scores, dO V^T) and one over the keys (dq),
+// 6D flops a pair, 19.4 GFLOP; at the 67 TFLOP/s of fp32 on the CUDA cores
+// that is 0.29 ms, as three TF32 products at 495 TFLOP/s 0.12 ms, against
+// ~126 MB of q, k, v, dO, dq, lse and delta at 3.35 TB/s (0.04 ms). Each
+// fp32 operand is split into a TF32 big and small part and each product
+// taken as three `mma.sync.m16n8k8` TF32 products (small*small dropped), as
+// the fp32 forward does, for all three products: S = Q.K^T, dP = dO.V^T and
+// dq += dS.K with ds in fp32, which the fp32 reference does not round. Each
+// k-step's three products are summed from zero and added to the running sums
+// on the CUDA cores: the tensor cores cut their sums, and dq sums over up to
+// 1024 keys. They are run stage by stage across four n-tiles
+// (`mma_3xtf32_n`), so that no product waits on the one before it. The rest
+// is the bf16 kernel's design below, with fp32 tiles in one layout
+// (`swz_tf32`): Q and dO come in once and are split once into big parts (in
+// place) and small parts in shared memory; K/V tiles of 32 keys (16 at
+// D = 128, 8 at D = 256, where two warps share 16 rows) stream in a
+// two-stage `cp.async` ring and each is split once for the block. K is read
+// in two roles, as the B operand of Q.K^T (k = column) and of dS.K (k = key
+// row), each lane reading 8-byte pairs; the k index order of both products
+// (flash_mma.cuh) makes one conflict-free layout serve both, and dS.K reads
+// ds's accumulators as its A fragment as they are. dq is scaled and stored
+// as 16-byte rows of four columns.
 //
 // bf16 and fp16 (the AMP train step): `flash_bwd_dq_mma_kernel`, on the
 // tensor cores (flash_mma.cuh). Bound at the AMP train shape: the same
@@ -77,123 +94,252 @@ namespace {
 
 using namespace flash;
 
-// The fp32 kernel. T is kept as a parameter so that the launch code is
-// shared with the tensor-core form, but only fp32 instantiates it (the
-// static_assert below); its round_to<T> points are then the identity.
-template <typename T, int D, int BK, bool kDropout, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ kb,
-                    const float* __restrict__ bias,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int bias_heads, int bias_div, int bias_rows, int sq,
-                    int sk, float scale, int causal, unsigned seed,
-                    unsigned thresh, float inv_keep) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16/fp16 run the tensor-core kernel");
-  constexpr int kVec = D / 16;
-  constexpr int kRow4 = D / 4;
-  __shared__ float4 ks[BK][kRow4];
-  __shared__ float4 vs[BK][kRow4];
-  __shared__ float kbs[BK];
+using flash::mma::kLog2e;
+using flash::mma::kMmaThreads;
+using flash::mma::kMmaWarps;
+
+// The split-TF32 kernel (fp32): 4 warps; kSplit warps share 16 query
+// rows, each accumulating D / kSplit columns of dq.
+template <int D>
+__host__ __device__ constexpr int tf32_split() {
+  return D > 128 ? 2 : 1;
+}
+
+template <int D>
+__host__ __device__ constexpr int tf32_rows() {  // query rows a block owns
+  return 16 * kMmaWarps / tf32_split<D>();
+}
+
+template <int D>
+__host__ __device__ constexpr int tf32_bk() {  // key rows per K/V tile
+  return D <= 64 ? 32 : D == 128 ? 16 : 8;
+}
+
+// Q and dO in big and small parts, two stages of K and V, and the small
+// parts of one K and V tile, fp32
+template <int D>
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  return (4 * tf32_rows<D>() * D + 6 * tf32_bk<D>() * D) * 4;
+}
+
+template <int D, bool kDropout, bool kBias>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ kb,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int bias_heads, int bias_div,
+                         int bias_rows, int sq, int sk, float scale,
+                         int causal, unsigned seed, unsigned thresh,
+                         float inv_keep) {
+  using namespace flash::mma;
+  constexpr int kSplit = tf32_split<D>();
+  constexpr int kRows = tf32_rows<D>();
+  constexpr int BK = tf32_bk<D>();
+  constexpr int kDS = D / kSplit;  // dq columns a warp accumulates
+  constexpr int kKSteps = D / 8;   // k-steps of Q.K^T and dO.V^T
+  constexpr int kNT = BK / 8;      // n-tiles of S and dP, k-steps of dS.K
+  constexpr int kDP = kDS / 16;    // pairs of n-tiles of the warp's dq
+  constexpr int kNC = 4;           // n-tiles of dq taken together
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kRows][D], swz_tf32
+  float* qss = qs + kRows * D;                 // Q's small parts
+  float* dos = qss + kRows * D;                // [kRows][D]
+  float* doss = dos + kRows * D;               // dO's small parts
+  float* ks = doss + kRows * D;                // [2][BK][D]
+  float* vs = ks + 2 * BK * D;                 // [2][BK][D]
+  float* kss = vs + 2 * BK * D;                // [BK][D], K's small parts
+  float* vss = kss + BK * D;                   // [BK][D], V's small parts
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTileRows;
+  const int q0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
-  const int lane = tid & (kRowThreads - 1);
-  const int qi = q0 + tid / kRowThreads;
-  const bool row_ok = qi < sq;
-  const int row = row_ok ? qi : 0;   // rows past Sq run on row 0's data
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wrow = (warp / kSplit) * 16;   // the warp's first row
+  const int dcol = (warp % kSplit) * kDS;  // its first dq column
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // the thread's two rows: accumulator elements 0, 1 and 2, 3
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
   const unsigned head_s = head_seed(seed, (unsigned)bh);
-  const unsigned row_h = row_hash((unsigned)qi);
-
-  const T* qp = q + ((size_t)bh * sq + row) * D;
-  const T* dop = dout + ((size_t)bh * sq + row) * D;
-  float4 qr[kVec];
-  float4 dor[kVec];
-  float4 acc[kVec];
+  const unsigned row_h[2] = {row_hash((unsigned)rows[0]),
+                             row_hash((unsigned)rows[1])};
+  // rows past Sq run on zeroed Q and dO with lse = delta = 0 (their ds
+  // is 0) and are not stored
+  float lse_r[2];
+  float dlt_r[2];
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    qr[c] = load4(qp + 16 * c + 4 * lane);
-    dor[c] = load4(dop + 16 * c + 4 * lane);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < sq;
+    lse_r[r] = ok ? __ldg(lse + (size_t)bh * sq + rows[r]) : 0.f;
+    dlt_r[r] = ok ? __ldg(delta + (size_t)bh * sq + rows[r]) : 0.f;
   }
-  const float lse_i = lse[(size_t)bh * sq + row];
-  const float delta_i = delta[(size_t)bh * sq + row];
 
-  const T* kp = k + (size_t)bh * sk * D;
-  const T* vp = v + (size_t)bh * sk * D;
+  const float* kp = k + (size_t)bh * sk * D;
+  const float* vp = v + (size_t)bh * sk * D;
   const float* kbp = kb ? kb + (size_t)(bh / bias_heads) * sk : nullptr;
-  const float* brow =
-      kBias ? bias + ((size_t)((bh / bias_div) % bias_rows) * sq + row) * sk
-            : nullptr;
-  const int kend = causal ? min(sk, q0 + kTileRows) : sk;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BK * kRow4; i += kThreads) {
-      const int j = i / kRow4;
-      const int c = i - j * kRow4;
-      const int kj = k0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (kj < sk) {
-        kk = load4(kp + (size_t)kj * D + 4 * c);
-        vv = load4(vp + (size_t)kj * D + 4 * c);
-      }
-      ks[j][c] = kk;
-      vs[j][c] = vv;
-    }
-    for (int j = tid; j < BK; j += kThreads) {
-      const int kj = k0 + j;
-      kbs[j] = kj >= sk ? kNeg : (kbp ? __ldg(kbp + kj) : 0.f);
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) {
-      float part_s = 0.f;
-      float part_dp = 0.f;
+  const float* brow[2] = {nullptr, nullptr};
+  if (kBias) {
+    const size_t base = (size_t)((bh / bias_div) % bias_rows) * sq;
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        part_s += dot4(qr[c], ks[j][4 * c + lane]);
-        part_dp += dot4(dor[c], vs[j][4 * c + lane]);
-      }
-      part_s = group_sum(part_s);
-      float dp = group_sum(part_dp);
-      const int kj = k0 + j;
-      float s = part_s * scale + kbs[j];
-      if (kBias && kj < sk) s += __ldg(brow + kj);
-      if (kj >= sk || (causal && kj > qi)) s = kNeg;
-      const float p = expf(s - lse_i);
-      if (kDropout) {
-        dp = hash_keep(row_h, (unsigned)kj, head_s, thresh) ? dp * inv_keep
-                                                             : 0.f;
-      }
-      const float ds = round_to<T>(p * (dp - delta_i));
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) axpy4(acc[c], ds, ks[j][4 * c + lane]);
+    for (int r = 0; r < 2; ++r) {
+      brow[r] = bias + (base + min(rows[r], sq - 1)) * sk;
     }
   }
+  // key tiles starting past the block's last row are masked for every
+  // row of the block: never loaded
+  const int kend = causal ? min(sk, q0 + kRows) : sk;
+  const int ntiles = (kend + BK - 1) / BK;
 
-  if (row_ok) {
-    T* out = dq + ((size_t)bh * sq + qi) * D;
+  constexpr F32Layout kL = F32Layout::kTf32;
+  load_tile_f32<D, kRows, kMmaThreads, kL>(qs, q + (size_t)bh * sq * D, q0,
+                                           sq, tid);
+  load_tile_f32<D, kRows, kMmaThreads, kL>(dos, dout + (size_t)bh * sq * D,
+                                           q0, sq, tid);
+  load_tile_f32<D, BK, kMmaThreads, kL>(ks, kp, 0, sk, tid);
+  load_tile_f32<D, BK, kMmaThreads, kL>(vs, vp, 0, sk, tid);
+  cp_async_commit();
+
+  float acc[2 * kDP][4];
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      store4(out + 16 * c + 4 * lane,
-             make_float4(acc[c].x * scale, acc[c].y * scale,
-                         acc[c].z * scale, acc[c].w * scale));
+  for (int j = 0; j < 2 * kDP; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    const float* kst = ks + (t & 1) * BK * D;
+    const float* vst = vs + (t & 1) * BK * D;
+    if (t + 1 < ntiles) {
+      // the stage it fills was last read in iteration t - 1, which ended
+      // in a barrier
+      load_tile_f32<D, BK, kMmaThreads, kL>(ks + ((t + 1) & 1) * BK * D, kp,
+                                            k0 + BK, sk, tid);
+      load_tile_f32<D, BK, kMmaThreads, kL>(vs + ((t + 1) & 1) * BK * D, vp,
+                                            k0 + BK, sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // every tile split once for the block: Q and dO on the first, K and V
+    // on each (their small parts were last read before the last barrier)
+    if (t == 0) {
+      split_tile_tf32<D, kRows, kMmaThreads>(qs, qss, tid);
+      split_tile_tf32<D, kRows, kMmaThreads>(dos, doss, tid);
+    }
+    split_tile_tf32<D, BK, kMmaThreads>(ks + (t & 1) * BK * D, kss, tid);
+    split_tile_tf32<D, BK, kMmaThreads>(vs + (t & 1) * BK * D, vss, tid);
+    __syncthreads();
+    // a warp whose rows all end before the tile's first key (causal) has
+    // p = 0 on the whole tile
+    if (!causal || k0 <= q0 + wrow + 15) {
+      // the key bias of the thread's keys, loaded ahead of the products
+      // that hide its latency
+      float kbv[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = k0 + 8 * j + 2 * t4 + h;
+          kbv[j][h] = kbp && col < sk ? __ldg(kbp + col) : 0.f;
+        }
+      }
+
+      // S = Q K^T and dP = dO V^T in split TF32
+      float s[kNT][4];
+      float dp[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        unsigned qb[4], qsm[4], gb[4], gsm[4];
+        frag_a_tf32<D>(qb, qsm, qs, qss, wrow, 8 * kk, g, t4);
+        frag_a_tf32<D>(gb, gsm, dos, doss, wrow, 8 * kk, g, t4);
+        uint2 kb2[kNT], ks2[kNT], vb2[kNT], vs2[kNT];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          frag_b_tf32<D>(kb2[j], ks2[j], kst, kss, 8 * j, 8 * kk, g, t4);
+          frag_b_tf32<D>(vb2[j], vs2[j], vst, vss, 8 * j, 8 * kk, g, t4);
+        }
+        mma_3xtf32_n<kNT>(s, qb, qsm, kb2, ks2);
+        mma_3xtf32_n<kNT>(dp, gb, gsm, vb2, vs2);
+      }
+
+      // p, ds in the accumulator layout: s[j][e] is row rows[e / 2], key
+      // k0 + 8j + 2 t4 + e % 2; s takes ds
+      const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0 + wrow);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+          float x = s[j][e] * scale + kbv[j][e & 1];
+          if (kBias && (!edge || col < sk)) x += __ldg(brow[r] + col);
+          if (edge && (col >= sk || (causal && col > rows[r]))) x = kNeg;
+          // exp as exp2 of the log2(e)-scaled difference, as the forward
+          const float p = exp2f((x - lse_r[r]) * kLog2e);
+          float d = dp[j][e];
+          if (kDropout) {
+            d = hash_keep(row_h[r], (unsigned)col, head_s, thresh)
+                    ? d * inv_keep
+                    : 0.f;
+          }
+          s[j][e] = p * (d - dlt_r[r]);
+        }
+      }
+
+      // dq += dS K in split TF32, ds in fp32 as the fp32 reference keeps
+      // it: the k-step over keys k0 + 8j .. + 7 takes ds's accumulators
+      // as its A fragment, K's rows as its k index and K's even and odd
+      // columns as the n-tiles 2m and 2m + 1
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        unsigned ab[4], as[4];
+        acc_a_tf32(ab, as, s[j]);
+#pragma unroll
+        for (int c = 0; c < 2 * kDP; c += kNC) {
+          uint2 bb[kNC], bs[kNC];
+#pragma unroll
+          for (int m = 0; m < kNC / 2; ++m) {
+            frag_b2_tf32<D>(bb + 2 * m, bs + 2 * m, kst, kss, 8 * j,
+                            dcol + 8 * c + 16 * m, g, t4);
+          }
+          mma_3xtf32_n<kNC>(acc + c, ab, as, bb, bs);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed
+  }
+
+  // n-tile 2m + e holds columns dcol + 16m + 2n + e: the thread's four
+  // columns from dcol + 16m + 4 t4 on are (2m, c0), (2m + 1, c0),
+  // (2m, c1), (2m + 1, c1) of a row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= sq) continue;
+    float* op = dq + ((size_t)bh * sq + rows[r]) * D + dcol + 4 * t4;
+#pragma unroll
+    for (int m = 0; m < kDP; ++m) {
+      *reinterpret_cast<float4*>(op + 16 * m) = make_float4(
+          acc[2 * m][2 * r] * scale, acc[2 * m + 1][2 * r] * scale,
+          acc[2 * m][2 * r + 1] * scale, acc[2 * m + 1][2 * r + 1] * scale);
     }
   }
 }
 
 // The tensor-core kernel (bf16, fp16): 4 warps; kSplit warps share 16
 // query rows, each accumulating D / kSplit columns of dq.
-using flash::mma::kLog2e;
-using flash::mma::kMmaThreads;
-using flash::mma::kMmaWarps;
 
 template <int D>
 __host__ __device__ constexpr int mma_split() {
@@ -449,33 +595,31 @@ struct Args {
   float inv_keep;
 };
 
-template <typename T, int D, int BK, bool kDropout, bool kBias>
-void launch_one(dim3 grid, const Args<T>& a, cudaStream_t stream) {
-  flash_bwd_dq_kernel<T, D, BK, kDropout, kBias>
-      <<<grid, kThreads, 0, stream>>>(
-          a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dq,
-          a.bias_heads, a.bias_div, a.bias_rows, a.sq, a.sk, a.scale,
-          a.causal, a.seed, a.thresh, a.inv_keep);
+template <int D, bool kDropout, bool kBias>
+cudaError_t launch_tf32_one(dim3 grid, const Args<float>& a,
+                            cudaStream_t stream) {
+  constexpr int smem = tf32_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_tf32_kernel<D, kDropout, kBias>;
+  static unsigned done = 0;
+  const cudaError_t err = flash::mma::allow_smem(kernel, smem, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.kb, a.bias, a.dout, a.lse, a.delta, a.dq,
+      a.bias_heads, a.bias_div, a.bias_rows, a.sq, a.sk, a.scale, a.causal,
+      a.seed, a.thresh, a.inv_keep);
+  return cudaGetLastError();
 }
 
-template <typename T, int D, int BK>
-cudaError_t launch(const Args<T>& a, int bh, int dropout,
-                   cudaStream_t stream) {
-  dim3 grid((a.sq + kTileRows - 1) / kTileRows, bh);
+template <int D>
+cudaError_t launch_tf32(const Args<float>& a, int bh, int dropout,
+                        cudaStream_t stream) {
+  dim3 grid((a.sq + tf32_rows<D>() - 1) / tf32_rows<D>(), bh);
   if (dropout) {
-    if (a.bias) {
-      launch_one<T, D, BK, true, true>(grid, a, stream);
-    } else {
-      launch_one<T, D, BK, true, false>(grid, a, stream);
-    }
-  } else {
-    if (a.bias) {
-      launch_one<T, D, BK, false, true>(grid, a, stream);
-    } else {
-      launch_one<T, D, BK, false, false>(grid, a, stream);
-    }
+    return a.bias ? launch_tf32_one<D, true, true>(grid, a, stream)
+                  : launch_tf32_one<D, true, false>(grid, a, stream);
   }
-  return cudaGetLastError();
+  return a.bias ? launch_tf32_one<D, false, true>(grid, a, stream)
+                : launch_tf32_one<D, false, false>(grid, a, stream);
 }
 
 template <typename T, int D, bool kDropout, bool kBias>
@@ -510,7 +654,8 @@ cudaError_t launch_mma(const Args<T>& a, int bh, int dropout,
 // thresh and inv_keep; otherwise `inv_keep` is 1 / (1 - rate) as fp32.
 // `bias` null means no general bias (see flash_fwd.cu). q/k/v/dout/dq are
 // T; key_bias, bias, lse and delta fp32. `d` is 32, 64, 128 or 256. fp32
-// runs the CUDA-core kernel, bf16 and fp16 the tensor-core one.
+// runs the split-TF32 kernel, bf16 and fp16 the bf16/fp16 tensor-core
+// one.
 template <typename T>
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* key_bias, const void* bias, const void* dout,
@@ -546,13 +691,13 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32:
-        return (int)launch<T, 32, 64>(a, bh, dropout, s);
+        return (int)launch_tf32<32>(a, bh, dropout, s);
       case 64:
-        return (int)launch<T, 64, 64>(a, bh, dropout, s);
+        return (int)launch_tf32<64>(a, bh, dropout, s);
       case 128:
-        return (int)launch<T, 128, 32>(a, bh, dropout, s);
+        return (int)launch_tf32<128>(a, bh, dropout, s);
       case 256:
-        return (int)launch<T, 256, 16>(a, bh, dropout, s);
+        return (int)launch_tf32<256>(a, bh, dropout, s);
       default:
         return (int)cudaErrorInvalidValue;
     }

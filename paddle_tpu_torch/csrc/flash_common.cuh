@@ -2,26 +2,16 @@
 // flash_bwd_dq.cu, flash_bwd_dkv.cu, and the decode kernels'
 // flash_decode.cu and flash_decode_paged.cu), so that the forward and both
 // backward kernels can never disagree on masking, on the dropout mask or
-// on where a low-precision form rounds. The tensor-core forms add
-// flash_mma.cuh.
-//
-// Layout of the fp32 dq and dk/dv kernels (the CUDA-core training
-// kernels): one block of 256 threads owns a 64-row tile (query
-// rows in the dq kernel, key rows in the dk/dv kernel); four
-// threads share a row, each holding D/4 of its dimensions as float4s
-// (d = 16c + 4*lane), so shared-memory rows are read as 16-byte vectors
-// without bank conflicts and a dot product over D needs two warp
-// shuffles. Conventions of the reference
+// on where a low-precision form rounds. The training kernels add
+// flash_mma.cuh. Conventions of the reference
 // (paddle_tpu/kernels/flash_attention.py): masked scores are -1e30,
 // accumulation is fp32.
 //
 // Element types. q/k/v/o and dO/dq/dk/dv are fp32, bf16 or fp16 (all of
 // one call in one type); lse, delta, the key bias, the general bias and
-// their gradients stay fp32. The scalar dq and dk/dv kernels are fp32
-// only: the bf16/fp16 forms of all three training kernels are the
-// tensor-core kernels, which feed the 16-bit operands to the tensor cores
-// as they are, with fp32 accumulators, and the fp32 forward is a
-// tensor-core kernel in split TF32 (flash_mma.cuh). The decode kernels
+// their gradients stay fp32. All three training kernels run on the
+// tensor cores (flash_mma.cuh): bf16 and fp16 operands as they are, with
+// fp32 accumulators, and fp32 operands in split TF32. The decode kernels
 // take all three types on the CUDA cores: a low-precision operand is
 // widened to fp32 as it is loaded (four elements, one 8-byte access) and
 // every product and sum runs in fp32. A bf16 or fp16 product is exact in
@@ -29,7 +19,7 @@
 // to the order of the sum.
 // Where the reference rounds an fp32 intermediate to the operand type
 // before a dot (p before P.V, ds before ds.K and ds^T.Q, keep*p/keep
-// before P^T.dO), the CUDA-core kernels round with `round_to<T>`, the
+// before P^T.dO), the decode kernels round with `round_to<T>`, the
 // identity for fp32, and the tensor-core kernels round the same values
 // as they repack them into fragments. Outputs are rounded to T once, at
 // the store. Conversions go through the CUDA intrinsics only.
@@ -45,26 +35,10 @@
 namespace flash {
 
 constexpr float kNeg = -1e30f;
-constexpr int kTileRows = 64;     // rows a block owns
-constexpr int kRowThreads = 4;    // threads sharing one row
-constexpr int kThreads = kTileRows * kRowThreads;
+constexpr int kThreads = 256;  // a block of the decode kernels
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// Sum over the four threads of a row group (lanes 4r .. 4r+3 of a warp).
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float a, const float4& x) {
-  acc.x += a * x.x;
-  acc.y += a * x.y;
-  acc.z += a * x.z;
-  acc.w += a * x.w;
 }
 
 // Four consecutive elements at `p` (16-byte aligned for fp32, 8-byte for

@@ -360,20 +360,6 @@ __host__ __device__ constexpr int tf32_smem_bytes() {
   return (kMmaRows * D + 6 * tf32_bk<D>() * D) * 4;
 }
 
-// Four fp32 values at `big` split into TF32 big parts, stored back in
-// place, and small parts, stored at `small`.
-__device__ __forceinline__ void split4_tf32(float* big, float* small) {
-  const float4 x = *reinterpret_cast<const float4*>(big);
-  uint4 b;
-  uint4 sm;
-  flash::mma::split_tf32(x.x, b.x, sm.x);
-  flash::mma::split_tf32(x.y, b.y, sm.y);
-  flash::mma::split_tf32(x.z, b.z, sm.z);
-  flash::mma::split_tf32(x.w, b.w, sm.w);
-  *reinterpret_cast<uint4*>(big) = b;
-  *reinterpret_cast<uint4*>(small) = sm;
-}
-
 // The A fragment of rows [row0, row0 + 16), columns [c0, c0 + 8) of a
 // `swz_rows` tile, split into TF32 big and small parts.
 template <int D>
@@ -441,10 +427,10 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kend = causal ? min(sk, q0 + kMmaRows) : sk;
   const int ntiles = (kend + BK - 1) / BK;
 
-  load_tile_f32<D, kMmaRows, kMmaThreads, false>(qs, q + (size_t)bh * sq * D,
-                                                 q0, sq, tid);
-  load_tile_f32<D, BK, kMmaThreads, false>(ks, kp, 0, sk, tid);
-  load_tile_f32<D, BK, kMmaThreads, true>(vs, vp, 0, sk, tid);
+  load_tile_f32<D, kMmaRows, kMmaThreads, F32Layout::kRows>(
+      qs, q + (size_t)bh * sq * D, q0, sq, tid);
+  load_tile_f32<D, BK, kMmaThreads, F32Layout::kRows>(ks, kp, 0, sk, tid);
+  load_tile_f32<D, BK, kMmaThreads, F32Layout::kPairs>(vs, vp, 0, sk, tid);
   cp_async_commit();
 
   unsigned qb[kQRegs ? kKSteps : 1][4];
@@ -464,10 +450,10 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (t + 1 < ntiles) {
       // the stage it fills was last read in iteration t - 1, which ended
       // in a barrier
-      load_tile_f32<D, BK, kMmaThreads, false>(ks + ((t + 1) & 1) * BK * D,
-                                               kp, k0 + BK, sk, tid);
-      load_tile_f32<D, BK, kMmaThreads, true>(vs + ((t + 1) & 1) * BK * D,
-                                              vp, k0 + BK, sk, tid);
+      load_tile_f32<D, BK, kMmaThreads, F32Layout::kRows>(
+          ks + ((t + 1) & 1) * BK * D, kp, k0 + BK, sk, tid);
+      load_tile_f32<D, BK, kMmaThreads, F32Layout::kPairs>(
+          vs + ((t + 1) & 1) * BK * D, vp, k0 + BK, sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -476,11 +462,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     // K and V split once for the block, not once a warp: TF32 big parts
     // in place, small parts beside them at the same (swizzled) offsets
-#pragma unroll
-    for (int i = 4 * tid; i < BK * D; i += 4 * kMmaThreads) {
-      split4_tf32(kst + i, kss + i);
-      split4_tf32(vst + i, vss + i);
-    }
+    split_tile_tf32<D, BK, kMmaThreads>(kst, kss, tid);
+    split_tile_tf32<D, BK, kMmaThreads>(vst, vss, tid);
     __syncthreads();
     if (kQRegs && t == 0) {
 #pragma unroll
@@ -597,10 +580,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kNT; ++j) {
       unsigned pb[4];
       unsigned ps[4];
-      split_tf32(s[j][0], pb[0], ps[0]);
-      split_tf32(s[j][2], pb[1], ps[1]);
-      split_tf32(s[j][1], pb[2], ps[2]);
-      split_tf32(s[j][3], pb[3], ps[3]);
+      acc_a_tf32(pb, ps, s[j]);
 #pragma unroll
       for (int n = 0; n < kDT; ++n) {
         const int o0 = swz_pairs<D>(8 * j + 2 * t4, 8 * n + g);

@@ -1,5 +1,5 @@
-// Tensor-core pieces shared by the flash training kernels' tensor-core
-// forms (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): their block of
+// Tensor-core pieces shared by the flash training kernels (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu) in all their forms: their block of
 // 4 warps, warp-level `mma.sync` with fp32 accumulators (m16n8k16 on
 // bf16/fp16 operands, m16n8k8 on TF32 ones), `ldmatrix` fragment loads
 // from shared memory, `cp.async` copies from device memory, the swizzled
@@ -53,6 +53,23 @@
 // `swz_pairs` XORs column bits 3-4 with (row >> 1) & 3 for P.V's V: rows
 // 2t or 2t+1 by 8 columns g, 32 banks again. Both keep each 4-element
 // (16-byte) `cp.async` piece contiguous.
+//
+// The fp32 backward kernels read every streamed tile in two roles: as the
+// B operand of a product over D (Q.K^T: k = column, n = row) and of one
+// over the tile's rows (dS.K: k = row, n = column). Both read 8-byte
+// pairs. Over D, the k-step at columns c0 .. c0 + 7 takes column c0 + 2t
+// at k index t and c0 + 2t + 1 at t + 4 in both operands (the order of a
+// sum's terms is free), so a lane's (t, t + 4) is one 8-byte load; over
+// the rows, k index t is row 2t and t + 4 row 2t + 1 (the accumulators'
+// own order, as in the forward's P.V), and two neighbouring n-tiles take
+// the even and odd columns c0 + 2g, c0 + 2g + 1, so one 8-byte load feeds
+// both. `swz_tf32` XORs column bits 3-4 with f(row & 7) = (r1, r0 ^ r2),
+// which is one to one on rows 0-3 and 4-7 (the first read: 4 rows by 4
+// pairs in each half-warp's phase) and on rows 0, 2, 4, 6 and 1, 3, 5, 7
+// (the second: rows 2t + h by 4 pairs): both reads, and the 16-byte
+// `cp.async` writes, meet no bank conflict, and one layout serves both
+// roles. Each tile is split once into TF32 big parts, kept in place, and
+// small parts at the same offsets of a second buffer.
 
 #pragma once
 
@@ -92,6 +109,27 @@ template <int D>
 __device__ __forceinline__ int swz_pairs(int row, int col) {
   static_assert(D % 32 == 0, "fp32 tile width: a multiple of 32");
   return row * D + (col ^ (((row >> 1) & 3) << 3));
+}
+
+template <int D>
+__device__ __forceinline__ int swz_tf32(int row, int col) {
+  static_assert(D % 32 == 0, "fp32 tile width: a multiple of 32");
+  const int f = (row & 2) | ((row ^ (row >> 2)) & 1);
+  return row * D + (col ^ (f << 3));
+}
+
+// The fp32 tile layouts, for `load_tile_f32`.
+enum class F32Layout { kRows, kPairs, kTf32 };
+
+template <int D, F32Layout L>
+__device__ __forceinline__ int swz_f32(int row, int col) {
+  if constexpr (L == F32Layout::kRows) {
+    return swz_rows<D>(row, col);
+  } else if constexpr (L == F32Layout::kPairs) {
+    return swz_pairs<D>(row, col);
+  } else {
+    return swz_tf32<D>(row, col);
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -238,6 +276,131 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   d[3] += t[3];
 }
 
+// Four fp32 values at `big` split into TF32 big parts, stored back in
+// place, and small parts, stored at `small`.
+__device__ __forceinline__ void split4_tf32(float* big, float* small) {
+  const float4 x = *reinterpret_cast<const float4*>(big);
+  uint4 b;
+  uint4 sm;
+  split_tf32(x.x, b.x, sm.x);
+  split_tf32(x.y, b.y, sm.y);
+  split_tf32(x.z, b.z, sm.z);
+  split_tf32(x.w, b.w, sm.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(small) = sm;
+}
+
+// A [ROWS][D] fp32 tile split by the block's THREADS threads, big parts in
+// place and small parts at the same offsets of `small`.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void split_tile_tf32(float* big, float* small,
+                                                int tid) {
+#pragma unroll
+  for (int i = 4 * tid; i < ROWS * D; i += 4 * THREADS) {
+    split4_tf32(big + i, small + i);
+  }
+}
+
+// Fragments of split-TF32 products from `swz_tf32` tiles split into big
+// parts (`tb`) and small parts (`ts`); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ uint2 lds2(const float* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+// The A fragment of rows row0 .. row0 + 15 at the k-step over columns
+// c0 .. c0 + 7 (k index t: column c0 + 2t, t + 4: c0 + 2t + 1).
+template <int D>
+__device__ __forceinline__ void frag_a_tf32(unsigned (&big)[4],
+                                            unsigned (&small)[4],
+                                            const float* tb, const float* ts,
+                                            int row0, int c0, int g, int t4) {
+  const int o0 = swz_tf32<D>(row0 + g, c0 + 2 * t4);
+  const int o1 = swz_tf32<D>(row0 + g + 8, c0 + 2 * t4);
+  const uint2 b0 = lds2(tb + o0);
+  const uint2 b1 = lds2(tb + o1);
+  const uint2 s0 = lds2(ts + o0);
+  const uint2 s1 = lds2(ts + o1);
+  big[0] = b0.x;
+  big[1] = b1.x;
+  big[2] = b0.y;
+  big[3] = b1.y;
+  small[0] = s0.x;
+  small[1] = s1.x;
+  small[2] = s0.y;
+  small[3] = s1.y;
+}
+
+// The "col" B fragment whose n index is the tile's rows n0 .. n0 + 7, at
+// the k-step over columns c0 .. c0 + 7 (as `frag_a_tf32`): (b0, b1) in
+// (.x, .y) of `big` and `small`.
+template <int D>
+__device__ __forceinline__ void frag_b_tf32(uint2& big, uint2& small,
+                                            const float* tb, const float* ts,
+                                            int n0, int c0, int g, int t4) {
+  const int o = swz_tf32<D>(n0 + g, c0 + 2 * t4);
+  big = lds2(tb + o);
+  small = lds2(ts + o);
+}
+
+// The B fragments of two n-tiles whose k index is the tile's rows
+// k0 .. k0 + 7 (t: row k0 + 2t, t + 4: row k0 + 2t + 1) and whose n
+// indices are the columns c0 + 2n (first n-tile) and c0 + 2n + 1
+// (second): (b0, b1) of n-tile i in (.x, .y) of big[i] and small[i].
+template <int D>
+__device__ __forceinline__ void frag_b2_tf32(uint2* big, uint2* small,
+                                             const float* tb, const float* ts,
+                                             int k0, int c0, int g, int t4) {
+  const int o0 = swz_tf32<D>(k0 + 2 * t4, c0 + 2 * g);
+  const int o1 = swz_tf32<D>(k0 + 2 * t4 + 1, c0 + 2 * g);
+  const uint2 lb = lds2(tb + o0);
+  const uint2 ls = lds2(ts + o0);
+  const uint2 hb = lds2(tb + o1);
+  const uint2 hs = lds2(ts + o1);
+  big[0] = make_uint2(lb.x, hb.x);
+  big[1] = make_uint2(lb.y, hb.y);
+  small[0] = make_uint2(ls.x, hs.x);
+  small[1] = make_uint2(ls.y, hs.y);
+}
+
+// An n-tile's fp32 accumulators (rows g, g + 8; columns 2t, 2t + 1) as
+// the split A fragment of the product over those columns: k index t is
+// column 2t and t + 4 column 2t + 1, so a0 .. a3 = c0, c2, c1, c3.
+__device__ __forceinline__ void acc_a_tf32(unsigned (&big)[4],
+                                           unsigned (&small)[4],
+                                           const float (&c)[4]) {
+  split_tf32(c[0], big[0], small[0]);
+  split_tf32(c[2], big[1], small[1]);
+  split_tf32(c[1], big[2], small[2]);
+  split_tf32(c[3], big[3], small[3]);
+}
+
+// `mma_3xtf32` for N n-tiles that share the A fragment: d[i] += a * b[i],
+// b[i] = ((bb[i].x, bb[i].y), (bs[i].x, bs[i].y)), each n-tile's three
+// products summed from zero and added on the CUDA cores, and run stage
+// by stage across the n-tiles so that no product waits on the one before
+// it.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_n(float (*d)[4],
+                                             const unsigned (&ab)[4],
+                                             const unsigned (&as)[4],
+                                             const uint2* bb,
+                                             const uint2* bs) {
+  float t[N][4];
+#pragma unroll
+  for (int i = 0; i < N; ++i) t[i][0] = t[i][1] = t[i][2] = t[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma1688_tf32(t[i], as, bb[i].x, bb[i].y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma1688_tf32(t[i], ab, bs[i].x, bs[i].y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma1688_tf32(t[i], ab, bb[i].x, bb[i].y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] += t[i][e];
+  }
+}
+
 // Rows [row0, row0 + ROWS) of a [n_rows, D] matrix in device memory into
 // a swizzled [ROWS][D] tile, 16 bytes per copy spread over `threads`
 // threads; rows at or past `n_rows` are zero-filled (and read nothing).
@@ -256,9 +419,9 @@ __device__ __forceinline__ void load_tile(T* tile, const T* src, int row0,
 }
 
 // The fp32 form of `load_tile`: rows [row0, row0 + ROWS) of a [n_rows, D]
-// fp32 matrix into a [ROWS][D] tile laid out by `swz_pairs` (kPairs) or
-// `swz_rows`, 4 elements per copy; rows at or past `n_rows` zero-fill.
-template <int D, int ROWS, int THREADS, bool kPairs>
+// fp32 matrix into a [ROWS][D] tile in layout L, 4 elements per copy;
+// rows at or past `n_rows` zero-fill.
+template <int D, int ROWS, int THREADS, F32Layout L>
 __device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
                                               int row0, int n_rows, int tid) {
   constexpr int kChunks = D / 4;
@@ -268,8 +431,7 @@ __device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
     const int c = (i - r * kChunks) * 4;
     const bool valid = row0 + r < n_rows;
     const float* p = src + (size_t)(valid ? row0 + r : 0) * D + c;
-    cp_async16(tile + (kPairs ? swz_pairs<D>(r, c) : swz_rows<D>(r, c)), p,
-               valid);
+    cp_async16(tile + swz_f32<D, L>(r, c), p, valid);
   }
 }
 

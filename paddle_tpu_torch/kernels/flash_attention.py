@@ -40,12 +40,11 @@ outputs.
 
 Element types: every kernel takes fp32, bf16 or fp16 (one type for
 q/k/v, dO and the pools; lse, delta and the biases fp32). The training
-kernels take any head dim up to 256 (zero-padded to 32, 64, 128 or 256);
-in bf16 and fp16 all three run on the tensor cores (``mma.sync``), the
-fp32 ``flash_fwd`` too, in split TF32 (three TF32 products for each fp32
-one), and the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkv`` on the CUDA
-cores. The decode kernels take any head dim from 1 to 256 as it
-is (a pad would copy the cache every step).
+kernels take any head dim up to 256 (zero-padded to 32, 64, 128 or 256)
+and all three run on the tensor cores (``mma.sync``): bf16 and fp16 as
+they are, fp32 in split TF32 (three TF32 products for each fp32 one).
+The decode kernels take any head dim from 1 to 256 as it is (a pad
+would copy the cache every step).
 """
 
 import math
@@ -77,7 +76,7 @@ _NEG = -1e30
 # head dims the training kernels are instantiated for: any other D up to
 # 256 is zero-padded to the next one (``_pad_head_dim``). Past 256 they
 # raise: no model of either package goes there (GPT-2 and BERT-base use
-# 64), and the fp32 kernels' register-resident rows end there. The decode
+# 64), and the kernels' shared-memory tiles end there. The decode
 # kernels take every D up to ``_MAX_DECODE_HEAD_DIM`` as it is.
 _TRAIN_HEAD_DIMS = (32, 64, 128, 256)
 _MAX_DECODE_HEAD_DIM = 256
@@ -697,8 +696,8 @@ def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
     plain version (``flash_bwd_dq_plain``); CUDA tensors launch the
     kernel on the current stream (q/k/v/dO contiguous in one of fp32,
     bf16 and fp16, dq in their type; lse and delta fp32; any head_dim up
-    to 256, zero-padded as in ``flash_attention_lse``; bf16 and fp16 on
-    the tensor cores) or raise.
+    to 256, zero-padded as in ``flash_attention_lse``; on the tensor
+    cores, fp32 in split TF32) or raise.
     ``flash_bwd_dq.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, key_bias, g, lse, delta,
@@ -737,7 +736,8 @@ def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
     kernel on the current stream (q/k/v/dO contiguous in one of fp32,
     bf16 and fp16, dk and dv in their type; lse, delta, dkey_bias and
     dbias fp32; any head_dim up to 256, zero-padded as in
-    ``flash_attention_lse``; bf16 and fp16 on the tensor cores) or raise.
+    ``flash_attention_lse``; on the tensor cores, fp32 in split TF32) or
+    raise.
     dbias is zeroed first, then stored per head (G = B·N) or added
     atomically (shared rows, in no fixed order).
     ``flash_bwd_dkv.launches`` counts kernel launches."""

@@ -8,10 +8,10 @@ a machine without them:
 fp32 on both sides; atol 2e-5 / rtol 1e-4 for the forward kernels (they
 sum in another order than the dense plain version, the training forward
 in split TF32 whose products keep ~2^-22 of fp32; a masking or indexing
-error is O(0.1)); atol 1e-4 for the backward ones, whose outputs are sums
-of up to a few hundred products of O(1) terms (dkey_bias sums ds over
-every query row), and whose dropout mask, if it differed by one entry,
-would move a gradient by O(0.1). The bf16 and fp16 forms are held to
+error is O(0.1)); atol 1e-4 for the backward ones (split TF32 as well),
+whose outputs are sums of up to a few hundred products of O(1) terms
+(dkey_bias sums ds over every query row), and whose dropout mask, if it
+differed by one entry, would move a gradient by O(0.1). The bf16 and fp16 forms are held to
 the limits of ``paddle_tpu_torch/tools/lowp_limits.py``: the training
 kernels to its per-element bounds and per-block norms, the decode
 kernels to its per-element ``out_bound`` at rate 0 (a decode block is one
@@ -85,10 +85,12 @@ def _key_bias(gen, form, B, N, S):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("form", _KEY_BIAS_FORMS)
 def test_flash_training_kernels_match_plain(D, causal, Sq, Sk, rate, form):
-    """The fp32 forward (split TF32) with the hash dropout and both fp32
-    backward kernels, through the residual-driven entry the train step
-    uses, against their plain versions on the same inputs; the lse
-    cotangent folds into delta."""
+    """The fp32 forward and both fp32 backward kernels (all three in split
+    TF32 on the tensor cores) with the hash dropout, through the
+    residual-driven entry the train step uses, against their plain
+    versions on the same inputs, at every instantiated width (D 48 and 200
+    zero-padded), Sq != Sk both ways; the lse cotangent folds into
+    delta."""
     gen = torch.Generator().manual_seed(D + Sq + int(rate * 10))
     B, N = 2, 3
     q, k, v = _randn(gen, B, N, Sq, D), _randn(gen, B, N, Sk, D), \
@@ -239,8 +241,10 @@ _BIAS_FORMS = {
 def test_flash_bias_kernels_match_plain(D, causal, Sq, Sk, rate, form):
     """The general-bias instantiations of the three training kernels (with
     a per-batch key bias beside the bias) against their plain versions:
-    forward, dq, dk, dv, dkey_bias and dbias. dbias of a shared row is
-    summed with atomics in no fixed order over at most B·N = 6 heads of
+    forward, dq, dk, dv, dkey_bias and dbias, per-head stores and
+    shared-row atomics alike. No Sq here is a multiple of 16, so the last
+    query rows of a warp run ragged in every kernel. dbias of a shared row
+    is summed with atomics in no fixed order over at most B·N = 6 heads of
     O(1) entries, so it differs from the plain sum by rounding (~1e-7);
     it is held at the backward tolerance."""
     gen = torch.Generator().manual_seed(D + Sq + int(rate * 10) + len(form))

@@ -56,8 +56,9 @@ from paddle_tpu_torch.fluid import ir
 from paddle_tpu_torch.fluid.contrib import mixed_precision
 from paddle_tpu_torch.fluid.contrib.mixed_precision import fp16_lists, fp16_utils
 from paddle_tpu_torch.fluid.ops import controlflow_ops, registry
-from paddle_tpu_torch.tools import lowp_limits
-for fn in (lowp_limits.out_bound, lowp_limits.grad_bounds,
+from paddle_tpu_torch.tools import flash_variants, lowp_limits
+for fn in (flash_variants.build_variants, flash_variants.main,
+           lowp_limits.out_bound, lowp_limits.grad_bounds,
            lowp_limits.planted_faults, mixed_precision.decorate, mixed_precision.AutoMixedPrecisionLists,
            fp16_utils.rewrite_program, fp16_utils.update_loss_scaling,
            fp16_utils.cast_parameters_to_bf16, ir.get_pass, ir.PassBuilder,

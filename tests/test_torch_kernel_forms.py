@@ -23,7 +23,13 @@ package's Pallas kernels in interpret mode on the CPU:
   products with ``small·small`` dropped, fp32 sums, through the kernel's
   tiled online softmax. It must stay within the card's forward limit
   (atol 2e-5 / rtol 1e-4) of the Pallas forward, and a single TF32
-  product must not: the limit tells the two designs apart.
+  product must not: the limit tells the two designs apart;
+- the fp32 backward's split-TF32 arithmetic (``csrc/flash_bwd_dq.cu``,
+  ``csrc/flash_bwd_dkv.cu``), emulated the same way over the kernels'
+  key and query tiles: dq, dk and dv within the card's backward limit
+  (atol 1e-4 / rtol 1e-4) of the Pallas backward, a single TF32 product
+  outside it, and Σ over keys of dk (exactly 0) as near zero as the fp32
+  plain version's.
 
 Inputs are made with numpy from a seed.
 """
@@ -285,3 +291,86 @@ def test_split_tf32_forward_emulation_matches_jax_kernel(D):
     _close(lse, want_lse, atol=2e-5, rtol=1e-4)
     one_out, one_lse = _tf32_forward(q, k, v, kb, True, split=False)
     assert not np.allclose(one_out, want_out, atol=2e-5, rtol=1e-4)
+
+
+def _tf32_backward(q, k, v, g, kb, lse, delta, causal, split, tile=8):
+    """The fp32 backward kernels' math in numpy (``csrc/flash_bwd_dq.cu``,
+    ``csrc/flash_bwd_dkv.cu``): S, dP and each tile's contribution to dq,
+    dk and dv on the tensor cores (``_mm_tf32``), p = exp(s − lse) and
+    ds = p∘(dp − delta) in fp32. The dq pass sweeps key tiles and the dk/dv
+    pass query tiles of ``tile`` rows, one k-step of the kernels' ds·K,
+    dsᵀ·Q and Pᵀ·dO products; each tile's split product is summed from
+    zero and added to the running sum in fp32. Returns (dq, dk, dv)."""
+    B, N, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale = np.float32(1.0 / np.sqrt(D))
+    lse, delta = lse[..., None], delta[..., None]
+    mm = lambda a, b: _mm_tf32(a, b, split)  # noqa: E731
+    kT = lambda x: np.swapaxes(x, -1, -2)    # noqa: E731
+
+    def p_ds(s, dp, q0, k0, bias, lse_t, delta_t):
+        """p and ds of queries q0.. by keys k0.. from scores and dP."""
+        s = s * scale + bias
+        if causal:
+            rows = np.arange(q0, q0 + s.shape[-2])[:, None]
+            cols = np.arange(k0, k0 + s.shape[-1])[None, :]
+            s = np.where(cols > rows, np.float32(-1e30), s)
+        p = np.exp(s - lse_t).astype(np.float32)
+        return p, p * (dp - delta_t)
+
+    dq = np.zeros_like(q)
+    for k0 in range(0, Sk, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        _p, ds = p_ds(mm(q, kT(kt)), mm(g, kT(vt)), 0, k0,
+                      kb[:, None, None, k0:k0 + tile], lse, delta)
+        dq += mm(ds, kt)
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    for q0 in range(0, Sq, tile):
+        qt, gt = q[:, :, q0:q0 + tile], g[:, :, q0:q0 + tile]
+        p, ds = p_ds(mm(qt, kT(k)), mm(gt, kT(v)), q0, 0,
+                     kb[:, None, None, :], lse[:, :, q0:q0 + tile],
+                     delta[:, :, q0:q0 + tile])
+        dv += mm(kT(p), gt)
+        dk += mm(kT(ds), qt)
+    return dq * scale, dk * scale, dv
+
+
+# Σ over keys of dk is exactly 0 (softmax ignores a shift shared by all
+# keys, so the k-projection biases' gradient is 0): the emulated split
+# kernels' sum must stay within this factor of the fp32 plain version's
+# rounding noise (both read 2e-7 to 4e-7 of dk's norm here, the emulation
+# 0.7-0.8 of the plain version's).
+_ZERO_SUM_FACTOR = 4.0
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_split_tf32_backward_emulation_matches_jax_kernel(D):
+    """The fp32 backward's split-TF32 arithmetic, emulated in numpy
+    (``_tf32_backward``), against the Pallas backward kernels in
+    interpret mode from the JAX forward's residuals, at the card's
+    backward limit (atol 1e-4 / rtol 1e-4); a single TF32 product must
+    miss that limit. Causal, a ragged key bias."""
+    B, N, S = 2, 2, 40
+    rs = np.random.RandomState(D + 7)
+    q, k, v, g = (_randn(rs, B, N, S, D) for _ in range(4))
+    kb = np.zeros((B, S), np.float32)
+    kb[1, 29:] = -1e4
+    jq, jk, jv, jkb = (jnp.asarray(a) for a in (q, k, v, kb))
+    j_out, j_lse = jfa.flash_attention_lse(jq, jk, jv, key_bias=jkb,
+                                           causal=True, interpret=True)
+    want = jfa.flash_attention_bwd_from_residuals(
+        jq, jk, jv, jkb, None, j_out, j_lse, jnp.asarray(g), causal=True,
+        interpret=True)
+    out, lse = np.asarray(j_out), np.asarray(j_lse)
+    delta = (g * out).sum(-1)
+    got = _tf32_backward(q, k, v, g, kb, lse, delta, True, split=True)
+    for a, w in zip(got, want):          # dq, dk, dv (dkey_bias unused)
+        _close(a, w, atol=1e-4, rtol=1e-4)
+    one = _tf32_backward(q, k, v, g, kb, lse, delta, True, split=False)
+    assert not all(np.allclose(a, w, atol=1e-4, rtol=1e-4)
+                   for a, w in zip(one, want))
+    plain_dk = tfa.flash_bwd_dkv_plain(
+        *(torch.from_numpy(np.array(a, np.float32))
+          for a in (q, k, v, kb, g, lse, delta)), causal=True)[0].numpy()
+    zero_sum = lambda dk: np.linalg.norm(dk.astype(np.float64).sum(2))  # noqa
+    assert zero_sum(got[1]) <= _ZERO_SUM_FACTOR * zero_sum(plain_dk)
