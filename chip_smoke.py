@@ -43,7 +43,10 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX or
            every emitted token teacher-forced.
 6. profile torch.profiler over a decode step (8 active slots), a
            990-token prefill, and the paged step at width 1 and 4 (8
-           slots at position 500): wall vs device-busy time, top ops.
+           slots at position 500): wall vs device-busy time, top ops;
+           each decode step's decode-kernel device ms and launches a
+           step, which must be one a layer (the split-K merge adds no
+           launch).
 7. train   GPT-2 small's eager train step (``build_gpt_lm_train_eager``)
            at batch 8 x 1024: at dropout 0, every parameter's step-1
            gradient through the kernels against the dense path
@@ -91,8 +94,14 @@ forms of both decode kernels at their serving shapes
 (timed beside SDPA in bf16, held to ``lowp_limits.out_bound``); fp16 and
 bf16 at small shapes; a head dim of 48 on all five kernels; and both
 decode kernels at head dims 200, 256, 20 and 3 in fp32 and bf16, each
-against its plain version. The amp_train phase reports the flash
-kernels' device ms a step, by kernel.
+against its plain version. The decode kernels' rows carry their split
+count and cluster size (``_decode_splits``), the copy ring's stages,
+their bound share, every instantiation's registers and spills from the
+build phase, and a run-to-run check (two calls on the same inputs must
+give equal bits); a fully masked slot is held to the kernel limits too,
+its largest error reported on its own.
+The amp_train phase reports the flash kernels' device ms a step, by
+kernel.
 
 Then the kernel table as one JSON line, the card's name and power limit
 as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -307,6 +316,17 @@ def check_close(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
                              "err %.3g" % (name, max_err(got, want)))
 
 
+def check_decode_close(name, got, want, key_bias):
+    """An fp32 decode kernel's out [B, N, 1, D] against its plain
+    version's at the kernel limits, fully masked slots (``key_bias``
+    [B, S] all -1e4) included. Returns the largest error on the slots
+    with a live key and on the fully masked ones."""
+    check_close(name, got, want)
+    masked = (key_bias < -1e3).all(1)
+    return (max_err(got[~masked], want[~masked]),
+            max_err(got[masked], want[masked]) if masked.any() else 0.0)
+
+
 def decode_lowp_ratio(name, got, want, q, k, v, key_bias, scale):
     """A bf16 or fp16 decode kernel's out against its plain version's,
     per element within ``lowp_limits.out_bound`` at rate 0 (the kernel
@@ -321,6 +341,36 @@ def decode_lowp_ratio(name, got, want, q, k, v, key_bias, scale):
                            scale=scale)
     return lowp.check(name, {
         "elem": lowp.out_ratios(q.dtype, got, want, bound)["elem"]})
+
+
+def decode_design(kernel):
+    """The split-K decode kernels' constants as their library reports
+    them: threads a block, key rows a thread group takes a tile, stages of
+    the copy ring, the largest cluster. The threads and rows must be the
+    wrapper module's ``_DECODE_DESIGN``, which the CPU tests emulate."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build, flash_attention as fa
+
+    out = (ctypes.c_int * 4)()
+    _build.load(kernel, "f32").library.paddle_flash_decode_design(out)
+    design = dict(zip(("threads", "rows_per_group", "stages", "max_cluster"),
+                      list(out)))
+    if (out[0], out[1]) != fa._DECODE_DESIGN[kernel]:
+        raise AssertionError("%s: built as %s, emulated as %s" % (
+            kernel, design, fa._DECODE_DESIGN[kernel]))
+    return design
+
+
+def check_repeatable(name, fn, first):
+    """A second call of ``fn`` must give ``first``'s bits: the decode
+    kernels merge their splits' states in a fixed order."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("%s: two calls on the same inputs differ (max "
+                             "%.3g)" % (name, max_err(first, again)))
+    return True
 
 
 def event_ms(fn, reps=10):
@@ -408,14 +458,16 @@ def kernel_flash_decode(dev, peaks):
         kb[b, live:] = -1e4
     kb[7, :] = -1e4                  # a fully masked (inactive) slot
     kb = kb.to(dev)
-    worst = 0.0
+    worst = masked_err = 0.0
     for k, v in kvs:
         out = fa.flash_decode_attention(q, k, v, kb, scale=scale)
         ref = fa.flash_decode_attention_plain(q, k, v, key_bias=kb,
                                               scale=scale)
         torch.cuda.synchronize()
-        check_close("flash_decode", out, ref)
-        worst = max(worst, max_err(out, ref))
+        live, masked = check_decode_close("flash_decode", out, ref, kb)
+        worst, masked_err = max(worst, live), max(masked_err, masked)
+        check_repeatable("flash_decode", lambda: fa.flash_decode_attention(
+            q, k, v, kb, scale=scale), out)
     args = [(q, k, v, kb) for k, v in kvs]
     ms, spread = cuda_ms(lambda a, b, c, d: fa.flash_decode_attention(
         a, b, c, d, scale=scale), args)
@@ -441,6 +493,9 @@ def kernel_flash_decode(dev, peaks):
         ratio = max(ratio, decode_lowp_ratio("flash_decode[bf16]", out, ref,
                                              a, b, c, d, scale))
         err16 = max(err16, max_err(out, ref))
+        check_repeatable("flash_decode[bf16]",
+                         lambda: fa.flash_decode_attention(
+                             a, b, c, d, scale=scale), out)
     ms16, spread16 = cuda_ms(lambda a, b, c, d: fa.flash_decode_attention(
         a, b, c, d, scale=scale), args16)
     plain16, _ = cuda_ms(lambda a, b, c, d: fa.flash_decode_attention_plain(
@@ -452,14 +507,22 @@ def kernel_flash_decode(dev, peaks):
     bms16, by16 = bound_ms(2 * (2 * BN * D + 2 * BN * S * D) + 4 * B * S,
                            4 * D * BN * S, peaks, BF16_PEAK)
     fa.flash_decode_attention.launches = 0
+    splits = fa._decode_splits(BN, S, sms=fa._sm_count(dev.index or 0))
     return worst, {"max_abs_err": worst, "ms": ms, "ms_window_spread": spread,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bms, "bound_by": by,
+                   "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+                   "masked_slot_max_abs_err": masked_err,
+                   "library_ratio": ms / lib_ms, "repeatable": True,
+                   "splits": splits, "cluster": splits,
+                   "design": decode_design("flash_decode"),
                    "bf16": {"max_abs_err": err16, "out_bound_ratio": ratio,
                             "ms": ms16,
                             "ms_window_spread": spread16,
                             "plain_ms": plain16, "library_ms": lib16,
-                            "bound_ms": bms16, "bound_by": by16}}
+                            "bound_ms": bms16, "bound_by": by16,
+                            "bound_share": bms16 / ms16,
+                            "library_ratio": ms16 / lib16,
+                            "repeatable": True}}
 
 
 def kernel_flash_decode_paged(dev, peaks):
@@ -489,15 +552,18 @@ def kernel_flash_decode_paged(dev, peaks):
     mapped = int(torch.unique(tables).numel())
     tables = tables.to(torch.int32).to(dev)
     kb = kb.to(dev)
-    worst = 0.0
+    worst = masked_err = 0.0
     for k_pool, v_pool in pools:
         out = fa.flash_decode_paged_attention(q, k_pool, v_pool, tables, kb,
                                               scale=scale)
         ref = fa.flash_decode_paged_attention_plain(q, k_pool, v_pool, tables,
                                                     key_bias=kb, scale=scale)
         torch.cuda.synchronize()
-        check_close("flash_decode_paged", out, ref)
-        worst = max(worst, max_err(out, ref))
+        live, masked = check_decode_close("flash_decode_paged", out, ref, kb)
+        worst, masked_err = max(worst, live), max(masked_err, masked)
+        check_repeatable("flash_decode_paged",
+                         lambda: fa.flash_decode_paged_attention(
+                             q, k_pool, v_pool, tables, kb, scale=scale), out)
     args = [(q, k, v, tables, kb) for k, v in pools]
     ms, spread = cuda_ms(lambda a, b, c, t, d: fa.flash_decode_paged_attention(
         a, b, c, t, d, scale=scale), args)
@@ -530,6 +596,9 @@ def kernel_flash_decode_paged(dev, peaks):
                                              ref, a, rows[0], rows[1], d,
                                              scale))
         err16 = max(err16, max_err(out, ref))
+        check_repeatable("flash_decode_paged[bf16]",
+                         lambda: fa.flash_decode_paged_attention(
+                             a, b, c, t, d, scale=scale), out)
     ms16, spread16 = cuda_ms(
         lambda a, b, c, t, d: fa.flash_decode_paged_attention(
             a, b, c, t, d, scale=scale), args16)
@@ -545,13 +614,18 @@ def kernel_flash_decode_paged(dev, peaks):
                            + 4 * (B * MB + B * S), 4 * D * BN * S, peaks,
                            BF16_PEAK)
     fa.flash_decode_paged_attention.launches = 0
+    splits = fa._decode_splits(BN, S, blk, fa._sm_count(dev.index or 0))
     return worst, {"max_abs_err": worst, "ms": ms, "ms_window_spread": spread,
                    "plain_ms": plain_ms, "library_ms": None,
                    "gather_sdpa_ms": lib_ms,
                    "gather_sdpa_calls": "two: index_select gather of the K "
                                         "and V rows, then "
                                         "scaled_dot_product_attention",
-                   "bound_ms": bms, "bound_by": by, "mapped_blocks": mapped,
+                   "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+                   "masked_slot_max_abs_err": masked_err,
+                   "repeatable": True, "mapped_blocks": mapped,
+                   "splits": splits, "cluster": splits,
+                   "design": decode_design("flash_decode_paged"),
                    "shape": {"q": [B, N, 1, D], "pool": [NB, N, blk, D],
                              "tables": [B, MB]},
                    "bf16": {"max_abs_err": err16, "out_bound_ratio": ratio,
@@ -559,7 +633,8 @@ def kernel_flash_decode_paged(dev, peaks):
                             "ms_window_spread": spread16,
                             "plain_ms": plain16, "library_ms": None,
                             "gather_sdpa_ms": lib16, "bound_ms": bms16,
-                            "bound_by": by16}}
+                            "bound_by": by16, "bound_share": bms16 / ms16,
+                            "repeatable": True}}
 
 
 def kernel_flash_train(dev, peaks):
@@ -981,7 +1056,7 @@ def kernel_other_forms(dev):
     out["fp32_d48_train"] = {"fwd": max(max_err(o, ro), max_err(lse, rl)),
                              "bwd": max(max_err(a, b)
                                         for a, b in zip(grads, ref))}
-    # ... and the decode kernels (instantiated at 48)
+    # ... and the decode kernels (D = 48: the ring's run-time-D form)
     q1 = torch.randn(B, N, 1, D, generator=gen).to(dev)
     dec = fa.flash_decode_attention(q1, k, v, kb)
     rdec = fa.flash_decode_attention_plain(q1, k, v, key_bias=kb)
@@ -1001,9 +1076,10 @@ def kernel_other_forms(dev):
     check_close("flash_decode_paged D=48", pdec, rpdec)
     out["fp32_d48_decode"] = {"flash_decode": max_err(dec, rdec),
                               "flash_decode_paged": max_err(pdec, rpdec)}
-    # the decode kernels past D = 128 and off the multiples of 8 (the
-    # run-time-D instantiation), fp32 at the kernel tolerance and bf16
-    # within lowp_limits.out_bound
+    # the decode kernels past D = 128 (two pieces a lane in fp32) and off
+    # the multiples of 8 (bf16 at D = 20 and both types at D = 3 take the
+    # element path), fp32 at the kernel tolerance and bf16 within
+    # lowp_limits.out_bound
     S = 300
     for D in (200, 256, 20, 3):
         for dt in (torch.float32, torch.bfloat16):
@@ -1227,6 +1303,7 @@ def _profile(fn, reps):
     by_class = {"gemm": 0.0, "flash": 0.0, "copy": 0.0, "other": 0.0}
     launches_by_class = dict(by_class)
     gemm_kernels = {}
+    gemm_calls = {}
     flash_ms = {}
     flash_calls = {}
     for us, n, key in dev_events:
@@ -1235,6 +1312,7 @@ def _profile(fn, reps):
         launches_by_class[cls] += n
         if cls == "gemm":
             gemm_kernels[key[:100]] = gemm_kernels.get(key[:100], 0.0) + us
+            gemm_calls[key[:100]] = gemm_calls.get(key[:100], 0.0) + n
         if cls == "flash":
             base = re.search(r"(flash_\w+?)_kernel", key)
             base = base.group(1) if base else key[:60]
@@ -1249,6 +1327,7 @@ def _profile(fn, reps):
         "launches_by_class": launches_by_class,
         "gemm_kernels_us": dict(sorted(gemm_kernels.items(),
                                        key=lambda kv: -kv[1])[:6]),
+        "gemm_kernel_calls": gemm_calls,
         "top_other": [{"kernel": k[:90], "us": us, "calls": n}
                       for us, n, k in dev_events
                       if _kernel_class(k) == "other"][:6],
@@ -1286,9 +1365,25 @@ def profile_phase(model):
         paged[width] = _profile(
             lambda: psess.paged_step(toks, [500] * slots, tables,
                                      [True] * slots, width=width), reps=10)
+    # each decode step launches its decode kernel once a layer: the
+    # split-K merge adds no launch
+    n_layers = model.cfg.num_layers
+    decode_flash = {}
+    for path, prof, kname in (("decode_step", step, "flash_decode"),
+                              ("paged_step_width1", paged[1],
+                               "flash_decode_paged")):
+        n = prof["flash_launches_by_kernel"].get(kname, 0.0)
+        if n != n_layers:
+            raise AssertionError("%s launched %s times a %s, not %d"
+                                 % (kname, n, path, n_layers))
+        decode_flash[path] = {
+            "kernel": kname, "device_ms": prof["flash_ms_by_kernel"][kname],
+            "launches_per_step": n,
+            "all_launches_per_step": prof["launches_per_call"]}
     return {"phase": "profile", "decode_step": step, "prefill_990": prefill,
             "paged_step_width1": paged[1],
-            "paged_verify_width%d" % SPEC_K: paged[SPEC_K]}
+            "paged_verify_width%d" % SPEC_K: paged[SPEC_K],
+            "decode_flash": decode_flash}
 
 
 def engine_phase(dev):
@@ -1674,8 +1769,13 @@ def program_train_phase(dev):
     gemms = (prog_prof["launches_by_class"]["gemm"],
              eager_prof["launches_by_class"]["gemm"])
     if gemms[0] != gemms[1]:
-        raise AssertionError("program step launched %d GEMMs, eager %d"
-                             % gemms)
+        calls = [p["gemm_kernel_calls"] for p in (prog_prof, eager_prof)]
+        raise AssertionError(
+            "program step launched %d GEMMs, eager %d; by kernel where they "
+            "differ (program, eager): %r" % (gemms + ({
+                k: (calls[0].get(k, 0), calls[1].get(k, 0))
+                for k in set(calls[0]) | set(calls[1])
+                if calls[0].get(k, 0) != calls[1].get(k, 0)},)))
     if prog_prof["launches_by_class"]["flash"] != 3 * n_layers:
         raise AssertionError("profiled program step launched %r flash "
                              "kernels" % prog_prof["launches_by_class"])
@@ -1972,9 +2072,9 @@ def main():
         shutil.rmtree(_build.BUILD_DIR)   # build from the sources, now
     t0 = time.perf_counter()
     built = _build.build()
+    ptxas = {k: ptxas_report(v["log"]) for k, v in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {k: {"seconds": v["seconds"],
-                          "ptxas": ptxas_report(v["log"])}
+          "kernels": {k: {"seconds": v["seconds"], "ptxas": ptxas[k]}
                       for k, v in built.items()}})
 
     fwd_err, fwd_rows = kernel_flash_fwd(dev, peaks)
@@ -2084,8 +2184,20 @@ def main():
                 "out_bound_ratio": r["out_bound_ratio"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "bound_share": r["bound_share"],
                 "library_ms": r["library_ms"],
-                "gather_sdpa_ms": r.get("gather_sdpa_ms")}
+                "gather_sdpa_ms": r.get("gather_sdpa_ms"),
+                "repeatable": r["repeatable"]}
+
+    def decode_design_row(kname, row):
+        # split-K over a cluster, the copy ring, and the build's
+        # registers and spills of every instantiation
+        return {"splits": row["splits"], "cluster": row["cluster"],
+                "stages": row["design"]["stages"],
+                "threads": row["design"]["threads"],
+                "bound_share": row["bound_share"],
+                "repeatable": row["repeatable"],
+                "ptxas": ptxas.get(kname, {})}
 
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -2119,6 +2231,7 @@ def main():
          "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
          "bound_ms": dec_row["bound_ms"], "bound_by": dec_row["bound_by"],
          "library_ms": dec_row["library_ms"],
+         **decode_design_row("flash_decode", dec_row),
          "bf16": decode_bf16_row("flash_decode", dec_row)},
         {"name": "flash_decode_paged", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
@@ -2128,6 +2241,8 @@ def main():
          "plain_ms": paged_row["plain_ms"], "bound_ms": paged_row["bound_ms"],
          "bound_by": paged_row["bound_by"],
          "library_ms": paged_row["library_ms"],
+         "gather_sdpa_ms": paged_row["gather_sdpa_ms"],
+         **decode_design_row("flash_decode_paged", paged_row),
          "bf16": decode_bf16_row("flash_decode_paged", paged_row)},
     ]})
     print(smi, flush=True)

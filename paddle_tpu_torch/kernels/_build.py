@@ -43,11 +43,15 @@ KERNELS = {
     "flash_bwd_dq": ("paddle_flash_bwd_dq", _ALL, [_P] * 9 + _FLASH_TAIL),
     "flash_bwd_dkv": ("paddle_flash_bwd_dkv", _ALL,
                       [_P] * 12 + _FLASH_TAIL),
+    # q, k, v, key_bias, o, bh, bias_heads, s_len, d, scale, splits,
+    # stream
     "flash_decode": ("paddle_flash_decode", _ALL,
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    # q, k_pool, v_pool, tables, key_bias, o, bh, heads, bias_heads,
+    # max_blocks, blk, pool_blocks, d, scale, splits, stream
     "flash_decode_paged": ("paddle_flash_decode_paged", _ALL,
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _P]),
+                            _I, _F, _I, _P]),
 }
 
 NVCC_FLAGS = [
@@ -114,10 +118,23 @@ def build(names=None):
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, lib, t0) in procs.items():
+    # each nvcc's output read (and its end timed) by a thread of its own,
+    # so that one kernel's seconds do not include waiting for another's
+    done = {}
+
+    def finish(name, proc, t0):
         log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
+        done[name] = (log, time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=finish, args=(name, proc, t0))
+               for name, (proc, _tmp, _lib, t0) in procs.items()]
+    for t in readers:
+        t.start()
+    for t in readers:
+        t.join()
+    failures = []
+    for name, (proc, tmp, lib, _t0) in procs.items():
+        log, secs = done[name]
         if proc.returncode != 0:
             failures.append("%s (nvcc exit %d):\n%s"
                             % (name, proc.returncode, log))

@@ -44,9 +44,13 @@ kernels take any head dim up to 256 (zero-padded to 32, 64, 128 or 256)
 and all three run on the tensor cores (``mma.sync``): bf16 and fp16 as
 they are, fp32 in split TF32 (three TF32 products for each fp32 one).
 The decode kernels take any head dim from 1 to 256 as it is (a pad
-would copy the cache every step).
+would copy the cache every step). They split each (slot, head) row's keys
+over the blocks of a thread-block cluster (split-K): ``_decode_splits``
+picks the count from the shape alone, ``_decode_ranges`` says which keys
+each block takes.
 """
 
+import functools
 import math
 import warnings
 
@@ -805,6 +809,73 @@ def flash_attention_bwd_from_residuals(q, k, v, key_bias, seed, out, lse, g,
     return (dq,) + flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, **kw)
 
 
+# Split-K of the decode kernels: the blocks of one (slot, head) row form
+# one thread-block cluster, at most 8 (the portable cluster size), none
+# shorter than _DECODE_MIN_SPLIT_KEYS keys (a few KB of K a block). The
+# count is what the card measured fastest (PERF.md;
+# ``tools/decode_variants.py``): the contiguous kernel's 256-thread
+# blocks keep enough bytes in flight at one block an SM, so it takes no
+# more blocks than the card has SMs; the paged kernel's 128-thread blocks
+# want about three an SM, so it fills two waves. The wrappers read the
+# SM count from the device; _DECODE_SMS (an H100 SXM's) is the default
+# the CPU tests emulate.
+_DECODE_MAX_SPLITS = 8
+_DECODE_SMS = 132
+_DECODE_MIN_SPLIT_KEYS = 64
+# Each decode kernel's blocks as its source builds them: threads a block,
+# key rows a thread group takes a tile (``kThreads``, ``kRowsPerGroup``
+# in csrc/flash_decode.cu and flash_decode_paged.cu; the card tests hold
+# them against each library's ``paddle_flash_decode_design``).
+_DECODE_DESIGN = {"flash_decode": (256, 4), "flash_decode_paged": (128, 4)}
+
+
+def _decode_splits(bh, s_len, blk=None, sms=_DECODE_SMS):
+    """The decode kernels' split count for ``bh`` (slot, head) rows of
+    ``s_len`` keys on a card of ``sms`` SMs: for the contiguous kernel the
+    most splits with ``bh * splits`` <= ``sms`` blocks, for the paged one
+    (``blk``: its pool's block size, whose splits take whole blocks) the
+    fewest with ``bh * splits`` >= 2 ``sms``; at most 8, and cut until
+    every split is at least ``_DECODE_MIN_SPLIT_KEYS`` keys long (1 where
+    the row is shorter). A function of the shape alone, never of the
+    data."""
+    unit = blk or 1
+    units = -(-s_len // unit)
+    if blk is None:
+        splits = sms // bh
+    else:
+        splits = -(-2 * sms // bh)
+    splits = max(1, min(_DECODE_MAX_SPLITS, splits))
+    while splits > 1 and -(-units // splits) * unit < _DECODE_MIN_SPLIT_KEYS:
+        splits -= 1
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_ranges(s_len, splits, blk=None):
+    """The key range [lo, hi) each split of a row takes, in split (cluster
+    rank) order: ceil(s_len / splits) keys each, or for a paged row
+    (``blk``) ceil(s_len / blk / splits) whole pool blocks each. A split
+    past the row's end is empty (lo >= hi) and adds weight 0."""
+    unit = blk or 1
+    units = -(-s_len // unit)
+    per = -(-units // splits)
+    out = []
+    for i in range(splits):
+        lo = min(i * per, units)
+        out.append((lo * unit, min(lo + per, units) * unit))
+    return out
+
+
+def _check_splits(name, splits):
+    if not 1 <= splits <= _DECODE_MAX_SPLITS:
+        raise ValueError("%s: splits must be 1..%d, got %d"
+                         % (name, _DECODE_MAX_SPLITS, splits))
+
+
 def flash_decode_attention(q, k, v, key_bias=None, scale=None):
     """Decode-mode attention: one query token per (slot, head), q
     [B, N, 1, D], against the fixed-shape cache k/v [B, N, S, D].
@@ -815,8 +886,16 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
     The wrapper of the ``flash_decode`` CUDA kernel. CPU tensors run the
     plain version (``flash_decode_attention_plain``); CUDA tensors launch
     the kernel on the current stream (q/k/v contiguous in one of fp32,
-    bf16 and fp16, any head_dim from 1 to 256) or raise.
-    ``flash_decode_attention.launches`` counts kernel launches."""
+    bf16 and fp16, any head_dim from 1 to 256) or raise, with the split
+    count ``_decode_splits`` gives. ``flash_decode_attention.launches``
+    counts kernel launches."""
+    return _flash_decode(q, k, v, key_bias, scale)
+
+
+def _flash_decode(q, k, v, key_bias=None, scale=None, splits=None):
+    """``flash_decode_attention`` at the kernel's split-K count
+    ``splits`` (1..8; None: ``_decode_splits``), which the card tests
+    force."""
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k, v, key_bias=key_bias,
                                             scale=scale)
@@ -829,18 +908,21 @@ def flash_decode_attention(q, k, v, key_bias=None, scale=None):
     kb, bias_heads = _kernel_key_bias(key_bias, B, N, Sk)
     align = _decode_align("flash_decode", D, q.element_size())
     et = _cuda_operands("flash_decode", (q, k, v), (kb,), align)
+    if splits is None:
+        splits = _decode_splits(B * N, Sk, sms=_sm_count(q.device.index))
+    _check_splits("flash_decode", splits)
     out = torch.empty_like(q)
     _launch("flash_decode", et, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(kb), out.data_ptr(), B * N, bias_heads, Sk, D,
-            float(scale))
+            float(scale), splits)
     flash_decode_attention.launches += 1
     return out
 
 
 flash_decode_attention.launches = 0
 
-# the kernel stages a slot's table row in shared memory (4 bytes an
-# entry, within the 48 KB a block gets without opting in)
+# a block stages its split's table entries in shared memory (4 bytes an
+# entry: at most 32 KB beside the ring)
 _MAX_TABLE_BLOCKS = 8192
 
 
@@ -859,8 +941,17 @@ def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
     tensors launch the kernel on the current stream (q and pools
     contiguous in one of fp32, bf16 and fp16, an fp32 bias, int32
     contiguous tables — the caller builds them once per step, so nothing
-    is cast here — any head_dim from 1 to 256) or raise.
+    is cast here — any head_dim from 1 to 256) or raise, with the split
+    count (in whole pool blocks) ``_decode_splits`` gives.
     ``flash_decode_paged_attention.launches`` counts kernel launches."""
+    return _flash_decode_paged(q, k_pool, v_pool, tables, key_bias, scale)
+
+
+def _flash_decode_paged(q, k_pool, v_pool, tables, key_bias=None,
+                        scale=None, splits=None):
+    """``flash_decode_paged_attention`` at the kernel's split-K count
+    ``splits`` (1..8 whole-block ranges; None: ``_decode_splits``), which
+    the card tests force."""
     if q.device.type == "cpu":
         return flash_decode_paged_attention_plain(
             q, k_pool, v_pool, tables, key_bias=key_bias, scale=scale)
@@ -884,11 +975,14 @@ def flash_decode_paged_attention(q, k_pool, v_pool, tables, key_bias=None,
     align = _decode_align("flash_decode_paged", D, q.element_size())
     et = _cuda_operands("flash_decode_paged", (q, k_pool, v_pool), (kb,),
                         align)
+    if splits is None:
+        splits = _decode_splits(B * N, S, blk, _sm_count(q.device.index))
+    _check_splits("flash_decode_paged", splits)
     out = torch.empty_like(q)
     _launch("flash_decode_paged", et, q.device, q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
             _ptr(kb), out.data_ptr(), B * N, N, bias_heads, MB, blk,
-            k_pool.shape[0], D, float(scale))
+            k_pool.shape[0], D, float(scale), splits)
     flash_decode_paged_attention.launches += 1
     return out
 

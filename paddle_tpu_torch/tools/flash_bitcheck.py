@@ -10,16 +10,16 @@ check to each (kernel, element type), printed beside its result:
 
 - ``bits``: this tree's output equals the older tree's (``torch.equal``),
   on the same operands (the backward kernels on this tree's lse and
-  delta): ``flash_fwd`` (out, lse) in fp32, bf16 and fp16,
-  ``flash_bwd_dq`` and ``flash_bwd_dkv`` (dk, dv, dkey_bias; dbias of
-  heads sharing a row is summed with float atomics in no fixed order and
-  is held to 1e-5) in bf16 and fp16, and both decode kernels in fp32 and
-  bf16;
+  delta): ``flash_fwd`` (out, lse), ``flash_bwd_dq`` and
+  ``flash_bwd_dkv`` (dk, dv, dkey_bias; dbias of heads sharing a row is
+  summed with float atomics in no fixed order and is held to 1e-5) in
+  fp32, bf16 and fp16;
 - ``limit``: the forms redesigned since the older tree are held to their
-  plain versions instead: the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkv``
-  (split TF32 on the tensor cores: dq, dk, dv, dkey_bias and dbias) at
-  the backward's atol 1e-4 / rtol 1e-4; the largest difference from the
-  older tree's output is printed beside it.
+  plain versions instead, the largest difference from the older tree's
+  output printed beside it: both decode kernels (split-K over a cluster,
+  fed by a copy ring), contiguous and paged, in fp32 at the forward's
+  atol 2e-5 / rtol 1e-4 and in bf16 and fp16 within
+  ``lowp_limits.out_bound``.
 
 The training kernels run at the train and prefill shapes and ragged ones
 (key bias, causal, dropout 0 and 0.1, with and without a per-head
@@ -29,8 +29,9 @@ same padded operands with the scale of D = 48. The decode kernels run,
 contiguous and paged, at the serving shape and ragged ones (head dims 8
 to 128).
 
-It prints the ``ptxas`` register and spill lines of this tree's builds,
-one ``bitcheck`` line per shape and type, and ``BITCHECK PASS`` or
+It prints both trees' build seconds (each kernel's ``nvcc``, all of a
+tree's started together), the ``ptxas`` register and spill lines of this
+tree's builds, one ``bitcheck`` line per shape and type, and ``BITCHECK PASS`` or
 ``BITCHECK FAIL`` last; it exits 1 on a failed check.
 
 Usage, from the repo root on a machine with a card and ``nvcc``::
@@ -39,9 +40,9 @@ Usage, from the repo root on a machine with a card and ``nvcc``::
     git archive <older commit> paddle_tpu_torch | tar -x -C _archive/parent
     python3 -m paddle_tpu_torch.tools.flash_bitcheck _archive/parent
 
-The older tree is the one before the redesign, ``4da03f6``: a later
+The older tree is the one before the redesign, ``6fa595d``: a later
 one holds forms of its own that are not the older bits, an earlier one
-lacks the tensor-core forms that this tree keeps bit for bit.
+lacks the split-TF32 backward that this tree keeps bit for bit.
 """
 
 import argparse
@@ -73,10 +74,13 @@ LOWP_SHAPES = [(8, 12, 1024, 64, 0.1, "batch", False),
                (1, 2, 130, 256, 0.1, "batch", False)]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 # the (kernel, element type) forms redesigned since the older tree: held
-# to their plain versions at the backward's limit; every other form is
-# held to the older bits
-LIMIT_FORMS = {("flash_bwd_dq", "f32"), ("flash_bwd_dkv", "f32")}
+# to their plain versions (the training kernels at the backward's limit,
+# the decode kernels at the forward's and ``lowp_limits.out_bound``);
+# every other form is held to the older bits
+LIMIT_FORMS = {(k, et) for k in ("flash_decode", "flash_decode_paged")
+               for et in ("f32", "bf16", "f16")}
 BWD_ATOL, BWD_RTOL = 1e-4, 1e-4
+FWD_ATOL, FWD_RTOL = 2e-5, 1e-4
 # decode: (slots, heads, cache length, D, block size of the paged pool)
 DECODE_SHAPES = [(8, 12, 1024, 64, 16), (4, 3, 300, 48, 4), (3, 2, 77, 8, 16),
                  (2, 3, 130, 128, 64), (4, 3, 1, 24, 1)]
@@ -174,9 +178,23 @@ def check(pb, B, N, S, D, rate, kbform, with_bias, dev, et="f32"):
     return res
 
 
+def decode_limit(et, got, want, q, k, v, kb):
+    """(check, passed) of a decode output against its plain version:
+    fp32 at the forward's atol / rtol, bf16 and fp16 per element within
+    ``lowp_limits.out_bound``."""
+    from paddle_tpu_torch.tools import lowp_limits as lowp
+
+    if et == "f32":
+        return ("limit %g/%g" % (FWD_ATOL, FWD_RTOL),
+                torch.allclose(got, want, atol=FWD_ATOL, rtol=FWD_RTOL))
+    bound = lowp.out_bound(q.dtype, q, k, v, want, key_bias=kb)
+    ratio = float(lowp.out_ratios(q.dtype, got, want, bound)["elem"])
+    return "out_bound (%.3f)" % ratio, ratio <= 1
+
+
 def check_decode(pb, B, N, S, D, blk, dev, et="f32"):
     """Both trees' decode kernels on one shape in element type ``et``;
-    {output: ("bits", equal, max abs difference)}."""
+    {output: (check, passed, max abs difference from the older tree)}."""
     dt = DTYPES[et]
     g = torch.Generator(device=dev).manual_seed(S * 3 + D)
     q = torch.randn(B, N, 1, D, device=dev, generator=g).to(dt)
@@ -210,9 +228,20 @@ def check_decode(pb, B, N, S, D, blk, dev, et="f32"):
     assert err == 0, ("flash_decode_paged", err)
     torch.cuda.synchronize()
     diff = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa
-    return {"decode": ("bits", torch.equal(out, pout), diff(out, pout)),
-            "decode_paged": ("bits", torch.equal(paged, ppaged),
-                             diff(paged, ppaged))}
+    ref = fa.flash_decode_attention_plain(q, k, v, key_bias=kb)
+    rows = [fa.gather_paged_rows(p, tables.long()) for p in pools]
+    pref = fa.flash_decode_attention_plain(q, *rows, key_bias=pkb)
+    res = {}
+    for name, kname, got, older, want, kk, vv, bias in (
+            ("decode", "flash_decode", out, pout, ref, k, v, kb),
+            ("decode_paged", "flash_decode_paged", paged, ppaged, pref,
+             rows[0], rows[1], pkb)):
+        if (kname, et) in LIMIT_FORMS:
+            check, ok = decode_limit(et, got, want, q, kk, vv, bias)
+            res[name] = (check, ok, diff(got, older))
+        else:
+            res[name] = ("bits", torch.equal(got, older), diff(got, older))
+    return res
 
 
 def main(argv=None):
@@ -225,13 +254,17 @@ def main(argv=None):
         return 1
     t0 = time.time()
     res = _build.build(KERNELS + DECODE_KERNELS)
-    print("build s", round(time.time() - t0, 1))
+    print("build s", round(time.time() - t0, 1),
+          {k: round(r["seconds"], 1) for k, r in res.items()})
     for name, r in res.items():
         for line in r["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 print(name, line.strip())
     pb = load_parent_build(args.parent)
-    pb.build(KERNELS + DECODE_KERNELS)
+    t0 = time.time()
+    older = pb.build(KERNELS + DECODE_KERNELS)
+    print("older tree build s", round(time.time() - t0, 1),
+          {k: round(r["seconds"], 1) for k, r in older.items()})
     dev = torch.device("cuda")
     ok = True
     runs = ([(shape, "f32") for shape in SHAPES]
@@ -240,7 +273,7 @@ def main(argv=None):
         res = check(pb, *shape, dev, et)
         print("bitcheck", et, shape, res)
         ok = ok and all(r[1] for r in res.values())
-    for et in ("f32", "bf16"):
+    for et in ("f32", "bf16", "f16"):
         for shape in DECODE_SHAPES:
             res = check_decode(pb, *shape, dev, et)
             print("bitcheck decode", et, shape, res)

@@ -278,33 +278,69 @@ def test_flash_bias_kernels_match_plain(D, causal, Sq, Sk, rate, form):
                                    msg=name)
 
 
+def _assert_decode_close(got, want, key_bias, msg=""):
+    """Decode outputs [B, N, 1, D] within ATOL / RTOL of the plain
+    version's, fully masked slots (``key_bias`` [B, S] all -1e4) too;
+    prints the largest difference on those slots (``pytest -s``)."""
+    masked = (key_bias < -1e3).all(1)
+    if masked.any():
+        print("decode masked-slot max abs err %s: %.3g" % (
+            msg, float((got[masked] - want[masked]).abs().max())))
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL,
+                               msg=msg or None)
+
+
+def _decode_splits_checks(name, run, ref, splits_list, key_bias):
+    """``run(splits)`` (None: the wrapper's own count) at each split count
+    within the fp32 limits of ``ref``, and twice at each with equal bits
+    (the cluster merges in a fixed order, so repeated calls agree)."""
+    for splits in splits_list:
+        out = run(splits)
+        again = run(splits)
+        torch.cuda.synchronize()
+        _assert_decode_close(out, ref, key_bias,
+                             "%s splits=%s" % (name, splits))
+        assert torch.equal(out, again), "%s splits=%s: run to run" % (
+            name, splits)
+
+
 @pytest.mark.parametrize("D", [8, 20, 24, 32, 48, 64, 120, 128, 136, 200,
                                256])
-@pytest.mark.parametrize("S", [1, 300, 1024])
-def test_flash_decode_kernel_matches_plain(D, S):
+@pytest.mark.parametrize("B,N,S", [(4, 3, 1), (4, 3, 300), (4, 3, 1024),
+                                   (8, 12, 1024)])
+def test_flash_decode_kernel_matches_plain(D, B, N, S):
+    """Mixed live lengths and a fully masked slot, at the split count the
+    wrapper picks, at 1 and at the largest (8): within the fp32 limits,
+    and equal bits from call to call. (8, 12, 1024) is the serving shape."""
     gen = torch.Generator().manual_seed(D + S)
-    B, N = 4, 3
     q, k, v = _randn(gen, B, N, 1, D), _randn(gen, B, N, S, D), \
         _randn(gen, B, N, S, D)
     kb = torch.zeros(B, S)
-    for b, live in enumerate((1, S // 2, S, 0)):
-        kb[b, max(live, 0):] = -1e4
+    for b in range(B):
+        kb[b, max((1, S // 2, S, 0)[b % 4], 0):] = -1e4
     kb = kb.cuda()
     n0 = fa.flash_decode_attention.launches
     out = fa.flash_decode_attention(q, k, v, kb)
     assert fa.flash_decode_attention.launches == n0 + 1
     ref = fa.flash_decode_attention_plain(q, k, v, key_bias=kb)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    name = "flash_decode D=%d B=%d N=%d S=%d" % (D, B, N, S)
+    _assert_decode_close(out, ref, kb, name)
+    _decode_splits_checks(
+        name, lambda sp: fa._flash_decode(q, k, v, kb, splits=sp), ref,
+        (None, 1, fa._DECODE_MAX_SPLITS), kb)
 
 
 @pytest.mark.parametrize("D", [8, 20, 24, 32, 48, 64, 128, 200, 256])
 @pytest.mark.parametrize("blk", [4, 16, 64])
-def test_flash_decode_paged_kernel_matches_plain(D, blk):
+@pytest.mark.parametrize("B,N,MB", [(4, 3, 5), (8, 12, 64)])
+def test_flash_decode_paged_kernel_matches_plain(D, blk, B, N, MB):
     """A permuted table, two slots sharing their first two blocks (a
-    prefix hit), one all-sink fully masked slot, mixed live lengths."""
+    prefix hit), one all-sink fully masked slot, mixed live lengths; at
+    the wrapper's split count, at 1 and at 8 (split boundaries on pool
+    blocks), repeated with equal bits. (8, 12, 64) with blk 16 is the
+    serving shape."""
     gen = torch.Generator().manual_seed(D * 7 + blk)
-    B, N, MB = 4, 3, 5
     S, blocks = MB * blk, B * MB + 1
     q = _randn(gen, B, N, 1, D)
     k_pool, v_pool = _randn(gen, blocks, N, blk, D), \
@@ -313,8 +349,8 @@ def test_flash_decode_paged_kernel_matches_plain(D, blk):
     tables[1, :2] = tables[0, :2]
     tables[3] = 0
     kb = torch.zeros(B, S)
-    for b, live in enumerate((1, S // 2 + 1, S, 0)):
-        kb[b, live:] = -1e4
+    for b in range(B):
+        kb[b, (1, S // 2 + 1, S, 0)[b % 4]:] = -1e4
     tables = tables.to(torch.int32).cuda()
     kb = kb.cuda()
     n0 = fa.flash_decode_paged_attention.launches
@@ -323,24 +359,33 @@ def test_flash_decode_paged_kernel_matches_plain(D, blk):
     ref = fa.flash_decode_paged_attention_plain(q, k_pool, v_pool, tables,
                                                 key_bias=kb)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    name = "flash_decode_paged D=%d blk=%d B=%d N=%d MB=%d" % (D, blk, B, N,
+                                                               MB)
+    _assert_decode_close(out, ref, kb, name)
+    _decode_splits_checks(
+        name, lambda sp: fa._flash_decode_paged(
+            q, k_pool, v_pool, tables, kb, splits=sp), ref,
+        (None, 1, fa._DECODE_MAX_SPLITS), kb)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
 @pytest.mark.parametrize("D", [8, 20, 64, 200, 256])
-def test_flash_decode_kernels_low_precision_match_plain(dtype, D):
+@pytest.mark.parametrize("B,N,S,blk", [(4, 3, 300, 16), (8, 12, 1024, 16)])
+def test_flash_decode_kernels_low_precision_match_plain(dtype, D, B, N, S,
+                                                        blk):
     """Both decode kernels on bf16 or fp16 q, cache and pools against
     their plain versions, per element within ``lowp_limits.out_bound`` at
     rate 0 (the kernels round the running p, the plain version the
-    normalised one); out comes back in the input type."""
+    normalised one); out comes back in the input type. At the wrapper's
+    split count, at 1 and at 8, each repeated with equal bits; (8, 12,
+    1024) is the serving shape."""
     gen = torch.Generator().manual_seed(D + 3)
-    B, N, S, blk = 4, 3, 300, 16
     q = _randn(gen, B, N, 1, D).to(dtype)
     k, v = (_randn(gen, B, N, S, D).to(dtype) for _ in range(2))
     kb = torch.zeros(B, S)
-    for b, live in enumerate((1, S // 2, S, 0)):
-        kb[b, live:] = -1e4
+    for b in range(B):
+        kb[b, (1, S // 2, S, 0)[b % 4]:] = -1e4
     kb = kb.cuda()
     n0 = (fa.flash_decode_attention.launches,
           fa.flash_decode_paged_attention.launches)
@@ -361,13 +406,38 @@ def test_flash_decode_kernels_low_precision_match_plain(dtype, D):
             fa.flash_decode_paged_attention.launches) == (n0[0] + 1,
                                                           n0[1] + 1)
     rows = [fa.gather_paged_rows(p, tables.long()) for p in pools]
-    for name, got, want, kk, vv, bias in (
-            ("decode", out, ref, k, v, kb),
-            ("paged decode", pout, pref, rows[0], rows[1], pkb)):
-        assert got.dtype == dtype and got.shape == q.shape, name
+    for name, run, want, kk, vv, bias in (
+            ("decode", lambda sp: fa._flash_decode(
+                q, k, v, kb, splits=sp), ref, k, v, kb),
+            ("paged decode", lambda sp: fa._flash_decode_paged(
+                q, pools[0], pools[1], tables, pkb, splits=sp), pref,
+             rows[0], rows[1], pkb)):
         bound = lowp.out_bound(dtype, q, kk, vv, want, key_bias=bias)
-        lowp.check(name, {
-            "elem": lowp.out_ratios(dtype, got, want, bound)["elem"]})
+        for splits in (None, 1, fa._DECODE_MAX_SPLITS):
+            got, again = run(splits), run(splits)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == q.shape, name
+            assert torch.equal(got, again), "%s splits=%s" % (name, splits)
+            lowp.check("%s splits=%s" % (name, splits), {
+                "elem": lowp.out_ratios(dtype, got, want, bound)["elem"]})
+    assert torch.equal(out, fa.flash_decode_attention(q, k, v, kb))
+    assert torch.equal(pout, fa.flash_decode_paged_attention(
+        q, pools[0], pools[1], tables, pkb))
+
+
+def test_decode_design_is_what_the_cpu_emulation_reads():
+    """The CPU tests emulate each decode kernel's thread groups from
+    ``fa._DECODE_DESIGN`` (threads a block, key rows a group takes a
+    tile): it must be what each library was built with."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    for kernel, design in fa._DECODE_DESIGN.items():
+        out = (ctypes.c_int * 4)()
+        _build.load(kernel, "f32").library.paddle_flash_decode_design(out)
+        assert (out[0], out[1]) == design, kernel
+        assert out[3] == fa._DECODE_MAX_SPLITS, kernel
 
 
 def test_flash_decode_paged_wrapper_raises_on_what_it_does_not_take():
@@ -385,6 +455,9 @@ def test_flash_decode_paged_wrapper_raises_on_what_it_does_not_take():
                                         _randn(gen, 5, 3, 4, 64), tables)
     with pytest.raises(ValueError):
         fa.flash_decode_paged_attention(q, pool, pool, tables.cpu())
+    for splits in (0, fa._DECODE_MAX_SPLITS + 1):   # one cluster: 1..8
+        with pytest.raises(ValueError):
+            fa._flash_decode_paged(q, pool, pool, tables, splits=splits)
 
 
 @pytest.mark.parametrize("rows", [None, "vector", "per_head"])
@@ -454,6 +527,8 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take():
         fa.flash_attention_lse(shifted, shifted, shifted)
     with pytest.raises(ValueError):
         fa.flash_decode_attention(q1, q.cpu(), q.cpu())
+    with pytest.raises(ValueError):
+        fa._flash_decode(q1, q, q, splits=fa._DECODE_MAX_SPLITS + 1)
 
 
 def test_engine_on_card_matches_plain_reference():

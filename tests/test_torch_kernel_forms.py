@@ -29,7 +29,15 @@ package's Pallas kernels in interpret mode on the CPU:
   key and query tiles: dq, dk and dv within the card's backward limit
   (atol 1e-4 / rtol 1e-4) of the Pallas backward, a single TF32 product
   outside it, and Σ over keys of dk (exactly 0) as near zero as the fp32
-  plain version's.
+  plain version's;
+- the split-K decode kernels' arithmetic (``csrc/flash_decode.cuh``),
+  emulated in numpy at the split counts the card runs
+  (``_decode_splits``) and at edge counts: each split's tiles, its thread
+  groups' online softmax with p rounded to the element type against the
+  group's running max, the groups' merge and the splits' merge in
+  order, held against the Pallas kernels (or, at the serving shapes,
+  the JAX package's jnp fallback) in fp32 and bf16; and the split rule
+  itself (shapes only, pool-block boundaries, the serving counts).
 
 Inputs are made with numpy from a seed.
 """
@@ -374,3 +382,264 @@ def test_split_tf32_backward_emulation_matches_jax_kernel(D):
           for a in (q, k, v, kb, g, lse, delta)), causal=True)[0].numpy()
     zero_sum = lambda dk: np.linalg.norm(dk.astype(np.float64).sum(2))  # noqa
     assert zero_sum(got[1]) <= _ZERO_SUM_FACTOR * zero_sum(plain_dk)
+
+
+# --- the split-K decode kernels (csrc/flash_decode.cuh) ---
+#
+# The kernels cut each (slot, head) row's keys into ``_decode_splits``
+# ranges (``_decode_ranges``), one block of a thread-block cluster each.
+# A block reads its range in tiles; its threads (``_DECODE_DESIGN``: 256
+# for the contiguous kernel, 128 for the paged one) work in groups of
+# ``lanes`` threads, a group taking rows g, g + groups, ... of a tile (as
+# many as the kernel's rows a group) and keeping an online-softmax state
+# over the tiles; the groups' states merge in group order, then the
+# splits' in rank order. ``_split_decode`` repeats that arithmetic in
+# numpy; p rounds to the element type against the group's running max.
+
+
+def _decode_tile(kernel, D, itemsize):
+    """(groups, rows a group, tile rows) of ``kernel`` at head dim D:
+    16-byte pieces where a row is whole pieces (else four elements a
+    piece), one piece a lane (two for fp32 past D = 128 and on the
+    element path), lanes the next power of two of the pieces, the
+    kernel's threads and rows a group (``_DECODE_DESIGN``)."""
+    threads, rows = tfa._DECODE_DESIGN[kernel]
+    vec = D * itemsize % 16 == 0
+    chunks = -(-D // (16 // itemsize if vec else 4))
+    pieces = 2 if not vec or (itemsize == 4 and D > 128) else 1
+    lanes = 1
+    while lanes < -(-chunks // pieces):
+        lanes *= 2
+    groups = threads // lanes
+    return groups, rows, rows * groups
+
+
+def _split_tiles(lo, hi, tile, blk):
+    """(first key, rows) of each tile of the split [lo, hi): ``tile``
+    keys each, or for a paged row whole pool blocks that fit a tile (a
+    piece of one when a block is longer)."""
+    if hi <= lo:
+        return []
+    if not blk:
+        return [(j, min(tile, hi - j)) for j in range(lo, hi, tile)]
+    if blk <= tile:
+        per = (tile // blk) * blk
+        return [(j, min(per, hi - j)) for j in range(lo, hi, per)]
+    return [(b + j, min(tile, blk - j)) for b in range(lo, hi, blk)
+            for j in range(0, blk, tile)]
+
+
+def _round(x, dtype):
+    return x if dtype is None else x.astype(dtype).astype(np.float32)
+
+
+def _merge(m, l, acc, axis):
+    """States (m, l, acc) merged along ``axis`` in index order."""
+    m_all = m.max(axis)
+    w = np.exp(m - np.expand_dims(m_all, axis))
+    l_all = np.zeros_like(m_all)
+    out = np.zeros_like(np.take(acc, 0, axis))
+    for i in range(m.shape[axis]):
+        l_all = l_all + np.take(l * w, i, axis)
+        out = out + np.take(acc, i, axis) * np.take(w, i, axis)[..., None]
+    return m_all, l_all, out
+
+
+def _split_decode(q, k, v, kb, splits, blk=None, dtype=None):
+    """The split-K kernels' arithmetic in numpy: q [B, N, 1, D], k/v the
+    logical rows [B, N, S, D] (gathered through the tables for a paged
+    row), kb [B, S]; ``dtype`` (a numpy low-precision type, None for
+    fp32) is what q/k/v hold and what p rounds to before P·V."""
+    B, N, _, D = q.shape
+    S = k.shape[2]
+    groups, rpg, tile = _decode_tile(
+        "flash_decode" if blk is None else "flash_decode_paged", D,
+        4 if dtype is None else 2)
+    scale = np.float32(1.0 / np.sqrt(D))
+    s_all = np.einsum("bnd,bnsd->bns", q[:, :, 0], k).astype(np.float32)
+    s_all = s_all * scale + kb[:, None, :]
+    states = []
+    for lo, hi in tfa._decode_ranges(S, splits, blk):
+        m = np.full((B, N, groups), -1e30, np.float32)
+        l = np.zeros((B, N, groups), np.float32)
+        acc = np.zeros((B, N, groups, D), np.float32)
+        for j0, rows in _split_tiles(lo, hi, tile, blk):
+            r = np.arange(rpg)[:, None] * groups + np.arange(groups)[None]
+            ok = r < rows
+            key = np.where(ok, j0 + r, 0)                 # [rpg, groups]
+            sc = np.where(ok, s_all[:, :, key], np.float32(-1e30))
+            mx = np.maximum(m, sc.max(2))
+            alpha = np.exp(m - mx)
+            p = np.where(ok, np.exp(sc - mx[:, :, None]), np.float32(0))
+            psum = np.zeros_like(l)
+            for i in range(rpg):
+                psum = psum + p[:, :, i]
+            l = l * alpha + psum
+            acc = acc * alpha[..., None]
+            pr = _round(p, dtype)
+            for i in range(rpg):
+                acc = acc + pr[:, :, i, :, None] * v[:, :, key[i]]
+            m = mx
+        states.append(_merge(m, l, acc, 2))
+    m, l, acc = (np.stack(x, 2) for x in zip(*states))
+    _m, l, out = _merge(m, l, acc, 2)
+    out = out / np.maximum(l, np.float32(1e-30))[..., None]
+    return _round(out, dtype)[:, :, None]
+
+
+# A fully masked slot's scores sit near -1e4, where fp32 values are 2^-10
+# apart: a last-bit difference in q·k (numpy's summation order against
+# XLA's) can round a score the other way and move its weight by ~0.1%.
+# The largest such difference these cases read is 4.5e-5 (``blk64``: one
+# heavy key's score rounded the other way); such a slot is held to atol
+# 1e-4 / rtol 1e-4, every other slot to atol 1e-5 / rtol 1e-5.
+def _close_fp32_by_slot(got, want, kb):
+    masked = (kb < -1e3).all(1)
+    want = np.asarray(want, np.float32)
+    _close(got[~masked], want[~masked], atol=1e-5, rtol=1e-5)
+    _close(got[masked], want[masked], atol=1e-4, rtol=1e-4)
+
+
+def _decode_bias(B, S, live):
+    kb = np.zeros((B, S), np.float32)
+    for b in range(B):
+        kb[b, live[b % len(live)]:] = -1e4
+    return kb
+
+
+# (name, B, N, S, D, split count or None for ``_decode_splits``, live
+# lengths (0: a fully masked slot), run the Pallas kernel in interpret
+# mode or (serving shapes) the JAX package's jnp fallback)
+_SPLIT_CASES = [
+    ("serving", 8, 12, 1024, 64, None, (1, 17, 512, 1024, 100, 333, 1000, 0),
+     False),
+    ("s1", 4, 3, 1, 64, None, (1, 1, 1, 0), True),
+    ("s1_forced_splits", 4, 3, 1, 16, 4, (1, 1, 1, 0), True),
+    ("ragged", 4, 3, 300, 64, None, (1, 151, 300, 0), True),
+    ("ragged_7", 2, 3, 300, 20, 7, (299, 0), True),
+    ("past_end", 4, 3, 5, 64, 4, (5, 3, 1, 0), True),
+    ("d200", 2, 2, 70, 200, 8, (70, 1), True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", _SPLIT_CASES, ids=[c[0] for c in
+                                                    _SPLIT_CASES])
+def test_split_decode_emulation_matches_jax_kernel(case, dtype):
+    """The contiguous kernel's split arithmetic (``_split_decode``) at the
+    split counts the card runs: the serving shape and edge shapes (one
+    key, 300 keys in 4 and 7 splits, splits wholly past the end, a fully
+    masked slot). fp32 within atol 1e-5 / rtol 1e-5 of the JAX kernel
+    (sums of at most 1024 fp32 terms of magnitude ~1, merged in another
+    order), a fully masked slot within atol 1e-4 / rtol 1e-4; bf16 within
+    ``lowp_limits.out_bound``."""
+    _name, B, N, S, D, splits, live, interpret = case
+    rs = np.random.RandomState(S + D)
+    q, k, v = _randn(rs, B, N, 1, D), _randn(rs, B, N, S, D), \
+        _randn(rs, B, N, S, D)
+    kb = _decode_bias(B, S, live)
+    splits = splits or tfa._decode_splits(B * N, S)
+    low = dtype == "bf16"
+    jdt = jnp.bfloat16 if low else jnp.float32
+    j = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    want = jfa.flash_decode_attention(*j, key_bias=jnp.asarray(kb),
+                                      interpret=True if interpret else None)
+    a = [np.asarray(x, np.float32) for x in j]
+    got = _split_decode(*a, kb, splits, dtype=jnp.bfloat16 if low else None)
+    if not low:
+        _close_fp32_by_slot(got, want, kb)
+        return
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in a]
+    want_t = torch.from_numpy(np.asarray(want, np.float32))
+    bound = lowp.out_bound(torch.bfloat16, *t, want_t,
+                           key_bias=torch.from_numpy(kb))
+    lowp.check("split decode", {"elem": lowp.out_ratios(
+        torch.bfloat16, torch.from_numpy(got).to(torch.bfloat16), want_t,
+        bound)["elem"]})
+
+
+# (name, B, N, MB, blk, D, split count or None, run interpret mode)
+_PAGED_SPLIT_CASES = [
+    ("serving", 8, 12, 64, 16, 64, None, False),
+    ("blk64", 4, 3, 6, 64, 64, None, True),
+    ("blk4_8", 4, 3, 6, 4, 16, 8, True),
+    ("blk1", 4, 2, 40, 1, 64, 3, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", _PAGED_SPLIT_CASES,
+                         ids=[c[0] for c in _PAGED_SPLIT_CASES])
+def test_paged_split_decode_emulation_matches_jax_kernel(case, dtype):
+    """The paged kernel's split arithmetic on the logical rows, split on
+    pool-block boundaries: a permuted table with two slots sharing a
+    prefix block and an all-sink, fully masked slot; the serving shape
+    (64 blocks of 16), blocks longer than a tile (64), 8 splits of 4-key
+    blocks and 3 splits of 1-key blocks. Limits as the contiguous
+    test's."""
+    _name, B, N, MB, blk, D, splits, interpret = case
+    rs = np.random.RandomState(MB * 3 + blk + D)
+    q, k_pool, v_pool, tables, _kb = _paged_inputs(rs, B, N, D, blk, MB)
+    S = MB * blk
+    kb = _decode_bias(B, S, (S, 17, S // 2 + 1, 0)[:B - 1] + (0,))
+    splits = splits or tfa._decode_splits(B * N, S, blk)
+    for lo, hi in tfa._decode_ranges(S, splits, blk):
+        assert lo % blk == 0 and hi % blk == 0
+    low = dtype == "bf16"
+    jdt = jnp.bfloat16 if low else jnp.float32
+    j = [jnp.asarray(a, jdt) for a in (q, k_pool, v_pool)]
+    want = jfa.flash_decode_paged_attention(
+        *j, jnp.asarray(tables), key_bias=jnp.asarray(kb),
+        interpret=True if interpret else None)
+    a = [np.asarray(x, np.float32) for x in j]
+    tt = torch.from_numpy(tables).long()
+    rows = [tfa.gather_paged_rows(torch.from_numpy(p.copy()), tt).numpy()
+            for p in a[1:]]
+    got = _split_decode(a[0], *rows, kb, splits, blk,
+                        dtype=jnp.bfloat16 if low else None)
+    if not low:
+        _close_fp32_by_slot(got, want, kb)
+        return
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in [a[0]] + rows]
+    want_t = torch.from_numpy(np.asarray(want, np.float32))
+    bound = lowp.out_bound(torch.bfloat16, *t, want_t,
+                           key_bias=torch.from_numpy(kb))
+    lowp.check("paged split decode", {"elem": lowp.out_ratios(
+        torch.bfloat16, torch.from_numpy(got).to(torch.bfloat16), want_t,
+        bound)["elem"]})
+
+
+@pytest.mark.parametrize("bh,s_len,blk", [(96, 1024, None), (96, 1024, 16),
+                                          (12, 300, None), (12, 20, 4),
+                                          (1000, 1024, None), (4, 1, None),
+                                          (12, 1024, 64), (3, 8192, 16)])
+def test_decode_splits_are_shape_functions_on_block_boundaries(bh, s_len,
+                                                               blk):
+    """``_decode_splits`` takes shapes only (the same count on every
+    call), stays within one portable cluster (1..8), never cuts a split
+    below 64 keys unless the row has one split, and ``_decode_ranges``
+    covers the row in order, on pool-block boundaries for a paged row."""
+    splits = tfa._decode_splits(bh, s_len, blk)
+    assert splits == tfa._decode_splits(bh, s_len, blk)
+    assert 1 <= splits <= tfa._DECODE_MAX_SPLITS
+    ranges = tfa._decode_ranges(s_len, splits, blk)
+    unit = blk or 1
+    assert len(ranges) == splits and ranges[0][0] == 0
+    assert ranges[-1][1] == -(-s_len // unit) * unit
+    for (lo, hi), (lo2, _hi2) in zip(ranges, ranges[1:]):
+        assert hi == lo2
+    for lo, hi in ranges:
+        assert lo % unit == 0 and hi % unit == 0
+        assert splits == 1 or hi - lo >= tfa._DECODE_MIN_SPLIT_KEYS \
+            or hi == ranges[-1][1]
+
+
+def test_decode_splits_at_the_serving_shapes():
+    """At the serving shapes (96 (slot, head) rows of 1024 keys, and 64
+    blocks of 16) the contiguous kernel takes no more blocks than an
+    H100's 132 SMs (one a row), and the paged kernel at least two waves
+    of them, the counts the card measured fastest."""
+    assert 96 * tfa._decode_splits(96, 1024) <= 132
+    assert 96 * tfa._decode_splits(96, 1024, 16) >= 2 * 132
+    # a short batch spreads its rows over the SMs
+    assert tfa._decode_splits(12, 1024) == 8
