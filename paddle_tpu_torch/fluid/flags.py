@@ -1,14 +1,17 @@
 """Runtime flags (port of ``paddle_tpu/fluid/flags.py``, decode slice).
 
-Only the knobs the decode engine reads are carried over, with the
-reference's defaults, plus the same ``FLAGS_<name>`` environment bridge:
-an environment variable overrides a default when the module loads, and
-``set_flags`` overrides at run time. Later slices add their knobs here.
+Only the knobs the decode engine and its scheduler read are carried
+over, with the reference's defaults, plus the same ``FLAGS_<name>``
+environment bridge: an environment variable overrides a default when the
+module loads, and ``set_flags`` overrides at run time. ``version()``
+counts those writes, so a reader can cache what it derives from a flag
+and re-derive it only when the count moves. Later slices add their knobs
+here.
 """
 
 import os
 
-__all__ = ["get_flag", "set_flags"]
+__all__ = ["get_flag", "set_flags", "version"]
 
 _DEFAULTS = {
     # KV-cache slot pool + continuous batching engine. decode_slots sizes
@@ -21,6 +24,10 @@ _DEFAULTS = {
     "decode_max_len": 0,
     "decode_prefill_buckets": "",
     "decode_queue_depth": 64,
+    # contiguous pool's prefix store: decode_prefix_block is the reuse
+    # granularity in tokens (a prompt reuses its longest cached
+    # whole-block prefix, hash-chain keyed and token-verified)
+    "decode_prefix_block": 64,
     # paged engine (engine v2): decode_block_size > 0 switches to block
     # tables over ONE shared KV pool (0 = the contiguous slot pool);
     # decode_spec_tokens = k > 1 arms speculative decoding on top of it
@@ -34,9 +41,24 @@ _DEFAULTS = {
     "decode_spec_draft": "ngram",
     "decode_prefill_chunk": 0,
     "decode_prefix_cache_mb": 0.0,
+    # decode-slot scheduler: pending admissions dequeue weighted-fair
+    # across tenants (stride scheduling; sched_tenant_weights is
+    # "tenantA:4,tenantB:1", unlisted tenants weigh 1), interactive
+    # strictly ahead of batch; with sched_preempt an interactive request
+    # waiting for a slot evicts a batch stream, which re-prefills its
+    # prompt and emitted tokens on re-admission (token-exact)
+    "sched_preempt": True,
+    "sched_tenant_weights": "",
 }
 
 _flags = {}
+_version = 0  # bumped after every write
+
+
+def version():
+    """A counter that every ``set_flags`` (and the environment read)
+    bumps: a cache of flag-derived state revalidates with one compare."""
+    return _version
 
 
 def _coerce(default, text):
@@ -50,6 +72,7 @@ def _coerce(default, text):
 
 
 def _read_env():
+    global _version
     _flags.clear()
     _flags.update(_DEFAULTS)
     for name, default in _DEFAULTS.items():
@@ -59,6 +82,7 @@ def _read_env():
                 _flags[name] = _coerce(default, env)
             except ValueError:
                 pass
+    _version += 1
 
 
 def _key(name):
@@ -68,6 +92,7 @@ def _key(name):
 def set_flags(flags):
     """paddle-compatible flag write: {FLAGS_name: value}. Every key is
     validated and coerced before any is applied."""
+    global _version
     staged = {}
     for n, v in flags.items():
         key = _key(n)
@@ -76,6 +101,7 @@ def set_flags(flags):
         staged[key] = (_coerce(_DEFAULTS[key], v) if isinstance(v, str)
                        else v)
     _flags.update(staged)
+    _version += 1
 
 
 def get_flag(name, default=None):

@@ -1,8 +1,8 @@
 """Attention, dropout and KV-cache ops (port of the
 ``flash_attention`` / ``flash_attention_grad``, ``dropout`` /
 ``dropout_grad``, ``flash_decode_attention``,
-``flash_decode_paged_attention``, ``kv_cache_write`` and paged KV-pool
-lowerings in ``paddle_tpu/fluid/ops/nn_ops.py``): plain functions on
+``flash_decode_paged_attention``, ``kv_cache_write``, ``kv_cache_copy``,
+``kv_cache_gather`` and paged KV-pool lowerings in ``paddle_tpu/fluid/ops/nn_ops.py``): plain functions on
 tensors, which the eager models and the serving session call, and the
 registered lowerings of ``dropout`` and ``flash_attention`` with their
 grads, which the Executor runs."""
@@ -22,6 +22,8 @@ __all__ = [
     "flash_decode_attention",
     "flash_decode_paged_attention",
     "kv_cache_write",
+    "kv_cache_copy",
+    "kv_cache_gather",
     "kv_cache_write_paged",
     "kv_cache_gather_paged",
     "kv_cache_block_copy",
@@ -246,6 +248,19 @@ def kv_cache_block_copy(cache, src, dst):
     return cache
 
 
+def _host_ints(loc):
+    return [int(x) for x in torch.as_tensor(loc).reshape(-1).tolist()]
+
+
+def _start(i, dim, size):
+    """A start index as ``lax.dynamic_slice`` / ``dynamic_update_slice``
+    take it: a negative one counts from the end (``i + dim``), then it
+    clamps to [0, dim - size] so the block fits."""
+    if i < 0:
+        i += dim
+    return min(max(i, 0), dim - size)
+
+
 def kv_cache_write(cache, new, pos, slot_mode=False):
     """Scatter ``new`` into ``cache`` [slots, heads, max_len, d_head]
     IN PLACE and return ``cache``.
@@ -255,7 +270,9 @@ def kv_cache_write(cache, new, pos, slot_mode=False):
     own buffer; writing into the tensor in place is the PyTorch
     counterpart of that donation, and like the reference it costs the
     written bytes, not the cache. Start indices clamp so the update fits,
-    as ``dynamic_update_slice`` clamps them.
+    as ``dynamic_update_slice`` clamps them (in slot mode a negative one
+    counts from the end first, as there; the per-slot positions of the
+    decode step are never negative and clamp at 0).
 
     - ``slot_mode=True``: ``new`` is [1, heads, T, d_head] and ``pos``
       holds (slot,) or (slot, offset); the block lands in that slot's row
@@ -267,9 +284,9 @@ def kv_cache_write(cache, new, pos, slot_mode=False):
     new = new.to(cache.dtype)
     T = new.shape[2]
     if slot_mode:
-        p = [int(x) for x in torch.as_tensor(pos).reshape(-1).tolist()]
-        slot = min(max(p[0], 0), S - 1)
-        off = min(max(p[1] if len(p) > 1 else 0, 0), M - T)
+        p = _host_ints(pos)
+        slot = _start(p[0], S, 1)
+        off = _start(p[1] if len(p) > 1 else 0, M, T)
         cache[slot, :, off:off + T, :] = new[0]
         return cache
     start = torch.as_tensor(pos, device=cache.device).reshape(S, 1, 1, 1) \
@@ -280,6 +297,34 @@ def kv_cache_write(cache, new, pos, slot_mode=False):
     # at position start[s] + t (a broadcast index, no per-slot loop)
     cache.scatter_(2, idx.expand(new.shape), new)
     return cache
+
+
+def kv_cache_copy(dst, src, dst_loc, src_loc, length):
+    """Move one block of ``length`` tokens between two cache pools IN
+    PLACE and return ``dst``: ``src[row, :, pos:pos + length]`` with
+    (row, pos) = ``src_loc`` lands at ``dst_loc`` of ``dst`` (both
+    [rows, heads, positions, d_head]: the prefix store and the slot
+    cache, in either direction). The locations are host data (row,
+    position) pairs. As the reference's ``dynamic_slice`` /
+    ``dynamic_update_slice``, a negative start counts from the end and
+    every start clamps so the block fits: a row to [0, rows - 1], a
+    position to [0, positions - length]."""
+    sr, sp = _host_ints(src_loc)[:2]
+    dr, dp = _host_ints(dst_loc)[:2]
+    sr, sp = _start(sr, src.shape[0], 1), _start(sp, src.shape[2], length)
+    dr, dp = _start(dr, dst.shape[0], 1), _start(dp, dst.shape[2], length)
+    dst[dr, :, dp:dp + length, :] = src[sr, :, sp:sp + length, :].to(
+        dst.dtype)
+    return dst
+
+
+def kv_cache_gather(cache, slot_idx):
+    """One slot's row ``cache[slot:slot + 1]`` [1, heads, max_len,
+    d_head] (a view, no copy), the slot read from the first entry of
+    the host data ``slot_idx``, a negative one counted from the end and
+    clamped to [0, slots - 1] as the reference's ``dynamic_slice`` does."""
+    s = _start(_host_ints(slot_idx)[0], cache.shape[0], 1)
+    return cache[s:s + 1]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 ``paddle_tpu/fluid/profiler.py``).
 
 The decode session bumps ``decode_prefills`` / ``decode_steps`` and
-records ``decode_prefill_ms`` / ``decode_step_ms`` here; the GPT train
+records ``decode_prefill_ms`` / ``decode_step_ms`` here, the decode
+engine its admission, prefix, resume and preemption counters and
+``decode_ttft_ms`` / ``decode_intertoken_ms``; the GPT train
 step (``models.gpt.build_gpt_lm_train``) bumps ``train_steps`` and
 records ``train_step_ms``, as the reference's trainer does. Thread-safe:
 the engine's loop thread bumps while callers read. Each histogram keeps
@@ -15,8 +17,11 @@ from collections import defaultdict, deque
 __all__ = [
     "bump_counter",
     "get_counter",
+    "get_counters",
+    "reset_counters",
     "bump_histogram",
     "get_histogram",
+    "get_histograms",
     "summarize_histogram",
     "reset_histograms",
 ]
@@ -37,6 +42,18 @@ def get_counter(name, default=0):
         return _counters.get(name, default)
 
 
+def get_counters():
+    """Snapshot copy of every counter (the registry renders these)."""
+    with _lock:
+        return dict(_counters)
+
+
+def reset_counters():
+    """Clear the counters only; histograms have their own reset."""
+    with _lock:
+        _counters.clear()
+
+
 def bump_histogram(name, value):
     """Record one sample (e.g. a step latency in ms)."""
     with _lock:
@@ -51,6 +68,12 @@ def get_histogram(name):
     with _lock:
         h = _histograms.get(name)
         return list(h) if h is not None else []
+
+
+def get_histograms():
+    """Snapshot {name: [samples]} of every histogram, list copies."""
+    with _lock:
+        return {k: list(v) for k, v in _histograms.items()}
 
 
 def summarize_histogram(name):

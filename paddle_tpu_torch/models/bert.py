@@ -11,8 +11,8 @@ Eager modules for serving and the eager train step: where a training
 forward draws its random numbers (``DropoutRNG``), the eager dropout
 helper ``_dropout_eager``, the FFN, and multi-head attention with
 attention dropout in training and its KV-cache modes: ``prefill`` and
-``decode`` over the contiguous slot pool, ``paged_window`` and
-``paged_step`` over the paged pool.
+``decode`` and ``resume`` over the contiguous slot pool,
+``paged_window`` and ``paged_step`` over the paged pool.
 
 Both share the flash policy (``flash_wanted``) and the key-only padding
 bias (``mask_to_key_bias``, which builds ops for a program variable and
@@ -228,6 +228,13 @@ class MultiHeadAttention(nn.Module):
         under ``cache["key_bias"]`` [slots, max_len] (-1e4 beyond each
         slot's live length, which is also the causal mask) — the flash
         decode op when ``use_flash``, dense otherwise.
+      * ``"resume"``: one prompt window (N = 1) lands in the row of
+        ``cache["slot_off"]`` = (slot, offset) at ``offset``, after a
+        cached prefix or earlier windows; its queries attend over the
+        slot's whole updated row under ``cache["resume_bias"]`` [1, T,
+        max_len] (the causal mask shifted by the offset). Dense by
+        design, as in the reference: the causal flash kernel assumes an
+        aligned q/k diagonal, so ``use_flash`` raises here.
 
       For the paged pool, ``k``/``v`` are the layer's shared pools
       [blocks, heads, block, d_head], ``cache["tables"]`` the int32 block
@@ -303,6 +310,20 @@ class MultiHeadAttention(nn.Module):
                 scores = torch.matmul(q, rows_k.transpose(-1, -2)) * scale
                 bias4 = cache["bias"].unsqueeze(1)
                 ctxt = torch.matmul(math_ops.softmax(scores + bias4), rows_v)
+            return self.out(self._merge_heads(ctxt))
+        elif mode == "resume":
+            if use_flash:
+                raise ValueError("the resume window attends dense: the "
+                                 "causal flash kernel assumes an aligned "
+                                 "q/k diagonal")
+            slot_off = cache["slot_off"]
+            rows_k = nn_ops.kv_cache_gather(nn_ops.kv_cache_write(
+                cache["k"], k, slot_off, slot_mode=True), slot_off)
+            rows_v = nn_ops.kv_cache_gather(nn_ops.kv_cache_write(
+                cache["v"], v, slot_off, slot_mode=True), slot_off)
+            scores = torch.matmul(q, rows_k.transpose(-1, -2)) * scale
+            bias4 = cache["resume_bias"].unsqueeze(1)
+            ctxt = torch.matmul(math_ops.softmax(scores + bias4), rows_v)
             return self.out(self._merge_heads(ctxt))
         elif mode == "decode":
             k = nn_ops.kv_cache_write(cache["k"], k, cache["pos"])

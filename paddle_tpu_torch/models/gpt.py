@@ -2,10 +2,12 @@
 ``paddle_tpu/models/gpt.py``: serving and the train step).
 
 ``GPTLM`` is the post-LN decoder of the reference (``gpt_decoder`` +
-``gpt_lm_logits``) as an ``nn.Module`` with five entry points: the full
+``gpt_lm_logits``) as an ``nn.Module`` with seven entry points: the full
 forward; over the contiguous slot pool, ``prefill`` (mirrors
-``build_gpt_prefill``) and ``decode_step`` (``build_gpt_decode_step``);
-over the paged pool, ``paged_window`` (``build_gpt_paged_window``, one
+``build_gpt_prefill``), ``resume_prefill`` (``build_gpt_resume_prefill``,
+one prompt window at an offset of a slot's row), ``prefix_copy``
+(``build_gpt_prefix_copy``, a block between the prefix store and a slot
+row) and ``decode_step`` (``build_gpt_decode_step``); over the paged pool, ``paged_window`` (``build_gpt_paged_window``, one
 prompt window written through a block table) and ``paged_step``
 (``build_gpt_paged_step``, every slot's width-1 step or width-k
 speculative verify). The KV caches and pools are plain tensors the
@@ -50,6 +52,9 @@ __all__ = [
     "GPTLM",
     "decode_cache_names",
     "decode_cache_shape",
+    "prefix_store_names",
+    "prefix_store_shape",
+    "prefix_block_bytes",
     "paged_pool_names",
     "paged_pool_shape",
     "paged_block_bytes",
@@ -176,9 +181,9 @@ class GPTLM(nn.Module):
         ``use_flash`` None resolves the config's policy from T.
         Decode and the paged step (``kv_cache["mode"]`` ``"decode"`` /
         ``"paged_step"``): the fed per-slot bias carries all masking, and
-        the policy keys on the cache length. The paged window attends
-        dense by design, as in the reference (the causal flash kernel
-        assumes an aligned q/k diagonal)."""
+        the policy keys on the cache length. The resume and paged windows
+        attend dense by design, as in the reference (the causal flash
+        kernel assumes an aligned q/k diagonal)."""
         N = ids.shape[0]
         ids = ids.reshape(N, -1)
         pos_ids = pos_ids.reshape(N, -1)
@@ -195,7 +200,7 @@ class GPTLM(nn.Module):
         if mode in ("decode", "paged_step"):
             use_flash = _bert.flash_wanted(self.cfg,
                                            seq_len=int(kv_cache["max_len"]))
-        elif mode == "paged_window":
+        elif mode in ("resume", "paged_window"):
             use_flash = False
         else:
             if use_flash is None:
@@ -212,6 +217,9 @@ class GPTLM(nn.Module):
                 cache_i = {"k": k_c, "v": v_c, "mode": mode}
                 if mode == "prefill":
                     cache_i["slot_idx"] = kv_cache["slot_idx"]
+                elif mode == "resume":
+                    cache_i["slot_off"] = kv_cache["slot_off"]
+                    cache_i["resume_bias"] = kv_cache["resume_bias"]
                 elif mode in ("paged_window", "paged_step"):
                     for key in ("tables", "write_index", "bias"):
                         cache_i[key] = kv_cache[key]
@@ -254,6 +262,42 @@ class GPTLM(nn.Module):
         })
         last = (h * last_onehot.reshape(1, -1, 1).to(h.dtype)).sum(dim=1)
         return self.lm_head(last)
+
+    def resume_prefill(self, ids, pos_ids, slot_off, resume_bias,
+                       last_onehot, caches):
+        """One prompt window (batch 1, padded to its bucket T) whose
+        token i lands at position ``offset + i`` of slot ``slot``'s row,
+        ``slot_off`` = (slot, offset) as host data: the suffix after a
+        copied prefix, or one chunk of a chunked prefill. Its queries
+        attend over the slot's whole updated row under ``resume_bias``
+        [1, T, max_len] (0 where position j <= offset + i for query i,
+        -1e4 beyond). ``last_onehot`` [1, T] selects the window's last
+        real token; returns its logits [1, vocab] (the hidden row is
+        selected before the LM head, as in ``prefill``)."""
+        h = self.decoder(ids, pos_ids, kv_cache={
+            "mode": "resume", "caches": caches, "slot_off": slot_off,
+            "resume_bias": resume_bias, "max_len": caches[0][0].shape[2],
+        })
+        last = (h * last_onehot.reshape(1, -1, 1).to(h.dtype)).sum(dim=1)
+        return self.lm_head(last)
+
+    @staticmethod
+    def prefix_copy(caches, stores, dst_loc, src_loc, publish=False):
+        """Move one prefix block between the prefix ``stores`` (per-layer
+        (k, v) [blocks, heads, block, d_head]) and the slot ``caches``,
+        in every layer's K and V, in place: ``publish`` False copies
+        store block ``src_loc`` = (block, 0) into the slot row at
+        ``dst_loc`` = (slot, position) (admitting a hit), True copies the
+        row block at ``src_loc`` = (slot, position) into store block
+        ``dst_loc`` = (block, 0) (publishing a finished prefill)."""
+        block = stores[0][0].shape[2]
+        for (ck, cv), (sk, sv) in zip(caches, stores):
+            if publish:
+                nn_ops.kv_cache_copy(sk, ck, dst_loc, src_loc, block)
+                nn_ops.kv_cache_copy(sv, cv, dst_loc, src_loc, block)
+            else:
+                nn_ops.kv_cache_copy(ck, sk, dst_loc, src_loc, block)
+                nn_ops.kv_cache_copy(cv, sv, dst_loc, src_loc, block)
 
     def decode_step(self, step_ids, step_pos, key_bias, caches):
         """One new token per slot (step_ids/step_pos [slots], any shape
@@ -334,6 +378,27 @@ def decode_cache_shape(cfg, slots, max_len):
         int(slots), cfg.num_heads, int(max_len),
         cfg.hidden_size // cfg.num_heads,
     ]
+
+
+def prefix_store_names(cfg, blocks, block):
+    """Per-layer (K, V) prefix-store names; the store geometry is part
+    of the name, as in the reference."""
+    return [
+        ("gpt_prefix_k_%d_n%dx%d" % (i, blocks, block),
+         "gpt_prefix_v_%d_n%dx%d" % (i, blocks, block))
+        for i in range(cfg.num_layers)
+    ]
+
+
+def prefix_store_shape(cfg, blocks, block):
+    """A store block has a paged pool block's layout."""
+    return paged_pool_shape(cfg, blocks, block)
+
+
+def prefix_block_bytes(cfg, block):
+    """Device bytes one cached prefix block costs across all layers
+    (K + V, fp32): what ``decode_prefix_cache_mb`` divides by."""
+    return paged_block_bytes(cfg, block)
 
 
 def paged_pool_names(cfg, blocks, block):

@@ -1,3 +1,3 @@
-from . import trace
+from . import registry, trace
 
-__all__ = ["trace"]
+__all__ = ["registry", "trace"]

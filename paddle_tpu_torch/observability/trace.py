@@ -7,15 +7,18 @@ parent. The serving slice opens ``decode_prefill`` and ``decode_step``;
 the GPT train step opens ``train_step`` (cat ``train``, arg ``step``).
 Spans time the host: a span around device work measures device time
 only where the work ends in a synchronisation (the decode session's
-spans do, since they fetch the logits to the host). Distributed trace
-context and Chrome export come with the observability slice.
+spans do, since they fetch the logits to the host). ``gang_rank`` names
+the rank of per-rank artifacts (``observability.registry`` snapshots).
+Distributed trace context and Chrome export come with the observability
+slice.
 """
 
+import os
 import threading
 import time
 from collections import deque
 
-__all__ = ["span", "get_spans", "reset"]
+__all__ = ["span", "get_spans", "reset", "gang_rank"]
 
 _lock = threading.Lock()
 _buf = deque(maxlen=65536)
@@ -65,3 +68,15 @@ def get_spans():
 def reset():
     with _lock:
         _buf.clear()
+
+
+def gang_rank(rank=None):
+    """The rank labelling per-rank artifacts: an explicit value wins,
+    else ``PADDLE_TRAINER_ID``, else 0 (a non-numeric value counts as
+    unset)."""
+    if rank is not None:
+        return int(rank)
+    try:
+        return int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+    except ValueError:
+        return 0

@@ -1,6 +1,7 @@
 """Autoregressive decode runtime: KV cache + continuous batching (port of
-``paddle_tpu/serving/decode.py``: the contiguous slot pool and the paged
-engine with speculative decoding).
+``paddle_tpu/serving/decode.py``: the contiguous slot pool with its
+prefix store, chunked and resume prefill, the paged engine with
+speculative decoding, and the priority/tenant scheduler).
 
 Contiguous pool (``block_size`` 0):
 
@@ -15,6 +16,18 @@ Contiguous pool (``block_size`` 0):
   [slots, heads, max_len, d_head] written in place. Admission writes a
   slot row, retirement frees the index; neither changes a tensor shape.
 
+  prefix store   ``prefix_cache_mb`` > 0 arms a device block store
+                 (per-layer [blocks, heads, block, d_head]) indexed by
+                 ``PrefixCache`` under the hash chain of prompt blocks:
+                 admission copies the longest cached prefix into the
+                 slot row and only the suffix runs, as a **resume
+                 window** (a prompt window prefilled at an offset of the
+                 row, attending densely over the whole row); a finished
+                 prefill publishes its blocks back under LRU eviction.
+  chunked prefill  ``prefill_chunk`` caps the prompt tokens one tick
+                 prefills: a long prompt admits as resume windows, one a
+                 tick, interleaved with the fused decode steps.
+
 Paged pool (``block_size`` > 0, engine v2):
 
   one pool per layer [pool_blocks, heads, block, d_head] shared by every
@@ -28,12 +41,19 @@ Paged pool (``block_size`` > 0, engine v2):
   token plus a k-1-token draft, accepted on the host up to the first
   mismatch and rolled back by table edit.
 
+Both pools serve ``resume_tokens`` (a request resumed after an
+interrupted run: prompt + emitted suffix re-prefill, and the stream
+emits only the continuation) and the scheduler: dequeue is interactive
+before batch, then weighted-fair across tenants (``sched_tenant_weights``),
+and with ``sched_preempt`` a waiting interactive request evicts a batch
+stream, which re-admits token-exactly later.
+
 ``DecodeSession`` is the synchronous core (caches or pools, prefill,
-windows, fused step); ``DecodeEngine`` owns the loop thread (FIFO
-admission queue, mid-flight joins, streaming, retirement). Left for
-later slices, as in ROADMAP.md: preemption and weighted-fair scheduling,
-the contiguous pool's prefix cache and chunked prefill, resume, the host
-KV tier, tensor parallelism and the strict compile gate.
+windows, block copies, fused step); ``DecodeEngine`` owns the loop
+thread (admission queue, prefix store, windows, streaming, retirement)
+and publishes its gauges to ``observability.registry`` while it runs.
+Left for later slices, as in ROADMAP.md: the host KV tier and chain
+export, tensor parallelism, and the strict compile gate.
 """
 
 import hashlib
@@ -49,6 +69,7 @@ from ..fluid import flags as _flags
 from ..fluid import profiler as _profiler
 from ..fluid.ops import nn_ops as _nn_ops
 from ..models import gpt as _gpt
+from ..observability import registry as _registry
 from ..observability import trace as _trace
 from .batcher import ServerOverloadedError, ServingError
 
@@ -58,6 +79,7 @@ __all__ = [
     "DecodeEngine",
     "GenerationStream",
     "PagedPrefixIndex",
+    "PrefixCache",
     "fast_forward_rng",
     "prefill_ladder",
     "sample_token",
@@ -123,13 +145,124 @@ def _block_hash(prev_key, tokens):
 
 
 class _PrefixEntry(object):
-    __slots__ = ("key", "prev", "tokens", "block_idx")
+    __slots__ = ("key", "prev", "tokens", "block_idx", "refs")
 
     def __init__(self, key, prev, tokens, block_idx):
         self.key = key
         self.prev = prev
         self.tokens = tokens
         self.block_idx = block_idx
+        self.refs = 0  # PrefixCache pins (the paged index pins blocks
+        # through the allocator)
+
+
+class PrefixCache(object):
+    """Host index of the contiguous pool's prefix store: maps hash-chained
+    prompt blocks to store block indices, with LRU eviction and refcount
+    pins. The device store itself (per-layer [blocks, heads, block,
+    d_head] tensors) belongs to ``DecodeSession``; this class decides
+    which block lives where, and the engine moves the bytes.
+
+    One mutator, the engine's loop thread. Pins exist so that an
+    eviction forced by one admission's publish never reclaims a block
+    another admission is still copying from (``refs > 0`` entries are
+    skipped by the LRU sweep)."""
+
+    def __init__(self, blocks, block):
+        if blocks < 1 or block < 1:
+            raise ValueError("need blocks >= 1 and block >= 1, got %d / %d"
+                             % (blocks, block))
+        self.blocks = int(blocks)
+        self.block = int(block)
+        self._entries = OrderedDict()  # key -> _PrefixEntry, LRU order
+        self._free = list(range(self.blocks))
+        self.evictions = 0
+
+    def __len__(self):
+        return len(self._entries)
+
+    def lookup(self, prompt):
+        """Longest cached block-chain prefix of ``prompt``, capped at
+        ``len(prompt) - 1`` tokens so admission always recomputes the
+        last prompt token (its logits give the first emitted token).
+        Every returned entry is pinned: the caller ``release``s them once
+        its copy is done. A collision (equal key, another stored link)
+        stops the chain. Returns (entries, tokens)."""
+        usable = (len(prompt) - 1) // self.block
+        out = []
+        prev = 0
+        for b in range(usable):
+            toks = tuple(prompt[b * self.block:(b + 1) * self.block])
+            key = _block_hash(prev, toks)
+            e = self._entries.get(key)
+            # verify the whole chain link, not only this block's tokens
+            if e is None or e.tokens != toks or e.prev != prev:
+                break
+            out.append(e)
+            prev = key
+        for e in out:
+            e.refs += 1
+            self._entries.move_to_end(e.key)
+        return out, len(out) * self.block
+
+    def release(self, entries):
+        for e in entries:
+            e.refs -= 1
+
+    def publish(self, prompt):
+        """Register every full block of ``prompt`` not cached yet.
+        Returns [(entry, prompt block index)] for the new entries: the
+        caller copies those blocks from the slot row into
+        ``entry.block_idx`` (or ``forget``s them on failure). A full
+        store evicts its least recently used unpinned entry; an
+        all-pinned store stops publishing."""
+        new = []
+        prev = 0
+        for b in range(len(prompt) // self.block):
+            toks = tuple(prompt[b * self.block:(b + 1) * self.block])
+            key = _block_hash(prev, toks)
+            e = self._entries.get(key)
+            if e is not None:
+                if e.tokens != toks or e.prev != prev:
+                    break  # collision squatting on the key
+                self._entries.move_to_end(key)
+                prev = key
+                continue
+            idx = self._alloc()
+            if idx is None:
+                break  # every block pinned by in-flight copies
+            e = _PrefixEntry(key, prev, toks, idx)
+            self._entries[key] = e
+            new.append((e, b))
+            prev = key
+        return new
+
+    def forget(self, entry):
+        """Drop a registration whose copy failed: the block returns to
+        the free list and the key stops matching."""
+        if self._entries.get(entry.key) is entry:
+            del self._entries[entry.key]
+            self._free.append(entry.block_idx)
+
+    def _alloc(self):
+        if self._free:
+            return self._free.pop()
+        victim = None
+        for e in self._entries.values():  # oldest first
+            if e.refs <= 0:
+                victim = e
+                break
+        if victim is None:
+            return None
+        del self._entries[victim.key]
+        self.evictions += 1
+        _profiler.bump_counter("decode_prefix_evictions")
+        return victim.block_idx
+
+    def stats(self):
+        return {"blocks": self.blocks, "block": self.block,
+                "cached_blocks": len(self._entries),
+                "evictions": self.evictions}
 
 
 class BlockAllocator(object):
@@ -329,11 +462,20 @@ class DecodeSession(object):
     included), prompt windows through ``paged_window``, the fused step
     through ``paged_step`` at width 1 and, with ``spec_tokens`` = k > 1,
     at width k, and ``block_copy`` for copy-on-write. The prompt ladder
-    then shapes windows, capped at ``window_cap`` (0 = ``max_len``)."""
+    then shapes windows, capped at ``window_cap`` (0 = ``max_len``).
+
+    A contiguous session built with ``build_resume`` (or a prefix store)
+    also prefills windows at an offset of a slot row (``resume_prefill``:
+    prefix hits, chunked prefill, resumed and preempted requests);
+    ``prefix_blocks`` > 0 adds the per-layer prefix store [prefix_blocks,
+    heads, prefix_block, d_head] (``prefix_block`` default
+    ``FLAGS_decode_prefix_block``) and the block moves between it and the
+    slot rows (``prefix_copy_in``, ``prefix_publish``)."""
 
     def __init__(self, model, slots=None, max_len=None,
                  prefill_buckets=None, block_size=None, spec_tokens=None,
-                 pool_blocks=0, window_cap=0):
+                 pool_blocks=0, window_cap=0, prefix_blocks=0,
+                 prefix_block=None, build_resume=False):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -395,25 +537,49 @@ class DecodeSession(object):
             for _ in range(self.cfg.num_layers)
         ]
         self._names = names
+        self.prefix_block = int(_flag("decode_prefix_block", prefix_block))
+        self.prefix_blocks = int(prefix_blocks)
+        if self.prefix_blocks < 0 or self.prefix_block < 1:
+            raise ValueError(
+                "need prefix_blocks >= 0 and prefix_block >= 1, got %d / %d"
+                % (self.prefix_blocks, self.prefix_block))
+        # resume windows and the prefix store ride the contiguous pool
+        # only: the paged pool prefills every window through its tables
+        self.resumable = bool(build_resume or self.prefix_blocks) \
+            and not self.paged
+        self.stores = []
+        self._store_names = []
+        if self.prefix_blocks and not self.paged:
+            pshape = _gpt.prefix_store_shape(self.cfg, self.prefix_blocks,
+                                             self.prefix_block)
+            self.stores = [
+                (torch.zeros(pshape, dtype=torch.float32, device=self.device),
+                 torch.zeros(pshape, dtype=torch.float32, device=self.device))
+                for _ in range(self.cfg.num_layers)
+            ]
+            self._store_names = _gpt.prefix_store_names(
+                self.cfg, self.prefix_blocks, self.prefix_block)
         self._pos_cache = {
             T: torch.arange(T, device=self.device).reshape(1, T, 1)
             for T in self.buckets
         }
 
     def cache_tensors(self):
-        """{cache name: tensor}, under the reference's cache (or paged
-        pool) names."""
+        """{name: tensor}: the caches (or paged pools) and the prefix
+        store, under the reference's names."""
         out = {}
-        for (k_name, v_name), (k, v) in zip(self._names, self.caches):
+        for (k_name, v_name), (k, v) in zip(
+                self._names + self._store_names, self.caches + self.stores):
             out[k_name] = k
             out[v_name] = v
         return out
 
     def reset_caches(self):
-        """Zero every cache tensor in place. Correctness never depends on
-        it (prefill replaces a slot's row head and the key bias masks the
-        rest), but fresh caches keep warmup and tests deterministic."""
-        for k, v in self.caches:
+        """Zero every cache and store tensor in place. Correctness never
+        depends on it (prefill replaces a slot's row head and the key
+        bias masks the rest), but fresh caches keep warmup and tests
+        deterministic."""
+        for k, v in self.caches + self.stores:
             k.zero_()
             v.zero_()
 
@@ -459,13 +625,83 @@ class DecodeSession(object):
                                  (time.perf_counter() - t0) * 1e3)
         return out
 
+    def resume_prefill(self, slot, window_ids, offset):
+        """Prefill a prompt window from cache position ``offset`` of slot
+        ``slot``'s row: the suffix after a copied prefix, or one chunk of
+        a chunked prefill. The window pads to its bucket; its queries
+        attend over the whole row under the causal mask shifted by the
+        offset. Returns the logits [vocab] at the window's last real
+        token (host numpy; the next-token logits on a prompt's final
+        window)."""
+        P = len(window_ids)
+        if not 0 <= slot < self.slots:
+            raise ValueError("slot %d out of range" % slot)
+        if P < 1:
+            raise ValueError("empty resume window")
+        if not self.resumable:
+            raise RuntimeError("session built without resume windows")
+        T = self.bucket_for(P)
+        offset = int(offset)
+        if offset < 0 or offset + T > self.max_len:
+            raise ValueError(
+                "resume window bucket [%d, %d) exceeds max_len %d: the "
+                "engine's window planner must pick a fitting bucket"
+                % (offset, offset + T, self.max_len))
+        ids = np.zeros((1, T), "int64")
+        ids[0, :P] = window_ids
+        # window query i (row position offset + i) sees positions
+        # <= offset + i: the copied prefix and its own causal window.
+        # Pad queries keep a finite row; their output is never selected
+        allow = self._cols[None, :] <= (offset + np.arange(T))[:, None]
+        bias = np.where(allow, 0.0, -1e4).astype("float32")[None]
+        last_onehot = np.zeros((1, T), "float32")
+        last_onehot[0, P - 1] = 1.0
+        t0 = time.perf_counter()
+        with _trace.span("decode_resume_prefill", cat="serving", bucket=T,
+                         rows=P, offset=offset), torch.inference_mode():
+            lv = self.model.resume_prefill(
+                self._to_device(ids), self._pos_cache[T] + offset,
+                np.array([[slot, offset]], "int64"), self._to_device(bias),
+                self._to_device(last_onehot), self.caches)
+            out = lv.cpu().numpy()[0]
+        _profiler.bump_counter("decode_prefills")
+        self.prefills += 1
+        _profiler.bump_histogram("decode_prefill_ms",
+                                 (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _prefix_copy(self, dst_loc, src_loc, publish):
+        if not self.stores:
+            raise RuntimeError("session built without a prefix store")
+        with torch.inference_mode():
+            self.model.prefix_copy(self.caches, self.stores, dst_loc,
+                                   src_loc, publish=publish)
+
+    def prefix_copy_in(self, slot, dst_pos, src_block):
+        """Copy prefix-store block ``src_block`` into slot ``slot``'s row
+        at position ``dst_pos``, every layer's K and V: a hit's
+        replacement for recomputing a block's prefill."""
+        with _trace.span("decode_prefix_copy", cat="serving",
+                         block=src_block, pos=dst_pos):
+            self._prefix_copy((slot, dst_pos), (src_block, 0), False)
+
+    def prefix_publish(self, slot, src_pos, dst_block):
+        """Copy one block of slot ``slot``'s finished prefill (row
+        position ``src_pos``) into prefix-store block ``dst_block``, so
+        later admissions can reuse it."""
+        with _trace.span("decode_prefix_publish", cat="serving",
+                         block=dst_block, pos=src_pos):
+            self._prefix_copy((dst_block, 0), (slot, src_pos), True)
+
     def decode_step(self, tokens, positions, active):
         """ONE fused step over all slots: slot i's ``tokens[i]`` lands at
         cache position ``positions[i]`` and its next-token logits come
         back. Slots with ``active[i]`` False feed an inert zero token at
-        their caller-chosen position (a free slot's dead row tolerates
-        any landing spot) and a fully masked key bias; their output is
-        ignored. Returns logits [slots, vocab] (host numpy)."""
+        their caller-chosen position and a fully masked key bias; their
+        output is ignored. A free slot's dead row tolerates any landing
+        spot, but a row mid-chunked-prefill is live, so the engine aims
+        its write at the next window's start (overwritten before any
+        query reads it). Returns logits [slots, vocab] (host numpy)."""
         if self.paged:
             raise RuntimeError("decode_step on a paged session (paged_step)")
         act = np.asarray(active, bool)
@@ -677,19 +913,34 @@ class GenerationStream(object):
     """Per-request streaming handle. The engine pushes tokens as they are
     generated; the caller iterates (``for tok in stream``), or blocks on
     ``tokens()`` / ``result()``. Single consumer. ``finish_reason`` is
-    ``"eos"`` / ``"length"`` / ``"cancelled"`` once done."""
+    ``"eos"`` / ``"length"`` / ``"cancelled"`` once done.
+
+    ``priority`` ("batch", else interactive) and ``tenant`` are the
+    scheduling identity; ``preemptions`` counts the times the engine
+    evicted this stream for an interactive one and re-admitted it.
+    ``resume_tokens`` is the suffix an interrupted run of the same
+    request already emitted: the engine prefills prompt + suffix and the
+    stream emits only the continuation, its RNG fast-forwarded past the
+    replayed picks."""
 
     def __init__(self, prompt_ids, max_new_tokens=None, eos_id=None,
-                 temperature=0.0, top_k=0, top_p=0.0, seed=None):
+                 temperature=0.0, top_k=0, top_p=0.0, seed=None,
+                 resume_tokens=None, priority=None, tenant=None):
         self.prompt_ids = [int(t) for t in prompt_ids]
+        self.priority = "batch" if priority == "batch" else "interactive"
+        self.tenant = str(tenant or "")
+        self.preemptions = 0
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.temperature = float(temperature or 0.0)
         self.top_k = int(top_k or 0)
         self.top_p = float(top_p or 0.0)
         self.seed = seed
+        self.resume_tokens = [int(t) for t in (resume_tokens or [])]
         self._rng = (np.random.RandomState(seed)
                      if self.temperature > 0.0 else None)
+        if self._rng is not None and self.resume_tokens:
+            fast_forward_rng(self._rng, len(self.resume_tokens))
         self.finish_reason = None
         # engine tick bookkeeping: the tick a slot was admitted on and the
         # last tick it decoded on
@@ -706,11 +957,23 @@ class GenerationStream(object):
         self.spec_drafted = 0
         self.spec_accepted = 0
         self._t_submit = time.monotonic()
+        self._t_last_emit = None
         self._q = queue.Queue()
         self._tokens = []
         self._done = threading.Event()
         self._error = None
         self._cancelled = False
+
+    def full_prompt(self):
+        """What the engine prefills: the prompt plus the resume suffix."""
+        return self.prompt_ids + self.resume_tokens
+
+    @property
+    def emitted_count(self):
+        """Tokens of the whole generation emitted so far: the resumed
+        suffix plus what this stream pushed (what a transport needs to
+        build the next resume form)."""
+        return len(self.resume_tokens) + len(self._tokens)
 
     def cancel(self):
         """Abandon the request: the engine retires its slot at the next
@@ -781,8 +1044,10 @@ class GenerationStream(object):
         return list(self._tokens)
 
     def result(self, timeout=None):
-        """prompt + generated tokens — ``greedy_generate``'s contract."""
-        return self.prompt_ids + self.tokens(timeout)
+        """prompt + generated tokens — ``greedy_generate``'s contract. A
+        resumed stream includes its resume suffix: the same sequence the
+        uninterrupted run returns."""
+        return self.prompt_ids + self.resume_tokens + self.tokens(timeout)
 
 
 class _Slot(object):
@@ -792,13 +1057,16 @@ class _Slot(object):
         self.stream = stream
         self.pending_token = pending_token  # emitted, not yet cached
         self.next_pos = next_pos            # cache position it writes next
-        self.generated = generated          # tokens generated so far
+        # tokens of the whole generation so far: a resumed or re-admitted
+        # stream starts past its replayed ones, so the max_new / max_len
+        # budgets stay those of the original request
+        self.generated = generated
 
 
 class _PrefillJob(object):
-    """A paged slot mid-prefill: its prompt's bucket-shaped windows
-    (after the cached prefix) and the next one to run. Multi-window jobs
-    (chunked prefill) advance one window per engine tick."""
+    """A slot mid-prefill: its prompt's bucket-shaped windows (after the
+    cached prefix) and the next one to run. Multi-window jobs (chunked
+    prefill) advance one window per engine tick."""
 
     __slots__ = ("stream", "windows", "wi")
 
@@ -859,11 +1127,19 @@ class DecodeEngine(object):
     """Continuous batching over a ``DecodeSession``.
 
     One loop thread ticks: reap cancelled streams, admit queued requests
-    (FIFO) into free slots via prefill — mid-flight, active streams keep
-    decoding across admissions — then run ONE fused decode step for every
-    active slot, stream each new token out, and retire slots on EOS /
-    max-new-tokens / max-length. Greedy decoding is token-exact with
-    ``gpt._reference_generate``.
+    into free slots (the scheduler's order: interactive before batch,
+    weighted-fair across tenants within a class) — mid-flight, active
+    streams keep decoding across admissions — then run ONE fused decode
+    step for every active slot, stream each new token out, and retire
+    slots on EOS / max-new-tokens / max-length. Greedy decoding is
+    token-exact with ``gpt._reference_generate``.
+
+    On the contiguous pool ``prefix_cache_mb`` > 0 arms the prefix store
+    (``prefix_block`` tokens a block, default ``decode_prefix_block``):
+    admission copies the longest cached prefix into the slot row and
+    prefills the rest as resume windows, and a finished prefill publishes
+    its blocks. ``prefill_chunk`` > 0 caps a window: a longer prompt
+    admits one window a tick while live streams decode.
 
     ``block_size`` > 0 (default ``FLAGS_decode_block_size``) serves from
     the paged pool instead: admission takes ``ceil(len(prompt) / block)``
@@ -879,21 +1155,29 @@ class DecodeEngine(object):
     switches between width 1 and k at run time. Tokens are the same
     either way.
 
-    ``start()`` runs every prefill bucket (or window bucket) and step
-    width once (building the kernels and warming the card), then starts
-    the loop. ``stream_class`` is the handle type ``submit`` creates."""
+    With ``sched_preempt`` (the default) an interactive request waiting
+    for a slot evicts a batch stream; the victim re-queues at the front
+    and re-prefills its prompt and emitted tokens when it is admitted
+    again, so its tokens are those of an uninterrupted run.
+
+    ``start()`` runs every prefill bucket (resume windows and the block
+    copies too, where armed; paged: each window bucket) and step width
+    once (building the kernels and warming the card), registers the
+    engine's gauges, then starts the loop. ``stream_class`` is the
+    handle type ``submit`` creates."""
 
     stream_class = GenerationStream
 
     def __init__(self, model, slots=None, max_len=None, prefill_buckets=None,
                  queue_depth=None, block_size=None, spec_tokens=None,
                  spec_draft=None, drafter=None, pool_blocks=0,
-                 prefill_chunk=None, prefix_cache_mb=None):
+                 prefill_chunk=None, prefix_cache_mb=None, prefix_block=None):
         self.model = model
         self._slots_arg = slots
         self._max_len_arg = max_len
         self._buckets_arg = prefill_buckets
         self.queue_depth = int(_flag("decode_queue_depth", queue_depth))
+        self.prefix_block = int(_flag("decode_prefix_block", prefix_block))
         self.prefix_cache_mb = float(_flag("decode_prefix_cache_mb",
                                            prefix_cache_mb))
         self.prefill_chunk = int(_flag("decode_prefill_chunk",
@@ -907,10 +1191,9 @@ class DecodeEngine(object):
             raise ValueError(
                 "speculative decoding rides the paged runtime: set "
                 "decode_block_size > 0 alongside decode_spec_tokens")
-        if not self._paged and (self.prefill_chunk or self.prefix_cache_mb):
-            raise NotImplementedError(
-                "the contiguous pool's prefix cache and chunked prefill are "
-                "not ported yet; set block_size > 0 for the paged engine's")
+        if self._paged:
+            # the paged reuse granularity is the pool block
+            self.prefix_block = self.block_size
         self._spec_width = self.spec_tokens if self.spec_tokens > 1 else 1
         self._pool_blocks_arg = int(pool_blocks or 0)
         if drafter is not None:
@@ -923,6 +1206,7 @@ class DecodeEngine(object):
                     "drafter= for a model-based one)"
                     % (name, sorted(_SPEC_DRAFTERS)))
             self._drafter = _SPEC_DRAFTERS[name]
+        self.prefix = None     # PrefixCache once started (contiguous)
         self.pindex = None     # PagedPrefixIndex once started, if armed
         self.allocator = None  # BlockAllocator once started (paged)
         self._slot_blocks = {}  # slot index -> [pool block ids] (paged)
@@ -931,7 +1215,7 @@ class DecodeEngine(object):
         self.tick = 0
         self._pending = deque()
         self._active = {}
-        self._prefilling = {}  # slot index -> _PrefillJob (paged)
+        self._prefilling = {}  # slot index -> _PrefillJob
         self._free = []
         self._cond = threading.Condition()
         self._stop = False
@@ -940,28 +1224,36 @@ class DecodeEngine(object):
         self._counts = {"requests": 0, "admissions": 0, "retirements": 0,
                         "tokens": 0, "prompt_tokens": 0, "prefix_hits": 0,
                         "prefix_misses": 0, "prefix_cached_tokens": 0,
+                        "resume_admissions": 0, "resume_tokens": 0,
                         "spec_drafted": 0, "spec_accepted": 0,
-                        "oom_sheds": 0}
+                        "oom_sheds": 0, "preemptions": 0,
+                        "preempt_replayed_tokens": 0}
+        # weighted-fair scheduler (stride scheduling): per-tenant virtual
+        # time and the virtual clock a newly seen tenant starts at
+        self._sched_vtime = {}
+        self._sched_vclock = 0.0
+        self._sched_weights = {}
+        self._sched_weights_ver = None
+        self._gauges = {}  # registry name -> the callable registered
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, loop=True):
-        """Build the session, warm every shape, and (default) spawn the
-        loop thread. ``loop=False`` skips the thread: the caller drives
-        ``_tick()`` itself (deterministic tests)."""
+        """Build the session, warm every shape, register the gauges, and
+        (default) spawn the loop thread. ``loop=False`` skips the thread:
+        the caller drives ``_tick()`` itself (deterministic tests)."""
         if self.started:
             raise RuntimeError("decode engine already started")
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError(
                 "previous decode-engine loop thread has not exited yet")
-        self.session = DecodeSession(
-            self.model, slots=self._slots_arg, max_len=self._max_len_arg,
-            prefill_buckets=self._buckets_arg, block_size=self.block_size,
-            spec_tokens=self.spec_tokens if self._paged else 0,
-            pool_blocks=self._pool_blocks_arg,
-            window_cap=self.prefill_chunk)
-        self.pindex = None
-        self._slot_blocks.clear()
+        self.prefix = self.pindex = self.allocator = None
         if self._paged:
+            self.session = DecodeSession(
+                self.model, slots=self._slots_arg, max_len=self._max_len_arg,
+                prefill_buckets=self._buckets_arg, block_size=self.block_size,
+                spec_tokens=self.spec_tokens,
+                pool_blocks=self._pool_blocks_arg,
+                window_cap=self.prefill_chunk)
             self.allocator = BlockAllocator(self.session.pool_blocks)
             if self.prefix_cache_mb > 0:
                 # zero copy: the budget caps the pool blocks the index
@@ -970,18 +1262,65 @@ class DecodeEngine(object):
                     _gpt.paged_block_bytes(self.model.cfg, self.block_size))))
                 self.pindex = PagedPrefixIndex(self.block_size, cap,
                                                self.allocator)
+        else:
+            blocks = 0
+            if self.prefix_cache_mb > 0:
+                blocks = max(1, int(self.prefix_cache_mb * 2 ** 20 // (
+                    _gpt.prefix_block_bytes(self.model.cfg,
+                                            self.prefix_block))))
+            self.session = DecodeSession(
+                self.model, slots=self._slots_arg, max_len=self._max_len_arg,
+                prefill_buckets=self._buckets_arg, block_size=0,
+                spec_tokens=0, prefix_blocks=blocks,
+                prefix_block=self.prefix_block,
+                build_resume=bool(blocks or self.prefill_chunk))
+            if blocks:
+                self.prefix = PrefixCache(blocks, self.prefix_block)
+        self._slot_blocks.clear()
         self._warmup()
         self._free = list(range(self.session.slots))
         self._stop = False
-        if loop:
-            self._thread = threading.Thread(
-                target=self._loop, name="decode-engine", daemon=True)
-            self._thread.start()
-        self.started = True
+        try:
+            # occupancy counts the slots admission cannot use: decoding
+            # and mid-chunked-prefill ones
+            gauges = {
+                "serving_slot_occupancy":
+                    lambda e=self: len(e._active) + len(e._prefilling),
+                "decode_queue_depth": lambda e=self: len(e._pending),
+            }
+            if self.allocator is not None:
+                gauges["decode_blocks_free"] = lambda e=self: (
+                    e.allocator.free_blocks if e.allocator else 0)
+                gauges["decode_blocks_shared"] = lambda e=self: (
+                    e.allocator.shared_blocks if e.allocator else 0)
+            if self._spec_width > 1:
+                gauges["decode_spec_acceptance"] = lambda e=self: (
+                    e._counts["spec_accepted"]
+                    / max(e._counts["spec_drafted"], 1))
+            for name, fn in gauges.items():
+                _registry.register_gauge(name, fn)
+                self._gauges[name] = fn
+            if loop:
+                self._thread = threading.Thread(
+                    target=self._loop, name="decode-engine", daemon=True)
+                self._thread.start()
+            # last: a half-started engine must never look started
+            self.started = True
+        except Exception:
+            self._drop_gauges()
+            raise
         return self
 
+    def _drop_gauges(self):
+        """Unregister every gauge this engine published (a successor's
+        re-registration of the same name stays)."""
+        for name, fn in self._gauges.items():
+            _registry.unregister_gauge(name, fn)
+        self._gauges.clear()
+
     def _warmup(self):
-        """Run each prefill bucket once and the decode step once (paged:
+        """Run each prefill bucket once (and each resume window bucket and
+        both block copies where armed) and the decode step once (paged:
         each window bucket and each step width through all-sink tables,
         and the block copy), then zero the caches."""
         sess = self.session
@@ -997,6 +1336,12 @@ class DecodeEngine(object):
         else:
             for T in sess.buckets:
                 sess.prefill(0, [0] * min(T, sess.max_len - 1))
+            if sess.resumable:
+                for T in sess.buckets:
+                    sess.resume_prefill(0, [0] * T, 0)
+            if sess.stores:
+                sess.prefix_copy_in(0, 0, 0)
+                sess.prefix_publish(0, 0, 0)
             sess.decode_step([0] * sess.slots, [0] * sess.slots,
                              [False] * sess.slots)
         sess.reset_caches()
@@ -1011,6 +1356,7 @@ class DecodeEngine(object):
             self._thread.join(timeout=30)
             if not self._thread.is_alive():
                 self._thread = None
+        self._drop_gauges()
         # drain under the lock submit() enqueues under, flipping started
         # inside it: a racing submit either lands before the drain (and is
         # failed here) or sees the engine stopped and raises
@@ -1031,29 +1377,66 @@ class DecodeEngine(object):
 
     # -- request path --------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=None, eos_id=None,
-               temperature=0.0, top_k=0, top_p=0.0, seed=None):
+               temperature=0.0, top_k=0, top_p=0.0, seed=None,
+               resume_tokens=None, priority=None, tenant=None):
         """Non-blocking admission; returns a ``GenerationStream``. Beyond
         ``queue_depth`` waiting requests it sheds with
         ``ServerOverloadedError``. Sampling knobs are per-request and
-        host-side; greedy (``temperature=0``) is the default."""
+        host-side; greedy (``temperature=0``) is the default.
+        ``priority`` ("interactive" default, or "batch") and ``tenant``
+        are the scheduling identity.
+
+        ``resume_tokens`` is the resume form: the suffix an interrupted
+        run of this same request (prompt, knobs, seed) already emitted.
+        The engine prefills prompt + suffix through the prefix and window
+        path, fast-forwards the request's RNG past the replayed picks,
+        and the stream emits exactly what the uninterrupted run would
+        have emitted from there. A sampled request must carry its seed to
+        be resumable. A resume that already reaches ``max_len`` is a
+        finished generation: the stream comes back done, with no tokens
+        and finish reason "length"."""
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("empty prompt")
+        resume = [int(t) for t in (resume_tokens or [])]
+        if resume:
+            if float(temperature or 0.0) > 0.0 and seed is None:
+                raise ValueError(
+                    "resume of a temperature-sampled generation requires "
+                    "its seed (the replayed picks are otherwise "
+                    "unreproducible)")
+            if eos_id is not None and int(eos_id) in resume:
+                raise ValueError(
+                    "resume_tokens already contain eos_id %d: the "
+                    "generation is finished, not resumable" % int(eos_id))
+            if max_new_tokens is not None and max_new_tokens <= len(resume):
+                raise ValueError(
+                    "resume_tokens (%d) meet or exceed max_new_tokens (%d): "
+                    "nothing left to generate"
+                    % (len(resume), max_new_tokens))
         if not self.started or self.session is None:
             raise ServingError("decode engine not started")
-        if len(prompt) >= self.session.max_len:
+        knobs = dict(max_new_tokens=max_new_tokens, eos_id=eos_id,
+                     temperature=temperature, top_k=top_k, top_p=top_p,
+                     seed=seed, resume_tokens=resume, priority=priority,
+                     tenant=tenant)
+        if len(prompt) + len(resume) >= self.session.max_len:
+            if resume:
+                # the resumed generation already met the max_len wall,
+                # which the resuming caller cannot know: it is complete
+                stream = self.stream_class(prompt, **knobs)
+                stream._finish("length")
+                return stream
             raise ValueError("prompt of %d tokens leaves no room to generate "
                              "(max_len %d)" % (len(prompt),
                                                self.session.max_len))
         if not self._paged:
             # paged windows tile any prompt length below max_len; the
-            # contiguous pool prefills the whole prompt in one bucket
-            self.session.bucket_for(len(prompt))
+            # contiguous ladder must hold the whole re-prefilled length
+            self.session.bucket_for(len(prompt) + len(resume))
         if max_new_tokens is not None and max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        stream = self.stream_class(
-            prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
-            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+        stream = self.stream_class(prompt, **knobs)
         with self._cond:
             if not self.started or self._stop:
                 raise ServingError("decode engine stopped")
@@ -1064,14 +1447,18 @@ class DecodeEngine(object):
             self._pending.append(stream)
             self._counts["requests"] += 1
             self._cond.notify_all()
+        _profiler.bump_counter("decode_requests")
         return stream
 
     def generate(self, prompt_ids, max_new_tokens=None, eos_id=None,
-                 temperature=0.0, top_k=0, top_p=0.0, seed=None):
+                 temperature=0.0, top_k=0, top_p=0.0, seed=None,
+                 resume_tokens=None, priority=None, tenant=None):
         """Submit and return the streaming handle."""
         return self.submit(prompt_ids, max_new_tokens=max_new_tokens,
                            eos_id=eos_id, temperature=temperature,
-                           top_k=top_k, top_p=top_p, seed=seed)
+                           top_k=top_k, top_p=top_p, seed=seed,
+                           resume_tokens=resume_tokens, priority=priority,
+                           tenant=tenant)
 
     def set_spec_width(self, width):
         """Switch a paged engine's fused step between its two warmed
@@ -1102,24 +1489,21 @@ class DecodeEngine(object):
             "requests": c["requests"],
             "prefills": sess.prefills if sess else 0,
             "steps": sess.steps if sess else 0,
-            "tokens": c["tokens"],
-            "admissions": c["admissions"],
-            "retirements": c["retirements"],
-            "prompt_tokens": c["prompt_tokens"],
-            "prefix_hits": c["prefix_hits"],
-            "prefix_misses": c["prefix_misses"],
-            "prefix_cached_tokens": c["prefix_cached_tokens"],
-            "spec_drafted": c["spec_drafted"],
-            "spec_accepted": c["spec_accepted"],
-            "oom_sheds": c["oom_sheds"],
         }
+        for key in ("tokens", "admissions", "retirements", "prompt_tokens",
+                    "prefix_hits", "prefix_misses", "prefix_cached_tokens",
+                    "resume_admissions", "resume_tokens", "spec_drafted",
+                    "spec_accepted", "oom_sheds", "preemptions",
+                    "preempt_replayed_tokens"):
+            out[key] = c[key]
         if c["spec_drafted"]:
             out["spec_acceptance"] = c["spec_accepted"] / c["spec_drafted"]
         if self.allocator is not None:
             out["paged"] = dict(self.allocator.stats(),
                                 block_size=self.block_size)
-        if self.pindex is not None:
-            out["prefix_store"] = self.pindex.stats()
+        store = self.prefix if self.prefix is not None else self.pindex
+        if store is not None:
+            out["prefix_store"] = store.stats()
         return out
 
     # -- engine loop ---------------------------------------------------------
@@ -1142,7 +1526,7 @@ class DecodeEngine(object):
                 for idx, slot in list(self._active.items()):
                     slot.stream._fail(e)
                     self._release_slot_blocks(idx)
-                    self._counts["retirements"] += 1
+                    self._count_retirement()
                 for idx, job in list(self._prefilling.items()):
                     job.stream._fail(e)
                     self._release_slot_blocks(idx)
@@ -1153,15 +1537,20 @@ class DecodeEngine(object):
 
     def _tick(self):
         """One engine tick: reap cancellations, admit queued requests
-        into free slots (a prompt that fits one window prefills inline
-        and emits its first token), advance ONE window of a multi-window
-        paged prefill, then ONE fused decode step over every active
-        slot."""
+        into free slots (prefix copies, then a prompt that fits one
+        window prefills inline and emits its first token), advance ONE
+        window of a multi-window prefill, then ONE fused decode step over
+        every active slot. The window cap bounds what a live stream
+        waits per token: one window plus one step."""
         self._reap_cancelled()
         self._admit()
         self._advance_prefills()
         if self._active:
             self._step()
+
+    def _count_retirement(self):
+        _profiler.bump_counter("serving_slot_retirements")
+        self._counts["retirements"] += 1
 
     def _reap_cancelled(self):
         """Retire slots whose consumer abandoned the stream, before any
@@ -1172,7 +1561,7 @@ class DecodeEngine(object):
                 self._active.pop(idx, None)
                 self._free.append(idx)
                 self._release_slot_blocks(idx)
-                self._counts["retirements"] += 1
+                self._count_retirement()
                 slot.stream._finish("cancelled")
         for idx, job in list(self._prefilling.items()):
             if job.stream._cancelled:
@@ -1191,51 +1580,6 @@ class DecodeEngine(object):
                         live.append(s)
                 self._pending = live
 
-    def _admit(self):
-        """Admit queued requests (FIFO) into free slots — mid-flight,
-        between decode steps, never evicting an active stream. On the
-        contiguous pool each admission prefills its prompt into the slot
-        row and emits the first token; on the paged pool see
-        ``_admit_paged``."""
-        while self._free:
-            with self._cond:
-                stream = self._pending.popleft() if self._pending else None
-            if stream is None:
-                return
-            if stream._cancelled:
-                stream._finish("cancelled")
-                continue
-            slot_idx = self._free.pop()
-            if self._paged:
-                self._admit_paged(slot_idx, stream)
-                continue
-            prompt = stream.prompt_ids
-            try:
-                logits = self.session.prefill(slot_idx, prompt)
-                # pick() inside the per-request guard: a poisoned sampling
-                # request fails alone, not every co-batched stream
-                tok = stream.pick(logits)
-            except Exception as exc:  # noqa: BLE001 - per-request failure
-                self._free.append(slot_idx)
-                stream._fail(exc)
-                continue
-            self._counts["prompt_tokens"] += len(prompt)
-            slot = _Slot(stream, tok, next_pos=len(prompt))
-            with self._cond:
-                # stop() drains under this lock: if it ran while the
-                # prefill was in flight, inserting now would strand the
-                # stream in a dead engine
-                if self._stop or not self.started:
-                    self._free.append(slot_idx)
-                    stream._fail(ServingError("decode engine stopped"))
-                    return
-                self._active[slot_idx] = slot
-            self._counts["admissions"] += 1
-            stream.first_tick = self.tick
-            stream.ttft_ms = (time.monotonic() - stream._t_submit) * 1e3
-            self._emit(slot_idx, slot, tok)
-
-    # -- paged admission -----------------------------------------------------
     def _plan_windows(self, prompt_len, prefix_tokens):
         """Bucket-shaped windows covering [prefix, prompt_len): returns
         (usable prefix, [(start, end), ...]). Every window's bucket must
@@ -1261,9 +1605,211 @@ class DecodeEngine(object):
                 s += length
             if ok:
                 return prefix, wins
-            prefix -= self.block_size
+            prefix -= self.prefix_block
         return 0, [(0, prompt_len)]
 
+    # -- scheduler: weighted-fair dequeue and preemption ---------------------
+    def _tenant_weight(self, tenant):
+        """Weight from ``sched_tenant_weights`` ("a:4,b:1"); unlisted
+        tenants weigh 1. Parsed again only when the flags change."""
+        ver = _flags.version()
+        if ver != self._sched_weights_ver:
+            self._sched_weights_ver = ver
+            table = {}
+            spec = str(_flags.get_flag("sched_tenant_weights", "") or "")
+            for part in spec.split(","):
+                name, sep, w = part.strip().rpartition(":")
+                if not sep:
+                    continue
+                try:
+                    table[name.strip()] = max(float(w), 1e-3)
+                except ValueError:
+                    continue
+            self._sched_weights = table
+        return self._sched_weights.get(tenant, 1.0)
+
+    def _dequeue_locked(self):
+        """The scheduler's pick from the pending queue (the caller holds
+        ``_cond``): interactive strictly before batch; within a class,
+        preempted re-admissions first (their share was charged at first
+        admission), then weighted-fair across tenants by stride
+        scheduling (each fresh dequeue advances its tenant's virtual time
+        by 1 / weight; lowest virtual time next, FIFO within a tenant).
+        One tenant alone is plain FIFO."""
+        if not self._pending:
+            return None
+        best_i = best_key = None
+        for i, s in enumerate(self._pending):
+            cls = 1 if getattr(s, "priority", "interactive") == "batch" \
+                else 0
+            replay = 0 if getattr(s, "preemptions", 0) else 1
+            if replay:
+                t = getattr(s, "tenant", "") or ""
+                v = max(self._sched_vtime.get(t, 0.0), self._sched_vclock)
+            else:
+                v = -1.0
+            key = (cls, replay, v, i)
+            if best_key is None or key < best_key:
+                best_key, best_i = key, i
+        stream = self._pending[best_i]
+        del self._pending[best_i]
+        if best_key[1]:  # a fresh admission: charge its tenant's stride
+            t = getattr(stream, "tenant", "") or ""
+            v = best_key[2]
+            self._sched_vclock = v
+            self._sched_vtime[t] = v + 1.0 / self._tenant_weight(t)
+            if len(self._sched_vtime) > 4096:
+                # tenant names are caller data: reset rather than grow
+                # without bound (only relative history is lost)
+                self._sched_vtime.clear()
+        return stream
+
+    def _preempt_for_pending(self):
+        """At a tick boundary with no free slot: when ``sched_preempt``
+        is on and an interactive request is pending, evict one batch
+        stream — a still-prefilling one first (nothing emitted), else the
+        active one with the least cached work. The victim goes to the
+        front of the pending queue; its re-admission prefills prompt +
+        emitted tokens, so its continuation is token-exact (the stream,
+        its RNG state and its emitted tokens survive). Returns True when
+        a slot was freed."""
+        if not bool(_flags.get_flag("sched_preempt", True)):
+            return False
+        with self._cond:
+            wanting = any(
+                not s._cancelled
+                and getattr(s, "priority", "interactive") != "batch"
+                for s in self._pending)
+        if not wanting:
+            return False
+        victim_idx = victim = None
+        from_active = False
+        for idx, job in self._prefilling.items():
+            if getattr(job.stream, "priority", "interactive") == "batch":
+                victim_idx, victim = idx, job.stream
+                break
+        if victim_idx is None:
+            best = None
+            for idx, slot in self._active.items():
+                if getattr(slot.stream, "priority", "interactive") != "batch":
+                    continue
+                cost = len(slot.stream.full_prompt()) \
+                    + len(slot.stream._tokens)
+                if best is None or cost < best[0]:
+                    best = (cost, idx, slot.stream)
+            if best is not None:
+                _cost, victim_idx, victim = best
+                from_active = True
+        if victim_idx is None:
+            return False
+        if from_active:
+            # an evicted active stream was admitted, so its exit is a
+            # retirement; its re-admission counts again
+            self._active.pop(victim_idx, None)
+            self._count_retirement()
+        else:
+            self._prefilling.pop(victim_idx, None)
+        self._free.append(victim_idx)
+        self._release_slot_blocks(victim_idx)
+        victim.preemptions += 1
+        replayed = len(victim._tokens)
+        _profiler.bump_counter("decode_preemptions")
+        _profiler.bump_counter("decode_preempt_replayed_tokens", replayed)
+        self._counts["preemptions"] += 1
+        self._counts["preempt_replayed_tokens"] += replayed
+        with self._cond:
+            # the front of the queue, past the depth bound: an internal
+            # re-queue of an admitted request, not new load
+            self._pending.appendleft(victim)
+        return True
+
+    def _admission_prompt(self, stream):
+        """Every token whose K/V must be cached before the next pick: the
+        prompt, the resume suffix, and whatever this stream already
+        emitted here (non-empty only for a preempted stream coming back:
+        re-prefilling its own tokens makes the eviction token-exact)."""
+        return stream.full_prompt() + [
+            int(t) for t in getattr(stream, "_tokens", ()) or ()]
+
+    def _admit(self):
+        """Admit queued requests, in the scheduler's order, into free
+        slots — mid-flight, between decode steps, never evicting an
+        active stream except through ``_preempt_for_pending``. On the
+        contiguous pool each admission copies the longest cached prefix
+        into the slot row, then prefills the rest: one window inline, a
+        longer prompt as a ``_PrefillJob`` advanced one window a tick. On
+        the paged pool see ``_admit_paged``."""
+        if not self._free:
+            self._preempt_for_pending()
+        while self._free:
+            with self._cond:
+                stream = self._dequeue_locked()
+            if stream is None:
+                return
+            if stream._cancelled:
+                stream._finish("cancelled")
+                continue
+            slot_idx = self._free.pop()
+            if self._paged:
+                self._admit_paged(slot_idx, stream)
+                continue
+            prompt = self._admission_prompt(stream)
+            entries, hit_tokens = [], 0
+            if self.prefix is not None:
+                entries, hit_tokens = self.prefix.lookup(prompt)
+            prefix_tokens, wins = self._plan_windows(len(prompt), hit_tokens)
+            if prefix_tokens < hit_tokens:
+                # the planner gave blocks back: unpin what is not copied
+                keep = prefix_tokens // self.prefix_block
+                self.prefix.release(entries[keep:])
+                entries = entries[:keep]
+            try:
+                for j, e in enumerate(entries):
+                    self.session.prefix_copy_in(slot_idx,
+                                                j * self.prefix_block,
+                                                e.block_idx)
+            except Exception as exc:  # noqa: BLE001 - per-request failure
+                self._free.append(slot_idx)
+                stream._fail(exc)
+                continue
+            finally:
+                # copied (or failed): the store may evict these again
+                if entries:
+                    self.prefix.release(entries)
+            self._stamp_admission(stream, prompt, prefix_tokens, wins,
+                                  self.prefix is not None)
+            job = _PrefillJob(stream, wins)
+            if len(wins) == 1:
+                self._run_prefill_window(slot_idx, job)
+                continue
+            with self._cond:
+                # stop() drains under this lock: parking the job after
+                # its drain would strand the stream in a dead engine
+                if self._stop or not self.started:
+                    self._free.append(slot_idx)
+                    stream._fail(ServingError("decode engine stopped"))
+                    continue
+                self._prefilling[slot_idx] = job
+
+    def _stamp_admission(self, stream, prompt, prefix_tokens, wins, armed):
+        """Stamp and count one admission: its prompt, its windows and its
+        prefix hit or miss (``armed``: a prefix store or index exists)."""
+        stream.cached_prefix_tokens = prefix_tokens
+        stream.admit_windows = len(wins)
+        _profiler.bump_counter("decode_prompt_tokens", len(prompt))
+        self._counts["prompt_tokens"] += len(prompt)
+        if armed:
+            if prefix_tokens:
+                _profiler.bump_counter("decode_prefix_hits")
+                _profiler.bump_counter("decode_prefix_cached_tokens",
+                                       prefix_tokens)
+                self._counts["prefix_hits"] += 1
+                self._counts["prefix_cached_tokens"] += prefix_tokens
+            else:
+                _profiler.bump_counter("decode_prefix_misses")
+                self._counts["prefix_misses"] += 1
+
+    # -- paged admission -----------------------------------------------------
     def _admit_paged(self, slot_idx, stream):
         """Paged admission: a prefix hit puts the matched index blocks
         into the slot's table (increfed, no copy), fresh blocks cover the
@@ -1272,7 +1818,7 @@ class DecodeEngine(object):
         one window, else as a ``_PrefillJob`` advanced one window per
         tick. A pool that cannot cover the prompt (after evicting
         index-only blocks) sheds the request with the overload error."""
-        prompt = stream.prompt_ids
+        prompt = self._admission_prompt(stream)
         entries, hit_tokens = [], 0
         if self.pindex is not None:
             entries, hit_tokens = self.pindex.lookup(prompt)
@@ -1296,20 +1842,8 @@ class DecodeEngine(object):
                 % need, retry_after_ms=50))
             return
         self._slot_blocks[slot_idx] = blocks + owned
-        stream.cached_prefix_tokens = prefix_tokens
-        _profiler.bump_counter("decode_prompt_tokens", len(prompt))
-        self._counts["prompt_tokens"] += len(prompt)
-        if self.pindex is not None:
-            if prefix_tokens:
-                _profiler.bump_counter("decode_prefix_hits")
-                _profiler.bump_counter("decode_prefix_cached_tokens",
-                                       prefix_tokens)
-                self._counts["prefix_hits"] += 1
-                self._counts["prefix_cached_tokens"] += prefix_tokens
-            else:
-                _profiler.bump_counter("decode_prefix_misses")
-                self._counts["prefix_misses"] += 1
-        stream.admit_windows = len(wins)
+        self._stamp_admission(stream, prompt, prefix_tokens, wins,
+                              self.pindex is not None)
         job = _PrefillJob(stream, wins)
         if len(wins) == 1:
             self._run_prefill_window(slot_idx, job)
@@ -1331,14 +1865,22 @@ class DecodeEngine(object):
 
     def _run_prefill_window(self, slot_idx, job):
         """Advance ``job`` by one window; after the prompt's last window,
-        publish its full blocks to the prefix index, emit the first
-        token, and join the decode batch."""
+        publish its full blocks to the prefix store or index, emit the
+        first token, and join the decode batch. On the contiguous pool a
+        window that is the whole prompt from position 0 runs the prefill
+        (the flash kernel on the card), any other the resume window."""
         stream = job.stream
-        prompt = stream.prompt_ids
+        prompt = self._admission_prompt(stream)
         s, e = job.windows[job.wi]
         try:
-            logits = self.session.paged_window(self._slot_blocks[slot_idx],
-                                               prompt[s:e], s)
+            if self._paged:
+                logits = self.session.paged_window(
+                    self._slot_blocks[slot_idx], prompt[s:e], s)
+            elif s == 0 and e == len(prompt):
+                logits = self.session.prefill(slot_idx, prompt)
+            else:
+                logits = self.session.resume_prefill(slot_idx, prompt[s:e],
+                                                     s)
             job.wi += 1
             if job.wi < len(job.windows):
                 # re-park under the drain lock, as _active insertion
@@ -1351,6 +1893,8 @@ class DecodeEngine(object):
                         return
                     self._prefilling[slot_idx] = job
                 return
+            # pick() inside the per-request guard: a poisoned sampling
+            # request fails alone, not every co-batched stream
             tok = stream.pick(logits)
         except Exception as exc:  # noqa: BLE001 - per-request failure
             self._prefilling.pop(slot_idx, None)
@@ -1361,7 +1905,12 @@ class DecodeEngine(object):
         self._prefilling.pop(slot_idx, None)
         if self.pindex is not None:
             self.pindex.publish(prompt, self._slot_blocks[slot_idx])
-        slot = _Slot(stream, tok, next_pos=len(prompt))
+        elif self.prefix is not None:
+            self._publish_blocks(slot_idx, prompt)
+        # a resumed or re-admitted stream continues the original
+        # request's budgets: every replayed token counts as generated
+        slot = _Slot(stream, tok, next_pos=len(prompt),
+                     generated=1 + len(prompt) - len(stream.prompt_ids))
         with self._cond:
             if self._stop or not self.started:
                 self._free.append(slot_idx)
@@ -1369,10 +1918,34 @@ class DecodeEngine(object):
                 stream._fail(ServingError("decode engine stopped"))
                 return
             self._active[slot_idx] = slot
+        _profiler.bump_counter("serving_slot_admissions")
         self._counts["admissions"] += 1
-        stream.first_tick = self.tick
-        stream.ttft_ms = (time.monotonic() - stream._t_submit) * 1e3
+        if stream.resume_tokens:
+            _profiler.bump_counter("decode_resume_admissions")
+            _profiler.bump_counter("decode_resume_tokens",
+                                   len(stream.resume_tokens))
+            self._counts["resume_admissions"] += 1
+            self._counts["resume_tokens"] += len(stream.resume_tokens)
+        if stream.ttft_ms is None:
+            # a preempted stream's first token was stamped already
+            stream.first_tick = self.tick
+            stream.ttft_ms = (time.monotonic() - stream._t_submit) * 1e3
+            _profiler.bump_histogram("decode_ttft_ms", stream.ttft_ms)
         self._emit(slot_idx, slot, tok)
+
+    def _publish_blocks(self, slot_idx, prompt):
+        """Publish a finished prefill's full blocks to the contiguous
+        prefix store. Best effort: a failed copy unregisters the new
+        entries (a key never points at bytes that were not written) and
+        the request streams on."""
+        new = self.prefix.publish(prompt)
+        try:
+            for entry, b in new:
+                self.session.prefix_publish(slot_idx, b * self.prefix_block,
+                                            entry.block_idx)
+        except Exception:  # noqa: BLE001 - publishing is an optimisation
+            for entry, _b in new:
+                self.prefix.forget(entry)
 
     # -- paged block bookkeeping ---------------------------------------------
     def _alloc_blocks(self, n):
@@ -1392,7 +1965,7 @@ class DecodeEngine(object):
         """Drop the slot's reference on every block of its table: owned
         blocks free, blocks the index or another slot shares survive."""
         blocks = self._slot_blocks.pop(slot_idx, None)
-        if blocks:
+        if blocks and self.allocator is not None:
             self.allocator.decref(blocks)
 
     def _ensure_writable(self, slot_idx, block_i):
@@ -1430,6 +2003,14 @@ class DecodeEngine(object):
         stream = slot.stream
         stream._push(tok)
         stream.last_tick = self.tick
+        now = time.monotonic()
+        if stream._t_last_emit is not None:
+            # what a live stream feels per token: what the window cap
+            # bounds while long prompts admit
+            _profiler.bump_histogram("decode_intertoken_ms",
+                                     (now - stream._t_last_emit) * 1e3)
+        stream._t_last_emit = now
+        _profiler.bump_counter("decode_tokens")
         self._counts["tokens"] += 1
         reason = None
         if stream.eos_id is not None and tok == stream.eos_id:
@@ -1445,7 +2026,7 @@ class DecodeEngine(object):
             self._active.pop(slot_idx, None)
             self._free.append(slot_idx)
             self._release_slot_blocks(slot_idx)
-            self._counts["retirements"] += 1
+            self._count_retirement()
             stream._finish(reason)
 
     def _step(self):
@@ -1461,6 +2042,13 @@ class DecodeEngine(object):
             tokens[idx] = slot.pending_token
             positions[idx] = slot.next_pos
             active[idx] = True
+        for idx, job in self._prefilling.items():
+            # the step writes every slot: a row mid-chunked-prefill is
+            # live (copied prefix, finished windows), so its masked write
+            # lands on the next window's start, which that window
+            # overwrites before any query reads it. A free slot's position
+            # 0 would corrupt the row head and the blocks it publishes
+            positions[idx] = job.windows[job.wi][0]
         logits = sess.decode_step(tokens, positions, active)
         self.tick += 1
         for idx in list(self._active.keys()):
@@ -1480,7 +2068,7 @@ class DecodeEngine(object):
         slot = self._active.pop(idx)
         self._free.append(idx)
         self._release_slot_blocks(idx)
-        self._counts["retirements"] += 1
+        self._count_retirement()
         slot.stream._fail(exc)
 
     def _step_paged(self):
@@ -1530,7 +2118,7 @@ class DecodeEngine(object):
         for idx, slot in self._active.items():
             win = [slot.pending_token]
             if width > 1:
-                hist = slot.stream.prompt_ids + slot.stream._tokens
+                hist = slot.stream.full_prompt() + slot.stream._tokens
                 win += [int(t) for t in self._drafter(hist, width - 1)]
             windows[idx] = win
             tokens[idx, :] = win

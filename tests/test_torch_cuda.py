@@ -460,6 +460,96 @@ def test_flash_decode_paged_wrapper_raises_on_what_it_does_not_take():
             fa._flash_decode_paged(q, pool, pool, tables, splits=splits)
 
 
+def test_flash_decode_paged_raises_past_the_table_limit():
+    """The paged kernel stages a split's table entries in shared memory:
+    a table wider than ``_MAX_TABLE_BLOCKS`` logical blocks raises
+    before any launch (the reference's kernel takes any width)."""
+    gen = torch.Generator().manual_seed(6)
+    q = _randn(gen, 1, 2, 1, 64)
+    pool = _randn(gen, 3, 2, 1, 64)
+    wide = torch.ones(1, fa._MAX_TABLE_BLOCKS + 1, dtype=torch.int32).cuda()
+    n0 = fa.flash_decode_paged_attention.launches
+    with pytest.raises(ValueError, match="logical blocks"):
+        fa._flash_decode_paged(q, pool, pool, wide)
+    at_limit = wide[:, :fa._MAX_TABLE_BLOCKS].contiguous()
+    out = fa._flash_decode_paged(q, pool, pool, at_limit)
+    assert fa.flash_decode_paged_attention.launches == n0 + 1
+    ref = fa.flash_decode_paged_attention_plain(q, pool, pool, at_limit)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 4])
+def test_flash_decode_paged_clamps_tables_outside_the_pool(splits):
+    """Table entries below 0 or past the pool clamp to its first and
+    last block, as the reference's gather clamps them; the kernel equals
+    the plain version given the clamped table."""
+    gen = torch.Generator().manual_seed(7)
+    B, N, MB, blk, D, blocks = 4, 3, 6, 16, 64, 9
+    q = _randn(gen, B, N, 1, D)
+    k_pool, v_pool = _randn(gen, blocks, N, blk, D), \
+        _randn(gen, blocks, N, blk, D)
+    tables = torch.randint(1, blocks, (B, MB), generator=gen)
+    tables[0, 1] = -5
+    tables[1, 0] = blocks
+    tables[2, 3:] = 1000
+    tables[3] = -1
+    tables = tables.to(torch.int32).cuda()
+    kb = torch.zeros(B, MB * blk)
+    kb[1, MB * blk // 2:] = -1e4
+    kb = kb.cuda()
+    out = fa._flash_decode_paged(q, k_pool, v_pool, tables, kb,
+                                 splits=splits)
+    ref = fa.flash_decode_paged_attention_plain(
+        q, k_pool, v_pool, tables.clamp(0, blocks - 1), key_bias=kb)
+    torch.cuda.synchronize()
+    _assert_decode_close(out, ref, kb, "clamped table, splits=%s" % splits)
+
+
+def test_contiguous_prefix_hit_and_resume_on_card():
+    """A small contiguous engine with the prefix store and chunked
+    windows on the card: a prompt's second admission hits the store,
+    and a resume continues with the uninterrupted run's tokens; every
+    whole-prompt prefill and every step went through the kernels."""
+    from paddle_tpu_torch.observability import trace
+
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, use_flash_attention=True,
+                              max_position_embeddings=64)
+    model = tgpt.GPTLM(cfg)
+    tgpt.load_fluid_params(model, tgpt.init_fluid_params(cfg, seed=2))
+    prompt = [1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3, 8]
+    want = tgpt._reference_generate(model, prompt, len(prompt) + 12,
+                                    use_flash=False)[len(prompt):]
+    trace.reset()
+    f0, d0 = fa.flash_attention_lse.launches, fa.flash_decode_attention.launches
+    engine = tdecode.DecodeEngine(
+        model, slots=2, max_len=56, prefix_block=4, prefill_chunk=8,
+        prefix_cache_mb=8 * tgpt.prefix_block_bytes(cfg, 4) / 2 ** 20)
+    engine.start()
+    try:
+        first = engine.generate(prompt, max_new_tokens=12)
+        assert first.tokens(timeout=300) == want
+        hit = engine.generate(prompt, max_new_tokens=12)
+        assert hit.tokens(timeout=300) == want
+        resumed = engine.generate(prompt, max_new_tokens=12,
+                                  resume_tokens=want[:5])
+        assert resumed.tokens(timeout=300) == want[5:]
+        short = engine.generate([7, 7, 2], max_new_tokens=4)
+        short.tokens(timeout=300)
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    assert (first.cached_prefix_tokens, first.admit_windows) == (0, 2)
+    assert hit.cached_prefix_tokens == 12 and hit.admit_windows == 1
+    assert resumed.cached_prefix_tokens == 16
+    assert stats["resume_admissions"] == 1 and stats["prefix_hits"] >= 2
+    whole = sum(s["name"] == "decode_prefill" for s in trace.get_spans())
+    assert whole >= 1 + len(engine.session.buckets)   # warmup + short
+    assert fa.flash_attention_lse.launches - f0 == cfg.num_layers * whole
+    assert fa.flash_decode_attention.launches - d0 == \
+        cfg.num_layers * stats["steps"]
+
+
 @pytest.mark.parametrize("rows", [None, "vector", "per_head"])
 def test_kernels_take_every_key_bias_form(rows):
     gen = torch.Generator().manual_seed(11)

@@ -310,18 +310,22 @@ def test_decode_knobs_match_reference_defaults_and_env_bridge(monkeypatch):
         assert key in tflags._DEFAULTS, key
     want = {}
     for key, default in tflags._DEFAULTS.items():
-        if isinstance(default, float):
+        if isinstance(default, bool):
+            want[key] = not default
+        elif isinstance(default, float):
             want[key] = 7.5
         else:
             want[key] = 7 if isinstance(default, int) else "8,16"
         monkeypatch.setenv("FLAGS_" + key, str(want[key]))
     tflags._read_env()
+    numbers = [k for k in want if isinstance(want[k], (int, float))
+               and not isinstance(want[k], bool)]
     try:
         assert {k: tflags.get_flag(k) for k in want} == want
-        tflags.set_flags({"FLAGS_" + k: "5" for k in want
-                          if not isinstance(want[k], str)})
-        assert all(tflags.get_flag(k) == 5 for k in want
-                   if not isinstance(want[k], str))
+        version = tflags.version()
+        tflags.set_flags({"FLAGS_" + k: "5" for k in numbers})
+        assert tflags.version() > version
+        assert all(tflags.get_flag(k) == 5 for k in numbers)
         with pytest.raises(ValueError):
             tflags.set_flags({"no_such_knob": 1})
     finally:

@@ -241,8 +241,10 @@ def test_engine_rejects_what_the_reference_rejects():
         tdecode.DecodeEngine(model, spec_tokens=3)
     with pytest.raises(ValueError):
         tdecode.DecodeEngine(model, block_size=BLOCK, prefill_chunk=-1)
-    with pytest.raises(NotImplementedError):
-        tdecode.DecodeEngine(model, prefill_chunk=8)   # contiguous pool
+    with pytest.raises(ValueError):   # the contiguous pool's store
+        tdecode.DecodeEngine(model, prefix_cache_mb=-1.0)
+    with pytest.raises(ValueError):
+        tdecode.DecodeSession(model, prefix_block=0)
     with pytest.raises(ValueError):   # no room for the verify's positions
         tdecode.DecodeSession(model, max_len=64, block_size=BLOCK,
                               spec_tokens=SPEC_K)
