@@ -226,6 +226,21 @@ RESUME_AFTER = 16
 BATCH_LENS, BATCH_NEW, INTERACTIVE_LENS = (12, 30, 7, 55, 21, 40, 16,
                                            33), 64, (25, 11)
 
+# The inference path: GPT-2 small saved by save_inference_model, served
+# by AnalysisPredictor and InferenceServer. The predictor (flash_fwd,
+# program ops, fc as mul + add) is held against the eager GPTLM with the
+# plain attention (use_flash=False), at every shape the served batches
+# give flash_fwd: 1 and 8 rows, seq 64/128/256, the last of 8 rows
+# padded by the key bias. Kernel against plain and program against
+# eager differ by ~1e-5 on logits of std ~0.5 (fp32, TF32 off); a wrong
+# weight, layout, mask or kernel tile moves them by O(0.1). Served
+# results against the same request run alone: the batch's rows and pad
+# change the products' shapes only (held at the same 1e-3).
+INFER_CHECKS = ((1, 64), (1, 128), (1, 256), (8, 64), (8, 128), (8, 256))
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LENS = 8, 12, (20, 256)
+SERVE_SEQ_BUCKETS = (64, 128, 256)
+GEN_LENS, GEN_NEW = (20, 77, 150, 256), 32
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -2313,6 +2328,278 @@ def bias_phase(dev):
             "launches": launches}, launches
 
 
+def _gpt_feed(rows, seq, rng, vocab):
+    """Predictor feeds [rows, seq, 1]: random ids, positions, and a mask
+    whose last row (of several) pads its last quarter."""
+    mask = np.ones((rows, seq, 1), np.float32)
+    if rows > 1:
+        mask[-1, seq - seq // 4:] = 0.0
+    return [rng.integers(0, vocab, (rows, seq, 1)).astype(np.int64),
+            np.tile(np.arange(seq).reshape(1, seq, 1),
+                    (rows, 1, 1)).astype(np.int64), mask]
+
+
+def _served_loop(server, requests, clients):
+    """Closed loop: ``clients`` threads, each sending its share of
+    ``requests`` one at a time and waiting for each result. Returns
+    ({request index: logits}, seconds)."""
+    import threading
+
+    results, errors = {}, []
+
+    def client(share):
+        try:
+            for j in share:
+                results[j] = server.infer(requests[j], timeout=600)[0]
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(i, len(requests), clients),))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    seconds = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("served loop did not finish")
+    return results, seconds
+
+
+def _serve_run(pred, requests, solo, workers, seq_buckets, n_layers,
+               profile_burst):
+    """One InferenceServer over ``pred`` at 8 rows a batch and 5 ms of
+    gather, warmed on every bucket, driven by the closed loop; every
+    result held against the same request run alone (``solo``). Returns
+    (line, flash_fwd launches of the served loop)."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    ladder = serving.BucketLadder(max_batch=8, seq_buckets=list(seq_buckets))
+    server = serving.InferenceServer(pred, max_batch_size=8,
+                                     batch_timeout_ms=5,
+                                     num_workers=workers, ladder=ladder)
+    example = max(requests, key=lambda r: r[0].shape[1])
+    t0 = time.perf_counter()
+    server.start(warmup_inputs=example)
+    warm_s = time.perf_counter() - t0
+    built = ("predictor_plan_cache_misses", "executor_plan_builds",
+             "kernel_builds")
+    try:
+        c0 = dict(profiler.get_counters(), kernel_builds=_build.builds)
+        fa.flash_attention_lse.launches = 0
+        results, seconds = _served_loop(server, requests, SERVE_CLIENTS)
+        launches = fa.flash_attention_lse.launches
+        c1 = dict(profiler.get_counters(), kernel_builds=_build.builds)
+        stats = server.stats().as_dict()
+        prof = None
+        if profile_burst:
+            # device busy vs wall over bursts of 8 concurrent requests
+            burst = requests[:SERVE_CLIENTS]
+            prof = _profile(lambda: _served_loop(server, burst,
+                                                 SERVE_CLIENTS), reps=2)
+    finally:
+        server.stop()
+    after_warmup = {k: c1.get(k, 0) - c0.get(k, 0) for k in built}
+    worst = 0.0
+    for j, out in results.items():
+        if out.shape != solo[j].shape:
+            raise AssertionError("request %d came back %s, alone %s"
+                                 % (j, out.shape, solo[j].shape))
+        worst = max(worst, float(np.abs(out - solo[j]).max()))
+    if len(results) != len(requests) or worst > LOGIT_ATOL:
+        raise AssertionError("served results off the solo runs by %.3g "
+                             "(tolerance %g)" % (worst, LOGIT_ATOL))
+    if any(after_warmup.values()):
+        raise AssertionError("built after warmup: %s" % after_warmup)
+    if stats["bucket_hit_rate"] != 1.0:
+        raise AssertionError("bucket hit rate %s" % stats["bucket_hit_rate"])
+    if launches != n_layers * stats["batches"]:
+        raise AssertionError("flash_fwd launched %d times for %d batches"
+                             % (launches, stats["batches"]))
+    line = {"workers": workers, "seq_buckets": list(seq_buckets),
+            "requests": len(requests), "seconds": seconds,
+            "requests_per_s": len(requests) / seconds, "warmup_s": warm_s,
+            "max_abs_err_vs_solo": worst, "built_after_warmup": after_warmup,
+            "batch_fill_ratio": stats["batch_fill_ratio"],
+            "batches": stats["batches"], "pad_rows": stats["pad_rows"],
+            "bucket_hit_rate": stats["bucket_hit_rate"],
+            "latency_ms": stats["latency_ms"],
+            "flash_fwd_launches": launches}
+    if prof is not None:
+        line["burst_profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "device_ms_by_class", "top")}
+    return line, launches
+
+
+def inference_server_phase(dev):
+    """GPT-2 small (fp32, flash attention) saved by
+    ``save_inference_model``, loaded by ``AnalysisPredictor`` and served
+    by ``InferenceServer``: the predictor against the eager forward; the
+    closed loop through the server against the same requests run alone
+    (``SERVE_CLIENTS`` clients, prompts of 20-256 tokens over the seq
+    buckets 64/128/256, two workers; then the same requests through one
+    worker and one seq bucket, the reference probe's conditions, where
+    the batch fill must reach 0.5); generation through a ``DecodeEngine``
+    built the reference's way over the predictor's own parameters."""
+    import tempfile
+
+    from paddle_tpu_torch import fluid, inference, serving
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = gpt.GPTConfig(use_flash_attention=True)
+    n_layers = cfg.num_layers
+    arrays = gpt.init_fluid_params(cfg, seed=0)
+    workdir = tempfile.mkdtemp(prefix="inference_server_")
+    try:
+        with fluid.unique_name.guard():
+            main, startup, feeds, logits = gpt.build_gpt_infer(cfg, 256)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        gpt.load_fluid_scope(scope, arrays)
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(workdir, feeds, [logits], exe,
+                                          main_program=main)
+        save_s = time.perf_counter() - t0
+        del exe, scope
+        t0 = time.perf_counter()
+        pred = inference.create_paddle_predictor(
+            inference.AnalysisConfig(workdir))
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    model = gpt.GPTLM(cfg, device=dev)
+    gpt.load_fluid_params(model, arrays)
+    del arrays
+
+    # 1. the predictor against the eager forward, 12 flash launches a run
+    rng = np.random.default_rng(5)
+    checks, check_launches = [], 0
+    for rows, seq in INFER_CHECKS:
+        feed = _gpt_feed(rows, seq, rng, cfg.vocab_size)
+        fa.flash_attention_lse.launches = 0
+        (got,) = pred.run(feed)
+        n = fa.flash_attention_lse.launches
+        check_launches += n
+        with torch.inference_mode():
+            want = model(*(torch.from_numpy(a).to(dev) for a in feed),
+                         use_flash=False)
+        err = float(np.abs(got - want.float().cpu().numpy()).max())
+        checks.append({"rows": rows, "seq": seq, "max_abs_err": err,
+                       "flash_fwd_launches": n})
+        if n != n_layers or err > LOGIT_ATOL or not np.isfinite(got).all():
+            raise AssertionError("predictor run %s: flash_fwd %d, error "
+                                 "%.3g" % ((rows, seq), n, err))
+
+    # 2. serving, against the same requests run alone (the serial loop)
+    lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1,
+                        SERVE_CLIENTS * SERVE_PER_CLIENT)
+    requests = [_gpt_feed(1, int(n), rng, cfg.vocab_size) for n in lens]
+    t0 = time.perf_counter()
+    solo = [pred.run(r)[0] for r in requests]
+    serial_s = time.perf_counter() - t0
+    mixed, mixed_launches = _serve_run(pred, requests, solo, 2,
+                                       SERVE_SEQ_BUCKETS, n_layers, True)
+    probe, probe_launches = _serve_run(pred, requests, solo, 1,
+                                       SERVE_SEQ_BUCKETS[-1:], n_layers,
+                                       False)
+    del solo
+    if probe["batch_fill_ratio"] < 0.5:
+        raise AssertionError("batch fill %.3f < 0.5 with one worker and "
+                             "one signature" % probe["batch_fill_ratio"])
+    serial_rps = len(requests) / serial_s
+    big = torch.empty(8, 256, cfg.vocab_size, device=dev)
+    big.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        big.cpu()
+    d2h_ms = (time.perf_counter() - t0) * 1e3 / 3
+    d2h_bytes = big.numel() * big.element_size()
+    del big
+
+    # 3. generation through an engine over the predictor's parameters
+    mem0 = torch.cuda.memory_allocated()
+    engine = make_recording_engine()(cfg, scope=pred.scope,
+                                     param_program=pred.program,
+                                     slots=8, max_len=1024)
+    engine_added = torch.cuda.memory_allocated() - mem0
+    held = {pred.scope.get(n).data_ptr()
+            for n in gpt.fluid_param_shapes(cfg)}
+    shared = {p.data_ptr() for p in engine.model.parameters()}
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in engine.model.parameters())
+    if shared != held or engine_added > 2 ** 20:
+        raise AssertionError("the engine copied parameters: %d of %d "
+                             "tensors shared, %d bytes added"
+                             % (len(shared & held), len(held), engine_added))
+    gen_server = serving.InferenceServer(pred, decode_engine=engine).start()
+    try:
+        before = engine.stats()
+        fa.flash_attention_lse.launches = 0
+        fa.flash_decode_attention.launches = 0
+        prompts = make_prompts(model, GEN_LENS, seed=3)
+        t0 = time.perf_counter()
+        streams = [gen_server.generate(p, max_new_tokens=GEN_NEW)
+                   for p in prompts]
+        for st in streams:
+            st.tokens(timeout=600)
+        gen_s = time.perf_counter() - t0
+        gen_launches = {"flash_fwd": fa.flash_attention_lse.launches,
+                        "flash_decode": fa.flash_decode_attention.launches}
+        after = engine.stats()
+    finally:
+        gen_server.stop()
+    prefills = after["prefills"] - before["prefills"]
+    steps = after["steps"] - before["steps"]
+    if gen_launches["flash_fwd"] < n_layers * prefills or \
+            gen_launches["flash_decode"] < n_layers * steps or not steps:
+        raise AssertionError("generation launches %s for %d prefills, %d "
+                             "steps" % (gen_launches, prefills, steps))
+    check_streams(streams, GEN_NEW)
+    logit_err, exact_share = teacher_forced_check(model, streams)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = {"flash_fwd": check_launches + mixed_launches + probe_launches
+                + gen_launches["flash_fwd"],
+                "flash_decode": gen_launches["flash_decode"]}
+    line = {
+        "phase": "inference_server", "model": "gpt2-small",
+        "save_s": save_s, "load_s": load_s, "predictor_checks": checks,
+        "logit_atol": LOGIT_ATOL,
+        "serial": {"requests": len(requests), "seconds": serial_s,
+                   "requests_per_s": serial_rps},
+        "served_mixed": dict(mixed,
+                             speedup=mixed["requests_per_s"] / serial_rps),
+        "served_one_signature": dict(
+            probe, speedup=probe["requests_per_s"] / serial_rps),
+        "logits_d2h": {"bytes": d2h_bytes, "ms": d2h_ms,
+                       "gb_per_s": d2h_bytes / d2h_ms / 1e6},
+        "generate": {"streams": len(streams), "new_tokens": GEN_NEW,
+                     "prompt_lens": list(GEN_LENS), "seconds": gen_s,
+                     "prefills": prefills, "steps": steps,
+                     "launches": gen_launches,
+                     "teacher_forced_max_logit_err": logit_err,
+                     "exact_argmax_share": exact_share,
+                     "engine_added_bytes": engine_added,
+                     "param_bytes": param_bytes},
+        "peak_mem_mib": peak_mib, "launches": launches,
+    }
+    del model, pred, engine, streams
+    torch.cuda.empty_cache()
+    return line, launches
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -2321,6 +2608,9 @@ def gpt2_small(dev):
     model = gpt.GPTLM(cfg, device=dev)
     gpt.load_fluid_params(model, gpt.init_fluid_params(cfg, seed=0))
     return model
+
+
+ONLY_PHASES = ("engine_features", "program_train", "inference_server")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -2334,6 +2624,8 @@ def run_only(phases, repeat, dev, name, smi):
             try:
                 if phase == "engine_features":
                     line = engine_features_phase(model)[0]
+                elif phase == "inference_server":
+                    line = inference_server_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -2355,14 +2647,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run alone after the build "
-                         "(engine_features, program_train)")
+                         "(engine_features, program_train, "
+                         "inference_server)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
     only = [p for p in args.only.split(",") if p]
     for p in only:
-        if p not in ("engine_features", "program_train"):
-            ap.error("--only takes engine_features and program_train")
+        if p not in ONLY_PHASES:
+            ap.error("--only takes %s" % ", ".join(ONLY_PHASES))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
               file=sys.stderr)
@@ -2430,6 +2723,8 @@ def main(argv=None):
         dev, program["dropout0"]["program_losses"][0], fp32_grads)
     del fp32_grads
     emit(dict(amp_run, device=name, nvidia_smi=smi))
+    infer_run, infer_launches = inference_server_phase(dev)
+    emit(dict(infer_run, device=name, nvidia_smi=smi))
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
     fwd_drop = train_rows["flash_fwd_dropout"]
@@ -2528,12 +2823,14 @@ def main(argv=None):
          "replaces": "paddle_tpu/kernels/flash_attention.py:149",
          "launches": launches["flash_fwd"]
          + feature_launches["flash_fwd"] + train_launches["flash_fwd"]
-         + program_launches["flash_fwd"],
+         + program_launches["flash_fwd"] + infer_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
                               "train_eager": train_launches["flash_fwd"],
-                              "train_program": program_launches["flash_fwd"]},
+                              "train_program": program_launches["flash_fwd"],
+                              "inference_server":
+                                  infer_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -2554,10 +2851,11 @@ def main(argv=None):
          "source": "paddle_tpu_torch/csrc/flash_decode.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:363",
          "launches": launches["flash_decode"]
-         + feature_launches["flash_decode"],
+         + feature_launches["flash_decode"] + infer_launches["flash_decode"],
          "launches_by_path": {
              "engine": launches["flash_decode"],
-             "engine_features": feature_launches["flash_decode"]},
+             "engine_features": feature_launches["flash_decode"],
+             "inference_server": infer_launches["flash_decode"]},
          "max_abs_err": dec_err,
          "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
          "bound_ms": dec_row["bound_ms"], "bound_by": dec_row["bound_by"],

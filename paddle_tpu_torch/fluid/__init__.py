@@ -1,6 +1,7 @@
 """The slice of ``paddle_tpu.fluid`` the serving and training paths need:
 places, flags, the always-on profiler tallies, the Program IR
-(``framework``) with its pass registry (``ir``), the Executor, desc-level
+(``framework``) with its pass registry (``ir``) and its framework.proto
+serialization (``proto``), persistence (``io``), the Executor, desc-level
 autodiff (``backward``), the layers of the GPT train program,
 initializers, the Adam optimizer in its program and eager forms,
 automatic mixed precision (``contrib.mixed_precision``), and the op
@@ -10,7 +11,7 @@ tensors."""
 from . import core, flags, ops, profiler, unique_name  # noqa: F401
 from . import framework, initializer, param_attr  # noqa: F401
 from . import backward, clip, executor, layers, optimizer, regularizer  # noqa: F401
-from . import contrib, ir  # noqa: F401
+from . import contrib, io, ir, proto  # noqa: F401
 from .backward import append_backward, gradients
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
 from .executor import Executor, global_scope, scope_guard
@@ -28,8 +29,8 @@ from .param_attr import ParamAttr
 __all__ = [
     "core", "flags", "ops", "profiler", "unique_name", "framework",
     "initializer", "param_attr", "backward", "clip", "executor", "layers",
-    "optimizer", "regularizer", "contrib", "ir", "append_backward", "gradients", "CPUPlace",
-    "CUDAPlace", "LoDTensor", "Scope", "resolve_device", "Executor",
+    "optimizer", "regularizer", "contrib", "io", "ir", "proto",
+    "append_backward", "gradients", "CPUPlace", "CUDAPlace", "LoDTensor", "Scope", "resolve_device", "Executor",
     "global_scope", "scope_guard", "Parameter", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",
     "program_guard", "ParamAttr",

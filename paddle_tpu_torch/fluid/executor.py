@@ -20,9 +20,15 @@ is later work). What it plans once per program version:
 - when each variable is read for the last time, so the run's
   environment drops it there, as eager autograd frees what nothing saves
   (the closures keep exactly what their backward needs).
+
+Each plan built counts in the ``executor_plan_builds`` profiler counter
+(a server asserts it stays still after warmup). One Executor may serve
+several threads (a predictor pool shares one): a plan is built under the
+Executor's lock, and a run keeps all its other state to itself.
 """
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -156,22 +162,29 @@ class Executor(object):
         self.place = place
         self.device = core.resolve_device(place)
         self._plans = {}
+        self._lock = threading.Lock()
 
     def close(self):
-        self._plans.clear()
+        with self._lock:
+            self._plans.clear()
 
     def _plan(self, program, fetch_names):
         key = (program, program._version, tuple(fetch_names))
         plan = self._plans.get(key)
-        if plan is None:
-            plan = _Plan(program, program.global_block())
-            for n in fetch_names:
-                for frees in plan.free_after:
-                    if n in frees:
-                        frees.remove(n)
-            self._plans = {k: v for k, v in self._plans.items()
-                           if k[0] is not program}
-            self._plans[key] = plan
+        if plan is not None:
+            return plan
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is None:
+                plan = _Plan(program, program.global_block())
+                for n in fetch_names:
+                    for frees in plan.free_after:
+                        if n in frees:
+                            frees.remove(n)
+                self._plans = {k: v for k, v in self._plans.items()
+                               if k[0] is not program}
+                self._plans[key] = plan
+                profiler.bump_counter("executor_plan_builds")
         return plan
 
     def run(self, program=None, feed=None, fetch_list=None,

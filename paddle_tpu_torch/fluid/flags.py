@@ -1,8 +1,9 @@
-"""Runtime flags (port of ``paddle_tpu/fluid/flags.py``, decode slice).
+"""Runtime flags (port of ``paddle_tpu/fluid/flags.py``: the serving
+and decode knobs).
 
-Only the knobs the decode engine and its scheduler read are carried
-over, with the reference's defaults, plus the same ``FLAGS_<name>``
-environment bridge: an environment variable overrides a default when the
+Only the knobs the micro-batching server, the decode engine and its
+scheduler read are carried over, with the reference's defaults, plus the
+same ``FLAGS_<name>`` environment bridge: an environment variable overrides a default when the
 module loads, and ``set_flags`` overrides at run time. ``version()``
 counts those writes, so a reader can cache what it derives from a flag
 and re-derive it only when the count moves. Later slices add their knobs
@@ -14,6 +15,19 @@ import os
 __all__ = ["get_flag", "set_flags", "version"]
 
 _DEFAULTS = {
+    # InferenceServer's micro-batch coalescer. serving_max_batch_size caps
+    # the request rows of one device batch (and tops the default
+    # padding-bucket ladder); serving_batch_timeout_ms bounds how long
+    # the first request of a batch waits for more; serving_queue_depth
+    # bounds admission (beyond it requests shed with retry-after);
+    # serving_workers sizes the predictor pool and its dispatch threads;
+    # serving_default_deadline_ms is the per-request deadline (0 = none),
+    # past which a queued request is shed at dispatch
+    "serving_max_batch_size": 8,
+    "serving_batch_timeout_ms": 5.0,
+    "serving_queue_depth": 64,
+    "serving_workers": 2,
+    "serving_default_deadline_ms": 0.0,
     # KV-cache slot pool + continuous batching engine. decode_slots sizes
     # the pool (max concurrent streams); decode_max_len caps the per-slot
     # cache length (0 = the model's max_position_embeddings);

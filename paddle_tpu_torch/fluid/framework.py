@@ -605,6 +605,18 @@ class Program(object):
     __str__ = to_string
     __repr__ = to_string
 
+    # serialization through proto.py (framework.proto wire bytes)
+    def desc_str(self):
+        from . import proto
+
+        return proto.program_to_bytes(self)
+
+    @staticmethod
+    def parse_from_string(binary):
+        from . import proto
+
+        return proto.program_from_bytes(binary)
+
 
 # ---------------------------------------------------------------------------
 # default programs + guards (reference: framework.py:4559-4725)

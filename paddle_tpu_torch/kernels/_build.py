@@ -7,7 +7,10 @@ build happens at first use, into ``paddle_tpu_torch/_build/`` (listed in
 file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a
 stale library is never loaded. ``build()`` starts one ``nvcc`` per
-source, all at once.
+source, all at once, and counts each library it compiles in ``builds``
+(a server asserts it stays still after warmup). ``load`` builds under a
+lock: two threads never start ``nvcc``
+on one source together.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine that has no ``nvcc``.
@@ -62,6 +65,8 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs = {}
 _logs = {}
+# libraries compiled by this process
+builds = 0
 
 
 def nvcc_path():
@@ -97,6 +102,7 @@ def build(names=None):
     one ``nvcc`` per source, all started together. Returns
     ``{name: {"seconds": s, "cached": bool, "log": ptxas report}}``;
     raises ``RuntimeError`` with the compiler's output if one fails."""
+    global builds
     names = list(KERNELS) if names is None else list(names)
     nvcc = None
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -140,6 +146,7 @@ def build(names=None):
                             % (name, proc.returncode, log))
             continue
         os.replace(tmp, lib)  # atomic: a reader never sees half a library
+        builds += 1
         _logs[name] = log
         out[name] = {"seconds": secs, "cached": False, "log": log}
     if failures:

@@ -52,6 +52,7 @@ each block takes.
 
 import functools
 import math
+import threading
 import warnings
 
 import torch
@@ -599,6 +600,16 @@ def _launch(name, dtype, device, *args):
                            % (name, err, fn.error_string(err).decode()))
 
 
+_count_lock = threading.Lock()
+
+
+def _count(wrapper):
+    """One more launch on ``wrapper.launches``, under a lock: a server's
+    pool workers launch from threads of their own."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def _dropout_args(rate, dropout_seed):
     """The kernels' dropout arguments: (on, 23-bit seed, keep threshold,
     1 − rate, 1 / (1 − rate)). The threshold is computed here in double
@@ -644,7 +655,7 @@ def flash_attention_lse(q, k, v, key_bias=None, bias=None, causal=False,
             v.data_ptr(), _ptr(kb), _ptr(nb), out.data_ptr(), lse.data_ptr(),
             B * N, bias_heads, div, rows, Sq, Sk, width, float(scale),
             int(bool(causal)), on, seed, thresh, keep_prob)
-    flash_attention_lse.launches += 1
+    _count(flash_attention_lse)
     if width != D:
         out = out[..., :D].contiguous()
     return out, lse
@@ -721,7 +732,7 @@ def flash_bwd_dq(q, k, v, key_bias, g, lse, delta, causal=False, scale=None,
             delta.data_ptr(), dq.data_ptr(), B * N, bias_heads, div, rows,
             Sq, k.shape[2], width, float(scale), int(bool(causal)), on, seed,
             thresh, inv_keep)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq)
     return dq if width == D else dq[..., :D].contiguous()
 
 
@@ -767,7 +778,7 @@ def flash_bwd_dkv(q, k, v, key_bias, g, lse, delta, causal=False,
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dkb.data_ptr(),
             _ptr(dbias), B * N, bias_heads, div, rows, Sq, Sk, width,
             float(scale), int(bool(causal)), on, seed, thresh, inv_keep)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv)
     if width != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     if dbias is None:
@@ -915,7 +926,7 @@ def _flash_decode(q, k, v, key_bias=None, scale=None, splits=None):
     _launch("flash_decode", et, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(kb), out.data_ptr(), B * N, bias_heads, Sk, D,
             float(scale), splits)
-    flash_decode_attention.launches += 1
+    _count(flash_decode_attention)
     return out
 
 
@@ -983,7 +994,7 @@ def _flash_decode_paged(q, k_pool, v_pool, tables, key_bias=None,
             k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
             _ptr(kb), out.data_ptr(), B * N, N, bias_heads, MB, blk,
             k_pool.shape[0], D, float(scale), splits)
-    flash_decode_paged_attention.launches += 1
+    _count(flash_decode_paged_attention)
     return out
 
 

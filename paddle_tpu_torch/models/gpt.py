@@ -26,10 +26,15 @@ model, the Adam optimizer and a ``step`` that runs forward, the masked
 next-token loss (``gpt_lm_loss``), backward through the flash kernels
 and the update.
 
+``build_gpt_infer`` is the reference's inference program (the forward
+with ``is_test``), which ``fluid.io.save_inference_model`` saves and
+``inference.AnalysisPredictor`` serves.
+
 Weights carry across from the reference as ``{fluid_param_name:
 np.ndarray}``: into a model with ``load_fluid_params``, into a program's
 scope with ``load_fluid_scope``; ``init_fluid_params`` makes such a dict
-from a seed.
+from a seed. ``share_fluid_scope`` makes a model's parameters the
+tensors a program scope holds, with no copy.
 """
 
 import copy
@@ -61,11 +66,13 @@ __all__ = [
     "fluid_param_shapes",
     "load_fluid_params",
     "load_fluid_scope",
+    "share_fluid_scope",
     "init_fluid_params",
     "greedy_generate",
     "gpt_decoder",
     "gpt_lm_logits",
     "build_gpt_lm_train",
+    "build_gpt_infer",
     "gpt_lm_loss",
     "build_gpt_lm_train_eager",
 ]
@@ -455,14 +462,14 @@ def fluid_param_shapes(cfg):
     return out
 
 
-def _param_targets(model):
-    """{fluid name: (module parameter, transpose)} — fc weights are
+def _param_owners(model):
+    """{fluid name: (module, attribute, transpose)} — fc weights are
     [in, out] in the reference and [out, in] in ``nn.Linear``."""
     t = {
-        "tok_embedding": (model.tok_embedding.weight, False),
-        "pos_embedding": (model.pos_embedding.weight, False),
-        "lm_head.w_0": (model.lm_head.weight, True),
-        "lm_head.b_0": (model.lm_head.bias, False),
+        "tok_embedding": (model.tok_embedding, "weight", False),
+        "pos_embedding": (model.pos_embedding, "weight", False),
+        "lm_head.w_0": (model.lm_head, "weight", True),
+        "lm_head.b_0": (model.lm_head, "bias", False),
     }
     for i, layer in enumerate(model.layers):
         p = "gpt_%d_" % i
@@ -470,12 +477,18 @@ def _param_targets(model):
                "att_v": layer.att.v, "att_out": layer.att.out,
                "ffn_fc0": layer.ffn.fc0, "ffn_fc1": layer.ffn.fc1}
         for name, lin in fcs.items():
-            t[p + name + ".w_0"] = (lin.weight, True)
-            t[p + name + ".b_0"] = (lin.bias, False)
+            t[p + name + ".w_0"] = (lin, "weight", True)
+            t[p + name + ".b_0"] = (lin, "bias", False)
         for name, ln in (("ln1", layer.ln1), ("ln2", layer.ln2)):
-            t[p + name + ".w_0"] = (ln.weight, False)
-            t[p + name + ".b_0"] = (ln.bias, False)
+            t[p + name + ".w_0"] = (ln, "weight", False)
+            t[p + name + ".b_0"] = (ln, "bias", False)
     return t
+
+
+def _param_targets(model):
+    """{fluid name: (module parameter, transpose)}."""
+    return {name: (getattr(mod, attr), transpose)
+            for name, (mod, attr, transpose) in _param_owners(model).items()}
 
 
 def load_fluid_params(model, arrays):
@@ -535,6 +548,38 @@ def load_fluid_scope(scope, arrays):
                                  % (name, arr.shape, tuple(t.shape)))
             t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))
     return scope
+
+
+def share_fluid_scope(model, scope, names=None):
+    """Make ``model``'s parameters the tensors a program scope holds, with
+    no copy: an fc weight [in, out] becomes the transposed view
+    ``nn.Linear`` reads, so a predictor and a decode engine over one scope
+    hold one copy of the weights. ``names`` maps a canonical fluid name
+    (``fluid_param_shapes``) to the scope variable holding it (default:
+    the same name). Each tensor must have its reference shape and the
+    model's dtype, and all of them one device, which becomes the model's
+    (a model built on ``"meta"`` allocates nothing before); the
+    parameters take no gradient."""
+    names = names or {}
+    shapes = fluid_param_shapes(model.cfg)
+    devices = set()
+    for canon, (mod, attr, transpose) in _param_owners(model).items():
+        src = names.get(canon, canon)
+        t = scope.get(src)
+        if t is None:
+            raise KeyError("fluid scope holds no %r (for %s)" % (src, canon))
+        old = getattr(mod, attr)
+        if tuple(t.shape) != tuple(shapes[canon]) or t.dtype != old.dtype:
+            raise ValueError("fluid var %s: %s %s, the model needs %s %s"
+                             % (src, tuple(t.shape), t.dtype,
+                                tuple(shapes[canon]), old.dtype))
+        devices.add(t.device)
+        setattr(mod, attr, nn.Parameter(t.t() if transpose else t,
+                                        requires_grad=False))
+    if len(devices) != 1:
+        raise ValueError("fluid scope's parameters lie on %s, not on one "
+                         "device" % sorted(map(str, devices)))
+    return model
 
 
 def init_fluid_params(cfg, seed):
@@ -707,6 +752,25 @@ def build_gpt_lm_train(cfg, seq_len, learning_rate=3e-4, use_amp=False):
             opt = fluid.contrib.mixed_precision.decorate(opt)
         opt.minimize(avg_loss)
     return main, startup, [ids, pos_ids, input_mask], avg_loss
+
+
+def build_gpt_infer(cfg, seq_len):
+    """Inference program with ``is_test`` semantics (the reference's
+    builder, ``gpt.py:221``): returns (main, startup, feed names,
+    logits). Feeds are ``ids`` / ``pos_ids`` ([N, seq_len, 1] int64) and
+    ``input_mask`` ([N, seq_len, 1] float32); any sequence length runs.
+    The caller's config is not mutated."""
+    cfg = copy.copy(cfg)
+    cfg.is_test = True
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[seq_len, 1], dtype="int64")
+        pos_ids = fluid.layers.data(name="pos_ids", shape=[seq_len, 1],
+                                    dtype="int64")
+        input_mask = fluid.layers.data(name="input_mask", shape=[seq_len, 1],
+                                       dtype="float32")
+        logits = gpt_lm_logits(ids, pos_ids, input_mask, cfg)
+    return main, startup, ["ids", "pos_ids", "input_mask"], logits
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ export, tensor parallelism, and the strict compile gate.
 
 import hashlib
 import queue
+import re
 import threading
 import time
 from collections import OrderedDict, deque
@@ -65,7 +66,9 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
+from ..fluid import core as _core
 from ..fluid import flags as _flags
+from ..fluid import framework as _framework
 from ..fluid import profiler as _profiler
 from ..fluid.ops import nn_ops as _nn_ops
 from ..models import gpt as _gpt
@@ -1123,6 +1126,34 @@ _SPEC_DRAFTERS = {"ngram": _ngram_draft, "repeat": _repeat_draft}
 # ---------------------------------------------------------------------------
 
 
+def _engine_model(cfg, place, scope, param_program):
+    """The engine's GPTLM: ``cfg`` itself when it is one, else a model of
+    ``cfg`` over the scope's parameter tensors on ``place``."""
+    if isinstance(cfg, _gpt.GPTLM):
+        if place is not None or scope is not None or \
+                param_program is not None:
+            raise ValueError(
+                "DecodeEngine(model, ...) serves the model as it is; place, "
+                "scope and param_program go with DecodeEngine(cfg, ...)")
+        return cfg
+    dev = _core.resolve_device(place)
+    scope = scope if scope is not None else _core.global_scope()
+    names = {}
+    if param_program is not None:
+        for v in param_program.list_vars():
+            if isinstance(v, _framework.Parameter):
+                names[re.sub(r"_(\d+)$", "_0", v.name)] = v.name
+    # built on the meta device: every parameter is then the scope's
+    model = _gpt.share_fluid_scope(_gpt.GPTLM(cfg, device="meta"), scope,
+                                   names)
+    got = model.device
+    if got.type != dev.type or (dev.index is not None
+                                and got.index != dev.index):
+        raise ValueError("the scope's parameters are on %s, the engine's "
+                         "place is %s" % (got, dev))
+    return model
+
+
 class DecodeEngine(object):
     """Continuous batching over a ``DecodeSession``.
 
@@ -1164,15 +1195,31 @@ class DecodeEngine(object):
     copies too, where armed; paged: each window bucket) and step width
     once (building the kernels and warming the card), registers the
     engine's gauges, then starts the loop. ``stream_class`` is the
-    handle type ``submit`` creates."""
+    handle type ``submit`` creates.
+
+    Two forms build an engine. ``DecodeEngine(model, ...)`` serves a
+    ``GPTLM`` as it is. ``DecodeEngine(cfg, place, scope, ...,
+    param_program=...)`` is the reference's (``GPTConfig`` first, its
+    keyword order): the model is built on ``resolve_device(place)`` over
+    the parameters ``scope`` holds (default ``global_scope()``), shared
+    and not copied (``gpt.share_fluid_scope``), so a predictor and the
+    engine over one scope hold one copy of the weights;
+    ``param_program`` names them, its ``_<n>`` suffixes read as ``_0``
+    as in the reference."""
 
     stream_class = GenerationStream
 
-    def __init__(self, model, slots=None, max_len=None, prefill_buckets=None,
-                 queue_depth=None, block_size=None, spec_tokens=None,
-                 spec_draft=None, drafter=None, pool_blocks=0,
-                 prefill_chunk=None, prefix_cache_mb=None, prefix_block=None):
-        self.model = model
+    def __init__(self, cfg, place=None, scope=None, slots=None,
+                 max_len=None, prefill_buckets=None, queue_depth=None,
+                 param_program=None, prefix_block=None,
+                 prefix_cache_mb=None, prefill_chunk=None, block_size=None,
+                 spec_tokens=None, spec_draft=None, pool_blocks=0,
+                 drafter=None, tp=None):
+        if tp is not None and int(tp) != 1:
+            raise NotImplementedError(
+                "tensor-parallel decode (tp=%r) is not ported yet: ROADMAP "
+                "queue A, item A12" % (tp,))
+        self.model = _engine_model(cfg, place, scope, param_program)
         self._slots_arg = slots
         self._max_len_arg = max_len
         self._buckets_arg = prefill_buckets

@@ -69,6 +69,22 @@ for op_type in ("cast", "isfinite", "where", "greater_equal", "logical_and",
                 "logical_not", "relu"):
     assert registry.has_op(op_type), op_type
 assert "amp_rewrite_pass" in ir.all_registered_passes()
+# the inference slice: persistence, the predictor and the serving front
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.fluid import io, proto, proto_wire
+from paddle_tpu_torch.fluid.ops import io_ops
+from paddle_tpu_torch.serving import buckets, metrics, pool, server
+for fn in (io.save_inference_model, io.load_inference_model,
+           io.save_persistables, io.load_persistables, proto.program_to_bytes,
+           proto_wire.encode_program, io_ops.serialize_lod_tensor,
+           inference.AnalysisPredictor, inference.create_paddle_predictor,
+           server.InferenceServer, pool.PredictorPool, buckets.BucketLadder,
+           metrics.snapshot_stats, gpt.build_gpt_infer, gpt.share_fluid_scope,
+           framework.Program.parse_from_string):
+    assert callable(fn)
+for op_type in ("save", "load", "save_combine", "load_combine", "feed",
+                "fetch", "print"):
+    assert registry.has_op(op_type), op_type
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -126,6 +142,14 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu():
         resolve_device("cuda:0")
     with pytest.raises(RuntimeError):
         fluid.Executor()
+    from paddle_tpu_torch import inference
+
+    config = inference.AnalysisConfig("/nonexistent")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inference.AnalysisPredictor(config)
+    config.enable_use_gpu(100, 0)
+    with pytest.raises(RuntimeError):
+        inference.create_paddle_predictor(config)
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(CPUPlace()) == torch.device("cpu")
     assert tgpt.GPTLM(cfg, device="cpu").device == torch.device("cpu")
