@@ -6,7 +6,8 @@
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
-(``engine_features``, ``program_train``), ``--repeat`` times,
+(``engine_features``, ``program_train``, ``inference_server``,
+``gateway``), ``--repeat`` times,
 printing each run's line whether it passed or not. Phases, one JSON line
 each:
 
@@ -104,6 +105,25 @@ each:
            eager AMP step beside it (step-1 loss within 1e-6 of the
            program's, bf16 flash kernels); then 20 program steps at
            dropout 0.1 that must learn.
+12. inference_server  GPT-2 small saved by ``save_inference_model``,
+           loaded by ``AnalysisPredictor`` (held against the eager
+           forward) and served by ``InferenceServer`` from 8 closed-loop
+           clients against the same requests run alone; generation
+           through a ``DecodeEngine`` over the predictor's parameters.
+13. gateway  the same model over HTTP (``serving.Gateway``) with the
+           strict build gate armed and the exporter on port 0: 4 SSE
+           generations beside 4 classifier clients, then 2 GPT-2
+           /v1/infer requests; every streamed token teacher-forced and
+           compared with the in-process generation, the GPT-2 logits bit
+           for bit the in-process ones, the classifier's bit for bit one
+           of its batch buckets', launches, 0 builds after warmup, 429
+           and 504, /metrics, a client's traceparent on its spans and
+           /trace, the access logs; a paged speculative engine behind
+           the same front (width 4, then width 1); a SIGTERM drain in a
+           child process (``python -m paddle_tpu_torch.tools.gateway_probe
+           --gpt2 --drain-only``). Records the HTTP hop against in
+           process (TTFT, infer p50/p99, tokens/s), the drain seconds and
+           the card's idle share over the storm.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -240,6 +260,21 @@ INFER_CHECKS = ((1, 64), (1, 128), (1, 256), (8, 64), (8, 128), (8, 256))
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LENS = 8, 12, (20, 256)
 SERVE_SEQ_BUCKETS = (64, 128, 256)
 GEN_LENS, GEN_NEW = (20, 77, 150, 256), 32
+# The HTTP gateway over the same inference path, under the armed strict
+# gate with the exporter listening: a storm of 4 SSE generations (20-500
+# prompt tokens, 32 new each) beside 4 clients posting the probe's small
+# classifier to /v1/infer (6 requests each), then 2 GPT-2 /v1/infer
+# requests of 64 tokens one at a time ([1, 64, 50257] logits, ~3.2 M
+# floats of JSON each). The classifier's rows are held bit for bit to
+# the in-process result at the batch bucket they rode; GPT-2's to the
+# in-process server.infer of the same row (batch 1 both ways). The paged
+# trial: 2 streams at width 4 (the done events carry the drafts), then 2
+# at width 1 (the paged kernel every step). The SIGTERM drain runs in a
+# child process (the probe's --gpt2 --drain-only).
+GW_GEN_LENS, GW_GEN_NEW = (20, 100, 260, 500), 32
+GW_CLASSIFIER_CLIENTS, GW_CLASSIFIER_REQS = 4, 6
+GW_INFER_SEQ, GW_INFER_RUNS = 64, 2
+GW_PAGED_LENS = (40, 300)
 
 
 def emit(obj):
@@ -2439,25 +2474,18 @@ def _serve_run(pred, requests, solo, workers, seq_buckets, n_layers,
     return line, launches
 
 
-def inference_server_phase(dev):
-    """GPT-2 small (fp32, flash attention) saved by
-    ``save_inference_model``, loaded by ``AnalysisPredictor`` and served
-    by ``InferenceServer``: the predictor against the eager forward; the
-    closed loop through the server against the same requests run alone
-    (``SERVE_CLIENTS`` clients, prompts of 20-256 tokens over the seq
-    buckets 64/128/256, two workers; then the same requests through one
-    worker and one seq bucket, the reference probe's conditions, where
-    the batch fill must reach 0.5); generation through a ``DecodeEngine``
-    built the reference's way over the predictor's own parameters."""
+def served_gpt2(dev):
+    """GPT-2 small (fp32, flash attention, random weights from seed 0)
+    saved by ``save_inference_model`` and loaded by ``AnalysisPredictor``,
+    beside the eager ``GPTLM`` with the same weights: the inference path
+    the inference_server and gateway phases serve. Returns a dict (cfg,
+    pred, model, save_s, load_s)."""
     import tempfile
 
-    from paddle_tpu_torch import fluid, inference, serving
-    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch import fluid, inference
     from paddle_tpu_torch.models import gpt
 
-    torch.cuda.reset_peak_memory_stats()
     cfg = gpt.GPTConfig(use_flash_attention=True)
-    n_layers = cfg.num_layers
     arrays = gpt.init_fluid_params(cfg, seed=0)
     workdir = tempfile.mkdtemp(prefix="inference_server_")
     try:
@@ -2481,7 +2509,27 @@ def inference_server_phase(dev):
         shutil.rmtree(workdir, ignore_errors=True)
     model = gpt.GPTLM(cfg, device=dev)
     gpt.load_fluid_params(model, arrays)
-    del arrays
+    return {"cfg": cfg, "pred": pred, "model": model, "save_s": save_s,
+            "load_s": load_s}
+
+
+def inference_server_phase(dev, served):
+    """``served_gpt2``'s predictor served by ``InferenceServer``: the
+    predictor against the eager forward; the closed loop through the
+    server against the same requests run alone (``SERVE_CLIENTS``
+    clients, prompts of 20-256 tokens over the seq buckets 64/128/256,
+    two workers; then the same requests through one worker and one seq
+    bucket, the reference probe's conditions, where the batch fill must
+    reach 0.5); generation through a ``DecodeEngine`` built the
+    reference's way over the predictor's own parameters."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, pred, model = served["cfg"], served["pred"], served["model"]
+    n_layers = cfg.num_layers
+    save_s, load_s = served["save_s"], served["load_s"]
 
     # 1. the predictor against the eager forward, 12 flash launches a run
     rng = np.random.default_rng(5)
@@ -2595,8 +2643,497 @@ def inference_server_phase(dev):
                      "param_bytes": param_bytes},
         "peak_mem_mib": peak_mib, "launches": launches,
     }
-    del model, pred, engine, streams
+    del engine, streams
     torch.cuda.empty_cache()
+    return line, launches
+
+
+def _device_busy(fn):
+    """(wall ms, device-busy ms) of one call of ``fn`` under
+    torch.profiler: kernel and copy time on the card, whatever thread
+    launched it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            busy_us += e.self_cuda_time_total if us is None else us
+    return out, wall_ms, busy_us / 1e3
+
+
+def gateway_phase(dev, served):
+    """The gateway trials (``_gateway_trials``), with the flags, the
+    exporter and the preemption latch put back however they end."""
+    from paddle_tpu_torch.checkpoint import preempt
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.observability import exporter
+
+    flags.set_flags({"FLAGS_serving_strict_compiles": True,
+                     "FLAGS_obs_http_port": 0})
+    try:
+        return _gateway_trials(served)
+    finally:
+        exporter.stop_global()
+        preempt._reset_for_tests()
+        flags.set_flags({"FLAGS_serving_strict_compiles": False,
+                         "FLAGS_obs_http_port": -1})
+
+
+def _gateway_trials(served):
+    """``served_gpt2``'s model on HTTP through ``serving.Gateway`` (the
+    port's ``paddle_tpu_torch/serving/gateway.py``), with
+    ``FLAGS_serving_strict_compiles`` on and the exporter on port 0:
+    /v1/generate streams through a ``DecodeEngine(slots=8,
+    max_len=1024)`` over the predictor's scope, /v1/infer through the
+    classifier's and GPT-2's ``InferenceServer``. Launch counts are zeroed
+    just before the storm and read just after it."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.observability import exporter, registry, trace
+    from paddle_tpu_torch.serving.gateway import decode_tensor, encode_tensor
+    from paddle_tpu_torch.tools import gateway_probe as probe
+
+    cfg, pred, model = served["cfg"], served["pred"], served["model"]
+    n_layers = cfg.num_layers
+    tmp = tempfile.mkdtemp(prefix="gateway_phase_")
+    made = []
+    recording = make_recording_engine()
+
+    class Tracked(recording.stream_class):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    class Engine(recording):
+        stream_class = Tracked
+
+    xd = probe.build_classifier(os.path.join(tmp, "classifier"), "cuda")
+    cls_pred = probe.load_predictor(os.path.join(tmp, "classifier"), "cuda")
+    engine = Engine(cfg, scope=pred.scope, param_program=pred.program,
+                    slots=8, max_len=1024)
+    gen_server = serving.InferenceServer(
+        cls_pred, max_batch_size=8, batch_timeout_ms=5.0, num_workers=1,
+        decode_engine=engine).start(warmup_inputs=[xd])
+    rng = np.random.default_rng(9)
+    rows = [_gpt_feed(1, GW_INFER_SEQ, rng, cfg.vocab_size)
+            for _ in range(GW_INFER_RUNS)]
+    gpt_server = serving.InferenceServer(
+        pred, max_batch_size=1, batch_timeout_ms=1.0, num_workers=1,
+        ladder=serving.BucketLadder(max_batch=1,
+                                    seq_buckets=[GW_INFER_SEQ]),
+    ).start(warmup_inputs=rows[0])
+    logs = {k: os.path.join(tmp, k + ".jsonl") for k in ("gen", "gpt")}
+    gw = serving.Gateway(gen_server, port=0, access_log=logs["gen"]).start()
+    gw_gpt = serving.Gateway(gpt_server, port=0,
+                             access_log=logs["gpt"]).start()
+    base = "http://127.0.0.1:%d" % gw.port
+    base_gpt = "http://127.0.0.1:%d" % gw_gpt.port
+    sent = {"gen": 0, "gpt": 0}
+    prompts = make_prompts(model, GW_GEN_LENS, seed=4)
+    try:
+        # -- in process first: the oracles and the rates to compare -----
+        buckets = sorted({r for r, _ in gen_server.ladder.shapes()})
+        oracles = probe.bucket_oracles(cls_pred, xd, buckets)
+        want_logits = [gpt_server.infer(r)[0] for r in rows]
+        t0 = time.perf_counter()
+        inproc = [gen_server.generate(p, max_new_tokens=GW_GEN_NEW)
+                  for p in prompts]
+        want_tokens = [st.tokens(timeout=600) for st in inproc]
+        inproc_tps = len(prompts) * GW_GEN_NEW / (time.perf_counter() - t0)
+        built = ("predictor_plan_cache_misses", "executor_plan_builds",
+                 "serving_steady_recompiles")
+        c0 = dict(profiler.get_counters(), kernel_builds=_build.builds)
+
+        # -- the storm: 4 SSE generations + 4 classifier clients, then
+        # 2 GPT-2 /v1/infer one at a time --------------------------------
+        trace.reset()
+        trace_id = trace.new_trace_id()
+        results, errors, matched, ttfts = [], [], [], {}
+
+        def gen_client(i):
+            try:
+                t1 = time.perf_counter()
+                hdrs = {"X-Tenant-Id": "gen"}
+                if i == 0:
+                    hdrs["traceparent"] = trace.format_traceparent(
+                        trace_id, "a1b2c3d4e5f60718")
+                toks, done = probe._sse(
+                    base + "/v1/generate",
+                    {"prompt_ids": prompts[i], "max_new_tokens": GW_GEN_NEW},
+                    headers=hdrs, timeout=600,
+                    on_token=lambda t: ttfts.setdefault(
+                        i, (time.perf_counter() - t1) * 1e3))
+                results.append((i, toks, done))
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errors.append(exc)
+
+        def cls_client():
+            try:
+                for _ in range(GW_CLASSIFIER_REQS):
+                    st, body, _h = probe._post(
+                        base + "/v1/infer",
+                        {"inputs": [encode_tensor(xd)],
+                         "deadline_ms": 60000},
+                        headers={"X-Tenant-Id": "cls"})
+                    if st != 200:
+                        raise AssertionError("classifier %d %r" % (st, body))
+                    got = [decode_tensor(t) for t in body["outputs"]]
+                    b = probe.matching_bucket(got, oracles)
+                    if b is None:
+                        raise AssertionError("classifier result matches no "
+                                             "bucket's bits")
+                    matched.append(b)
+            except Exception as exc:  # noqa: BLE001
+                errors.append(exc)
+
+        def streams(classifiers):
+            """The SSE generations (beside ``classifiers`` classifier
+            clients); returns their wall seconds."""
+            threads = [threading.Thread(target=gen_client, args=(i,))
+                       for i in range(len(prompts))]
+            threads += [threading.Thread(target=cls_client)
+                        for _ in range(classifiers)]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            sent["gen"] += len(prompts) + classifiers * GW_CLASSIFIER_REQS
+            if errors:
+                raise errors[0]
+            return time.perf_counter() - t1
+
+        def storm():
+            gen_s = streams(GW_CLASSIFIER_CLIENTS)
+            got, ms = [], []
+            for r in rows:
+                t1 = time.perf_counter()
+                st, body, _h = probe._post(
+                    base_gpt + "/v1/infer",
+                    {"inputs": [encode_tensor(a) for a in r]}, timeout=600)
+                if st != 200:
+                    raise AssertionError("GPT-2 /v1/infer %d %r"
+                                         % (st, body))
+                got.append(decode_tensor(body["outputs"][0]))
+                ms.append((time.perf_counter() - t1) * 1e3)
+            sent["gpt"] += len(rows)
+            return gen_s, got, ms
+
+        # SSE alone, against the in-process rate above
+        sse_alone_s = streams(0)
+        ttft_alone = [ttfts[i] for i in sorted(ttfts)]
+        ttfts.clear()
+        fa.flash_attention_lse.launches = 0
+        fa.flash_decode_attention.launches = 0
+        fa.flash_decode_paged_attention.launches = 0
+        before = engine.stats()
+        t1 = time.perf_counter()
+        gen_s, http_logits, gpt_http_ms = storm()
+        storm_ms = (time.perf_counter() - t1) * 1e3
+        launches = {"flash_fwd": fa.flash_attention_lse.launches,
+                    "flash_decode": fa.flash_decode_attention.launches}
+        after = engine.stats()
+        c1 = dict(profiler.get_counters(), kernel_builds=_build.builds)
+        ttft_storm = [ttfts[i] for i in sorted(ttfts)]
+        # the client-sent traceparent: its gateway_request span, the
+        # ticks that decoded it, and /trace filtered by its id
+        exp = exporter.global_exporter()
+        with urllib.request.urlopen(
+                exp.url("/trace") + "?trace_id=" + trace_id,
+                timeout=30) as r:
+            traced = json.loads(r.read())
+        traced_names = {e["name"] for e in traced["traceEvents"]
+                        if e.get("ph") != "M"}
+        spans = trace.get_spans()
+        gw_span = [sp for sp in spans if sp["name"] == "gateway_request"
+                   and sp["trace_id"] == trace_id]
+        ticks = [sp for sp in spans if sp["name"] == "decode_tick"
+                 and trace_id in sp["args"].get("trace_ids", ())]
+        if not gw_span or not ticks or not {
+                "gateway_request", "decode_tick"} <= traced_names:
+            raise AssertionError("trace id %s: %d gateway spans, %d ticks, "
+                                 "/trace %s" % (trace_id, len(gw_span),
+                                                len(ticks),
+                                                sorted(traced_names)))
+        # the same storm again under torch.profiler for the card's busy
+        # time; the profiler slows the host, so the idle share divides
+        # by the unprofiled storm's wall
+        (_s, again, _ms), profiled_ms, busy_ms = _device_busy(storm)
+        http_logits += again
+        t1 = time.perf_counter()
+        for r in rows:
+            gpt_server.infer(r)
+        gpt_inproc_ms = (time.perf_counter() - t1) * 1e3 / len(rows)
+        prefills = after["prefills"] - before["prefills"]
+        steps = after["steps"] - before["steps"]
+        built_after = {k: c1.get(k, 0) - c0.get(k, 0)
+                       for k in built + ("kernel_builds",)}
+        if any(built_after.values()):
+            raise AssertionError("built under the strict gate: %s"
+                                 % built_after)
+        if launches["flash_fwd"] < n_layers * (prefills + len(rows)) or \
+                launches["flash_decode"] < n_layers * steps or not steps:
+            raise AssertionError("storm launches %s for %d prefills, %d "
+                                 "infer runs, %d steps"
+                                 % (launches, prefills, len(rows), steps))
+        mismatch = {}
+        if len(results) != 3 * len(prompts):
+            raise AssertionError("%d of %d streams came back"
+                                 % (len(results), 3 * len(prompts)))
+        for i, toks, done in results:
+            if len(toks) != GW_GEN_NEW or not done or not done.get("done"):
+                raise AssertionError("stream %d ended early: %d tokens, %r"
+                                     % (i, len(toks), done))
+            if toks != want_tokens[i]:
+                first = next(j for j, (a, b) in enumerate(
+                    zip(toks, want_tokens[i])) if a != b)
+                mismatch.setdefault(i, []).append(first)
+        for i, m in mismatch.items():
+            print("gateway: stream %d differs from in-process from tokens %s"
+                  " (near-ties; teacher-forced below)" % (i, m), flush=True)
+        logit_err, exact_share = teacher_forced_check(model, made)
+        gpt_bits = [bool(np.array_equal(g.view(np.uint32),
+                                        w.view(np.uint32)))
+                    for g, w in zip(http_logits, want_logits * 2)]
+        if not all(gpt_bits) or http_logits[0].shape != \
+                (1, GW_INFER_SEQ, cfg.vocab_size):
+            raise AssertionError("GPT-2 /v1/infer logits are not the "
+                                 "in-process bits: %s" % gpt_bits)
+        if len(matched) != 2 * GW_CLASSIFIER_CLIENTS * GW_CLASSIFIER_REQS:
+            raise AssertionError("classifier results: %d" % len(matched))
+
+        # -- the hop against in process, one request at a time ---------
+        inproc_ms, http_ms = [], []
+        trace.reset()
+        for _ in range(20):
+            t1 = time.perf_counter()
+            gen_server.infer([xd], deadline_ms=60000)
+            inproc_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            st, _b, _h = probe._post(base + "/v1/infer",
+                                     {"inputs": [encode_tensor(xd)]})
+            http_ms.append((time.perf_counter() - t1) * 1e3)
+        sent["gen"] += 20
+        span_p50 = float(np.median([
+            (sp["end"] - sp["start"]) * 1e3 for sp in trace.get_spans()
+            if sp["name"] == "gateway_request"]))
+        ttft_inproc, ttft_http = [], []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            st_ = gen_server.generate(prompts[0], max_new_tokens=4)
+            next(iter(st_.stream_tokens(timeout=60)))
+            ttft_inproc.append((time.perf_counter() - t1) * 1e3)
+            st_.tokens(timeout=60)
+            t1 = time.perf_counter()
+            first = []
+            probe._sse(base + "/v1/generate",
+                       {"prompt_ids": prompts[0], "max_new_tokens": 4},
+                       on_token=lambda t: first.append(
+                           (time.perf_counter() - t1) * 1e3))
+            ttft_http.append(first[0])
+        sent["gen"] += 3
+
+        # -- surfaces: 429, 504, /metrics, the trace, the access logs ---
+        limited = serving.Gateway(gen_server, port=0, rate_limit_rps=1.0,
+                                  rate_burst=1).start()
+        try:
+            lim = "http://127.0.0.1:%d/v1/infer" % limited.port
+            shed0 = (profiler.get_counter("gateway_shed_admission"),
+                     profiler.get_counter("gateway_shed_dispatch"))
+            r1 = probe._post(lim, {"inputs": [encode_tensor(xd)]},
+                             headers={"X-Tenant-Id": "bursty"})
+            r2 = probe._post(lim, {"inputs": [encode_tensor(xd)]},
+                             headers={"X-Tenant-Id": "bursty"})
+        finally:
+            limited.stop()
+        r3 = probe._post(base + "/v1/infer",
+                         {"inputs": [encode_tensor(xd)],
+                          "deadline_ms": 0.001})
+        sent["gen"] += 1
+        shed1 = (profiler.get_counter("gateway_shed_admission"),
+                 profiler.get_counter("gateway_shed_dispatch"))
+        if not (r1[0] == 200 and r2[0] == 429
+                and r2[1].get("reason") == "ratelimit"
+                and int(r2[2].get("Retry-After", 0)) >= 1):
+            raise AssertionError("429 mapping: %r %r" % (r1[0], r2[:2]))
+        if r3[0] != 504 or r3[1].get("reason") != "deadline":
+            raise AssertionError("504 mapping: %r" % (r3[:2],))
+        if shed1[0] - shed0[0] != 1 or shed1[1] - shed0[1] != 1:
+            raise AssertionError("sheds not counted apart: %s -> %s"
+                                 % (shed0, shed1))
+        with urllib.request.urlopen(exp.url("/metrics"), timeout=30) as r:
+            scraped = registry.parse_prometheus(r.read().decode("utf-8"))
+        names = {k[0] for k in scraped}
+        families = {f: sorted(n for n in names if n.startswith(f))
+                    for f in ("gateway_", "decode_")}
+        need = ("gateway_requests", "gateway_stream_tokens",
+                "gateway_shed_admission", "gateway_shed_dispatch",
+                "gateway_latency_ms_count", "gateway_ttft_ms_count",
+                "decode_requests", "decode_tokens", "decode_ttft_ms_count",
+                "decode_queue_depth")
+        missing = [n for n in need if n not in names]
+        if missing:
+            raise AssertionError("/metrics lacks %s" % missing)
+        access = {}
+        for k, path in logs.items():
+            with open(path) as f:
+                access[k] = [json.loads(ln) for ln in f if ln.strip()]
+            ids = [ln["request_id"] for ln in access[k]]
+            if len(ids) != sent[k] or len(set(ids)) != len(ids):
+                raise AssertionError("access log %s: %d lines, %d unique, "
+                                     "%d sent" % (k, len(ids), len(set(ids)),
+                                                  sent[k]))
+    finally:
+        gw.stop()
+        gw_gpt.stop()
+        gen_server.stop()
+        gpt_server.stop()
+
+    # -- the paged trial: the same front over the speculative engine ----
+    paged = Engine(cfg, scope=pred.scope, param_program=pred.program,
+                   slots=4, max_len=PAGED_MAX_LEN, block_size=PAGED_BLOCK,
+                   spec_tokens=SPEC_K)
+    paged_server = serving.InferenceServer(cls_pred,
+                                           decode_engine=paged).start()
+    gw_paged = serving.Gateway(paged_server, port=0).start()
+    base_paged = "http://127.0.0.1:%d" % gw_paged.port
+    paged_prompts = make_prompts(model, GW_PAGED_LENS, seed=5)
+    first_paged = len(made)
+    try:
+        paged_runs = {}
+        for width in (SPEC_K, 1):
+            paged.set_spec_width(width)
+            b0 = paged.stats()
+            fa.flash_decode_paged_attention.launches = 0
+            outs, errs = {}, []
+
+            def paged_client(i):
+                try:
+                    outs[i] = probe._sse(
+                        base_paged + "/v1/generate",
+                        {"prompt_ids": paged_prompts[i],
+                         "max_new_tokens": GW_GEN_NEW}, timeout=600)
+                except Exception as exc:  # noqa: BLE001
+                    errs.append(exc)
+
+            threads = [threading.Thread(target=paged_client, args=(i,))
+                       for i in range(len(paged_prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            if errs:
+                raise errs[0]
+            pl = fa.flash_decode_paged_attention.launches
+            psteps = paged.stats()["steps"] - b0["steps"]
+            dones = [outs[i][1] for i in sorted(outs)]
+            if any(len(outs[i][0]) != GW_GEN_NEW for i in outs):
+                raise AssertionError("paged stream ended early")
+            facts = [{k: d.get(k) for k in ("spec_drafted", "spec_accepted",
+                                            "spec_acceptance")}
+                     for d in dones]
+            if width > 1 and not all(f["spec_drafted"] for f in facts):
+                raise AssertionError("width-%d done events lack the draft "
+                                     "facts: %r" % (width, facts))
+            if width == 1 and (pl < n_layers * psteps or not psteps):
+                raise AssertionError("flash_decode_paged launched %d times "
+                                     "for %d width-1 steps" % (pl, psteps))
+            paged_runs["width%d" % width] = {
+                "steps": psteps, "flash_decode_paged_launches": pl,
+                "done_facts": facts}
+    finally:
+        gw_paged.stop()
+        paged_server.stop()
+    paged_err, _paged_exact = teacher_forced_check(model, made[first_paged:])
+    paged_launches = paged_runs["width1"]["flash_decode_paged_launches"]
+
+    # -- the SIGTERM drain, in a child process ---------------------------
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.gateway_probe",
+         "--gpt2", "--drain-only"], cwd=here, env=env, capture_output=True,
+        text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    lines = [ln for ln in child.stdout.splitlines()
+             if ln.startswith("REPORT ")]
+    if child.returncode != 0 or not lines:
+        raise AssertionError("drain child exit %d: %s %s"
+                             % (child.returncode, child.stdout[-1500:],
+                                child.stderr[-1500:]))
+    drain = json.loads(lines[-1][len("REPORT "):])["drain"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches["flash_decode_paged"] = paged_launches
+    tokens = len(prompts) * GW_GEN_NEW
+    line = {
+        "phase": "gateway", "model": "gpt2-small", "strict_gate": True,
+        "storm": {
+            "sse_streams": len(prompts), "prompt_lens": list(GW_GEN_LENS),
+            "new_tokens": GW_GEN_NEW,
+            "classifier_requests": len(matched),
+            "classifier_matched_bucket": {str(b): matched.count(b)
+                                          for b in sorted(set(matched))},
+            "gpt2_infer_runs": len(rows), "gpt2_infer_bit_equal": gpt_bits,
+            "prefills": prefills, "steps": steps, "launches": launches,
+            "built_after_warmup": built_after,
+            "sse_equal_in_process": not mismatch,
+            "sse_first_differing_token": mismatch,
+            "teacher_forced_max_logit_err": logit_err,
+            "exact_argmax_share": exact_share, "logit_atol": LOGIT_ATOL,
+            "wall_ms": storm_ms, "sse_section_s": gen_s,
+            "device_busy_ms": busy_ms, "profiled_wall_ms": profiled_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / storm_ms),
+            "gpt2_infer_http_ms": gpt_http_ms,
+            "gpt2_infer_inproc_ms": gpt_inproc_ms,
+        },
+        "hop": {
+            "infer_inproc_p50_ms": float(np.percentile(inproc_ms, 50)),
+            "infer_inproc_p99_ms": float(np.percentile(inproc_ms, 99)),
+            "infer_http_p50_ms": float(np.percentile(http_ms, 50)),
+            "infer_http_p99_ms": float(np.percentile(http_ms, 99)),
+            "ttft_inproc_ms": float(np.median(ttft_inproc)),
+            "ttft_http_ms": float(np.median(ttft_http)),
+            "ttft_sse_alone_ms": ttft_alone,
+            "ttft_storm_ms": ttft_storm,
+            # engine-stamped (submit to first token) beside the clients'
+            "ttft_engine_inproc_ms": [st.ttft_ms for st in inproc],
+            "ttft_engine_sse_alone_ms": [d["ttft_ms"] for _i, _t, d
+                                         in results[:len(prompts)]],
+            "ttft_engine_storm_ms": [d["ttft_ms"] for _i, _t, d
+                                     in results[len(prompts):
+                                                2 * len(prompts)]],
+            "tokens_per_s_inproc": inproc_tps,
+            "tokens_per_s_sse_alone": tokens / sse_alone_s,
+            "tokens_per_s_sse_storm": tokens / gen_s,
+            "gateway_request_span_p50_ms": span_p50,
+        },
+        "surfaces": {"status_429": [r1[0], r2[0]],
+                     "retry_after_s": r2[2].get("Retry-After"),
+                     "status_504": r3[0], "trace_id_ticks": len(ticks),
+                     "metrics_families": {k: len(v)
+                                          for k, v in families.items()},
+                     "access_log_lines": {k: len(v)
+                                          for k, v in access.items()}},
+        "paged": dict(paged_runs, teacher_forced_max_logit_err=paged_err),
+        "drain": dict(drain, child_s=child_s),
+    }
     return line, launches
 
 
@@ -2610,7 +3147,8 @@ def gpt2_small(dev):
     return model
 
 
-ONLY_PHASES = ("engine_features", "program_train", "inference_server")
+ONLY_PHASES = ("engine_features", "program_train", "inference_server",
+               "gateway")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -2619,13 +3157,17 @@ def run_only(phases, repeat, dev, name, smi):
     all passed. For chasing a phase that fails now and then."""
     failed = 0
     model = gpt2_small(dev) if "engine_features" in phases else None
+    served = served_gpt2(dev) if {"inference_server", "gateway"} & set(
+        phases) else None
     for run in range(repeat):
         for phase in phases:
             try:
                 if phase == "engine_features":
                     line = engine_features_phase(model)[0]
                 elif phase == "inference_server":
-                    line = inference_server_phase(dev)[0]
+                    line = inference_server_phase(dev, served)[0]
+                elif phase == "gateway":
+                    line = gateway_phase(dev, served)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -2648,7 +3190,7 @@ def main(argv=None):
     ap.add_argument("--only", default="",
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
-                         "inference_server)")
+                         "inference_server, gateway)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -2723,8 +3265,13 @@ def main(argv=None):
         dev, program["dropout0"]["program_losses"][0], fp32_grads)
     del fp32_grads
     emit(dict(amp_run, device=name, nvidia_smi=smi))
-    infer_run, infer_launches = inference_server_phase(dev)
+    served = served_gpt2(dev)
+    infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
+    gw_run, gw_launches = gateway_phase(dev, served)
+    emit(dict(gw_run, device=name, nvidia_smi=smi))
+    del served
+    torch.cuda.empty_cache()
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
     fwd_drop = train_rows["flash_fwd_dropout"]
@@ -2823,14 +3370,16 @@ def main(argv=None):
          "replaces": "paddle_tpu/kernels/flash_attention.py:149",
          "launches": launches["flash_fwd"]
          + feature_launches["flash_fwd"] + train_launches["flash_fwd"]
-         + program_launches["flash_fwd"] + infer_launches["flash_fwd"],
+         + program_launches["flash_fwd"] + infer_launches["flash_fwd"]
+         + gw_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
                               "train_eager": train_launches["flash_fwd"],
                               "train_program": program_launches["flash_fwd"],
                               "inference_server":
-                                  infer_launches["flash_fwd"]},
+                                  infer_launches["flash_fwd"],
+                              "gateway": gw_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -2851,11 +3400,13 @@ def main(argv=None):
          "source": "paddle_tpu_torch/csrc/flash_decode.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:363",
          "launches": launches["flash_decode"]
-         + feature_launches["flash_decode"] + infer_launches["flash_decode"],
+         + feature_launches["flash_decode"] + infer_launches["flash_decode"]
+         + gw_launches["flash_decode"],
          "launches_by_path": {
              "engine": launches["flash_decode"],
              "engine_features": feature_launches["flash_decode"],
-             "inference_server": infer_launches["flash_decode"]},
+             "inference_server": infer_launches["flash_decode"],
+             "gateway": gw_launches["flash_decode"]},
          "max_abs_err": dec_err,
          "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
          "bound_ms": dec_row["bound_ms"], "bound_by": dec_row["bound_by"],
@@ -2865,7 +3416,11 @@ def main(argv=None):
         {"name": "flash_decode_paged", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:459",
-         "launches": paged_launches["flash_decode_paged"],
+         "launches": paged_launches["flash_decode_paged"]
+         + gw_launches["flash_decode_paged"],
+         "launches_by_path": {
+             "paged_engine": paged_launches["flash_decode_paged"],
+             "gateway": gw_launches["flash_decode_paged"]},
          "max_abs_err": paged_err, "ms": paged_row["ms"],
          "plain_ms": paged_row["plain_ms"], "bound_ms": paged_row["bound_ms"],
          "bound_by": paged_row["bound_by"],

@@ -29,12 +29,13 @@ Executor's lock, and a run keeps all its other state to itself.
 
 import contextlib
 import threading
+import time
 
 import numpy as np
 import torch
 
 from . import core, profiler
-from ..observability import trace
+from ..observability import compile_stats, trace
 from .framework import Variable, default_main_program
 from .ops import registry as _registry
 
@@ -173,9 +174,11 @@ class Executor(object):
         plan = self._plans.get(key)
         if plan is not None:
             return plan
+        built_ms = None
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
+                t0 = time.perf_counter()
                 plan = _Plan(program, program.global_block())
                 for n in fetch_names:
                     for frees in plan.free_after:
@@ -185,6 +188,14 @@ class Executor(object):
                                if k[0] is not program}
                 self._plans[key] = plan
                 profiler.bump_counter("executor_plan_builds")
+                built_ms = (time.perf_counter() - t0) * 1e3
+        if built_ms is not None:
+            # outside the lock: under the armed strict gate this raises
+            # (the plan stays cached, as a build that happened)
+            compile_stats.on_build(
+                "executor_plan", compile_stats.program_label(program),
+                {"version": int(program._version),
+                 "fetches": list(fetch_names)}, built_ms)
         return plan
 
     def run(self, program=None, feed=None, fetch_list=None,

@@ -1,12 +1,14 @@
-"""Runtime flags (port of ``paddle_tpu/fluid/flags.py``: the serving
-and decode knobs).
+"""Runtime flags (port of ``paddle_tpu/fluid/flags.py``: the serving,
+decode, gateway and observability knobs).
 
-Only the knobs the micro-batching server, the decode engine and its
-scheduler read are carried over, with the reference's defaults, plus the
-same ``FLAGS_<name>`` environment bridge: an environment variable overrides a default when the
-module loads, and ``set_flags`` overrides at run time. ``version()``
-counts those writes, so a reader can cache what it derives from a flag
-and re-derive it only when the count moves. Later slices add their knobs
+Only the knobs that the micro-batching server, the decode engine and its
+scheduler, the gateway, the strict build gate, the tracer, the flight
+recorder, the exporter and the chaos harness read are carried over, with
+the reference's defaults, plus the same ``FLAGS_<name>`` environment
+bridge: an environment variable overrides a default when the module
+loads, and ``set_flags`` overrides at run time. ``version()`` counts
+those writes, so a reader can cache what it derives from a flag and
+re-derive it only when the count moves. Later slices add their knobs
 here.
 """
 
@@ -63,6 +65,77 @@ _DEFAULTS = {
     # prompt and emitted tokens on re-admission (token-exact)
     "sched_preempt": True,
     "sched_tenant_weights": "",
+    # strict serving gate (observability/compile_stats.py): once a
+    # server or engine finished its warmup, a build on a serving-request
+    # thread (an Executor plan, a predictor plan, a kernel library)
+    # raises SteadyStateRecompileError instead of only bumping
+    # serving_steady_recompiles
+    "serving_strict_compiles": False,
+    # HTTP gateway (serving/gateway.py): gateway_port binds the listener
+    # (0 = ephemeral); per-tenant token-bucket rate limit
+    # (gateway_rate_limit_rps refill, 0 = unlimited; gateway_rate_burst
+    # capacity) and inflight quota (gateway_tenant_max_inflight, 0 =
+    # unlimited); gateway_max_inflight caps the whole gateway (beyond it
+    # requests wait in priority order up to gateway_admit_timeout_ms,
+    # then shed 429); gateway_drain_timeout_s bounds the graceful drain;
+    # gateway_access_log appends one JSONL line per request ("" = off),
+    # rotated past gateway_access_log_max_mb (0 = unbounded)
+    "gateway_port": 0,
+    "gateway_rate_limit_rps": 0.0,
+    "gateway_rate_burst": 20,
+    "gateway_tenant_max_inflight": 0,
+    "gateway_max_inflight": 64,
+    "gateway_admit_timeout_ms": 100.0,
+    "gateway_drain_timeout_s": 30.0,
+    "gateway_access_log": "",
+    "gateway_access_log_max_mb": 0.0,
+    # the gateway's fleet KV pull (a decode-role replica pulls published
+    # blocks from a prefill-role peer listed in kv_tier_peers_file when
+    # it would cache fewer than kv_tier_pull_min_tokens locally; 0 = off)
+    "kv_tier_peers_file": "",
+    "kv_tier_pull_min_tokens": 0,
+    "kv_tier_pull_timeout_s": 2.0,
+    # flight recorder ring (one journey record per request) and the
+    # bounded span dump written beside it (observability/flight.py,
+    # exporter.dump_blackbox)
+    "trace_flight_records": 256,
+    "trace_dump_spans": 4096,
+    # deterministic fault injection (testing/chaos.py): -1/0/"" =
+    # disarmed; target_rank scopes step faults to one gang member;
+    # marker_dir makes each fault one-shot across restarts;
+    # die_after_tokens SIGKILLs the process after that many SSE tokens
+    "chaos_crash_at_step": -1,
+    "chaos_hang_at_step": -1,
+    "chaos_lose_rank": -1,
+    "chaos_lose_rank_at_step": -1,
+    "chaos_lose_rank_for": -1,
+    "chaos_nan_grad_at_step": -1,
+    "chaos_loss_spike_at_step": -1,
+    "chaos_bitflip_grad_at_step": -1,
+    "chaos_corrupt_ckpt": False,
+    "chaos_slow_feed_ms": 0.0,
+    "chaos_rpc_fail_n": 0,
+    "chaos_target_rank": -1,
+    "chaos_marker_dir": "",
+    "chaos_die_after_tokens": -1,
+    "chaos_die_replica": -1,
+    "chaos_kill_controller_after_s": -1.0,
+    # observability: obs_trace gates the span tracer, obs_trace_buffer
+    # bounds retained spans; obs_http_port exposes /metrics /healthz
+    # /trace /compiles (-1 off, 0 ephemeral, >0 that port or up to
+    # obs_http_port_retries successors); obs_dir arms per-rank JSONL
+    # snapshots and the black-box dumps, obs_snapshot_interval_s paces
+    # them (0 = one final snapshot only); obs_compile_records bounds the
+    # build-record ring. obs_compile_census is accepted and recorded:
+    # the port has no compiler census to run
+    "obs_trace": True,
+    "obs_trace_buffer": 65536,
+    "obs_http_port": -1,
+    "obs_http_port_retries": 8,
+    "obs_dir": "",
+    "obs_snapshot_interval_s": 0.0,
+    "obs_compile_census": True,
+    "obs_compile_records": 1024,
 }
 
 _flags = {}

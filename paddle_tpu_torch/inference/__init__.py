@@ -37,6 +37,7 @@ from ..fluid import core
 from ..fluid import io as _io
 from ..fluid import profiler as _profiler
 from ..fluid.executor import Executor, _to_numpy, scope_guard
+from ..observability import compile_stats as _compile_stats
 
 __all__ = [
     "AnalysisConfig",
@@ -261,6 +262,13 @@ class AnalysisPredictor(object):
         hit = holder.check_feed_plan(sig)
         _profiler.bump_counter("predictor_plan_cache_hits" if hit
                                else "predictor_plan_cache_misses")
+        if not hit:
+            # a new shape signature on a served path is a build the
+            # strict gate counts (and, strict, refuses before the run)
+            _compile_stats.on_build(
+                "predictor_plan",
+                _compile_stats.program_label(self._program),
+                {"feeds": [[list(s), d] for s, d in sig]})
         for name, arr in zip(self._feed_names, arrs):
             self._inputs[name] = torch.from_numpy(arr).to(self._device)
         self.zero_copy_run()

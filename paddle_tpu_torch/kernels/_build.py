@@ -7,9 +7,10 @@ build happens at first use, into ``paddle_tpu_torch/_build/`` (listed in
 file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a
 stale library is never loaded. ``build()`` starts one ``nvcc`` per
-source, all at once, and counts each library it compiles in ``builds``
-(a server asserts it stays still after warmup). ``load`` builds under a
-lock: two threads never start ``nvcc``
+source, all at once, counts each library it compiles in ``builds`` and
+reports it to ``observability.compile_stats`` (kind ``kernel_library``),
+whose strict gate refuses a build on a serving-request thread after
+warmup. ``load`` builds under a lock: two threads never start ``nvcc``
 on one source together.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -151,7 +152,29 @@ def build(names=None):
         out[name] = {"seconds": secs, "cached": False, "log": log}
     if failures:
         raise RuntimeError("kernel build failed: " + "\n".join(failures))
+    _report_builds(out)
     return out
+
+
+def _report_builds(out):
+    """Each library compiled in this call to the build telemetry; under
+    the armed strict gate the first refusal is raised once every build
+    is recorded."""
+    from ..observability import compile_stats
+
+    refused = None
+    for name, info in out.items():
+        if info["cached"]:
+            continue
+        try:
+            compile_stats.on_build(
+                "kernel_library", name,
+                {"library": os.path.basename(_lib_path(name)[1])},
+                info["seconds"] * 1e3)
+        except compile_stats.SteadyStateRecompileError as e:
+            refused = refused or e
+    if refused is not None:
+        raise refused
 
 
 def load(name, dtype="f32"):

@@ -208,8 +208,9 @@ def snapshot(rank=None):
     wall-clock ``ts`` (for humans) AND monotonic ``ts_mono`` (orders
     events across NTP steps on one host), rank/pid, counters, gauges,
     and per-histogram summaries: the per-rank record a gang aggregator
-    merges. (The reference's per-rank compile roll-up, ``compiles``,
-    comes with the compile gate.)"""
+    merges."""
+    from . import compile_stats as _compile_stats
+
     rank = _trace.gang_rank(rank)
     hists = {
         name: percentiles(samples, points=(50, 95, 99))
@@ -224,6 +225,9 @@ def snapshot(rank=None):
         "counters": _profiler.get_counters(),
         "gauges": gauge_values(),
         "histograms": hists,
+        # per-rank build roll-up (kinds, triggers, steady violations,
+        # the newest records), as the reference's compile roll-up
+        "compiles": _compile_stats.summary(),
     }
 
 

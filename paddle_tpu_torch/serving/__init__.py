@@ -8,8 +8,11 @@ deadlines, a warmup of every bucket at start (nothing built on the
 request path after it) and a ServingStats snapshot riding the always-on
 ``fluid.profiler`` counters. Generation rides ``DecodeEngine``
 (``serving/decode.py``), standalone or through
-``InferenceServer.generate()``. The HTTP gateway, its access log and the
-fleet are later slices.
+``InferenceServer.generate()``. ``Gateway`` (``serving/gateway.py``)
+puts a server and its engine on HTTP (``POST /v1/infer``, SSE
+``POST /v1/generate``, ``/healthz``, ``/readyz``, per-tenant admission,
+graceful drain), with one JSONL ``AccessLog`` line per request. The
+fleet control plane is a later slice.
 
 Quickstart::
 
@@ -24,7 +27,18 @@ Quickstart::
     server.stop()
 """
 
-from . import batcher, buckets, decode, metrics, pool, server  # noqa: F401
+from . import (  # noqa: F401
+    access_log,
+    batcher,
+    buckets,
+    decode,
+    gateway,
+    kv_tier,
+    metrics,
+    pool,
+    server,
+)
+from .access_log import AccessLog
 from .batcher import (
     DeadlineExceededError,
     MicroBatcher,
@@ -32,6 +46,7 @@ from .batcher import (
     ServingError,
 )
 from .buckets import BatchPlan, BucketLadder
+from .gateway import Gateway
 from .decode import (
     DecodeEngine,
     DecodeSession,
@@ -44,6 +59,11 @@ from .pool import PredictorPool
 from .server import InferenceServer
 
 __all__ = [
+    "access_log",
+    "gateway",
+    "kv_tier",
+    "Gateway",
+    "AccessLog",
     "batcher",
     "buckets",
     "decode",

@@ -17,9 +17,9 @@ buildup. Concurrent requests coalesce into one device batch under a
 
 All coalescer metrics ride the always-on ``fluid.profiler`` counters;
 the live queue length is the ``serving_queue_depth`` gauge of
-``observability.registry``. Unlike the reference, a request carries no
-distributed-trace context yet (the port's tracer has none; ROADMAP queue
-C): the dispatch span names its rows and requests only.
+``observability.registry``. A request carries the distributed-trace
+context of the thread that submitted it, and the dispatch span lists the
+trace ids of its batch.
 """
 
 import threading
@@ -68,7 +68,7 @@ _DISPATCH_MARGIN_S = 0.002
 
 class _Request(object):
     __slots__ = ("inputs", "rows", "sig", "enqueue_t", "deadline_t",
-                 "event", "result", "error", "seq_plan")
+                 "event", "result", "error", "seq_plan", "trace_ctx")
 
     def __init__(self, inputs, rows, sig, deadline_t):
         self.seq_plan = None  # set by the server's seq-bucket alignment
@@ -80,6 +80,11 @@ class _Request(object):
         self.event = threading.Event()
         self.result = None
         self.error = None
+        # distributed-trace hand-off: captured on the submitting thread
+        # (the gateway handler's ambient trace_scope), read by the
+        # dispatch worker so the coalesced batch's span can name every
+        # request it served; None outside a scope
+        self.trace_ctx = _trace.current_context()
 
     def complete(self, result=None, error=None):
         self.result = result
@@ -258,9 +263,15 @@ class MicroBatcher(object):
             rows = sum(r.rows for r in live)
             # the dispatch span covers stacking and the runner (whose
             # predictor_run span nests inside), so queue time and device
-            # time separate
+            # time separate. A coalesced batch serves several requests'
+            # traces at once, so it lists every member's trace id rather
+            # than adopting one request's context (skipped when tracing
+            # is off)
+            tids = (sorted({r.trace_ctx[0] for r in live if r.trace_ctx})
+                    if _trace.enabled() else [])
             with _trace.span("serving_dispatch", cat="serving", rows=rows,
-                             requests=len(live)):
+                             requests=len(live),
+                             **({"trace_ids": tids} if tids else {})):
                 stacked = [
                     np.concatenate([r.inputs[i] for r in live], axis=0)
                     if len(live) > 1 else live[0].inputs[i]

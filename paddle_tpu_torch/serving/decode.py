@@ -52,10 +52,17 @@ stream, which re-admits token-exactly later.
 windows, block copies, fused step); ``DecodeEngine`` owns the loop
 thread (admission queue, prefix store, windows, streaming, retirement)
 and publishes its gauges to ``observability.registry`` while it runs.
-Left for later slices, as in ROADMAP.md: the host KV tier and chain
-export, tensor parallelism, and the strict compile gate.
+As the reference's engine it starts the exporter at ``start()``, arms
+the strict build gate (``observability.compile_stats``) after its
+warmup and runs every window, copy and step inside a
+``serving_request_window``; a stream carries the trace context it was
+submitted under, re-entered around its slot's windows, and each fused
+tick of traced streams is a ``decode_tick`` span listing their trace
+ids. Left for later slices, as in ROADMAP.md: the host KV tier and
+chain export, and tensor parallelism.
 """
 
+import contextlib
 import hashlib
 import queue
 import re
@@ -72,6 +79,8 @@ from ..fluid import framework as _framework
 from ..fluid import profiler as _profiler
 from ..fluid.ops import nn_ops as _nn_ops
 from ..models import gpt as _gpt
+from ..observability import compile_stats as _compile_stats
+from ..observability import exporter as _obs_exporter
 from ..observability import registry as _registry
 from ..observability import trace as _trace
 from .batcher import ServerOverloadedError, ServingError
@@ -959,6 +968,12 @@ class GenerationStream(object):
         self.admit_windows = 0
         self.spec_drafted = 0
         self.spec_accepted = 0
+        # distributed-trace hand-off: the stream is built on the
+        # submitting thread (the gateway handler inside its trace_scope);
+        # the engine's loop re-enters this context around the slot's
+        # windows and copies and lists its trace id on every decode tick
+        # the slot rides
+        self.trace_ctx = _trace.current_context()
         self._t_submit = time.monotonic()
         self._t_last_emit = None
         self._q = queue.Queue()
@@ -1051,6 +1066,14 @@ class GenerationStream(object):
         resumed stream includes its resume suffix: the same sequence the
         uninterrupted run returns."""
         return self.prompt_ids + self.resume_tokens + self.tokens(timeout)
+
+
+def _stream_scope(stream):
+    """The trace context of one request's stream, re-entered on the
+    engine's loop thread so the slot's window, copy and publish spans
+    join the request's tree. A no-op scope for untraced streams."""
+    ctx = getattr(stream, "trace_ctx", None) or (None, None)
+    return _trace.trace_scope(*ctx)
 
 
 class _Slot(object):
@@ -1282,6 +1305,7 @@ class DecodeEngine(object):
         self._sched_weights = {}
         self._sched_weights_ver = None
         self._gauges = {}  # registry name -> the callable registered
+        self._armed = False  # this engine's count in the strict gate
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, loop=True):
@@ -1328,6 +1352,9 @@ class DecodeEngine(object):
         self._free = list(range(self.session.slots))
         self._stop = False
         try:
+            # telemetry as InferenceServer: the exporter lights up from
+            # the flags, and the strict gate arms counted, per engine
+            _obs_exporter.maybe_start_from_flags()
             # occupancy counts the slots admission cannot use: decoding
             # and mid-chunked-prefill ones
             gauges = {
@@ -1347,6 +1374,8 @@ class DecodeEngine(object):
             for name, fn in gauges.items():
                 _registry.register_gauge(name, fn)
                 self._gauges[name] = fn
+            _compile_stats.arm_serving_steady()
+            self._armed = True
             if loop:
                 self._thread = threading.Thread(
                     target=self._loop, name="decode-engine", daemon=True)
@@ -1354,9 +1383,15 @@ class DecodeEngine(object):
             # last: a half-started engine must never look started
             self.started = True
         except Exception:
+            self._disarm()
             self._drop_gauges()
             raise
         return self
+
+    def _disarm(self):
+        if self._armed:
+            _compile_stats.disarm_serving_steady()
+            self._armed = False
 
     def _drop_gauges(self):
         """Unregister every gauge this engine published (a successor's
@@ -1370,28 +1405,30 @@ class DecodeEngine(object):
         both block copies where armed) and the decode step once (paged:
         each window bucket and each step width through all-sink tables,
         and the block copy), then zero the caches."""
-        sess = self.session
-        if sess.paged:
-            sink = [BlockAllocator.SINK] * sess.max_blocks
-            for T in sess.buckets:
-                sess.paged_window(sink, [0] * T, 0)
-            for w in sess.widths:
-                sess.paged_step(np.zeros((sess.slots, w), "int64"),
-                                [0] * sess.slots, None,
-                                [False] * sess.slots, width=w)
-            sess.block_copy([BlockAllocator.SINK], [BlockAllocator.SINK])
-        else:
-            for T in sess.buckets:
-                sess.prefill(0, [0] * min(T, sess.max_len - 1))
-            if sess.resumable:
+        with _compile_stats.warmup_window(), _trace.span(
+                "decode_warmup", cat="serving"):
+            sess = self.session
+            if sess.paged:
+                sink = [BlockAllocator.SINK] * sess.max_blocks
                 for T in sess.buckets:
-                    sess.resume_prefill(0, [0] * T, 0)
-            if sess.stores:
-                sess.prefix_copy_in(0, 0, 0)
-                sess.prefix_publish(0, 0, 0)
-            sess.decode_step([0] * sess.slots, [0] * sess.slots,
-                             [False] * sess.slots)
-        sess.reset_caches()
+                    sess.paged_window(sink, [0] * T, 0)
+                for w in sess.widths:
+                    sess.paged_step(np.zeros((sess.slots, w), "int64"),
+                                    [0] * sess.slots, None,
+                                    [False] * sess.slots, width=w)
+                sess.block_copy([BlockAllocator.SINK], [BlockAllocator.SINK])
+            else:
+                for T in sess.buckets:
+                    sess.prefill(0, [0] * min(T, sess.max_len - 1))
+                if sess.resumable:
+                    for T in sess.buckets:
+                        sess.resume_prefill(0, [0] * T, 0)
+                if sess.stores:
+                    sess.prefix_copy_in(0, 0, 0)
+                    sess.prefix_publish(0, 0, 0)
+                sess.decode_step([0] * sess.slots, [0] * sess.slots,
+                                 [False] * sess.slots)
+            sess.reset_caches()
 
     def stop(self):
         if not self.started:
@@ -1403,6 +1440,7 @@ class DecodeEngine(object):
             self._thread.join(timeout=30)
             if not self._thread.is_alive():
                 self._thread = None
+        self._disarm()
         self._drop_gauges()
         # drain under the lock submit() enqueues under, flipping started
         # inside it: a racing submit either lands before the drain (and is
@@ -1811,10 +1849,13 @@ class DecodeEngine(object):
                 self.prefix.release(entries[keep:])
                 entries = entries[:keep]
             try:
-                for j, e in enumerate(entries):
-                    self.session.prefix_copy_in(slot_idx,
-                                                j * self.prefix_block,
-                                                e.block_idx)
+                if entries:
+                    with _stream_scope(stream), \
+                            _compile_stats.serving_request_window():
+                        for j, e in enumerate(entries):
+                            self.session.prefix_copy_in(
+                                slot_idx, j * self.prefix_block,
+                                e.block_idx)
             except Exception as exc:  # noqa: BLE001 - per-request failure
                 self._free.append(slot_idx)
                 stream._fail(exc)
@@ -1827,7 +1868,8 @@ class DecodeEngine(object):
                                   self.prefix is not None)
             job = _PrefillJob(stream, wins)
             if len(wins) == 1:
-                self._run_prefill_window(slot_idx, job)
+                with _stream_scope(stream):
+                    self._run_prefill_window(slot_idx, job)
                 continue
             with self._cond:
                 # stop() drains under this lock: parking the job after
@@ -1893,7 +1935,8 @@ class DecodeEngine(object):
                               self.pindex is not None)
         job = _PrefillJob(stream, wins)
         if len(wins) == 1:
-            self._run_prefill_window(slot_idx, job)
+            with _stream_scope(stream):
+                self._run_prefill_window(slot_idx, job)
             return
         with self._cond:
             if self._stop or not self.started:
@@ -1908,7 +1951,9 @@ class DecodeEngine(object):
         streams pay at most one window plus one fused step per token."""
         if self._prefilling:
             slot_idx = next(iter(self._prefilling))
-            self._run_prefill_window(slot_idx, self._prefilling[slot_idx])
+            job = self._prefilling[slot_idx]
+            with _stream_scope(job.stream):
+                self._run_prefill_window(slot_idx, job)
 
     def _run_prefill_window(self, slot_idx, job):
         """Advance ``job`` by one window; after the prompt's last window,
@@ -1920,14 +1965,15 @@ class DecodeEngine(object):
         prompt = self._admission_prompt(stream)
         s, e = job.windows[job.wi]
         try:
-            if self._paged:
-                logits = self.session.paged_window(
-                    self._slot_blocks[slot_idx], prompt[s:e], s)
-            elif s == 0 and e == len(prompt):
-                logits = self.session.prefill(slot_idx, prompt)
-            else:
-                logits = self.session.resume_prefill(slot_idx, prompt[s:e],
-                                                     s)
+            with _compile_stats.serving_request_window():
+                if self._paged:
+                    logits = self.session.paged_window(
+                        self._slot_blocks[slot_idx], prompt[s:e], s)
+                elif s == 0 and e == len(prompt):
+                    logits = self.session.prefill(slot_idx, prompt)
+                else:
+                    logits = self.session.resume_prefill(
+                        slot_idx, prompt[s:e], s)
             job.wi += 1
             if job.wi < len(job.windows):
                 # re-park under the drain lock, as _active insertion
@@ -1987,9 +2033,10 @@ class DecodeEngine(object):
         the request streams on."""
         new = self.prefix.publish(prompt)
         try:
-            for entry, b in new:
-                self.session.prefix_publish(slot_idx, b * self.prefix_block,
-                                            entry.block_idx)
+            with _compile_stats.serving_request_window():
+                for entry, b in new:
+                    self.session.prefix_publish(
+                        slot_idx, b * self.prefix_block, entry.block_idx)
         except Exception:  # noqa: BLE001 - publishing is an optimisation
             for entry, _b in new:
                 self.prefix.forget(entry)
@@ -2029,7 +2076,8 @@ class DecodeEngine(object):
             raise ServerOverloadedError(
                 "paged KV pool exhausted during copy-on-write",
                 retry_after_ms=50)
-        self.session.block_copy([blk], got)
+        with _compile_stats.serving_request_window():
+            self.session.block_copy([blk], got)
         blocks[block_i] = got[0]
         self.allocator.decref([blk])
 
@@ -2076,6 +2124,18 @@ class DecodeEngine(object):
             self._count_retirement()
             stream._finish(reason)
 
+    def _tick_span(self):
+        """A fused tick decodes every traced stream at once: a
+        ``decode_tick`` span lists their trace ids (as the batcher's
+        dispatch span does), opened only when some stream is traced and
+        tracing is on (an untraced tick pays nothing)."""
+        tids = sorted({s.stream.trace_ctx[0] for s in self._active.values()
+                       if s.stream.trace_ctx}) if _trace.enabled() else None
+        if not tids:
+            return contextlib.nullcontext()
+        return _trace.span("decode_tick", cat="serving", tick=self.tick,
+                           trace_ids=tids)
+
     def _step(self):
         """One fused decode step over every active slot."""
         if self._paged:
@@ -2096,7 +2156,8 @@ class DecodeEngine(object):
             # overwrites before any query reads it. A free slot's position
             # 0 would corrupt the row head and the blocks it publishes
             positions[idx] = job.windows[job.wi][0]
-        logits = sess.decode_step(tokens, positions, active)
+        with self._tick_span(), _compile_stats.serving_request_window():
+            logits = sess.decode_step(tokens, positions, active)
         self.tick += 1
         for idx in list(self._active.keys()):
             slot = self._active[idx]
@@ -2174,8 +2235,9 @@ class DecodeEngine(object):
             tables[idx] = self._slot_blocks[idx]
         # idle and mid-prefill slots keep the all-sink table: their
         # writes land in block 0
-        logits = sess.paged_step(tokens, positions, tables, active,
-                                 width=width)
+        with self._tick_span(), _compile_stats.serving_request_window():
+            logits = sess.paged_step(tokens, positions, tables, active,
+                                     width=width)
         self.tick += 1
         for idx in list(self._active.keys()):
             slot = self._active[idx]

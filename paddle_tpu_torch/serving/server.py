@@ -14,14 +14,15 @@ deployment tunes the policy through ``FLAGS_`` environment variables.
 the pool, so steady-state traffic builds nothing on the request path: no
 Executor plan (``executor_plan_builds``), no kernel library
 (``kernels/_build.py``'s ``builds``), no new predictor signature
-(``predictor_plan_cache_misses``). ``stats()`` returns the ServingStats
+(``predictor_plan_cache_misses``). After warmup the server arms the
+strict gate (``observability.compile_stats``): a build inside a
+dispatch then bumps ``serving_steady_recompiles`` and, under
+``FLAGS_serving_strict_compiles``, fails its batch. ``start()`` starts
+the exporter when the ``FLAGS_obs_*`` knobs ask for one; ``stop()``
+writes the final snapshot. ``stats()`` returns the ServingStats
 snapshot. Generation rides an attached ``DecodeEngine``
-(``decode_engine=``, ``generate``).
-
-Left out for now (ROADMAP queue C): the reference's telemetry exporter
-(``exporter.maybe_start_from_flags`` / ``final_snapshot``) and its
-steady-state compile gate (``xla_stats``), whose counterparts the port
-does not have yet; the HTTP gateway is a later slice.
+(``decode_engine=``, ``generate``); ``serving.Gateway`` puts both on
+HTTP.
 """
 
 import threading
@@ -30,6 +31,8 @@ import numpy as np
 
 from ..fluid import flags as _flags
 from ..fluid import profiler as _profiler
+from ..observability import compile_stats as _compile_stats
+from ..observability import exporter as _obs_exporter
 from ..observability import registry as _obs_registry
 from ..observability import trace as _trace
 from .batcher import MicroBatcher, ServingError
@@ -76,6 +79,7 @@ class InferenceServer(object):
         self._baseline = {}
         self._lat_base = 0
         self._pool_gauge = None
+        self._steady_armed = False
         self._started = False
         # autoregressive generation rides a DecodeEngine; whole-forward
         # traffic keeps the micro-batcher path
@@ -106,8 +110,17 @@ class InferenceServer(object):
             default_deadline_ms=self.default_deadline_ms,
         )
         self._started = True
+        # telemetry: FLAGS_obs_* light up /metrics /healthz /trace
+        # /compiles and JSONL snapshots (a no-op when disarmed)
+        _obs_exporter.maybe_start_from_flags()
         self._pool_gauge = lambda p=self._pool: p.free_count
         _obs_registry.register_gauge("serving_pool_free", self._pool_gauge)
+        # warmup is over: from here a build inside a dispatch is a
+        # steady-state build, counted and (strict) fatal to its batch.
+        # Counted per owner: stopping an older server must not disarm
+        # the gate under a live successor
+        _compile_stats.arm_serving_steady()
+        self._steady_armed = True
         if self._decode_engine is not None and \
                 not self._decode_engine.started:
             # a failed engine start unwinds the whole server: the caller
@@ -126,7 +139,8 @@ class InferenceServer(object):
         so live traffic interleaves with the warmup."""
         example = [np.asarray(a) for a in example_inputs]
         c_before = _profiler.get_counters()
-        with _trace.span("serving_warmup", cat="serving"):
+        with _compile_stats.warmup_window(), _trace.span(
+                "serving_warmup", cat="serving"):
             self._warm_ladder(example)
         if self._started:
             # warmup on a live server: fold its plan-cache activity into
@@ -159,6 +173,12 @@ class InferenceServer(object):
                 self._predictor.run(padded)
 
     def stop(self):
+        # a serving process with FLAGS_obs_dir armed leaves its per-rank
+        # snapshot (a no-op otherwise)
+        _obs_exporter.final_snapshot()
+        if self._steady_armed:
+            _compile_stats.disarm_serving_steady()
+            self._steady_armed = False
         if self._pool_gauge is not None:
             # only this server's registration: a later server that
             # re-registered the gauge keeps it
@@ -255,9 +275,11 @@ class InferenceServer(object):
                                plan.padded_rows - plan.rows)
         self._record_bucket(padded)
         # nests inside the batcher's serving_dispatch span: pool wait +
-        # device time vs stacking/padding overhead
-        with _trace.span("predictor_run", cat="serving", rows=rows,
-                         padded_rows=plan.padded_rows):
+        # device time vs stacking/padding overhead. The request window
+        # scopes the steady-state gate to this thread's builds
+        with _compile_stats.serving_request_window(), _trace.span(
+                "predictor_run", cat="serving", rows=rows,
+                padded_rows=plan.padded_rows):
             # a blocking acquire: while warmup (or a slow batch) holds the
             # pool, batches wait rather than fail; per-request deadlines
             # bound what the caller sees

@@ -73,6 +73,7 @@ assert "amp_rewrite_pass" in ir.all_registered_passes()
 from paddle_tpu_torch import inference
 from paddle_tpu_torch.fluid import io, proto, proto_wire
 from paddle_tpu_torch.fluid.ops import io_ops
+from paddle_tpu_torch import serving
 from paddle_tpu_torch.serving import buckets, metrics, pool, server
 for fn in (io.save_inference_model, io.load_inference_model,
            io.save_persistables, io.load_persistables, proto.program_to_bytes,
@@ -85,6 +86,27 @@ for fn in (io.save_inference_model, io.load_inference_model,
 for op_type in ("save", "load", "save_combine", "load_combine", "feed",
                 "fetch", "print"):
     assert registry.has_op(op_type), op_type
+# the gateway and observability slice
+from paddle_tpu_torch.checkpoint import preempt
+from paddle_tpu_torch.observability import (compile_stats, exporter, flight,
+                                            trace)
+from paddle_tpu_torch.serving import access_log, gateway, kv_tier
+from paddle_tpu_torch.testing import chaos
+from paddle_tpu_torch.tools import gateway_probe
+for fn in (gateway.Gateway, gateway.encode_tensor, gateway.decode_tensor,
+           access_log.AccessLog, kv_tier.chain_keys, kv_tier.encode_entries,
+           kv_tier.decode_entries, kv_tier.read_peers,
+           preempt.request_preemption, preempt.preemption_requested,
+           chaos.on_stream_token, exporter.maybe_start_from_flags,
+           exporter.final_snapshot, exporter.dump_blackbox,
+           exporter.stop_global, flight.note, flight.dump_on_error,
+           trace.trace_scope, trace.current_context, trace.chrome_trace,
+           trace.parse_traceparent, compile_stats.arm_serving_steady,
+           compile_stats.serving_request_window, compile_stats.warmup_window,
+           compile_stats.summary, gateway_probe.run_probe,
+           serving.Gateway, serving.AccessLog):
+    assert callable(fn)
+assert issubclass(compile_stats.SteadyStateRecompileError, RuntimeError)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
