@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only program_train --repeat 6
+    python3 chip_smoke.py --only fleet
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
-``gateway``), ``--repeat`` times,
+``gateway``, ``fleet``), ``--repeat`` times,
 printing each run's line whether it passed or not. Phases, one JSON line
 each:
 
@@ -124,6 +125,30 @@ each:
            --gpt2 --drain-only``). Records the HTTP hop against in
            process (TTFT, infer p50/p99, tokens/s), the drain seconds and
            the card's idle share over the storm.
+14. fleet  the serving control plane. First the port's closed-loop probe
+           with its replicas on the card (``python -m
+           paddle_tpu_torch.tools.fleet_probe --fast --device cuda``:
+           failover, autoscale, rollout, strict gate, durable
+           generations, the KV tier, controller durability). Then GPT-2
+           small from a ``FleetController`` of 3 replicas (1 prefill
+           role, 2 decode; ``--gpt-decode`` with GPT-2's widths, seed 0,
+           paged, host tier on) spawned through this script's hidden
+           ``--fleet-replica`` mode, all traffic through its ``Router``:
+           8 SSE streams behind one 512-token prefix (the first pulls the
+           chain from the prefill peer over ``/v1/kv/prefill``, the rest
+           hit it by affinity), two more 512-token prefixes that spill
+           the first to the host tier, the first again (readmitted from
+           the host), 6 streams of which one replica's die mid-stream
+           (chaos) and resume on the survivor, and a ``deploy()`` of a
+           second GPT-2 version under ``/v1/infer`` traffic. Every token
+           teacher-forced, resumed streams against an uninterrupted run,
+           every ``/v1/infer`` answer bit for bit its version's oracle,
+           pull/spill/readmit counters, 0 builds after warmup, and each
+           replica's own launches (written when it drains) against its
+           steps and forwards. Records the router hop, the pull against
+           a local prefill, the tier's D2H/H2D copies, the failover blip,
+           replica cold starts, peak memory per replica and the card's
+           idle share (``nvidia-smi`` utilization).
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -275,6 +300,42 @@ GW_GEN_LENS, GW_GEN_NEW = (20, 100, 260, 500), 32
 GW_CLASSIFIER_CLIENTS, GW_CLASSIFIER_REQS = 4, 6
 GW_INFER_SEQ, GW_INFER_RUNS = 64, 2
 GW_PAGED_LENS = (40, 300)
+# The serving fleet: the port's closed-loop probe on the card first
+# (``paddle_tpu_torch.tools.fleet_probe --fast --device cuda``), then
+# GPT-2 small from a FleetController of 3 paged replicas (1 prefill role,
+# 2 decode) behind its Router. Each replica serves the saved GPT-2 on
+# /v1/infer ([1, 64] rows, batch 1) and a seeded GPT-2 decode engine on
+# /v1/generate (block 16, slots 8, max_len 1024). Its prefix index holds
+# 48 blocks of 1.125 MiB (54 MB): one 512-token chain (32 blocks) and one
+# prompt's suffix (a 700-token prompt has 43 blocks; a prompt whose chain
+# outgrew the index would evict its own root, which the LRU holds
+# oldest), so two more 512-token chains push the first one out to the
+# host tier; its host tier 256 MB; a decode replica pulls a chain from the prefill
+# peer when it would cache fewer than 256 of a prompt's tokens; the
+# replicas advertise up to 64 chain heads (the index's whole content),
+# so a prompt's shared prefix stays among the advertised keys. Replica 2
+# SIGKILLs itself after its 24th SSE token (chaos).
+FLEET_SPEC = {"seed": 0, "vocab_size": 50257, "hidden_size": 768,
+              "num_layers": 12, "num_heads": 12, "intermediate_size": 3072,
+              "use_flash_attention": True, "max_len": 1024, "slots": 8}
+FLEET_INFER_SEQ = 64
+FLEET_PREFIX, FLEET_NEW = 512, 32
+FLEET_SHARED_LENS = (520, 540, 560, 590, 620, 650, 680, 700)
+FLEET_FAILOVER_LENS = (40, 90, 150, 200, 250, 300)
+FLEET_DIE_REPLICA, FLEET_DIE_AFTER = 2, 24
+FLEET_READMIT_MIN = 496   # 31 of a 512-token prefix's 32 blocks
+FLEET_ENV = {
+    "FLAGS_decode_block_size": "16",
+    "FLAGS_decode_prefix_cache_mb": "54",
+    "FLAGS_kv_tier_host_mb": "256",
+    "FLAGS_kv_tier_pull_min_tokens": "256",
+    "FLAGS_kv_tier_advert_k": "64",
+    "FLAGS_serving_strict_compiles": "1",
+    "FLAGS_serving_max_batch_size": "1",
+    "FLAGS_obs_snapshot_interval_s": "1.0",
+    "FLAGS_chaos_die_after_tokens": str(FLEET_DIE_AFTER),
+    "FLAGS_chaos_die_replica": str(FLEET_DIE_REPLICA),
+}
 
 
 def emit(obj):
@@ -2474,6 +2535,26 @@ def _serve_run(pred, requests, solo, workers, seq_buckets, n_layers,
     return line, launches
 
 
+def save_gpt2_infer(dirname, cfg, arrays, seq):
+    """``build_gpt_infer(cfg, seq)`` with the parameters ``arrays``,
+    saved by ``save_inference_model`` into ``dirname`` from the card;
+    returns the seconds the save took."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    with fluid.unique_name.guard():
+        main, startup, feeds, logits = gpt.build_gpt_infer(cfg, seq)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    gpt.load_fluid_scope(scope, arrays)
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(dirname, feeds, [logits], exe,
+                                      main_program=main)
+    return time.perf_counter() - t0
+
+
 def served_gpt2(dev):
     """GPT-2 small (fp32, flash attention, random weights from seed 0)
     saved by ``save_inference_model`` and loaded by ``AnalysisPredictor``,
@@ -2482,25 +2563,14 @@ def served_gpt2(dev):
     pred, model, save_s, load_s)."""
     import tempfile
 
-    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch import inference
     from paddle_tpu_torch.models import gpt
 
     cfg = gpt.GPTConfig(use_flash_attention=True)
     arrays = gpt.init_fluid_params(cfg, seed=0)
     workdir = tempfile.mkdtemp(prefix="inference_server_")
     try:
-        with fluid.unique_name.guard():
-            main, startup, feeds, logits = gpt.build_gpt_infer(cfg, 256)
-        exe = fluid.Executor(fluid.CUDAPlace(0))
-        scope = fluid.Scope()
-        exe.run(startup, scope=scope)
-        gpt.load_fluid_scope(scope, arrays)
-        t0 = time.perf_counter()
-        with fluid.scope_guard(scope):
-            fluid.io.save_inference_model(workdir, feeds, [logits], exe,
-                                          main_program=main)
-        save_s = time.perf_counter() - t0
-        del exe, scope
+        save_s = save_gpt2_infer(workdir, cfg, arrays, 256)
         t0 = time.perf_counter()
         pred = inference.create_paddle_predictor(
             inference.AnalysisConfig(workdir))
@@ -3137,6 +3207,571 @@ def _gateway_trials(served):
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# fleet: the serving control plane
+# ---------------------------------------------------------------------------
+
+
+def fleet_replica_main(argv):
+    """The hidden ``--fleet-replica STATS_DIR <replica arguments>`` mode:
+    the port's replica process (``serving.replica.main``) and, once its
+    drain returns, this process's kernel launches, kernel-library builds,
+    peak device memory, device and profiler counters written to
+    ``STATS_DIR/replica_<id>.json``. The fleet phase's controller spawns
+    its replicas through this mode."""
+    from paddle_tpu_torch.checkpoint import modeldir
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import replica
+
+    stats_dir, args = argv[0], argv[1:]
+    rc = replica.main(args)
+    cuda = torch.cuda.is_available()
+    modeldir.commit_json(
+        os.path.join(stats_dir, "replica_%s.json"
+                     % args[args.index("--replica-id") + 1]),
+        {"rc": rc, "device": args[args.index("--device") + 1],
+         "cuda": cuda,
+         "launches": {"flash_fwd": fa.flash_attention_lse.launches,
+                      "flash_decode": fa.flash_decode_attention.launches,
+                      "flash_decode_paged":
+                          fa.flash_decode_paged_attention.launches},
+         "kernel_builds": _build.builds,
+         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+         "counters": profiler.get_counters()})
+    return rc
+
+
+def _fleet_probe_on_card():
+    """The port's closed-loop fleet probe with its replicas on the card.
+    As in the CPU test, a miss of its timing bars alone (failures
+    prefixed "throughput") earns one rerun; any other miss raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    first = None
+    for attempt in (1, 2):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.fleet_probe",
+             "--fast", "--device", "cuda"],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        report = None
+        for ln in p.stdout.splitlines():
+            if ln.startswith("REPORT "):
+                report = json.loads(ln[len("REPORT "):])
+        fails = (report or {}).get("failures") or []
+        if p.returncode == 0 and "PROBE PASS" in p.stdout:
+            break
+        if attempt == 2 or not fails or not all(
+                f.startswith("throughput") for f in fails):
+            raise AssertionError(
+                "fleet probe on the card failed (rc %d): %s\n%s\n%s"
+                % (p.returncode, fails, p.stdout[-3000:], p.stderr[-3000:]))
+        first = fails
+    keep = ("boot", "overhead", "failover", "autoscale", "scale_down",
+            "rollout", "strict", "generate_failover", "kv_tier",
+            "kv_tier_churn", "controller_crash")
+    return dict({k: report.get(k) for k in keep}, seconds=secs,
+                attempts=attempt, first_attempt_failures=first,
+                device=report.get("device"))
+
+
+def _smi_sampler():
+    """nvidia-smi's utilization.gpu of card 0 every 200 ms, in a child
+    process: the share of each sample period in which a kernel ran, from
+    whichever process."""
+    return subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def _smi_idle(proc):
+    """(idle share, samples) of a ``_smi_sampler`` run; stops it."""
+    proc.terminate()
+    try:
+        out = proc.communicate(timeout=30)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+    vals = [float(x) for x in out.split()
+            if re.fullmatch(r"\d+(\.\d+)?", x)]
+    if not vals:
+        return None, 0
+    return 1.0 - float(np.mean(vals)) / 100.0, len(vals)
+
+
+def _teacher_forced(model, prompt, tokens, alt=None):
+    """``tokens`` streamed after ``prompt``, held to the plain full
+    forward (dense attention) on the card: each must be the forward's
+    argmax or within LOGIT_ATOL of it. With ``alt`` (another run's tokens
+    for the same prompt), their first difference must be such a near
+    tie too. Returns (exact-argmax count, first difference or None)."""
+    dev = model.device
+    P = len(prompt)
+    seq = list(prompt) + list(tokens[:-1])
+    with torch.inference_mode():
+        ref = model(torch.tensor([seq], device=dev),
+                    torch.arange(len(seq), device=dev)[None],
+                    torch.ones(1, len(seq), device=dev),
+                    use_flash=False)[0, P - 1:].float()
+        toks = torch.tensor(tokens, device=dev)
+        top = ref.max(-1).values
+        gap = (top - ref[torch.arange(len(tokens), device=dev), toks])
+        gap = gap.cpu().numpy()
+        argmax = ref.argmax(-1).cpu().numpy()
+        diff = None
+        if alt is not None:
+            diff = next((i for i, (a, b) in enumerate(zip(tokens, alt))
+                         if a != b), None)
+            if diff is not None:
+                d = float((ref[diff, tokens[diff]]
+                           - ref[diff, alt[diff]]).abs())
+                if d > LOGIT_ATOL:
+                    raise AssertionError(
+                        "stream differs from the uninterrupted run at "
+                        "step %d by %.3g of logit (> %g): not a near tie"
+                        % (diff, d, LOGIT_ATOL))
+    if not np.isfinite(gap).all() or float(gap.max()) > LOGIT_ATOL:
+        raise AssertionError("a streamed token is %.3g of logit below the "
+                             "reference argmax (tolerance %g)"
+                             % (float(gap.max()), LOGIT_ATOL))
+    return int((argmax == np.asarray(tokens)).sum()), diff
+
+
+def _fleet_gpt2(dev):
+    """GPT-2 small served by a FleetController of 3 paged replicas (1
+    prefill role, 2 decode) on the card, all traffic through its Router:
+    a shared 512-token prefix pulled from the prefill peer, spill and
+    readmit on one decode replica, a mid-stream replica death resumed on
+    a survivor, and a rollout under /v1/infer traffic. Returns (line,
+    launches summed over the replicas that drained)."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.checkpoint import modeldir
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import registry
+    from paddle_tpu_torch.serving import fleet as fleet_mod
+    from paddle_tpu_torch.serving.gateway import decode_tensor, encode_tensor
+    from paddle_tpu_torch.serving.kv_tier import decode_entries
+    from paddle_tpu_torch.serving.replica import build_gpt_decode_engine
+    from paddle_tpu_torch.tools import gateway_probe as probe
+    from paddle_tpu_torch.tools.fleet_probe import _sse_collect
+
+    here = os.path.abspath(__file__)
+    work = tempfile.mkdtemp(prefix="fleet_phase_")
+    stats_dir = os.path.join(work, "stats")
+    os.makedirs(stats_dir)
+
+    class Harness(fleet_mod.FleetController):
+        """The controller, spawning its replicas through this script's
+        ``--fleet-replica`` mode with the arguments it would give
+        ``python -m paddle_tpu_torch.serving.replica``."""
+
+        def _cmd(self, rid, version, model_dir, endpoint_file,
+                 role="mixed"):
+            argv = super()._cmd(rid, version, model_dir, endpoint_file,
+                                role=role)
+            assert argv[1:3] == ["-m", "paddle_tpu_torch.serving.replica"]
+            return [argv[0], here, "--fleet-replica", stats_dir] + argv[3:]
+
+    out = {}
+    cfg = gpt.GPTConfig(
+        max_position_embeddings=FLEET_SPEC["max_len"],
+        **{k: FLEET_SPEC[k] for k in (
+            "vocab_size", "hidden_size", "num_layers", "num_heads",
+            "intermediate_size", "use_flash_attention")})
+    rng = np.random.default_rng(21)
+    row = _gpt_feed(1, FLEET_INFER_SEQ, rng, cfg.vocab_size)
+    oracles = {}
+    for version, seed in ((1, 0), (2, 1)):
+        d = os.path.join(work, "export_v%d" % version)
+        save_gpt2_infer(d, cfg, gpt.init_fluid_params(cfg, seed), 256)
+        np.savez(os.path.join(d, "warmup.npz"), *row)
+        pred = inference.create_paddle_predictor(inference.AnalysisConfig(d))
+        oracles[version] = [np.asarray(o) for o in pred.run(row)]
+        del pred
+    repo = os.path.join(work, "repo")
+    modeldir.publish(os.path.join(work, "export_v1"), repo)
+
+    # the in-process model the replicas' seeded engines equal (the same
+    # spec, so the same bits), the uninterrupted runs, and the tier's
+    # copies timed in process
+    oracle_eng = build_gpt_decode_engine(FLEET_SPEC, device="cuda")
+    model = oracle_eng.model
+    vocab = cfg.vocab_size
+    prefixes = [rng.integers(0, vocab, FLEET_PREFIX).tolist()
+                for _ in range(3)]
+    shared = [prefixes[0] + rng.integers(0, vocab, n - FLEET_PREFIX)
+              .tolist() for n in FLEET_SHARED_LENS]
+    spill_prompts = [p + rng.integers(0, vocab, 9).tolist()
+                     for p in prefixes[1:]]
+    failover_prompts = [rng.integers(0, vocab, n).tolist()
+                        for n in FLEET_FAILOVER_LENS]
+    oracle_eng.start()
+    try:
+        uninterrupted = [oracle_eng.generate(p, max_new_tokens=FLEET_NEW)
+                         .tokens(timeout=600) for p in failover_prompts]
+    finally:
+        oracle_eng.stop()
+    out["in_process"] = _fleet_tier_copies(model, prefixes[0])
+
+    health_s = flags.get_flag("router_health_interval_s")
+    flags.set_flags({"FLAGS_router_health_interval_s": 0.25})
+    ctrl = Harness(model_dir=repo, workdir=os.path.join(work, "fleet"),
+                   replicas=3, roles={"prefill": 1, "decode": 2},
+                   replica_env=FLEET_ENV, autoscale=False, seed=0,
+                   device="cuda", ready_timeout_s=600.0,
+                   replica_args=["--gpt-decode", json.dumps(FLEET_SPEC)])
+    smi = None
+    streams = []   # (prompt, tokens, done, routed backend)
+    try:
+        t0 = time.perf_counter()
+        ctrl.start()
+        ctrl.wait_ready(count=3, timeout=600)
+        out["boot_s"] = time.perf_counter() - t0
+        ready_ms = [e["ready_ms"] for e in fleet_mod.load_events(ctrl.workdir)
+                    if e.get("event") == "replica_ready"]
+        out["cold_start_ms"] = ready_ms
+        info = {str(i["id"]): i for i in ctrl.replica_info()}
+        roles = {rid: i["role"] for rid, i in info.items()}
+        if roles != {"0": "prefill", "1": "decode", "2": "decode"}:
+            raise AssertionError("replica roles %r" % roles)
+        router = ctrl.router
+        gen_url = router.url("/v1/generate")
+        infer_url = router.url("/v1/infer")
+
+        def metrics(rid):
+            port = info[rid]["metrics_port"]
+            with urllib.request.urlopen(
+                    "http://127.0.0.1:%d/metrics" % port, timeout=30) as r:
+                parsed = registry.parse_prometheus(r.read().decode())
+            return {k[0]: v for k, v in parsed.items() if not k[1]}
+
+        def infer(url, body):
+            st, b, h = probe._post(url, body, timeout=600)
+            if st != 200:
+                raise AssertionError("/v1/infer %d %r" % (st, b))
+            ver = int(h.get("X-Model-Version", 0) or 0)
+            got = [decode_tensor(t) for t in b["outputs"]]
+            if ver not in oracles or len(got) != len(oracles[ver]) or \
+                    not all(g.dtype == o.dtype and g.tobytes() == o.tobytes()
+                            for g, o in zip(got, oracles[ver])):
+                raise AssertionError("/v1/infer answer does not equal the "
+                                     "oracle of version %d bit for bit" % ver)
+            return ver
+
+        body = {"inputs": [encode_tensor(a) for a in row]}
+        # -- the router hop over a direct gateway call (the router's
+        # pick among idle equals is replica 1; the prefill replica serves
+        # /v1/kv/prefill only and is not among the router's backends) ---
+        direct = "http://127.0.0.1:%d/v1/infer" % info["1"]["gateway_port"]
+        hop = {"direct": [], "router": []}
+        for _ in range(3):
+            for key, url in (("direct", direct), ("router", infer_url)):
+                t1 = time.perf_counter()
+                infer(url, body)
+                hop[key].append((time.perf_counter() - t1) * 1e3)
+        out["hop_ms"] = {k: {"p50": float(np.percentile(v, 50)),
+                             "p99": float(np.percentile(v, 99))}
+                         for k, v in hop.items()}
+        out["hop_ms"]["p50_added"] = (out["hop_ms"]["router"]["p50"]
+                                      - out["hop_ms"]["direct"]["p50"])
+
+        smi = _smi_sampler()
+        t_traffic = time.perf_counter()
+
+        def gen(prompt, new=FLEET_NEW):
+            st, events, comments, gaps, hdrs = _sse_collect(
+                gen_url, {"prompt_ids": prompt, "max_new_tokens": new,
+                          "deadline_ms": 600000}, timeout=900)
+            toks = [e["token"] for e in events if "token" in e]
+            done = next((e for e in events if e.get("done")), None)
+            errs = [e for e in events if "error" in e]
+            if st != 200 or errs or not done or len(toks) != new:
+                raise AssertionError("stream %d: %d tokens, errors %r, "
+                                     "done %r" % (st, len(toks), errs, done))
+            rec = {"prompt": prompt, "tokens": toks, "done": done,
+                   "backend": hdrs.get("X-Routed-Backend"),
+                   "comments": comments, "gaps": gaps,
+                   "client_ttft_ms": gaps[0] * 1e3}
+            streams.append(rec)
+            return rec
+
+        # -- 1. a shared 512-token prefix: pulled, then by affinity -----
+        first = gen(shared[0])
+        decode_rid = first["backend"]
+        if decode_rid != "1":
+            raise AssertionError("the first shared-prefix request went to "
+                                 "replica %r, not decode replica 1"
+                                 % decode_rid)
+        m1 = metrics(decode_rid)
+        pulled = {k: m1.get(k, 0) for k in (
+            "kv_tier_pulls", "kv_tier_pull_failures", "kv_tier_pull_tokens")}
+        if pulled["kv_tier_pulls"] < 1 or pulled["kv_tier_pull_failures"] \
+                or pulled["kv_tier_pull_tokens"] < FLEET_PREFIX \
+                or first["done"].get("cached_prefix_tokens", 0) \
+                < FLEET_READMIT_MIN:
+            raise AssertionError("no chain pull behind the first shared "
+                                 "request: %r, done %r"
+                                 % (pulled, first["done"]))
+        time.sleep(4 * 0.25)  # two health polls: the adverts refresh
+        hits0 = registry.counter("router_affinity_hits").value()
+        for p in shared[1:]:
+            rec = gen(p)
+            if rec["backend"] != decode_rid or \
+                    rec["done"].get("cached_prefix_tokens", 0) \
+                    < FLEET_READMIT_MIN:
+                raise AssertionError("a shared-prefix request went to %r "
+                                     "with %r cached tokens"
+                                     % (rec["backend"], rec["done"].get(
+                                         "cached_prefix_tokens")))
+        affinity = registry.counter("router_affinity_hits").value() - hits0
+        if affinity < len(shared) - 1:
+            raise AssertionError("%d of %d shared-prefix requests routed by "
+                                 "affinity" % (affinity, len(shared) - 1))
+        # the pull's cost for one 512-token chain, straight from the peer
+        t1 = time.perf_counter()
+        st, chain, _h = probe._post(
+            "http://127.0.0.1:%d/v1/kv/prefill" % info["0"]["gateway_port"],
+            {"prompt_ids": prefixes[0]}, timeout=600)
+        t2 = time.perf_counter()
+        row_shape = [cfg.num_heads, 16, cfg.hidden_size // cfg.num_heads]
+        entries = decode_entries(chain.get("blocks") or [], row_shape)
+        t3 = time.perf_counter()
+        if st != 200 or len(entries) != FLEET_PREFIX // 16:
+            raise AssertionError("/v1/kv/prefill %d: %d blocks"
+                                 % (st, len(entries)))
+        out["pull_512"] = {"http_ms": (t2 - t1) * 1e3,
+                           "decode_ms": (t3 - t2) * 1e3,
+                           "served_ms": chain.get("served_ms"),
+                           "blocks": len(entries),
+                           "first_request_ttft_ms": {
+                               "client": first["client_ttft_ms"],
+                               "engine": first["done"].get("ttft_ms")}}
+
+        # -- 2. two more prefixes through replica 1: spill, readmit -----
+        before = metrics(decode_rid)
+        for p in spill_prompts:
+            rec = gen(p)
+            if rec["backend"] != decode_rid:
+                raise AssertionError("spill prompt went to %r"
+                                     % rec["backend"])
+        mid = metrics(decode_rid)
+        again = gen(shared[0])
+        after = metrics(decode_rid)
+        spills = mid.get("kv_tier_spills", 0) - before.get("kv_tier_spills", 0)
+        readmits = after.get("kv_tier_readmits", 0) \
+            - mid.get("kv_tier_readmits", 0)
+        repulls = after.get("kv_tier_pulls", 0) - mid.get("kv_tier_pulls", 0)
+        cached = again["done"].get("cached_prefix_tokens", 0)
+        if again["backend"] != decode_rid or spills < 1 or readmits < 1 \
+                or repulls or cached < FLEET_READMIT_MIN:
+            raise AssertionError(
+                "no readmit from the host: backend %r, spills %d, readmits "
+                "%d, pulls %d, cached %d" % (again["backend"], spills,
+                                             readmits, repulls, cached))
+        out["spill_readmit"] = {"spills": spills, "readmits": readmits,
+                                "cached_prefix_tokens": cached,
+                                "ttft_ms": {
+                                    "client": again["client_ttft_ms"],
+                                    "engine": again["done"].get("ttft_ms")}}
+        # -- 3. a replica dies mid-stream; its streams resume -----------
+        results = [None] * len(failover_prompts)
+
+        def client(i):
+            try:
+                results[i] = gen(failover_prompts[i])
+            except Exception as exc:  # noqa: BLE001 - counted below
+                results[i] = exc
+
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(len(failover_prompts))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(900)
+        failed = [r for r in results if not isinstance(r, dict)]
+        if failed:
+            raise AssertionError("%d failover streams failed: %r"
+                                 % (len(failed), failed[:2]))
+        resumed = [r for r in results if r["comments"]]
+        if not resumed:
+            raise AssertionError("no stream failed over")
+        blips = [r["gaps"][i] * 1e3 for r in resumed
+                 for _c, i in r["comments"] if i < len(r["gaps"])]
+        equal = 0
+        for r, want in zip(results, uninterrupted):
+            _n, diff = _teacher_forced(model, r["prompt"], r["tokens"],
+                                       alt=want)
+            equal += int(diff is None)
+        deadline = time.monotonic() + 120
+        while not any(e.get("event") == "replica_crash"
+                      for e in fleet_mod.load_events(ctrl.workdir)):
+            if time.monotonic() > deadline:
+                raise AssertionError("no replica_crash after the chaos kill")
+            time.sleep(0.1)
+        t1 = time.perf_counter()
+        ctrl.wait_ready(count=3, timeout=600)
+        out["failover"] = {"streams": len(results),
+                           "resumed": len(resumed),
+                           "equal_to_uninterrupted": equal,
+                           "blip_ms": blips,
+                           "replaced_in_s": time.perf_counter() - t1}
+
+        # -- 4. rollout under /v1/infer traffic -------------------------
+        info = {str(i["id"]): i for i in ctrl.replica_info()}
+        answers, errors = [], []
+        stop = threading.Event()
+
+        def infer_client():
+            while not stop.is_set():
+                try:
+                    answers.append(infer(infer_url, body))
+                except Exception as exc:  # noqa: BLE001 - counted below
+                    errors.append(exc)
+
+        modeldir.publish(os.path.join(work, "export_v2"), repo)
+        clients = [threading.Thread(target=infer_client) for _ in range(2)]
+        for th in clients:
+            th.start()
+        t1 = time.perf_counter()
+        deployed = ctrl.deploy(repo)
+        out_roll_ms = (time.perf_counter() - t1) * 1e3
+        post = [infer(infer_url, body) for _ in range(4)]
+        stop.set()
+        for th in clients:
+            th.join(900)
+        if errors or deployed != 2 or post != [2] * 4 or not answers:
+            raise AssertionError("rollout: deployed %r, %d errors %r, post "
+                                 "versions %r" % (deployed, len(errors),
+                                                  errors[:2], post))
+        out["rollout"] = {"ms": out_roll_ms, "requests": len(answers),
+                          "versions": sorted(set(answers)),
+                          "failed": len(errors)}
+        out["traffic_s"] = time.perf_counter() - t_traffic
+        out["idle_share"], out["idle_samples"] = _smi_idle(smi)
+        smi = None
+
+        # -- the builds gate on every live replica ----------------------
+        info = {str(i["id"]): i for i in ctrl.replica_info()
+                if i["state"] == "ready"}
+        steady = {rid: metrics(rid).get("serving_steady_recompiles", 0)
+                  for rid in info}
+        fails = {rid: metrics(rid).get("kv_tier_pull_failures", 0)
+                 for rid in info}
+        if any(steady.values()) or any(fails.values()):
+            raise AssertionError("steady builds %r, pull failures %r"
+                                 % (steady, fails))
+    finally:
+        if smi is not None:
+            _smi_idle(smi)
+        ctrl.stop()
+        flags.set_flags({"FLAGS_router_health_interval_s": health_s})
+
+    # every stream teacher-forced against the in-process model
+    exact = total = 0
+    for rec in streams:
+        n, _d = _teacher_forced(model, rec["prompt"], rec["tokens"])
+        exact += n
+        total += len(rec["tokens"])
+    out["teacher_forced"] = {"streams": len(streams), "tokens": total,
+                             "exact_argmax_share": exact / max(total, 1)}
+
+    # each replica's own account, written when it drained
+    stats = {}
+    for fn in sorted(os.listdir(stats_dir)):
+        with open(os.path.join(stats_dir, fn)) as f:
+            stats[fn[len("replica_"):-len(".json")]] = json.load(f)
+    spawned = sorted(str(e["replica"]) for e in fleet_mod.load_events(
+        ctrl.workdir) if e.get("event") == "replica_spawn")
+    missing = sorted(set(spawned) - set(stats) - {str(FLEET_DIE_REPLICA)})
+    if missing:
+        raise AssertionError("replicas %s left no stats" % missing)
+    per = {}
+    launches = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0}
+    for rid, st in stats.items():
+        c, la = st["counters"], st["launches"]
+        steps = c.get("decode_steps", 0)
+        batches = c.get("serving_batches", 0)
+        if st["device"] != "cuda" or not st["cuda"] or st["rc"] != 0 \
+                or st["kernel_builds"]:
+            raise AssertionError("replica %s: %r" % (rid, {
+                k: st[k] for k in ("device", "cuda", "rc", "kernel_builds")}))
+        if la["flash_decode_paged"] < cfg.num_layers * steps or not steps \
+                or la["flash_fwd"] < cfg.num_layers * batches:
+            raise AssertionError("replica %s launches %r for %d steps, %d "
+                                 "infer batches" % (rid, la, steps, batches))
+        for k in launches:
+            launches[k] += la[k]
+        per[rid] = {"launches": la, "steps": steps, "prefills":
+                    c.get("decode_prefills", 0), "infer_batches": batches,
+                    "peak_gb": st["peak_bytes"] / 2 ** 30,
+                    "kv": {k: c.get(k, 0) for k in (
+                        "kv_tier_spills", "kv_tier_readmits",
+                        "kv_tier_pulls", "kv_tier_pull_tokens",
+                        "kv_tier_bytes_d2h", "kv_tier_bytes_h2d")}}
+    out["replicas"] = per
+    shutil.rmtree(work, ignore_errors=True)
+    return out, launches
+
+
+def _fleet_tier_copies(model, prefix):
+    """The KV tier's copies timed in process on a paged engine over the
+    fleet's model (block 16, 54 MB index, 256 MB host tier): a cold
+    prefill of the 512-token prefix (the local prefill a pull replaces),
+    the spill read of its 32 blocks (one gather + one D2H to pageable
+    memory), and their readmit write (one pageable H2D + index_copy_)."""
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    flags.set_flags({"FLAGS_kv_tier_host_mb": 256.0})
+    try:
+        eng = DecodeEngine(model, slots=8, max_len=1024, block_size=16,
+                           prefix_cache_mb=54.0).start()
+    finally:
+        flags.set_flags({"FLAGS_kv_tier_host_mb": 0.0})
+    try:
+        s = eng.generate(prefix + [7], max_new_tokens=1)
+        s.tokens(timeout=600)
+        local_ttft = s.ttft_ms
+    finally:
+        eng.stop()
+    blocks = [e.block_idx for e in list(eng.pindex._entries.values())][:32]
+    d2h, h2d = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = eng._read_rows(blocks)
+        d2h.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        eng._write_rows(blocks, rows)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    nbytes = rows.nbytes
+    return {"local_prefill_ttft_ms": local_ttft, "blocks": len(blocks),
+            "batch_bytes": nbytes,
+            "spill_d2h_ms_per_batch": float(np.median(d2h)),
+            "readmit_h2d_ms_per_block": float(np.median(h2d)) / len(blocks),
+            "d2h_gb_s": nbytes / (float(np.median(d2h)) * 1e-3) / 1e9,
+            "h2d_gb_s": nbytes / (float(np.median(h2d)) * 1e-3) / 1e9}
+
+
+def fleet_phase(dev):
+    """The port's serving control plane on the card: the fleet probe
+    (``_fleet_probe_on_card``), then GPT-2 small from a fleet
+    (``_fleet_gpt2``). Returns (line, launches of the GPT-2 fleet's
+    replicas)."""
+    probe = _fleet_probe_on_card()
+    gpt2, launches = _fleet_gpt2(dev)
+    return dict({"phase": "fleet", "probe": probe}, **gpt2), launches
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -3148,7 +3783,7 @@ def gpt2_small(dev):
 
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
-               "gateway")
+               "gateway", "fleet")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -3168,6 +3803,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = inference_server_phase(dev, served)[0]
                 elif phase == "gateway":
                     line = gateway_phase(dev, served)[0]
+                elif phase == "fleet":
+                    line = fleet_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -3186,11 +3823,15 @@ def run_only(phases, repeat, dev, name, smi):
 def main(argv=None):
     import argparse
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--fleet-replica"]:
+        return fleet_replica_main(argv[1:])
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
-                         "inference_server, gateway)")
+                         "inference_server, gateway, fleet)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -3271,6 +3912,9 @@ def main(argv=None):
     gw_run, gw_launches = gateway_phase(dev, served)
     emit(dict(gw_run, device=name, nvidia_smi=smi))
     del served
+    torch.cuda.empty_cache()
+    fleet_run, fleet_launches = fleet_phase(dev)
+    emit(dict(fleet_run, device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
@@ -3371,7 +4015,7 @@ def main(argv=None):
          "launches": launches["flash_fwd"]
          + feature_launches["flash_fwd"] + train_launches["flash_fwd"]
          + program_launches["flash_fwd"] + infer_launches["flash_fwd"]
-         + gw_launches["flash_fwd"],
+         + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -3379,7 +4023,8 @@ def main(argv=None):
                               "train_program": program_launches["flash_fwd"],
                               "inference_server":
                                   infer_launches["flash_fwd"],
-                              "gateway": gw_launches["flash_fwd"]},
+                              "gateway": gw_launches["flash_fwd"],
+                              "fleet": fleet_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -3417,10 +4062,12 @@ def main(argv=None):
          "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
          "replaces": "paddle_tpu/kernels/flash_attention.py:459",
          "launches": paged_launches["flash_decode_paged"]
-         + gw_launches["flash_decode_paged"],
+         + gw_launches["flash_decode_paged"]
+         + fleet_launches["flash_decode_paged"],
          "launches_by_path": {
              "paged_engine": paged_launches["flash_decode_paged"],
-             "gateway": gw_launches["flash_decode_paged"]},
+             "gateway": gw_launches["flash_decode_paged"],
+             "fleet": fleet_launches["flash_decode_paged"]},
          "max_abs_err": paged_err, "ms": paged_row["ms"],
          "plain_ms": paged_row["plain_ms"], "bound_ms": paged_row["bound_ms"],
          "bound_by": paged_row["bound_by"],

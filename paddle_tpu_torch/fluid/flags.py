@@ -1,9 +1,11 @@
 """Runtime flags (port of ``paddle_tpu/fluid/flags.py``: the serving,
-decode, gateway and observability knobs).
+decode, gateway, fleet and observability knobs).
 
 Only the knobs that the micro-batching server, the decode engine and its
-scheduler, the gateway, the strict build gate, the tracer, the flight
-recorder, the exporter and the chaos harness read are carried over, with
+scheduler, the KV tier, the gateway, the router, the fleet controller
+and its simulator, the process supervisor, the strict build gate, the
+tracer, the flight recorder, the exporter and the chaos harness read
+are carried over, with
 the reference's defaults, plus the same ``FLAGS_<name>`` environment
 bridge: an environment variable overrides a default when the module
 loads, and ``set_flags`` overrides at run time. ``version()`` counts
@@ -89,12 +91,97 @@ _DEFAULTS = {
     "gateway_drain_timeout_s": 30.0,
     "gateway_access_log": "",
     "gateway_access_log_max_mb": 0.0,
-    # the gateway's fleet KV pull (a decode-role replica pulls published
-    # blocks from a prefill-role peer listed in kv_tier_peers_file when
-    # it would cache fewer than kv_tier_pull_min_tokens locally; 0 = off)
+    # fleet KV tier (serving/kv_tier.py) over the paged pool:
+    # kv_tier_host_mb sizes the host-spill store (evicted device blocks
+    # spill D2H and readmit H2D on a later chain hit; 0 = off);
+    # kv_tier_advert_k bounds the chain-head keys a replica advertises on
+    # /readyz for the router's cache affinity, kv_tier_advert_ttl_s the
+    # router-side age past which an advertisement is ignored. The
+    # role-split pull: a decode-role replica pulls published blocks from
+    # a prefill-role peer listed in kv_tier_peers_file when it would
+    # cache fewer than kv_tier_pull_min_tokens locally (0 = off), within
+    # kv_tier_pull_timeout_s
+    "kv_tier_host_mb": 0.0,
+    "kv_tier_advert_k": 8,
+    "kv_tier_advert_ttl_s": 5.0,
     "kv_tier_peers_file": "",
     "kv_tier_pull_min_tokens": 0,
     "kv_tier_pull_timeout_s": 2.0,
+    # serving fleet (serving/fleet.py): a FleetController supervises
+    # replica processes behind one Router. The "streak" autoscaler
+    # scrapes each replica's /metrics every fleet_scale_interval_s and
+    # scales between fleet_min_replicas and fleet_max_replicas: queue
+    # depth >= fleet_queue_high (or any shed, or p95 latency over
+    # fleet_latency_high_ms when > 0) for fleet_scale_up_ticks scrapes
+    # adds a replica, <= fleet_queue_low for fleet_scale_down_ticks
+    # drains one. A replica must be ready within
+    # fleet_replica_ready_timeout_s; crashes restart with
+    # fleet_restart_backoff_s exponential backoff under
+    # fleet_max_replica_restarts; drains SIGTERM and SIGKILL after
+    # fleet_drain_grace_s. fleet_policy "slo" scales on p95 TTFT /
+    # inter-token budgets instead (0 disarms one), scaling down under
+    # fleet_slo_headroom x budget
+    "fleet_min_replicas": 1,
+    "fleet_max_replicas": 4,
+    "fleet_scale_interval_s": 2.0,
+    "fleet_queue_high": 8.0,
+    "fleet_queue_low": 1.0,
+    "fleet_latency_high_ms": 0.0,
+    "fleet_scale_up_ticks": 2,
+    "fleet_scale_down_ticks": 5,
+    "fleet_replica_ready_timeout_s": 180.0,
+    "fleet_restart_backoff_s": 0.5,
+    "fleet_max_replica_restarts": 10,
+    "fleet_drain_grace_s": 15.0,
+    "fleet_policy": "streak",
+    "fleet_slo_ttft_ms": 2000.0,
+    "fleet_slo_intertoken_ms": 0.0,
+    "fleet_slo_headroom": 0.6,
+    # controller durability: replicas re-stamp an endpoint lease every
+    # fleet_lease_interval_s, older than fleet_lease_ttl_s means dead;
+    # the controller's journal lease (workdir/fleet_state.json) younger
+    # than fleet_state_lease_ttl_s with a live pid refuses a second
+    # controller (split-brain guard), else the newcomer adopts the pool
+    "fleet_lease_interval_s": 1.0,
+    "fleet_lease_ttl_s": 5.0,
+    "fleet_state_lease_ttl_s": 10.0,
+    # fleet simulator (serving/sim): spawn-to-ready lag of a simulated
+    # scaled-up replica
+    "sim_replica_ready_s": 5.0,
+    # replica router (serving/router.py): router_port binds the listener
+    # (0 = ephemeral); a health thread polls every backend's /readyz each
+    # router_health_interval_s; an idempotent /v1/infer that hits a dead
+    # replica retries on another up to router_retries times;
+    # router_backend_timeout_s bounds each proxied connect/read; a pinned
+    # /v1/generate stream whose replica dies resumes on another with the
+    # emitted suffix up to router_generate_retries times (0 = off);
+    # router_breaker_failures consecutive failures open a backend's
+    # breaker for router_breaker_cooldown_s (0 = no breaker);
+    # router_access_log is the router's JSONL access log ("" = off),
+    # rotated past router_access_log_max_mb
+    "router_port": 0,
+    "router_health_interval_s": 0.5,
+    "router_retries": 2,
+    "router_backend_timeout_s": 60.0,
+    "router_generate_retries": 2,
+    "router_breaker_failures": 3,
+    "router_breaker_cooldown_s": 2.0,
+    "router_access_log": "",
+    "router_access_log_max_mb": 0.0,
+    # process supervision (distributed/supervisor.py; the fleet reuses
+    # its heartbeat protocol): staleness bound of a worker heartbeat, the
+    # worker-side beat throttle, the grace before a worker's first step,
+    # restart backoff (doubling, capped) and the preemption restart
+    # budget; elastic_min_world_size > 0 lets a restart shrink the gang,
+    # elastic_lr_rescale scales the learning rate with it
+    "dist_heartbeat_timeout_s": 60.0,
+    "dist_heartbeat_interval_s": 0.5,
+    "dist_startup_grace_s": 600.0,
+    "dist_restart_backoff_s": 1.0,
+    "dist_restart_backoff_max_s": 30.0,
+    "dist_max_preempt_restarts": 100,
+    "elastic_min_world_size": 0,
+    "elastic_lr_rescale": False,
     # flight recorder ring (one journey record per request) and the
     # bounded span dump written beside it (observability/flight.py,
     # exporter.dump_blackbox)

@@ -11,13 +11,19 @@ source, all at once, counts each library it compiles in ``builds`` and
 reports it to ``observability.compile_stats`` (kind ``kernel_library``),
 whose strict gate refuses a build on a serving-request thread after
 warmup. ``load`` builds under a lock: two threads never start ``nvcc``
-on one source together.
+on one source together. Across processes (replicas of one fleet starting
+together on one card) the check-and-build of each library holds an
+exclusive ``fcntl.flock`` on ``_build/<name>.lock``, so each library is
+compiled once and the other processes find it built; the kernel drops
+the lock of a process that dies mid-build.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine that has no ``nvcc``.
 """
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -98,15 +104,40 @@ def _lib_path(name):
     return src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
+@contextlib.contextmanager
+def _file_locks(names):
+    """Hold an exclusive ``flock`` on ``BUILD_DIR/<name>.lock`` for each
+    name, taken in sorted order so that two processes never wait on each
+    other in a cycle."""
+    files = []
+    try:
+        for name in sorted(set(names)):
+            f = open(os.path.join(BUILD_DIR, name + ".lock"), "a")
+            files.append(f)
+            fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+    finally:
+        for f in reversed(files):
+            f.close()  # closing the descriptor releases its lock
+
+
 def build(names=None):
     """Compile the named kernels (default: all) that are not built yet,
-    one ``nvcc`` per source, all started together. Returns
-    ``{name: {"seconds": s, "cached": bool, "log": ptxas report}}``;
-    raises ``RuntimeError`` with the compiler's output if one fails."""
-    global builds
+    one ``nvcc`` per source, all started together, under each library's
+    file lock. Returns ``{name: {"seconds": s, "cached": bool, "log":
+    ptxas report}}``; raises ``RuntimeError`` with the compiler's output
+    if one fails."""
     names = list(KERNELS) if names is None else list(names)
-    nvcc = None
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with _file_locks(names):
+        out = _build_locked(names)
+    _report_builds(out)
+    return out
+
+
+def _build_locked(names):
+    global builds
+    nvcc = None
     procs = {}
     out = {}
     for name in names:
@@ -152,7 +183,6 @@ def build(names=None):
         out[name] = {"seconds": secs, "cached": False, "log": log}
     if failures:
         raise RuntimeError("kernel build failed: " + "\n".join(failures))
-    _report_builds(out)
     return out
 
 

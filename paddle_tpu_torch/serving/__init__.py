@@ -11,8 +11,17 @@ request path after it) and a ServingStats snapshot riding the always-on
 ``InferenceServer.generate()``. ``Gateway`` (``serving/gateway.py``)
 puts a server and its engine on HTTP (``POST /v1/infer``, SSE
 ``POST /v1/generate``, ``/healthz``, ``/readyz``, per-tenant admission,
-graceful drain), with one JSONL ``AccessLog`` line per request. The
-fleet control plane is a later slice.
+graceful drain), with one JSONL ``AccessLog`` line per request.
+
+Above one process sits the fleet control plane: ``FleetController``
+(``serving/fleet.py``) spawns and supervises replica processes
+(``serving/replica.py``) behind a health-checked ``Router``
+(``serving/router.py``: least-inflight and cache-affinity picks,
+breakers, SSE pin and mid-stream failover with ``resume_tokens``),
+autoscales the pool (``AutoscalerPolicy``, ``SLOPolicy``,
+``make_policy``) and rolls new model versions with zero downtime;
+``serving/sim`` replays workloads through those classes on a virtual
+clock.
 
 Quickstart::
 
@@ -32,10 +41,12 @@ from . import (  # noqa: F401
     batcher,
     buckets,
     decode,
+    fleet,
     gateway,
     kv_tier,
     metrics,
     pool,
+    router,
     server,
 )
 from .access_log import AccessLog
@@ -54,8 +65,10 @@ from .decode import (
     fast_forward_rng,
     sample_token,
 )
+from .fleet import AutoscalerPolicy, FleetController, SLOPolicy, make_policy
 from .metrics import ServingStats, snapshot_stats
 from .pool import PredictorPool
+from .router import Router
 from .server import InferenceServer
 
 __all__ = [
@@ -63,6 +76,13 @@ __all__ = [
     "gateway",
     "kv_tier",
     "Gateway",
+    "Router",
+    "FleetController",
+    "AutoscalerPolicy",
+    "SLOPolicy",
+    "make_policy",
+    "fleet",
+    "router",
     "AccessLog",
     "batcher",
     "buckets",

@@ -58,12 +58,24 @@ warmup and runs every window, copy and step inside a
 ``serving_request_window``; a stream carries the trace context it was
 submitted under, re-entered around its slot's windows, and each fused
 tick of traced streams is a ``decode_tick`` span listing their trace
-ids. Left for later slices, as in ROADMAP.md: the host KV tier and
-chain export, and tensor parallelism.
+ids.
+
+Fleet KV tier (``kv_tier_host_mb`` > 0, paged pool with a prefix
+index): an index eviction pins the victim block and hands it to a spill
+worker, which gathers the victims' rows on the card and copies only
+those rows to a ``kv_tier.HostBlockStore``; an admission whose chain
+runs past the device index readmits the spilled blocks H2D into fresh
+pool blocks instead of prefilling them again. ``request_export`` reads a
+prompt's published chain out of the pool (a prefill-role replica's
+``/v1/kv/prefill``) and ``offer_blocks`` drops a pulled chain into the
+host store; ``prefix_heads`` and ``estimate_cached_tokens`` are the
+router's affinity advertisement and the gateway's pull signal. A
+payload is the reference's: per layer a ``(k_rows, v_rows)`` pair of
+numpy arrays [heads, block, d_head] in the pool's dtype. Left for a
+later slice, as in ROADMAP.md: tensor parallelism.
 """
 
 import contextlib
-import hashlib
 import queue
 import re
 import threading
@@ -83,6 +95,7 @@ from ..observability import compile_stats as _compile_stats
 from ..observability import exporter as _obs_exporter
 from ..observability import registry as _registry
 from ..observability import trace as _trace
+from . import kv_tier as _kv_tier
 from .batcher import ServerOverloadedError, ServingError
 
 __all__ = [
@@ -143,17 +156,9 @@ def prefill_ladder(max_len, buckets=None):
 # ---------------------------------------------------------------------------
 
 
-def _block_hash(prev_key, tokens):
-    """Chain digest of one prompt block: block i's key folds in block
-    i-1's, so equal keys mean equal whole prefixes. sha256 over the
-    previous digest and the token bytes, not ``hash()``: prompts are
-    client data, and a short searchable key would let one request
-    engineer a match into another's K/V. No consumer trusts the key
-    alone: every match re-compares the stored (prev, tokens) link."""
-    h = hashlib.sha256()
-    h.update(repr(prev_key).encode())
-    h.update(np.asarray(tokens, np.int64).tobytes())
-    return h.hexdigest()
+# the chain digest is shared with the host store, the wire codec and
+# the router's affinity scorer, so the one definition lives in kv_tier
+_block_hash = _kv_tier.block_hash
 
 
 class _PrefixEntry(object):
@@ -354,9 +359,14 @@ class PagedPrefixIndex(object):
     moves. Eviction is a decref: a block live slots still share survives
     until the last of them retires. ``max_blocks`` caps how many blocks
     the index itself may pin (the paged reading of
-    ``decode_prefix_cache_mb``)."""
+    ``decode_prefix_cache_mb``).
 
-    def __init__(self, block, max_blocks, allocator):
+    ``on_evict`` is the host-spill seam (kv_tier): called with the
+    victim entry before the index drops its reference, while the block's
+    bytes are still live; the engine's hook pins the block and hands it
+    to the spill worker. It must not mutate the index."""
+
+    def __init__(self, block, max_blocks, allocator, on_evict=None):
         if block < 1 or max_blocks < 1:
             raise ValueError(
                 "need block >= 1 and max_blocks >= 1, got %d / %d"
@@ -364,6 +374,7 @@ class PagedPrefixIndex(object):
         self.block = int(block)
         self.max_blocks = int(max_blocks)
         self.allocator = allocator
+        self.on_evict = on_evict
         self._entries = OrderedDict()  # key -> _PrefixEntry, LRU order
         self.evictions = 0
 
@@ -448,11 +459,45 @@ class PagedPrefixIndex(object):
             victim = next(iter(self._entries.values()), None)
             if victim is None:
                 return False
+        if self.on_evict is not None:
+            try:
+                self.on_evict(victim)
+            except Exception:  # noqa: BLE001 - spilling is best effort
+                pass
         del self._entries[victim.key]
         self.allocator.decref([victim.block_idx])
         self.evictions += 1
         _profiler.bump_counter("decode_prefix_evictions")
         return True
+
+    def admit(self, key, prev, tokens, block_idx):
+        """Index a block rebuilt from outside the pool (a host-store
+        readmission or a pulled peer payload) under its chain key. The
+        caller owns ``block_idx`` with exactly one reference and hands it
+        to the index (no slot holds it, so no incref). Returns the new
+        entry, or None when the key is already indexed or no room can be
+        made; the caller then keeps its reference."""
+        toks = tuple(int(t) for t in tokens)
+        if self._entries.get(key) is not None:
+            return None
+        if len(self._entries) >= self.max_blocks:
+            if not self.evict_one():
+                return None
+        e = _PrefixEntry(key, prev, toks, block_idx)
+        self._entries[key] = e
+        return e
+
+    def head_keys(self, k):
+        """The newest ``k`` chain keys, newest first: the replica's cache
+        affinity advertisement. Read without the loop's lock off the
+        gateway thread: the dict view is copied first, and a racing
+        change at worst gives a slightly stale list, which the router's
+        staleness bound tolerates."""
+        try:
+            keys = list(self._entries.keys())
+        except RuntimeError:  # resized mid-copy: advertise nothing
+            return []
+        return keys[-int(k):][::-1] if k > 0 else []
 
     def stats(self):
         return {"block": self.block, "max_blocks": self.max_blocks,
@@ -1297,7 +1342,8 @@ class DecodeEngine(object):
                         "resume_admissions": 0, "resume_tokens": 0,
                         "spec_drafted": 0, "spec_accepted": 0,
                         "oom_sheds": 0, "preemptions": 0,
-                        "preempt_replayed_tokens": 0}
+                        "preempt_replayed_tokens": 0,
+                        "kv_readmits": 0, "kv_readmit_tokens": 0}
         # weighted-fair scheduler (stride scheduling): per-tenant virtual
         # time and the virtual clock a newly seen tenant starts at
         self._sched_vtime = {}
@@ -1306,6 +1352,20 @@ class DecodeEngine(object):
         self._sched_weights_ver = None
         self._gauges = {}  # registry name -> the callable registered
         self._armed = False  # this engine's count in the strict gate
+        # fleet KV tier (kv_tier.py): the host-spill store behind the
+        # paged prefix index. Evicted blocks spill D2H off the loop
+        # thread; an admission whose chain outruns the device index
+        # readmits the spilled rows H2D instead of prefilling them again
+        self.kv_host_mb = float(_flags.get_flag("kv_tier_host_mb"))
+        self.kv_advert_k = int(_flags.get_flag("kv_tier_advert_k"))
+        self.host_store = None  # kv_tier.HostBlockStore once started
+        self._spill_worker = None
+        # worker -> loop thread: block ids whose D2H copy finished
+        # (deque append/popleft are atomic)
+        self._spill_done = deque()
+        # gateway -> loop thread: chain exports (/v1/kv/prefill); the
+        # pool is read on the loop thread, its only writer
+        self._export_jobs = deque()
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, loop=True):
@@ -1318,6 +1378,7 @@ class DecodeEngine(object):
             raise RuntimeError(
                 "previous decode-engine loop thread has not exited yet")
         self.prefix = self.pindex = self.allocator = None
+        self.host_store = None
         if self._paged:
             self.session = DecodeSession(
                 self.model, slots=self._slots_arg, max_len=self._max_len_arg,
@@ -1333,6 +1394,16 @@ class DecodeEngine(object):
                     _gpt.paged_block_bytes(self.model.cfg, self.block_size))))
                 self.pindex = PagedPrefixIndex(self.block_size, cap,
                                                self.allocator)
+                if self.kv_host_mb > 0:
+                    # the host tier behind the index: an eviction spills
+                    # instead of vanishing, and admission walks the
+                    # store when the device chain runs out
+                    self.host_store = _kv_tier.HostBlockStore(
+                        int(self.kv_host_mb * 2 ** 20))
+                    self.pindex.on_evict = self._on_index_evict
+                    self._spill_done.clear()
+                    self._spill_worker = _kv_tier.SpillWorker(
+                        self._spill_batch)
         else:
             blocks = 0
             if self.prefix_cache_mb > 0:
@@ -1371,6 +1442,12 @@ class DecodeEngine(object):
                 gauges["decode_spec_acceptance"] = lambda e=self: (
                     e._counts["spec_accepted"]
                     / max(e._counts["spec_drafted"], 1))
+            if self.host_store is not None:
+                # host-tier pressure: resident spilled blocks and bytes
+                gauges["kv_tier_host_blocks"] = lambda e=self: (
+                    len(e.host_store) if e.host_store else 0)
+                gauges["kv_tier_host_bytes"] = lambda e=self: (
+                    e.host_store.bytes_used if e.host_store else 0)
             for name, fn in gauges.items():
                 _registry.register_gauge(name, fn)
                 self._gauges[name] = fn
@@ -1440,6 +1517,12 @@ class DecodeEngine(object):
             self._thread.join(timeout=30)
             if not self._thread.is_alive():
                 self._thread = None
+        if self._spill_worker is not None:
+            # finishes the queued spill batches first (the loop thread is
+            # gone, so their pool reads race nothing), then exits; the
+            # pins die with the allocator the next start() builds
+            self._spill_worker.stop()
+            self._spill_worker = None
         self._disarm()
         self._drop_gauges()
         # drain under the lock submit() enqueues under, flipping started
@@ -1589,6 +1672,9 @@ class DecodeEngine(object):
         store = self.prefix if self.prefix is not None else self.pindex
         if store is not None:
             out["prefix_store"] = store.stats()
+        if self.host_store is not None:
+            out["kv_tier"] = dict(self.host_store.stats(),
+                                  readmit_tokens=c["kv_readmit_tokens"])
         return out
 
     # -- engine loop ---------------------------------------------------------
@@ -1596,7 +1682,8 @@ class DecodeEngine(object):
         while True:
             with self._cond:
                 while not self._stop and not self._pending \
-                        and not self._active and not self._prefilling:
+                        and not self._active and not self._prefilling \
+                        and not self._export_jobs:
                     self._cond.wait()
                 if self._stop:
                     return
@@ -1626,7 +1713,10 @@ class DecodeEngine(object):
         window prefills inline and emits its first token), advance ONE
         window of a multi-window prefill, then ONE fused decode step over
         every active slot. The window cap bounds what a live stream
-        waits per token: one window plus one step."""
+        waits per token: one window plus one step. Finished spills and
+        chain exports are served first."""
+        self._drain_spill_done()
+        self._serve_export_jobs()
         self._reap_cancelled()
         self._admit()
         self._advance_prefills()
@@ -1911,6 +2001,12 @@ class DecodeEngine(object):
         entries, hit_tokens = [], 0
         if self.pindex is not None:
             entries, hit_tokens = self.pindex.lookup(prompt)
+            if self.host_store is not None:
+                # the chain ran past the device index: spilled (or
+                # pulled) blocks readmit H2D, each joining ``entries``
+                # with the same slot reference lookup hands out
+                entries = self._readmit_from_host(prompt, entries)
+                hit_tokens = len(entries) * self.block_size
         prefix_tokens, wins = self._plan_windows(len(prompt), hit_tokens)
         bs = self.block_size
         if prefix_tokens < hit_tokens:
@@ -2045,15 +2141,282 @@ class DecodeEngine(object):
     def _alloc_blocks(self, n):
         """Allocator take with prefix-index relief: while the free list
         is short, evict index entries whose block the index alone holds
-        (each decref frees one) and retry. None = out of memory; the
-        caller sheds."""
+        (each decref frees one) and retry. With the host tier an eviction
+        frees nothing at once (the spill pin holds the block until its
+        D2H copy completes), so the loop also reaps finished spills and,
+        still short with spills in flight, waits (bounded) for the
+        worker's batch. None = out of memory; the caller sheds."""
         got = self.allocator.alloc(n)
         while got is None:
-            if self.pindex is None or not self.pindex.evict_one(
-                    need_free=True):
+            progressed = self._drain_spill_done()
+            if self.pindex is not None \
+                    and self.pindex.evict_one(need_free=True):
+                progressed = True
+            if not progressed and self._spill_worker is not None \
+                    and self._spill_worker.pending:
+                self._spill_worker.drain(timeout=0.2)
+                progressed = self._drain_spill_done()
+            if not progressed:
                 return None
             got = self.allocator.alloc(n)
         return got
+
+    # -- fleet KV tier (kv_tier.py) ------------------------------------------
+    def _read_rows(self, blocks):
+        """Host copies of pool ``blocks``' rows: numpy [layers, 2, n,
+        heads, block, d_head] in the pool's dtype (axis 1 is K, V). One
+        gather per pool on the pool's device and one D2H copy of only
+        these rows, never the whole pool. Any thread may call it for
+        blocks no step writes (a pinned spill victim, an indexed block):
+        every thread enqueues on the device's default stream, so the
+        gather runs after the step that last wrote them."""
+        sess = self.session
+        idx = torch.as_tensor(np.asarray(blocks, np.int64)).to(sess.device)
+        with torch.inference_mode():
+            rows = torch.stack([torch.stack((k.index_select(0, idx),
+                                             v.index_select(0, idx)))
+                                for k, v in sess.caches])
+            return rows.cpu().numpy()
+
+    def _write_rows(self, blocks, rows):
+        """Write ``rows`` (numpy [layers, 2, n, heads, block, d_head], as
+        ``_read_rows`` gives them) into pool ``blocks``: one H2D copy of
+        the rows and one ``index_copy_`` per pool, on the calling
+        thread's stream (the loop thread's, ahead of the step that reads
+        them)."""
+        sess = self.session
+        with torch.inference_mode():
+            idx = torch.as_tensor(np.asarray(blocks, np.int64)).to(
+                sess.device)
+            dev_rows = torch.from_numpy(rows).to(
+                sess.device, dtype=sess.caches[0][0].dtype)
+            for li, (k, v) in enumerate(sess.caches):
+                k.index_copy_(0, idx, dev_rows[li, 0])
+                v.index_copy_(0, idx, dev_rows[li, 1])
+
+    @staticmethod
+    def _payload(rows, j):
+        """Block ``j``'s payload out of ``_read_rows``: per layer a
+        (k_rows, v_rows) pair [heads, block, d_head], owning its bytes."""
+        return [(rows[li, 0, j].copy(), rows[li, 1, j].copy())
+                for li in range(rows.shape[0])]
+
+    def _on_index_evict(self, victim):
+        """Index eviction hook (loop thread, before the index decrefs):
+        pin the victim's block with one more reference and hand it to the
+        spill worker. The pin keeps the allocator from issuing the block
+        again, and no step writes a block it did not allocate
+        (copy-on-write covers shared writes), so its rows stay as they
+        are until the worker has copied them."""
+        if self._spill_worker is None:
+            return
+        self.allocator.incref([victim.block_idx])
+        self._spill_worker.submit(
+            (victim.key, victim.prev, victim.tokens, victim.block_idx))
+
+    def _spill_batch(self, jobs):
+        """Spill worker body: one gather and one D2H copy cover every
+        queued eviction, then each victim's rows go into the host store.
+        Every block id returns through ``_spill_done``, also on failure,
+        so a lost spill never leaks a pin."""
+        try:
+            rows = self._read_rows([job[3] for job in jobs])
+            for j, (key, prev, tokens, _blk) in enumerate(jobs):
+                self.host_store.put(key, prev, tokens,
+                                    self._payload(rows, j))
+        finally:
+            for job in jobs:
+                self._spill_done.append(job[3])
+
+    def _drain_spill_done(self):
+        """Reap finished spills (loop thread): drop each pin the evict
+        hook took; for a block only the pin still held this is the decref
+        that frees it. Returns True when any block was released."""
+        freed = False
+        while True:
+            try:
+                blk = self._spill_done.popleft()
+            except IndexError:
+                return freed
+            self.allocator.decref([blk])
+            freed = True
+
+    def _readmit_from_host(self, prompt, entries):
+        """Extend a device-index hit from the host tier: walk the
+        prompt's chain past the device entries and, for every spilled
+        block found, take a fresh pool block, write the payload H2D and
+        index it again. Returns the extended entries (each new one
+        carries the caller's slot reference, as ``lookup``'s do). All
+        hits go up in one H2D copy and one ``index_copy_`` per pool, on
+        the loop thread ahead of the window that reads them: the cost
+        scales with the readmitted rows, not the pool."""
+        bs = self.block_size
+        usable = (len(prompt) - 1) // bs
+        hits = []  # (host entry, fresh pool block)
+        prev = entries[-1].key if entries else 0
+        for b in range(len(entries), usable):
+            toks = tuple(prompt[b * bs:(b + 1) * bs])
+            key = _block_hash(prev, toks)
+            if self.pindex._entries.get(key) is not None:
+                break  # raced back into the device index; stop
+            he = self.host_store.get(key, prev, toks)
+            if he is None:
+                break
+            got = self._alloc_blocks(1)
+            if got is None:
+                break  # pool pressure: keep what we have, prefill the rest
+            hits.append((he, got[0]))
+            prev = key
+        if not hits:
+            return entries
+        self._write_rows([blk for _he, blk in hits], np.stack([
+            np.stack((np.stack([he.payload[li][0] for he, _b in hits]),
+                      np.stack([he.payload[li][1] for he, _b in hits])))
+            for li in range(len(self.session.caches))]))
+        out = list(entries)
+        for he, blk in hits:
+            e = self.pindex.admit(he.key, he.prev, he.tokens, blk)
+            if e is None:
+                # the index refused (full of slot-shared blocks): the
+                # block still serves this admission under a detached
+                # entry, and the slot's decref at retirement frees it
+                e = _PrefixEntry(he.key, he.prev, he.tokens, blk)
+            else:
+                # the index took the allocated reference; the slot needs
+                # its own
+                self.allocator.incref([blk])
+            self.host_store.note_readmit(he)
+            _profiler.bump_counter("kv_tier_readmit_tokens", bs)
+            self._counts["kv_readmits"] += 1
+            self._counts["kv_readmit_tokens"] += bs
+            out.append(e)
+        return out
+
+    def prefix_heads(self, k=None):
+        """The cache affinity advertisement: up to ``k`` hot chain keys,
+        the device index's first (newest first), then the host tier's.
+        Safe off the gateway thread: both reads copy without the loop's
+        lock, and a stale head only costs the router a mis-score within
+        its staleness bound."""
+        if k is None:
+            k = self.kv_advert_k
+        k = int(k)
+        if k <= 0 or self.pindex is None:
+            return []
+        heads = self.pindex.head_keys(k)
+        if self.host_store is not None and len(heads) < k:
+            seen = set(heads)
+            try:
+                host_keys = list(self.host_store._entries.keys())
+            except RuntimeError:
+                host_keys = []
+            for key in reversed(host_keys):
+                if key not in seen:
+                    heads.append(key)
+                    seen.add(key)
+                if len(heads) >= k:
+                    break
+        return heads
+
+    def estimate_cached_tokens(self, prompt_ids):
+        """About how many of ``prompt_ids``' tokens the device index and
+        the host tier hold: the gateway's pull-or-not signal. Read without
+        the loop's lock off the gateway thread; a racing eviction at worst
+        skews the estimate, and admission verifies every link again."""
+        if self.pindex is None:
+            return 0
+        bs = self.block_size
+        prompt = list(prompt_ids)
+        cached = 0
+        prev = 0
+        for b in range((len(prompt) - 1) // bs):
+            toks = tuple(prompt[b * bs:(b + 1) * bs])
+            key = _block_hash(prev, toks)
+            try:
+                e = self.pindex._entries.get(key)
+            except RuntimeError:
+                break
+            if e is None and self.host_store is not None:
+                e = self.host_store.get(key, prev, toks)
+            if e is None:
+                break
+            cached += bs
+            prev = key
+        return cached
+
+    def offer_blocks(self, entries):
+        """Take chain blocks pulled from a prefill-role peer (gateway
+        thread) into the thread-safe host store: the next admission whose
+        chain reaches them readmits them H2D through the spilled-block
+        path, with the same verification. Returns the blocks accepted."""
+        if self.host_store is None:
+            return 0
+        n = 0
+        for key, prev, tokens, payload in entries:
+            if self.host_store.put(key, prev, tokens, payload, tally=False):
+                n += 1
+        return n
+
+    def request_export(self, prompt_ids, timeout=5.0):
+        """The prompt's published chain blocks (a prefill-role replica's
+        ``/v1/kv/prefill``, gateway thread). The pool is read on the loop
+        thread, its only writer, so this parks a job the next tick serves
+        and waits (bounded). Returns [(key, prev, tokens, payload)] in
+        chain order, or None on timeout or a stopped engine."""
+        if not self.started or self.pindex is None:
+            return None
+        ev = threading.Event()
+        box = {}
+        with self._cond:
+            if self._stop or not self.started:
+                return None
+            self._export_jobs.append((list(prompt_ids), ev, box))
+            self._cond.notify_all()
+        if not ev.wait(timeout):
+            return None
+        return box.get("entries")
+
+    def _serve_export_jobs(self):
+        """Loop-thread half of ``request_export``: walk each job's chain,
+        read the indexed blocks' rows out of the pool in one gather, and
+        take spilled blocks straight from the host tier."""
+        while True:
+            try:
+                prompt, ev, box = self._export_jobs.popleft()
+            except IndexError:
+                return
+            try:
+                bs = self.block_size
+                chain = []  # [key, prev, tokens, pool block, payload]
+                prev = 0
+                for b in range(len(prompt) // bs):
+                    toks = tuple(prompt[b * bs:(b + 1) * bs])
+                    key = _block_hash(prev, toks)
+                    e = self.pindex._entries.get(key)
+                    if e is not None and (e.tokens != toks
+                                          or e.prev != prev):
+                        break  # collision squatting on the key
+                    if e is not None:
+                        chain.append([key, prev, toks, e.block_idx, None])
+                    elif self.host_store is not None:
+                        # already spilled: the payload is on the host
+                        he = self.host_store.get(key, prev, toks)
+                        if he is None:
+                            break
+                        chain.append([key, prev, toks, None, he.payload])
+                    else:
+                        break
+                    prev = key
+                on_card = [c for c in chain if c[3] is not None]
+                if on_card:
+                    rows = self._read_rows([c[3] for c in on_card])
+                    for j, c in enumerate(on_card):
+                        c[4] = self._payload(rows, j)
+                box["entries"] = [(c[0], c[1], c[2], c[4]) for c in chain]
+            except Exception:  # noqa: BLE001 - export is best effort
+                box["entries"] = None
+            finally:
+                ev.set()
 
     def _release_slot_blocks(self, slot_idx):
         """Drop the slot's reference on every block of its table: owned

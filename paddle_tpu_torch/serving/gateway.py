@@ -12,10 +12,11 @@ gateway is the integration layer that turns them into a *service*:
 
 Handler threads only decode JSON, enqueue and write: every tensor that
 reaches the card goes through the batcher's workers or the engine's
-loop, as for an in-process caller. Until the serving control plane is
-ported, the port's engine has no chain export: ``/v1/kv/prefill``
-answers 503 with a JSON error, as the reference does for a replica
-without a paged prefix index, and ``/readyz`` advertises the role only.
+loop, as for an in-process caller. A paged engine with a prefix index
+exports its chains on ``/v1/kv/prefill`` (read out of the pool on the
+engine's loop thread) and advertises its block size and chain heads on
+``/readyz``; a replica without a paged prefix index answers
+``/v1/kv/prefill`` 503 and advertises its role only.
 
 Endpoints (stdlib ``http.server`` threaded listener, one handler thread
 per in-flight request):
@@ -1290,12 +1291,6 @@ def _make_handler(gw):
                 if eng is None or getattr(eng, "pindex", None) is None:
                     self._send_json(503, {
                         "error": "no paged prefix index on this replica",
-                        "request_id": rid,
-                    })
-                    return
-                if not hasattr(eng, "request_export"):
-                    self._send_json(503, {
-                        "error": "no chain export on this replica",
                         "request_id": rid,
                     })
                     return

@@ -2,13 +2,14 @@
 only): content-addressed prefix blocks across device, host, and
 replicas.
 
-In the port the gateway uses the chain digest, the wire codec and the
-peers file; the engine's host spill and chain export come with the
-serving control plane.
+In the port the paged engine spills to the host store through the spill
+worker and exports chains; the gateway uses the chain digest, the wire
+codec and the peers file; the router scores affinity with
+``chain_keys``.
 
-PR 12/16 made prefix K/V reuse cheap *inside* one replica — the paged
-pool plus ``PagedPrefixIndex`` turn a shared system prompt into
-zero-copy block references. But the index is per-replica and bounded by
+The paged engine makes prefix K/V reuse cheap *inside* one replica:
+the paged pool plus ``PagedPrefixIndex`` turn a shared system prompt
+into zero-copy block references. But the index is per-replica and bounded by
 device memory: at fleet scale the same prefix re-prefills once per
 replica, and an LRU-evicted block is recomputed from scratch. This
 module is the tier that fixes both, built on one observation: a paged
@@ -130,8 +131,8 @@ class HostBlockStore(object):
     decode ticks, and the payloads themselves are immutable once
     stored. Capacity is bytes (``FLAGS_kv_tier_host_mb``); inserting
     past it evicts the host-LRU tail (``kv_tier_host_evictions``) —
-    a block falling off BOTH tiers is finally recomputed, which is the
-    pre-PR-17 behavior for every block."""
+    a block falling off BOTH tiers is finally recomputed, which is what
+    every evicted block costs without the host tier."""
 
     def __init__(self, capacity_bytes):
         self.capacity_bytes = int(capacity_bytes)

@@ -1,11 +1,10 @@
 """Deterministic fault injection (port of
 ``paddle_tpu/testing/chaos.py``) for elastic-training and serving tests.
 
-The serving front's hook, ``on_stream_token``, is live in the port. The
-training hooks come as they are, for the trainer and the supervisor
-still to be ported; the ``lose_rank`` fault writes its down marker
-through ``distributed.elastic``, which the port does not have yet, so
-that fault raises ``NotImplementedError`` when it fires.
+The serving front's hook, ``on_stream_token``, and the fleet's
+controller kill are live in the port. The training hooks come as they
+are, for the trainer still to be ported; the ``lose_rank`` fault writes
+its down marker through ``distributed.elastic``, as the reference's.
 
 Every injection point is a pure function of configuration + observable
 state (step index, call count) — no randomness lives here, so a failing
@@ -242,16 +241,13 @@ class FaultPlan(object):
             return False
 
 
-# the elastic contract's stable gang-slot variable (the reference's
-# ``distributed.elastic.SLOT_ENV``)
-SLOT_ENV = "PADDLE_TPU_GANG_SLOT"
-
-
 def _my_slot():
     """This worker's stable gang slot: the elastic contract's
     PADDLE_TPU_GANG_SLOT when the supervisor injected it, else the
     legacy trainer id (fixed-size gangs: slot == rank)."""
-    raw = os.environ.get(SLOT_ENV)
+    from ..distributed import elastic as _elastic
+
+    raw = os.environ.get(_elastic.SLOT_ENV)
     if raw is None:
         raw = os.environ.get("PADDLE_TRAINER_ID", "0")
     try:
@@ -322,14 +318,28 @@ def on_step(step):
     if plan is None:
         return
     # slice preemption first (slot-addressed, independent of
-    # target_rank): the reference writes the down marker, THEN exits
-    # 143 — the marker goes through distributed.elastic, not ported yet
+    # target_rank): write the down marker, THEN exit 143 — the
+    # supervisor must find the marker when it re-plans the gang
     if (plan.loses_me()
             and step == int(plan.lose_rank_at_step)
             and _fire_once(plan, "lose_rank")):
-        raise NotImplementedError(
-            "chaos lose_rank writes its down marker through "
-            "distributed.elastic, which paddle_tpu_torch does not have")
+        from ..distributed import elastic as _elastic
+
+        down_file = os.environ.get(_elastic.DOWN_FILE_ENV)
+        if down_file:
+            _elastic.write_down_marker(
+                down_file, down_for=plan.lose_rank_for,
+                slot=plan.lose_rank, reason="chaos_lose_rank",
+            )
+        print(
+            "CHAOS lose_rank slot=%d step=%d down_for=%d pid=%d"
+            % (int(plan.lose_rank), step, plan.lose_rank_for,
+               os.getpid()),
+            flush=True,
+        )
+        # exit 143 like a SIGTERMed (preempted) worker, abruptly —
+        # no atexit / finally cleanup, as a real slice loss gives none
+        os._exit(143)
     if not plan.targets_me():
         return
     if plan.crash_at_step is not None and step == int(plan.crash_at_step):

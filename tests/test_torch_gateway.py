@@ -14,8 +14,8 @@ against the reference's over real sockets on the CPU.
   classes: the JSON codec, ``_Admission``'s priority order and quota
   re-check, tenant isolation, the token bucket, the tenant table,
   keep-alive hygiene, the SIGTERM chain, in-band stream errors, drain.
-- ``/v1/kv/prefill`` answers 503 with a JSON error: the port's engine
-  has no chain export yet.
+- ``/v1/kv/prefill`` answers 503 on a replica without a paged prefix
+  index, and 200 with the reference's chain on one that has it.
 - The port's probe, ``python -m paddle_tpu_torch.tools.gateway_probe
   --fast --device cpu``, as a subprocess (it signals itself).
 """
@@ -432,33 +432,69 @@ def test_access_log_keys_match_reference(pair, tmp_path):
 
 def test_kv_prefill_answers_503_without_an_export_path(pair):
     """The contiguous engine has no paged prefix index: 503 as the
-    reference; a paged engine with an index but no chain export (the
-    port's until the control plane): 503 too, never a 500."""
+    reference. A paged engine with an index exports the chain: 200 with
+    the reference's keys, links and tokens exactly and its K/V rows
+    within 1e-5 (fp32 sums of two layers in other orders give ~1e-7; a
+    wrong row or block gives O(1)), and ``/readyz`` advertises the
+    block size and the chain heads, as the reference's."""
     st, body, _ = _both(pair, lambda n, b, g: post(
         b + "/v1/kv/prefill", {"prompt_ids": [1, 2, 3]},
         {"X-Request-Id": "kv"}))["torch"]
     assert st == 503 and body == {
         "error": "no paged prefix index on this replica",
         "request_id": "kv"}
-    tcfg = tgpt.GPTConfig.tiny(max_position_embeddings=MAX_LEN)
+    cfg = jgpt.GPTConfig.tiny(use_flash_attention=True,
+                              max_position_embeddings=MAX_LEN,
+                              hidden_dropout=0.0, attention_dropout=0.0)
+    with jfluid.unique_name.guard():
+        infer, startup, _feeds, _logits = jgpt.build_gpt_infer(cfg, MAX_LEN)
+    startup.random_seed = 11
+    scope = jfluid.core.Scope()
+    with jfluid.scope_guard(scope):
+        jfluid.Executor(jfluid.CPUPlace()).run(startup)
+    tcfg = tgpt.GPTConfig.tiny(use_flash_attention=True,
+                               max_position_embeddings=MAX_LEN)
     model = tgpt.GPTLM(tcfg, device="cpu")
-    engine = tserving.DecodeEngine(model, slots=2, max_len=MAX_LEN,
-                                   block_size=4, prefix_cache_mb=1.0)
-    server = tserving.InferenceServer(EchoPredictor(),
-                                      decode_engine=engine).start()
-    gw = tserving.Gateway(server, port=0).start()
-    try:
-        assert engine.pindex is not None
-        st, body, _ = post("http://127.0.0.1:%d/v1/kv/prefill" % gw.port,
-                           {"prompt_ids": [1, 2, 3, 4, 5]},
-                           {"X-Request-Id": "kv2"})
-        assert st == 503 and body == {
-            "error": "no chain export on this replica",
-            "request_id": "kv2"}
-        assert gw.kv_advert() == {"role": "mixed"}
-    finally:
-        gw.stop()
-        server.stop()
+    tgpt.load_fluid_params(model, {n: np.asarray(scope.get(n))
+                                   for n in tgpt.fluid_param_shapes(tcfg)})
+    knobs = dict(slots=2, max_len=MAX_LEN, block_size=4,
+                 prefix_cache_mb=1.0)
+    engines = {"jax": jserving.DecodeEngine(cfg, scope=scope,
+                                            param_program=infer, **knobs),
+               "torch": tserving.DecodeEngine(model, **knobs)}
+    prompt = [int(t) for t in np.random.RandomState(5).randint(0, 211, 13)]
+    out = {}
+    for name, (mod, _gw, _pre) in PKG.items():
+        server = mod.InferenceServer(EchoPredictor(),
+                                     decode_engine=engines[name]).start()
+        gw = mod.Gateway(server, port=0).start()
+        try:
+            base = "http://127.0.0.1:%d" % gw.port
+            st, body, _ = post(base + "/v1/kv/prefill",
+                               {"prompt_ids": prompt},
+                               {"X-Request-Id": "kv2"})
+            with urllib.request.urlopen(base + "/readyz", timeout=10) as r:
+                ready = json.loads(r.read().decode())
+            out[name] = (st, body, ready)
+        finally:
+            gw.stop()
+            server.stop()
+    (jst, jbody, jready), (st, body, ready) = out["jax"], out["torch"]
+    assert st == jst == 200
+    assert body["block"] == jbody["block"] == 4
+    assert body["count"] == jbody["count"] == 3  # 13 tokens: 3 blocks
+    row = [tcfg.num_heads, 4, tcfg.hidden_size // tcfg.num_heads]
+    got = tserving.kv_tier.decode_entries(body["blocks"], row)
+    want = jserving.kv_tier.decode_entries(jbody["blocks"], row)
+    assert len(got) == len(want) == 3
+    for (k, p, t, pay), (jk, jp, jt, jpay) in zip(got, want):
+        assert (k, p, t) == (jk, jp, jt)
+        for (kr, vr), (jkr, jvr) in zip(pay, jpay):
+            np.testing.assert_allclose(kr, jkr, atol=1e-5, rtol=0)
+            np.testing.assert_allclose(vr, jvr, atol=1e-5, rtol=0)
+    assert ready["kv"] == jready["kv"]
+    assert ready["kv"]["block"] == 4
+    assert ready["kv"]["heads"] == [got[2][0], got[1][0], got[0][0]]
 
 
 # ---------------------------------------------------------------------------

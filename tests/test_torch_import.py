@@ -107,6 +107,29 @@ for fn in (gateway.Gateway, gateway.encode_tensor, gateway.decode_tensor,
            serving.Gateway, serving.AccessLog):
     assert callable(fn)
 assert issubclass(compile_stats.SteadyStateRecompileError, RuntimeError)
+# the serving control plane slice
+from paddle_tpu_torch import distributed
+from paddle_tpu_torch.checkpoint import modeldir
+from paddle_tpu_torch.distributed import elastic, supervisor
+from paddle_tpu_torch.observability import aggregate, fleet_trace
+from paddle_tpu_torch.serving import fleet, replica, router, sim
+from paddle_tpu_torch.tools import fleet_probe, fleet_sim
+for fn in (router.Router, fleet.FleetController, fleet.AutoscalerPolicy,
+           fleet.SLOPolicy, fleet.make_policy, fleet.read_fleet_state,
+           replica.build_gpt_decode_engine, replica.main, sim.FleetSim,
+           sim.synthetic_workload, sim.from_journeys, modeldir.publish,
+           modeldir.commit_json, supervisor.worker_heartbeat,
+           supervisor.read_heartbeat, supervisor.load_events,
+           supervisor.WorkerHeartbeat, elastic.write_down_marker,
+           aggregate.write_fleet_report, fleet_trace.merge,
+           fleet_probe.run_probe, fleet_probe.run_runner, fleet_sim.main,
+           decode.DecodeEngine.request_export, decode.DecodeEngine.offer_blocks,
+           decode.DecodeEngine.prefix_heads, decode.PagedPrefixIndex.admit,
+           kv_tier.HostBlockStore, kv_tier.SpillWorker, serving.Router,
+           serving.FleetController, serving.AutoscalerPolicy,
+           serving.SLOPolicy, serving.make_policy):
+    assert callable(fn)
+assert distributed.supervisor is supervisor
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
