@@ -8,7 +8,7 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
-``gateway``, ``fleet``), ``--repeat`` times,
+``gateway``, ``fleet``, ``programs``), ``--repeat`` times,
 printing each run's line whether it passed or not. Phases, one JSON line
 each:
 
@@ -150,6 +150,25 @@ each:
            replica cold starts, peak memory per replica and the card's
            idle share (``nvidia-smi`` utilization).
 
+15. programs  (run after the profile phase) the KV-cache serving
+           programs: GPT-2 small through the reference's program-form
+           ``DecodeSession(cfg, place=CUDAPlace(0), scope)`` (the
+           ``build_gpt_*`` programs run by ``fluid.Executor``) beside the
+           eager session over the same parameter tensors, every call on
+           the same inputs, teacher-forced. Contiguous (8 slots, max_len
+           1024, the default ladder, resume windows, a 4-block prefix
+           store): 8 prefills, a publish and a copy-in (a prefix hit on
+           slot 7), a resume window, 32 steps. Paged (block 16, the
+           default pool, width 4): windows of at most 512 tokens, 32
+           width-1 steps, a width-4 verify, a block copy. Logits within
+           1e-4, every cache row, store and pool block (the sink aside)
+           within 1e-5; ``flash_fwd`` 12 a prefill, ``flash_decode`` 12 a
+           step, ``flash_decode_paged`` 12 a width-1 step, none in the
+           dense windows and verify. The step's host p50, device busy
+           and idle share, program against eager. Then the reference's
+           ``greedy_generate(exe, infer, logits, cfg, prompt, ...)``: 64
+           tokens held to the plain forward and the eager form.
+
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
 [1, 12, 1024, 1024] and the [1024, 1024] bias; the bf16 forms of the
@@ -270,6 +289,25 @@ CHUNKED_LEN, LIVE_LENS, LIVE_NEW = 990, (20, 45, 9, 60), 64
 RESUME_AFTER = 16
 BATCH_LENS, BATCH_NEW, INTERACTIVE_LENS = (12, 30, 7, 55, 21, 40, 16,
                                            33), 64, (25, 11)
+
+# The KV-cache serving programs: GPT-2 small through the reference's
+# program-form DecodeSession (the build_gpt_* programs run by
+# fluid.Executor(CUDAPlace(0))) beside the eager DecodeSession over the
+# same parameter tensors, call by call on the same inputs, teacher-forced.
+# Both are fp32 with TF32 off and run the same kernels; the products run
+# as other op sequences (fc as mul + add, the LM head over the whole
+# window before the selection), so logits of std ~0.5 differ by ~1e-5 at
+# most and the K/V rows and blocks they write by ~1e-6; a wrong slot,
+# offset, block or mask moves them by O(0.1). Contiguous: 8 prefills, a
+# publish and a copy-in of one 64-token block (a prefix hit on slot 7),
+# a resume window, 32 steps. Paged: windows of at most 512 tokens, 32
+# width-1 steps, one width-4 verify, one block copy. Then the reference's
+# greedy_generate(exe, infer, logits, cfg, ...): 64 new tokens.
+PROG_LOGIT_ATOL, PROG_STATE_ATOL = 1e-4, 1e-5
+PROG_STEPS, PROG_WINDOW = 32, 512
+PROG_PREFIX_BLOCKS, PROG_PREFIX_BLOCK = 4, 64
+PROG_GEN_PROMPT, PROG_GEN_NEW = 20, 64
+PROG_TIMED_STEPS = 20
 
 # The inference path: GPT-2 small saved by save_inference_model, served
 # by AnalysisPredictor and InferenceServer. The predictor (flash_fwd,
@@ -3772,6 +3810,236 @@ def fleet_phase(dev):
     return dict({"phase": "fleet", "probe": probe}, **gpt2), launches
 
 
+def programs_phase(dev):
+    """The KV-cache serving programs on the card (see PROG_* above).
+    Returns (the phase's line, the program calls' kernel launches)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import decode
+
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig(use_flash_attention=True)
+    n_layers = cfg.num_layers
+    scope = fluid.Scope()
+    for name, arr in gpt.init_fluid_params(cfg, seed=0).items():
+        scope.set(name, torch.from_numpy(arr).to(dev))
+    # the eager session's model: its parameters are the scope's tensors
+    model = gpt.share_fluid_scope(gpt.GPTLM(cfg, device="meta"), scope)
+    place = fluid.CUDAPlace(0)
+    kernels = {"flash_fwd": fa.flash_attention_lse,
+               "flash_decode": fa.flash_decode_attention,
+               "flash_decode_paged": fa.flash_decode_paged_attention}
+    launches = dict.fromkeys(kernels, 0)
+    worst = {"logits": 0.0, "state": 0.0}
+    rng = np.random.RandomState(16)
+
+    def counted(fn, *args, **kw):
+        """``fn(...)`` with the launches it made, added to ``launches``."""
+        before = {k: w.launches for k, w in kernels.items()}
+        out = fn(*args, **kw)
+        delta = {k: w.launches - before[k] for k, w in kernels.items()}
+        for k, n in delta.items():
+            launches[k] += n
+        return out, delta
+
+    def both(prog, eager, call, *args, **kw):
+        """The program session's call (its launches counted), then the
+        eager session's on the same inputs; their logits compared."""
+        got, delta = counted(getattr(prog, call), *args, **kw)
+        want = getattr(eager, call)(*args, **kw)
+        if want is not None:
+            err = float(np.abs(np.asarray(got, np.float64)
+                               - np.asarray(want, np.float64)).max())
+            if not np.isfinite(got).all() or err > PROG_LOGIT_ATOL:
+                raise AssertionError("programs: %s logits %.3g from the "
+                                     "eager session's (tolerance %g)"
+                                     % (call, err, PROG_LOGIT_ATOL))
+            worst["logits"] = max(worst["logits"], err)
+        return got, delta
+
+    def expect(delta, what, **want):
+        got = {k: delta[k] for k in want}
+        if got != want:
+            raise AssertionError("programs: %s launched %s, expected %s"
+                                 % (what, got, want))
+
+    def same_state(prog, eager, what):
+        """Every cache row, store block or pool block, program vs eager;
+        a paged pool's sink (block 0) takes every idle and pad write, so
+        its contents are garbage by contract and left out."""
+        first = 1 if prog.paged else 0
+        for (pk, pv), (ek, ev) in zip(prog.caches + prog.stores,
+                                      eager.caches + eager.stores):
+            err = max(max_err(pk[first:], ek[first:]),
+                      max_err(pv[first:], ev[first:]))
+            if not err <= PROG_STATE_ATOL:
+                raise AssertionError("programs: %s state %.3g from the "
+                                     "eager session's (tolerance %g)"
+                                     % (what, err, PROG_STATE_ATOL))
+            worst["state"] = max(worst["state"], err)
+
+    def timed(prog_fn, eager_fn):
+        """Host p50 of each form's step over PROG_TIMED_STEPS calls in
+        turns, then each profiled (device busy, idle share)."""
+        host = {"program": [], "eager": []}
+        for _ in range(PROG_TIMED_STEPS):
+            for form, fn in (("program", prog_fn), ("eager", eager_fn)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()   # returns host numpy: ends in a sync
+                host[form].append((time.perf_counter() - t0) * 1e3)
+        out = {}
+        for form, fn in (("program", prog_fn), ("eager", eager_fn)):
+            prof = _profile(fn, reps=10)
+            out[form] = {
+                "host_ms_p50": float(np.median(host[form])),
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "launches_per_step": prof["launches_per_call"],
+                "launches_by_class": prof["launches_by_class"]}
+        return out
+
+    def drop(sess):
+        scope.erase(list(sess.cache_tensors()))
+
+    # -- the contiguous pool ------------------------------------------------
+    kw = dict(slots=8, max_len=1024, build_resume=True,
+              prefix_blocks=PROG_PREFIX_BLOCKS,
+              prefix_block=PROG_PREFIX_BLOCK, block_size=0, spec_tokens=0)
+    csess = decode.DecodeSession(cfg, place=place, scope=scope, **kw)
+    ceager = decode.DecodeSession(model, **kw)
+    if not isinstance(csess, decode.ProgramDecodeSession):
+        raise AssertionError("DecodeSession(cfg, ...) is not the program form")
+    t0 = time.perf_counter()
+    csess.warmup()
+    prog_warmup_s = time.perf_counter() - t0
+    ceager.warmup()
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in PAGED_PROMPT_LENS]
+    logits = []
+    for slot, p in enumerate(prompts):
+        got, delta = both(csess, ceager, "prefill", slot, p)
+        expect(delta, "a prefill", flash_fwd=n_layers)
+        logits.append(got)
+    same_state(csess, ceager, "after the prefills")
+    # a prefix hit on slot 7: slot 3's first block published and copied
+    # into slot 7's row head, the rest of its prompt a resume window
+    both(csess, ceager, "prefix_publish", 3, 0, 1)
+    both(csess, ceager, "prefix_copy_in", 7, 0, 1)
+    hit = prompts[3]
+    got, delta = both(csess, ceager, "resume_prefill", 7,
+                      hit[PROG_PREFIX_BLOCK:], PROG_PREFIX_BLOCK)
+    expect(delta, "a resume window", flash_fwd=0, flash_decode=0)
+    hit_err = float(np.abs(got - logits[3]).max())
+    if hit_err > LOGIT_ATOL:
+        raise AssertionError("programs: the hit's resume window gives "
+                             "logits %.3g from its prefill's" % hit_err)
+    prompts[7], logits[7] = hit, got
+    same_state(csess, ceager, "after the hit")
+    toks = [int(np.argmax(lv)) for lv in logits]
+    pos = [len(p) for p in prompts]
+    for _ in range(PROG_STEPS):
+        got, delta = both(csess, ceager, "decode_step", toks, pos,
+                          [True] * 8)
+        expect(delta, "a decode step", flash_decode=n_layers)
+        toks = [int(t) for t in got.argmax(-1)]
+        pos = [q + 1 for q in pos]
+    same_state(csess, ceager, "after the decode steps")
+    step_args = (toks, pos, [True] * 8)
+    contiguous_times = timed(lambda: csess.decode_step(*step_args),
+                             lambda: ceager.decode_step(*step_args))
+    drop(csess)
+    del csess, ceager
+    torch.cuda.empty_cache()
+
+    # -- the paged pool -----------------------------------------------------
+    kw = dict(slots=8, max_len=PAGED_MAX_LEN, block_size=PAGED_BLOCK,
+              spec_tokens=SPEC_K)
+    psess = decode.DecodeSession(cfg, place=place, scope=scope, **kw)
+    peager = decode.DecodeSession(model, **kw)
+    psess.warmup()
+    peager.warmup()
+    mb = psess.max_blocks
+    need = [-(-(len(p) + PROG_STEPS + SPEC_K) // PAGED_BLOCK)
+            for p in prompts]
+    tables = [list(range(1 + s * mb, 1 + s * mb + n))
+              for s, n in enumerate(need)]
+    windows = 0
+    for slot, p in enumerate(prompts):
+        for off in range(0, len(p), PROG_WINDOW):
+            got, delta = both(psess, peager, "paged_window", tables[slot],
+                              p[off:off + PROG_WINDOW], off)
+            expect(delta, "a paged window", flash_fwd=0,
+                   flash_decode_paged=0)
+            windows += 1
+        logits[slot] = got
+    same_state(psess, peager, "after the paged windows")
+    toks = [int(np.argmax(lv)) for lv in logits]
+    pos = [len(p) for p in prompts]
+    for _ in range(PROG_STEPS):
+        got, delta = both(psess, peager, "paged_step",
+                          np.array(toks).reshape(8, 1), pos, tables,
+                          [True] * 8)
+        expect(delta, "a width-1 paged step", flash_decode_paged=n_layers)
+        toks = [int(t) for t in got[:, 0].argmax(-1)]
+        pos = [q + 1 for q in pos]
+    draft = np.array([[t] * SPEC_K for t in toks])
+    got, delta = both(psess, peager, "paged_step", draft, pos, tables,
+                      [True] * 8, width=SPEC_K)
+    expect(delta, "the width-%d verify" % SPEC_K, flash_decode_paged=0)
+    # copy-on-write: slot 0's last block into a block no table maps
+    both(psess, peager, "block_copy", [tables[0][-1]],
+         [1 + need[0]])
+    same_state(psess, peager, "after the steps, verify and block copy")
+    step_args = (np.array(toks).reshape(8, 1), pos, tables, [True] * 8)
+    paged_times = timed(lambda: psess.paged_step(*step_args),
+                        lambda: peager.paged_step(*step_args))
+    drop(psess)
+    del psess, peager
+    torch.cuda.empty_cache()
+
+    # -- the reference-form greedy_generate ---------------------------------
+    with fluid.unique_name.guard():
+        infer, _startup, _feeds, logits_var = gpt.build_gpt_infer(cfg, 1024)
+    exe = fluid.Executor(place)
+    prompt = rng.randint(0, cfg.vocab_size, PROG_GEN_PROMPT).tolist()
+    max_len = PROG_GEN_PROMPT + PROG_GEN_NEW
+    t0 = time.perf_counter()
+    ids, delta = counted(gpt.greedy_generate, exe, infer, logits_var, cfg,
+                         prompt, max_len, scope=scope)
+    gen_s = time.perf_counter() - t0
+    expect(delta, "greedy_generate", flash_fwd=n_layers,
+           flash_decode=n_layers * (PROG_GEN_NEW - 1))
+    tokens = ids[PROG_GEN_PROMPT:]
+    if ids[:PROG_GEN_PROMPT] != prompt or len(tokens) != PROG_GEN_NEW:
+        raise AssertionError("greedy_generate returned %d ids for %d + %d"
+                             % (len(ids), PROG_GEN_PROMPT, PROG_GEN_NEW))
+    eager_ids = gpt.greedy_generate(model, prompt, max_len)
+    exact, diff = _teacher_forced(model, prompt, tokens,
+                                  alt=eager_ids[PROG_GEN_PROMPT:])
+    return {
+        "phase": "programs", "model": "gpt2-small", "dtype": "fp32",
+        "logit_atol": PROG_LOGIT_ATOL, "state_atol": PROG_STATE_ATOL,
+        "max_logit_err_vs_eager": worst["logits"],
+        "max_state_err_vs_eager": worst["state"],
+        "hit_vs_prefill_logit_err": hit_err,
+        "contiguous": {"slots": 8, "max_len": 1024, "prefills": 8,
+                       "prefix_copies": 2, "resume_windows": 1,
+                       "steps": PROG_STEPS, "warmup_s": prog_warmup_s,
+                       "step_times": contiguous_times},
+        "paged": {"slots": 8, "max_len": PAGED_MAX_LEN,
+                  "block": PAGED_BLOCK, "pool_blocks": 8 * mb + 1,
+                  "windows": windows, "width1_steps": PROG_STEPS,
+                  "verify_width": SPEC_K, "block_copies": 1,
+                  "step_times": paged_times},
+        "greedy_generate": {"prompt": PROG_GEN_PROMPT, "new": PROG_GEN_NEW,
+                            "seconds": gen_s, "exact_argmax": exact,
+                            "first_diff_vs_eager": diff},
+        "launches": launches, "seconds": time.perf_counter() - t_phase,
+    }, launches
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -3783,7 +4051,7 @@ def gpt2_small(dev):
 
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
-               "gateway", "fleet")
+               "gateway", "fleet", "programs")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -3805,6 +4073,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = gateway_phase(dev, served)[0]
                 elif phase == "fleet":
                     line = fleet_phase(dev)[0]
+                elif phase == "programs":
+                    line = programs_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -3831,7 +4101,7 @@ def main(argv=None):
     ap.add_argument("--only", default="",
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
-                         "inference_server, gateway, fleet)")
+                         "inference_server, gateway, fleet, programs)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -3895,6 +4165,9 @@ def main(argv=None):
     emit(dict(paged_engine, device=name, nvidia_smi=smi))
     emit(dict(profile_phase(model), device=name, nvidia_smi=smi))
     del model
+    torch.cuda.empty_cache()
+    programs, prog_launches = programs_phase(dev)
+    emit(dict(programs, device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
     train, train_launches = train_phase(dev)
     emit(dict(train, device=name, nvidia_smi=smi))
@@ -4015,7 +4288,8 @@ def main(argv=None):
          "launches": launches["flash_fwd"]
          + feature_launches["flash_fwd"] + train_launches["flash_fwd"]
          + program_launches["flash_fwd"] + infer_launches["flash_fwd"]
-         + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"],
+         + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"]
+         + prog_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -4024,7 +4298,8 @@ def main(argv=None):
                               "inference_server":
                                   infer_launches["flash_fwd"],
                               "gateway": gw_launches["flash_fwd"],
-                              "fleet": fleet_launches["flash_fwd"]},
+                              "fleet": fleet_launches["flash_fwd"],
+                              "programs": prog_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -4046,12 +4321,13 @@ def main(argv=None):
          "replaces": "paddle_tpu/kernels/flash_attention.py:363",
          "launches": launches["flash_decode"]
          + feature_launches["flash_decode"] + infer_launches["flash_decode"]
-         + gw_launches["flash_decode"],
+         + gw_launches["flash_decode"] + prog_launches["flash_decode"],
          "launches_by_path": {
              "engine": launches["flash_decode"],
              "engine_features": feature_launches["flash_decode"],
              "inference_server": infer_launches["flash_decode"],
-             "gateway": gw_launches["flash_decode"]},
+             "gateway": gw_launches["flash_decode"],
+             "programs": prog_launches["flash_decode"]},
          "max_abs_err": dec_err,
          "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
          "bound_ms": dec_row["bound_ms"], "bound_by": dec_row["bound_by"],
@@ -4063,11 +4339,13 @@ def main(argv=None):
          "replaces": "paddle_tpu/kernels/flash_attention.py:459",
          "launches": paged_launches["flash_decode_paged"]
          + gw_launches["flash_decode_paged"]
-         + fleet_launches["flash_decode_paged"],
+         + fleet_launches["flash_decode_paged"]
+         + prog_launches["flash_decode_paged"],
          "launches_by_path": {
              "paged_engine": paged_launches["flash_decode_paged"],
              "gateway": gw_launches["flash_decode_paged"],
-             "fleet": fleet_launches["flash_decode_paged"]},
+             "fleet": fleet_launches["flash_decode_paged"],
+             "programs": prog_launches["flash_decode_paged"]},
          "max_abs_err": paged_err, "ms": paged_row["ms"],
          "plain_ms": paged_row["plain_ms"], "bound_ms": paged_row["bound_ms"],
          "bound_by": paged_row["bound_by"],

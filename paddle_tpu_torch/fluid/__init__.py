@@ -15,6 +15,21 @@ from . import contrib, io, ir, proto  # noqa: F401
 from .backward import append_backward, gradients
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
 from .executor import Executor, global_scope, scope_guard
+from .flags import get_flags, set_flags
+from .io import (
+    load,
+    load_inference_model,
+    load_params,
+    load_persistables,
+    load_program_state,
+    load_vars,
+    save,
+    save_inference_model,
+    save_params,
+    save_persistables,
+    save_vars,
+    set_program_state,
+)
 from .framework import (
     Parameter,
     Program,
@@ -33,5 +48,8 @@ __all__ = [
     "append_backward", "gradients", "CPUPlace", "CUDAPlace", "LoDTensor", "Scope", "resolve_device", "Executor",
     "global_scope", "scope_guard", "Parameter", "Program", "Variable",
     "default_main_program", "default_startup_program", "name_scope",
-    "program_guard", "ParamAttr",
+    "program_guard", "ParamAttr", "get_flags", "set_flags", "save_vars",
+    "save_params", "save_persistables", "load_vars", "load_params",
+    "load_persistables", "save_inference_model", "load_inference_model",
+    "save", "load", "load_program_state", "set_program_state",
 ]

@@ -214,8 +214,12 @@ class Executor(object):
         plan = self._plan(program, fetch_names)
         dev = self.device
         env = {}
+        host_feeds = {}
         for name, value in (feed or {}).items():
             env[name] = _as_tensor(value, dev)
+            if not isinstance(value, (torch.Tensor, core.LoDTensor)):
+                # the host array stays readable without a device sync
+                host_feeds[name] = (env[name], value)
         for name in plan.scope_reads:
             if name in env:
                 continue
@@ -224,7 +228,7 @@ class Executor(object):
                 env[name] = v
         ctx = _registry.LowerCtx(
             env=env, device=dev, block=program.global_block(), scope=scope,
-            rng=scope.rng(dev, program.random_seed))
+            rng=scope.rng(dev, program.random_seed), host_feeds=host_feeds)
         with trace.span("executor_run", cat="exec"), torch.no_grad():
             for i, op_ in enumerate(plan.ops):
                 cap = plan.capture.get(i)

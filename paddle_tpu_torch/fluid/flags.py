@@ -16,7 +16,7 @@ here.
 
 import os
 
-__all__ = ["get_flag", "set_flags", "version"]
+__all__ = ["get_flag", "get_flags", "set_flags", "version"]
 
 _DEFAULTS = {
     # InferenceServer's micro-batch coalescer. serving_max_batch_size caps
@@ -276,6 +276,21 @@ def set_flags(flags):
                        else v)
     _flags.update(staged)
     _version += 1
+
+
+def get_flags(names):
+    """paddle-compatible flag read: a name or a list of names, each with
+    or without ``FLAGS_``, to ``{FLAGS_name: value}``. An unregistered
+    name raises ``ValueError``."""
+    if isinstance(names, str):
+        names = [names]
+    out = {}
+    for n in names:
+        key = _key(n)
+        if key not in _flags:
+            raise ValueError("flag %r is not registered" % n)
+        out["FLAGS_" + key] = _flags[key]
+    return out
 
 
 def get_flag(name, default=None):

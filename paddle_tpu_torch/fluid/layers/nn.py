@@ -1,6 +1,8 @@
-"""Neural-network layer functions the GPT train program uses (port of
-the matching functions of ``paddle_tpu/fluid/layers/nn.py``, names and
-signatures as there; each builds ops through LayerHelper.append_op).
+"""Neural-network layer functions the GPT train, inference and serving
+programs use (port of the matching functions of
+``paddle_tpu/fluid/layers/nn.py``, names and signatures as there; each
+builds ops through LayerHelper.append_op), the KV-cache and decode
+attention layers of the serving programs included.
 """
 
 import numpy as np
@@ -15,6 +17,9 @@ __all__ = [
     "elementwise_div", "mean", "reduce_sum", "reduce_mean", "reshape",
     "unsqueeze", "transpose", "slice", "flash_attention", "scale",
     "softmax_with_cross_entropy", "where", "logical_and",
+    "flash_decode_attention", "flash_decode_paged_attention",
+    "kv_cache_write", "kv_cache_copy", "kv_cache_gather",
+    "kv_cache_write_paged", "kv_cache_gather_paged", "kv_cache_block_copy",
 ]
 
 
@@ -334,6 +339,153 @@ def flash_attention(q, k, v, key_bias=None, bias=None, causal=False,
                "interpret": bool(interpret)},
     )
     return out
+
+
+def flash_decode_attention(q, k, v, key_bias=None, scale=0.0,
+                           interpret=False, name=None):
+    """Decode-mode single-query fused attention: ``q`` [N, heads, 1,
+    d_head] (one live token per KV-cache slot) against the fixed-shape
+    cache ``k``/``v`` [N, heads, max_len, d_head]; ``key_bias``
+    [N, max_len] additively masks cache positions at or beyond each
+    slot's live length (-1e4). Forward only (inference): the
+    ``flash_decode`` CUDA kernel on the card, its plain version on the
+    CPU; ``scale`` 0 means 1/sqrt(d_head). ``interpret`` is the
+    reference's switch for its Pallas interpreter, recorded and unused
+    here."""
+    helper = LayerHelper("flash_decode_attention", **locals())
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if key_bias is not None:
+        inputs["KeyBias"] = [key_bias]
+    helper.append_op(
+        type="flash_decode_attention",
+        inputs=inputs,
+        outputs={"Out": [out]},
+        attrs={"scale": float(scale), "interpret": bool(interpret)},
+    )
+    return out
+
+
+def kv_cache_write(cache, new, pos, slot_mode=False, name=None):
+    """Write ``new`` into ``cache`` [slots, heads, max_len, d_head] in
+    place, O(written bytes), and return the same cache variable (the op's
+    output is its input var, so the Executor keeps the updated tensor in
+    the scope).
+
+    ``slot_mode=False`` (decode): ``new`` [slots, heads, 1, d_head] is
+    one token per slot, ``pos`` [slots, ...] its per-slot position.
+    ``slot_mode=True`` (prefill): ``new`` [1, heads, T, d_head] is one
+    prompt's K/V and ``pos`` the slot index, or (slot, offset) to land
+    the block at ``offset`` of the row (resume prefill). Inference only
+    (no gradient)."""
+    helper = LayerHelper("kv_cache_write", **locals())
+    helper.append_op(
+        type="kv_cache_write",
+        inputs={"Cache": [cache], "New": [new], "Pos": [pos]},
+        outputs={"Out": [cache]},
+        attrs={"slot_mode": bool(slot_mode)},
+    )
+    return cache
+
+
+def kv_cache_copy(dst, src, dst_loc, src_loc, length, name=None):
+    """Copy ``src[src_loc[0], :, src_loc[1]:src_loc[1]+length, :]`` into
+    ``dst`` at ``dst_loc`` (both 2-element (row, position) locations,
+    fed data) in place, O(copied bytes): a block between the prefix store
+    and a slot row, either way. Returns ``dst``. Inference only."""
+    helper = LayerHelper("kv_cache_copy", **locals())
+    helper.append_op(
+        type="kv_cache_copy",
+        inputs={"Dst": [dst], "Src": [src], "DstLoc": [dst_loc],
+                "SrcLoc": [src_loc]},
+        outputs={"Out": [dst]},
+        attrs={"length": int(length)},
+    )
+    return dst
+
+
+def kv_cache_gather(cache, slot_idx, name=None):
+    """One slot's [1, heads, max_len, d_head] row of a [slots, heads,
+    max_len, d_head] cache, the slot a fed index: the read half of a
+    resume prefill. Inference only."""
+    helper = LayerHelper("kv_cache_gather", **locals())
+    out = helper.create_variable_for_type_inference(dtype=cache.dtype)
+    helper.append_op(
+        type="kv_cache_gather",
+        inputs={"Cache": [cache], "Pos": [slot_idx]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def flash_decode_paged_attention(q, k, v, tables, key_bias=None,
+                                 scale=0.0, interpret=False, name=None):
+    """Decode-mode single-query fused attention through a block table:
+    ``q`` [N, heads, 1, d_head] against the shared pool ``k``/``v``
+    [blocks, heads, block, d_head], ``tables`` [N, max_blocks] mapping
+    each slot's logical blocks to pool blocks; ``key_bias``
+    [N, max_blocks*block] masks positions past each slot's live length
+    (sink-block garbage included). Forward only: the
+    ``flash_decode_paged`` CUDA kernel on the card, its plain version on
+    the CPU; ``scale`` 0 means 1/sqrt(d_head); ``interpret`` recorded
+    and unused."""
+    helper = LayerHelper("flash_decode_paged_attention", **locals())
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v], "Tables": [tables]}
+    if key_bias is not None:
+        inputs["KeyBias"] = [key_bias]
+    helper.append_op(
+        type="flash_decode_paged_attention",
+        inputs=inputs,
+        outputs={"Out": [out]},
+        attrs={"scale": float(scale), "interpret": bool(interpret)},
+    )
+    return out
+
+
+def kv_cache_write_paged(cache, new, tables, pos, name=None):
+    """Write each slot's token window ``new`` [slots, heads, T, d_head]
+    into the shared pool ``cache`` [blocks, heads, block, d_head] in
+    place through its block table ``tables`` [slots, max_blocks]: token
+    j of slot s lands at pool block ``tables[s, (pos[s]+j)//block]``,
+    offset ``(pos[s]+j)%block``. Returns ``cache``. Inference only."""
+    helper = LayerHelper("kv_cache_write_paged", **locals())
+    helper.append_op(
+        type="kv_cache_write_paged",
+        inputs={"Cache": [cache], "New": [new], "Tables": [tables],
+                "Pos": [pos]},
+        outputs={"Out": [cache]},
+    )
+    return cache
+
+
+def kv_cache_gather_paged(cache, tables, name=None):
+    """Each slot's logical [heads, max_blocks*block, d_head] row gathered
+    from the pool through its block table: Out [slots, heads,
+    max_blocks*block, d_head]. Positions past a slot's live length carry
+    whatever the mapped blocks hold; the caller's key bias masks them.
+    Inference only."""
+    helper = LayerHelper("kv_cache_gather_paged", **locals())
+    out = helper.create_variable_for_type_inference(dtype=cache.dtype)
+    helper.append_op(
+        type="kv_cache_gather_paged",
+        inputs={"Cache": [cache], "Tables": [tables]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def kv_cache_block_copy(cache, src, dst, name=None):
+    """``cache[dst[i]] = cache[src[i]]`` in place for the fed pairs (the
+    copy-on-write primitive; a src == dst pair is a no-op). Returns
+    ``cache``. Inference only."""
+    helper = LayerHelper("kv_cache_block_copy", **locals())
+    helper.append_op(
+        type="kv_cache_block_copy",
+        inputs={"Cache": [cache], "Src": [src], "Dst": [dst]},
+        outputs={"Out": [cache]},
+    )
+    return cache
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -2,16 +2,17 @@
 ``flash_attention`` / ``flash_attention_grad``, ``dropout`` /
 ``dropout_grad``, ``flash_decode_attention``,
 ``flash_decode_paged_attention``, ``kv_cache_write``, ``kv_cache_copy``,
-``kv_cache_gather`` and paged KV-pool lowerings in ``paddle_tpu/fluid/ops/nn_ops.py``): plain functions on
-tensors, which the eager models and the serving session call, and the
-registered lowerings of ``dropout`` and ``flash_attention`` with their
-grads, which the Executor runs."""
+``kv_cache_gather``, ``kv_cache_write_paged``, ``kv_cache_gather_paged``
+and ``kv_cache_block_copy`` lowerings in
+``paddle_tpu/fluid/ops/nn_ops.py``): plain functions on tensors, which
+the eager models and the serving session call, and the registered
+lowerings the Executor runs, which call them."""
 
 import torch
 
 from ...kernels import flash_attention as _fa
 from .registry import (EMPTY_VAR, SkipInferShape, _generic_grad_lower,
-                       in_var, op, set_out)
+                       in_var, op, same_shape_infer, set_out)
 
 __all__ = [
     "flash_attention",
@@ -445,3 +446,125 @@ def _flash_attention_grad_op(ctx, op_):
         ctx.out(op_, "KeyBias@GRAD", dkb)
     if dbias is not None:
         ctx.out(op_, "Bias@GRAD", dbias)
+
+
+# ---------------------------------------------------------------------------
+# the KV-cache serving ops (inference only: no grad is registered, as in
+# the reference). The write ops name their ``Cache`` input as their
+# ``Out`` and update the scope's tensor in place, the counterpart of the
+# reference's donated buffers; a location the op reads on the host comes
+# from the feed's host array (``LowerCtx.host_ints``), and what every
+# layer derives alike from one step's feeds is computed once a run
+# (``LowerCtx.memo``).
+# ---------------------------------------------------------------------------
+def _scale_attr(op_):
+    scale = op_.attr("scale", 0.0)
+    return float(scale) if scale else None
+
+
+@op("flash_decode_attention", infer_shape=same_shape_infer("Q"))
+def _flash_decode_attention_op(ctx, op_):
+    """One query token a slot against the contiguous cache under the fed
+    key bias: the ``flash_decode`` kernel on the card. The ``interpret``
+    attr is the reference's switch for its Pallas interpreter, recorded
+    and unused here."""
+    q = ctx.in1(op_, "Q").contiguous()
+    ctx.out(op_, "Out", _fa.flash_decode_attention(
+        q, ctx.in1(op_, "K"), ctx.in1(op_, "V"),
+        key_bias=ctx.in1(op_, "KeyBias", optional=True),
+        scale=_scale_attr(op_)))
+
+
+@op("flash_decode_paged_attention", infer_shape=same_shape_infer("Q"))
+def _flash_decode_paged_attention_op(ctx, op_):
+    """One query token a slot reading the shared pool through the fed
+    block tables: the ``flash_decode_paged`` kernel on the card, which
+    takes int32 tables (cast once a run for every layer)."""
+    q = ctx.in1(op_, "Q").contiguous()
+    tables = ctx.in1(op_, "Tables")
+    t32 = ctx.memo(("tables_i32", op_.input("Tables")[0]), (tables,),
+                   lambda: tables.to(torch.int32).contiguous())
+    ctx.out(op_, "Out", _fa.flash_decode_paged_attention(
+        q, ctx.in1(op_, "K"), ctx.in1(op_, "V"), t32,
+        key_bias=ctx.in1(op_, "KeyBias", optional=True),
+        scale=_scale_attr(op_)))
+
+
+@op("kv_cache_write", infer_shape=same_shape_infer("Cache"))
+def _kv_cache_write_op(ctx, op_):
+    """``kv_cache_write`` in place: in slot mode the (slot[, offset])
+    location is read on the host, otherwise each slot's position is a
+    device index."""
+    cache = ctx.in1(op_, "Cache")
+    slot_mode = bool(op_.attr("slot_mode", False))
+    pos = ctx.host_ints(op_, "Pos") if slot_mode else ctx.in1(op_, "Pos")
+    ctx.out(op_, "Out", kv_cache_write(cache, ctx.in1(op_, "New"), pos,
+                                       slot_mode=slot_mode))
+
+
+@op("kv_cache_copy", infer_shape=same_shape_infer("Dst"))
+def _kv_cache_copy_op(ctx, op_):
+    """``kv_cache_copy`` in place, both (row, position) locations read
+    on the host."""
+    ctx.out(op_, "Out", kv_cache_copy(
+        ctx.in1(op_, "Dst"), ctx.in1(op_, "Src"),
+        ctx.host_ints(op_, "DstLoc"), ctx.host_ints(op_, "SrcLoc"),
+        int(op_.attr("length", 0))))
+
+
+def _kv_cache_gather_infer(op_, block):
+    c = in_var(op_, block, "Cache")
+    if c is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", [1] + list(c.shape)[1:], c.dtype)
+
+
+@op("kv_cache_gather", infer_shape=_kv_cache_gather_infer)
+def _kv_cache_gather_op(ctx, op_):
+    """One slot's row of the cache (a view), the slot read on the
+    host."""
+    ctx.out(op_, "Out", kv_cache_gather(ctx.in1(op_, "Cache"),
+                                        ctx.host_ints(op_, "Pos")))
+
+
+@op("kv_cache_write_paged", infer_shape=same_shape_infer("Cache"))
+def _kv_cache_write_paged_op(ctx, op_):
+    """``kv_cache_write_paged`` in place; the write index is computed
+    once a run from the tables and positions every layer shares."""
+    cache = ctx.in1(op_, "Cache")
+    new = ctx.in1(op_, "New")
+    tables = ctx.in1(op_, "Tables")
+    pos = ctx.in1(op_, "Pos")
+    T, block = int(new.shape[2]), int(cache.shape[2])
+    index = ctx.memo(
+        ("paged_write_index", op_.input("Tables")[0], op_.input("Pos")[0],
+         T, block), (tables, pos),
+        lambda: paged_write_index(tables, pos, T, block))
+    ctx.out(op_, "Out", kv_cache_write_paged(cache, new, tables, None,
+                                             index=index))
+
+
+def _kv_cache_gather_paged_infer(op_, block):
+    c = in_var(op_, block, "Cache")
+    t = in_var(op_, block, "Tables")
+    if c is None or t is None:
+        raise SkipInferShape()
+    S, max_blocks = int(t.shape[0]), int(t.shape[1])
+    set_out(op_, block, "Out",
+            [S, int(c.shape[1]), max_blocks * int(c.shape[2]),
+             int(c.shape[3])], c.dtype)
+
+
+@op("kv_cache_gather_paged", infer_shape=_kv_cache_gather_paged_infer)
+def _kv_cache_gather_paged_op(ctx, op_):
+    """Each slot's logical row gathered through its block table."""
+    ctx.out(op_, "Out", kv_cache_gather_paged(ctx.in1(op_, "Cache"),
+                                              ctx.in1(op_, "Tables")))
+
+
+@op("kv_cache_block_copy", infer_shape=same_shape_infer("Cache"))
+def _kv_cache_block_copy_op(ctx, op_):
+    """``cache[dst[i]] = cache[src[i]]`` in place, the pairs device
+    indices."""
+    ctx.out(op_, "Out", kv_cache_block_copy(
+        ctx.in1(op_, "Cache"), ctx.in1(op_, "Src"), ctx.in1(op_, "Dst")))

@@ -25,6 +25,7 @@ counter.
 Grad naming contract as the reference: grad of var ``x`` is ``x@GRAD``.
 """
 
+import numpy as np
 import torch
 from torch.autograd.graph import get_gradient_edge
 
@@ -121,17 +122,50 @@ class LowerCtx(object):
     """The environment of one run: ``env`` maps var name -> tensor,
     ``device`` is where new tensors go, ``rng`` the (device, CPU)
     generator pair random ops draw from, ``vjps`` the forward closures
-    kept for generic grad ops (keyed by the grad op's id)."""
+    kept for generic grad ops (keyed by the grad op's id), ``host_feeds``
+    the host arrays the run's feeds came from ({name: (tensor, array)}),
+    which ``host_ints`` reads instead of the tensor."""
 
     def __init__(self, env=None, device=None, rng=None, block=None,
-                 scope=None):
+                 scope=None, host_feeds=None):
         self.env = env if env is not None else {}
         self.device = torch.device("cpu") if device is None else device
         self.rng = rng
         self.block = block
         self.scope = scope
+        self.host_feeds = host_feeds if host_feeds is not None else {}
         self.vjps = {}
+        self._memo = {}
         self._cur_op = None
+
+    def memo(self, key, srcs, fn):
+        """``fn()``, computed once while the tensors ``srcs`` stay the
+        very ones it was computed from: what every layer of a serving
+        program derives alike from one step's feeds (the paged write
+        index, int32 block tables, a location read on the host) costs
+        one computation a run, not one a layer."""
+        hit = self._memo.get(key)
+        if hit is not None and len(hit[0]) == len(srcs) and all(
+                a is b for a, b in zip(hit[0], srcs)):
+            return hit[1]
+        value = fn()
+        self._memo[key] = (tuple(srcs), value)
+        return value
+
+    def host_ints(self, op, slot):
+        """Input ``slot`` of ``op`` as a list of Python ints: from the
+        host array the feed came from (no wait on the device), else read
+        from the tensor, once a run."""
+        name = op.input(slot)[0]
+        t = self.get(name)
+
+        def read():
+            fed = self.host_feeds.get(name)
+            if fed is not None and fed[0] is t:
+                return [int(x) for x in np.asarray(fed[1]).reshape(-1)]
+            return [int(x) for x in t.reshape(-1).tolist()]
+
+        return self.memo(("host_ints", name), (t,), read)
 
     # -- env access --
     def get(self, name):

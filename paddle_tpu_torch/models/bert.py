@@ -4,7 +4,9 @@ in two forms.
 
 Program builders under the reference's names, for the Fluid
 Program/Executor path: ``multi_head_attention`` (the training/encoder
-form, flash or dense), ``_ffn``, ``_dropout`` (the dropout layer) and
+form, flash or dense, and the serving programs' KV-cache modes through
+the cache ops: ``prefill``, ``decode``, ``resume``, ``paged_window``,
+``paged_step``), ``_ffn``, ``_dropout`` (the dropout layer) and
 ``flash_engages``.
 
 Eager modules for serving and the eager train step: where a training
@@ -109,24 +111,86 @@ def _dropout_eager(x, rate, is_test, rng=None):
                           generator=None if rng is None else rng.masks)
 
 
+def _apply_kv_cache(cache, k, v):
+    """Write this call's split-head K/V into the cache ``cache``
+    describes (``bert.py:122``) and return the (k, v) the attention that
+    follows reads: the prompt's own K/V for ``prefill``; the slot's whole
+    updated row for ``resume``; every slot's logical row gathered through
+    its table for ``paged_window``; the updated caches or pools for
+    ``decode`` and ``paged_step``. Every location is fed data."""
+    mode = cache["mode"]
+    if mode == "prefill":
+        fluid.layers.kv_cache_write(cache["k"], k, cache["slot_idx"],
+                                    slot_mode=True)
+        fluid.layers.kv_cache_write(cache["v"], v, cache["slot_idx"],
+                                    slot_mode=True)
+        return k, v
+    if mode == "resume":
+        k_upd = fluid.layers.kv_cache_write(cache["k"], k, cache["slot_off"],
+                                            slot_mode=True)
+        v_upd = fluid.layers.kv_cache_write(cache["v"], v, cache["slot_off"],
+                                            slot_mode=True)
+        return (fluid.layers.kv_cache_gather(k_upd, cache["slot_off"]),
+                fluid.layers.kv_cache_gather(v_upd, cache["slot_off"]))
+    if mode in ("paged_window", "paged_step"):
+        k_upd = fluid.layers.kv_cache_write_paged(
+            cache["k"], k, cache["tables"], cache["pos"])
+        v_upd = fluid.layers.kv_cache_write_paged(
+            cache["v"], v, cache["tables"], cache["pos"])
+        if mode == "paged_step":
+            # the attention reads the pools through the tables itself
+            return k_upd, v_upd
+        return (fluid.layers.kv_cache_gather_paged(k_upd, cache["tables"]),
+                fluid.layers.kv_cache_gather_paged(v_upd, cache["tables"]))
+    if mode != "decode":
+        raise ValueError("unknown KV-cache mode %r" % (mode,))
+    return (fluid.layers.kv_cache_write(cache["k"], k, cache["pos"]),
+            fluid.layers.kv_cache_write(cache["v"], v, cache["pos"]))
+
+
+def _dense_over_rows(q, k, v, bias4, scale):
+    """softmax(q·kᵀ·scale + bias4)·v, the fed bias taking no gradient."""
+    bias4.stop_gradient = True
+    scores = fluid.layers.matmul(q, k, transpose_y=True, alpha=scale)
+    weights = fluid.layers.softmax(
+        fluid.layers.elementwise_add(scores, bias4), axis=-1)
+    return fluid.layers.matmul(weights, v)
+
+
 def multi_head_attention(q_in, kv_in, attn_bias, cfg, name, key_bias=None,
                          causal=False, use_flash=None, cache=None):
     """Self/cross attention on [N, S, H] program variables, the
-    reference's builder (``bert.py:185``) in its training/encoder form:
-    q/k/v fc projections split into heads, then either ONE fused
+    reference's builder (``bert.py:185``): q/k/v fc projections split
+    into heads, the attention, then the output projection.
+
+    Without ``cache`` (training/encoder form): either ONE fused
     ``flash_attention`` op (``key_bias`` [N, S] carrying the padding
     mask, ``causal`` the kernel flag, attention dropout in the kernel) or
     the dense chain matmul → (+ ``attn_bias``) → softmax → dropout →
-    matmul, then the output projection.
+    matmul. ``use_flash`` is the builder's resolved policy (None
+    re-resolves it from the static query length).
 
-    ``use_flash`` is the builder's resolved policy (None re-resolves it
-    from the static query length). The KV-cache modes (``cache``) of
-    the reference's serving programs are served by the eager
-    ``MultiHeadAttention`` in the port; here they raise."""
-    if cache is not None:
-        raise NotImplementedError(
-            "multi_head_attention: the KV-cache serving modes run in the "
-            "eager MultiHeadAttention of the port, not as a program")
+    ``cache`` (the serving programs): a dict with the layer's persistable
+    ``k``/``v`` cache vars ([slots, heads, max_len, d_head], or the paged
+    pools [blocks, heads, block, d_head]) and a ``mode``:
+
+    - ``"prefill"``: the normal path over the prompt, which also writes
+      its K/V into the row of slot ``slot_idx``;
+    - ``"decode"``: each slot's token lands at its ``pos``, then the
+      single query attends over the updated cache under ``key_bias``
+      [slots, max_len] — the ``flash_decode_attention`` op when
+      ``use_flash``, dense otherwise (``attn_bias``/``causal`` unused:
+      the key bias is the causal mask);
+    - ``"resume"`` / ``"paged_window"``: one window at a fed offset of a
+      slot's row (through a block table for the paged pool) attends dense
+      over the whole updated row under ``resume_bias`` [1, T, S] — dense
+      by design, as in the reference: the causal flash kernel assumes an
+      aligned q/k diagonal;
+    - ``"paged_step"``: every slot's T-token window written through its
+      table, then attended under ``step_bias`` [slots, T, S]: at T = 1
+      with ``use_flash`` the ``flash_decode_paged_attention`` op reads
+      the pools through the tables, otherwise (the width-k verify) the
+      rows are gathered and attended dense."""
     d_head = cfg.hidden_size // cfg.num_heads
 
     def _proj(x, suffix):
@@ -142,6 +206,55 @@ def multi_head_attention(q_in, kv_in, attn_bias, cfg, name, key_bias=None,
     q = _split_heads(_proj(q_in, "q"))
     k = _split_heads(_proj(kv_in, "k"))
     v = _split_heads(_proj(kv_in, "v"))
+    if cache is not None:
+        k, v = _apply_kv_cache(cache, k, v)
+    mode = cache["mode"] if cache is not None else None
+    scale = 1.0 / math.sqrt(d_head)
+    interpret = getattr(cfg, "flash_interpret", False)
+    if mode == "paged_step":
+        if use_flash and q.shape[2] == 1:
+            # the width-1 step: the kernel chases the tables, the logical
+            # rows never materialize
+            kb = fluid.layers.reshape(cache["step_bias"], shape=[0, -1])
+            kb.stop_gradient = True
+            ctxt = fluid.layers.flash_decode_paged_attention(
+                q, cache["k"], cache["v"], cache["tables"], key_bias=kb,
+                scale=scale, interpret=interpret)
+        else:
+            rows_k = fluid.layers.kv_cache_gather_paged(cache["k"],
+                                                        cache["tables"])
+            rows_v = fluid.layers.kv_cache_gather_paged(cache["v"],
+                                                        cache["tables"])
+            ctxt = _dense_over_rows(
+                q, rows_k, rows_v,
+                fluid.layers.unsqueeze(cache["step_bias"], axes=[1]), scale)
+    elif mode in ("resume", "paged_window"):
+        ctxt = _dense_over_rows(
+            q, k, v, fluid.layers.unsqueeze(cache["resume_bias"], axes=[1]),
+            scale)
+    elif mode == "decode":
+        if use_flash:
+            ctxt = fluid.layers.flash_decode_attention(
+                q, k, v, key_bias=cache["key_bias"], scale=scale,
+                interpret=interpret)
+        else:
+            ctxt = _dense_over_rows(
+                q, k, v,
+                fluid.layers.reshape(cache["key_bias"], shape=[0, 1, 1, -1]),
+                scale)
+    else:
+        ctxt = _attend(q, k, v, q_in, attn_bias, key_bias, causal, use_flash,
+                       cfg, scale)
+    ctxt = fluid.layers.transpose(ctxt, perm=[0, 2, 1, 3])
+    ctxt = fluid.layers.reshape(ctxt, shape=[0, 0, cfg.hidden_size])
+    return fluid.layers.fc(input=ctxt, size=cfg.hidden_size,
+                           num_flatten_dims=2, name="%s_out" % name)
+
+
+def _attend(q, k, v, q_in, attn_bias, key_bias, causal, use_flash, cfg,
+            scale):
+    """The training/encoder attention of ``multi_head_attention`` (also
+    the prefill's, over the prompt's own K/V)."""
     if use_flash is None:
         _sq = q_in.shape[1] if len(q_in.shape) >= 2 else -1
         use_flash = flash_engages(
@@ -150,22 +263,15 @@ def multi_head_attention(q_in, kv_in, attn_bias, cfg, name, key_bias=None,
         # the kernel still needs the key-side mask to ride along
         use_flash = bool(use_flash) and key_bias is not None
     if use_flash:
-        ctxt = fluid.layers.flash_attention(
-            q, k, v, key_bias=key_bias, causal=causal,
-            scale=1.0 / math.sqrt(d_head),
+        return fluid.layers.flash_attention(
+            q, k, v, key_bias=key_bias, causal=causal, scale=scale,
             dropout_rate=cfg.attention_dropout, is_test=cfg.is_test)
-    else:
-        scores = fluid.layers.matmul(q, k, transpose_y=True,
-                                     alpha=1.0 / math.sqrt(d_head))
-        if attn_bias is not None:
-            scores = fluid.layers.elementwise_add(scores, attn_bias)
-        weights = fluid.layers.softmax(scores, axis=-1)
-        weights = _dropout(weights, cfg.attention_dropout, cfg.is_test)
-        ctxt = fluid.layers.matmul(weights, v)  # [N, heads, S, d_head]
-    ctxt = fluid.layers.transpose(ctxt, perm=[0, 2, 1, 3])
-    ctxt = fluid.layers.reshape(ctxt, shape=[0, 0, cfg.hidden_size])
-    return fluid.layers.fc(input=ctxt, size=cfg.hidden_size,
-                           num_flatten_dims=2, name="%s_out" % name)
+    scores = fluid.layers.matmul(q, k, transpose_y=True, alpha=scale)
+    if attn_bias is not None:
+        scores = fluid.layers.elementwise_add(scores, attn_bias)
+    weights = fluid.layers.softmax(scores, axis=-1)
+    weights = _dropout(weights, cfg.attention_dropout, cfg.is_test)
+    return fluid.layers.matmul(weights, v)  # [N, heads, S, d_head]
 
 
 def _ffn(x, cfg, name):

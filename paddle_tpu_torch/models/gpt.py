@@ -28,7 +28,16 @@ and the update.
 
 ``build_gpt_infer`` is the reference's inference program (the forward
 with ``is_test``), which ``fluid.io.save_inference_model`` saves and
-``inference.AnalysisPredictor`` serves.
+``inference.AnalysisPredictor`` serves. The serving programs are the
+reference's builders too: ``build_gpt_prefill``,
+``build_gpt_resume_prefill``, ``build_gpt_prefix_copy``,
+``build_gpt_decode_step``, ``build_gpt_paged_window``,
+``build_gpt_paged_step`` and ``build_gpt_paged_block_copy``, whose
+caches, prefix stores and pools are persistable program variables that
+the cache ops write in place; the program-form
+``serving.decode.DecodeSession(cfg, ...)`` runs them, and
+``greedy_generate`` takes the reference's Executor form beside the
+model form.
 
 Weights carry across from the reference as ``{fluid_param_name:
 np.ndarray}``: into a model with ``load_fluid_params``, into a program's
@@ -73,6 +82,13 @@ __all__ = [
     "gpt_lm_logits",
     "build_gpt_lm_train",
     "build_gpt_infer",
+    "build_gpt_prefill",
+    "build_gpt_resume_prefill",
+    "build_gpt_prefix_copy",
+    "build_gpt_decode_step",
+    "build_gpt_paged_window",
+    "build_gpt_paged_step",
+    "build_gpt_paged_block_copy",
     "gpt_lm_loss",
     "build_gpt_lm_train_eager",
 ]
@@ -622,17 +638,48 @@ def _reference_generate(model, prompt_ids, max_len, use_flash=None):
     return ids
 
 
-def greedy_generate(model, prompt_ids, max_len):
+def greedy_generate(model, *args, **kwargs):
     """Greedy decode through the KV-cache runtime: one prefill, then
     single-token steps against the cache — O(T) model work, token-exact
-    with ``_reference_generate``. The 1-slot session is cached on the
-    model per ``max_len``; concurrent callers serialize on its lock."""
+    with the full-forward oracle. Two forms:
+
+    - ``greedy_generate(model, prompt_ids, max_len)``: the eager
+      ``GPTLM``; its 1-slot session is cached on the model per
+      ``max_len``.
+    - ``greedy_generate(exe, infer_prog, logits_var, cfg, prompt_ids,
+      max_len, scope=None)`` (the reference's, ``gpt.py:715``): the
+      serving programs run by a program ``DecodeSession`` on
+      ``exe.place`` over ``scope`` (``global_scope()`` for None), cached
+      on the scope; ``infer_prog`` names the scope's parameters (its
+      ``_<n>`` suffixes read as ``_0``) and ``logits_var`` is unused, as
+      in the reference.
+
+    Concurrent callers of one session serialize on its lock."""
+    if isinstance(model, GPTLM):
+        return _greedy_eager(model, *args, **kwargs)
+    return _greedy_program(model, *args, **kwargs)
+
+
+def _greedy_eager(model, prompt_ids, max_len):
+    from ..serving import decode as _decode
+
+    return _greedy(prompt_ids, max_len,
+                   lambda: _decode.session_for_generate(model, max_len))
+
+
+def _greedy_program(exe, infer_prog, logits_var, cfg, prompt_ids, max_len,
+                    scope=None):
+    from ..serving import decode as _decode
+
+    return _greedy(prompt_ids, max_len, lambda: _decode.session_for_generate(
+        exe, cfg, scope, max_len, infer_prog))
+
+
+def _greedy(prompt_ids, max_len, session):
     ids = list(prompt_ids)
     if len(ids) >= max_len:
         return ids
-    from ..serving import decode as _decode
-
-    sess = _decode.session_for_generate(model, max_len)
+    sess = session()
     with sess.lock:
         logits = sess.prefill(0, ids)
         ids.append(int(np.asarray(logits).ravel().argmax()))
@@ -660,15 +707,19 @@ def _causal_bias(seq_len):
 
 def gpt_decoder(ids, pos_ids, input_mask, cfg, kv_cache=None):
     """Decoder stack on [N, T, 1] int64 id variables; returns hidden
-    [N, T, H] (the reference's builder, ``gpt.py:63``, in its training /
-    full-forward form). With flash the padding mask becomes a key-only
-    bias and causality rides the kernel flag; otherwise a dense causal +
-    padding bias is built. ``kv_cache`` (the serving programs' cache
-    plumbing) raises: the port serves through the eager ``GPTLM``."""
-    if kv_cache is not None:
-        raise NotImplementedError(
-            "gpt_decoder: the KV-cache serving programs run in the eager "
-            "GPTLM of the port")
+    [N, T, H] (the reference's builder, ``gpt.py:63``).
+
+    Without ``kv_cache`` (training, full-forward inference): with flash
+    the padding mask becomes a key-only bias and causality rides the
+    kernel flag; otherwise a dense causal + padding bias is built.
+    ``kv_cache`` threads the serving programs' cache plumbing through
+    every layer's attention (``bert.multi_head_attention``): a dict with
+    ``mode``, the per-layer ``caches`` [(k, v)], ``max_len`` and the
+    mode's feeds (``slot_idx``; ``slot_off`` and ``resume_bias``;
+    ``tables``, ``pos`` and ``resume_bias`` or ``step_bias``; ``pos``
+    and ``key_bias``). In ``decode`` and ``paged_step`` the fed bias
+    carries all masking and the flash policy keys on the cache length;
+    the ``resume`` and ``paged_window`` windows attend dense."""
     emb = fluid.layers.embedding(
         input=ids, size=[cfg.vocab_size, cfg.hidden_size],
         param_attr=fluid.ParamAttr(name="tok_embedding"))
@@ -678,23 +729,39 @@ def gpt_decoder(ids, pos_ids, input_mask, cfg, kv_cache=None):
     h = fluid.layers.elementwise_add(emb, pos)
     h = _bert._dropout(h, cfg.hidden_dropout, cfg.is_test)
     key_bias = attn_bias = None
-    _s = ids.shape[1] if len(ids.shape) >= 2 else -1
-    use_flash = _bert.flash_wanted(
-        cfg, seq_len=None if _s in (-1, None) else int(_s))
-    if use_flash:
-        key_bias = _bert.mask_to_key_bias(input_mask)
+    mode = kv_cache["mode"] if kv_cache is not None else None
+    if mode in ("resume", "paged_window"):
+        use_flash = False
+    elif mode in ("decode", "paged_step"):
+        use_flash = _bert.flash_wanted(cfg,
+                                       seq_len=int(kv_cache["max_len"]))
     else:
-        pad = fluid.layers.scale(
-            fluid.layers.reshape(input_mask, shape=[0, 1, 1, -1]),
-            scale=1e4, bias=-1e4)
-        pad.stop_gradient = True
-        attn_bias = fluid.layers.elementwise_add(_causal_bias(ids.shape[1]),
-                                                 pad)
+        _s = ids.shape[1] if len(ids.shape) >= 2 else -1
+        use_flash = _bert.flash_wanted(
+            cfg, seq_len=None if _s in (-1, None) else int(_s))
+        if use_flash:
+            key_bias = _bert.mask_to_key_bias(input_mask)
+        else:
+            pad = fluid.layers.scale(
+                fluid.layers.reshape(input_mask, shape=[0, 1, 1, -1]),
+                scale=1e4, bias=-1e4)
+            pad.stop_gradient = True
+            attn_bias = fluid.layers.elementwise_add(
+                _causal_bias(ids.shape[1]), pad)
+    feeds = {"prefill": ("slot_idx",), "resume": ("slot_off", "resume_bias"),
+             "paged_window": ("tables", "pos", "resume_bias"),
+             "paged_step": ("tables", "pos", "step_bias"),
+             "decode": ("pos", "key_bias")}.get(mode, ())
     for i in range(cfg.num_layers):
         name = "gpt_%d" % i
+        cache_i = None
+        if kv_cache is not None:
+            k_var, v_var = kv_cache["caches"][i]
+            cache_i = {"k": k_var, "v": v_var, "mode": mode}
+            cache_i.update((key, kv_cache[key]) for key in feeds)
         attn = _bert.multi_head_attention(
             h, h, attn_bias, cfg, name + "_att", key_bias=key_bias,
-            causal=True, use_flash=use_flash)
+            causal=True, use_flash=use_flash, cache=cache_i)
         attn = _bert._dropout(attn, cfg.hidden_dropout, cfg.is_test)
         h = fluid.layers.layer_norm(fluid.layers.elementwise_add(h, attn),
                                     begin_norm_axis=2, name=name + "_ln1")
@@ -771,6 +838,232 @@ def build_gpt_infer(cfg, seq_len):
                                        dtype="float32")
         logits = gpt_lm_logits(ids, pos_ids, input_mask, cfg)
     return main, startup, ["ids", "pos_ids", "input_mask"], logits
+
+
+# ---------------------------------------------------------------------------
+# the KV-cache serving programs (the reference's builders, gpt.py:284-685)
+# ---------------------------------------------------------------------------
+
+
+def _declare_state(names, shape):
+    """Declare per-layer persistable (K, V) vars of ``shape`` in the
+    current main program. No initializer: the serving session puts their
+    tensors in the scope (a startup run would also re-initialize the
+    model's parameters)."""
+    block = fluid.default_main_program().global_block()
+    return [tuple(block.create_var(name=n, shape=shape, dtype="float32",
+                                   persistable=True) for n in pair)
+            for pair in names]
+
+
+def _declare_cache_vars(cfg, slots, max_len):
+    return _declare_state(decode_cache_names(cfg, slots, max_len),
+                          decode_cache_shape(cfg, slots, max_len))
+
+
+def _declare_prefix_store_vars(cfg, blocks, block):
+    return _declare_state(prefix_store_names(cfg, blocks, block),
+                          prefix_store_shape(cfg, blocks, block))
+
+
+def _declare_paged_pool_vars(cfg, blocks, block):
+    return _declare_state(paged_pool_names(cfg, blocks, block),
+                          paged_pool_shape(cfg, blocks, block))
+
+
+def _serving_program(cfg):
+    """(is_test copy of ``cfg``, main, startup) for a serving builder.
+    ``main._donate_mutable`` is the reference's opt-in to donating the
+    cache buffers; here the cache ops write the scope's tensors in place
+    whatever it says."""
+    cfg = copy.copy(cfg)
+    cfg.is_test = True
+    main, startup = fluid.Program(), fluid.Program()
+    main._donate_mutable = True
+    return cfg, main, startup
+
+
+def _data(name, shape, dtype="int64"):
+    return fluid.layers.data(name=name, shape=shape, dtype=dtype)
+
+
+def _last_logits(logits, last_onehot):
+    """[1, vocab]: the logits of the position ``last_onehot`` marks."""
+    return fluid.layers.reduce_sum(
+        fluid.layers.elementwise_mul(logits, last_onehot), dim=1)
+
+
+def build_gpt_prefill(cfg, slots, seq_len, max_len):
+    """Prefill program (``gpt.py:284``): ONE prompt (batch 1, padded to
+    the ``seq_len`` bucket) runs the causal forward and writes every
+    layer's K/V into the row of the fed slot ``slot_idx`` [1, 1];
+    ``last_onehot`` [1, seq_len, 1] selects the last real position's
+    logits. Feeds ``ids``, ``pos_ids``, ``input_mask``, ``slot_idx``,
+    ``last_onehot``. Returns (main, startup, feed names, next_logits
+    [1, vocab]); the startup is not meant to run (the scope holds the
+    parameters)."""
+    cfg, main, startup = _serving_program(cfg)
+    with fluid.program_guard(main, startup):
+        ids = _data("ids", [seq_len, 1])
+        pos_ids = _data("pos_ids", [seq_len, 1])
+        input_mask = _data("input_mask", [seq_len, 1], "float32")
+        slot_idx = _data("slot_idx", [1])
+        last_onehot = _data("last_onehot", [seq_len, 1], "float32")
+        logits = gpt_lm_logits(ids, pos_ids, input_mask, cfg, kv_cache={
+            "mode": "prefill",
+            "caches": _declare_cache_vars(cfg, slots, max_len),
+            "slot_idx": slot_idx, "max_len": max_len})
+        next_logits = _last_logits(logits, last_onehot)
+    feeds = ["ids", "pos_ids", "input_mask", "slot_idx", "last_onehot"]
+    return main, startup, feeds, next_logits
+
+
+def build_gpt_resume_prefill(cfg, slots, seq_len, max_len):
+    """Resume-prefill program (``gpt.py:332``): ONE prompt window (batch
+    1, padded to ``seq_len``) written at the fed ``slot_off`` = (slot,
+    offset) [1, 2] of its row; its queries attend dense over the whole
+    updated row under ``resume_bias`` [1, seq_len, max_len] (0 where
+    position j <= offset + i for query i, -1e4 beyond). Feeds ``ids``,
+    ``pos_ids``, ``slot_off``, ``resume_bias``, ``last_onehot``. Returns
+    (main, startup, feed names, next_logits [1, vocab])."""
+    cfg, main, startup = _serving_program(cfg)
+    with fluid.program_guard(main, startup):
+        ids = _data("ids", [seq_len, 1])
+        pos_ids = _data("pos_ids", [seq_len, 1])
+        slot_off = _data("slot_off", [2])
+        resume_bias = _data("resume_bias", [seq_len, max_len], "float32")
+        last_onehot = _data("last_onehot", [seq_len, 1], "float32")
+        logits = gpt_lm_logits(ids, pos_ids, None, cfg, kv_cache={
+            "mode": "resume",
+            "caches": _declare_cache_vars(cfg, slots, max_len),
+            "slot_off": slot_off, "resume_bias": resume_bias,
+            "max_len": max_len})
+        next_logits = _last_logits(logits, last_onehot)
+    feeds = ["ids", "pos_ids", "slot_off", "resume_bias", "last_onehot"]
+    return main, startup, feeds, next_logits
+
+
+def build_gpt_prefix_copy(cfg, slots, max_len, blocks, block,
+                          publish=False):
+    """One block move between the prefix store and the slot caches in
+    every layer's K and V (``gpt.py:434``): ``publish`` False copies store
+    block ``src_loc`` into the slot row at ``dst_loc``, True a slot-row
+    block into the store; both (row, position) locations [1, 2] are fed.
+    Returns (main, startup, ["dst_loc", "src_loc"], ok), ``ok`` a dummy
+    fetch: the pools are the outputs."""
+    main, startup = fluid.Program(), fluid.Program()
+    main._donate_mutable = True
+    with fluid.program_guard(main, startup):
+        dst_loc = _data("dst_loc", [2])
+        src_loc = _data("src_loc", [2])
+        caches = _declare_cache_vars(cfg, slots, max_len)
+        stores = _declare_prefix_store_vars(cfg, blocks, block)
+        for (ck, cv), (sk, sv) in zip(caches, stores):
+            if publish:
+                fluid.layers.kv_cache_copy(sk, ck, dst_loc, src_loc, block)
+                fluid.layers.kv_cache_copy(sv, cv, dst_loc, src_loc, block)
+            else:
+                fluid.layers.kv_cache_copy(ck, sk, dst_loc, src_loc, block)
+                fluid.layers.kv_cache_copy(cv, sv, dst_loc, src_loc, block)
+        ok = fluid.layers.fill_constant(shape=[1], dtype="int32", value=1)
+    return main, startup, ["dst_loc", "src_loc"], ok
+
+
+def build_gpt_decode_step(cfg, slots, max_len):
+    """Single-step decode program (``gpt.py:471``): one new token a slot.
+    Feeds ``step_ids`` / ``step_pos`` [slots, 1, 1] (each slot's token
+    and its cache position, where its K/V lands) and ``key_bias``
+    [slots, max_len] (0 on live positions, -1e4 beyond). With flash the
+    attention is the ``flash_decode_attention`` op. Returns (main,
+    startup, feed names, step_logits [slots, vocab])."""
+    cfg, main, startup = _serving_program(cfg)
+    with fluid.program_guard(main, startup):
+        step_ids = _data("step_ids", [1, 1])
+        step_pos = _data("step_pos", [1, 1])
+        key_bias = _data("key_bias", [max_len], "float32")
+        logits = gpt_lm_logits(step_ids, step_pos, None, cfg, kv_cache={
+            "mode": "decode",
+            "caches": _declare_cache_vars(cfg, slots, max_len),
+            "pos": step_pos, "key_bias": key_bias, "max_len": max_len})
+        step_logits = fluid.layers.reshape(logits, shape=[-1, cfg.vocab_size])
+    return main, startup, ["step_ids", "step_pos", "key_bias"], step_logits
+
+
+def build_gpt_paged_window(cfg, blocks, block, max_blocks, seq_len):
+    """Paged prefill-window program (``gpt.py:574``): ONE prompt window
+    (batch 1, padded to ``seq_len``) written through the fed block
+    ``table`` [1, max_blocks] at logical positions ``window_pos`` [1, 1]
+    onward, then attending dense over the gathered logical row under
+    ``resume_bias`` [1, seq_len, max_blocks*block]. Feeds ``ids``,
+    ``pos_ids``, ``table``, ``window_pos``, ``resume_bias``,
+    ``last_onehot``. Returns (main, startup, feed names, next_logits
+    [1, vocab])."""
+    cfg, main, startup = _serving_program(cfg)
+    with fluid.program_guard(main, startup):
+        ids = _data("ids", [seq_len, 1])
+        pos_ids = _data("pos_ids", [seq_len, 1])
+        table = _data("table", [max_blocks])
+        window_pos = _data("window_pos", [1])
+        resume_bias = _data("resume_bias", [seq_len, max_blocks * block],
+                            "float32")
+        last_onehot = _data("last_onehot", [seq_len, 1], "float32")
+        logits = gpt_lm_logits(ids, pos_ids, None, cfg, kv_cache={
+            "mode": "paged_window",
+            "caches": _declare_paged_pool_vars(cfg, blocks, block),
+            "tables": table, "pos": window_pos, "resume_bias": resume_bias,
+            "max_len": max_blocks * block})
+        next_logits = _last_logits(logits, last_onehot)
+    feeds = ["ids", "pos_ids", "table", "window_pos", "resume_bias",
+             "last_onehot"]
+    return main, startup, feeds, next_logits
+
+
+def build_gpt_paged_step(cfg, slots, blocks, block, max_blocks, step_w=1):
+    """Paged step/verify program (``gpt.py:627``): every slot advances a
+    ``step_w``-token window through its block table; ``step_w`` 1 is the
+    decode step (the ``flash_decode_paged_attention`` op with flash),
+    ``step_w`` k the speculative verify (gather + dense). Feeds
+    ``step_ids`` / ``step_pos`` [slots, step_w, 1] (each slot's tokens
+    and their contiguous positions), ``tables`` [slots, max_blocks] and
+    ``step_bias`` [slots, step_w, max_blocks*block] (0 where position
+    j <= step_pos[s, i], -1e4 beyond). Returns (main, startup, feed
+    names, step_logits [slots*step_w, vocab])."""
+    cfg, main, startup = _serving_program(cfg)
+    with fluid.program_guard(main, startup):
+        step_ids = _data("step_ids", [step_w, 1])
+        step_pos = _data("step_pos", [step_w, 1])
+        tables = _data("tables", [max_blocks])
+        step_bias = _data("step_bias", [step_w, max_blocks * block],
+                          "float32")
+        # each slot writes from its window's first position
+        write_pos = fluid.layers.reshape(
+            fluid.layers.slice(step_pos, axes=[1], starts=[0], ends=[1]),
+            shape=[-1])
+        logits = gpt_lm_logits(step_ids, step_pos, None, cfg, kv_cache={
+            "mode": "paged_step",
+            "caches": _declare_paged_pool_vars(cfg, blocks, block),
+            "tables": tables, "pos": write_pos, "step_bias": step_bias,
+            "max_len": max_blocks * block})
+        step_logits = fluid.layers.reshape(logits, shape=[-1, cfg.vocab_size])
+    return main, startup, ["step_ids", "step_pos", "tables", "step_bias"], \
+        step_logits
+
+
+def build_gpt_paged_block_copy(cfg, blocks, block, npairs):
+    """Pool-internal block copy in every layer's K and V pool
+    (``gpt.py:666``): ``pool[dst[i]] = pool[src[i]]`` for the fed
+    ``src`` / ``dst`` [1, npairs]. Returns (main, startup, ["src",
+    "dst"], ok)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main._donate_mutable = True
+    with fluid.program_guard(main, startup):
+        src = _data("src", [npairs])
+        dst = _data("dst", [npairs])
+        for pk, pv in _declare_paged_pool_vars(cfg, blocks, block):
+            fluid.layers.kv_cache_block_copy(pk, src, dst)
+            fluid.layers.kv_cache_block_copy(pv, src, dst)
+        ok = fluid.layers.fill_constant(shape=[1], dtype="int32", value=1)
+    return main, startup, ["src", "dst"], ok
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,9 @@ and with ``sched_preempt`` a waiting interactive request evicts a batch
 stream, which re-admits token-exactly later.
 
 ``DecodeSession`` is the synchronous core (caches or pools, prefill,
-windows, block copies, fused step); ``DecodeEngine`` owns the loop
+windows, block copies, fused step), over an eager ``GPTLM`` or, given a
+``GPTConfig`` (``ProgramDecodeSession``), over the reference's serving
+programs run by a ``fluid.Executor``; ``DecodeEngine`` owns the loop
 thread (admission queue, prefix store, windows, streaming, retirement)
 and publishes its gauges to ``observability.registry`` while it runs.
 As the reference's engine it starts the exporter at ``start()``, arms
@@ -76,6 +78,7 @@ later slice, as in ROADMAP.md: tensor parallelism.
 """
 
 import contextlib
+import copy
 import queue
 import re
 import threading
@@ -86,9 +89,11 @@ import numpy as np
 import torch
 
 from ..fluid import core as _core
+from ..fluid import executor as _executor
 from ..fluid import flags as _flags
 from ..fluid import framework as _framework
 from ..fluid import profiler as _profiler
+from ..fluid import unique_name as _unique_name
 from ..fluid.ops import nn_ops as _nn_ops
 from ..models import gpt as _gpt
 from ..observability import compile_stats as _compile_stats
@@ -105,6 +110,7 @@ __all__ = [
     "GenerationStream",
     "PagedPrefixIndex",
     "PrefixCache",
+    "ProgramDecodeSession",
     "fast_forward_rng",
     "prefill_ladder",
     "sample_token",
@@ -506,12 +512,21 @@ class PagedPrefixIndex(object):
 
 
 class DecodeSession(object):
-    """Synchronous KV-cache decode core over one ``GPTLM``.
+    """Synchronous KV-cache decode core, in two forms.
 
-    Owns the per-layer cache tensors (on the model's device, zeroed at
-    construction) and exposes ``prefill`` / ``decode_step`` with the
-    reference's feeds. One caller at a time: the engine's loop thread,
-    or a ``greedy_generate`` caller holding ``lock``.
+    ``DecodeSession(model, ...)`` runs a ``GPTLM`` eagerly: it owns the
+    per-layer cache tensors (on the model's device, zeroed at
+    construction) and calls the model's serving entry points.
+    ``DecodeSession(cfg, place=None, scope=None, ...)`` (a ``GPTConfig``
+    first, the reference's form, ``decode.py:521``) runs the reference's
+    serving programs (``gpt.build_gpt_*``) through its own
+    ``fluid.Executor`` over ``scope`` (``ProgramDecodeSession``).
+
+    Both expose the reference's ``prefill`` / ``decode_step`` and the
+    rest with the reference's feeds; the host work (validation, masks,
+    spans, counters) is shared, only the device call differs. One caller
+    at a time: the engine's loop thread, or a ``greedy_generate`` caller
+    holding ``lock``.
 
     ``block_size`` > 0 (default ``FLAGS_decode_block_size``) makes it a
     paged session instead: one pool per layer [pool_blocks, heads,
@@ -529,13 +544,34 @@ class DecodeSession(object):
     ``FLAGS_decode_prefix_block``) and the block moves between it and the
     slot rows (``prefix_copy_in``, ``prefix_publish``)."""
 
+    def __new__(cls, model=None, *args, **kwargs):
+        if cls is DecodeSession and isinstance(kwargs.get("cfg", model),
+                                               _gpt.GPTConfig):
+            cls = ProgramDecodeSession
+        return object.__new__(cls)
+
     def __init__(self, model, slots=None, max_len=None,
                  prefill_buckets=None, block_size=None, spec_tokens=None,
                  pool_blocks=0, window_cap=0, prefix_blocks=0,
                  prefix_block=None, build_resume=False):
         self.model = model
-        self.cfg = model.cfg
         self.device = model.device
+        self._setup(model.cfg, slots, max_len, prefill_buckets, block_size,
+                    spec_tokens, pool_blocks, window_cap, prefix_blocks,
+                    prefix_block, build_resume)
+        # per-layer (k, v): the contiguous caches, or the paged pools
+        self.caches, self.stores = self._alloc()
+        self._pos_cache = {
+            T: torch.arange(T, device=self.device).reshape(1, T, 1)
+            for T in self.buckets
+        }
+
+    def _setup(self, cfg, slots, max_len, prefill_buckets, block_size,
+               spec_tokens, pool_blocks, window_cap, prefix_blocks,
+               prefix_block, build_resume):
+        """The geometry both forms share: slots, lengths, the pool or the
+        caches and the prefix store, the ladder, the state's names."""
+        self.cfg = cfg
         self.slots = int(_flag("decode_slots", slots))
         max_len = int(_flag("decode_max_len", max_len))
         if max_len <= 0:
@@ -572,14 +608,12 @@ class DecodeSession(object):
             self.widths = [1] + ([self.spec_tokens]
                                  if self.spec_tokens > 1 else [])
             ladder_top = min(max_len, max(int(window_cap) or max_len, 1))
-            names = _gpt.paged_pool_names(self.cfg, self.pool_blocks,
-                                          self.block_size)
-            shape = _gpt.paged_pool_shape(self.cfg, self.pool_blocks,
-                                          self.block_size)
+            self._names = _gpt.paged_pool_names(self.cfg, self.pool_blocks,
+                                                self.block_size)
             self._cols = np.arange(self.max_blocks * self.block_size)
         else:
-            names = _gpt.decode_cache_names(self.cfg, self.slots, max_len)
-            shape = _gpt.decode_cache_shape(self.cfg, self.slots, max_len)
+            self._names = _gpt.decode_cache_names(self.cfg, self.slots,
+                                                  max_len)
             self._cols = np.arange(max_len)
         self.buckets = prefill_ladder(
             ladder_top,
@@ -587,13 +621,6 @@ class DecodeSession(object):
         self.prefills = 0
         self.steps = 0
         self.lock = threading.RLock()
-        # per-layer (k, v): the contiguous caches, or the paged pools
-        self.caches = [
-            (torch.zeros(shape, dtype=torch.float32, device=self.device),
-             torch.zeros(shape, dtype=torch.float32, device=self.device))
-            for _ in range(self.cfg.num_layers)
-        ]
-        self._names = names
         self.prefix_block = int(_flag("decode_prefix_block", prefix_block))
         self.prefix_blocks = int(prefix_blocks)
         if self.prefix_blocks < 0 or self.prefix_block < 1:
@@ -604,22 +631,30 @@ class DecodeSession(object):
         # only: the paged pool prefills every window through its tables
         self.resumable = bool(build_resume or self.prefix_blocks) \
             and not self.paged
-        self.stores = []
         self._store_names = []
         if self.prefix_blocks and not self.paged:
-            pshape = _gpt.prefix_store_shape(self.cfg, self.prefix_blocks,
-                                             self.prefix_block)
-            self.stores = [
-                (torch.zeros(pshape, dtype=torch.float32, device=self.device),
-                 torch.zeros(pshape, dtype=torch.float32, device=self.device))
-                for _ in range(self.cfg.num_layers)
-            ]
             self._store_names = _gpt.prefix_store_names(
                 self.cfg, self.prefix_blocks, self.prefix_block)
-        self._pos_cache = {
-            T: torch.arange(T, device=self.device).reshape(1, T, 1)
-            for T in self.buckets
-        }
+
+    def _alloc(self):
+        """Zeroed (caches or pools, prefix stores) on the session's
+        device, each a list of per-layer (k, v) fp32 tensors."""
+        if self.paged:
+            shape = _gpt.paged_pool_shape(self.cfg, self.pool_blocks,
+                                          self.block_size)
+        else:
+            shape = _gpt.decode_cache_shape(self.cfg, self.slots,
+                                            self.max_len)
+        pshape = _gpt.prefix_store_shape(self.cfg, self.prefix_blocks,
+                                         self.prefix_block)
+
+        def pairs(n, shp):
+            return [(torch.zeros(shp, dtype=torch.float32, device=self.device),
+                     torch.zeros(shp, dtype=torch.float32, device=self.device))
+                    for _ in range(n)]
+
+        return (pairs(len(self._names), shape),
+                pairs(len(self._store_names), pshape))
 
     def cache_tensors(self):
         """{name: tensor}: the caches (or paged pools) and the prefix
@@ -640,6 +675,38 @@ class DecodeSession(object):
             k.zero_()
             v.zero_()
 
+    def warmup(self):
+        """Run each prefill bucket once (and each resume window bucket and
+        both block copies where armed) and the decode step once (paged:
+        each window bucket and each step width through all-sink tables,
+        and the block copy), then zero the caches: every kernel and, in
+        the program form, every Executor plan is built before a strict
+        build gate is armed. Returns the session."""
+        with _compile_stats.warmup_window(), _trace.span(
+                "decode_warmup", cat="serving"):
+            if self.paged:
+                sink = [BlockAllocator.SINK] * self.max_blocks
+                for T in self.buckets:
+                    self.paged_window(sink, [0] * T, 0)
+                for w in self.widths:
+                    self.paged_step(np.zeros((self.slots, w), "int64"),
+                                    [0] * self.slots, None,
+                                    [False] * self.slots, width=w)
+                self.block_copy([BlockAllocator.SINK], [BlockAllocator.SINK])
+            else:
+                for T in self.buckets:
+                    self.prefill(0, [0] * min(T, self.max_len - 1))
+                if self.resumable:
+                    for T in self.buckets:
+                        self.resume_prefill(0, [0] * T, 0)
+                if self.stores:
+                    self.prefix_copy_in(0, 0, 0)
+                    self.prefix_publish(0, 0, 0)
+                self.decode_step([0] * self.slots, [0] * self.slots,
+                                 [False] * self.slots)
+            self.reset_caches()
+        return self
+
     def bucket_for(self, prompt_len):
         for b in self.buckets:
             if b >= prompt_len:
@@ -650,6 +717,36 @@ class DecodeSession(object):
 
     def _to_device(self, arr):
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
+
+    def _window_feed(self, window_ids, T, offset, bias=True):
+        """The padded ids [1, T, 1], positions ``offset ..`` [1, T, 1],
+        ``last_onehot`` [1, T, 1] and (``bias``) the offset-shifted
+        causal ``resume_bias`` [1, T, S] over the row of a window: query
+        i at row position offset + i sees positions <= offset + i; pad
+        queries keep a finite row, their output never selected."""
+        P = len(window_ids)
+        ids = np.zeros((1, T, 1), "int64")
+        ids[0, :P, 0] = window_ids
+        last_onehot = np.zeros((1, T, 1), "float32")
+        last_onehot[0, P - 1, 0] = 1.0
+        feed = {"ids": ids,
+                "pos_ids": (offset + np.arange(T)).reshape(1, T, 1)
+                .astype("int64"),
+                "last_onehot": last_onehot}
+        if bias:
+            allow = self._cols[None, :] <= (offset + np.arange(T))[:, None]
+            feed["resume_bias"] = np.where(allow, 0.0, -1e4).astype(
+                "float32")[None]
+        return feed
+
+    def _tables_feed(self, tables):
+        """[len(tables), max_blocks] int64 block tables (logical block
+        order; unused entries the sink)."""
+        tbl = np.zeros((len(tables), self.max_blocks), "int64")
+        for s, row in enumerate(tables):
+            if len(row):
+                tbl[s, :len(row)] = row
+        return tbl
 
     def prefill(self, slot, prompt_ids):
         """Run the prompt through its bucket's prefill, writing slot
@@ -663,19 +760,13 @@ class DecodeSession(object):
         if P < 1:
             raise ValueError("empty prompt")
         T = self.bucket_for(P)
-        ids = np.zeros((1, T, 1), "int64")
-        ids[0, :P, 0] = prompt_ids
-        mask = (np.arange(T) < P).astype("float32").reshape(1, T, 1)
-        last_onehot = np.zeros((1, T, 1), "float32")
-        last_onehot[0, P - 1, 0] = 1.0
+        feed = self._window_feed(prompt_ids, T, 0, bias=False)
+        feed["input_mask"] = (np.arange(T) < P).astype("float32") \
+            .reshape(1, T, 1)
+        feed["slot_idx"] = np.array([[slot]], "int64")
         t0 = time.perf_counter()
-        with _trace.span("decode_prefill", cat="serving", bucket=T, rows=P), \
-                torch.inference_mode():
-            lv = self.model.prefill(
-                self._to_device(ids), self._pos_cache[T],
-                self._to_device(mask), np.array([[slot]], "int64"),
-                self._to_device(last_onehot), self.caches)
-            out = lv.cpu().numpy()[0]
+        with _trace.span("decode_prefill", cat="serving", bucket=T, rows=P):
+            out = self._run_prefill(T, feed)[0]
         _profiler.bump_counter("decode_prefills")
         self.prefills += 1
         _profiler.bump_histogram("decode_prefill_ms",
@@ -704,51 +795,37 @@ class DecodeSession(object):
                 "resume window bucket [%d, %d) exceeds max_len %d: the "
                 "engine's window planner must pick a fitting bucket"
                 % (offset, offset + T, self.max_len))
-        ids = np.zeros((1, T), "int64")
-        ids[0, :P] = window_ids
-        # window query i (row position offset + i) sees positions
-        # <= offset + i: the copied prefix and its own causal window.
-        # Pad queries keep a finite row; their output is never selected
-        allow = self._cols[None, :] <= (offset + np.arange(T))[:, None]
-        bias = np.where(allow, 0.0, -1e4).astype("float32")[None]
-        last_onehot = np.zeros((1, T), "float32")
-        last_onehot[0, P - 1] = 1.0
+        feed = self._window_feed(window_ids, T, offset)
+        feed["slot_off"] = np.array([[slot, offset]], "int64")
         t0 = time.perf_counter()
         with _trace.span("decode_resume_prefill", cat="serving", bucket=T,
-                         rows=P, offset=offset), torch.inference_mode():
-            lv = self.model.resume_prefill(
-                self._to_device(ids), self._pos_cache[T] + offset,
-                np.array([[slot, offset]], "int64"), self._to_device(bias),
-                self._to_device(last_onehot), self.caches)
-            out = lv.cpu().numpy()[0]
+                         rows=P, offset=offset):
+            out = self._run_resume(T, feed)[0]
         _profiler.bump_counter("decode_prefills")
         self.prefills += 1
         _profiler.bump_histogram("decode_prefill_ms",
                                  (time.perf_counter() - t0) * 1e3)
         return out
 
-    def _prefix_copy(self, dst_loc, src_loc, publish):
-        if not self.stores:
-            raise RuntimeError("session built without a prefix store")
-        with torch.inference_mode():
-            self.model.prefix_copy(self.caches, self.stores, dst_loc,
-                                   src_loc, publish=publish)
-
     def prefix_copy_in(self, slot, dst_pos, src_block):
         """Copy prefix-store block ``src_block`` into slot ``slot``'s row
         at position ``dst_pos``, every layer's K and V: a hit's
         replacement for recomputing a block's prefill."""
+        if not self.stores:
+            raise RuntimeError("session built without a prefix store")
         with _trace.span("decode_prefix_copy", cat="serving",
                          block=src_block, pos=dst_pos):
-            self._prefix_copy((slot, dst_pos), (src_block, 0), False)
+            self._run_prefix_copy((slot, dst_pos), (src_block, 0), False)
 
     def prefix_publish(self, slot, src_pos, dst_block):
         """Copy one block of slot ``slot``'s finished prefill (row
         position ``src_pos``) into prefix-store block ``dst_block``, so
         later admissions can reuse it."""
+        if not self.stores:
+            raise RuntimeError("session built without a prefix store")
         with _trace.span("decode_prefix_publish", cat="serving",
                          block=dst_block, pos=src_pos):
-            self._prefix_copy((dst_block, 0), (slot, src_pos), True)
+            self._run_prefix_copy((dst_block, 0), (slot, src_pos), True)
 
     def decode_step(self, tokens, positions, active):
         """ONE fused step over all slots: slot i's ``tokens[i]`` lands at
@@ -764,18 +841,16 @@ class DecodeSession(object):
         act = np.asarray(active, bool)
         pos = np.asarray(positions, "int64")
         tok = np.where(act, np.asarray(tokens, "int64"), 0)
-        key_bias = (
-            ((self._cols[None, :] > pos[:, None]) | ~act[:, None])
-            .astype("float32") * -1e4
-        )
+        feed = {
+            "step_ids": tok.reshape(self.slots, 1, 1),
+            "step_pos": pos.reshape(self.slots, 1, 1),
+            "key_bias": ((self._cols[None, :] > pos[:, None])
+                         | ~act[:, None]).astype("float32") * -1e4,
+        }
         t0 = time.perf_counter()
         with _trace.span("decode_step", cat="serving",
-                         active=int(act.sum())), torch.inference_mode():
-            lv = self.model.decode_step(
-                self._to_device(tok.reshape(self.slots, 1, 1)),
-                self._to_device(pos.reshape(self.slots, 1, 1)),
-                self._to_device(key_bias), self.caches)
-            out = lv.cpu().numpy()
+                         active=int(act.sum())):
+            out = self._run_decode(feed)
         _profiler.bump_counter("decode_steps")
         self.steps += 1
         _profiler.bump_histogram("decode_step_ms",
@@ -783,16 +858,6 @@ class DecodeSession(object):
         return out
 
     # -- paged device steps --------------------------------------------------
-    def _table_rows(self, tables):
-        """[len(tables), max_blocks] int32 block tables on the device,
-        built once per call and shared by every layer; unused entries are
-        the sink."""
-        tbl = np.zeros((len(tables), self.max_blocks), np.int32)
-        for s, row in enumerate(tables):
-            if len(row):
-                tbl[s, :len(row)] = row
-        return self._to_device(tbl)
-
     def paged_window(self, table, window_ids, offset):
         """Prefill one prompt window (batch 1) through the block ``table``
         (the slot's pool block ids, logical block order): window token i
@@ -811,23 +876,15 @@ class DecodeSession(object):
             raise ValueError(
                 "paged window bucket [%d, %d) exceeds the table span %d"
                 % (offset, offset + T, span))
-        ids = np.zeros((1, T), "int64")
-        ids[0, :P] = window_ids
-        # offset-shifted causal mask over the gathered logical row; the
-        # -1e4 side also buries sink garbage past the live length
-        allow = self._cols[None, :] <= (offset + np.arange(T))[:, None]
-        bias = np.where(allow, 0.0, -1e4).astype("float32")[None]
-        last_onehot = np.zeros((1, T), "float32")
-        last_onehot[0, P - 1] = 1.0
+        # the -1e4 side of the bias also buries sink garbage past the
+        # live length
+        feed = self._window_feed(window_ids, T, offset)
+        feed["table"] = self._tables_feed([table])
+        feed["window_pos"] = np.array([[offset]], "int64")
         t0 = time.perf_counter()
         with _trace.span("decode_paged_window", cat="serving", bucket=T,
-                         rows=P, offset=offset), torch.inference_mode():
-            lv = self.model.paged_window(
-                self._to_device(ids), self._pos_cache[T] + offset,
-                self._table_rows([table]), offset,
-                self._to_device(bias), self._to_device(last_onehot),
-                self.caches)
-            out = lv.cpu().numpy()[0]
+                         rows=P, offset=offset):
+            out = self._run_paged_window(T, feed)[0]
         _profiler.bump_counter("decode_prefills")
         self.prefills += 1
         _profiler.bump_histogram("decode_prefill_ms",
@@ -853,22 +910,21 @@ class DecodeSession(object):
         tok = np.where(act[:, None], np.asarray(tokens, "int64").reshape(
             self.slots, width), 0)
         qpos = pos[:, None] + np.arange(width)[None, :]
-        # query i of slot s sees logical positions <= qpos[s, i]
-        bias = (
-            ((self._cols[None, None, :] > qpos[:, :, None])
-             | ~act[:, None, None]).astype("float32") * -1e4
-        )
         rows = [tables[s] if tables is not None else ()
                 for s in range(self.slots)]
+        feed = {
+            "step_ids": tok.reshape(self.slots, width, 1),
+            "step_pos": qpos.reshape(self.slots, width, 1),
+            "tables": self._tables_feed(rows),
+            # query i of slot s sees logical positions <= qpos[s, i]
+            "step_bias": ((self._cols[None, None, :] > qpos[:, :, None])
+                          | ~act[:, None, None]).astype("float32") * -1e4,
+        }
         t0 = time.perf_counter()
         with _trace.span("decode_paged_step", cat="serving",
-                         active=int(act.sum()), width=width), \
-                torch.inference_mode():
-            lv = self.model.paged_step(
-                self._to_device(tok), self._to_device(qpos),
-                self._table_rows(rows), self._to_device(bias),
-                self.caches)
-            out = lv.cpu().numpy()
+                         active=int(act.sum()), width=width):
+            out = self._run_paged_step(width, feed).reshape(
+                self.slots, width, -1)
         _profiler.bump_counter("decode_steps")
         self.steps += 1
         _profiler.bump_histogram("decode_step_ms",
@@ -877,8 +933,8 @@ class DecodeSession(object):
 
     def block_copy(self, src_blocks, dst_blocks):
         """``pool[dst[i]] = pool[src[i]]`` in every layer's K and V pool —
-        the copy-on-write device op. All pairs move in one copy per pool,
-        so no dst may be a later pair's src."""
+        the copy-on-write device op. The eager form moves all pairs in
+        one copy per pool, so no dst may be a later pair's src."""
         if not self.paged:
             raise RuntimeError("block_copy on a non-paged session")
         with _trace.span("decode_block_copy", cat="serving",
@@ -889,10 +945,226 @@ class DecodeSession(object):
                 _nn_ops.kv_cache_block_copy(k, src, dst)
                 _nn_ops.kv_cache_block_copy(v, src, dst)
 
+    # -- the eager device calls ---------------------------------------------
+    def _run_prefill(self, T, feed):
+        d = self._to_device
+        with torch.inference_mode():
+            return self.model.prefill(
+                d(feed["ids"]), self._pos_cache[T], d(feed["input_mask"]),
+                feed["slot_idx"], d(feed["last_onehot"]),
+                self.caches).cpu().numpy()
 
-def session_for_generate(model, max_len):
-    """The 1-slot session ``greedy_generate`` drives, cached on the model
-    per ``max_len`` (repeated calls reuse its caches)."""
+    def _run_resume(self, T, feed):
+        d = self._to_device
+        offset = int(feed["slot_off"][0, 1])
+        with torch.inference_mode():
+            return self.model.resume_prefill(
+                d(feed["ids"]), self._pos_cache[T] + offset,
+                feed["slot_off"], d(feed["resume_bias"]),
+                d(feed["last_onehot"]), self.caches).cpu().numpy()
+
+    def _run_prefix_copy(self, dst_loc, src_loc, publish):
+        with torch.inference_mode():
+            self.model.prefix_copy(self.caches, self.stores, dst_loc,
+                                   src_loc, publish=publish)
+
+    def _run_decode(self, feed):
+        d = self._to_device
+        with torch.inference_mode():
+            return self.model.decode_step(
+                d(feed["step_ids"]), d(feed["step_pos"]),
+                d(feed["key_bias"]), self.caches).cpu().numpy()
+
+    def _run_paged_window(self, T, feed):
+        d = self._to_device
+        offset = int(feed["window_pos"][0, 0])
+        with torch.inference_mode():
+            return self.model.paged_window(
+                d(feed["ids"]), self._pos_cache[T] + offset,
+                d(feed["table"].astype(np.int32)), offset,
+                d(feed["resume_bias"]), d(feed["last_onehot"]),
+                self.caches).cpu().numpy()
+
+    def _run_paged_step(self, width, feed):
+        # the paged kernel takes int32 tables, built once per step
+        d = self._to_device
+        with torch.inference_mode():
+            return self.model.paged_step(
+                d(feed["step_ids"]), d(feed["step_pos"]),
+                d(feed["tables"].astype(np.int32)), d(feed["step_bias"]),
+                self.caches).cpu().numpy()
+
+
+class ProgramDecodeSession(DecodeSession):
+    """``DecodeSession(cfg, place=None, scope=None, ...)``: the
+    reference's session (``decode.py:521``), which runs the serving
+    programs through its own ``fluid.Executor(place)`` over ``scope``.
+
+    It builds one ``build_gpt_prefill`` per bucket and
+    ``build_gpt_decode_step`` (contiguous; ``build_gpt_resume_prefill``
+    per bucket with ``build_resume`` or a prefix store, and both
+    ``build_gpt_prefix_copy`` programs with the store), or one
+    ``build_gpt_paged_window`` per bucket, ``build_gpt_paged_step`` per
+    width and ``build_gpt_paged_block_copy`` (paged), each under a fresh
+    ``unique_name.guard()`` so its parameters are the canonical
+    ``<layer>.w_0``. Their cache, store and pool vars are zeroed tensors
+    it puts in the scope under the reference's names; the programs write
+    them in place. ``place`` None means the card, as the Executor's;
+    ``scope`` None means ``global_scope()``, where the reference makes a
+    fresh scope. The scope must hold the model's parameters (a startup
+    run under ``unique_name.guard()``, or ``bind_params``). ``tp`` other
+    than 1 raises (tensor parallelism is not ported). Every program's
+    Executor plan is built at its first run: ``warmup()`` runs them all
+    once."""
+
+    def __init__(self, cfg, place=None, scope=None, slots=None,
+                 max_len=None, prefill_buckets=None, prefix_blocks=0,
+                 prefix_block=None, build_resume=False, block_size=None,
+                 pool_blocks=0, spec_tokens=None, window_cap=0, tp=None):
+        if tp is not None and int(tp) != 1:
+            raise NotImplementedError(
+                "tensor-parallel decode (tp=%r) is not ported yet: ROADMAP "
+                "queue A, item A12" % (tp,))
+        self.model = None
+        self.place = place
+        self.device = _core.resolve_device(place)
+        self.scope = scope if scope is not None else _core.global_scope()
+        self.exe = _executor.Executor(place)
+        cfg = copy.copy(cfg)
+        cfg.is_test = True
+        self._setup(cfg, slots, max_len, prefill_buckets, block_size,
+                    spec_tokens, pool_blocks, window_cap, prefix_blocks,
+                    prefix_block, build_resume)
+        caches, stores = self._alloc()
+        for (k_name, v_name), (k, v) in zip(self._names + self._store_names,
+                                            caches + stores):
+            self.scope.set(k_name, k)
+            self.scope.set(v_name, v)
+        g = self.cfg
+        self._prefill, self._resume, self._window, self._step = {}, {}, {}, {}
+        self._decode = self._copy_in = self._publish = self._block_copy = None
+        if self.paged:
+            for T in self.buckets:
+                self._window[T] = self._build(
+                    _gpt.build_gpt_paged_window, g, self.pool_blocks,
+                    self.block_size, self.max_blocks, T)
+            for w in self.widths:
+                self._step[w] = self._build(
+                    _gpt.build_gpt_paged_step, g, self.slots,
+                    self.pool_blocks, self.block_size, self.max_blocks,
+                    step_w=w)
+            self._block_copy = self._build(
+                _gpt.build_gpt_paged_block_copy, g, self.pool_blocks,
+                self.block_size, npairs=1)
+        else:
+            for T in self.buckets:
+                self._prefill[T] = self._build(
+                    _gpt.build_gpt_prefill, g, self.slots, T, self.max_len)
+            self._decode = self._build(_gpt.build_gpt_decode_step, g,
+                                       self.slots, self.max_len)
+            if self.resumable:
+                for T in self.buckets:
+                    self._resume[T] = self._build(
+                        _gpt.build_gpt_resume_prefill, g, self.slots, T,
+                        self.max_len)
+            if self._store_names:
+                self._copy_in, self._publish = (
+                    self._build(_gpt.build_gpt_prefix_copy, g, self.slots,
+                                self.max_len, self.prefix_blocks,
+                                self.prefix_block, publish=publish)
+                    for publish in (False, True))
+
+    @staticmethod
+    def _build(builder, *args, **kwargs):
+        """(main program, fetch name) of ``builder`` under a fresh
+        ``unique_name.guard()``."""
+        with _unique_name.guard():
+            main, _startup, _feeds, fetch = builder(*args, **kwargs)
+        return main, fetch.name
+
+    @property
+    def caches(self):
+        """Per-layer (k, v) caches or pools: the scope's tensors."""
+        return [(self.scope.get(k), self.scope.get(v))
+                for k, v in self._names]
+
+    @property
+    def stores(self):
+        return [(self.scope.get(k), self.scope.get(v))
+                for k, v in self._store_names]
+
+    def bind_params(self, program):
+        """Alias ``program``'s parameters onto the canonical names the
+        session's programs read: a program built outside a fresh
+        ``unique_name.guard()`` says ``gpt_0_att_q.w_3`` where the
+        session's say ``.w_0``. The scope entry becomes the same tensor
+        (no copy); re-invoked per generate call, so retrained parameters
+        stay current. ``program`` is THE model of this scope, as in the
+        reference (``decode.py:768``)."""
+        for v in program.list_vars():
+            if not isinstance(v, _framework.Parameter):
+                continue
+            canon = re.sub(r"_(\d+)$", "_0", v.name)
+            if canon == v.name:
+                continue
+            val = self.scope.get(v.name)
+            if val is not None:
+                self.scope.set(canon, val)
+
+    def _fetch(self, entry, feed):
+        main, fetch_name = entry
+        (out,) = self.exe.run(main, feed=feed, fetch_list=[fetch_name],
+                              scope=self.scope)
+        return out
+
+    def _run_prefill(self, T, feed):
+        return self._fetch(self._prefill[T], feed)
+
+    def _run_resume(self, T, feed):
+        return self._fetch(self._resume[T], feed)
+
+    def _run_prefix_copy(self, dst_loc, src_loc, publish):
+        self._fetch(self._publish if publish else self._copy_in,
+                    {"dst_loc": np.array([dst_loc], "int64"),
+                     "src_loc": np.array([src_loc], "int64")})
+
+    def _run_decode(self, feed):
+        return self._fetch(self._decode, feed)
+
+    def _run_paged_window(self, T, feed):
+        return self._fetch(self._window[T], feed)
+
+    def _run_paged_step(self, width, feed):
+        return self._fetch(self._step[width], feed)
+
+    def block_copy(self, src_blocks, dst_blocks):
+        """``pool[dst[i]] = pool[src[i]]`` in every layer's K and V pool,
+        pair by pair through the one-pair program, as the reference."""
+        if not self.paged:
+            raise RuntimeError("block_copy on a non-paged session")
+        for src, dst in zip(src_blocks, dst_blocks):
+            with _trace.span("decode_block_copy", cat="serving",
+                             src=int(src), dst=int(dst)):
+                self._fetch(self._block_copy,
+                            {"src": np.array([[src]], "int64"),
+                             "dst": np.array([[dst]], "int64")})
+
+
+def session_for_generate(model, *args, **kwargs):
+    """The 1-slot contiguous session ``greedy_generate`` drives.
+
+    ``session_for_generate(model, max_len)``: the eager session, cached
+    on the ``GPTLM`` per ``max_len``. ``session_for_generate(exe, cfg,
+    scope, max_len, param_program)`` (the reference's form,
+    ``decode.py:1100``): a program session on ``exe.place``, cached on the
+    scope (``global_scope()`` for None) per model geometry, flash policy
+    and place, its parameters bound from ``param_program``."""
+    if isinstance(model, _gpt.GPTLM):
+        return _eager_generate_session(model, *args, **kwargs)
+    return _program_generate_session(model, *args, **kwargs)
+
+
+def _eager_generate_session(model, max_len):
     cache = model.__dict__.setdefault("_generate_sessions", {})
     lock = model.__dict__.setdefault("_generate_lock", threading.Lock())
     with lock:
@@ -903,6 +1175,31 @@ def session_for_generate(model, max_len):
                 model, slots=1, max_len=max_len, block_size=0,
                 spec_tokens=0)
         return sess
+
+
+_GEN_LOCK = threading.Lock()
+
+
+def _program_generate_session(exe, cfg, scope, max_len, param_program):
+    scope = scope if scope is not None else _core.global_scope()
+    key = (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+           cfg.intermediate_size, cfg.max_position_embeddings,
+           repr(getattr(cfg, "use_flash_attention", False)), int(max_len),
+           str(_core.resolve_device(exe.place)))
+    # kept on the scope, as the reference's: a session holds its scope,
+    # so a module-level map would keep every scope alive
+    with _GEN_LOCK:
+        cache = scope.__dict__.setdefault(
+            "_decode_gen_sessions", {"lock": threading.Lock(),
+                                     "sessions": {}})
+    with cache["lock"]:
+        sess = cache["sessions"].get(key)
+        if sess is None:
+            sess = cache["sessions"][key] = DecodeSession(
+                cfg, place=exe.place, scope=scope, slots=1, max_len=max_len,
+                block_size=0, spec_tokens=0, tp=1)
+    sess.bind_params(param_program)
+    return sess
 
 
 # ---------------------------------------------------------------------------
@@ -1419,7 +1716,7 @@ class DecodeEngine(object):
             if blocks:
                 self.prefix = PrefixCache(blocks, self.prefix_block)
         self._slot_blocks.clear()
-        self._warmup()
+        self.session.warmup()
         self._free = list(range(self.session.slots))
         self._stop = False
         try:
@@ -1476,36 +1773,6 @@ class DecodeEngine(object):
         for name, fn in self._gauges.items():
             _registry.unregister_gauge(name, fn)
         self._gauges.clear()
-
-    def _warmup(self):
-        """Run each prefill bucket once (and each resume window bucket and
-        both block copies where armed) and the decode step once (paged:
-        each window bucket and each step width through all-sink tables,
-        and the block copy), then zero the caches."""
-        with _compile_stats.warmup_window(), _trace.span(
-                "decode_warmup", cat="serving"):
-            sess = self.session
-            if sess.paged:
-                sink = [BlockAllocator.SINK] * sess.max_blocks
-                for T in sess.buckets:
-                    sess.paged_window(sink, [0] * T, 0)
-                for w in sess.widths:
-                    sess.paged_step(np.zeros((sess.slots, w), "int64"),
-                                    [0] * sess.slots, None,
-                                    [False] * sess.slots, width=w)
-                sess.block_copy([BlockAllocator.SINK], [BlockAllocator.SINK])
-            else:
-                for T in sess.buckets:
-                    sess.prefill(0, [0] * min(T, sess.max_len - 1))
-                if sess.resumable:
-                    for T in sess.buckets:
-                        sess.resume_prefill(0, [0] * T, 0)
-                if sess.stores:
-                    sess.prefix_copy_in(0, 0, 0)
-                    sess.prefix_publish(0, 0, 0)
-                sess.decode_step([0] * sess.slots, [0] * sess.slots,
-                                 [False] * sess.slots)
-            sess.reset_caches()
 
     def stop(self):
         if not self.started:

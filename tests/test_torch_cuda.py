@@ -831,3 +831,95 @@ def test_amp_program_step_on_card_matches_cpu():
     card, cpu = runs["CUDAPlace(0)"], runs["CPUPlace"]
     np.testing.assert_allclose(card, cpu, rtol=2e-2)
     assert card[2] < card[0] and cpu[2] < cpu[0]
+
+
+def _program_and_eager_sessions(cfg, **kw):
+    """A program-form session on the card over a scope holding seeded
+    weights, and an eager session over a ``GPTLM`` whose parameters are
+    that scope's tensors."""
+    from paddle_tpu_torch import fluid
+
+    scope = fluid.Scope()
+    for name, arr in tgpt.init_fluid_params(cfg, seed=5).items():
+        scope.set(name, torch.from_numpy(arr).cuda())
+    prog = tdecode.DecodeSession(cfg, place=fluid.CUDAPlace(0), scope=scope,
+                                 **kw)
+    model = tgpt.share_fluid_scope(tgpt.GPTLM(cfg, device="meta"), scope)
+    return prog, tdecode.DecodeSession(model, **kw)
+
+
+def _same_step(prog, eager, call, *args):
+    got = getattr(prog, call)(*args)
+    want = getattr(eager, call)(*args)
+    if want is not None:
+        torch.testing.assert_close(torch.as_tensor(got),
+                                   torch.as_tensor(want), atol=1e-4,
+                                   rtol=0, msg=call)
+
+
+def test_program_decode_steps_on_card_match_eager_steps():
+    """The program-form session (``build_gpt_prefill`` /
+    ``build_gpt_decode_step`` through ``fluid.Executor(CUDAPlace(0))``,
+    12 narrow layers, head_dim 32) against the eager session over the
+    same parameter tensors, call by call: logits within 1e-4 (fp32 on
+    both sides, products as other cuBLAS shapes), the caches within
+    1e-5, ``flash_fwd`` 12 launches a prefill and ``flash_decode`` 12 a
+    decode step."""
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, num_layers=12,
+                              use_flash_attention=True,
+                              max_position_embeddings=64, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    prog, eager = _program_and_eager_sessions(
+        cfg, slots=3, max_len=64, prefill_buckets=[16, 64], block_size=0,
+        spec_tokens=0)
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3, 8]]
+    for slot, p in enumerate(prompts):
+        f0 = fa.flash_attention_lse.launches
+        _same_step(prog, eager, "prefill", slot, p)
+        # the eager prefill launches 12, the program's 12
+        assert fa.flash_attention_lse.launches - f0 == 2 * cfg.num_layers
+    for t in range(6):
+        n0 = fa.flash_decode_attention.launches
+        _same_step(prog, eager, "decode_step", [7 + t, 11, 0],
+                   [5 + t, 14 + t, 0], [True, True, False])
+        # 12 launches a step each, the program's and the eager one's
+        assert fa.flash_decode_attention.launches - n0 == 2 * cfg.num_layers
+    torch.cuda.synchronize()
+    for (pk, pv), (ek, ev) in zip(prog.caches, eager.caches):
+        torch.testing.assert_close(pk, ek, atol=1e-5, rtol=0)
+        torch.testing.assert_close(pv, ev, atol=1e-5, rtol=0)
+
+
+def test_program_paged_steps_on_card_match_eager_steps():
+    """The paged program session (block 4, width 4) against the eager
+    one over the same parameter tensors: windows through a table, width-1
+    steps (``flash_decode_paged`` 12 launches each), a width-4 verify
+    (gather + dense: no paged launch) and a block copy; logits within
+    1e-4 and the pools within 1e-5."""
+    cfg = tgpt.GPTConfig.tiny(num_heads=2, num_layers=12,
+                              use_flash_attention=True,
+                              max_position_embeddings=64, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    prog, eager = _program_and_eager_sessions(
+        cfg, slots=2, max_len=56, prefill_buckets=[8], block_size=4,
+        spec_tokens=4, window_cap=8)
+    tables = [[3, 5, 6, 1], [7, 8]]
+    _same_step(prog, eager, "paged_window", tables[0], list(range(1, 9)), 0)
+    _same_step(prog, eager, "paged_window", tables[0], [4, 4, 2], 8)
+    _same_step(prog, eager, "paged_window", tables[1], [6, 1, 6], 0)
+    for t in range(4):
+        n0 = fa.flash_decode_paged_attention.launches
+        _same_step(prog, eager, "paged_step", [[9], [3]], [11 + t, 3 + t],
+                   tables, [True, True])
+        # 12 launches a step each, the program's and the eager one's
+        assert fa.flash_decode_paged_attention.launches - n0 == \
+            2 * cfg.num_layers
+    n0 = fa.flash_decode_paged_attention.launches
+    _same_step(prog, eager, "paged_step", [[1, 2, 3, 4]] * 2, [15, 7],
+               tables, [True, True], 4)
+    assert fa.flash_decode_paged_attention.launches == n0
+    _same_step(prog, eager, "block_copy", [6], [9])
+    torch.cuda.synchronize()
+    for (pk, pv), (ek, ev) in zip(prog.caches, eager.caches):
+        torch.testing.assert_close(pk, ek, atol=1e-5, rtol=0)
+        torch.testing.assert_close(pv, ev, atol=1e-5, rtol=0)

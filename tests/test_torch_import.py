@@ -130,6 +130,23 @@ for fn in (router.Router, fleet.FleetController, fleet.AutoscalerPolicy,
            serving.SLOPolicy, serving.make_policy):
     assert callable(fn)
 assert distributed.supervisor is supervisor
+# the KV-cache serving programs slice
+for fn in (gpt.build_gpt_prefill, gpt.build_gpt_resume_prefill,
+           gpt.build_gpt_prefix_copy, gpt.build_gpt_decode_step,
+           gpt.build_gpt_paged_window, gpt.build_gpt_paged_step,
+           gpt.build_gpt_paged_block_copy, decode.ProgramDecodeSession,
+           decode.DecodeSession.warmup, layers.flash_decode_attention,
+           layers.flash_decode_paged_attention, layers.kv_cache_write,
+           layers.kv_cache_copy, layers.kv_cache_gather,
+           layers.kv_cache_write_paged, layers.kv_cache_gather_paged,
+           layers.kv_cache_block_copy, fluid.save_inference_model,
+           fluid.get_flags, fluid.set_flags):
+    assert callable(fn)
+for op_type in ("flash_decode_attention", "flash_decode_paged_attention",
+                "kv_cache_write", "kv_cache_copy", "kv_cache_gather",
+                "kv_cache_write_paged", "kv_cache_gather_paged",
+                "kv_cache_block_copy"):
+    assert registry.has_op(op_type), op_type
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -195,6 +212,48 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu():
     config.enable_use_gpu(100, 0)
     with pytest.raises(RuntimeError):
         inference.create_paddle_predictor(config)
+    from paddle_tpu_torch.serving import decode
+
+    with pytest.raises(RuntimeError):
+        decode.DecodeSession(cfg, slots=1, max_len=8)
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(CPUPlace()) == torch.device("cpu")
     assert tgpt.GPTLM(cfg, device="cpu").device == torch.device("cpu")
+
+
+# the reference ``fluid``'s top-level persistence and flag names
+# (paddle_tpu/fluid/__init__.py:50-62, :69-70, :85-90)
+_IO_NAMES = ("save_vars", "save_params", "save_persistables", "load_vars",
+             "load_params", "load_persistables", "save_inference_model",
+             "load_inference_model", "save", "load", "load_program_state",
+             "set_program_state")
+
+
+@pytest.mark.parametrize("name", _IO_NAMES + ("get_flags", "set_flags"))
+def test_fluid_reexports_the_reference_io_and_flag_names(name):
+    """Each name the reference's ``fluid`` re-exports from ``fluid.io``
+    and ``fluid.flags`` is in the port's ``fluid`` and its ``__all__``,
+    and is the port's own ``io`` / ``flags`` function."""
+    import paddle_tpu.fluid as jfluid
+
+    home = fluid.io if name in _IO_NAMES else fluid.flags
+    assert callable(getattr(jfluid, name))
+    assert getattr(fluid, name) is getattr(home, name)
+    assert name in fluid.__all__
+
+
+def test_get_flags_matches_the_reference():
+    """``get_flags`` as the reference's: a name with or without
+    ``FLAGS_`` or a list of them, to ``{FLAGS_name: value}``;
+    ``ValueError`` on a name that is not registered."""
+    from paddle_tpu.fluid import flags as jflags
+
+    one = "decode_slots"
+    many = ["FLAGS_decode_slots", "sched_preempt", "FLAGS_serving_workers"]
+    assert fluid.get_flags(one) == jflags.get_flags(one)
+    assert fluid.get_flags(many) == jflags.get_flags(many)
+    assert set(fluid.get_flags(many)) == {
+        "FLAGS_decode_slots", "FLAGS_sched_preempt", "FLAGS_serving_workers"}
+    for fl in (fluid.flags, jflags):
+        with pytest.raises(ValueError, match="not registered"):
+            fl.get_flags(["decode_slots", "no_such_knob"])
