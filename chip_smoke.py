@@ -4,13 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only program_train --repeat 6
     python3 chip_smoke.py --only fleet
+    python3 chip_smoke.py --only bert,vision
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
-``gateway``, ``fleet``, ``programs``), ``--repeat`` times,
-printing each run's line whether it passed or not. Phases, one JSON line
-each:
+``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``), ``--repeat``
+times, printing each run's line whether it passed or not. Phases, one
+JSON line each:
 
 1. env     torch / CUDA / nvcc versions, the card, TF32 turned off.
 2. build   compiles every kernel from ``paddle_tpu_torch/csrc`` (sm_90a)
@@ -168,12 +169,34 @@ each:
            and idle share, program against eager. Then the reference's
            ``greedy_generate(exe, infer, logits, cfg, prompt, ...)``: 64
            tokens held to the plain forward and the eager form.
+16. bert   (run after amp_train) BERT-base's sequence classifier,
+           ``build_bert_classifier(cfg, 384)`` at batch 24 through
+           ``fluid.Executor(CUDAPlace(0))``, ragged key-padding masks
+           (real lengths 160-384): at dropout 0 the flash program's
+           step-1 loss and every gradient against the dense program's
+           from the same weights (1e-3 relative norm; 12 launches of each
+           training kernel, no generic replay); 20 Adam steps at dropout
+           0.1 on one batch that must learn, launch counts zeroed just
+           before them and read just after (12 a step each); one AMP
+           step against the fp32 step (only bf16 flash kernels, 12 each);
+           fp32 and AMP step ms, seq/s, idle share, peak memory; dense
+           and flash step ms at seq 128 (batch 64) and 384 (batch 24).
+17. vision LeNet (SGD, 20 steps on 64 images that must learn) and
+           ResNet-50 (224x224, 1000 classes, Momentum): step 1 at batch 4
+           on the card against the same program on the CPU in fp32 and in
+           fp64 (loss, three gradients, every batch norm's running
+           stats), 10 timed steps at batch 32 (images/s, idle share,
+           launches, peak memory), one AMP step with bf16 convolutions.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
 [1, 12, 1024, 1024] and the [1024, 1024] bias; the bf16 forms of the
 three training kernels at the train shape (timed, with their bf16 bound
-and SDPA in bf16 beside them; all three on the tensor cores); the bf16
+and SDPA in bf16 beside them; all three on the tensor cores); the three
+training kernels at the BERT classifier's shape ([24, 12, 384, 64],
+non-causal, ragged key bias, dropout 0.1) in fp32 and bf16, each timed
+beside its plain version, its bound and SDPA with the key-padding mask;
+the bf16
 forms of both decode kernels at their serving shapes
 (timed beside SDPA in bf16, held to ``lowp_limits.out_bound``); fp16 and
 bf16 at small shapes; a head dim of 48 on all five kernels; and both
@@ -266,6 +289,66 @@ AMP_GRAD_PARAMS = ("gpt_0_att_q.w_0", "gpt_0_att_k.w_0", "gpt_0_att_v.w_0",
                    "gpt_0_att_out.w_0", "gpt_0_ffn_fc0.w_0",
                    "gpt_11_att_q.w_0", "gpt_11_att_k.w_0", "gpt_11_att_v.w_0",
                    "gpt_11_att_out.w_0", "gpt_11_ffn_fc1.w_0", "lm_head.w_0")
+# BERT-base's sequence classifier (BASELINE.json's second headline model)
+# through fluid.Executor(CUDAPlace(0)): vocab 30522, hidden 768, 12 layers
+# of 12 heads, FFN 3072, 512 positions, at seq 384 and batch 24 (the
+# reference bench's batch above seq 128, bench_bert.py:161-165). Its
+# attention runs the training kernels in their non-causal form under a
+# ragged key-padding bias: each row's real length is drawn from 160-384,
+# its sentence ids switch to 1 halfway through it, its label is random.
+# Flash against the dense path (the same weights, dropout 0): the step-1
+# loss and every parameter's gradient within 1e-3 relative norm, the
+# denominator floored as in the GPT train phase (the k-projection biases'
+# exact gradient is 0 here too). Learning: 20 Adam steps at lr 1e-4 on the
+# one fixed batch at dropout 0.1 (the labels are random: the model
+# memorizes 24 of them); the mean of the last 5 losses must sit 0.1 below
+# the first 5's (from ln 2 = 0.69). AMP (bf16 products and attention):
+# the step-1 loss within 1e-2 relative of the fp32 step's, and the
+# gradients of layer 0's and layer 11's Q projections and of cls within
+# 1e-1 relative norm; layer 11's V projection and FFN input weights are
+# held with them. Layer 11's Q projection is recorded, not held (nor are
+# the other layers' Q): at random init the deep layers' keys collapse
+# toward their mean, so the true dq (which sees only the keys' spread) is
+# small, and the flash backward's delta = rowsum(dO∘O), taken from the
+# bf16 O as in the reference (``flash_attention.py:748``), leaves each
+# row's ds a sum of order eps·|dO·O| that multiplies the keys' mean:
+# the phase records each layer's reading for the flash AMP program
+# (1.1% at layer 0 growing to 103% at layer 11, NVIDIA H100 80GB HBM3,
+# 700.00 W) and for the dense AMP program beside it, whose softmax
+# backward takes the mean from the same dp. The dense/flash crossover:
+# step ms of both at seq 128 (batch 64) and seq 384 (batch 24), dropout
+# 0.1.
+BERT_SEQ, BERT_BATCH, BERT_MIN_LEN = 384, 24, 160
+BERT_STEPS, BERT_LR, BERT_LEARN_MARGIN = 20, 1e-4, 0.1
+BERT_LOSS_RTOL = 1e-3
+BERT_AMP_LOSS_RTOL, BERT_AMP_GRAD_RTOL = 1e-2, 1e-1
+BERT_AMP_GRAD_PARAMS = ("layer_0_att_q.w_0", "layer_11_att_v.w_0",
+                        "layer_11_ffn_fc0.w_0", "cls.w_0")
+BERT_Q_PARAMS = tuple("layer_%d_att_q.w_0" % i for i in range(12))
+BERT_CROSSOVER = ((128, 64), (384, 24))
+BERT_TIMED_STEPS = 6
+# The vision programs through fluid.Executor(CUDAPlace(0)), TF32 off
+# (cuDNN's too). LeNet: 64 random 1x28x28 images, 10 classes, SGD at 0.01
+# for 20 steps on the fixed batch; the mean of the last 5 losses must sit
+# below the first 5's. ResNet-50: 224x224, 1000 classes, Momentum at lr
+# 0.1, mu 0.9. Step 1 at batch 4 on the card against the same program,
+# weights and batch on fluid.CPUPlace() (fp32), and in fp64 on the CPU
+# (the scope's tensors and the image in fp64: every op computes in its
+# inputs' type). The loss within 1e-4 relative of the CPU's, the fc
+# weight's gradient within 1e-3 relative norm, every batch norm's MeanOut
+# and VarianceOut within 1e-4. The stem conv's filter and a mid-network
+# batch-norm scale: their fp32 gradients are only ~2% accurate on any
+# device (the backward through 50 batch norms at random init cancels:
+# card and CPU read 2.2-2.4% from the fp64 run and 2.5-2.6% from each
+# other, NVIDIA H100 80GB HBM3, 700.00 W), so each checked gradient's
+# distance from the fp64 run must be at most 1.5x the CPU fp32 run's; a
+# wrong layout, padding or statistic moves it by O(1). Then 10 steps at
+# batch 32, timed, and one AMP step.
+LENET_BATCH, LENET_STEPS, LENET_LR = 64, 20, 0.01
+RESNET_BATCH, RESNET_CHECK_BATCH, RESNET_STEPS = 32, 4, 10
+RESNET_LOSS_RTOL, RESNET_GRAD_RTOL, RESNET_STAT_RTOL = 1e-4, 1e-3, 1e-4
+RESNET_F64_RATIO = 1.5
+RESNET_GRAD_PARAMS = ("conv2d_0.w_0", "batch_norm_26.w_0", "fc_0.w_0")
 # The paged engine: max_len 1016 leaves room for the width-4 verify's
 # positions (max_len + k - 1 <= 1024), so tables are 64 blocks of 16 (a
 # key span of 1024) and the pool 8 * 64 + 1 blocks; the longest prompt
@@ -1193,6 +1276,115 @@ def kernel_flash_train_bf16(dev, peaks):
     rows["dropout_rate"] = rate
     zero_flash_launches()          # comparison launches do not count
     return rows
+
+
+def bert_lengths(batch, seq, seed):
+    """Each row's real length, drawn from the seed between
+    ``seq * BERT_MIN_LEN / BERT_SEQ`` and ``seq``."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(seq * BERT_MIN_LEN // BERT_SEQ, seq + 1, batch)
+
+
+def kernel_flash_bert(dev, peaks):
+    """The three training kernels at the BERT-base classifier's attention
+    shape: q/k/v/dO [24, 12, 384, 64], non-causal, a ragged key-padding
+    bias (``bert_lengths``), dropout 0.1, in fp32 (held to the kernel
+    limits) and in bf16 (held to ``lowp_limits``), the backward kernels
+    from the forward's own out and lse. Each is timed beside its plain
+    version, its bound (every (q, k) pair: the kernels do not skip masked
+    keys) and SDPA given the key-padding mask (its backward alone for the
+    backward kernels, forward + backward beside it)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(9)
+    B, N, T, D = BERT_BATCH, 12, BERT_SEQ, 64
+    rate, seed = 0.1, 2468013
+    scale = 1.0 / np.sqrt(D)
+    kb = torch.zeros(B, T)
+    for i, n in enumerate(bert_lengths(B, T, seed=9)):
+        kb[i, n:] = -1e4
+    kb = kb.to(dev)
+    pairs = B * N * T * T                          # non-causal
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"shape": [B, N, T, D], "causal": False, "dropout_rate": rate}
+    for tname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, g = (torch.randn(B, N, T, D, generator=gen).to(dev, dt)
+                      for _ in range(4))
+        kw = dict(causal=False, scale=scale, dropout_rate=rate,
+                  dropout_seed=seed)
+        if dt == torch.float32:
+            o, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
+            ref_o, ref_lse = fa.flash_attention_lse_plain(
+                q, k, v, key_bias=kb, **kw)
+            torch.cuda.synchronize()
+            check_close("bert flash_fwd out", o, ref_o)
+            check_close("bert flash_fwd lse", lse, ref_lse)
+            errs = {"fwd": max(max_err(o, ref_o), max_err(lse, ref_lse))}
+            del ref_o, ref_lse
+            delta = (g * o).sum(-1)
+            bwd_args = (q, k, v, kb, g, lse, delta)
+            dq = fa.flash_bwd_dq(*bwd_args, **kw)
+            ref_dq = fa.flash_bwd_dq_plain(*bwd_args, **kw)
+            torch.cuda.synchronize()
+            check_close("bert flash_bwd_dq", dq, ref_dq, BWD_ATOL, BWD_RTOL)
+            errs["dq"] = max_err(dq, ref_dq)
+            del dq, ref_dq
+            got = fa.flash_bwd_dkv(*bwd_args, **kw)
+            want = fa.flash_bwd_dkv_plain(*bwd_args, **kw)
+            torch.cuda.synchronize()
+            errs["dkv"] = 0.0
+            for oname, a, b in zip(("dk", "dv", "dkey_bias"), got, want):
+                check_close("bert flash_bwd_dkv " + oname, a, b, BWD_ATOL,
+                            BWD_RTOL)
+                errs["dkv"] = max(errs["dkv"], max_err(a, b))
+            del got, want
+            esize, rate_peak = 4, None
+        else:
+            errs, (o, lse, delta) = check_low_precision(
+                "bert bf16", dt, q, k, v, kb, g, rate, seed, causal=False)
+            bwd_args = (q, k, v, kb, g, lse, delta)
+            esize, rate_peak = 2, BF16_PEAK
+        tensor = esize * B * N * T * D
+        vec = 4 * B * N * T
+        kb_bytes = 4 * B * T
+        sdpa_mask = kb.reshape(B, 1, 1, T).to(dt)
+        rows = {}
+        for name, fn, plain, nbytes, flops, err, lib, args in (
+                ("flash_fwd",
+                 lambda a, b, c, d: fa.flash_attention_lse(a, b, c, d, **kw),
+                 lambda a, b, c, d: fa.flash_attention_lse_plain(
+                     a, b, c, key_bias=d, **kw),
+                 4 * tensor + kb_bytes + vec, 4 * D * pairs, errs["fwd"],
+                 lambda: sdpa(q, k, v, attn_mask=sdpa_mask, dropout_p=rate,
+                              scale=scale), [(q, k, v, kb)]),
+                ("flash_bwd_dq", lambda *a: fa.flash_bwd_dq(*a, **kw),
+                 lambda *a: fa.flash_bwd_dq_plain(*a, **kw),
+                 5 * tensor + kb_bytes + 2 * vec, 6 * D * pairs, errs["dq"],
+                 None, [bwd_args]),
+                ("flash_bwd_dkv", lambda *a: fa.flash_bwd_dkv(*a, **kw),
+                 lambda *a: fa.flash_bwd_dkv_plain(*a, **kw),
+                 6 * tensor + kb_bytes + 2 * vec + 4 * B * N * T,
+                 8 * D * pairs, errs["dkv"], None, [bwd_args])):
+            ms, spread = cuda_ms(fn, args)
+            plain_ms, _ = cuda_ms(plain, args, calls=3)
+            bms, by = bound_ms(nbytes, flops, peaks, rate_peak)
+            rows[name] = {"max_abs_err": err, "ms": ms,
+                          "ms_window_spread": spread, "plain_ms": plain_ms,
+                          "bound_ms": bms, "bound_by": by,
+                          "library_ms": event_ms(lib) if lib else None}
+            if dt == torch.float32:
+                rows[name]["bound_tensor_core_ms"] = tf32_bound_ms(flops)
+        sdpa_backward_rows(rows, sdpa, q, k, v, g, sdpa_mask, rate, scale)
+        for name, r in rows.items():
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            r["sdpa_ratio"] = r["ms"] / r["library_ms"]
+        if "ratios" in errs:
+            rows["limit_ratios"] = errs["ratios"]
+        out[tname] = rows
+        del q, k, v, g, o, lse, delta, bwd_args
+        torch.cuda.empty_cache()
+    zero_flash_launches()          # comparison launches do not count
+    return out
 
 
 def kernel_other_forms(dev):
@@ -4040,6 +4232,450 @@ def programs_phase(dev):
     }, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: BERT-base's classifier through the Executor
+# ---------------------------------------------------------------------------
+
+
+def bert_feed(seq, batch, seed, vocab=30522):
+    """The classifier's feeds: random ids, positions, ragged real lengths
+    (``bert_lengths``) with the sentence id 1 from halfway through each
+    row's real tokens, the padded tail masked, random binary labels."""
+    rng = np.random.default_rng(seed)
+    lens = bert_lengths(batch, seq, seed)
+    mask = np.zeros((batch, seq, 1), np.float32)
+    sent = np.zeros((batch, seq, 1), np.int64)
+    for i, n in enumerate(lens):
+        mask[i, :n] = 1.0
+        sent[i, n // 2:] = 1
+    return {"src_ids": rng.integers(0, vocab, (batch, seq, 1)),
+            "pos_ids": np.tile(np.arange(seq).reshape(1, seq, 1),
+                               (batch, 1, 1)),
+            "sent_ids": sent, "input_mask": mask,
+            "label": rng.integers(0, 2, (batch, 1))}
+
+
+def program_arrays(main, scope):
+    """Every persistable of ``main`` in ``scope``, copied to numpy on the
+    host (a copy even from the CPU: the ops update the tensors in place)."""
+    return {v.name: scope.get(v.name).detach().to("cpu", copy=True).numpy()
+            for v in main.list_vars() if v.persistable}
+
+
+def bert_program(cfg, seq, use_amp=False, arrays=None, lr=BERT_LR):
+    """BERT's classifier program on the card, startup run; ``arrays``
+    (every persistable but the AMP program's ``loss_scaling``, which
+    keeps its startup value) copied in with ``load_program_scope``.
+    Returns (main, loss, acc, executor, scope)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    with fluid.unique_name.guard():
+        main, startup, _feeds, loss, acc = bert.build_bert_classifier(
+            cfg, seq, learning_rate=lr, use_amp=use_amp)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if arrays is not None:
+        if use_amp:
+            arrays = dict(arrays, loss_scaling=scope.get(
+                "loss_scaling").cpu().numpy())
+        fluid.load_program_scope(main, scope, arrays)
+    return main, loss, acc, exe, scope
+
+
+def loss_step(exe, main, loss, feed, scope):
+    return lambda: float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0].reshape(-1)[0])
+
+
+def rel_norms(got, want, floor_share=0.0):
+    """{name: ||got - want|| / max(||want||, floor)}, the floor
+    ``floor_share`` of the norm of all of ``want`` together."""
+    total = float(np.sqrt(sum(float(np.linalg.norm(w)) ** 2
+                              for w in want.values())))
+    floor = floor_share * total
+    return {n: float(np.linalg.norm(got[n] - w)
+                     / max(float(np.linalg.norm(w)), floor, 1e-30))
+            for n, w in want.items()}, total
+
+
+def bert_phase(dev):
+    """BERT-base's classifier (``build_bert_classifier(cfg, 384)``) at
+    batch 24 through ``fluid.Executor(CUDAPlace(0))``: flash against the
+    dense path at dropout 0 (step-1 loss and every gradient; 12 launches
+    of each training kernel, no generic replay), 20 Adam steps at dropout
+    0.1 that must learn (the main path: launch counts zeroed just before
+    them and read just after), one AMP step against the fp32 step (bf16
+    kernels only, 12 launches each), then step times: fp32 and AMP, dense
+    and flash at seq 128 and 384."""
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    n_layers = bert.BertConfig.base().num_layers
+    drop0 = dict(hidden_dropout=0.0, attention_dropout=0.0)
+    feed = bert_feed(BERT_SEQ, BERT_BATCH, seed=4)
+    lens = feed["input_mask"].sum((1, 2)).astype(int).tolist()
+
+    # flash against dense, dropout 0, the same weights
+    cfg0 = bert.BertConfig.base(use_flash_attention=True, **drop0)
+    t0 = time.perf_counter()
+    main, loss, _acc, exe, scope = bert_program(cfg0, BERT_SEQ)
+    build_s = time.perf_counter() - t0
+    n_ops = len(main.global_block().ops)
+    arrays = program_arrays(main, scope)
+    names = sorted(p.name for p in main.all_parameters())
+    grads = {}
+    for path, cfg in (("flash", cfg0), ("dense", bert.BertConfig.base(
+            use_flash_attention=False, **drop0))):
+        if path == "dense":
+            main, loss, _acc, exe, scope = bert_program(cfg, BERT_SEQ,
+                                                        arrays=arrays)
+        replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        zero_flash_launches()
+        out = exe.run(main, feed=feed, fetch_list=[loss] + [
+            n + "@GRAD" for n in names], scope=scope)
+        launched = flash_launches()
+        replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+        want = n_layers if path == "flash" else 0
+        if any(n != want for n in launched.values()) or replays:
+            raise AssertionError("bert %s step launched %r (expected %d "
+                                 "each), %d generic replays"
+                                 % (path, launched, want, replays))
+        grads[path] = (float(out[0].reshape(-1)[0]), dict(zip(names,
+                                                              out[1:])))
+        del main, loss, exe, scope, out
+        torch.cuda.empty_cache()
+    (loss_flash, g_flash), (loss_dense, g_dense) = grads["flash"], \
+        grads["dense"]
+    del grads
+    rel, gnorm = rel_norms(g_flash, g_dense, GRAD_NORM_FLOOR)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_flash - loss_dense) / abs(loss_dense)
+    if not (rel[worst] <= GRAD_REL_TOL and loss_rel <= BERT_LOSS_RTOL):
+        raise AssertionError("bert flash vs dense: loss %r vs %r, gradient "
+                             "of %s at relative norm %.3g"
+                             % (loss_flash, loss_dense, worst, rel[worst]))
+    del g_dense
+
+    # the main path: dropout 0.1, 20 Adam steps on one fixed batch
+    cfg = bert.BertConfig.base(use_flash_attention=True)
+    main, loss, _acc, exe, scope = bert_program(cfg, BERT_SEQ, arrays=arrays)
+    step = loss_step(exe, main, loss, feed, scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()
+    losses, ms = timed_steps(step, BERT_STEPS)
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(losses)) or not np.mean(
+            losses[-5:]) < np.mean(losses[:5]) - BERT_LEARN_MARGIN:
+        raise AssertionError("bert loss did not fall by %g: %r"
+                             % (BERT_LEARN_MARGIN, losses))
+    for kname, n in launches.items():
+        if n != n_layers * BERT_STEPS:
+            raise AssertionError("bert: %s launched %d times in %d steps"
+                                 % (kname, n, BERT_STEPS))
+    prof = _profile(step, reps=1)
+    del main, loss, exe, scope, step
+    torch.cuda.empty_cache()
+    fp32 = {"step_ms": ms, "step_ms_p50": float(np.median(ms)),
+            "seq_per_s_p50": BERT_BATCH / (np.median(ms) / 1e3),
+            "peak_mem_mib": peak, "profile_step": prof,
+            "device_idle_share": prof["device_idle_share"]}
+
+    # AMP: one step against fp32's at dropout 0, then timed at dropout 0.1
+    main, loss, _acc, exe, scope = bert_program(cfg0, BERT_SEQ, use_amp=True,
+                                                arrays=arrays)
+    replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+    zero_flash_launches()
+    fetched = BERT_AMP_GRAD_PARAMS + BERT_Q_PARAMS
+    out = exe.run(main, feed=feed, fetch_list=[loss] + [
+        n + "@GRAD" for n in fetched], scope=scope)
+    amp_launches = flash_launches()
+    replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+    amp_loss = float(out[0].reshape(-1)[0])
+    all_rel, _n = rel_norms(dict(zip(fetched, out[1:])),
+                            {n: g_flash[n] for n in fetched})
+    amp_rel = {n: all_rel[n] for n in BERT_AMP_GRAD_PARAMS}
+    q_rel = [all_rel[n] for n in BERT_Q_PARAMS]
+    q_norm = [float(np.linalg.norm(g_flash[n])) for n in BERT_Q_PARAMS]
+    amp_loss_rel = abs(amp_loss - loss_flash) / abs(loss_flash)
+    del out
+    if any(n != n_layers for n in amp_launches.values()) or replays:
+        raise AssertionError("bert amp step launched %r, %d generic replays"
+                             % (amp_launches, replays))
+    if not (amp_loss_rel <= BERT_AMP_LOSS_RTOL
+            and max(amp_rel.values()) <= BERT_AMP_GRAD_RTOL):
+        raise AssertionError("bert amp step-1 loss %r vs fp32 %r, gradients "
+                             "%r" % (amp_loss, loss_flash, amp_rel))
+    amp_prof = _profile(loss_step(exe, main, loss, feed, scope), reps=1)
+    if not amp_prof["flash_kernels"] or not all(
+            "bfloat16" in k for k in amp_prof["flash_kernels"]) or any(
+            n != n_layers for n in
+            amp_prof["flash_launches_by_kernel"].values()):
+        raise AssertionError("bert amp step ran flash kernels %r, %r"
+                             % (amp_prof["flash_kernels"],
+                                amp_prof["flash_launches_by_kernel"]))
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+    # the dense AMP program's Q-projection gradients beside them: the same
+    # bf16 products with the softmax backward in place of the kernels'
+    # delta from the bf16 O
+    dense_amp = bert.BertConfig.base(use_flash_attention=False, **drop0)
+    main, loss, _acc, exe, scope = bert_program(dense_amp, BERT_SEQ,
+                                                use_amp=True, arrays=arrays)
+    out = exe.run(main, feed=feed, fetch_list=[
+        n + "@GRAD" for n in BERT_Q_PARAMS], scope=scope)
+    dense_rel, _n = rel_norms(dict(zip(BERT_Q_PARAMS, out)),
+                              {n: g_flash[n] for n in BERT_Q_PARAMS})
+    dense_q_rel = [dense_rel[n] for n in BERT_Q_PARAMS]
+    del main, loss, exe, scope, out, g_flash
+    torch.cuda.empty_cache()
+    main, loss, _acc, exe, scope = bert_program(cfg, BERT_SEQ, use_amp=True,
+                                                arrays=arrays)
+    torch.cuda.reset_peak_memory_stats()
+    amp_losses, amp_ms = timed_steps(loss_step(exe, main, loss, feed, scope),
+                                     BERT_TIMED_STEPS)
+    amp_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(amp_losses)):
+        raise AssertionError("bert amp losses %r" % (amp_losses,))
+    amp = {"step1_loss": amp_loss, "step1_rel_vs_fp32": amp_loss_rel,
+           "rtol": BERT_AMP_LOSS_RTOL, "step1_grad_rel_vs_fp32": amp_rel,
+           "grad_rtol": BERT_AMP_GRAD_RTOL,
+           "q_proj_grad_rel_by_layer": q_rel,
+           "dense_amp_q_proj_grad_rel_by_layer": dense_q_rel,
+           "q_proj_fp32_grad_norm_by_layer": q_norm,
+           "launches_step1": amp_launches,
+           "profile_step_dropout0": amp_prof,
+           "device_idle_share": amp_prof["device_idle_share"],
+           "dropout01_losses": amp_losses, "step_ms": amp_ms,
+           "step_ms_p50": float(np.median(amp_ms[1:])),
+           "seq_per_s_p50": BERT_BATCH / (np.median(amp_ms[1:]) / 1e3),
+           "peak_mem_mib": amp_peak}
+
+    # the dense/flash crossover at dropout 0.1: step ms (the first step,
+    # which builds the plan, left out)
+    crossover = {}
+    for seq, batch in BERT_CROSSOVER:
+        cfeed = bert_feed(seq, batch, seed=5)
+        for flash in (False, True):
+            if (seq, flash) == (BERT_SEQ, True):
+                crossover["seq%d_flash" % seq] = {
+                    "batch": batch, "step_ms_p50": fp32["step_ms_p50"],
+                    "from": "the learning run"}
+                continue
+            c = bert.BertConfig.base(use_flash_attention=flash)
+            main, loss, _acc, exe, scope = bert_program(c, seq, arrays=arrays)
+            closs, cms = timed_steps(loss_step(exe, main, loss, cfeed,
+                                               scope), BERT_TIMED_STEPS)
+            del main, loss, exe, scope
+            torch.cuda.empty_cache()
+            if not all(np.isfinite(closs)):
+                raise AssertionError("bert seq %d flash=%s losses %r"
+                                     % (seq, flash, closs))
+            crossover["seq%d_%s" % (seq, "flash" if flash else "dense")] = {
+                "batch": batch, "step_ms": cms,
+                "step_ms_p50": float(np.median(cms[1:]))}
+        crossover["seq%d_dense_over_flash" % seq] = (
+            crossover["seq%d_dense" % seq]["step_ms_p50"]
+            / crossover["seq%d_flash" % seq]["step_ms_p50"])
+    return {
+        "phase": "bert", "model": "bert-base", "seq_len": BERT_SEQ,
+        "batch": BERT_BATCH, "real_lengths": lens, "program_ops": n_ops,
+        "build_and_startup_s": build_s, "learning_rate": BERT_LR,
+        "flash_vs_dense_dropout0": {
+            "loss_flash": loss_flash, "loss_dense": loss_dense,
+            "loss_rel": loss_rel, "loss_rtol": BERT_LOSS_RTOL,
+            "max_rel_norm": rel[worst], "worst_param": worst,
+            "median_rel_norm": float(np.median(list(rel.values()))),
+            "params": len(rel), "tolerance": GRAD_REL_TOL,
+            "grad_norm": gnorm},
+        "learning": {"steps": BERT_STEPS, "losses": losses,
+                     "dropout": [cfg.hidden_dropout, cfg.attention_dropout],
+                     "margin": BERT_LEARN_MARGIN, "launches": launches},
+        "fp32": fp32, "amp": amp, "crossover": crossover,
+        "seconds": time.perf_counter() - t_phase,
+    }, {"bert": launches, "bert_amp": amp_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: LeNet and ResNet-50 through the Executor
+# ---------------------------------------------------------------------------
+
+
+def image_feed(batch, channels, size, classes, seed):
+    rng = np.random.default_rng(seed)
+    return {"img": rng.standard_normal((batch, channels, size, size),
+                                       dtype=np.float32),
+            "label": rng.integers(0, classes, (batch, 1))}
+
+
+def vision_program(build, place):
+    """``build()`` under a fresh name guard, its startup run on ``place``.
+    Returns (main, startup, loss, acc, executor, scope)."""
+    from paddle_tpu_torch import fluid
+
+    with fluid.unique_name.guard():
+        main, startup, _feeds, loss, acc = build()
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    return main, startup, loss, acc, exe, scope
+
+
+def _conv_kernels(prof):
+    """The convolution kernels a profiled step ran (cuDNN's and CUTLASS's
+    names), by name."""
+    keys = ("conv", "fprop", "dgrad", "wgrad", "implicit")
+    return sorted(k for k in prof["kernel_calls"]
+                  if any(s in k.lower() for s in keys))
+
+
+def vision_phase(dev):
+    """LeNet (SGD, 20 steps that must learn) and ResNet-50 (Momentum:
+    step 1 at batch 4 against the same program on the CPU, 10 timed steps
+    at batch 32, one AMP step with bf16 convolutions) through
+    ``fluid.Executor(CUDAPlace(0))``, TF32 off."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import lenet, resnet
+
+    t_phase = time.perf_counter()
+    card = fluid.CUDAPlace(0)
+    main, _s, loss, acc, exe, scope = vision_program(
+        lambda: lenet.build_lenet_train(learning_rate=LENET_LR), card)
+    feed = image_feed(LENET_BATCH, 1, 28, 10, seed=6)
+    lenet_losses, lenet_ms = timed_steps(
+        loss_step(exe, main, loss, feed, scope), LENET_STEPS)
+    lenet_acc = float(exe.run(main, feed=feed, fetch_list=[acc],
+                              scope=scope)[0].reshape(-1)[0])
+    if not all(np.isfinite(lenet_losses)) or not np.mean(
+            lenet_losses[-5:]) < np.mean(lenet_losses[:5]):
+        raise AssertionError("lenet loss did not fall: %r" % (lenet_losses,))
+    del main, loss, acc, exe, scope
+
+    # ResNet-50, step 1 at batch 4: the card against the CPU
+    build = lambda amp=False: resnet.build_resnet_train(  # noqa: E731
+        50, class_num=1000, image_size=224, learning_rate=0.1, momentum=0.9,
+        use_amp=amp)
+    main, startup, loss, _acc, cpu_exe, cpu_scope = vision_program(
+        build, fluid.CPUPlace())
+    n_ops = len(main.global_block().ops)
+    arrays = program_arrays(main, cpu_scope)
+    exe = fluid.Executor(card)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.load_program_scope(main, scope, arrays)
+    stats = [op.output(slot)[0] for op in main.global_block().ops
+             if op.type == "batch_norm" for slot in ("MeanOut",
+                                                     "VarianceOut")]
+    feed4 = image_feed(RESNET_CHECK_BATCH, 3, 224, 1000, seed=7)
+    fetch = [loss] + [n + "@GRAD" for n in RESNET_GRAD_PARAMS]
+    t0 = time.perf_counter()
+    got = exe.run(main, feed=feed4, fetch_list=fetch, scope=scope)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cpu_exe.run(main, feed=feed4, fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    # the same step in fp64 on the CPU
+    scope64 = fluid.Scope()
+    cpu_exe.run(startup, scope=scope64)
+    for n, a in arrays.items():
+        scope64.set(n, torch.from_numpy(a.astype(np.float64)))
+    exact = cpu_exe.run(main, feed=dict(feed4, img=feed4["img"].astype(
+        np.float64)), fetch_list=fetch, scope=scope64)
+    del arrays, scope64
+    loss_rel = abs(float(got[0][0]) - float(want[0][0])) / abs(
+        float(want[0][0]))
+    grads = [dict(zip(RESNET_GRAD_PARAMS, r[1:])) for r in (got, want,
+                                                            exact)]
+    grad_rel, _n = rel_norms(grads[0], grads[1])
+    card_err, _n = rel_norms(grads[0], grads[2])
+    cpu_err, _n = rel_norms(grads[1], grads[2])
+    stat_rel, _n = rel_norms(
+        {n: scope.get(n).cpu().numpy() for n in stats},
+        {n: cpu_scope.get(n).numpy() for n in stats})
+    worst_stat = max(stat_rel, key=stat_rel.get)
+    if not (loss_rel <= RESNET_LOSS_RTOL
+            and grad_rel["fc_0.w_0"] <= RESNET_GRAD_RTOL
+            and all(card_err[n] <= RESNET_F64_RATIO * cpu_err[n] + 1e-6
+                    for n in RESNET_GRAD_PARAMS)
+            and stat_rel[worst_stat] <= RESNET_STAT_RTOL):
+        raise AssertionError(
+            "resnet50 step 1, card vs CPU: loss %r vs %r, gradients %r, "
+            "from fp64: card %r, CPU %r; running stat %s at %.3g"
+            % (got[0], want[0], grad_rel, card_err, cpu_err, worst_stat,
+               stat_rel[worst_stat]))
+    del cpu_exe, cpu_scope, got, want, exact, grads
+
+    # 10 steps at batch 32 (the weights after step 1), timed
+    feed = image_feed(RESNET_BATCH, 3, 224, 1000, seed=8)
+    step = loss_step(exe, main, loss, feed, scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(step, RESNET_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(losses)):
+        raise AssertionError("resnet50 losses %r" % (losses,))
+    prof = _profile(step, reps=1)
+    del main, loss, exe, scope, step
+    torch.cuda.empty_cache()
+
+    # one AMP step: bf16 convolutions
+    main, _s, loss, _acc, exe, scope = vision_program(lambda: build(True),
+                                                      card)
+    amp_ops = len(main.global_block().ops)
+    amp_step = loss_step(exe, main, loss, feed, scope)
+    amp_loss = amp_step()
+    amp_prof = _profile(amp_step, reps=1)
+    del main, loss, exe, scope, amp_step
+    torch.cuda.empty_cache()
+    convs = _conv_kernels(amp_prof)
+    bf16 = [k for k in convs if "bf16" in k.lower() or "bfloat16" in k.lower()]
+    if not np.isfinite(amp_loss) or not bf16:
+        raise AssertionError("resnet50 amp step: loss %r, convolution "
+                             "kernels %r" % (amp_loss, convs))
+    p50 = float(np.median(ms[1:]))
+    return {
+        "phase": "vision",
+        "lenet": {"batch": LENET_BATCH, "learning_rate": LENET_LR,
+                  "steps": LENET_STEPS, "losses": lenet_losses,
+                  "accuracy_after": lenet_acc, "step_ms": lenet_ms,
+                  "step_ms_p50": float(np.median(lenet_ms[1:]))},
+        "resnet50": {
+            "program_ops": n_ops, "batch": RESNET_BATCH,
+            "step1_vs_cpu": {"batch": RESNET_CHECK_BATCH,
+                             "loss_rel": loss_rel, "loss_rtol":
+                             RESNET_LOSS_RTOL, "grad_rel": grad_rel,
+                             "grad_rtol": RESNET_GRAD_RTOL,
+                             "card_grad_rel_vs_fp64": card_err,
+                             "cpu_grad_rel_vs_fp64": cpu_err,
+                             "fp64_ratio": RESNET_F64_RATIO,
+                             "stat_max_rel": stat_rel[worst_stat],
+                             "stat_worst": worst_stat,
+                             "stat_rtol": RESNET_STAT_RTOL,
+                             "stats": len(stats), "card_step_s": card_s,
+                             "cpu_step_s": cpu_s},
+            "losses": losses, "step_ms": ms, "step_ms_p50": p50,
+            "images_per_s_p50": RESNET_BATCH / (p50 / 1e3),
+            "peak_mem_mib": peak,
+            "device_idle_share": prof["device_idle_share"],
+            "launches_per_step": prof["launches_per_call"],
+            "profile_step": prof,
+            "amp": {"program_ops": amp_ops, "loss": amp_loss,
+                    "bf16_conv_kernels": bf16[:8],
+                    "conv_kernels": len(convs),
+                    "device_idle_share": amp_prof["device_idle_share"],
+                    "wall_ms": amp_prof["wall_ms"],
+                    "launches_per_step": amp_prof["launches_per_call"]}},
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -4051,7 +4687,7 @@ def gpt2_small(dev):
 
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
-               "gateway", "fleet", "programs")
+               "gateway", "fleet", "programs", "bert", "vision")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -4075,6 +4711,10 @@ def run_only(phases, repeat, dev, name, smi):
                     line = fleet_phase(dev)[0]
                 elif phase == "programs":
                     line = programs_phase(dev)[0]
+                elif phase == "bert":
+                    line = bert_phase(dev)[0]
+                elif phase == "vision":
+                    line = vision_phase(dev)
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -4101,7 +4741,8 @@ def main(argv=None):
     ap.add_argument("--only", default="",
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
-                         "inference_server, gateway, fleet, programs)")
+                         "inference_server, gateway, fleet, programs, bert, "
+                         "vision)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -4150,11 +4791,12 @@ def main(argv=None):
     train_rows = kernel_flash_train(dev, peaks)
     bias_rows = kernel_flash_bias(dev, peaks)
     bf16_rows = kernel_flash_train_bf16(dev, peaks)
+    bert_rows = kernel_flash_bert(dev, peaks)
     other_forms = kernel_other_forms(dev)
     emit({"phase": "kernels", "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
           "flash_fwd": fwd_rows, "flash_decode": dec_row,
           "flash_decode_paged": paged_row, "train": train_rows,
-          "bias": bias_rows, "train_bf16": bf16_rows,
+          "bias": bias_rows, "train_bf16": bf16_rows, "bert": bert_rows,
           "other_forms": other_forms})
 
     model, engine, launches = engine_phase(dev)
@@ -4179,6 +4821,11 @@ def main(argv=None):
         dev, program["dropout0"]["program_losses"][0], fp32_grads)
     del fp32_grads
     emit(dict(amp_run, device=name, nvidia_smi=smi))
+    bert_run, bert_launches = bert_phase(dev)
+    emit(dict(bert_run, device=name, nvidia_smi=smi))
+    amp_launches["bert_amp"] = bert_launches["bert_amp"]
+    emit(dict(vision_phase(dev), device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
     served = served_gpt2(dev)
     infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
@@ -4193,13 +4840,23 @@ def main(argv=None):
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
     fwd_drop = train_rows["flash_fwd_dropout"]
 
+    def bert_form(kname, tname):
+        # the kernel at the BERT classifier's shape: non-causal, ragged
+        # key bias, [24, 12, 384, 64]
+        r = bert_rows[tname][kname]
+        return dict({k: r[k] for k in r if k != "ms_window_spread"},
+                    shape=bert_rows["shape"], causal=False)
+
     def train_row(kname):
         r = train_rows[kname]
         return {"name": kname, "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
-                "launches": train_launches[kname] + program_launches[kname],
+                "launches": train_launches[kname] + program_launches[kname]
+                + bert_launches["bert"][kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
-                                     "train_program": program_launches[kname]},
+                                     "train_program": program_launches[kname],
+                                     "bert": bert_launches["bert"][kname]},
+                "bert_form": bert_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4243,6 +4900,7 @@ def main(argv=None):
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "bert_form": bert_form(kname, "bf16"),
                "dtype": "bf16", "shape": bf16_rows["shape"],
                "design": r["design"],
                "bound_share": r["bound_share"], "sdpa_ratio": r["sdpa_ratio"],
@@ -4289,7 +4947,7 @@ def main(argv=None):
          + feature_launches["flash_fwd"] + train_launches["flash_fwd"]
          + program_launches["flash_fwd"] + infer_launches["flash_fwd"]
          + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"]
-         + prog_launches["flash_fwd"],
+         + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -4299,13 +4957,15 @@ def main(argv=None):
                                   infer_launches["flash_fwd"],
                               "gateway": gw_launches["flash_fwd"],
                               "fleet": fleet_launches["flash_fwd"],
-                              "programs": prog_launches["flash_fwd"]},
+                              "programs": prog_launches["flash_fwd"],
+                              "bert": bert_launches["bert"]["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
          "library_ms": fwd_main["library_ms"],
          "bound_tensor_core_ms": fwd_main["bound_tensor_core_ms"],
          "design": fwd_main["design"],
+         "bert_form": bert_form("flash_fwd", "fp32"),
          "train_dropout": {k: fwd_drop[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "bound_tensor_core_ms", "max_abs_err")}},

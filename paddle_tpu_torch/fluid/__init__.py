@@ -21,6 +21,7 @@ from .io import (
     load_inference_model,
     load_params,
     load_persistables,
+    load_program_scope,
     load_program_state,
     load_vars,
     save,
@@ -50,6 +51,7 @@ __all__ = [
     "default_main_program", "default_startup_program", "name_scope",
     "program_guard", "ParamAttr", "get_flags", "set_flags", "save_vars",
     "save_params", "save_persistables", "load_vars", "load_params",
-    "load_persistables", "save_inference_model", "load_inference_model",
+    "load_persistables", "load_program_scope", "save_inference_model",
+    "load_inference_model",
     "save", "load", "load_program_state", "set_program_state",
 ]

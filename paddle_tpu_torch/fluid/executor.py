@@ -140,17 +140,24 @@ def _is_float_var(block, name):
 
 
 def _as_tensor(value, device):
+    """A feed as a tensor on ``device``: a tensor as it is (moved if it
+    lives elsewhere), an array copied, so that an op that updates its
+    input in place never writes the caller's array (the CPU would
+    otherwise share its memory)."""
     if isinstance(value, core.LoDTensor):
         value = value.tensor()
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    return torch.as_tensor(np.asarray(value)).to(device)
+    return torch.tensor(np.asarray(value), device=device)
 
 
 def _to_numpy(t):
-    """A fetched tensor as a numpy array on the host; bf16, which numpy
-    has no type for, comes back as fp32 (every bf16 value is one)."""
-    t = t.detach().cpu()
+    """A fetched tensor as a numpy array on the host that owns its
+    memory (a CPU tensor is copied: the scope's tensors are updated in
+    place by later runs); bf16, which numpy has no type for, comes back
+    as fp32 (every bf16 value is one)."""
+    t = t.detach()
+    t = t.cpu() if t.device.type != "cpu" else t.clone()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 

@@ -44,6 +44,7 @@ __all__ = [
     "get_parameter_value_by_name",
     "prepend_feed_ops",
     "append_fetch_ops",
+    "load_program_scope",
 ]
 
 
@@ -220,6 +221,38 @@ def _set_array(scope, name, arr, device):
         device = old.device if isinstance(old, torch.Tensor) else \
             core.resolve_device(None)
     scope.set(name, torch.as_tensor(np.asarray(arr)).to(device))
+
+
+def load_program_scope(program, scope, arrays):
+    """Fill ``scope``, after ``program``'s startup run, from ``{var name:
+    np.ndarray}``, for any model: every persistable variable of
+    ``program`` (parameters, batch-norm running stats, optimizer
+    accumulators, the learning rate) must be given, with the shape the
+    scope holds; a name that is not a persistable of ``program`` raises.
+    Values are copied into the scope's tensors in place, on their device
+    and in their type. Returns ``scope``."""
+    wanted = {v.name for v in program.list_vars() if is_persistable(v)}
+    missing = sorted(wanted - set(arrays))
+    unknown = sorted(set(arrays) - wanted)
+    if missing or unknown:
+        raise KeyError("load_program_scope: missing %s, unknown %s"
+                       % (missing[:5], unknown[:5]))
+    tensors = {}
+    for name, arr in arrays.items():
+        t = scope.get(name)
+        if not isinstance(t, torch.Tensor):
+            raise KeyError("load_program_scope: the scope holds no tensor "
+                           "%r (run the startup program first)" % name)
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError("load_program_scope: %s has shape %s, the "
+                             "scope holds %s" % (name, arr.shape,
+                                                 tuple(t.shape)))
+        tensors[name] = (t, arr)
+    with torch.no_grad():
+        for t, arr in tensors.values():
+            t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))
+    return scope
 
 
 def save(program, model_path):

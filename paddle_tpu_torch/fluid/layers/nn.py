@@ -1,4 +1,4 @@
-"""Neural-network layer functions the GPT train, inference and serving
+"""Neural-network layer functions the GPT, BERT, LeNet and ResNet
 programs use (port of the matching functions of
 ``paddle_tpu/fluid/layers/nn.py``, names and signatures as there; each
 builds ops through LayerHelper.append_op), the KV-cache and decode
@@ -8,8 +8,10 @@ attention layers of the serving programs included.
 import numpy as np
 
 from .. import core
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
+from ..ops.nn_ops import _pair
+from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "layer_norm", "dropout", "softmax", "matmul",
@@ -20,6 +22,7 @@ __all__ = [
     "flash_decode_attention", "flash_decode_paged_attention",
     "kv_cache_write", "kv_cache_copy", "kv_cache_gather",
     "kv_cache_write_paged", "kv_cache_gather_paged", "kv_cache_block_copy",
+    "conv2d", "pool2d", "batch_norm", "relu", "topk",
 ]
 
 
@@ -552,3 +555,179 @@ def logical_and(x, y, out=None, name=None):
     helper.append_op(type="logical_and", inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]})
     return out
+
+
+def conv2d(
+    input,
+    num_filters,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=None,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn=True,
+    act=None,
+    name=None,
+    data_format="NCHW",
+):
+    """2-D convolution on NCHW (``nn.py:213``): the filter [num_filters,
+    C_in / groups, kh, kw] from Normal(0, √(2 / fan_in)), a
+    ``depthwise_conv2d`` op when ``groups`` is C_in and ``num_filters`` a
+    multiple of it (so a 1-channel input with groups 1 is one, as the
+    reference emits it), else ``conv2d``; then the bias over the channel
+    dim and the activation."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=filter_shape,
+        dtype=dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5),
+    )
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    op_type = (
+        "depthwise_conv2d"
+        if groups == num_channels and num_filters % num_channels == 0
+        else "conv2d"
+    )
+    helper.append_op(
+        type=op_type,
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={
+            "strides": _pair(stride),
+            "paddings": _pair(padding),
+            "dilations": _pair(dilation),
+            "groups": groups,
+            "use_cudnn": use_cudnn,
+            "data_format": data_format,
+        },
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(
+    input,
+    pool_size=-1,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    use_cudnn=True,
+    ceil_mode=False,
+    name=None,
+    exclusive=True,
+):
+    """Max or average pooling on NCHW (``nn.py:325``)."""
+    helper = LayerHelper("pool2d", **locals())
+    dtype = helper.input_dtype()
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": _pair(pool_size),
+            "global_pooling": global_pooling,
+            "strides": _pair(pool_stride),
+            "paddings": _pair(pool_padding),
+            "ceil_mode": ceil_mode,
+            "use_cudnn": use_cudnn,
+            "exclusive": exclusive,
+        },
+    )
+    return out
+
+
+def batch_norm(
+    input,
+    act=None,
+    is_test=False,
+    momentum=0.9,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    data_layout="NCHW",
+    in_place=False,
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    do_model_average_for_mean_and_var=False,
+    use_global_stats=False,
+):
+    """Batch norm (``nn.py:374``): scale (1) and bias (0) parameters, and
+    the running Mean (0) and Variance (1), persistable and not trainable,
+    which the op rewrites in place (MeanOut / VarianceOut name them)."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    param_shape = [channels]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=param_shape, dtype=dtype,
+        default_initializer=Constant(1.0))
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False),
+        shape=param_shape, dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False),
+        shape=param_shape, dtype=dtype)
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = input if in_place else helper.create_variable_for_type_inference(
+        dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_variance]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats},
+    )
+    return helper.append_activation(out)
+
+
+def relu(x, name=None):
+    """max(x, 0) (``nn.py:618``)."""
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={})
+    return out
+
+
+def topk(input, k, name=None):
+    """The ``k`` largest entries of the last axis and their int64
+    indices (``nn.py:1047``); no gradient."""
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(
+        dtype=core.VarDesc.VarType.INT64)
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input]},
+        outputs={"Out": [values], "Indices": [indices]},
+        attrs={"k": k if isinstance(k, int) else 1},
+    )
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices

@@ -2,8 +2,8 @@
 Executor runs (importing the modules registers them)."""
 
 from . import registry  # noqa: F401  (first: the others register into it)
-from . import (controlflow_ops, io_ops, math_ops, nn_ops, optimizer_ops,
-               tensor_ops)
+from . import (controlflow_ops, io_ops, math_ops, metric_ops, nn_ops,
+               optimizer_ops, tensor_ops)
 
-__all__ = ["registry", "controlflow_ops", "io_ops", "math_ops", "nn_ops",
-           "optimizer_ops", "tensor_ops"]
+__all__ = ["registry", "controlflow_ops", "io_ops", "math_ops", "metric_ops",
+           "nn_ops", "optimizer_ops", "tensor_ops"]

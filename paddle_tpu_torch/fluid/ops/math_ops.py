@@ -1,9 +1,10 @@
-"""Math ops the GPT path relies on (port of the matching lowerings in
-``paddle_tpu/fluid/ops/math_ops.py``): plain functions on tensors, which
-the eager models call, and the registered op lowerings the Executor runs
-(elementwise with Fluid's axis broadcast, ``mul``, ``matmul``,
-reductions, ``softmax``, ``softmax_with_cross_entropy`` with its grad,
-``layer_norm``, ``gelu``). These stay PyTorch calls; what matters is that
+"""Math ops the GPT, BERT and vision paths rely on (port of the matching
+lowerings in ``paddle_tpu/fluid/ops/math_ops.py``): plain functions on
+tensors, which the eager models call, and the registered op lowerings
+the Executor runs (elementwise with Fluid's axis broadcast, ``mul``,
+``matmul``, reductions, ``softmax``, ``softmax_with_cross_entropy`` with
+its grad, ``layer_norm``, and the ``gelu``, ``relu``, ``tanh`` and
+``sqrt`` activations). These stay PyTorch calls; what matters is that
 they mean what the reference's ops mean."""
 
 import math
@@ -286,9 +287,30 @@ register_op("gelu", infer_shape=same_shape_infer("X"),
             vjp=_gelu_vjp)
 
 
-@op("relu", infer_shape=same_shape_infer("X"), grad="generic")
-def _relu(ctx, op_):
-    ctx.out(op_, "Out", torch.relu(ctx.in1(op_, "X")))
+def _relu_vjp(ctx, op_, slots):
+    """``relu`` with its pullback: the cotangent where the output is
+    positive (0 at x = 0, as the reference's ``jax.nn.relu``)."""
+    out = torch.relu(ctx.in1(op_, "X"))
+    ctx.out(op_, "Out", out)
+    return lambda g: {"X": torch.ops.aten.threshold_backward(g, out, 0)}
+
+
+register_op("relu", infer_shape=same_shape_infer("X"),
+            lower=lambda ctx, op_: _relu_vjp(ctx, op_, ()), grad="generic",
+            vjp=_relu_vjp)
+
+
+def _tanh_vjp(ctx, op_, slots):
+    """``tanh`` (the reference's activation table, ``math_ops.py:58``)
+    with its pullback g·(1 − out²)."""
+    out = torch.tanh(ctx.in1(op_, "X"))
+    ctx.out(op_, "Out", out)
+    return lambda g: {"X": torch.ops.aten.tanh_backward(g, out)}
+
+
+register_op("tanh", infer_shape=same_shape_infer("X"),
+            lower=lambda ctx, op_: _tanh_vjp(ctx, op_, ()), grad="generic",
+            vjp=_tanh_vjp)
 
 
 @op("sqrt", infer_shape=same_shape_infer("X"), grad="generic")

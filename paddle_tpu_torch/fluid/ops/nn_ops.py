@@ -1,6 +1,7 @@
-"""Attention, dropout and KV-cache ops (port of the
-``flash_attention`` / ``flash_attention_grad``, ``dropout`` /
-``dropout_grad``, ``flash_decode_attention``,
+"""Convolution, pooling, batch norm, attention, dropout and KV-cache ops
+(port of the ``conv2d`` / ``depthwise_conv2d``, ``pool2d``,
+``batch_norm``, ``flash_attention`` / ``flash_attention_grad``,
+``dropout`` / ``dropout_grad``, ``flash_decode_attention``,
 ``flash_decode_paged_attention``, ``kv_cache_write``, ``kv_cache_copy``,
 ``kv_cache_gather``, ``kv_cache_write_paged``, ``kv_cache_gather_paged``
 and ``kv_cache_block_copy`` lowerings in
@@ -9,12 +10,16 @@ the eager models and the serving session call, and the registered
 lowerings the Executor runs, which call them."""
 
 import torch
+import torch.nn.functional as F
 
 from ...kernels import flash_attention as _fa
 from .registry import (EMPTY_VAR, SkipInferShape, _generic_grad_lower,
-                       in_var, op, same_shape_infer, set_out)
+                       in_var, op, register_op, same_shape_infer, set_out)
 
 __all__ = [
+    "conv2d",
+    "pool2d",
+    "batch_norm",
     "flash_attention",
     "flash_attention_lse",
     "flash_attention_grad",
@@ -568,3 +573,264 @@ def _kv_cache_block_copy_op(ctx, op_):
     indices."""
     ctx.out(op_, "Out", kv_cache_block_copy(
         ctx.in1(op_, "Cache"), ctx.in1(op_, "Src"), ctx.in1(op_, "Dst")))
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling and batch norm (``nn_ops.py:41-336``). The
+# reference leaves these to XLA, outside any Pallas kernel; here the
+# convolutions are cuDNN's and the rest PyTorch's own kernels. The
+# reference's ``_use_nhwc`` switch (an NHWC layout inside the TPU
+# lowering) changes no value, so the port computes in NCHW throughout.
+# ---------------------------------------------------------------------------
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v), int(v)]
+
+
+def _conv_out_dim(size, k, pad, stride, dilation=1):
+    if size < 0:
+        return -1
+    return (size + 2 * pad - (dilation * (k - 1) + 1)) // stride + 1
+
+
+def conv2d(x, w, strides=1, paddings=0, dilations=1, groups=1):
+    """The ``conv2d`` op on NCHW ``x`` and OIHW ``w`` (no bias: the layer
+    adds it with its own op), symmetric padding, in ``x``'s type."""
+    return F.conv2d(x, w, None, _pair(strides), _pair(paddings),
+                    _pair(dilations), int(groups or 1))
+
+
+def _conv2d_infer(op_, block):
+    x = in_var(op_, block, "Input")
+    w = in_var(op_, block, "Filter")
+    if x is None or w is None or len(x.shape) != 4:
+        raise SkipInferShape()
+    strides = _pair(op_.attr("strides", [1, 1]))
+    pads = _pair(op_.attr("paddings", [0, 0]))
+    dil = _pair(op_.attr("dilations", [1, 1]))
+    n, _, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    set_out(op_, block, "Output",
+            (n, oc, _conv_out_dim(h, kh, pads[0], strides[0], dil[0]),
+             _conv_out_dim(wd, kw, pads[1], strides[1], dil[1])), x.dtype)
+
+
+def _conv2d_vjp(ctx, op_, slots):
+    """``conv2d`` / ``depthwise_conv2d`` (whose groups are the input's
+    channels, ``nn_ops.py:89-90``) with its pullback: one
+    ``convolution_backward`` for the input and filter grads asked for."""
+    x = ctx.in1(op_, "Input")
+    w = ctx.in1(op_, "Filter")
+    strides = _pair(op_.attr("strides", [1, 1]))
+    pads = _pair(op_.attr("paddings", [0, 0]))
+    dil = _pair(op_.attr("dilations", [1, 1]))
+    groups = int(op_.attr("groups", 1) or 1)
+    if op_.type == "depthwise_conv2d":
+        groups = int(x.shape[1])
+    ctx.out(op_, "Output", conv2d(x, w, strides, pads, dil, groups))
+    mask = ["Input" in slots, "Filter" in slots, False]
+
+    def pullback(g):
+        dx, dw, _db = torch.ops.aten.convolution_backward(
+            g, x, w, None, strides, pads, dil, False, [0, 0], groups, mask)
+        return {"Input": dx, "Filter": dw}
+
+    return pullback
+
+
+for _conv in ("conv2d", "depthwise_conv2d"):
+    register_op(_conv, infer_shape=_conv2d_infer,
+                lower=lambda ctx, op_: _conv2d_vjp(ctx, op_, ()),
+                grad="generic", vjp=_conv2d_vjp)
+
+
+def pool2d(x, pooling_type="max", ksize=1, strides=1, paddings=0,
+           global_pooling=False, adaptive=False, ceil_mode=False,
+           exclusive=True):
+    """The ``pool2d`` op (``nn_ops.py:180``) on NCHW ``x``.
+
+    Global pooling takes the max or mean over H and W; ``adaptive`` needs
+    H and W divisible by ``ksize`` and pools each block. Otherwise
+    windows of ``ksize`` at ``strides`` over ``x`` padded by ``paddings``
+    on both sides: max pads with −inf; avg sums over zero padding and
+    divides by the window's count of real elements (``exclusive``) or by
+    the whole window. ``ceil_mode`` adds padding on the bottom and right
+    until the last partial window fits, as the reference does (not
+    torch's ceil rule, which drops a window that starts in the padding)."""
+    is_max = pooling_type == "max"
+    if global_pooling:
+        return x.amax((2, 3), keepdim=True) if is_max else x.mean(
+            (2, 3), keepdim=True)
+    kh, kw = _pair(ksize)
+    if adaptive:
+        n, c, h, w = x.shape
+        if h % kh or w % kw:
+            raise ValueError("adaptive pool2d needs dims divisible by ksize "
+                             "(%d, %d) %% (%d, %d)" % (h, w, kh, kw))
+        xr = x.reshape(n, c, kh, h // kh, kw, w // kw)
+        return xr.amax((3, 5)) if is_max else xr.mean((3, 5))
+    sh, sw = _pair(strides)
+    ph, pw = _pair(paddings)
+    h, w = int(x.shape[2]), int(x.shape[3])
+    eh = ew = 0
+    if ceil_mode:
+        oh = -(-(h + 2 * ph - kh) // sh) + 1
+        ow = -(-(w + 2 * pw - kw) // sw) + 1
+        eh = max((oh - 1) * sh + kh - h - 2 * ph, 0)
+        ew = max((ow - 1) * sw + kw - w - 2 * pw, 0)
+    pad = (pw, pw + ew, ph, ph + eh)
+    if is_max:
+        if not (eh or ew) and 2 * ph <= kh and 2 * pw <= kw:
+            # torch's own padding is −inf and fits here
+            return F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw))
+        return F.max_pool2d(F.pad(x, pad, value=float("-inf")), (kh, kw),
+                            (sh, sw))
+    sums = F.avg_pool2d(F.pad(x, pad) if any(pad) else x, (kh, kw), (sh, sw),
+                        divisor_override=1)
+    if not exclusive or not any(pad):
+        return sums / float(kh * kw)
+    ones = torch.ones((1, 1, h, w), dtype=x.dtype, device=x.device)
+    count = F.avg_pool2d(F.pad(ones, pad), (kh, kw), (sh, sw),
+                         divisor_override=1)
+    return sums / count
+
+
+def _pool2d_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None or len(x.shape) != 4:
+        raise SkipInferShape()
+    n, c, h, w = x.shape
+    if op_.attr("global_pooling", False):
+        set_out(op_, block, "Out", (n, c, 1, 1), x.dtype)
+        return
+    kh, kw = _pair(op_.attr("ksize"))
+    if op_.attr("adaptive", False):
+        set_out(op_, block, "Out", (n, c, kh, kw), x.dtype)
+        return
+    sh, sw = _pair(op_.attr("strides", [1, 1]))
+    ph, pw = _pair(op_.attr("paddings", [0, 0]))
+    if op_.attr("ceil_mode", False):
+        oh = -(-(h + 2 * ph - kh) // sh) + 1 if h > 0 else -1
+        ow = -(-(w + 2 * pw - kw) // sw) + 1 if w > 0 else -1
+    else:
+        oh = (h + 2 * ph - kh) // sh + 1 if h > 0 else -1
+        ow = (w + 2 * pw - kw) // sw + 1 if w > 0 else -1
+    set_out(op_, block, "Out", (n, c, oh, ow), x.dtype)
+
+
+@op("pool2d", infer_shape=_pool2d_infer, grad="generic")
+def _pool2d(ctx, op_):
+    ctx.out(op_, "Out", pool2d(
+        ctx.in1(op_, "X"), op_.attr("pooling_type", "max"),
+        op_.attr("ksize", 1), op_.attr("strides", [1, 1]),
+        op_.attr("paddings", [0, 0]),
+        bool(op_.attr("global_pooling", False)),
+        bool(op_.attr("adaptive", False)), bool(op_.attr("ceil_mode", False)),
+        bool(op_.attr("exclusive", True))))
+
+
+def batch_norm(x, scale, bias, mean, variance, epsilon=1e-5, momentum=0.9,
+               is_test=False, use_global_stats=False, data_layout="NCHW"):
+    """The ``batch_norm`` op (``nn_ops.py:289``): (Y, MeanOut,
+    VarianceOut, SavedMean, SavedVariance), nothing written in place.
+
+    Training: the batch mean and the biased variance E[x²] − mean² over
+    every axis but the channel one, in fp32 for a bf16, fp16 or fp32
+    ``x`` (in fp64 for an fp64 one);
+    running stats ``old·momentum + batch·(1 − momentum)``; SavedVariance
+    is 1/√(var + ε). ``is_test`` or ``use_global_stats``: the running
+    stats normalize and come back unchanged, the saved ones are zeros.
+    The per-channel affine is folded and applied in that type and only Y
+    is cast back to ``x``'s; the running stats keep their own type.
+    (``F.batch_norm``'s update would keep the unbiased variance, with the
+    opposite momentum convention.)"""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    ch = 1 if data_layout == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    bshape = tuple(x.shape[i] if i == ch else 1 for i in range(x.dim()))
+    mean32, var32 = mean.to(f32), variance.to(f32)
+    if is_test or use_global_stats:
+        use_mean, use_var = mean32, var32
+        new_mean, new_var = mean32, var32
+        saved_mean, saved_var = torch.zeros_like(mean32), torch.zeros_like(
+            var32)
+    else:
+        x32 = x.to(f32)
+        bmean = x32.mean(axes)
+        bvar = x32.square().mean(axes) - bmean.square()
+        use_mean, use_var = bmean, bvar
+        new_mean = mean32 * momentum + bmean * (1.0 - momentum)
+        new_var = var32 * momentum + bvar * (1.0 - momentum)
+        saved_mean, saved_var = bmean, 1.0 / torch.sqrt(bvar + epsilon)
+    inv = 1.0 / torch.sqrt(use_var + epsilon)
+    s32 = scale.to(f32)
+    g = (s32 * inv).reshape(bshape)
+    b = (bias.to(f32) - s32 * use_mean * inv).reshape(bshape)
+    y = (x.to(f32) * g + b).to(x.dtype)
+    return (y, new_mean.to(mean.dtype), new_var.to(variance.dtype),
+            saved_mean, saved_var)
+
+
+def _batch_norm_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Y", x.shape, x.dtype)
+    c = x.shape[1] if len(x.shape) > 1 else x.shape[0]
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        set_out(op_, block, slot, (c,), x.dtype)
+
+
+def _batch_norm_vjp(ctx, op_, slots):
+    """``batch_norm`` with the running stats written IN PLACE into the
+    scope's Mean and Variance tensors (the outputs name them again), and
+    its pullback: ``native_batch_norm_backward`` in fp32 from the saved
+    mean and 1/√(var + ε) (training) or the running stats (test), the
+    gradient of the same function the forward computes."""
+    x = ctx.in1(op_, "X")
+    scale = ctx.in1(op_, "Scale")
+    bias = ctx.in1(op_, "Bias")
+    mean = ctx.in1(op_, "Mean")
+    var = ctx.in1(op_, "Variance")
+    eps = float(op_.attr("epsilon", 1e-5))
+    use_global = bool(op_.attr("is_test", False)) or bool(
+        op_.attr("use_global_stats", False))
+    layout = op_.attr("data_layout", "NCHW")
+    y, new_mean, new_var, saved_mean, saved_var = batch_norm(
+        x, scale, bias, mean, var, eps, float(op_.attr("momentum", 0.9)),
+        use_global, False, layout)
+    if not use_global:
+        mean.copy_(new_mean.detach())
+        var.copy_(new_var.detach())
+    ctx.out(op_, "Y", y)
+    ctx.out(op_, "MeanOut", mean)
+    ctx.out(op_, "VarianceOut", var)
+    ctx.out(op_, "SavedMean", saved_mean)
+    ctx.out(op_, "SavedVariance", saved_var)
+    if not slots:
+        return None
+    if layout != "NCHW":
+        raise NotImplementedError("batch_norm grad: NCHW only")
+    mask = ["X" in slots, "Scale" in slots, "Bias" in slots]
+    # test mode normalizes by the running stats, which the op left as
+    # they were
+    f32 = saved_mean.dtype
+    run_mean, run_var = (mean.to(f32), var.to(f32)) if use_global else (
+        None, None)
+
+    def pullback(g):
+        dx, ds, db = torch.ops.aten.native_batch_norm_backward(
+            g.to(f32), x.to(f32), scale.to(f32), run_mean, run_var,
+            None if use_global else saved_mean,
+            None if use_global else saved_var, not use_global, eps, mask)
+        return {"X": None if dx is None else dx.to(x.dtype),
+                "Scale": None if ds is None else ds.to(scale.dtype),
+                "Bias": None if db is None else db.to(bias.dtype)}
+
+    return pullback
+
+
+register_op("batch_norm", infer_shape=_batch_norm_infer,
+            lower=lambda ctx, op_: _batch_norm_vjp(ctx, op_, ()),
+            grad="generic", vjp=_batch_norm_vjp)

@@ -1,9 +1,11 @@
-"""Optimizer update ops (port of ``adam`` in
-``paddle_tpu/fluid/ops/optimizer_ops.py``) as in-place updates of lists
-of tensors, and the registered ``adam`` op lowering.
+"""Optimizer update ops (port of ``sgd``, ``momentum`` and ``adam`` in
+``paddle_tpu/fluid/ops/optimizer_ops.py``) as in-place updates of
+tensors, and their registered op lowerings. Each op updates its
+parameter (and accumulators) in the scope's tensors, which its outputs
+name again.
 
-The reference's update is one XLA-fused op, not a Pallas kernel. The
-eager step runs a handful of ``torch._foreach_*`` calls over every
+The reference's update ops are XLA-fused, not Pallas kernels. The
+eager Adam step runs a handful of ``torch._foreach_*`` calls over every
 parameter at once (``adam``); the program runs one ``adam`` op per
 parameter, as the reference's program does (``adam_one``), each 16
 elementwise launches.
@@ -16,7 +18,57 @@ import torch
 
 from .registry import op
 
-__all__ = ["adam", "adam_one"]
+__all__ = ["sgd", "momentum", "adam", "adam_one"]
+
+
+def _fp32(x):
+    """``x`` rounded to fp32, as a Python float."""
+    return float(np.float32(x))
+
+
+def sgd(param, grad, learning_rate):
+    """The ``sgd`` op (``optimizer_ops.py:25``) in place:
+    p −= lr·g, ``learning_rate`` a tensor [1] (or scalar) on the
+    parameter's device."""
+    param.sub_(learning_rate * grad)
+
+
+def momentum(param, grad, velocity, learning_rate, mu, use_nesterov=False):
+    """The ``momentum`` op (``optimizer_ops.py:33``) in place:
+
+        v = µ·v + g
+        p −= lr·v                 (plain)
+        p −= (g + µ·v)·lr         (Nesterov)
+
+    µ rounded to fp32 as the reference's constant is."""
+    mu = _fp32(mu)
+    velocity.mul_(mu).add_(grad)
+    if use_nesterov:
+        param.sub_((grad + mu * velocity) * learning_rate)
+    else:
+        param.sub_(learning_rate * velocity)
+
+
+def _lr(ctx, op_, p):
+    """The op's LearningRate [1] as a scalar tensor in ``p``'s type."""
+    return ctx.in1(op_, "LearningRate").reshape(()).to(p.dtype)
+
+
+@op("sgd")
+def _sgd_op(ctx, op_):
+    p = ctx.in1(op_, "Param")
+    sgd(p, ctx.in1(op_, "Grad").to(p.dtype), _lr(ctx, op_, p))
+    ctx.out(op_, "ParamOut", p)
+
+
+@op("momentum")
+def _momentum_op(ctx, op_):
+    p = ctx.in1(op_, "Param")
+    v = ctx.in1(op_, "Velocity")
+    momentum(p, ctx.in1(op_, "Grad").to(p.dtype), v, _lr(ctx, op_, p),
+             float(op_.attr("mu")), bool(op_.attr("use_nesterov", False)))
+    ctx.out(op_, "ParamOut", p)
+    ctx.out(op_, "VelocityOut", v)
 
 
 def adam(params, grads, moment1, moment2, beta1_pow, beta2_pow,
@@ -91,7 +143,7 @@ def _adam_op(ctx, op_):
     m1, m2 = ctx.in1(op_, "Moment1"), ctx.in1(op_, "Moment2")
     b1p, b2p = ctx.in1(op_, "Beta1Pow"), ctx.in1(op_, "Beta2Pow")
     adam_one(p, ctx.in1(op_, "Grad").to(p.dtype), m1, m2, b1p, b2p,
-             ctx.in1(op_, "LearningRate").reshape(()).to(p.dtype),
+             _lr(ctx, op_, p),
              float(op_.attr("beta1", 0.9)), float(op_.attr("beta2", 0.999)),
              float(op_.attr("epsilon", 1e-8)))
     for slot, t in (("ParamOut", p), ("Moment1Out", m1), ("Moment2Out", m2),

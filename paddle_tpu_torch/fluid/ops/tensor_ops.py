@@ -288,3 +288,30 @@ def _lookup_table(ctx, op_):
             padding_idx += w.shape[0]
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     ctx.out(op_, "Out", out)
+
+
+def top_k(x, k):
+    """The ``top_k`` op (``tensor_ops.py:589``): the ``k`` largest entries
+    of the last axis, largest first, and their int64 indices. Equal
+    entries keep their order, so a tie picks the lower index, as
+    ``jax.lax.top_k`` does (``torch.topk`` leaves tie order open on the
+    card)."""
+    idx = torch.sort(x, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return x.gather(-1, idx), idx
+
+
+def _top_k_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None or not v.shape:
+        raise SkipInferShape()
+    shape = tuple(v.shape[:-1]) + (int(op_.attr("k", 1)),)
+    set_out(op_, block, "Out", shape, v.dtype)
+    set_out(op_, block, "Indices", shape, core.VarDesc.VarType.INT64)
+
+
+@op("top_k", infer_shape=_top_k_infer)
+def _top_k(ctx, op_):
+    vals, idx = top_k(ctx.in1(op_, "X"), int(op_.attr("k", 1)))
+    ctx.out(op_, "Out", vals)
+    ctx.out(op_, "Indices", idx)

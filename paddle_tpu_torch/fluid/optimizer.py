@@ -1,4 +1,5 @@
-"""Optimizers (port of ``Optimizer`` and ``AdamOptimizer`` / ``Adam`` in
+"""Optimizers (port of ``Optimizer``, ``SGDOptimizer`` / ``SGD``,
+``MomentumOptimizer`` / ``Momentum`` and ``AdamOptimizer`` / ``Adam`` in
 ``paddle_tpu/fluid/optimizer.py``).
 
 As in the reference, one class serves both uses:
@@ -9,7 +10,7 @@ As in the reference, one class serves both uses:
   program (reference: optimizer.py ``_create_optimization_pass``);
 - eager: given ``parameter_list`` tensors, ``minimize(loss_tensor)`` runs
   autograd's backward and the update at once over every parameter
-  (``optimizer_ops.adam``, the reference's rule).
+  (``optimizer_ops.adam``, the reference's rule; Adam only).
 """
 
 from collections import defaultdict
@@ -31,7 +32,8 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 from .ops import optimizer_ops
 
-__all__ = ["Optimizer", "AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
+           "Momentum", "AdamOptimizer", "Adam"]
 
 
 class Optimizer(object):
@@ -165,6 +167,51 @@ class Optimizer(object):
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    """Plain SGD (``optimizer.py:315``): one ``sgd`` op per parameter,
+    p −= lr·g."""
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param]},
+            attrs={OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class MomentumOptimizer(Optimizer):
+    """SGD with momentum (``optimizer.py:332``): one ``momentum`` op per
+    parameter with a ``velocity`` accumulator created at zero;
+    ``use_nesterov`` takes the Nesterov step."""
+
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
 class AdamOptimizer(Optimizer):
     """Adam with the reference's update rule (``optimizer_ops.adam``, ε
     not bias-corrected): per-parameter moments created at zero and β-pow
@@ -271,4 +318,6 @@ class AdamOptimizer(Optimizer):
         self.clear_grad()
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

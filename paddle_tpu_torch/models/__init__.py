@@ -1,3 +1,3 @@
-from . import bert, gpt
+from . import bert, gpt, lenet, resnet
 
-__all__ = ["bert", "gpt"]
+__all__ = ["bert", "gpt", "lenet", "resnet"]

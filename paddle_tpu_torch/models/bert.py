@@ -1,13 +1,15 @@
-"""Shared transformer pieces (port of the parts of
-``paddle_tpu/models/bert.py`` the GPT serving and training paths use),
-in two forms.
+"""The BERT encoder and sequence classifier, and the transformer pieces
+the GPT serving and training paths share with it (port of
+``paddle_tpu/models/bert.py``), in two forms.
 
 Program builders under the reference's names, for the Fluid
-Program/Executor path: ``multi_head_attention`` (the training/encoder
-form, flash or dense, and the serving programs' KV-cache modes through
-the cache ops: ``prefill``, ``decode``, ``resume``, ``paged_window``,
-``paged_step``), ``_ffn``, ``_dropout`` (the dropout layer) and
-``flash_engages``.
+Program/Executor path: ``BertConfig``, ``bert_encoder`` and
+``build_bert_classifier`` (BASELINE.json's BERT-base headline model)
+over ``encoder_layer``, ``mask_to_bias`` and ``multi_head_attention``
+(the training/encoder form, flash or dense, and the serving programs'
+KV-cache modes through the cache ops: ``prefill``, ``decode``,
+``resume``, ``paged_window``, ``paged_step``), ``_ffn``, ``_dropout``
+(the dropout layer) and ``flash_engages``.
 
 Eager modules for serving and the eager train step: where a training
 forward draws its random numbers (``DropoutRNG``), the eager dropout
@@ -34,6 +36,11 @@ from ..fluid.framework import Variable
 from ..fluid.ops import math_ops, nn_ops
 
 __all__ = [
+    "BertConfig",
+    "mask_to_bias",
+    "encoder_layer",
+    "bert_encoder",
+    "build_bert_classifier",
     "FLASH_AUTO_SEQ_THRESHOLD",
     "flash_wanted",
     "flash_engages",
@@ -44,9 +51,47 @@ __all__ = [
     "MultiHeadAttention",
 ]
 
-# The reference's dense/flash crossover for use_flash_attention="auto"
-# was measured on a TPU; on the H100 it is still to be measured.
+# The reference's dense/flash crossover for use_flash_attention="auto",
+# kept as it is; the H100's own (BERT-base step ms, dense vs flash at seq
+# 128 and 384, chip_smoke.py's bert phase) is recorded in PERF.md.
 FLASH_AUTO_SEQ_THRESHOLD = 1024
+
+
+class BertConfig(object):
+    """BERT's widths and training switches (``bert.py:18``); ``base()`` is
+    BERT-base, ``tiny()`` a 2-layer width-64 model for tests.
+    ``use_flash_attention``: True, False or "auto" (``flash_wanted``)."""
+
+    def __init__(self, vocab_size=30522, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 hidden_dropout=0.1, attention_dropout=0.1, is_test=False,
+                 use_flash_attention=False):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size
+        self.max_position_embeddings = max_position_embeddings
+        self.type_vocab_size = type_vocab_size
+        self.hidden_dropout = hidden_dropout
+        self.attention_dropout = attention_dropout
+        self.is_test = is_test
+        self.use_flash_attention = use_flash_attention
+
+    @classmethod
+    def base(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        kw.setdefault("vocab_size", 1024)
+        kw.setdefault("hidden_size", 64)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("intermediate_size", 128)
+        kw.setdefault("max_position_embeddings", 64)
+        return cls(**kw)
 
 
 def flash_wanted(cfg, seq_len=None):
@@ -77,6 +122,22 @@ def mask_to_key_bias(mask):
         b.stop_gradient = True
         return b
     return mask.reshape(mask.shape[0], -1).float() * 1e4 - 1e4
+
+
+def mask_to_bias(mask_2d):
+    """[N, S, S] 0/1 attention mask -> additive bias [N, 1, S, S] (0 where
+    attendable, -10000 where masked), broadcast over heads; no gradient
+    (``bert.py:57``)."""
+    neg = fluid.layers.elementwise_mul(
+        fluid.layers.elementwise_add(
+            mask_2d,
+            fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                       value=-1.0)),
+        fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                   value=10000.0))
+    bias = fluid.layers.unsqueeze(neg, axes=[1])
+    bias.stop_gradient = True
+    return bias
 
 
 class DropoutRNG(object):
@@ -281,6 +342,105 @@ def _ffn(x, cfg, name):
                         name="%s_fc0" % name)
     return fluid.layers.fc(input=h, size=cfg.hidden_size, num_flatten_dims=2,
                            name="%s_fc1" % name)
+
+
+def encoder_layer(x, attn_bias, cfg, name, key_bias=None, use_flash=None):
+    """One post-LN encoder layer (``bert.py:394``): self-attention,
+    dropout, add and layer norm, then the FFN, dropout, add and layer
+    norm."""
+    attn = multi_head_attention(x, x, attn_bias, cfg, "%s_att" % name,
+                                key_bias=key_bias, use_flash=use_flash)
+    attn = _dropout(attn, cfg.hidden_dropout, cfg.is_test)
+    x = fluid.layers.layer_norm(fluid.layers.elementwise_add(x, attn),
+                                begin_norm_axis=2, name="%s_ln1" % name)
+    ff = _dropout(_ffn(x, cfg, "%s_ffn" % name), cfg.hidden_dropout,
+                  cfg.is_test)
+    return fluid.layers.layer_norm(fluid.layers.elementwise_add(x, ff),
+                                   begin_norm_axis=2, name="%s_ln2" % name)
+
+
+def bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg):
+    """(sequence_output [N, S, H], pooled_output [N, H]) of the encoder
+    (``bert.py:409``): word, position and sentence embeddings summed and
+    layer-normed, ``num_layers`` encoder layers, and the pooler, a tanh
+    fc over the first token. ``input_mask``: [N, S, 1] float32, 1.0 on
+    real tokens.
+
+    The flash policy is resolved once from the static sequence length and
+    passed down to every layer. The dense bias (mask·maskᵀ, which masks
+    padded query rows as well as keys) is built always, so a dense layer
+    stays masked either way; the flash path takes the key-only bias,
+    whose padded query rows differ from the dense path's but reach no
+    loss term."""
+    emb = fluid.layers.embedding(
+        input=src_ids, size=[cfg.vocab_size, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="word_embedding"))
+    pos = fluid.layers.embedding(
+        input=pos_ids, size=[cfg.max_position_embeddings, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="pos_embedding"))
+    sent = fluid.layers.embedding(
+        input=sent_ids, size=[cfg.type_vocab_size, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="sent_embedding"))
+    emb = fluid.layers.elementwise_add(
+        fluid.layers.elementwise_add(emb, pos), sent)
+    emb = fluid.layers.layer_norm(emb, begin_norm_axis=2, name="emb_ln")
+    emb = _dropout(emb, cfg.hidden_dropout, cfg.is_test)
+
+    mask_t = fluid.layers.transpose(input_mask, perm=[0, 2, 1])
+    attn_bias = mask_to_bias(fluid.layers.matmul(input_mask, mask_t))
+    _s = src_ids.shape[1] if len(src_ids.shape) >= 2 else -1
+    use_flash = flash_wanted(cfg, seq_len=None if _s in (-1, None)
+                             else int(_s))
+    key_bias = mask_to_key_bias(input_mask) if use_flash else None
+
+    x = emb
+    for i in range(cfg.num_layers):
+        x = encoder_layer(x, attn_bias, cfg, "layer_%d" % i,
+                          key_bias=key_bias, use_flash=use_flash)
+
+    first_tok = fluid.layers.slice(x, axes=[1], starts=[0], ends=[1])
+    first_tok = fluid.layers.reshape(first_tok, shape=[-1, cfg.hidden_size])
+    pooled = fluid.layers.fc(input=first_tok, size=cfg.hidden_size,
+                             act="tanh", name="pooler")
+    return x, pooled
+
+
+def build_bert_classifier(cfg, seq_len, num_classes=2, learning_rate=2e-5,
+                          use_amp=False):
+    """Sequence-classification fine-tune program (``bert.py:458``): the
+    encoder, dropout on the pooled output, the ``cls`` fc, softmax cross
+    entropy averaged over the batch, top-1 accuracy, Adam. Feeds
+    ``src_ids`` / ``pos_ids`` / ``sent_ids`` ([N, seq_len, 1] int64),
+    ``input_mask`` ([N, seq_len, 1] float32) and ``label`` ([N, 1]
+    int64). ``use_amp``: Adam decorated with
+    ``contrib.mixed_precision.decorate`` (bf16 products, fp32 layer
+    norms, loss and master weights), as the reference does.
+
+    Returns (main, startup, feeds, avg_loss, acc)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src_ids = fluid.layers.data(name="src_ids", shape=[seq_len, 1],
+                                    dtype="int64")
+        pos_ids = fluid.layers.data(name="pos_ids", shape=[seq_len, 1],
+                                    dtype="int64")
+        sent_ids = fluid.layers.data(name="sent_ids", shape=[seq_len, 1],
+                                     dtype="int64")
+        input_mask = fluid.layers.data(name="input_mask", shape=[seq_len, 1],
+                                       dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        _, pooled = bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg)
+        pooled = _dropout(pooled, cfg.hidden_dropout, cfg.is_test)
+        logits = fluid.layers.fc(input=pooled, size=num_classes, name="cls")
+        loss = fluid.layers.softmax_with_cross_entropy(logits, label)
+        avg_loss = fluid.layers.mean(loss)
+        acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),
+                                    label=label)
+        opt = fluid.optimizer.Adam(learning_rate=learning_rate)
+        if use_amp:
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+        opt.minimize(avg_loss)
+    feeds = [src_ids, pos_ids, sent_ids, input_mask, label]
+    return main, startup, feeds, avg_loss, acc
 
 
 def linear(x, lin, amp_dtype=None):

@@ -147,6 +147,24 @@ for op_type in ("flash_decode_attention", "flash_decode_paged_attention",
                 "kv_cache_write_paged", "kv_cache_gather_paged",
                 "kv_cache_block_copy"):
     assert registry.has_op(op_type), op_type
+# the BERT classifier and vision slice
+from paddle_tpu_torch.fluid.layers import metric_op
+from paddle_tpu_torch.fluid.ops import metric_ops, tensor_ops
+from paddle_tpu_torch.models import lenet, resnet
+for fn in (bert.BertConfig.base, bert.BertConfig.tiny, bert.mask_to_bias,
+           bert.encoder_layer, bert.bert_encoder, bert.build_bert_classifier,
+           lenet.lenet, lenet.build_lenet_train, resnet.resnet,
+           resnet.build_resnet_train, layers.conv2d, layers.pool2d,
+           layers.batch_norm, layers.relu, layers.topk, layers.accuracy,
+           metric_op.accuracy, metric_ops.accuracy, tensor_ops.top_k,
+           nn_ops.conv2d, nn_ops.pool2d, nn_ops.batch_norm, optimizer_ops.sgd,
+           optimizer_ops.momentum, optimizer.SGD, optimizer.SGDOptimizer,
+           optimizer.Momentum, optimizer.MomentumOptimizer,
+           fluid.load_program_scope, io.load_program_scope):
+    assert callable(fn)
+for op_type in ("tanh", "top_k", "accuracy", "conv2d", "depthwise_conv2d",
+                "pool2d", "batch_norm", "sgd", "momentum"):
+    assert registry.has_op(op_type), op_type
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
