@@ -5,11 +5,13 @@
     python3 chip_smoke.py --only program_train --repeat 6
     python3 chip_smoke.py --only fleet
     python3 chip_smoke.py --only bert,vision
+    python3 chip_smoke.py --only nmt
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
-``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``), ``--repeat``
+``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``),
+``--repeat``
 times, printing each run's line whether it passed or not. Phases, one
 JSON line each:
 
@@ -187,6 +189,23 @@ JSON line each:
            fp64 (loss, three gradients, every batch norm's running
            stats), 10 timed steps at batch 32 (images/s, idle share,
            launches, peak memory), one AMP step with bf16 convolutions.
+18. nmt    (run after vision) Transformer NMT at Transformer-base's
+           widths (``models/transformer.py``) through
+           ``fluid.Executor(CUDAPlace(0))``: ``build_transformer_train``
+           at batch 64, source 64, target 48, ragged masks, label
+           smoothing 0.1, dropout 0. Flash against the dense program from
+           the same weights at step 1 (loss, every gradient; 18 launches
+           of each training kernel: 6 encoder, 6 decoder-self, 6 cross);
+           the copy task's 30 Noam-scheduled Adam steps that must learn,
+           launch counts zeroed just before and read just after, the
+           ``@LR_DECAY_COUNTER@`` read every step; ``beam_search_decode``
+           over ``build_transformer_infer`` on the trained weights (4
+           sources of 32, beam 4), every step's logits and choices held
+           to the dense program, 18 ``flash_fwd`` a step, its time split
+           into the run and the logits' copy to the host; a ``While`` RNN
+           and a ``cond`` with their gradients on the card against the
+           CPU, with the host syncs a loop iteration. Step ms, target
+           tokens/s, idle share, peak memory.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -196,6 +215,8 @@ and SDPA in bf16 beside them; all three on the tensor cores); the three
 training kernels at the BERT classifier's shape ([24, 12, 384, 64],
 non-causal, ragged key bias, dropout 0.1) in fp32 and bf16, each timed
 beside its plain version, its bound and SDPA with the key-padding mask;
+the three at the NMT's cross form (q [64, 8, 48, 64] against k/v
+[64, 8, 64, 64], non-causal, ragged key bias, dropout 0) the same way;
 the bf16
 forms of both decode kernels at their serving shapes
 (timed beside SDPA in bf16, held to ``lowp_limits.out_bound``); fp16 and
@@ -327,6 +348,39 @@ BERT_AMP_GRAD_PARAMS = ("layer_0_att_q.w_0", "layer_11_att_v.w_0",
 BERT_Q_PARAMS = tuple("layer_%d_att_q.w_0" % i for i in range(12))
 BERT_CROSSOVER = ((128, 64), (384, 24))
 BERT_TIMED_STEPS = 6
+# Transformer NMT (Transformer-base's widths: 6 + 6 layers, hidden 512, 8
+# heads, FFN 2048, vocabularies of 30000) through fluid.Executor on the
+# card, dropout 0, label smoothing 0.1, batch 64 of source 64 and target
+# 48 tokens with ragged real lengths (``nmt_lengths``). Flash against
+# dense from the same weights: the step-1 loss within 1e-4 relative and
+# every parameter's gradient within GRAD_REL_TOL relative norm, floored
+# as in the train phases, but the k-projection biases: their exact
+# gradient is 0, so each side's must be below 1e-5 of the whole
+# gradient's norm;
+# 18 launches of each training kernel a step (6 encoder, 6 decoder-self,
+# 6 cross). Learning: the reference's copy task (``tests/
+# test_transformer_nmt.py``'s data form: target = BOS + source, labels =
+# source, at this width) for 30 Adam steps under learning_rate 0.1 x the
+# Noam schedule with 16 warmup steps (peak 1.1e-3); the mean of the last
+# 5 losses must sit 0.1 below the first 5's. Beam search
+# (``beam_search_decode``, 4 sources of 32, beam 4, target 32) on the
+# trained weights: every step's logits at the real target positions
+# within LOGIT_ATOL of the dense program's on the same feed (padded
+# query rows attend differently in the two forms), every chosen
+# extension among the dense totals' top 4 or within 1e-3 of the 4th, the
+# final scores recomputed through the dense program within 1e-3 x T, 18
+# flash_fwd launches a step. Control flow: the ``While`` RNN of
+# ``tests/test_while_cond_grad.py`` at B 64, T 32, H 512 and a ``cond``
+# on its result, with ``append_backward``, on the card against the same
+# program on the CPU: loss within 1e-5 relative, dloss/dW within 1e-4
+# relative norm.
+NMT_BATCH, NMT_SRC, NMT_TGT, NMT_MIN_SHARE = 64, 64, 48, 3
+NMT_STEPS, NMT_LR, NMT_WARMUP, NMT_LEARN_MARGIN = 30, 0.1, 16, 0.1
+NMT_LOSS_RTOL, NMT_ZERO_GRAD_SHARE = 1e-4, 1e-5
+NMT_BEAM_N, NMT_BEAM_K, NMT_BEAM_LEN = 4, 4, 32
+NMT_BOS, NMT_EOS = 1, 0
+NMT_RNN_B, NMT_RNN_T, NMT_RNN_H = 64, 32, 512
+NMT_RNN_LOSS_RTOL, NMT_RNN_GRAD_RTOL = 1e-5, 1e-4
 # The vision programs through fluid.Executor(CUDAPlace(0)), TF32 off
 # (cuDNN's too). LeNet: 64 random 1x28x28 images, 10 classes, SGD at 0.01
 # for 20 steps on the fixed batch; the mean of the last 5 losses must sit
@@ -1288,37 +1342,58 @@ def bert_lengths(batch, seq, seed):
 def kernel_flash_bert(dev, peaks):
     """The three training kernels at the BERT-base classifier's attention
     shape: q/k/v/dO [24, 12, 384, 64], non-causal, a ragged key-padding
-    bias (``bert_lengths``), dropout 0.1, in fp32 (held to the kernel
-    limits) and in bf16 (held to ``lowp_limits``), the backward kernels
-    from the forward's own out and lse. Each is timed beside its plain
-    version, its bound (every (q, k) pair: the kernels do not skip masked
-    keys) and SDPA given the key-padding mask (its backward alone for the
-    backward kernels, forward + backward beside it)."""
+    bias (``bert_lengths``), dropout 0.1 (``kernel_flash_form``)."""
+    return kernel_flash_form(dev, peaks, "bert", BERT_BATCH, 12, BERT_SEQ,
+                             BERT_SEQ, bert_lengths(BERT_BATCH, BERT_SEQ,
+                                                    seed=9), 0.1, seed=9)
+
+
+def kernel_flash_nmt(dev, peaks):
+    """The three training kernels at the Transformer NMT's cross form
+    (``nmt`` phase): q/dO [64, 8, 48, 64] against k/v [64, 8, 64, 64],
+    non-causal, a ragged source key-padding bias (``nmt_lengths``),
+    dropout 0 as the phase trains (``kernel_flash_form``)."""
+    return kernel_flash_form(
+        dev, peaks, "nmt cross", NMT_BATCH, 8, NMT_TGT, NMT_SRC,
+        nmt_lengths(NMT_BATCH, NMT_SRC, seed=11), 0.0, seed=11)
+
+
+def kernel_flash_form(dev, peaks, tag, B, N, Sq, Sk, lens, rate, seed):
+    """The three training kernels at one non-causal form, q/dO [B, N, Sq,
+    64] against k/v [B, N, Sk, 64] under a key-padding bias (-1e4 past
+    each row's ``lens``), in fp32 (held to the kernel limits) and in bf16
+    (held to ``lowp_limits``), the backward kernels from the forward's own
+    out and lse. Each is timed beside its plain version, its bound (every
+    (q, k) pair: the kernels do not skip masked keys) and SDPA given the
+    key-padding mask (its backward alone for the backward kernels,
+    forward + backward beside it)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    gen = torch.Generator().manual_seed(9)
-    B, N, T, D = BERT_BATCH, 12, BERT_SEQ, 64
-    rate, seed = 0.1, 2468013
+    gen = torch.Generator().manual_seed(seed)
+    D = 64
+    dseed = 2468013
     scale = 1.0 / np.sqrt(D)
-    kb = torch.zeros(B, T)
-    for i, n in enumerate(bert_lengths(B, T, seed=9)):
+    kb = torch.zeros(B, Sk)
+    for i, n in enumerate(lens):
         kb[i, n:] = -1e4
     kb = kb.to(dev)
-    pairs = B * N * T * T                          # non-causal
+    pairs = B * N * Sq * Sk                        # non-causal
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {"shape": [B, N, T, D], "causal": False, "dropout_rate": rate}
+    out = {"shape": [B, N, Sq, D], "causal": False, "dropout_rate": rate}
+    if Sk != Sq:
+        out["kv_shape"] = [B, N, Sk, D]
     for tname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v, g = (torch.randn(B, N, T, D, generator=gen).to(dev, dt)
-                      for _ in range(4))
+        q, k, v, g = (torch.randn(B, N, S, D, generator=gen).to(dev, dt)
+                      for S in (Sq, Sk, Sk, Sq))
         kw = dict(causal=False, scale=scale, dropout_rate=rate,
-                  dropout_seed=seed)
+                  dropout_seed=dseed)
         if dt == torch.float32:
             o, lse = fa.flash_attention_lse(q, k, v, kb, **kw)
             ref_o, ref_lse = fa.flash_attention_lse_plain(
                 q, k, v, key_bias=kb, **kw)
             torch.cuda.synchronize()
-            check_close("bert flash_fwd out", o, ref_o)
-            check_close("bert flash_fwd lse", lse, ref_lse)
+            check_close("%s flash_fwd out" % tag, o, ref_o)
+            check_close("%s flash_fwd lse" % tag, lse, ref_lse)
             errs = {"fwd": max(max_err(o, ref_o), max_err(lse, ref_lse))}
             del ref_o, ref_lse
             delta = (g * o).sum(-1)
@@ -1326,7 +1401,8 @@ def kernel_flash_bert(dev, peaks):
             dq = fa.flash_bwd_dq(*bwd_args, **kw)
             ref_dq = fa.flash_bwd_dq_plain(*bwd_args, **kw)
             torch.cuda.synchronize()
-            check_close("bert flash_bwd_dq", dq, ref_dq, BWD_ATOL, BWD_RTOL)
+            check_close("%s flash_bwd_dq" % tag, dq, ref_dq, BWD_ATOL,
+                        BWD_RTOL)
             errs["dq"] = max_err(dq, ref_dq)
             del dq, ref_dq
             got = fa.flash_bwd_dkv(*bwd_args, **kw)
@@ -1334,36 +1410,39 @@ def kernel_flash_bert(dev, peaks):
             torch.cuda.synchronize()
             errs["dkv"] = 0.0
             for oname, a, b in zip(("dk", "dv", "dkey_bias"), got, want):
-                check_close("bert flash_bwd_dkv " + oname, a, b, BWD_ATOL,
-                            BWD_RTOL)
+                check_close("%s flash_bwd_dkv %s" % (tag, oname), a, b,
+                            BWD_ATOL, BWD_RTOL)
                 errs["dkv"] = max(errs["dkv"], max_err(a, b))
             del got, want
             esize, rate_peak = 4, None
         else:
             errs, (o, lse, delta) = check_low_precision(
-                "bert bf16", dt, q, k, v, kb, g, rate, seed, causal=False)
+                "%s bf16" % tag, dt, q, k, v, kb, g, rate, dseed,
+                causal=False)
             bwd_args = (q, k, v, kb, g, lse, delta)
             esize, rate_peak = 2, BF16_PEAK
-        tensor = esize * B * N * T * D
-        vec = 4 * B * N * T
-        kb_bytes = 4 * B * T
-        sdpa_mask = kb.reshape(B, 1, 1, T).to(dt)
+        tq = esize * B * N * Sq * D
+        tk = esize * B * N * Sk * D
+        vec = 4 * B * N * Sq
+        kb_bytes = 4 * B * Sk
+        sdpa_mask = kb.reshape(B, 1, 1, Sk).to(dt)
         rows = {}
         for name, fn, plain, nbytes, flops, err, lib, args in (
                 ("flash_fwd",
                  lambda a, b, c, d: fa.flash_attention_lse(a, b, c, d, **kw),
                  lambda a, b, c, d: fa.flash_attention_lse_plain(
                      a, b, c, key_bias=d, **kw),
-                 4 * tensor + kb_bytes + vec, 4 * D * pairs, errs["fwd"],
+                 2 * tq + 2 * tk + kb_bytes + vec, 4 * D * pairs,
+                 errs["fwd"],
                  lambda: sdpa(q, k, v, attn_mask=sdpa_mask, dropout_p=rate,
                               scale=scale), [(q, k, v, kb)]),
                 ("flash_bwd_dq", lambda *a: fa.flash_bwd_dq(*a, **kw),
                  lambda *a: fa.flash_bwd_dq_plain(*a, **kw),
-                 5 * tensor + kb_bytes + 2 * vec, 6 * D * pairs, errs["dq"],
-                 None, [bwd_args]),
+                 3 * tq + 2 * tk + kb_bytes + 2 * vec, 6 * D * pairs,
+                 errs["dq"], None, [bwd_args]),
                 ("flash_bwd_dkv", lambda *a: fa.flash_bwd_dkv(*a, **kw),
                  lambda *a: fa.flash_bwd_dkv_plain(*a, **kw),
-                 6 * tensor + kb_bytes + 2 * vec + 4 * B * N * T,
+                 2 * tq + 4 * tk + kb_bytes + 2 * vec + 4 * B * N * Sk,
                  8 * D * pairs, errs["dkv"], None, [bwd_args])):
             ms, spread = cuda_ms(fn, args)
             plain_ms, _ = cuda_ms(plain, args, calls=3)
@@ -4504,6 +4583,416 @@ def bert_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: Transformer NMT and sub-block control flow through the Executor
+# ---------------------------------------------------------------------------
+def nmt_lengths(batch, seq, seed):
+    """Each row's real length, drawn from the seed between
+    ``seq / NMT_MIN_SHARE`` and ``seq``."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(seq // NMT_MIN_SHARE, seq + 1, batch)
+
+
+def nmt_feed(seed, copy=False, vocab=30000):
+    """The train program's feeds at batch 64, source 64, target 48: ragged
+    real lengths (``nmt_lengths``), ids 0 and mask 0 past them. Random
+    target ids and labels, or (``copy``) the copy task: target = BOS +
+    the source, labels = the source, a row's target as long as its
+    source (at most 48)."""
+    rng = np.random.default_rng(seed)
+    B, S, T = NMT_BATCH, NMT_SRC, NMT_TGT
+    src_len = nmt_lengths(B, S, seed)
+    src = rng.integers(2, vocab, (B, S))
+    if copy:
+        tgt_len = np.minimum(src_len, T)
+        tgt = np.concatenate([np.full((B, 1), NMT_BOS), src[:, :T - 1]], 1)
+        lab = src[:, :T]
+    else:
+        tgt_len = nmt_lengths(B, T, seed + 1)
+        tgt, lab = rng.integers(2, vocab, (B, T)), rng.integers(2, vocab,
+                                                                 (B, T))
+    src_mask = (np.arange(S)[None, :] < src_len[:, None]).astype(np.float32)
+    tgt_mask = (np.arange(T)[None, :] < tgt_len[:, None]).astype(np.float32)
+
+    def col(a):
+        return a.reshape(a.shape + (1,))
+
+    return {"src_ids": col(src * src_mask.astype(np.int64)),
+            "src_pos": col(np.tile(np.arange(S), (B, 1))),
+            "src_mask": col(src_mask),
+            "tgt_ids": col((tgt * tgt_mask).astype(np.int64)),
+            "tgt_pos": col(np.tile(np.arange(T), (B, 1))),
+            "tgt_mask": col(tgt_mask),
+            "labels": col((lab * tgt_mask).astype(np.int64))}
+
+
+def _log_softmax(x):
+    """``beam_search_decode``'s log-softmax, term for term (in x's type)."""
+    m = x.max(-1, keepdims=True)
+    return x - np.log(np.exp(x - m).sum(-1, keepdims=True)) - m
+
+
+class _BeamProbe(object):
+    """Stands in for the Executor that ``beam_search_decode`` drives: runs
+    the flash inference program as the search asks, timing the run to
+    the logits on the card apart from their copy to pageable host memory
+    (the search's own ``np.asarray``), then the dense program on the same
+    feed. Keeps each step's logits row of both (the position the search
+    reads) and the largest difference at the real target positions (the
+    padded ones attend differently in the two forms)."""
+
+    def __init__(self, exe, dense, dense_logits):
+        self.exe = exe
+        self.dense = dense
+        self.dense_logits = dense_logits
+        self.steps = []
+
+    def run(self, program, feed=None, fetch_list=None, scope=None):
+        t = len(self.steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lg,) = self.exe.run(program, feed=feed, fetch_list=fetch_list,
+                             scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = lg.detach().cpu().numpy()
+        t2 = time.perf_counter()
+        (dl,) = self.exe.run(self.dense, feed=feed,
+                             fetch_list=[self.dense_logits], scope=scope,
+                             return_numpy=False)
+        real_err = float((lg[:, :t + 1] - dl[:, :t + 1]).abs().max())
+        self.steps.append({"flash": host[:, t].copy(),
+                           "dense": dl[:, t].cpu().numpy(),
+                           "device_ms": (t1 - t0) * 1e3,
+                           "d2h_ms": (t2 - t1) * 1e3,
+                           "d2h_bytes": host.nbytes,
+                           "real_logit_err": real_err})
+        return [host]
+
+
+def _beams_teacher_forced(steps, N, K, V, eos):
+    """Replays ``beam_search_decode``'s choices from the flash logits it
+    read and, at every step, holds each chosen extension to the dense
+    program's totals on the same beams: its dense total must be at least
+    the K-th largest's less 1e-3 (a near-tie may order either way).
+    Returns (the replay's sequences and scores, sorted as the search
+    sorts them, the worst shortfall)."""
+    scores = np.full((N, K), -1e9, np.float64)
+    scores[:, 0] = 0.0
+    finished = np.zeros((N, K), bool)
+    toks = []
+    worst = -np.inf
+    for st in steps:
+        lp = {}
+        for name in ("flash", "dense"):
+            x = _log_softmax(st[name].reshape(N, K, V))
+            lp[name] = np.where(finished[..., None], np.where(
+                np.arange(V)[None, None, :] == eos, 0.0, -1e9), x)
+        tot_f = (scores[..., None] + lp["flash"]).reshape(N, K * V)
+        tot_d = (scores[..., None] + lp["dense"]).reshape(N, K * V)
+        top = np.argsort(-tot_f, axis=1)[:, :K]
+        kth = np.sort(tot_d, axis=1)[:, -K]
+        chosen = np.take_along_axis(tot_d, top, axis=1)
+        worst = max(worst, float((kth[:, None] - chosen).max()))
+        beam, tok = top // V, top % V
+        toks = [np.take_along_axis(c, beam, axis=1) for c in toks] + [tok]
+        finished = np.take_along_axis(finished, beam, axis=1) | (tok == eos)
+        scores = np.take_along_axis(tot_f, top, axis=1)
+    order = np.argsort(-scores, axis=1)
+    toks = np.stack(toks, -1)
+    return (np.take_along_axis(toks, order[..., None], axis=1),
+            np.take_along_axis(scores, order, axis=1), worst)
+
+
+def _dense_scores(exe, dense, dense_logits, scope, src, seqs, eos):
+    """Each returned beam's score recomputed through the dense program
+    (one run over the whole sequences, all target positions real):
+    log-probabilities of its tokens summed until its first ``eos``
+    (a finished beam extends at no cost)."""
+    N, K, T = seqs.shape
+    S = src.shape[1]
+    flat = seqs.reshape(N * K, T)
+    feed = {"src_ids": np.repeat(src, K, 0)[..., None],
+            "src_pos": np.tile(np.arange(S), (N * K, 1))[..., None],
+            "src_mask": np.ones((N * K, S, 1), np.float32),
+            "tgt_ids": flat[..., None],
+            "tgt_pos": np.tile(np.arange(T), (N * K, 1))[..., None],
+            "tgt_mask": np.ones((N * K, T, 1), np.float32)}
+    (lg,) = exe.run(dense, feed=feed, fetch_list=[dense_logits], scope=scope)
+    lp = _log_softmax(lg.astype(np.float64))          # [N*K, T, V]
+    picked = np.take_along_axis(lp[:, :-1], flat[:, 1:, None], 2)[..., 0]
+    done = np.cumsum(flat[:, 1:] == eos, 1) > 0
+    before = np.concatenate([np.zeros((N * K, 1), bool), done[:, :-1]], 1)
+    return np.where(before, 0.0, picked).sum(1).reshape(N, K)
+
+
+def nmt_control_flow(dev):
+    """The ``While`` RNN of ``tests/test_while_cond_grad.py`` at B 64, T
+    32, H 512 with a ``cond`` on its mean, ``append_backward``, on the
+    card and on the CPU from the same W (each run once before it is
+    measured): loss and dloss/dW held, the condition reads a loop
+    iteration, each device's run ms."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import executor as texec
+    from paddle_tpu_torch.fluid import profiler
+
+    B, T, H = NMT_RNN_B, NMT_RNN_T, NMT_RNN_H
+    rng = np.random.default_rng(12)
+    xb = rng.standard_normal((B, T, H)).astype(np.float32)
+    w0 = (rng.standard_normal((H, H)) * 0.5 / np.sqrt(H)).astype(np.float32)
+    out = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[T, H], dtype="float32")
+            arr = fluid.layers.lod_tensor_to_array(
+                x, fluid.layers.lod_rank_table(x))
+            i = fluid.layers.fill_constant(shape=[1], dtype="int64", value=0)
+            n = fluid.layers.fill_constant(shape=[1], dtype="int64", value=T)
+            mem = fluid.layers.fill_constant(shape=[B, H], dtype="float32",
+                                             value=0.0)
+            mem.stop_gradient = False
+            W = fluid.layers.create_parameter(shape=[H, H], dtype="float32",
+                                              name="W")
+            cond = fluid.layers.less_than(i, n)
+            loop = fluid.layers.While(cond)
+            with loop.block():
+                xt = fluid.layers.array_read(arr, i)
+                fluid.layers.assign(fluid.layers.tanh(
+                    fluid.layers.matmul(mem, W) + xt), output=mem)
+                fluid.layers.increment(i, value=1, in_place=True)
+                fluid.layers.less_than(i, n, cond=cond)
+            s = fluid.layers.reduce_mean(mem)
+            zero = fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                              value=0.0)
+            loss = fluid.layers.cond(fluid.layers.greater_than(s, zero),
+                                     lambda: s * 2.0, lambda: s * -1.0)
+            (_p, g), = fluid.backward.append_backward(loss)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        scope.set("W", torch.from_numpy(w0.copy()).to(exe.device))
+        exe.run(main, feed={"x": xb}, fetch_list=[loss, g], scope=scope)
+        syncs0 = profiler.get_counter(texec.HOST_SYNC_COUNTER)
+        t0 = time.perf_counter()
+        got = exe.run(main, feed={"x": xb}, fetch_list=[loss, g],
+                      scope=scope)
+        ms = (time.perf_counter() - t0) * 1e3
+        syncs = profiler.get_counter(texec.HOST_SYNC_COUNTER) - syncs0
+        out.append((got, ms, syncs))
+    ((lc, gc), card_ms, syncs), ((lp, gp), cpu_ms, _s) = out
+    loss_rel = abs(float(lc[0]) - float(lp[0])) / abs(float(lp[0]))
+    grad_rel = float(np.linalg.norm(gc - gp) / np.linalg.norm(gp))
+    if not (loss_rel <= NMT_RNN_LOSS_RTOL and grad_rel <= NMT_RNN_GRAD_RTOL):
+        raise AssertionError("while/cond on the card vs the CPU: loss %r vs "
+                             "%r, dW at relative norm %.3g"
+                             % (float(lc[0]), float(lp[0]), grad_rel))
+    # the loop reads its condition before every iteration and once more
+    # at its end; each of cond's two conditional_blocks reads its own
+    return {"shape": [B, T, H], "loss": float(lc[0]), "loss_rel": loss_rel,
+            "loss_rtol": NMT_RNN_LOSS_RTOL, "grad_rel": grad_rel,
+            "grad_rtol": NMT_RNN_GRAD_RTOL, "host_syncs_per_run": syncs,
+            "loop_condition_syncs_per_iteration": (syncs - 2) / T,
+            "card_run_ms": card_ms, "cpu_run_ms": cpu_ms}
+
+
+def nmt_phase(dev):
+    """Transformer NMT at Transformer-base's widths through
+    ``fluid.Executor(CUDAPlace(0))``: flash against dense at step 1, the
+    copy task learning (the main path: launch counts zeroed just before
+    and read just after), beam search on the trained weights held
+    teacher-forced to the dense program, and the sub-block control flow
+    against the CPU."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    counter = "@LR_DECAY_COUNTER@"
+
+    def config(flash):
+        return tfm.TransformerConfig(use_flash_attention=flash, dropout=0.0,
+                                     label_smooth=0.1)
+
+    def program(flash, arrays=None, lr=2.0, warmup=4000):
+        with fluid.unique_name.guard():
+            main, startup, _f, loss = tfm.build_transformer_train(
+                config(flash), NMT_SRC, NMT_TGT, learning_rate=lr,
+                warmup_steps=warmup)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is not None:
+            fluid.load_program_scope(main, scope, arrays)
+        return main, loss, exe, scope
+
+    cfg = config(True)
+    per_step = 3 * cfg.num_layers
+    feed = nmt_feed(seed=4)
+
+    # flash against dense at step 1, the same weights
+    t0 = time.perf_counter()
+    main, loss, exe, scope = program(True)
+    build_s = time.perf_counter() - t0
+    n_ops = len(main.global_block().ops)
+    arrays = program_arrays(main, scope)
+    names = sorted(p.name for p in main.all_parameters() if p.trainable)
+    grads = {}
+    for flash in (True, False):
+        if not flash:
+            main, loss, exe, scope = program(False, arrays)
+        replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        zero_flash_launches()
+        out = exe.run(main, feed=feed, fetch_list=[loss] + [
+            n + "@GRAD" for n in names], scope=scope)
+        launched = flash_launches()
+        replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+        want = per_step if flash else 0
+        if any(n != want for n in launched.values()) or replays:
+            raise AssertionError("nmt %s step launched %r (expected %d each),"
+                                 " %d generic replays" % (
+                                     "flash" if flash else "dense", launched,
+                                     want, replays))
+        grads[flash] = (float(out[0].reshape(-1)[0]),
+                        dict(zip(names, out[1:])))
+        del main, loss, exe, scope, out
+        torch.cuda.empty_cache()
+    (loss_flash, g_flash), (loss_dense, g_dense) = grads[True], grads[False]
+    del grads
+    # the k-projection biases' exact gradient is 0: each side's is
+    # rounding noise, held to NMT_ZERO_GRAD_SHARE of the whole gradient
+    zero = sorted(n for n in g_dense if "att_k.b_0" in n)
+    rel, gnorm = rel_norms({n: g for n, g in g_flash.items()
+                            if n not in zero},
+                           {n: g for n, g in g_dense.items()
+                            if n not in zero}, GRAD_NORM_FLOOR)
+    worst = max(rel, key=rel.get)
+    zero_norm = max(float(np.linalg.norm(g[n])) for g in (g_flash, g_dense)
+                    for n in zero)
+    loss_rel = abs(loss_flash - loss_dense) / abs(loss_dense)
+    del g_flash, g_dense
+    if not (rel[worst] <= GRAD_REL_TOL and loss_rel <= NMT_LOSS_RTOL
+            and zero_norm <= NMT_ZERO_GRAD_SHARE * gnorm):
+        raise AssertionError("nmt flash vs dense: loss %r vs %r, gradient of "
+                             "%s at relative norm %.3g, k-bias gradient "
+                             "norm %.3g of %.3g"
+                             % (loss_flash, loss_dense, worst, rel[worst],
+                                zero_norm, gnorm))
+
+    # the main path: the copy task, Noam-scheduled Adam on one batch
+    main, loss, exe, scope = program(True, arrays, lr=NMT_LR,
+                                     warmup=NMT_WARMUP)
+    copy = nmt_feed(seed=5, copy=True)
+    counts = []
+
+    def step():
+        lv, c = exe.run(main, feed=copy, fetch_list=[loss, counter],
+                        scope=scope)
+        counts.append(int(c.reshape(-1)[0]))
+        return float(lv.reshape(-1)[0])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()
+    losses, ms = timed_steps(step, NMT_STEPS)
+    train_launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if counts != list(range(1, NMT_STEPS + 1)):
+        raise AssertionError("nmt step counter read %r" % (counts,))
+    if not all(np.isfinite(losses)) or not np.mean(
+            losses[-5:]) < np.mean(losses[:5]) - NMT_LEARN_MARGIN:
+        raise AssertionError("nmt loss did not fall by %g: %r"
+                             % (NMT_LEARN_MARGIN, losses))
+    for kname, n in train_launches.items():
+        if n != per_step * NMT_STEPS:
+            raise AssertionError("nmt: %s launched %d times in %d steps"
+                                 % (kname, n, NMT_STEPS))
+    prof = _profile(step, reps=1)
+    tokens = float(copy["tgt_mask"].sum())
+    p50 = float(np.median(ms[1:]))
+
+    # beam search on the trained weights, flash, held to the dense program
+    N, K, L = NMT_BEAM_N, NMT_BEAM_K, NMT_BEAM_LEN
+    infer, _feeds, logits = tfm.build_transformer_infer(config(True), L, L)
+    dense, _feeds, dense_logits = tfm.build_transformer_infer(config(False),
+                                                              L, L)
+    src = copy["src_ids"][:N, :L, 0]
+    probe = _BeamProbe(exe, dense, dense_logits)
+    zero_flash_launches()
+    seqs, scores = tfm.beam_search_decode(
+        probe, infer, logits, cfg, src, bos_id=NMT_BOS, eos_id=NMT_EOS,
+        beam_size=K, max_len=L, scope=scope)
+    beam_launches = flash_launches()
+    n_steps = len(probe.steps)
+    if beam_launches != {"flash_fwd": per_step * n_steps, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0}:
+        raise AssertionError("nmt beam search: %d steps launched %r"
+                             % (n_steps, beam_launches))
+    logit_err = max(st["real_logit_err"] for st in probe.steps)
+    replay_seqs, replay_scores, shortfall = _beams_teacher_forced(
+        probe.steps, N, K, cfg.tgt_vocab, NMT_EOS)
+    dense_scores = _dense_scores(exe, dense, dense_logits, scope, src, seqs,
+                                 NMT_EOS)
+    score_err = float(np.abs(dense_scores - scores).max())
+    if not (logit_err <= LOGIT_ATOL and shortfall <= 1e-3
+            and np.array_equal(replay_seqs, seqs[:, :, 1:n_steps + 1])
+            and np.allclose(replay_scores, scores, rtol=0, atol=1e-9)
+            and score_err <= 1e-3 * L):
+        raise AssertionError(
+            "nmt beam search: logits at real positions %.3g from dense, "
+            "worst chosen extension %.3g below the dense 4th, replay equal "
+            "%s, scores %.3g from the dense recomputation"
+            % (logit_err, shortfall,
+               np.array_equal(replay_seqs, seqs[:, :, 1:n_steps + 1]),
+               score_err))
+    device_ms = [st["device_ms"] for st in probe.steps]
+    d2h_mb = probe.steps[0]["d2h_bytes"] / 1e6
+    d2h_ms = [st["d2h_ms"] for st in probe.steps]
+    accuracy = float((seqs[:, 0, 1:L] == src[:, :L - 1]).mean())
+    del main, loss, exe, scope, probe
+    torch.cuda.empty_cache()
+
+    control = nmt_control_flow(dev)
+    launches = {k: train_launches[k] + beam_launches[k]
+                for k in train_launches}
+    return {
+        "phase": "nmt", "model": "transformer-base", "batch": NMT_BATCH,
+        "src_len": NMT_SRC, "tgt_len": NMT_TGT, "program_ops": n_ops,
+        "build_and_startup_s": build_s,
+        "flash_vs_dense_step1": {
+            "loss_flash": loss_flash, "loss_dense": loss_dense,
+            "loss_rel": loss_rel, "loss_rtol": NMT_LOSS_RTOL,
+            "max_rel_norm": rel[worst], "worst_param": worst,
+            "median_rel_norm": float(np.median(list(rel.values()))),
+            "params": len(rel), "tolerance": GRAD_REL_TOL,
+            "grad_norm": gnorm, "k_bias_grad_norm_max": zero_norm,
+            "k_bias_grad_share_limit": NMT_ZERO_GRAD_SHARE,
+            "launches_per_step": per_step},
+        "learning": {"task": "copy", "steps": NMT_STEPS, "losses": losses,
+                     "learning_rate": NMT_LR, "warmup_steps": NMT_WARMUP,
+                     "margin": NMT_LEARN_MARGIN, "counter": counts[:NMT_STEPS],
+                     "launches": train_launches, "step_ms": ms,
+                     "step_ms_p50": p50,
+                     "target_tokens_per_s_p50": tokens / (p50 / 1e3),
+                     "peak_mem_mib": peak, "profile_step": prof,
+                     "device_idle_share": prof["device_idle_share"]},
+        "beam_search": {
+            "sources": N, "beam": K, "len": L, "steps": n_steps,
+            "launches": beam_launches, "flash_fwd_per_step": per_step,
+            "real_logit_max_err": logit_err, "logit_atol": LOGIT_ATOL,
+            "worst_shortfall_vs_dense_kth": shortfall,
+            "dense_score_max_err": score_err, "score_atol": 1e-3 * L,
+            "best_beam_copy_accuracy": accuracy,
+            "step_device_ms_p50": float(np.median(device_ms)),
+            "step_d2h_ms_p50": float(np.median(d2h_ms)),
+            "d2h_mb_per_step": d2h_mb,
+            "step_device_ms": device_ms, "step_d2h_ms": d2h_ms},
+        "control_flow": control,
+        "seconds": time.perf_counter() - t_phase,
+    }, {"nmt": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 17: LeNet and ResNet-50 through the Executor
 # ---------------------------------------------------------------------------
 
@@ -4687,7 +5176,7 @@ def gpt2_small(dev):
 
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
-               "gateway", "fleet", "programs", "bert", "vision")
+               "gateway", "fleet", "programs", "bert", "vision", "nmt")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -4715,6 +5204,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = bert_phase(dev)[0]
                 elif phase == "vision":
                     line = vision_phase(dev)
+                elif phase == "nmt":
+                    line = nmt_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -4742,7 +5233,7 @@ def main(argv=None):
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
                          "inference_server, gateway, fleet, programs, bert, "
-                         "vision)")
+                         "vision, nmt)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -4792,12 +5283,13 @@ def main(argv=None):
     bias_rows = kernel_flash_bias(dev, peaks)
     bf16_rows = kernel_flash_train_bf16(dev, peaks)
     bert_rows = kernel_flash_bert(dev, peaks)
+    nmt_rows = kernel_flash_nmt(dev, peaks)
     other_forms = kernel_other_forms(dev)
     emit({"phase": "kernels", "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
           "flash_fwd": fwd_rows, "flash_decode": dec_row,
           "flash_decode_paged": paged_row, "train": train_rows,
           "bias": bias_rows, "train_bf16": bf16_rows, "bert": bert_rows,
-          "other_forms": other_forms})
+          "nmt_cross": nmt_rows, "other_forms": other_forms})
 
     model, engine, launches = engine_phase(dev)
     emit(dict(engine, device=name, nvidia_smi=smi))
@@ -4826,6 +5318,9 @@ def main(argv=None):
     amp_launches["bert_amp"] = bert_launches["bert_amp"]
     emit(dict(vision_phase(dev), device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
+    nmt_run, nmt_launches = nmt_phase(dev)
+    emit(dict(nmt_run, device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
     served = served_gpt2(dev)
     infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
@@ -4847,16 +5342,26 @@ def main(argv=None):
         return dict({k: r[k] for k in r if k != "ms_window_spread"},
                     shape=bert_rows["shape"], causal=False)
 
+    def nmt_form(kname, tname):
+        # the kernel at the NMT's cross form: non-causal, ragged source
+        # key bias, q [64, 8, 48, 64] against k/v [64, 8, 64, 64]
+        r = nmt_rows[tname][kname]
+        return dict({k: r[k] for k in r if k != "ms_window_spread"},
+                    shape=nmt_rows["shape"], kv_shape=nmt_rows["kv_shape"],
+                    causal=False)
+
     def train_row(kname):
         r = train_rows[kname]
         return {"name": kname, "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
                 "launches": train_launches[kname] + program_launches[kname]
-                + bert_launches["bert"][kname],
+                + bert_launches["bert"][kname] + nmt_launches["nmt"][kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
                                      "train_program": program_launches[kname],
-                                     "bert": bert_launches["bert"][kname]},
+                                     "bert": bert_launches["bert"][kname],
+                                     "nmt": nmt_launches["nmt"][kname]},
                 "bert_form": bert_form(kname, "fp32"),
+                "nmt_form": nmt_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4901,6 +5406,7 @@ def main(argv=None):
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "bert_form": bert_form(kname, "bf16"),
+               "nmt_form": nmt_form(kname, "bf16"),
                "dtype": "bf16", "shape": bf16_rows["shape"],
                "design": r["design"],
                "bound_share": r["bound_share"], "sdpa_ratio": r["sdpa_ratio"],
@@ -4947,7 +5453,8 @@ def main(argv=None):
          + feature_launches["flash_fwd"] + train_launches["flash_fwd"]
          + program_launches["flash_fwd"] + infer_launches["flash_fwd"]
          + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"]
-         + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"],
+         + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"]
+         + nmt_launches["nmt"]["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -4958,7 +5465,8 @@ def main(argv=None):
                               "gateway": gw_launches["flash_fwd"],
                               "fleet": fleet_launches["flash_fwd"],
                               "programs": prog_launches["flash_fwd"],
-                              "bert": bert_launches["bert"]["flash_fwd"]},
+                              "bert": bert_launches["bert"]["flash_fwd"],
+                              "nmt": nmt_launches["nmt"]["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -4966,6 +5474,7 @@ def main(argv=None):
          "bound_tensor_core_ms": fwd_main["bound_tensor_core_ms"],
          "design": fwd_main["design"],
          "bert_form": bert_form("flash_fwd", "fp32"),
+         "nmt_form": nmt_form("flash_fwd", "fp32"),
          "train_dropout": {k: fwd_drop[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "bound_tensor_core_ms", "max_abs_err")}},

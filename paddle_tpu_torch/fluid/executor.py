@@ -21,6 +21,15 @@ is later work). What it plans once per program version:
   environment drops it there, as eager autograd frees what nothing saves
   (the closures keep exactly what their backward needs).
 
+A ``while`` or ``conditional_block`` op runs its sub-block op by op on
+the run's environment (``lower_while_op``, ``lower_conditional_block``);
+the plan counts what a sub-block reads and writes as its op's, so the
+scope reads, the liveness and the persistables written back see through
+it. Reading a ``while`` condition, or a scalar ``conditional_block``
+condition, waits for the device: one host sync a loop iteration
+(``control_flow_host_syncs``), where the reference's ``lax.while_loop``
+stays on the device.
+
 Each plan built counts in the ``executor_plan_builds`` profiler counter
 (a server asserts it stays still after warmup). One Executor may serve
 several threads (a predictor pool shares one): a plan is built under the
@@ -105,23 +114,23 @@ class _Plan(object):
             captured_grads.add(j)
 
         # liveness: last read of every name; a captured grad op reads only
-        # its cotangents (its closure holds the rest)
+        # its cotangents (its closure holds the rest); a control-flow op
+        # reads and writes what its sub-block does
         last = {}
         first_write = {}
         scope_reads = []
         for j, op_ in enumerate(ops):
+            reads, writes = _op_io(op_)
             if j in captured_grads:
                 reads = [n for slot, names in op_.inputs.items()
                          if slot.endswith(GRAD_SUFFIX) for n in names]
-            else:
-                reads = op_.input_arg_names
             for n in reads:
                 if n == EMPTY_VAR:
                     continue
                 if n not in first_write and n not in scope_reads:
                     scope_reads.append(n)
                 last[n] = j
-            for n in op_.output_arg_names:
+            for n in writes:
                 if n != EMPTY_VAR:
                     first_write.setdefault(n, j)
                     last.setdefault(n, j)
@@ -132,6 +141,37 @@ class _Plan(object):
                 self.free_after[j].append(n)
         self.writes_persistable = sorted(
             n for n in first_write if n in persistable)
+
+
+def _sub_block(op_):
+    return op_.block.program.block(op_.attr("sub_block"))
+
+
+def _op_io(op_):
+    """(reads, writes) of one op; a control-flow op's include what its
+    sub-block reads from outside it and writes."""
+    reads, writes = op_.input_arg_names, op_.output_arg_names
+    if op_.has_attr("sub_block"):
+        sub_reads, sub_writes = _analyze_ops(_sub_block(op_).ops)
+        reads, writes = reads + sub_reads, writes + sub_writes
+    return reads, writes
+
+
+def _analyze_ops(ops):
+    """(reads from outside, writes) of an op list, each in first-use
+    order: a name counts as read from outside when an op reads it before
+    any op of the list wrote it (``executor.py:_analyze_ops`` of the
+    reference, nested sub-blocks included)."""
+    reads, writes = [], []
+    for op_ in ops:
+        op_reads, op_writes = _op_io(op_)
+        for n in op_reads:
+            if n != EMPTY_VAR and n not in writes and n not in reads:
+                reads.append(n)
+        for n in op_writes:
+            if n != EMPTY_VAR and n not in writes:
+                writes.append(n)
+    return reads, writes
 
 
 def _is_float_var(block, name):
@@ -258,3 +298,266 @@ class Executor(object):
             outs.append(_to_numpy(v) if return_numpy else v)
         profiler.bump_counter("executor_runs")
         return outs
+
+
+# ---------------------------------------------------------------------------
+# Sub-block control flow (lowered from ops/controlflow_ops.py)
+# ---------------------------------------------------------------------------
+HOST_SYNC_COUNTER = "control_flow_host_syncs"
+
+
+def _sub_ctx(ctx, sub, env):
+    return _registry.LowerCtx(env=env, device=ctx.device, rng=ctx.rng,
+                              block=sub, scope=ctx.scope,
+                              host_feeds=ctx.host_feeds)
+
+
+def _run_block(ctx, sub, env):
+    sub_ctx = _sub_ctx(ctx, sub, env)
+    for op_ in sub.ops:
+        _registry.run_op(sub_ctx, op_)
+
+
+def _holds(t):
+    """A one-element condition read on the host (a wait on the device)."""
+    profiler.bump_counter(HOST_SYNC_COUNTER)
+    return bool(t.reshape(()).item())
+
+
+def _rng_state(ctx):
+    return None if ctx.rng is None else tuple(g.get_state() for g in ctx.rng)
+
+
+@contextlib.contextmanager
+def _rng_at(ctx, state):
+    """The run's generators set to ``state`` inside, back where they
+    were after: a replay draws what the forward drew."""
+    if state is None:
+        yield
+        return
+    now = _rng_state(ctx)
+    for g, st in zip(ctx.rng, state):
+        g.set_state(st)
+    try:
+        yield
+    finally:
+        for g, st in zip(ctx.rng, now):
+            g.set_state(st)
+
+
+def _stash_wanted(ctx, op_, slot):
+    """Whether an op of the run's block reads ``op_``'s ``slot`` output
+    (the StepScopes / Scope a grad op replays from)."""
+    names = [n for n in op_.output(slot) if n != EMPTY_VAR]
+    return bool(names) and any(names[0] in o.input_arg_names
+                               for o in ctx.block.ops)
+
+
+def _is_float(v):
+    return isinstance(v, torch.Tensor) and v.is_floating_point()
+
+
+def _check_no_nested_control_flow(sub, grad_kind):
+    """A grad over a body holding another ``while`` or
+    ``conditional_block`` raises, as the reference's does
+    (``executor.py:306``)."""
+    nested = sorted({o.type for o in sub.ops
+                     if o.type in ("while", "conditional_block")})
+    if nested:
+        raise NotImplementedError(
+            "%s over a sub-block containing nested %s is not supported: "
+            "restructure the inner loop or hoist it out of the "
+            "differentiated region" % (grad_kind, nested))
+
+
+def _while_parts(ctx, op_):
+    """(sub-block, carried names, frozen names) of a ``while``, from the
+    environment before the loop (``_while_parts`` of the reference):
+    carried are the condition and what the body writes that has a value
+    before the loop; frozen is the rest of what it reads."""
+    sub = _sub_block(op_)
+    env = ctx.env
+    cond_name = op_.input("Condition")[0]
+    reads, writes = _analyze_ops(sub.ops)
+    carried = [n for n in dict.fromkeys([cond_name] + writes) if n in env]
+    frozen = [n for n in reads if n not in carried and n in env]
+    return sub, carried, frozen
+
+
+def lower_while_op(ctx, op_):
+    """Run the sub-block on the run's environment while the condition
+    holds (``while_op.cc``). When a ``while_grad`` of the block reads
+    this op's StepScopes, it holds the carried values at the start of
+    every iteration (references, no copies: the body's ops make new
+    tensors) with the generators' states, and the frozen reads."""
+    sub, carried, frozen = _while_parts(ctx, op_)
+    env = ctx.env
+    cond_name = op_.input("Condition")[0]
+    keep = _stash_wanted(ctx, op_, "StepScopes")
+    sub_ctx = _sub_ctx(ctx, sub, env)
+    steps = []
+    while _holds(env[cond_name]):
+        if keep:
+            steps.append(([env[n] for n in carried], _rng_state(ctx)))
+        for inner in sub.ops:
+            _registry.run_op(sub_ctx, inner)
+    if keep:
+        ctx.set(op_.output("StepScopes")[0], {
+            "carried": carried, "frozen": {n: env[n] for n in frozen},
+            "steps": steps})
+
+
+def lower_while_grad_op(ctx, op_):
+    """``while_grad`` (``WhileGradOp``): the steps in reverse, each
+    replayed from its kept carried values under autograd, its vjp taking
+    the carried cotangent one step back and adding into the frozen
+    reads' grads (loop-invariant parameters sum over the iterations)."""
+    sub = _sub_block(op_)
+    _check_no_nested_control_flow(sub, "while_grad")
+    stash = ctx.get(op_.input("StepScopes")[0])
+    carried, frozen, steps = stash["carried"], stash["frozen"], \
+        stash["steps"]
+    init = steps[0][0] if steps else [ctx.get(n) for n in carried]
+    fc = [i for i, v in enumerate(init) if _is_float(v)]
+    ff = [n for n, v in frozen.items() if _is_float(v)]
+    g_c = []
+    for i in fc:
+        g = ctx.get_opt(carried[i] + GRAD_SUFFIX)
+        g_c.append(torch.zeros_like(init[i]) if g is None else g)
+    g_f = [torch.zeros_like(frozen[n]) for n in ff]
+    for vals, rng in reversed(steps):
+        leaves_c = [vals[i].detach().requires_grad_() for i in fc]
+        leaves_f = [frozen[n].detach().requires_grad_() for n in ff]
+        env = dict(frozen)
+        env.update(zip(carried, vals))
+        env.update(zip((carried[i] for i in fc), leaves_c))
+        env.update(zip(ff, leaves_f))
+        with torch.enable_grad(), _rng_at(ctx, rng):
+            _run_block(ctx, sub, env)
+        outs = [(env[carried[i]], g) for i, g in zip(fc, g_c)
+                if env[carried[i]].requires_grad]
+        leaves = leaves_c + leaves_f
+        if outs:
+            grads = torch.autograd.grad(
+                [o for o, _g in outs], leaves, [g for _o, g in outs],
+                allow_unused=True, materialize_grads=True)
+        else:
+            grads = [torch.zeros_like(x) for x in leaves]
+        g_c = list(grads[:len(fc)])
+        g_f = [a + b for a, b in zip(g_f, grads[len(fc):])]
+    by_name = dict(zip(ff, g_f))
+    by_name.update(zip((carried[i] for i in fc), g_c))
+    for xn, gn in zip(op_.input("X"), op_.output("X@GRAD")):
+        if gn == EMPTY_VAR:
+            continue
+        g = by_name.get(xn)
+        if g is None:
+            v = ctx.get_opt(xn)
+            if not _is_float(v):
+                continue
+            g = torch.zeros_like(v)
+        ctx.set(gn, g)
+
+
+def _cond_holds(ctx, op_):
+    """A ``conditional_block``'s condition: the one-element Cond read on
+    the host when ``is_scalar_condition`` (every Switch case), else, as
+    ``conditional_block_op.cc``, that no Cond tensor is empty."""
+    conds = ctx.ins(op_, "Cond")
+    if op_.attr("is_scalar_condition", False):
+        return _holds(conds[0])
+    return all(c.numel() > 0 for c in conds)
+
+
+def _branch_shapes(ctx, sub, reads, names):
+    """{name: (shape, dtype)} the branch would give ``names``, from a run
+    of its ops on meta tensors (shapes and dtypes only)."""
+    meta = torch.device("meta")
+    env = {n: torch.empty(v.shape, dtype=v.dtype, device=meta)
+           for n, v in reads.items() if isinstance(v, torch.Tensor)}
+    sub_ctx = _registry.LowerCtx(env=env, device=meta, block=sub,
+                                 scope=ctx.scope)
+    for inner in sub.ops:
+        _registry.run_op(sub_ctx, inner)
+    return {n: (env[n].shape, env[n].dtype) for n in names}
+
+
+def lower_conditional_block(ctx, op_):
+    """Run the sub-block on the run's environment when the condition
+    holds (``conditional_block_op.cc``). A skipped branch leaves its
+    outputs as they were; an output with no value yet becomes zeros of
+    the shape the branch would give it, the reference's false-branch
+    value (``lax.cond`` needs one)."""
+    sub = _sub_block(op_)
+    env = ctx.env
+    reads, writes = _analyze_ops(sub.ops)
+    out_names = op_.output("Out") or writes
+    read_vals = {n: env[n] for n in reads if n in env}
+    prevs = {n: env[n] for n in out_names if n in env}
+    keep = _stash_wanted(ctx, op_, "Scope")
+    rng = _rng_state(ctx) if keep else None
+    holds = _cond_holds(ctx, op_)
+    if holds:
+        _run_block(ctx, sub, env)
+    else:
+        missing = [n for n in out_names if n not in env]
+        if missing:
+            for n, (shape, dtype) in _branch_shapes(
+                    ctx, sub, read_vals, missing).items():
+                env[n] = torch.zeros(shape, dtype=dtype, device=ctx.device)
+    if keep:
+        ctx.set(op_.output("Scope")[0], {
+            "cond": holds, "reads": read_vals, "prevs": prevs, "rng": rng})
+
+
+def lower_conditional_block_grad(ctx, op_):
+    """``conditional_block_grad``: when the branch ran, the vjp of its
+    replay (from the values it read, under the generators' states it
+    ran with) gives the reads' grads and an output that existed before
+    gets none through the branch; when it was skipped, the reads get
+    zeros and such an output passes its cotangent through."""
+    sub = _sub_block(op_)
+    _check_no_nested_control_flow(sub, "conditional_block_grad")
+    stash = ctx.get(op_.input("Scope")[0])
+    reads, prevs = stash["reads"], stash["prevs"]
+    read_names = [n for n, v in reads.items() if _is_float(v)]
+    float_outs = [n for n in op_.input("Out") if _is_float(ctx.get_opt(n))]
+    g_outs = {}
+    for n in float_outs:
+        g = ctx.get_opt(n + GRAD_SUFFIX)
+        g_outs[n] = torch.zeros_like(ctx.get(n)) if g is None else g
+    pass_names = [n for n in float_outs if n in prevs]
+    if not read_names and not pass_names:
+        return
+    g_reads, g_pass = {}, {}
+    if stash["cond"]:
+        leaves = [reads[n].detach().requires_grad_() for n in read_names]
+        env = dict(reads)
+        env.update(zip(read_names, leaves))
+        with torch.enable_grad(), _rng_at(ctx, stash["rng"]):
+            _run_block(ctx, sub, env)
+        outs = [(env[n], g_outs[n]) for n in float_outs
+                if n in env and env[n].requires_grad]
+        if outs:
+            grads = torch.autograd.grad(
+                [o for o, _g in outs], leaves, [g for _o, g in outs],
+                allow_unused=True, materialize_grads=True)
+        else:
+            grads = [torch.zeros_like(x) for x in leaves]
+        g_reads = dict(zip(read_names, grads))
+        g_pass = {n: torch.zeros_like(prevs[n]) for n in pass_names}
+    else:
+        g_reads = {n: torch.zeros_like(reads[n]) for n in read_names}
+        g_pass = {n: g_outs[n] for n in pass_names}
+    for xn, gn in zip(op_.input("X"), op_.output("X@GRAD")):
+        if gn == EMPTY_VAR:
+            continue
+        total = g_reads.get(xn)
+        if xn in g_pass:
+            total = g_pass[xn] if total is None else total + g_pass[xn]
+        if total is None:
+            v = ctx.get_opt(xn)
+            if not _is_float(v):
+                continue
+            total = torch.zeros_like(v)
+        ctx.set(gn, total)

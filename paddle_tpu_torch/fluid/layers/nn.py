@@ -22,7 +22,9 @@ __all__ = [
     "flash_decode_attention", "flash_decode_paged_attention",
     "kv_cache_write", "kv_cache_copy", "kv_cache_gather",
     "kv_cache_write_paged", "kv_cache_gather_paged", "kv_cache_block_copy",
-    "conv2d", "pool2d", "batch_norm", "relu", "topk",
+    "conv2d", "pool2d", "batch_norm", "relu", "topk", "elementwise_max",
+    "elementwise_min", "elementwise_pow", "logical_not", "one_hot",
+    "label_smooth", "autoincreased_step_counter",
 ]
 
 
@@ -226,6 +228,18 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
 
 
 def mean(x, name=None):
@@ -546,15 +560,74 @@ def where(condition, x, y):
     return out
 
 
-def logical_and(x, y, out=None, name=None):
-    """Elementwise ``x and y`` of bool variables (``nn.py:1311``)."""
-    helper = LayerHelper("logical_and", name=name)
+def _logical(op_type, x, y=None, out=None, name=None):
+    helper = LayerHelper(op_type, name=name)
     if out is None:
         out = helper.create_variable_for_type_inference(
             dtype=core.VarDesc.VarType.BOOL)
-    helper.append_op(type="logical_and", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]})
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]})
     return out
+
+
+def logical_and(x, y, out=None, name=None):
+    """Elementwise ``x and y`` of bool variables (``nn.py:1311``)."""
+    return _logical("logical_and", x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    """Elementwise ``not x`` of a bool variable (``nn.py:1323``)."""
+    return _logical("logical_not", x, None, out, name)
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """fp32 [..., depth] one-hot rows of int ids (``nn.py:1035``)."""
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(
+        dtype=core.VarDesc.VarType.FP32)
+    helper.append_op(
+        type="one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"depth": depth, "allow_out_of_range": allow_out_of_range})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(1 − ε)·label + ε over a uniform (or the given) prior
+    (``nn.py:1143``)."""
+    helper = LayerHelper("label_smooth", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 [1] counter, ``begin - 1`` after the startup
+    program, that an ``increment`` op prepended to the main program's
+    current block raises by ``step`` at the start of every run, so the
+    first run reads ``begin`` (``nn.py:1222``). The counter and its op
+    are made once per name and program."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype=core.VarDesc.VarType.INT64, shape=[1],
+        persistable=True)
+    if not getattr(counter, "_step_init_done", False):
+        helper.set_variable_initializer(counter,
+                                        Constant(value=float(begin - 1)))
+        helper.main_program.current_block()._prepend_op(
+            type="increment", inputs={"X": [counter]},
+            outputs={"Out": [counter]}, attrs={"step": float(step)})
+        counter._step_init_done = True
+        counter.stop_gradient = True
+    return counter
 
 
 def conv2d(

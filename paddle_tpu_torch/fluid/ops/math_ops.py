@@ -3,9 +3,11 @@ lowerings in ``paddle_tpu/fluid/ops/math_ops.py``): plain functions on
 tensors, which the eager models call, and the registered op lowerings
 the Executor runs (elementwise with Fluid's axis broadcast, ``mul``,
 ``matmul``, reductions, ``softmax``, ``softmax_with_cross_entropy`` with
-its grad, ``layer_norm``, and the ``gelu``, ``relu``, ``tanh`` and
-``sqrt`` activations). These stay PyTorch calls; what matters is that
-they mean what the reference's ops mean."""
+its grad, ``layer_norm``, ``label_smooth``, and the ``gelu``, ``relu``,
+``tanh`` and ``sqrt`` activations with the unary ops the learning-rate
+schedules build: ``floor``, ``ceil``, ``exp``, ``cos`` and ``pow``).
+These stay PyTorch calls; what matters is that they mean what the
+reference's ops mean."""
 
 import math
 
@@ -113,13 +115,13 @@ def _ew_infer(op_, block):
     set_out(op_, block, "Out", shape, v.dtype)
 
 
-def _register_elementwise(name, fn, vjp=None):
+def _register_elementwise(name, fn, vjp=None, grad="generic"):
     def lower(ctx, op_, _fn=fn):
         x = ctx.in1(op_, "X")
         y = ctx.in1(op_, "Y")
         ctx.out(op_, "Out", _fn(x, _broadcast_y(x, y, int(op_.attr("axis", -1)))))
 
-    register_op(name, infer_shape=_ew_infer, lower=lower, grad="generic",
+    register_op(name, infer_shape=_ew_infer, lower=lower, grad=grad,
                 vjp=vjp)
 
 
@@ -150,6 +152,14 @@ _register_elementwise("elementwise_sub", torch.sub)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_div", torch.div)
 _register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_pow", torch.pow)
+
+
+# no gradient, as the reference's (``math_ops.py:198-203``); both round
+# toward -inf, as Python's % and // and jnp.mod / jnp.floor_divide
+_register_elementwise("elementwise_mod", torch.remainder, grad=None)
+_register_elementwise("elementwise_floordiv", torch.floor_divide, grad=None)
 
 
 def _mul_infer(op_, block):
@@ -316,6 +326,41 @@ register_op("tanh", infer_shape=same_shape_infer("X"),
 @op("sqrt", infer_shape=same_shape_infer("X"), grad="generic")
 def _sqrt(ctx, op_):
     ctx.out(op_, "Out", torch.sqrt(ctx.in1(op_, "X")))
+
+
+def _register_unary(name, fn):
+    """An activation-table op of the reference (``math_ops.py:52-91``):
+    ``Out = fn(X, op)``, grad through the generic vjp."""
+    def lower(ctx, op_, _fn=fn):
+        ctx.out(op_, "Out", _fn(ctx.in1(op_, "X"), op_))
+
+    register_op(name, infer_shape=same_shape_infer("X"), lower=lower,
+                grad="generic")
+
+
+_register_unary("floor", lambda x, op_: torch.floor(x))
+_register_unary("ceil", lambda x, op_: torch.ceil(x))
+_register_unary("exp", lambda x, op_: torch.exp(x))
+_register_unary("cos", lambda x, op_: torch.cos(x))
+_register_unary("pow", lambda x, op_: torch.pow(
+    x, torch.tensor(float(op_.attr("factor", 1.0)), dtype=x.dtype,
+                    device=x.device)))
+
+
+@op("label_smooth", infer_shape=same_shape_infer("X"), grad="generic")
+def _label_smooth(ctx, op_):
+    """(1 − ε)·X + ε/K over the last axis of size K, or + ε·PriorDist
+    when given (``math_ops.py:695``); X's dtype kept."""
+    x = ctx.in1(op_, "X")
+    eps = float(op_.attr("epsilon", 0.1))
+    prior = ctx.in1(op_, "PriorDist", optional=True)
+    k = x.shape[-1]
+    if prior is not None:
+        out = (1.0 - eps) * x + eps * prior.reshape((1,) * (x.dim() - 1)
+                                                    + (k,))
+    else:
+        out = (1.0 - eps) * x + eps / k
+    ctx.out(op_, "Out", out.to(x.dtype))
 
 
 def _swce_infer(op_, block):

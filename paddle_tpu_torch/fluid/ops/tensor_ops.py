@@ -315,3 +315,33 @@ def _top_k(ctx, op_):
     vals, idx = top_k(ctx.in1(op_, "X"), int(op_.attr("k", 1)))
     ctx.out(op_, "Out", vals)
     ctx.out(op_, "Indices", idx)
+
+
+def _one_hot_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    shape = list(v.shape)
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    set_out(op_, block, "Out", shape + [int(op_.attr("depth"))],
+            core.VarDesc.VarType.FP32)
+
+
+@op("one_hot", infer_shape=_one_hot_infer)
+def _one_hot(ctx, op_):
+    """fp32 [..., depth] rows of ids X ([..., 1] or [...]); an id outside
+    [0, depth) gives a row of zeros, with or without
+    ``allow_out_of_range``, as the reference's ``jax.nn.one_hot``
+    (``tensor_ops.py:562``)."""
+    x = ctx.in1(op_, "X")
+    depth = int(op_.attr("depth"))
+    if x.dim() and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    x = x.long()
+    inside = (x >= 0) & (x < depth)
+    out = torch.zeros(tuple(x.shape) + (depth,), dtype=torch.float32,
+                      device=x.device)
+    out.scatter_(-1, x.clamp(0, depth - 1).unsqueeze(-1),
+                 inside.unsqueeze(-1).to(torch.float32))
+    ctx.out(op_, "Out", out)

@@ -1,3 +1,3 @@
-from . import bert, gpt, lenet, resnet
+from . import bert, gpt, lenet, resnet, transformer
 
-__all__ = ["bert", "gpt", "lenet", "resnet"]
+__all__ = ["bert", "gpt", "lenet", "resnet", "transformer"]

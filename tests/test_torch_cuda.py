@@ -923,3 +923,160 @@ def test_program_paged_steps_on_card_match_eager_steps():
     for (pk, pv), (ek, ev) in zip(prog.caches, eager.caches):
         torch.testing.assert_close(pk, ek, atol=1e-5, rtol=0)
         torch.testing.assert_close(pv, ev, atol=1e-5, rtol=0)
+
+
+# the Transformer NMT's three attention forms at chip_smoke.py's training
+# shape (batch 64, 8 heads, head dim 64, source 64, target 48):
+# (name, causal, Sq, Sk)
+_NMT_FORMS = [("encoder", False, 64, 64), ("decoder_self", True, 48, 48),
+              ("cross", False, 48, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("form,causal,Sq,Sk", _NMT_FORMS,
+                         ids=[f[0] for f in _NMT_FORMS])
+def test_flash_training_kernels_at_the_nmt_forms(form, causal, Sq, Sk,
+                                                 dtype):
+    """The three training kernels at the NMT path's forms, [64, 8, Sq, 64]
+    queries against [64, 8, Sk, 64] keys under a ragged per-batch key
+    bias (each row's real source or target length, the rest -1e4),
+    dropout 0 as the parity runs: fp32 at the kernel limits above, bf16
+    at ``lowp_limits``'s."""
+    gen = torch.Generator().manual_seed(Sq * 3 + Sk + causal)
+    B, N, D = 64, 8, 64
+    lens = torch.randint(Sk // 3, Sk + 1, (B,), generator=gen)
+    kb = (torch.arange(Sk)[None, :] >= lens[:, None]).float() * -1e4
+    kb = kb.cuda()
+    q = _randn(gen, B, N, Sq, D).to(dtype)
+    k, v = (_randn(gen, B, N, Sk, D).to(dtype) for _ in range(2))
+    g = _randn(gen, B, N, Sq, D).to(dtype)
+    if dtype != torch.float32:
+        _check_low_precision(dtype, q, k, v, kb, g, None, causal, 0.0, None)
+        return
+    out, lse = fa.flash_attention_lse(q, k, v, kb, causal=causal)
+    grads = fa.flash_attention_bwd_from_residuals(q, k, v, kb, None, out,
+                                                  lse, g, causal=causal)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(q, k, v, key_bias=kb,
+                                                    causal=causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, kb, None, ref_out, ref_lse,
+                                       g, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=ATOL, rtol=RTOL)
+    for name, got, want in zip(("dq", "dk", "dv", "dkey_bias"), grads, ref):
+        torch.testing.assert_close(got, want, atol=BWD_ATOL, rtol=RTOL,
+                                   msg=name)
+
+
+def test_nmt_program_step_on_card_matches_cpu():
+    """``build_transformer_train(TransformerConfig.tiny, 12, 10)``, flash,
+    label smoothing 0.1, dropout 0, on ragged masks through
+    ``fluid.Executor`` on the card and on the CPU from the same weights:
+    each training kernel launches 3 times a layer pair a step on the
+    card, the step counter counts on both, and two Adam steps' losses
+    agree within 1e-4 and their gradients within 1e-3 relative norm
+    (+ 1e-7 absolute for the k-projection biases, whose exact gradient
+    is 0)."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig.tiny(use_flash_attention=True, dropout=0.0)
+    rs = np.random.RandomState(0)
+    B, S, T = 4, 12, 10
+    src_mask = (np.arange(S)[None, :] < np.array([[12], [7], [3], [10]])
+                ).astype(np.float32)[..., None]
+    tgt_mask = (np.arange(T)[None, :] < np.array([[10], [6], [4], [8]])
+                ).astype(np.float32)[..., None]
+    feed = {"src_ids": rs.randint(2, 1000, (B, S, 1)),
+            "src_pos": np.tile(np.arange(S).reshape(1, S, 1), (B, 1, 1)),
+            "src_mask": src_mask,
+            "tgt_ids": rs.randint(2, 1000, (B, T, 1)),
+            "tgt_pos": np.tile(np.arange(T).reshape(1, T, 1), (B, 1, 1)),
+            "tgt_mask": tgt_mask, "labels": rs.randint(2, 1000, (B, T, 1))}
+    arrays = None
+    runs = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        with fluid.unique_name.guard():
+            main, startup, _f, loss = tfm.build_transformer_train(cfg, S, T)
+        names = sorted(p.name for p in main.all_parameters() if p.trainable)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            arrays = {v.name: scope.get(v.name).cpu().numpy().copy()
+                      for v in main.list_vars() if v.persistable}
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        n0 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        out = [exe.run(main, feed=feed, fetch_list=[loss] + [
+            n + "@GRAD" for n in names], scope=scope) for _ in range(2)]
+        n1 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        want = 2 * 3 * cfg.num_layers \
+            if isinstance(place, fluid.CUDAPlace) else 0
+        assert [b - a for a, b in zip(n0, n1)] == [want] * 3
+        assert int(scope.get("@LR_DECAY_COUNTER@").item()) == 2
+        runs[str(place)] = out
+    (cuda, cpu) = runs.values()
+    for step in range(2):
+        np.testing.assert_allclose(cuda[step][0], cpu[step][0], atol=1e-4)
+        for got, want in zip(cuda[step][1:], cpu[step][1:]):
+            # + 1e-7: the k-projection biases' exact gradient is 0
+            d = np.linalg.norm(got - want)
+            assert d <= 1e-3 * np.linalg.norm(want) + 1e-7
+
+
+def test_while_and_conditional_block_on_card_match_cpu():
+    """A ``While`` RNN (mem = tanh(mem @ W + x_t) over a time-major
+    array, 6 steps) and a ``cond`` after it, with ``append_backward``,
+    through ``fluid.Executor`` on the card and on the CPU from the same
+    weights: the loss within 1e-5 relative and dloss/dW within 1e-4
+    relative norm."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    B, T, H = 4, 6, 16
+    xb = np.random.RandomState(1).randn(B, T, H).astype(np.float32)
+    w0 = np.random.RandomState(2).randn(H, H).astype(np.float32) * 0.3
+    out = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[T, H], dtype="float32")
+            arr = fluid.layers.lod_tensor_to_array(
+                x, fluid.layers.lod_rank_table(x))
+            i = fluid.layers.fill_constant(shape=[1], dtype="int64", value=0)
+            n = fluid.layers.fill_constant(shape=[1], dtype="int64", value=T)
+            mem = fluid.layers.fill_constant(shape=[B, H], dtype="float32",
+                                             value=0.0)
+            mem.stop_gradient = False
+            W = fluid.layers.create_parameter(shape=[H, H], dtype="float32",
+                                              name="W")
+            cond = fluid.layers.less_than(i, n)
+            loop = fluid.layers.While(cond)
+            with loop.block():
+                xt = fluid.layers.array_read(arr, i)
+                fluid.layers.assign(fluid.layers.tanh(
+                    fluid.layers.matmul(mem, W) + xt), output=mem)
+                fluid.layers.increment(i, value=1, in_place=True)
+                fluid.layers.less_than(i, n, cond=cond)
+            s = fluid.layers.reduce_mean(mem)
+            zero = fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                              value=0.0)
+            loss = fluid.layers.cond(fluid.layers.greater_than(s, zero),
+                                     lambda: s * 2.0, lambda: s * -1.0)
+            (_p, g), = fluid.backward.append_backward(loss)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        scope.set("W", torch.from_numpy(w0.copy()).to(exe.device))
+        out.append(exe.run(main, feed={"x": xb}, fetch_list=[loss, g],
+                           scope=scope))
+    (lc, gc), (lp, gp) = out
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    assert np.linalg.norm(gc - gp) <= 1e-4 * np.linalg.norm(gp)

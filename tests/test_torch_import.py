@@ -165,6 +165,44 @@ for fn in (bert.BertConfig.base, bert.BertConfig.tiny, bert.mask_to_bias,
 for op_type in ("tanh", "top_k", "accuracy", "conv2d", "depthwise_conv2d",
                 "pool2d", "batch_norm", "sgd", "momentum"):
     assert registry.has_op(op_type), op_type
+# the Transformer NMT and sub-block control-flow slice
+from paddle_tpu_torch.fluid.layers import learning_rate_scheduler, math_op_patch
+from paddle_tpu_torch.models import transformer
+for fn in (transformer.TransformerConfig, transformer.TransformerConfig.tiny,
+           transformer.transformer, transformer.build_transformer_train,
+           transformer.build_transformer_infer,
+           transformer.beam_search_decode, layers.one_hot,
+           layers.label_smooth, layers.elementwise_min, layers.elementwise_pow,
+           layers.elementwise_max, layers.autoincreased_step_counter,
+           layers.logical_not, layers.exp, layers.floor, layers.ceil,
+           layers.cos, layers.tanh, layers.While, layers.Switch, layers.cond,
+           layers.increment, layers.less_than, layers.less_equal,
+           layers.greater_than, layers.equal, layers.not_equal,
+           layers.create_array, layers.array_write, layers.array_read,
+           layers.array_length, layers.is_empty, layers.lod_rank_table,
+           layers.lod_tensor_to_array, layers.array_to_lod_tensor,
+           layers.max_sequence_len, layers.shrink_memory,
+           math_op_patch.monkey_patch_variable, executor.lower_while_op,
+           executor.lower_while_grad_op, executor.lower_conditional_block,
+           executor.lower_conditional_block_grad):
+    assert callable(fn)
+for name in learning_rate_scheduler.__all__:
+    assert getattr(layers, name) is getattr(learning_rate_scheduler, name)
+assert len(learning_rate_scheduler.__all__) == 8
+assert transformer is __import__("paddle_tpu_torch.models",
+                                 fromlist=["transformer"]).transformer
+assert callable(framework.Variable.__add__)   # math_op_patch applied
+for op_type in ("one_hot", "label_smooth", "elementwise_min",
+                "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+                "increment", "floor", "ceil", "exp", "cos", "pow", "while",
+                "while_grad", "conditional_block", "conditional_block_grad",
+                "select_input", "select_output", "lod_rank_table",
+                "lod_tensor_to_array", "array_to_lod_tensor",
+                "write_to_array", "read_from_array", "lod_array_length",
+                "max_sequence_len", "shrink_rnn_memory", "is_empty",
+                "split_lod_tensor", "merge_lod_tensor", "less_than",
+                "less_equal", "greater_than", "equal", "not_equal"):
+    assert registry.has_op(op_type), op_type
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
