@@ -6,11 +6,13 @@
     python3 chip_smoke.py --only fleet
     python3 chip_smoke.py --only bert,vision
     python3 chip_smoke.py --only nmt
+    python3 chip_smoke.py --only recompute,rnn
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
-``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``),
+``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``,
+``recompute``, ``rnn``),
 ``--repeat``
 times, printing each run's line whether it passed or not. Phases, one
 JSON line each:
@@ -206,6 +208,27 @@ JSON line each:
            and a ``cond`` with their gradients on the card against the
            CPU, with the host syncs a loop iteration. Step ms, target
            tokens/s, idle share, peak memory.
+19. recompute  (run after nmt) activation recompute: ResNet-50 with
+           ``build_resnet_train(50, recompute=True)`` beside the plain
+           build at batch 32 and 128 (step-1 loss, fc's gradient and the
+           running stats against the plain step's, peak
+           ``torch.cuda.max_memory_allocated`` of each and their ratio,
+           step ms, conv launches), one AMP step with recompute; BERT-base's
+           classifier with ``RecomputeOptimizer`` (checkpoints at the 12
+           encoder layers' outputs) beside the plain program at dropout
+           0.1 from the same weights and generator state (step-1 loss and
+           every gradient; 24 ``flash_fwd``, 12 dq and 12 dk/dv a step, no
+           generic replay), peak memory and step ms.
+20. rnn    the recurrent layers: the PTB LSTM LM "large" on
+           ``fluid.contrib.basic_lstm`` and the IMDB stacked LSTM on
+           ``dynamic_lstm`` fed by ``DataFeeder`` as LoD (lengths 16-256),
+           each against the CPU at step 1 and learning on the card (step
+           ms, tokens/s, idle share, launches, peak memory);
+           ``DynamicRNN`` / ``StaticRNN`` / ``IfElse`` at hid 512 against
+           the CPU; LSTM beam search (``BeamSearchDecoder`` +
+           ``dynamic_decode``, beam 10, 50 steps, vocabulary 7709) against
+           the CPU step by step, its backtrack against numpy, host syncs
+           a step.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -403,6 +426,65 @@ RESNET_BATCH, RESNET_CHECK_BATCH, RESNET_STEPS = 32, 4, 10
 RESNET_LOSS_RTOL, RESNET_GRAD_RTOL, RESNET_STAT_RTOL = 1e-4, 1e-3, 1e-4
 RESNET_F64_RATIO = 1.5
 RESNET_GRAD_PARAMS = ("conv2d_0.w_0", "batch_norm_26.w_0", "fc_0.w_0")
+# Activation recompute (ROADMAP A8) through fluid.Executor(CUDAPlace(0)).
+# ResNet-50 (224x224, 1000 classes, Momentum 0.1 / 0.9) with
+# build_resnet_train(50, recompute=True) (checkpoints at every other
+# residual block's output) beside the plain build, from the same weights
+# at batch 32 and 128: the replays recompute the same functions on the
+# same inputs, so the step-1 loss within 1e-5 relative, fc's gradient and
+# every batch norm's running Mean and Variance after step 1 (advanced once,
+# not twice: a replay writes its own copies) within 1e-4 relative norm.
+# 3 timed steps each for the step ms and torch.cuda.max_memory_allocated;
+# one profiled step at batch 32 for the conv launches (the replays show as
+# more convolutions). One AMP step with recompute, its loss within 1e-2 of
+# the fp32 step's. BERT-base's classifier (batch 24, seq 384, Adam 1e-4,
+# dropout 0.1 in the dropout ops and in the flash kernel) wrapped in
+# RecomputeOptimizer with the 12 encoder layers' outputs as checkpoints,
+# beside the plain program from the same weights and generator state: the
+# kept dropout outputs and the replays' reuse of the forward's flash seed
+# give the same masks, so the step-1 loss and every gradient within 1e-5
+# relative norm (a replay with a fresh seed reads O(1));
+# flash_fwd 24 a step (12 forward, 12 replays), dq and dk/dv 12 each.
+RC_RESNET_BATCHES, RC_RESNET_STEPS = (32, 128), 3
+RC_LOSS_RTOL, RC_GRAD_RTOL, RC_STAT_RTOL = 1e-5, 1e-4, 1e-4
+RC_AMP_LOSS_RTOL = 1e-2
+RC_BERT_STEPS, RC_BERT_RTOL = 3, 1e-5
+# The recurrent layers (ROADMAP A14) through fluid.Executor(CUDAPlace(0)),
+# each against the same program on the CPU from the same weights: the
+# step-1 loss within 1e-5 relative and every gradient within 1e-4
+# relative norm (floored as in the train phases), fp32 both ways. The PTB
+# LSTM LM "large" (Zaremba et al. 2014, arXiv:1409.2329, as PaddleNLP's
+# language_model large config): 2 layers of 1500, 35 unrolled steps,
+# batch 20, vocabulary 10000, U(-0.04, 0.04), SGD at 1.0 under a global
+# norm clip of 10, dropout 0.65; compared at dropout 0, then 20 steps at
+# 0.65 on one batch of random ids whose last 5 losses must average 0.1
+# below the first 5. The IMDB stacked LSTM (the book's stacked_lstm_net:
+# embedding 128, 3 dynamic_lstm of 512 alternating direction, 2 classes,
+# the synthetic reader's vocabulary of 5148, Adagrad 0.002) on 128
+# reviews of 16-256 words fed by DataFeeder as LoD (real reviews run
+# longer: a cut); 20 steps whose loss must fall. Its card-vs-CPU check
+# runs on the first 16 reviews of that batch (the CPU takes ~54 s for
+# the 128: a cut of the check's batch, not of the model), and its
+# predictions there are held within IMDB_PLAIN_ATOL of a plain fp64
+# PyTorch loop over each review's own rows (no padding, no lengths: the
+# ragged semantics held apart from the port's masking). DynamicRNN, StaticRNN
+# and IfElse at hid 512 over the same feed. Beam search: BeamSearchDecoder
+# over one LSTMCell(512), vocabulary 7709, beam 10, at most 50 steps, 32
+# sources (PaddleNLP seq2seq's IWSLT'15 en-vi widths, one layer where it
+# stacks two, no attention): every step's tokens and parents equal the
+# CPU's, or, apart at a near tie, the final scores within 1e-4 of their
+# size; the backtrack equal to numpy's.
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_STEPS = 10000, 1500, 2, 35
+PTB_BATCH, PTB_INIT, PTB_LR, PTB_CLIP = 20, 0.04, 1.0, 10.0
+PTB_DROPOUT, PTB_TRAIN_STEPS, PTB_LEARN_MARGIN = 0.65, 20, 0.1
+IMDB_VOCAB, IMDB_EMB, IMDB_HID, IMDB_STACKED = 5148, 128, 512, 3
+IMDB_BATCH, IMDB_MIN_LEN, IMDB_MAX_LEN = 128, 16, 256
+IMDB_LR, IMDB_STEPS, IMDB_CHECK_BATCH = 0.002, 20, 16
+IMDB_PLAIN_ATOL = 1e-5
+CF_HID = 512
+BEAM_HID, BEAM_VOCAB, BEAM_K, BEAM_STEPS, BEAM_N = 512, 7709, 10, 50, 32
+BEAM_BOS, BEAM_EOS, BEAM_TIE_RTOL = 0, 1, 1e-4
+RNN_LOSS_RTOL, RNN_GRAD_RTOL = 1e-5, 1e-4
 # The paged engine: max_len 1016 leaves room for the width-4 verify's
 # positions (max_len + k - 1 <= 1024), so tables are 64 blocks of 16 (a
 # key span of 1024) and the pool 8 * 64 + 1 blocks; the longest prompt
@@ -5165,6 +5247,764 @@ def vision_phase(dev):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 19: activation recompute (RecomputeOptimizer) on ResNet-50 and BERT
+# ---------------------------------------------------------------------------
+def _stat_names(main):
+    """The running Mean and Variance of every forward batch norm (a
+    recompute replay writes its own ``@RECOMPUTE@`` copies)."""
+    return [n for op in main.global_block().ops if op.type == "batch_norm"
+            and "@RECOMPUTE@" not in op.output("MeanOut")[0]
+            for n in op.input("Mean") + op.input("Variance")]
+
+
+def _conv_launches(prof):
+    keys = ("conv", "fprop", "dgrad", "wgrad", "implicit")
+    return sum(n for k, n in prof["kernel_calls"].items()
+               if any(s in k.lower() for s in keys))
+
+
+def resnet_recompute_run(batch, recompute, arrays, seed, profile_it):
+    """ResNet-50 (``build_resnet_train(50, recompute=...)``) on the card
+    from ``arrays``: step 1 (loss, fc's gradient, the running stats after
+    it), ``RC_RESNET_STEPS`` timed steps, the peak of
+    ``torch.cuda.max_memory_allocated`` over them, and with
+    ``profile_it`` one profiled step. Returns (row, step-1 values)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import resnet
+
+    card = fluid.CUDAPlace(0)
+    t0 = time.perf_counter()
+    main, _s, loss, _acc, exe, scope = vision_program(
+        lambda: resnet.build_resnet_train(
+            50, class_num=1000, image_size=224, learning_rate=0.1,
+            momentum=0.9, recompute=recompute), card)
+    build_s = time.perf_counter() - t0
+    fluid.load_program_scope(main, scope, arrays)
+    stats = _stat_names(main)
+    feed = image_feed(batch, 3, 224, 1000, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+    got = exe.run(main, feed=feed, fetch_list=[loss, "fc_0.w_0@GRAD"],
+                  scope=scope)
+    replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+    step1 = {"loss": float(got[0].reshape(-1)[0]), "fc_grad": got[1],
+             "stats": {n: scope.get(n).cpu().numpy() for n in stats}}
+    losses, ms = timed_steps(loss_step(exe, main, loss, feed, scope),
+                             RC_RESNET_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    row = {"batch": batch, "program_ops": len(main.global_block().ops),
+           "build_s": build_s, "generic_replays": replays,
+           "step1_loss": step1["loss"], "losses": losses, "step_ms": ms,
+           "step_ms_p50": float(np.median(ms)),
+           "images_per_s_p50": batch / (np.median(ms) / 1e3),
+           "peak_mem_mib": peak, "batch_norm_stats": len(stats)}
+    if profile_it:
+        prof = _profile(loss_step(exe, main, loss, feed, scope), reps=1)
+        row.update(device_idle_share=prof["device_idle_share"],
+                   launches_per_step=prof["launches_per_call"],
+                   conv_launches_per_step=_conv_launches(prof),
+                   device_busy_ms=prof["device_busy_ms"])
+    if replays or not all(np.isfinite(losses + [step1["loss"]])):
+        raise AssertionError("resnet50 recompute=%s batch %d: %d generic "
+                             "replays, losses %r" % (recompute, batch,
+                                                     replays, losses))
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+    return row, step1
+
+
+def bert_recompute_program(cfg, seq, recompute, lr=BERT_LR):
+    """``build_bert_classifier(cfg, seq)``'s program with its Adam built
+    here, wrapped in ``RecomputeOptimizer`` when ``recompute``: the
+    checkpoints are the 12 encoder layers' outputs, picked from the built
+    program as the last op of each ``encoder_layer`` (its second
+    ``layer_norm``; the program's first is the embeddings'). Returns
+    (main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        ids = [L.data(name=n, shape=[seq, 1], dtype="int64")
+               for n in ("src_ids", "pos_ids", "sent_ids")]
+        mask = L.data(name="input_mask", shape=[seq, 1], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        _x, pooled = bert.bert_encoder(*ids, mask, cfg)
+        pooled = bert._dropout(pooled, cfg.hidden_dropout, cfg.is_test)
+        logits = L.fc(input=pooled, size=2, name="cls")
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        L.accuracy(input=L.softmax(logits), label=label)
+        block = main.global_block()
+        norms = [o for o in block.ops if o.type == "layer_norm"]
+        if len(norms) != 1 + 2 * cfg.num_layers:
+            raise AssertionError("bert program has %d layer norms"
+                                 % len(norms))
+        opt = fluid.optimizer.Adam(learning_rate=lr)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints([block.var(o.output("Y")[0])
+                                  for o in norms[2::2]])
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def recompute_phase(dev):
+    """Activation recompute (``RecomputeOptimizer``, ROADMAP A8) through
+    ``fluid.Executor(CUDAPlace(0))``. ResNet-50 with
+    ``build_resnet_train(50, recompute=True)`` beside the plain build at
+    batch 32 and 128 from the same weights: step-1 loss, fc's gradient
+    and every batch norm's running stats (advanced once) against the
+    plain step's, peak memory, step ms, conv launches; one AMP step with
+    recompute. BERT-base's classifier (batch 24, seq 384, dropout 0.1)
+    with ``RecomputeOptimizer`` over Adam, checkpoints at the 12 encoder
+    layers' outputs, beside the plain program from the same weights and
+    generator state: step-1 loss and every gradient, launches a step
+    (the main path: counts zeroed just before the timed steps, read just
+    after), peak memory, step ms."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import bert, resnet
+
+    t_phase = time.perf_counter()
+    card = fluid.CUDAPlace(0)
+    main, _s, _loss, _acc, _exe, scope = vision_program(
+        lambda: resnet.build_resnet_train(50, class_num=1000,
+                                          image_size=224), card)
+    arrays = program_arrays(main, scope)
+    del main, _s, _loss, _acc, _exe, scope
+    resnet_rows = {}
+    for batch in RC_RESNET_BATCHES:
+        plain, p1 = resnet_recompute_run(batch, False, arrays, 30 + batch,
+                                         batch == RC_RESNET_BATCHES[0])
+        rec, r1 = resnet_recompute_run(batch, True, arrays, 30 + batch,
+                                       batch == RC_RESNET_BATCHES[0])
+        loss_rel = abs(r1["loss"] - p1["loss"]) / abs(p1["loss"])
+        grad_rel = float(np.linalg.norm(r1["fc_grad"] - p1["fc_grad"])
+                         / np.linalg.norm(p1["fc_grad"]))
+        stat_rel, _n = rel_norms(r1["stats"], p1["stats"])
+        worst = max(stat_rel, key=stat_rel.get)
+        moved = min(float(np.linalg.norm(p1["stats"][n] - arrays[n]))
+                    for n in p1["stats"])
+        if not (loss_rel <= RC_LOSS_RTOL and grad_rel <= RC_GRAD_RTOL
+                and stat_rel[worst] <= RC_STAT_RTOL and moved > 0):
+            raise AssertionError(
+                "resnet50 recompute vs plain at batch %d: loss %r vs %r, "
+                "fc gradient at %.3g, running stat %s at %.3g (least move "
+                "%.3g)" % (batch, r1["loss"], p1["loss"], grad_rel, worst,
+                           stat_rel[worst], moved))
+        resnet_rows["batch%d" % batch] = {
+            "plain": plain, "recompute": rec, "loss_rel": loss_rel,
+            "fc_grad_rel": grad_rel, "stat_max_rel": stat_rel[worst],
+            "stat_worst": worst, "stat_least_move": moved,
+            "peak_mem_ratio": rec["peak_mem_mib"] / plain["peak_mem_mib"],
+            "step_ms_ratio": rec["step_ms_p50"] / plain["step_ms_p50"]}
+        if "conv_launches_per_step" in rec:
+            resnet_rows["batch%d" % batch]["conv_launch_ratio"] = (
+                rec["conv_launches_per_step"]
+                / plain["conv_launches_per_step"])
+    # one AMP step with recompute (recompute inside the AMP decorator)
+    main, _s, loss, _acc, exe, scope = vision_program(
+        lambda: resnet.build_resnet_train(50, class_num=1000, image_size=224,
+                                          use_amp=True, recompute=True),
+        card)
+    fluid.load_program_scope(main, scope, dict(
+        arrays, loss_scaling=scope.get("loss_scaling").cpu().numpy()))
+    amp_loss = float(exe.run(main, feed=image_feed(
+        RC_RESNET_BATCHES[0], 3, 224, 1000, seed=30 + RC_RESNET_BATCHES[0]),
+        fetch_list=[loss], scope=scope)[0].reshape(-1)[0])
+    fp32_loss = resnet_rows["batch%d" % RC_RESNET_BATCHES[0]]["plain"][
+        "step1_loss"]
+    amp_rel = abs(amp_loss - fp32_loss) / abs(fp32_loss)
+    amp_row = {"batch": RC_RESNET_BATCHES[0], "loss": amp_loss,
+               "rel_vs_fp32": amp_rel, "rtol": RC_AMP_LOSS_RTOL,
+               "program_ops": len(main.global_block().ops),
+               "casts": sum(o.type == "cast" for o in
+                            main.global_block().ops)}
+    del main, _s, loss, _acc, exe, scope, arrays
+    torch.cuda.empty_cache()
+    if not (np.isfinite(amp_loss) and amp_rel <= RC_AMP_LOSS_RTOL):
+        raise AssertionError("resnet50 amp+recompute step: loss %r against "
+                             "fp32 %r" % (amp_loss, fp32_loss))
+
+    # BERT-base: RecomputeOptimizer against the plain program, dropout 0.1
+    cfg = bert.BertConfig.base(use_flash_attention=True)
+    feed = bert_feed(BERT_SEQ, BERT_BATCH, seed=4)
+    n_layers = cfg.num_layers
+    runs, arrays = {}, None
+    for rec in (False, True):
+        main, startup, loss = bert_recompute_program(cfg, BERT_SEQ, rec)
+        exe = fluid.Executor(card)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            arrays = program_arrays(main, scope)
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        names = sorted(p.name for p in main.all_parameters())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        zero_flash_launches()
+        out = exe.run(main, feed=feed, fetch_list=[loss] + [
+            n + "@GRAD" for n in names], scope=scope)
+        step1_launches = flash_launches()
+        zero_flash_launches()
+        losses, ms = timed_steps(loss_step(exe, main, loss, feed, scope),
+                                 RC_BERT_STEPS)
+        launches = flash_launches()
+        replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = _profile(loss_step(exe, main, loss, feed, scope), reps=1)
+        want = {"flash_fwd": n_layers * (2 if rec else 1),
+                "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+        if step1_launches != want or replays or any(
+                launches[k] != want[k] * RC_BERT_STEPS for k in want):
+            raise AssertionError(
+                "bert recompute=%s: step 1 launched %r (expected %r), the "
+                "%d timed steps %r, %d generic replays"
+                % (rec, step1_launches, want, RC_BERT_STEPS, launches,
+                   replays))
+        runs[rec] = {
+            "step1_loss": float(out[0].reshape(-1)[0]),
+            "grads": dict(zip(names, out[1:])),
+            "row": {"program_ops": len(main.global_block().ops),
+                    "step1_launches": step1_launches,
+                    "launches": launches, "generic_replays": replays,
+                    "losses": losses, "step_ms": ms,
+                    "step_ms_p50": float(np.median(ms)),
+                    "seq_per_s_p50": BERT_BATCH / (np.median(ms) / 1e3),
+                    "peak_mem_mib": peak,
+                    "device_idle_share": prof["device_idle_share"],
+                    "launches_per_step": prof["launches_per_call"],
+                    "flash_launches_by_kernel":
+                        prof["flash_launches_by_kernel"]}}
+        del main, startup, loss, exe, scope, out
+        torch.cuda.empty_cache()
+    plain, rec = runs[False], runs[True]
+    rel, _total = rel_norms(rec["grads"], plain["grads"], GRAD_NORM_FLOOR)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(rec["step1_loss"] - plain["step1_loss"]) / abs(
+        plain["step1_loss"])
+    if not (loss_rel <= RC_BERT_RTOL and rel[worst] <= RC_BERT_RTOL):
+        raise AssertionError("bert recompute vs plain at dropout 0.1: loss "
+                             "%r vs %r, gradient of %s at relative norm %.3g"
+                             % (rec["step1_loss"], plain["step1_loss"],
+                                worst, rel[worst]))
+    bert_launches = rec["row"]["launches"]
+    return {
+        "phase": "recompute",
+        "resnet50": dict(resnet_rows, amp_recompute=amp_row,
+                         checkpoints="every other residual block's output "
+                                     "(ckpts[1::2], 8 of 16)",
+                         loss_rtol=RC_LOSS_RTOL, grad_rtol=RC_GRAD_RTOL,
+                         stat_rtol=RC_STAT_RTOL),
+        "bert": {"model": "bert-base", "seq_len": BERT_SEQ,
+                 "batch": BERT_BATCH,
+                 "dropout": [cfg.hidden_dropout, cfg.attention_dropout],
+                 "checkpoints": n_layers, "step1_loss_rel": loss_rel,
+                 "max_grad_rel": rel[worst], "worst_param": worst,
+                 "params": len(rel), "rtol": RC_BERT_RTOL,
+                 "plain": plain["row"], "recompute": rec["row"],
+                 "peak_mem_ratio": rec["row"]["peak_mem_mib"]
+                 / plain["row"]["peak_mem_mib"],
+                 "step_ms_ratio": rec["row"]["step_ms_p50"]
+                 / plain["row"]["step_ms_p50"]},
+        "seconds": time.perf_counter() - t_phase,
+    }, {"recompute_bert": bert_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the recurrent layers on LoD feeds, and beam search
+# ---------------------------------------------------------------------------
+def ptb_lm_program(dropout):
+    """PaddleNLP's ``language_model`` in its "large" config (Zaremba et
+    al. 2014): embedding, ``fluid.contrib.basic_lstm`` (2 layers of
+    1500, ``recurrent`` ops), a softmax projection, the loss summed over
+    the 35 steps and averaged over the batch, SGD under a global-norm
+    clip, forget bias 0. ``ptb_init`` sets the weights. (No ParamAttr is
+    passed to ``basic_lstm``: one ParamAttr object given to both layers'
+    cells would name, and so share, a single weight in this package and
+    in the reference, whose ``LayerHelper`` sets the name on the object
+    it is given.) Returns (main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 17
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = L.data(name="x", shape=[PTB_STEPS, 1], dtype="int64")
+        y = L.data(name="y", shape=[PTB_STEPS, 1], dtype="int64")
+        h0, c0 = (L.data(name=n, shape=[PTB_LAYERS, PTB_BATCH, PTB_HIDDEN],
+                         dtype="float32", append_batch_size=False)
+                  for n in ("init_hidden", "init_cell"))
+        emb = L.embedding(x, size=[PTB_VOCAB, PTB_HIDDEN],
+                          param_attr=fluid.ParamAttr(name="embedding_para"))
+        if dropout:
+            emb = L.dropout(emb, dropout_prob=dropout,
+                            dropout_implementation="upscale_in_train")
+        out, _h, _c = fluid.contrib.basic_lstm(
+            emb, h0, c0, PTB_HIDDEN, num_layers=PTB_LAYERS,
+            dropout_prob=dropout, forget_bias=0.0)
+        if dropout:
+            out = L.dropout(out, dropout_prob=dropout,
+                            dropout_implementation="upscale_in_train")
+        w = L.create_parameter([PTB_HIDDEN, PTB_VOCAB], "float32",
+                               name="softmax_weight")
+        b = L.create_parameter([PTB_VOCAB], "float32", name="softmax_bias")
+        logits = L.elementwise_add(L.matmul(out, w), b)
+        loss = L.softmax_with_cross_entropy(logits, y)
+        loss = L.reduce_sum(L.reduce_mean(L.reshape(loss, [-1, PTB_STEPS]),
+                                          dim=[0]))
+        fluid.optimizer.SGD(learning_rate=PTB_LR).minimize(
+            loss, grad_clip=fluid.clip.GradientClipByGlobalNorm(PTB_CLIP))
+    return main, startup, loss
+
+
+def ptb_init(main, scope):
+    """Every PTB weight U(-0.04, 0.04) and the LSTM biases 0, drawn with
+    numpy from a seed, set in ``scope`` (on its device)."""
+    rng = np.random.default_rng(53)
+    for p in sorted(main.all_parameters(), key=lambda v: v.name):
+        t = scope.get(p.name)
+        if p.name.endswith(".b_0"):
+            val = np.zeros(tuple(t.shape), np.float32)
+        else:
+            val = rng.uniform(-PTB_INIT, PTB_INIT, tuple(t.shape)).astype(
+                np.float32)
+        t.copy_(torch.from_numpy(val))
+
+
+def imdb_samples(batch, seed):
+    """[(ids, [label])] of ``batch`` reviews, lengths drawn from
+    IMDB_MIN_LEN..IMDB_MAX_LEN, built as the reference's synthetic IMDB
+    reader builds its reviews (``paddle_tpu/dataset/imdb.py``: 70% of a
+    positive review's words from the vocabulary's upper half, 70% of a
+    negative one's from the lower half, the rest from all of it)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(batch):
+        label = int(rng.randint(0, 2))
+        length = int(rng.randint(IMDB_MIN_LEN, IMDB_MAX_LEN + 1))
+        lo, hi = ((IMDB_VOCAB // 2, IMDB_VOCAB) if label
+                  else (0, IMDB_VOCAB // 2))
+        main = rng.randint(lo, hi, size=int(length * 0.7))
+        noise = rng.randint(0, IMDB_VOCAB, size=length - len(main))
+        seq = np.concatenate([main, noise])
+        rng.shuffle(seq)
+        out.append((seq.astype(np.int64).tolist(), [label]))
+    return out
+
+
+def imdb_program():
+    """The PaddlePaddle book's ``stacked_lstm_net`` (understand_sentiment)
+    at its widths: embedding 128, 3 stacked ``dynamic_lstm`` of 512
+    alternating direction over ``fc`` projections (``num_flatten_dims=2``
+    on the padded [N, T, ...] batch), max ``sequence_pool`` of the last
+    fc and LSTM, a softmax over 2 classes, ``cross_entropy``, Adagrad.
+    Returns (main, startup, [cost, prediction], [words, label])."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 19
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = L.data(name="words", shape=[-1, 1], dtype="int64",
+                       lod_level=1)
+        label = L.data(name="label", shape=[1], dtype="int64")
+        emb = L.embedding(input=words, size=[IMDB_VOCAB, IMDB_EMB])
+        fc1 = L.fc(input=emb, size=IMDB_HID * 4, num_flatten_dims=2)
+        lstm1, _c = L.dynamic_lstm(input=fc1, size=IMDB_HID * 4)
+        inputs = [fc1, lstm1]
+        for i in range(2, IMDB_STACKED + 1):
+            fc = L.fc(input=inputs, size=IMDB_HID * 4, num_flatten_dims=2)
+            lstm, _c = L.dynamic_lstm(input=fc, size=IMDB_HID * 4,
+                                      is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        fc_last = L.sequence_pool(input=inputs[0], pool_type="max")
+        lstm_last = L.sequence_pool(input=inputs[1], pool_type="max")
+        pred = L.fc(input=[fc_last, lstm_last], size=2, act="softmax")
+        cost = L.mean(L.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adagrad(learning_rate=IMDB_LR).minimize(cost)
+    return main, startup, [cost, pred], [words, label]
+
+
+def _plain_lstm(x, w, b, reverse):
+    """One ``dynamic_lstm`` over one sequence's rows x [L, 4H], as
+    Paddle's lstm op documents it: gates [candidate, input, forget,
+    output] of x_t + h_{t-1} W + b, peepholes W_ic, W_fc on c_{t-1} and
+    W_oc on c_t (the bias's last 3H), sigmoid gates, tanh cell and
+    candidate; ``reverse`` runs from the last row to the first."""
+    H = w.shape[0]
+    b = b.reshape(-1)
+    gb, wic, wfc, woc = b[:4 * H], b[4 * H:5 * H], b[5 * H:6 * H], b[6 * H:]
+    h = c = x.new_zeros(H)
+    out = [None] * x.shape[0]
+    steps = range(x.shape[0])
+    for t in (reversed(steps) if reverse else steps):
+        g = x[t] + h @ w + gb
+        i = torch.sigmoid(g[H:2 * H] + c * wic)
+        f = torch.sigmoid(g[2 * H:3 * H] + c * wfc)
+        c = f * c + i * torch.tanh(g[:H])
+        h = torch.sigmoid(g[3 * H:] + c * woc) * torch.tanh(c)
+        out[t] = h
+    return torch.stack(out)
+
+
+def imdb_plain_predictions(params, reviews, device):
+    """``imdb_program``'s softmax outputs, one review at a time over its
+    own rows in fp64: embedding, fc, the stacked LSTMs alternating
+    direction, the max over the review's rows of the last fc and LSTM,
+    and the softmax fc. ``params`` are the program's parameter arrays by
+    name; nothing of the port runs here."""
+    p = {k: torch.as_tensor(np.asarray(v), dtype=torch.float64,
+                            device=device) for k, v in params.items()}
+    out = []
+    for ids in reviews:
+        fc = p["embedding_0.w_0"][torch.as_tensor(ids, device=device)] \
+            @ p["fc_0.w_0"] + p["fc_0.b_0"]
+        h = _plain_lstm(fc, p["dynamic_lstm_0.w_0"],
+                        p["dynamic_lstm_0.b_0"], False)
+        for i in range(1, IMDB_STACKED):
+            fc = (fc @ p["fc_%d.w_0" % i] + h @ p["fc_%d.w_1" % i]
+                  + p["fc_%d.b_0" % i])
+            h = _plain_lstm(fc, p["dynamic_lstm_%d.w_0" % i],
+                            p["dynamic_lstm_%d.b_0" % i], i % 2 == 1)
+        k = IMDB_STACKED
+        logits = (fc.max(0).values @ p["fc_%d.w_0" % k]
+                  + h.max(0).values @ p["fc_%d.w_1" % k] + p["fc_%d.b_0" % k])
+        out.append(torch.softmax(logits, -1))
+    return torch.stack(out).cpu().numpy()
+
+
+def control_flow_rnn_program():
+    """``DynamicRNN``, ``StaticRNN`` and ``IfElse`` at hid 512 over the
+    IMDB feed: each RNN embeds its step's ids and runs an fc over the
+    embedding and its memory (tanh); the dynamic one's last valid step
+    and the static one's average over the valid steps are joined, and
+    ``IfElse`` sends each row through one of two softmax fcs by the sign
+    of its mean; ``cross_entropy``, SGD. Returns (main, startup, cost,
+    [words, label])."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 23
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = L.data(name="words", shape=[-1, 1], dtype="int64",
+                       lod_level=1)
+        label = L.data(name="label", shape=[1], dtype="int64")
+        emb_attr = fluid.ParamAttr(name="cf_emb")
+        outs = []
+        for rnn in (L.DynamicRNN(), L.StaticRNN()):
+            with rnn.block():
+                w_t = rnn.step_input(words)
+                e_t = L.embedding(w_t, size=[IMDB_VOCAB, IMDB_EMB],
+                                  param_attr=emb_attr)
+                prev = rnn.memory(shape=[CF_HID], value=0.0)
+                h = L.fc(input=[e_t, prev], size=CF_HID, act="tanh")
+                rnn.update_memory(prev, h)
+                rnn.output(h)
+            outs.append(rnn())
+        feat = L.concat([L.sequence_pool(outs[0], "last"),
+                         L.sequence_pool(outs[1], "average")], axis=1)
+        zero = L.fill_constant(shape=[1], dtype="float32", value=0.0)
+        cond = L.less_than(L.reduce_mean(feat, dim=[1], keep_dim=True), zero)
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(L.fc(ie.input(feat), size=2, act="softmax"))
+        with ie.false_block():
+            ie.output(L.fc(ie.input(feat), size=2, act="softmax"))
+        (pred,) = ie()
+        cost = L.mean(L.cross_entropy(input=pred, label=label))
+        fluid.optimizer.SGD(learning_rate=0.01).minimize(cost)
+    return main, startup, cost, [words, label]
+
+
+def beam_program():
+    """``BeamSearchDecoder`` + ``dynamic_decode`` over one ``LSTMCell`` at
+    PaddleNLP seq2seq's IWSLT'15 en-vi widths (512, target vocabulary
+    7709, beam 10, at most 50 steps; one layer where it stacks two, no
+    attention), started from fed encoder states. Returns (main, startup,
+    [backtracked ids, final log-probs], the step op's token, parent and
+    length outputs)."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 29
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        enc_h = L.data(name="enc_h", shape=[BEAM_HID], dtype="float32")
+        enc_c = L.data(name="enc_c", shape=[BEAM_HID], dtype="float32")
+        cell = L.LSTMCell(hidden_size=BEAM_HID, name="dec_lstm")
+        dec = L.BeamSearchDecoder(
+            cell, start_token=BEAM_BOS, end_token=BEAM_EOS,
+            beam_size=BEAM_K,
+            embedding_fn=lambda ids: L.embedding(
+                ids, size=[BEAM_VOCAB, BEAM_HID],
+                param_attr=fluid.ParamAttr(name="tgt_emb")),
+            output_fn=lambda h: L.fc(h, size=BEAM_VOCAB, name="out_proj",
+                                     bias_attr=False))
+        ids, states = L.dynamic_decode(dec, inits=[enc_h, enc_c],
+                                       max_step_num=BEAM_STEPS)
+    (op_,) = [o for o in main.global_block().ops
+              if o.type == "dynamic_decode"]
+    return (main, startup, [ids, states[-1]],
+            op_.output("Outputs") + op_.output("Length"))
+
+
+def card_and_cpu(build, feed_fn, fetch_grads=True, init=None):
+    """``build()`` run one step on the card and on the CPU from the same
+    weights (the CPU's startup, then ``init(main, scope)``), fed
+    ``feed_fn(main)``. Returns (card
+    fetches, CPU fetches, names, (card executor, main, scope, the
+    starting weights) for more card steps, card ms, CPU ms)."""
+    from paddle_tpu_torch import fluid
+
+    out, keep, names, arrays = [], None, None, None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        main, startup, fetch = build()[:3]
+        fetch = fetch if isinstance(fetch, list) else [fetch]
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            if init is not None:
+                init(main, scope)
+            arrays = program_arrays(main, scope)
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        names = [f if isinstance(f, str) else f.name for f in fetch]
+        if fetch_grads:
+            names += sorted(p.name + "@GRAD" for p in main.all_parameters())
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=feed_fn(main), fetch_list=names,
+                      scope=scope)
+        out.append((got, (time.perf_counter() - t0) * 1e3))
+        keep = (exe, main, scope, arrays)
+    (cpu, cpu_ms), (card, card_ms) = out
+    return card, cpu, names, keep, card_ms, cpu_ms
+
+
+def _rel_all(card, cpu, names):
+    """(loss relative difference, {grad name: relative norm})."""
+    loss_rel = abs(float(card[0].reshape(-1)[0]) - float(
+        cpu[0].reshape(-1)[0])) / abs(float(cpu[0].reshape(-1)[0]))
+    grads = {n: (c, p) for n, c, p in zip(names, card, cpu)
+             if n.endswith("@GRAD")}
+    rel, _t = rel_norms({n: c for n, (c, _p) in grads.items()},
+                        {n: p for n, (_c, p) in grads.items()},
+                        GRAD_NORM_FLOOR)
+    return loss_rel, rel
+
+
+def _held(tag, loss_rel, rel):
+    worst = max(rel, key=rel.get)
+    if not (loss_rel <= RNN_LOSS_RTOL and rel[worst] <= RNN_GRAD_RTOL):
+        raise AssertionError("%s, card vs CPU: loss at %.3g, gradient of %s "
+                             "at relative norm %.3g"
+                             % (tag, loss_rel, worst, rel[worst]))
+    return {"loss_rel": loss_rel, "loss_rtol": RNN_LOSS_RTOL,
+            "max_grad_rel": rel[worst], "worst_param": worst,
+            "params": len(rel), "grad_rtol": RNN_GRAD_RTOL}
+
+
+def rnn_phase(dev):
+    """The recurrent layers through ``fluid.Executor(CUDAPlace(0))``, each
+    model on the reference's public layers: the PTB LSTM LM "large"
+    (``basic_lstm``) and the IMDB stacked LSTM (``dynamic_lstm`` over a
+    ``DataFeeder`` LoD batch) against the same program on the CPU at step
+    1 and learning on the card, ``DynamicRNN`` / ``StaticRNN`` /
+    ``IfElse`` against the CPU, and LSTM beam search against the CPU step
+    by step with its backtrack against numpy."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import executor as texec
+    from paddle_tpu_torch.fluid import profiler
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    # PTB LM large: dropout 0 against the CPU, then 20 steps at 0.65
+    ptb_x = rng.integers(0, PTB_VOCAB, (PTB_BATCH, PTB_STEPS + 1))
+    zeros = np.zeros((PTB_LAYERS, PTB_BATCH, PTB_HIDDEN), np.float32)
+    ptb_feed = {"x": ptb_x[:, :-1, None], "y": ptb_x[:, 1:, None],
+                "init_hidden": zeros, "init_cell": zeros}
+    card, cpu, names, keep, card_ms, cpu_ms = card_and_cpu(
+        lambda: ptb_lm_program(0.0), lambda main: ptb_feed, init=ptb_init)
+    ptb_check = dict(_held("ptb lm step 1", *_rel_all(card, cpu, names)),
+                     card_step1_ms=card_ms, cpu_step1_ms=cpu_ms)
+    del card, cpu, keep
+    main, startup, loss = ptb_lm_program(PTB_DROPOUT)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ptb_init(main, scope)
+    step = loss_step(exe, main, loss, ptb_feed, scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ptb_losses, ptb_ms = timed_steps(step, PTB_TRAIN_STEPS)
+    ptb_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(ptb_losses)) or not np.mean(
+            ptb_losses[-5:]) <= np.mean(ptb_losses[:5]) - PTB_LEARN_MARGIN:
+        raise AssertionError("ptb lm loss did not fall by %g: %r"
+                             % (PTB_LEARN_MARGIN, ptb_losses))
+    ptb_prof = _profile(step, reps=1)
+    ptb_p50 = float(np.median(ptb_ms[1:]))
+    ptb = {"config": "large", "layers": PTB_LAYERS, "hidden": PTB_HIDDEN,
+           "steps": PTB_STEPS, "batch": PTB_BATCH, "vocab": PTB_VOCAB,
+           "init_scale": PTB_INIT, "lr": PTB_LR, "clip": PTB_CLIP,
+           "program_ops": len(main.global_block().ops),
+           "step1_vs_cpu_dropout0": ptb_check,
+           "dropout": PTB_DROPOUT, "losses": ptb_losses,
+           "margin": PTB_LEARN_MARGIN, "step_ms": ptb_ms,
+           "step_ms_p50": ptb_p50,
+           "tokens_per_s_p50": PTB_BATCH * PTB_STEPS / (ptb_p50 / 1e3),
+           "peak_mem_mib": ptb_peak,
+           "device_idle_share": ptb_prof["device_idle_share"],
+           "launches_per_step": ptb_prof["launches_per_call"],
+           "device_busy_ms": ptb_prof["device_busy_ms"],
+           "top": ptb_prof["top"][:4]}
+    del main, startup, loss, exe, scope, step
+    torch.cuda.empty_cache()
+
+    # IMDB stacked LSTM on a DataFeeder LoD batch
+    samples = imdb_samples(IMDB_BATCH, seed=43)
+    lens = [len(s[0]) for s in samples]
+
+    check_samples = samples[:IMDB_CHECK_BATCH]
+
+    def imdb_feed(main, batch=samples):
+        return fluid.DataFeeder(["words", "label"], fluid.CPUPlace(),
+                                program=main).feed(batch)
+
+    card, cpu, names, keep, card_ms, cpu_ms = card_and_cpu(
+        lambda: imdb_program()[:3],
+        lambda main: imdb_feed(main, check_samples))
+    exe, main, scope, arrays = keep
+    plain = imdb_plain_predictions(
+        {p.name: arrays[p.name] for p in main.all_parameters()},
+        [s[0] for s in check_samples], "cuda")
+    plain_err = float(np.max(np.abs(card[1] - plain)))
+    if not plain_err <= IMDB_PLAIN_ATOL:
+        raise AssertionError("imdb predictions on the card %.3g from the "
+                             "plain per-review loop" % plain_err)
+    imdb_check = dict(_held("imdb stacked lstm step 1",
+                            *_rel_all(card, cpu, names)),
+                      batch=IMDB_CHECK_BATCH, of_timed_batch=True,
+                      lengths=[min(len(s[0]) for s in check_samples),
+                               max(len(s[0]) for s in check_samples)],
+                      plain_loop_max_abs_err=plain_err,
+                      plain_loop_atol=IMDB_PLAIN_ATOL,
+                      card_step1_ms=card_ms, cpu_step1_ms=cpu_ms)
+    feed = imdb_feed(main)
+    step = loss_step(exe, main, main.global_block().var(names[0]), feed,
+                     scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    imdb_losses, imdb_ms = timed_steps(step, IMDB_STEPS)
+    imdb_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(imdb_losses)) or not np.mean(
+            imdb_losses[-5:]) < np.mean(imdb_losses[:5]):
+        raise AssertionError("imdb loss did not fall: %r" % (imdb_losses,))
+    imdb_prof = _profile(step, reps=1)
+    imdb_p50 = float(np.median(imdb_ms[1:]))
+    imdb = {"emb": IMDB_EMB, "hid": IMDB_HID, "stacked": IMDB_STACKED,
+            "vocab": IMDB_VOCAB, "batch": IMDB_BATCH,
+            "lengths": [min(lens), max(lens)], "tokens": sum(lens),
+            "padded_tokens": IMDB_BATCH * max(lens), "lr": IMDB_LR,
+            "program_ops": len(main.global_block().ops),
+            "step1_vs_cpu": imdb_check, "losses": imdb_losses,
+            "step_ms": imdb_ms, "step_ms_p50": imdb_p50,
+            "tokens_per_s_p50": sum(lens) / (imdb_p50 / 1e3),
+            "peak_mem_mib": imdb_peak,
+            "device_idle_share": imdb_prof["device_idle_share"],
+            "launches_per_step": imdb_prof["launches_per_call"],
+            "device_busy_ms": imdb_prof["device_busy_ms"]}
+    del card, cpu, keep, exe, main, scope, step
+    torch.cuda.empty_cache()
+
+    # DynamicRNN, StaticRNN and IfElse over the same feed
+    card, cpu, names, keep, card_ms, cpu_ms = card_and_cpu(
+        lambda: control_flow_rnn_program()[:3], imdb_feed)
+    cf = dict(_held("DynamicRNN/StaticRNN/IfElse step 1",
+                    *_rel_all(card, cpu, names)),
+              hid=CF_HID, card_step_ms=card_ms, cpu_step_ms=cpu_ms,
+              program_ops=len(keep[1].global_block().ops))
+    del card, cpu, keep
+    torch.cuda.empty_cache()
+
+    # LSTM beam search: every step's choices against the CPU's
+    rs = np.random.RandomState(47)
+    beam_feed = {"enc_h": rs.standard_normal((BEAM_N, BEAM_HID)).astype(
+        np.float32), "enc_c": rs.standard_normal((BEAM_N, BEAM_HID)).astype(
+        np.float32)}
+    outs, arrays = [], None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        main, startup, fetch, steps_out = beam_program()
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            arrays = program_arrays(main, scope)
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        names = [fetch[0].name, fetch[1].name] + list(steps_out)
+        exe.run(main, feed=beam_feed, fetch_list=names, scope=scope)
+        syncs0 = profiler.get_counter(texec.HOST_SYNC_COUNTER)
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=beam_feed, fetch_list=names, scope=scope)
+        ms = (time.perf_counter() - t0) * 1e3
+        outs.append((got, ms, profiler.get_counter(
+            texec.HOST_SYNC_COUNTER) - syncs0))
+        del main, startup, exe, scope
+    (cpu_got, cpu_ms, _s), (card_got, card_ms, syncs) = outs
+    ids, scores, toks, parents, lengths = card_got
+    want = np.zeros_like(toks)
+    T = toks.shape[1]
+    for b in range(toks.shape[0]):
+        for k in range(toks.shape[2]):
+            beam = k
+            for t in range(T - 1, -1, -1):
+                want[b, t, k] = toks[b, t, beam]
+                beam = parents[b, t, beam]
+    if not np.array_equal(ids, want):
+        raise AssertionError("gather_tree differs from the numpy backtrack")
+    same = np.array_equal(toks, cpu_got[2]) and np.array_equal(
+        parents, cpu_got[3])
+    first_diff = None
+    score_gap = float(np.max(np.abs(np.sort(scores, -1) - np.sort(
+        cpu_got[1], -1))) / max(float(np.max(np.abs(cpu_got[1]))), 1e-30))
+    if not same:
+        diff = np.nonzero((toks != cpu_got[2]) | (parents != cpu_got[3]))
+        first_diff = int(diff[1].min())
+        if score_gap > BEAM_TIE_RTOL:
+            raise AssertionError(
+                "beam search on the card chose apart from the CPU from step "
+                "%d, final scores apart by %.3g of their size"
+                % (first_diff, score_gap))
+    # the loop ran until its last beam finished, or to max_step_num
+    steps_run = int(lengths.max())
+    beam = {"hid": BEAM_HID, "vocab": BEAM_VOCAB, "beam": BEAM_K,
+            "max_steps": BEAM_STEPS, "sources": BEAM_N,
+            "steps_run": steps_run, "choices_equal_cpu": bool(same),
+            "first_divergence_step": first_diff,
+            "final_score_rel_gap": score_gap, "tie_rtol": BEAM_TIE_RTOL,
+            "backtrack_equals_numpy": True,
+            "host_syncs_per_run": syncs,
+            "host_syncs_per_step": syncs / max(steps_run, 1),
+            "card_run_ms": card_ms, "cpu_run_ms": cpu_ms,
+            "card_ms_per_step": card_ms / max(steps_run, 1)}
+    return {"phase": "rnn", "ptb_lm": ptb, "imdb": imdb,
+            "control_flow_rnns": cf, "beam_search": beam,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -5176,7 +6016,8 @@ def gpt2_small(dev):
 
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
-               "gateway", "fleet", "programs", "bert", "vision", "nmt")
+               "gateway", "fleet", "programs", "bert", "vision", "nmt",
+               "recompute", "rnn")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -5206,6 +6047,10 @@ def run_only(phases, repeat, dev, name, smi):
                     line = vision_phase(dev)
                 elif phase == "nmt":
                     line = nmt_phase(dev)[0]
+                elif phase == "recompute":
+                    line = recompute_phase(dev)[0]
+                elif phase == "rnn":
+                    line = rnn_phase(dev)
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -5233,7 +6078,7 @@ def main(argv=None):
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
                          "inference_server, gateway, fleet, programs, bert, "
-                         "vision, nmt)")
+                         "vision, nmt, recompute, rnn)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -5321,6 +6166,11 @@ def main(argv=None):
     nmt_run, nmt_launches = nmt_phase(dev)
     emit(dict(nmt_run, device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
+    rc_run, rc_launches = recompute_phase(dev)
+    emit(dict(rc_run, device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
+    emit(dict(rnn_phase(dev), device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
     served = served_gpt2(dev)
     infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
@@ -5355,11 +6205,14 @@ def main(argv=None):
         return {"name": kname, "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
                 "launches": train_launches[kname] + program_launches[kname]
-                + bert_launches["bert"][kname] + nmt_launches["nmt"][kname],
+                + bert_launches["bert"][kname] + nmt_launches["nmt"][kname]
+                + rc_launches["recompute_bert"][kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
                                      "train_program": program_launches[kname],
                                      "bert": bert_launches["bert"][kname],
-                                     "nmt": nmt_launches["nmt"][kname]},
+                                     "nmt": nmt_launches["nmt"][kname],
+                                     "recompute_bert":
+                                         rc_launches["recompute_bert"][kname]},
                 "bert_form": bert_form(kname, "fp32"),
                 "nmt_form": nmt_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -5454,7 +6307,8 @@ def main(argv=None):
          + program_launches["flash_fwd"] + infer_launches["flash_fwd"]
          + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"]
          + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"]
-         + nmt_launches["nmt"]["flash_fwd"],
+         + nmt_launches["nmt"]["flash_fwd"]
+         + rc_launches["recompute_bert"]["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -5466,7 +6320,9 @@ def main(argv=None):
                               "fleet": fleet_launches["flash_fwd"],
                               "programs": prog_launches["flash_fwd"],
                               "bert": bert_launches["bert"]["flash_fwd"],
-                              "nmt": nmt_launches["nmt"]["flash_fwd"]},
+                              "nmt": nmt_launches["nmt"]["flash_fwd"],
+                              "recompute_bert":
+                                  rc_launches["recompute_bert"]["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],

@@ -3,7 +3,8 @@ places, flags, the always-on profiler tallies, the Program IR
 (``framework``) with its pass registry (``ir``) and its framework.proto
 serialization (``proto``), persistence (``io``), the Executor, desc-level
 autodiff (``backward``), the layers of the GPT train program,
-initializers, the Adam optimizer in its program and eager forms,
+initializers, the optimizers (Adam also in its eager form, and
+activation recompute), LoD feeds (``DataFeeder``, ``create_lod_tensor``),
 automatic mixed precision (``contrib.mixed_precision``), and the op
 lowerings, which the eager models also call as plain functions on
 tensors."""
@@ -12,8 +13,11 @@ from . import core, flags, ops, profiler, unique_name  # noqa: F401
 from . import framework, initializer, param_attr  # noqa: F401
 from . import backward, clip, executor, layers, optimizer, regularizer  # noqa: F401
 from . import contrib, io, ir, proto  # noqa: F401
+from . import data_feeder, lod_tensor, nets  # noqa: F401
 from .backward import append_backward, gradients
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
+from .data_feeder import DataFeeder
+from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from .executor import Executor, global_scope, scope_guard
 from .flags import get_flags, set_flags
 from .io import (
@@ -54,4 +58,6 @@ __all__ = [
     "load_persistables", "load_program_scope", "save_inference_model",
     "load_inference_model",
     "save", "load", "load_program_state", "set_program_state",
+    "data_feeder", "lod_tensor", "nets", "DataFeeder", "create_lod_tensor",
+    "create_random_int_lodtensor",
 ]

@@ -7,7 +7,11 @@ _remove_no_grad_branch_:406). Parity requires the grad-op graph (grad ops are
 visible in the Program, named ``<op>_grad``, grads named ``<var>@GRAD``) —
 so the port builds the same graph, and the Executor runs it. The generic
 grad ops' lowerings are the vjp of the forward rule, taken on the
-autograd tape (ops/registry.py). Recompute checkpoints are not ported yet.
+autograd tape (ops/registry.py). With ``checkpoints=`` the backward
+region replays each inter-checkpoint forward segment before its grad ops
+(``_recompute_transform``), the reference's desc op for op; the Executor
+captures the replayed forwards, not the originals, so the segment's
+activations are freed after their last forward read.
 """
 
 from collections import defaultdict
@@ -169,6 +173,17 @@ def _addup_repetitive_outputs(specs):
 RECOMPUTE_TAG = "@RECOMPUTE@"
 CKPT_TAG = "@CKPT@"
 
+_RECOMPUTE_RANDOM_OPS = {
+    # outputs of random ops are kept, never replayed: a recompute replay
+    # would draw fresh randomness and corrupt the gradients
+    "uniform_random",
+    "gaussian_random",
+    "truncated_gaussian_random",
+    "dropout",
+    "sampling_id",
+    "uniform_random_batch_size_like",
+}
+
 
 def _base_var_name(name):
     for tag in (GRAD_SUFFIX, RECOMPUTE_TAG, CKPT_TAG):
@@ -176,6 +191,160 @@ def _base_var_name(name):
         if i >= 0:
             name = name[:i]
     return name
+
+
+def _recompute_transform(block, relevant, grad_pairs, checkpoints):
+    """Reference-style activation checkpointing
+    (_append_backward_ops_with_checkpoints_, reference backward.py:576):
+    for each inter-checkpoint segment, in reverse order, emit (a) replayed
+    copies of the segment's forward ops whose inputs are barriered
+    checkpoint values and whose outputs are renamed ``v@RECOMPUTE@seg``,
+    then (b) the segment's grad ops rewritten to read the replayed
+    activations. The desc is the reference's op for op. The Executor
+    drops the original activations after their last forward read and
+    captures the replayed forwards for the generic grads
+    (``executor._Plan``), so peak memory holds the checkpoints plus one
+    segment's activations; ``recompute_barrier`` is an identity here, its
+    ``Dep`` operand a read that orders the replay after the later
+    segment's backward, as the interpreter runs ops in order anyway."""
+    produced_by = {}
+    for i, op_ in enumerate(relevant):
+        for n in op_.output_arg_names:
+            produced_by.setdefault(n, i)
+    ckpt = sorted(
+        {c for c in checkpoints if c in produced_by},
+        key=lambda c: produced_by[c],
+    )
+    keep = set(ckpt)
+    for op_ in relevant:
+        if op_.type in _RECOMPUTE_RANDOM_OPS:
+            keep |= set(op_.output_arg_names)
+        if op_.has_attr("sub_block"):
+            # control-flow ops are not replayed; their outputs stay live
+            keep |= set(op_.output_arg_names)
+
+    bounds = sorted({produced_by[c] for c in ckpt})
+    segments = []
+    s = 0
+    for b in bounds:
+        if b + 1 > s:
+            segments.append((s, b + 1))
+            s = b + 1
+    if s < len(relevant):
+        segments.append((s, len(relevant)))
+
+    out_specs = []
+    emitted_grads = set()  # grad vars produced by already-emitted specs
+    for seg_id, (start, end) in enumerate(reversed(segments)):
+        seg_grads = [spec for i, spec in grad_pairs if start <= i < end]
+        if not seg_grads:
+            continue
+        seg_ops = relevant[start:end]
+        rename = {}  # original var -> replayed name
+        barriered = {}  # external var -> barrier alias
+        rec_specs = []
+        # cotangent entering this segment: grad of the boundary checkpoint
+        # (produced by the later segment's backward, already emitted) —
+        # routed through the barriers to order replay after that backward
+        dep_name = None
+        for n in relevant[end - 1].output_arg_names:
+            g = _append_grad_suffix_(n)
+            if n in keep and g in emitted_grads:
+                dep_name = g
+                break
+
+        def _alias(n):
+            if n in rename:
+                return rename[n]
+            v = block._find_var_recursive(n)
+            if v is not None and (isinstance(v, Parameter) or v.persistable):
+                # params/persistables are live anyway; a barrier would only
+                # force a copy. CSE through them is broken by the barriered
+                # activation operand of the same op.
+                return n
+            if n not in barriered:
+                barriered[n] = "%s%s%d" % (n, CKPT_TAG, seg_id)
+                b_inputs = {"X": [n]}
+                if dep_name is not None:
+                    b_inputs["Dep"] = [dep_name]
+                rec_specs.append(
+                    dict(
+                        type="recompute_barrier",
+                        inputs=b_inputs,
+                        outputs={"Out": [barriered[n]]},
+                        attrs={OP_ROLE_KEY: OpRole.Backward},
+                    )
+                )
+            return barriered[n]
+
+        for op_ in seg_ops:
+            if op_.type in _RECOMPUTE_RANDOM_OPS or op_.has_attr("sub_block"):
+                continue
+            # inputs: replayed if produced in-segment, barriered otherwise
+            new_inputs = {}
+            for slot, names in op_.inputs.items():
+                nn = []
+                for n in names:
+                    if n == EMPTY_VAR:
+                        nn.append(n)
+                    elif n in rename:
+                        nn.append(rename[n])
+                    else:
+                        nn.append(_alias(n))
+                new_inputs[slot] = nn
+            new_outputs = {}
+            for slot, names in op_.outputs.items():
+                nn = []
+                for n in names:
+                    if n == EMPTY_VAR or n in keep:
+                        nn.append(n if n == EMPTY_VAR else _alias_out(n, rename, seg_id))
+                    else:
+                        rename[n] = "%s%s%d" % (n, RECOMPUTE_TAG, seg_id)
+                        nn.append(rename[n])
+                new_outputs[slot] = nn
+            rec_specs.append(
+                dict(
+                    type=op_.type,
+                    inputs=new_inputs,
+                    outputs=new_outputs,
+                    attrs=dict(op_.attrs, **{OP_ROLE_KEY: OpRole.Backward}),
+                )
+            )
+
+        # rewrite this segment's grad specs to read replayed activations;
+        # kept vars (checkpoints, random outputs) are read directly — they
+        # are live, and the unused replay aliases are dropped after the
+        # replay (the Executor's liveness)
+        remap = {k: v for k, v in rename.items() if k not in keep}
+        for spec in seg_grads:
+            for slot, names in spec["inputs"].items():
+                if slot.endswith(GRAD_SUFFIX):
+                    continue
+                spec["inputs"][slot] = [remap.get(n, n) for n in names]
+            for key in (
+                _registry.FWD_INPUTS_ATTR,
+                _registry.FWD_OUTPUTS_ATTR,
+            ):
+                sig = spec["attrs"].get(key)
+                if sig:
+                    spec["attrs"][key] = {
+                        slot: [remap.get(n, n) for n in names]
+                        for slot, names in sig.items()
+                    }
+        out_specs.extend(rec_specs)
+        out_specs.extend(seg_grads)
+        for spec in seg_grads:
+            for names in spec["outputs"].values():
+                emitted_grads.update(n for n in names if n != EMPTY_VAR)
+    return out_specs
+
+
+def _alias_out(n, rename, seg_id):
+    """A kept var written inside a replayed segment (e.g. the checkpoint
+    itself, which ends the segment): replay it under a renamed alias too so
+    the replay never clobbers live state."""
+    rename[n] = "%s%s%d" % (n, RECOMPUTE_TAG, seg_id)
+    return rename[n]
 
 
 def _create_grad_vars(block, specs):
@@ -200,14 +369,13 @@ def append_backward(
 ):
     """Append grad ops for `loss` to its program; returns [(param, grad)].
 
-    ``checkpoints`` (recompute, the reference's
-    _append_backward_ops_with_checkpoints_) raises ``NotImplementedError``:
-    activation recompute is not ported yet.
+    ``checkpoints``: list of Variables to treat as recompute checkpoints —
+    the backward region replays each inter-checkpoint forward segment from
+    barriered checkpoint values (_recompute_transform; reference:
+    _append_backward_ops_with_checkpoints_, backward.py:576); wired through
+    RecomputeOptimizer.
     """
     assert isinstance(loss, Variable), "loss must be a Variable"
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward: recompute checkpoints are not ported yet")
     program = loss.block.program
     block = program.global_block()
     no_grad = _collect_no_grad(block, no_grad_set)
@@ -240,7 +408,15 @@ def append_backward(
             },
         )
 
-        specs = _make_grad_op_specs(block, relevant, no_grad)
+        ckpt_names = [
+            c.name if isinstance(c, Variable) else c
+            for c in (checkpoints or [])
+        ]
+        if ckpt_names:
+            pairs = _make_grad_op_pairs(block, relevant, no_grad)
+            specs = _recompute_transform(block, relevant, pairs, ckpt_names)
+        else:
+            specs = _make_grad_op_specs(block, relevant, no_grad)
         specs = _addup_repetitive_outputs(specs)
         _create_grad_vars(block, specs)
         for spec in specs:

@@ -198,6 +198,15 @@ class LoDTensor(object):
     def recursive_sequence_lengths(self):
         return [_offsets_to_lengths(level) for level in self._lod]
 
+    def has_valid_recursive_sequence_lengths(self):
+        if not self._lod:
+            return True
+        try:
+            n = self._lod[-1][-1]
+        except IndexError:
+            return False
+        return self._tensor is None or n == self._tensor.shape[0]
+
     def shape(self):
         return list(self._tensor.shape) if self._tensor is not None else []
 

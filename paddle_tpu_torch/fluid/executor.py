@@ -3,7 +3,9 @@
 
 ``Executor(place).run(program, feed, fetch_list, scope)`` interprets the
 global block in order on the place's device. Feeds become tensors on
-the device; variables the block reads before it writes come from the
+the device (a ``LoDTensor`` padded to [batch, max_len, ...], its
+lengths beside it as ``@SEQ_LEN`` companions, ``_lod_feed``);
+variables the block reads before it writes come from the
 scope; persistable variables the block writes go back to the scope,
 updated in place where the op updates its input (optimizer state).
 The only host syncs are the feeds' copies at the start and the fetches
@@ -16,7 +18,9 @@ is later work). What it plans once per program version:
 - which generic grad op belongs to which forward op in the block: that
   forward runs once, through its op's ``vjp`` rule or on the autograd
   tape, and its grad op reuses the vjp closure
-  (``registry.run_op_capturing``), so no forward runs twice;
+  (``registry.run_op_capturing``), so no forward runs twice; under
+  activation recompute the grad belongs to the segment's replay
+  (``_capture_pairs``);
 - when each variable is read for the last time, so the run's
   environment drops it there, as eager autograd frees what nothing saves
   (the closures keep exactly what their backward needs).
@@ -67,13 +71,6 @@ def scope_guard(scope):
         core._switch_scope(old)
 
 
-def _signature(type_, inputs, outputs):
-    def frozen(io):
-        return tuple(sorted((k, tuple(v)) for k, v in io.items()))
-
-    return type_, frozen(inputs), frozen(outputs)
-
-
 class _Plan(object):
     """What ``run`` needs to know about one block, computed once per
     program version: the ops, the capture pairs, the reads that come from
@@ -89,28 +86,22 @@ class _Plan(object):
             produced.update(n for n in op_.output_arg_names if n != EMPTY_VAR)
 
         # generic grad op -> its forward op, matched by the signature the
-        # grad maker recorded
-        forward_at = {}
-        for i, op_ in enumerate(ops):
-            forward_at.setdefault(
-                _signature(op_.type, op_.inputs, op_.outputs), i)
-        self.capture = {}            # forward index -> (grad op, cot names)
+        # grad maker recorded; under recompute, the segment's replay
+        self.capture = {}  # forward index -> (grad op, fwd cots, grad cots)
         captured_grads = set()
-        for j, op_ in enumerate(ops):
-            if not _registry.is_generic_grad(op_.type):
-                continue
-            sig = _signature(op_.type[: -len("_grad")],
-                             op_.attr(_registry.FWD_INPUTS_ATTR) or {},
-                             op_.attr(_registry.FWD_OUTPUTS_ATTR) or {})
-            i = forward_at.get(sig)
-            if i is None or i >= j:
-                continue
-            fwd = ops[i]
-            cots = [n for slot in sorted(fwd.outputs)
-                    for n in fwd.outputs[slot]
-                    if n != EMPTY_VAR and n + GRAD_SUFFIX in produced
-                    and _is_float_var(block, n)]
-            self.capture[i] = (op_, cots)
+        for j, i in _capture_pairs(ops):
+            op_, fwd = ops[j], ops[i]
+            # each float output's cotangent is the grad op's S@GRAD input
+            # at its place (a replay's ``v@RECOMPUTE@k`` gets ``v@GRAD``)
+            want = op_.attr(_registry.FWD_OUTPUTS_ATTR) or {}
+            pairs = [(fwd.outputs[slot][k], op_.inputs[slot + GRAD_SUFFIX][k])
+                     for slot in sorted(want)
+                     for k, n in enumerate(want[slot])
+                     if n != EMPTY_VAR and _is_float_var(block, n)
+                     and op_.inputs.get(slot + GRAD_SUFFIX, [EMPTY_VAR] * (
+                         k + 1))[k] in produced]
+            self.capture[i] = (op_, [f for f, _g in pairs],
+                               [g for _f, g in pairs])
             captured_grads.add(j)
 
         # liveness: last read of every name; a captured grad op reads only
@@ -141,6 +132,47 @@ class _Plan(object):
                 self.free_after[j].append(n)
         self.writes_persistable = sorted(
             n for n in first_write if n in persistable)
+
+
+def _capture_pairs(ops):
+    """[(generic grad index, forward index)]: the forward op whose
+    signature the grad op recorded. Under recompute the grad's signature
+    names the segment's replay (its in-segment reads remapped, its reads
+    from outside and its checkpoint write not), so the match is on names
+    with the replay tags taken off, and the replay (the last such op
+    before the grad) wins over the original forward, which then runs
+    uncaptured and whose activations are dropped after their last
+    forward read."""
+    base = _registry.unreplayed_name
+
+    def sig(type_, inputs, outputs, strip):
+        def frozen(io):
+            return tuple(sorted((k, tuple(base(n) if strip else n
+                                          for n in v))
+                                for k, v in io.items()))
+
+        return type_, frozen(inputs), frozen(outputs)
+
+    first, replays = {}, {}
+    for i, op_ in enumerate(ops):
+        first.setdefault(sig(op_.type, op_.inputs, op_.outputs, False), i)
+        if any(n != base(n) for n in op_.output_arg_names):
+            replays.setdefault(
+                sig(op_.type, op_.inputs, op_.outputs, True), []).append(i)
+    pairs = []
+    for j, op_ in enumerate(ops):
+        if not _registry.is_generic_grad(op_.type):
+            continue
+        fwd_type = op_.type[: -len("_grad")]
+        fin = op_.attr(_registry.FWD_INPUTS_ATTR) or {}
+        fout = op_.attr(_registry.FWD_OUTPUTS_ATTR) or {}
+        cands = [i for i in replays.get(sig(fwd_type, fin, fout, True), ())
+                 if i < j]
+        i = cands[-1] if cands else first.get(
+            sig(fwd_type, fin, fout, False))
+        if i is not None and i < j:
+            pairs.append((j, i))
+    return pairs
 
 
 def _sub_block(op_):
@@ -189,6 +221,57 @@ def _as_tensor(value, device):
     if isinstance(value, torch.Tensor):
         return value.to(device)
     return torch.tensor(np.asarray(value), device=device)
+
+
+def _lod_feed(name, value, var, device):
+    """A ``LoDTensor`` feed as {env name: (tensor, host array or None)}:
+    its values, and its lengths as int32 companions, the innermost
+    ``{name}@SEQ_LEN``, outer level k ``{name}@SEQ_LEN@L{k}`` (the
+    reference's ``executor.py:1375-1400``).
+
+    The program decides the layout, as the reference's padded-LoD
+    convention has it: a one-level LoD var's declared shape is that of
+    its padded batch, [-1, T, ...]. A feed of a lower rank holds its
+    sequences' rows back to back (what ``DataFeeder`` and
+    ``create_lod_tensor`` make) and is padded with zeros to [batch,
+    max_len, ...], then given the declared trailing dims; a feed of the
+    declared rank or more is padded already and goes in as it is. The
+    lengths are host arrays, which ``LowerCtx.host_ints`` reads without
+    a wait on the card."""
+    t = _as_tensor(value, device)
+    lens = value.recursive_sequence_lengths()
+    out = {}
+    if lens:
+        inner = np.asarray(lens[-1], np.int64)
+        n = len(inner)
+        T = int(inner.max()) if n else 0
+        if len(lens) == 1 and var is not None and var.lod_level >= 1:
+            if t.dim() < len(var.shape):
+                if t.dim() == 0 or t.shape[0] != int(inner.sum()):
+                    raise ValueError(
+                        "LoD feed %r: %s rows back to back, but its "
+                        "lengths sum to %d" % (name, list(t.shape),
+                                               int(inner.sum())))
+                rows = np.repeat(np.arange(n), inner)
+                cols = np.arange(t.shape[0]) - np.repeat(
+                    np.cumsum(inner) - inner, inner)
+                padded = t.new_zeros((n, T) + tuple(t.shape[1:]))
+                padded[torch.as_tensor(rows, device=t.device),
+                       torch.as_tensor(cols, device=t.device)] = t
+                t = padded.reshape((n, T) + tuple(var.shape[2:]))
+            elif t.dim() < 2 or t.shape[0] != n or t.shape[1] < T:
+                raise ValueError(
+                    "LoD feed %r: a feed of %r's declared rank %d is its "
+                    "padded batch [%d, >= %d, ...], not %s; rows back to "
+                    "back have a rank less" % (
+                        name, name, len(var.shape), n, T, list(t.shape)))
+        for k, level in enumerate(lens):
+            key = name + ("@SEQ_LEN" if k == len(lens) - 1
+                          else "@SEQ_LEN@L%d" % k)
+            arr = np.asarray(level, np.int32)
+            out[key] = (torch.as_tensor(arr, device=device), arr)
+    out[name] = (t, None)
+    return out
 
 
 def _to_numpy(t):
@@ -263,8 +346,16 @@ class Executor(object):
         env = {}
         host_feeds = {}
         for name, value in (feed or {}).items():
+            if isinstance(value, core.LoDTensor):
+                var = program.global_block()._find_var_recursive(name)
+                for key, (t, arr) in _lod_feed(name, value, var,
+                                               dev).items():
+                    env[key] = t
+                    if arr is not None:
+                        host_feeds[key] = (t, arr)
+                continue
             env[name] = _as_tensor(value, dev)
-            if not isinstance(value, (torch.Tensor, core.LoDTensor)):
+            if not isinstance(value, torch.Tensor):
                 # the host array stays readable without a device sync
                 host_feeds[name] = (env[name], value)
         for name in plan.scope_reads:
@@ -280,7 +371,7 @@ class Executor(object):
             for i, op_ in enumerate(plan.ops):
                 cap = plan.capture.get(i)
                 if cap is not None:
-                    _registry.run_op_capturing(ctx, op_, cap[0], cap[1])
+                    _registry.run_op_capturing(ctx, op_, *cap)
                 else:
                     _registry.run_op(ctx, op_)
                 for n in plan.free_after[i]:

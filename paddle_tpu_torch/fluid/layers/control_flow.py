@@ -1,9 +1,9 @@
 """Control-flow layers (port of ``paddle_tpu/fluid/layers/control_flow.py``):
 the compares (each may write a given ``cond``), ``increment``, ``While``
 and its block guard, ``Switch`` and ``cond`` over ``conditional_block``,
-the tensor-array layers, and the LoD rank-table layers. ``While`` builds
-a sub-block that the Executor runs while the condition holds;
-``StaticRNN``, ``DynamicRNN`` and ``IfElse`` are not ported yet."""
+the tensor-array layers, the LoD rank-table layers, and ``StaticRNN``,
+``DynamicRNN`` (on the ``recurrent`` op) and ``IfElse``. ``While`` builds
+a sub-block that the Executor runs while the condition holds."""
 
 from .. import core, unique_name
 from ..executor import _analyze_ops
@@ -15,6 +15,7 @@ __all__ = [
     "increment", "array_write", "array_read", "array_length",
     "create_array", "less_than", "less_equal", "greater_than",
     "greater_equal", "equal", "not_equal", "cond", "is_empty",
+    "StaticRNN", "DynamicRNN", "IfElse",
 ]
 
 
@@ -324,3 +325,269 @@ def shrink_memory(x, i, table):
                      inputs={"X": [x], "I": [i], "RankTable": [table]},
                      outputs={"Out": [out]})
     return out
+
+
+# ---------------------------------------------------------------------------
+# StaticRNN / DynamicRNN: the recurrence DSL on the ``recurrent`` op
+# (``control_flow.py:331-589``; the reference Paddle builds them on While +
+# LoDRankTable + lod_tensor_to_array + shrink_memory). The whole
+# recurrence is one op looping over the sub-block, with @SEQ_LEN masking
+# in place of the rank-table bucketing.
+# ---------------------------------------------------------------------------
+class _RNNBase(object):
+    def __init__(self, name, is_dynamic):
+        self.helper = LayerHelper(name)
+        self._is_dynamic = is_dynamic
+        self._step_inputs = []   # [(outer_var, step_var)]
+        self._memories = []      # [(init_var, mem_step_var)]
+        self._mem_updates = {}   # mem step var name -> updated var name
+        self._outputs = []       # step vars to emit per step
+        self._sub = None
+        self._parent = None
+        self._built = False
+        self._result_vars = None
+
+    # -- block context --
+    def block(self):
+        rnn = self
+
+        class _Guard(object):
+            def __enter__(self_g):
+                main = rnn.helper.main_program
+                rnn._parent = main.current_block()
+                rnn._sub = main._create_block()
+                return self_g
+
+            def __exit__(self_g, exc_type, exc_val, exc_tb):
+                if exc_type is not None:
+                    return False
+                main = rnn.helper.main_program
+                main._rollback()
+                rnn._complete()
+                return True
+
+        return _Guard()
+
+    step = block  # StaticRNN spells it step() in the reference
+
+    # -- inside-block API --
+    def step_input(self, x):
+        """Outer [B, T, ...] sequence -> per-step [B, ...] slice var."""
+        sv = self._sub.create_var(
+            name=unique_name.generate(x.name + "@step"),
+            shape=(x.shape[0],) + tuple(x.shape[2:]),
+            dtype=x.dtype,
+        )
+        self._step_inputs.append((x, sv))
+        return sv
+
+    def memory(self, init=None, shape=None, value=0.0, dtype="float32",
+               need_reorder=False, batch_ref=None):
+        if init is None:
+            if not self._step_inputs and batch_ref is None:
+                raise ValueError(
+                    "memory() without init needs a step_input first (the "
+                    "batch size comes from it)"
+                )
+            ref = batch_ref or self._step_inputs[0][0]
+            init = self._parent.create_var(
+                name=unique_name.generate(self.helper.name + "@mem_init"),
+                shape=(-1,) + tuple(shape),
+                dtype=dtype,
+            )
+            self._parent.append_op(
+                type="fill_constant_batch_size_like",
+                inputs={"Input": [ref]},
+                outputs={"Out": [init]},
+                attrs={
+                    "shape": [-1] + list(shape),
+                    "value": float(value),
+                    "dtype": core.np_to_dtype(dtype),
+                    "input_dim_idx": 0,
+                    "output_dim_idx": 0,
+                },
+            )
+        mem = self._sub.create_var(
+            name=unique_name.generate(self.helper.name + "@mem"),
+            shape=init.shape,
+            dtype=init.dtype,
+        )
+        self._memories.append((init, mem))
+        _ = need_reorder  # masking replaces the rank-table reorder
+        return mem
+
+    def update_memory(self, mem, new):
+        self._mem_updates[mem.name] = new.name
+
+    def output(self, *outputs):
+        self._outputs.extend(outputs)
+
+    def __call__(self, *args, **kwargs):
+        if not self._built:
+            raise RuntimeError("call the rnn after exiting its block()")
+        outs = self._result_vars
+        return outs[0] if len(outs) == 1 else outs
+
+    # -- lowering to the recurrent op --
+    def _complete(self):
+        parent, sub = self._parent, self._sub
+        outer_ins = [x for x, _ in self._step_inputs]
+        step_names = [sv.name for _, sv in self._step_inputs]
+        init_vars = [iv for iv, _ in self._memories]
+        mem_names = [mv.name for _, mv in self._memories]
+        state_out_names = [
+            self._mem_updates.get(mn, mn) for mn in mem_names
+        ]
+        out_vars = []
+        for ov in self._outputs:
+            pv = parent.create_var(
+                name=unique_name.generate(ov.name + "@seq"),
+                shape=(ov.shape[0] if ov.shape else -1, -1)
+                + tuple(ov.shape[1:]),
+                dtype=ov.dtype,
+            )
+            out_vars.append(pv)
+        final_vars = [
+            parent.create_var(
+                name=unique_name.generate(iv.name + "@final"),
+                shape=iv.shape, dtype=iv.dtype,
+            )
+            for iv in init_vars
+        ]
+        # sub-block reads that are neither step slices nor memories are
+        # loop invariants (parameters); passing them through the
+        # "Parameters" slot makes them visible to the generic-vjp grad of
+        # the recurrent op, which is how they receive gradients
+        from .rnn import _external_reads
+
+        bound = set(step_names) | set(mem_names)
+        params = [
+            n
+            for n in _external_reads(sub, bound)
+            if parent._find_var_recursive(n) is not None
+        ]
+        parent.append_op(
+            type="recurrent",
+            inputs={
+                "Inputs": [v.name for v in outer_ins],
+                "InitStates": [v.name for v in init_vars],
+                "Parameters": params,
+            },
+            outputs={
+                "Outputs": [v.name for v in out_vars],
+                "FinalStates": [v.name for v in final_vars],
+            },
+            attrs={
+                "sub_block": sub.idx,
+                "step_input_names": step_names,
+                "state_input_names": mem_names,
+                "state_output_names": state_out_names,
+                "step_output_names": [o.name for o in self._outputs],
+                "time_major": False,
+            },
+        )
+        self._built = True
+        self._result_vars = out_vars
+        self._final_vars = final_vars
+
+
+class StaticRNN(_RNNBase):
+    """reference: control_flow.py StaticRNN — fixed-length recurrence."""
+
+    def __init__(self, name=None):
+        super().__init__(name or "static_rnn", is_dynamic=False)
+
+
+class DynamicRNN(_RNNBase):
+    """reference: control_flow.py DynamicRNN — variable-length recurrence.
+    Lengths ride the input's @SEQ_LEN companion; steps past a sequence's
+    end freeze the memory and zero the outputs (recurrent op masking),
+    reproducing the reference's rank-table semantics without bucketing."""
+
+    def __init__(self, name=None):
+        super().__init__(name or "dynamic_rnn", is_dynamic=True)
+
+
+# ---------------------------------------------------------------------------
+# IfElse (reference: control_flow.py IfElse built on split_lod_tensor /
+# conditional sub-blocks / merge_lod_tensor). As in the port's reference,
+# both branches compute on the full batch and merge_lod_tensor selects
+# rows by the mask: the same results for the row-wise branch bodies the
+# API is made for.
+# ---------------------------------------------------------------------------
+class IfElse(object):
+    OUT_IF_ELSE_BLOCKS = 2
+    IN_IF_ELSE_TRUE_BLOCKS = 0
+    IN_IF_ELSE_FALSE_BLOCKS = 1
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self._branch = None  # True | False while inside a block
+        self._outputs = {True: [], False: []}
+
+    def _block(self, is_true):
+        ie = self
+
+        class _Guard(object):
+            def __enter__(self_g):
+                ie._branch = is_true
+                return self_g
+
+            def __exit__(self_g, exc_type, exc_val, exc_tb):
+                ie._branch = None
+                return exc_type is None
+
+        return _Guard()
+
+    def true_block(self):
+        return self._block(True)
+
+    def false_block(self):
+        return self._block(False)
+
+    def input(self, x):
+        if self._branch is None:
+            raise RuntimeError("IfElse.input() outside a branch block")
+        slot = "OutTrue" if self._branch else "OutFalse"
+        out = self.helper.create_variable_for_type_inference(dtype=x.dtype)
+        out.shape = tuple(x.shape)
+        self.helper.append_op(
+            type="split_lod_tensor",
+            inputs={"X": [x], "Mask": [self.cond]},
+            outputs={slot: [out]},
+            attrs={"level": 0},
+        )
+        return out
+
+    def output(self, *outs):
+        if self._branch is None:
+            raise RuntimeError("IfElse.output() outside a branch block")
+        self._outputs[self._branch].extend(outs)
+
+    def __call__(self):
+        t_outs = self._outputs[True]
+        f_outs = self._outputs[False]
+        if len(t_outs) != len(f_outs):
+            raise ValueError(
+                "IfElse: true/false blocks produced %d vs %d outputs"
+                % (len(t_outs), len(f_outs))
+            )
+        merged = []
+        for tv, fv in zip(t_outs, f_outs):
+            out = self.helper.create_variable_for_type_inference(
+                dtype=tv.dtype
+            )
+            self.helper.append_op(
+                type="merge_lod_tensor",
+                inputs={
+                    "Mask": [self.cond],
+                    "InTrue": [tv],
+                    "InFalse": [fv],
+                    "X": [tv],
+                },
+                outputs={"Out": [out]},
+                attrs={"level": 0},
+            )
+            merged.append(out)
+        return merged

@@ -25,6 +25,14 @@ __all__ = [
     "conv2d", "pool2d", "batch_norm", "relu", "topk", "elementwise_max",
     "elementwise_min", "elementwise_pow", "logical_not", "one_hot",
     "label_smooth", "autoincreased_step_counter",
+    "elementwise_floordiv", "elementwise_mod", "split", "expand",
+    "log_softmax", "gather", "clip", "squeeze", "cross_entropy",
+    "sequence_pool", "sequence_first_step", "sequence_last_step",
+    "sequence_softmax", "sequence_reshape", "sequence_concat",
+    "sequence_expand", "sequence_expand_as", "sequence_pad",
+    "sequence_unpad", "sequence_slice", "sequence_reverse", "sequence_mask",
+    "sequence_enumerate", "sequence_scatter", "sequence_conv", "row_conv",
+    "im2sequence",
 ]
 
 
@@ -804,3 +812,251 @@ def topk(input, k, name=None):
     values.stop_gradient = True
     indices.stop_gradient = True
     return values, indices
+
+
+# ---------------------------------------------------------------------------
+# what the recurrent layers, the decoders and the nets use (``nn.py``)
+# ---------------------------------------------------------------------------
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(num or len(sections))]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"num": num, "sections": sections, "axis": dim})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="log_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [x_shape]},
+                     attrs={"axes": axes})
+    return out
+
+
+# -- sequence layers (``nn.py:1585-1790``) -------------------------------------
+def _seq_one_in(op_type, x, attrs=None, out_slot="Out", dtype=None):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype=dtype or x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={out_slot: [out]}, attrs=attrs or {})
+    return out
+
+
+def sequence_pool(input, pool_type, is_test=False, pad_value=0.0):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    max_index = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op(
+        type="sequence_pool", inputs={"X": [input]},
+        outputs={"Out": [out], "MaxIndex": [max_index]},
+        attrs={"pooltype": pool_type.upper(), "is_test": is_test,
+               "pad_value": pad_value})
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    return _seq_one_in("sequence_softmax", input)
+
+
+def sequence_reshape(input, new_dim):
+    return _seq_one_in("sequence_reshape", input, {"new_dim": new_dim})
+
+
+def sequence_concat(input, name=None):
+    helper = LayerHelper("sequence_concat")
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="sequence_concat", inputs={"X": input},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sequence_expand", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"ref_level": ref_level})
+    return out
+
+
+def sequence_expand_as(x, y, name=None):
+    helper = LayerHelper("sequence_expand_as")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sequence_expand_as", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_pad(x, pad_value, maxlen=None, name=None):
+    helper = LayerHelper("sequence_pad")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    length = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="sequence_pad", inputs={"X": [x], "PadValue": [pad_value]},
+        outputs={"Out": [out], "Length": [length]},
+        attrs={"padded_length": maxlen if maxlen is not None else -1})
+    return out, length
+
+
+def sequence_unpad(x, length, name=None):
+    helper = LayerHelper("sequence_unpad")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sequence_unpad",
+                     inputs={"X": [x], "Length": [length]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    helper = LayerHelper("sequence_slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="sequence_slice",
+        inputs={"X": [input], "Offset": [offset], "Length": [length]},
+        outputs={"Out": [out]})
+    return out
+
+
+def sequence_reverse(x, name=None):
+    return _seq_one_in("sequence_reverse", x, out_slot="Y")
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="sequence_mask", inputs={"X": [x]}, outputs={"Y": [out]},
+        attrs={"maxlen": maxlen if maxlen is not None else -1,
+               "out_dtype": core.np_to_dtype(dtype)})
+    return out
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None):
+    return _seq_one_in("sequence_enumerate", input,
+                       {"win_size": win_size, "pad_value": pad_value})
+
+
+def sequence_scatter(input, index, updates, name=None):
+    helper = LayerHelper("sequence_scatter")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="sequence_scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None):
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=[filter_size * input.shape[-1],
+                                       num_filters], dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="sequence_conv",
+        inputs={"X": [input], "Filter": [filter_param]},
+        outputs={"Out": [pre_bias]},
+        attrs={"contextStride": filter_stride,
+               "contextStart": -int(filter_size // 2),
+               "contextLength": filter_size})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=2)
+    return helper.append_activation(pre_act)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    dtype = input.dtype
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[future_context_size + 1, input.shape[-1]], dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [filter_param]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    helper = LayerHelper("im2sequence")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    fs = filter_size if isinstance(filter_size, (list, tuple)) else [
+        filter_size, filter_size]
+    st = stride if isinstance(stride, (list, tuple)) else [stride, stride]
+    pd = padding if isinstance(padding, (list, tuple)) else [padding] * 4
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": fs, "strides": st, "paddings": pd})
+    return out

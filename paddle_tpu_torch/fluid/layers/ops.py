@@ -5,9 +5,9 @@ dtype."""
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["exp", "tanh", "sqrt", "ceil", "floor", "cos"]
+_UNARY_OPS = ["exp", "tanh", "sqrt", "ceil", "floor", "cos", "sigmoid"]
 
-__all__ = list(_UNARY_OPS)
+__all__ = list(_UNARY_OPS) + ["cumsum"]
 
 
 def _make_unary(op_type):
@@ -25,3 +25,18 @@ def _make_unary(op_type):
 
 for _op_type in _UNARY_OPS:
     globals()[_op_type] = _make_unary(_op_type)
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    attrs = {}
+    if axis is not None:
+        attrs["axis"] = axis
+    if exclusive is not None:
+        attrs["exclusive"] = exclusive
+    if reverse is not None:
+        attrs["reverse"] = reverse
+    helper.append_op(type="cumsum", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out

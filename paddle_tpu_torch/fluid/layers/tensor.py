@@ -7,8 +7,9 @@ from .. import core
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "cast", "sums",
-           "assign", "fill_constant", "isfinite"]
+__all__ = ["create_parameter", "create_global_var", "cast", "concat",
+           "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "isfinite"]
 
 
 def create_parameter(
@@ -53,6 +54,15 @@ def sums(input, out=None):
     if out is None:
         out = helper.create_variable_for_type_inference(dtype=helper.input_dtype())
     helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", input=input, name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype())
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 
@@ -109,4 +119,22 @@ def isfinite(x):
     out = helper.create_variable_for_type_inference(
         dtype=core.VarDesc.VarType.BOOL)
     helper.append_op(type="isfinite", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    if not isinstance(dtype, int):
+        dtype = core.np_to_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "value": float(value),
+               "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx},
+    )
+    out.stop_gradient = True
     return out

@@ -450,3 +450,82 @@ def _layer_norm_vjp(ctx, op_, slots):
 register_op("layer_norm", infer_shape=_layer_norm_infer,
             lower=lambda ctx, op_: _layer_norm_vjp(ctx, op_, ()),
             grad="generic", vjp=_layer_norm_vjp)
+
+
+# ---------------------------------------------------------------------------
+# what the recurrent layers and decoders add (``math_ops.py``)
+# ---------------------------------------------------------------------------
+@op("sigmoid", infer_shape=same_shape_infer("X"), grad="generic")
+def _sigmoid(ctx, op_):
+    ctx.out(op_, "Out", torch.sigmoid(ctx.in1(op_, "X")))
+
+
+@op("log_softmax", infer_shape=same_shape_infer("X"), grad="generic")
+def _log_softmax(ctx, op_):
+    ctx.out(op_, "Out", F.log_softmax(ctx.in1(op_, "X"),
+                                      dim=int(op_.attr("axis", -1))))
+
+
+@op("clip", infer_shape=same_shape_infer("X"), grad="generic")
+def _clip(ctx, op_):
+    ctx.out(op_, "Out", torch.clamp(ctx.in1(op_, "X"),
+                                    float(op_.attr("min")),
+                                    float(op_.attr("max"))))
+
+
+@op("cumsum", grad="generic")
+def _cumsum(ctx, op_):
+    """``math_ops.py:677``: the running sum along ``axis``, from the end
+    with ``reverse``, without each element itself with ``exclusive``."""
+    x = ctx.in1(op_, "X")
+    ax = int(op_.attr("axis", -1))
+    if op_.attr("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, [ax]), dim=ax), [ax])
+    else:
+        out = torch.cumsum(x, dim=ax)
+    if op_.attr("exclusive", False):
+        out = out - x
+    ctx.out(op_, "Out", out.to(x.dtype))
+
+
+def _xent_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", tuple(x.shape[:-1]) + (1,), x.dtype)
+
+
+@op("cross_entropy", infer_shape=_xent_infer, grad="generic")
+def _cross_entropy(ctx, op_):
+    """``math_ops.py:445``: −log of X (probabilities, clipped to
+    [1e-15, 1]) at Label, or −Σ label·log X with ``soft_label``;
+    ``ignore_index`` rows give 0."""
+    x = ctx.in1(op_, "X")
+    label = ctx.in1(op_, "Label")
+    ignore_index = int(op_.attr("ignore_index", -100))
+    logp = torch.log(torch.clamp(x, 1e-15, 1.0))
+    if op_.attr("soft_label", False):
+        out = -(label * logp).sum(-1, keepdim=True)
+    else:
+        lab = label
+        if lab.dim() and lab.shape[-1] == 1:
+            lab = lab.reshape(lab.shape[:-1])
+        ignored = (lab == ignore_index)[..., None]
+        safe = torch.where(lab == ignore_index, torch.zeros_like(lab), lab)
+        picked = logp.gather(-1, safe[..., None].long())
+        out = torch.where(ignored, torch.zeros_like(picked), -picked)
+    ctx.out(op_, "Out", out)
+
+
+def _scalar1_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", (1,), x.dtype)
+
+
+@op("squared_l2_norm", infer_shape=_scalar1_infer, grad="generic")
+def _squared_l2_norm(ctx, op_):
+    """Σ X² as a [1] tensor (``math_ops.py:411``; the global-norm clip)."""
+    x = ctx.in1(op_, "X")
+    ctx.out(op_, "Out", (x * x).sum().reshape((1,)))

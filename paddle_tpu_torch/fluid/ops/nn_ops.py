@@ -14,7 +14,8 @@ import torch.nn.functional as F
 
 from ...kernels import flash_attention as _fa
 from .registry import (EMPTY_VAR, SkipInferShape, _generic_grad_lower,
-                       in_var, op, register_op, same_shape_infer, set_out)
+                       in_var, op, register_op, same_shape_infer, set_out,
+                       unreplayed_name)
 
 __all__ = [
     "conv2d",
@@ -398,7 +399,10 @@ def _flash_attention_op(ctx, op_):
     dropout seed are kept as companions of the output var, from which
     ``flash_attention_grad`` drives the backward kernels; the seed is
     drawn from the run's CPU generator as a Python int, so no draw waits
-    on the card."""
+    on the card. A recompute replay (output ``o@RECOMPUTE@k``) takes the
+    forward's seed (``o@FLASH_SEED``) and draws none, so its mask, and
+    the backward's, is the one the forward applied; a replay without that
+    seed raises, since a fresh draw would give wrong gradients."""
     q, k, v = (ctx.in1(op_, s).contiguous() for s in ("Q", "K", "V"))
     # the contiguous copies replace the transposed views in the run's
     # environment: the grad op reads them without copying again
@@ -407,15 +411,25 @@ def _flash_attention_op(ctx, op_):
     key_bias = ctx.in1(op_, "KeyBias", optional=True)
     bias = ctx.in1(op_, "Bias", optional=True)
     scale = op_.attr("scale", 0.0)
-    drop = flash_dropout(op_.attr("dropout_rate", 0.0),
-                         bool(op_.attr("is_test", False)),
-                         ctx.host_generator() if ctx.rng else None)
+    oname = op_.output("Out")[0]
+    base = unreplayed_name(oname)
+    if base != oname:
+        if base + _SEED not in ctx.env:
+            raise RuntimeError(
+                "flash_attention replay %r: its forward's seed %r is not "
+                "in the run" % (oname, base + _SEED))
+        seed = ctx.env[base + _SEED]
+        drop = {"dropout_rate": 0.0 if seed is None else float(
+            op_.attr("dropout_rate", 0.0)), "dropout_seed": seed}
+    else:
+        drop = flash_dropout(op_.attr("dropout_rate", 0.0),
+                             bool(op_.attr("is_test", False)),
+                             ctx.host_generator() if ctx.rng else None)
     out, lse = flash_attention_lse(
         q, k, v, key_bias=key_bias, bias=bias,
         causal=bool(op_.attr("causal", False)),
         scale=float(scale) if scale else None, **drop)
     ctx.out(op_, "Out", out)
-    oname = op_.output("Out")[0]
     ctx.set(oname + _LSE, lse)
     ctx.set(oname + _SEED, drop["dropout_seed"])
 
@@ -784,7 +798,8 @@ def _batch_norm_infer(op_, block):
 
 def _batch_norm_vjp(ctx, op_, slots):
     """``batch_norm`` with the running stats written IN PLACE into the
-    scope's Mean and Variance tensors (the outputs name them again), and
+    scope's Mean and Variance tensors where the outputs name them again
+    (a recompute replay's renamed outputs get new tensors), and
     its pullback: ``native_batch_norm_backward`` in fp32 from the saved
     mean and 1/√(var + ε) (training) or the running stats (test), the
     gradient of the same function the forward computes."""
@@ -800,12 +815,21 @@ def _batch_norm_vjp(ctx, op_, slots):
     y, new_mean, new_var, saved_mean, saved_var = batch_norm(
         x, scale, bias, mean, var, eps, float(op_.attr("momentum", 0.9)),
         use_global, False, layout)
+    mean_out, var_out = mean, var
     if not use_global:
-        mean.copy_(new_mean.detach())
-        var.copy_(new_var.detach())
+        # a recompute replay names its MeanOut / VarianceOut apart
+        # (``v@RECOMPUTE@k``): only the forward updates the scope's stats
+        if op_.output("MeanOut") == op_.input("Mean"):
+            mean.copy_(new_mean.detach())
+        else:
+            mean_out = new_mean.detach()
+        if op_.output("VarianceOut") == op_.input("Variance"):
+            var.copy_(new_var.detach())
+        else:
+            var_out = new_var.detach()
     ctx.out(op_, "Y", y)
-    ctx.out(op_, "MeanOut", mean)
-    ctx.out(op_, "VarianceOut", var)
+    ctx.out(op_, "MeanOut", mean_out)
+    ctx.out(op_, "VarianceOut", var_out)
     ctx.out(op_, "SavedMean", saved_mean)
     ctx.out(op_, "SavedVariance", saved_var)
     if not slots:

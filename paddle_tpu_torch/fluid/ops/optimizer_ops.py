@@ -1,5 +1,5 @@
-"""Optimizer update ops (port of ``sgd``, ``momentum`` and ``adam`` in
-``paddle_tpu/fluid/ops/optimizer_ops.py``) as in-place updates of
+"""Optimizer update ops (port of ``sgd``, ``momentum``, ``adagrad`` and
+``adam`` in ``paddle_tpu/fluid/ops/optimizer_ops.py``) as in-place updates of
 tensors, and their registered op lowerings. Each op updates its
 parameter (and accumulators) in the scope's tensors, which its outputs
 name again.
@@ -18,7 +18,7 @@ import torch
 
 from .registry import op
 
-__all__ = ["sgd", "momentum", "adam", "adam_one"]
+__all__ = ["sgd", "momentum", "adagrad", "adam", "adam_one"]
 
 
 def _fp32(x):
@@ -49,6 +49,17 @@ def momentum(param, grad, velocity, learning_rate, mu, use_nesterov=False):
         param.sub_(learning_rate * velocity)
 
 
+def adagrad(param, grad, moment, learning_rate, epsilon=1e-6):
+    """The ``adagrad`` op (``optimizer_ops.py:140``) in place:
+
+        m += g²
+        p −= lr·g / (√m + ε)
+
+    ε rounded to fp32 as the reference's constant is."""
+    moment.addcmul_(grad, grad)
+    param.sub_(learning_rate * grad / (moment.sqrt() + _fp32(epsilon)))
+
+
 def _lr(ctx, op_, p):
     """The op's LearningRate [1] as a scalar tensor in ``p``'s type."""
     return ctx.in1(op_, "LearningRate").reshape(()).to(p.dtype)
@@ -69,6 +80,16 @@ def _momentum_op(ctx, op_):
              float(op_.attr("mu")), bool(op_.attr("use_nesterov", False)))
     ctx.out(op_, "ParamOut", p)
     ctx.out(op_, "VelocityOut", v)
+
+
+@op("adagrad")
+def _adagrad_op(ctx, op_):
+    p = ctx.in1(op_, "Param")
+    m = ctx.in1(op_, "Moment")
+    adagrad(p, ctx.in1(op_, "Grad").to(p.dtype), m, _lr(ctx, op_, p),
+            float(op_.attr("epsilon", 1e-6)))
+    ctx.out(op_, "ParamOut", p)
+    ctx.out(op_, "MomentOut", m)
 
 
 def adam(params, grads, moment1, moment2, beta1_pow, beta2_pow,

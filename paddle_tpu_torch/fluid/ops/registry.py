@@ -25,6 +25,8 @@ counter.
 Grad naming contract as the reference: grad of var ``x`` is ``x@GRAD``.
 """
 
+import re
+
 import numpy as np
 import torch
 from torch.autograd.graph import get_gradient_edge
@@ -40,6 +42,15 @@ FWD_INPUTS_ATTR = "__fwd_inputs__"
 FWD_OUTPUTS_ATTR = "__fwd_outputs__"
 
 REPLAY_COUNTER = "generic_grad_replays"
+
+_REPLAY_TAG = re.compile(r"@(RECOMPUTE|CKPT)@\d+$")
+
+
+def unreplayed_name(name):
+    """A recompute replay's var name (``v@RECOMPUTE@k``, or a barriered
+    read ``v@CKPT@k``; ``backward._recompute_transform``) as the
+    forward's ``v``; any other name as it is."""
+    return _REPLAY_TAG.sub("", name)
 
 
 class SkipInferShape(Exception):
@@ -124,16 +135,19 @@ class LowerCtx(object):
     generator pair random ops draw from, ``vjps`` the forward closures
     kept for generic grad ops (keyed by the grad op's id), ``host_feeds``
     the host arrays the run's feeds came from ({name: (tensor, array)}),
-    which ``host_ints`` reads instead of the tensor."""
+    which ``host_ints`` reads instead of the tensor, and ``parent`` the
+    context a captured forward or a recurrence step runs inside, through
+    which the sequence ops find the run's ``@SEQ_LEN`` companions."""
 
     def __init__(self, env=None, device=None, rng=None, block=None,
-                 scope=None, host_feeds=None):
+                 scope=None, host_feeds=None, parent=None):
         self.env = env if env is not None else {}
         self.device = torch.device("cpu") if device is None else device
         self.rng = rng
         self.block = block
         self.scope = scope
         self.host_feeds = host_feeds if host_feeds is not None else {}
+        self.parent = parent
         self.vjps = {}
         self._memo = {}
         self._cur_op = None
@@ -313,10 +327,11 @@ def _is_float(v):
     return isinstance(v, torch.Tensor) and v.is_floating_point()
 
 
-def _grad_wrt(ctx, grad_op):
-    """[(input name, grad name, input slot)] the generic grad op
+def _grad_wrt(ctx, grad_op, fwd_op=None):
+    """[(input name, grad name, input slot, index)] the generic grad op
     computes: its non-empty ``S@GRAD`` outputs whose forward input is a
-    float tensor."""
+    float tensor (read under ``fwd_op``'s name for that place when given:
+    a recompute replay reads a barriered ``v@CKPT@k``)."""
     fwd_inputs = grad_op.attr(FWD_INPUTS_ATTR)
     wrt = []
     for gslot, gnames in grad_op.outputs.items():
@@ -324,10 +339,12 @@ def _grad_wrt(ctx, grad_op):
             continue
         slot = gslot[: -len(GRAD_SUFFIX)]
         src = fwd_inputs.get(slot, [])
+        if fwd_op is not None:
+            src = fwd_op.inputs.get(slot, [])
         for idx, gname in enumerate(gnames):
             if gname != EMPTY_VAR and idx < len(src) and \
                     _is_float(ctx.get_opt(src[idx])):
-                wrt.append((src[idx], gname, slot))
+                wrt.append((src[idx], gname, slot, idx))
     return wrt
 
 
@@ -354,14 +371,18 @@ def _vjp_of_forward(ctx, fwd_type, fwd_inputs, fwd_outputs, attrs, wrt,
                 env[n] = v
     leaves = [ctx.get(n).detach().requires_grad_() for n, _g, _s in wrt]
     env.update(zip((n for n, _g, _s in wrt), leaves))
-    sub = LowerCtx(env=env, device=ctx.device, rng=ctx.rng, block=ctx.block)
+    sub = LowerCtx(env=env, device=ctx.device, rng=ctx.rng, block=ctx.block,
+                   scope=ctx.scope, host_feeds=ctx.host_feeds, parent=ctx)
     sub._cur_op = fake
+    given = set(env)
     with torch.enable_grad():
         fwd_def.lower(sub, fake)
     edges = [get_gradient_edge(env[n]) if env[n].requires_grad else None
              for n in cot_names]
-    values = {n: env[n].detach() for names in fwd_outputs.values()
-              for n in names if n != EMPTY_VAR and n in env}
+    # the outputs, and what else the rule set (an output's @SEQ_LEN)
+    outs = {n for names in fwd_outputs.values() for n in names}
+    values = {n: v.detach() if isinstance(v, torch.Tensor) else v
+              for n, v in env.items() if n not in given or n in outs}
 
     def vjp_fn(cots):
         pairs = [(e, c) for e, c in zip(edges, cots)
@@ -393,16 +414,21 @@ def _rule_vjp(ctx, op, rule, wrt, cot_names):
     return vjp_fn
 
 
-def run_op_capturing(ctx, op, grad_op, cot_names):
+def run_op_capturing(ctx, op, grad_op, cot_names, grad_cot_names):
     """Run forward ``op`` once, through its ``vjp`` rule or on the
     autograd tape, and keep the vjp closure for its generic ``grad_op``
     (same run). ``cot_names``: the float outputs of ``op`` that receive a
-    gradient in the block."""
+    gradient in the block; ``grad_cot_names``: their cotangents, the grad
+    op's ``S@GRAD`` inputs at their places (a recompute replay's
+    ``v@RECOMPUTE@k`` gets ``v@GRAD``).
+    The grads are taken with respect to ``op``'s own inputs at the slots
+    and places the grad op asks for."""
     prev = ctx._cur_op
     ctx._cur_op = op
     values = {}
     try:
-        wrt = _grad_wrt(ctx, grad_op)
+        wrt = [(op.inputs[slot][idx], gname, slot)
+               for _n, gname, slot, idx in _grad_wrt(ctx, grad_op, op)]
         rule = get_op_def(op.type).vjp
         if rule is not None and len(cot_names) == 1:
             vjp_fn = _rule_vjp(ctx, op, rule, wrt, cot_names)
@@ -416,7 +442,7 @@ def run_op_capturing(ctx, op, grad_op, cot_names):
         ctx._cur_op = prev
     for n, v in values.items():
         ctx.set(n, v)
-    ctx.vjps[id(grad_op)] = (vjp_fn, wrt, cot_names)
+    ctx.vjps[id(grad_op)] = (vjp_fn, wrt, list(grad_cot_names))
 
 
 def _generic_grad_lower(ctx, op):
@@ -425,7 +451,10 @@ def _generic_grad_lower(ctx, op):
     else a counted replay of the forward."""
     kept = ctx.vjps.pop(id(op), None)
     if kept is not None:
-        vjp_fn, wrt, cot_names = kept
+        vjp_fn, wrt, cot_grads = kept
+        if not wrt:
+            return
+        cots = [ctx.get_opt(c) for c in cot_grads]
     else:
         fwd_inputs = op.attr(FWD_INPUTS_ATTR)
         fwd_outputs = op.attr(FWD_OUTPUTS_ATTR)
@@ -433,27 +462,29 @@ def _generic_grad_lower(ctx, op):
             raise NotImplementedError(
                 "generic grad for %s requires maker-recorded signature"
                 % op.type)
-        wrt = _grad_wrt(ctx, op)
+        wrt = [w[:3] for w in _grad_wrt(ctx, op)]
         if not wrt:
             return
-        cot_names = [n for slot in sorted(fwd_outputs)
-                     for n in fwd_outputs[slot]
-                     if n != EMPTY_VAR and _is_float(ctx.get_opt(n))]
+        outs = [(n, (op.inputs.get(slot + GRAD_SUFFIX) or [None] * (
+                    k + 1))[k])
+                for slot in sorted(fwd_outputs)
+                for k, n in enumerate(fwd_outputs[slot])
+                if n != EMPTY_VAR and _is_float(ctx.get_opt(n))]
+        cot_names = [n for n, _c in outs]
         attrs = {k: v for k, v in op.attrs.items()
                  if k not in (FWD_INPUTS_ATTR, FWD_OUTPUTS_ATTR)}
         profiler.bump_counter(REPLAY_COUNTER)
         vjp_fn, values = _vjp_of_forward(
             ctx, op.type[: -len("_grad")], fwd_inputs, fwd_outputs, attrs,
             wrt, cot_names)
-    if not wrt:
-        return
-    cots = []
-    for n in cot_names:
-        g = ctx.get_opt(n + GRAD_SUFFIX)
-        if g is None:
-            v = ctx.get_opt(n)
-            g = torch.zeros_like(v) if v is not None else None
-        cots.append(g)
+        cots = []
+        for n, c in outs:
+            g = ctx.get_opt(n + GRAD_SUFFIX)
+            if g is None and c is not None:
+                g = ctx.get_opt(c)
+            if g is None:
+                g = torch.zeros_like(values[n]) if n in values else None
+            cots.append(g)
     grads = vjp_fn(tuple(cots))
     for (_name, gname, _slot), g in zip(wrt, grads):
         ctx.set(gname, g)

@@ -49,6 +49,19 @@ def _fill_constant(ctx, op_):
                                    device=ctx.device))
 
 
+@op("fill_constant_batch_size_like", infer_shape=_fill_constant_infer)
+def _fill_constant_bsl(ctx, op_):
+    """``fill_constant`` with one dim taken from Input's
+    (``tensor_ops.py:47``)."""
+    ref = ctx.in1(op_, "Input")
+    shape = [int(s) for s in op_.attr("shape", [])]
+    shape[int(op_.attr("output_dim_idx", 0))] = ref.shape[
+        int(op_.attr("input_dim_idx", 0))]
+    ctx.out(op_, "Out", torch.full(shape, float(op_.attr("value", 0.0)),
+                                   dtype=_dtype(op_.attr("dtype")),
+                                   device=ctx.device))
+
+
 @op("uniform_random", infer_shape=_fill_constant_infer)
 def _uniform_random(ctx, op_):
     shape = [int(s) for s in op_.attr("shape", [])]
@@ -93,6 +106,16 @@ def _assign_value(ctx, op_):
 
 @op("assign", infer_shape=same_shape_infer("X"), grad="generic")
 def _assign(ctx, op_):
+    ctx.out(op_, "Out", ctx.in1(op_, "X"))
+
+
+@op("recompute_barrier", infer_shape=same_shape_infer("X"))
+def _recompute_barrier(ctx, op_):
+    """The recompute replay's read of a value from outside its segment
+    (``tensor_ops.py:169``): X itself. The reference's is an
+    ``optimization_barrier`` that keeps XLA from merging the replay into
+    the forward and, through ``Dep`` (the cotangent entering the
+    segment), from hoisting it; eager ops neither merge nor move."""
     ctx.out(op_, "Out", ctx.in1(op_, "X"))
 
 
@@ -243,6 +266,106 @@ def _unsqueeze_lower(ctx, op_):
 
 register_op("unsqueeze2", infer_shape=_unsqueeze_infer,
             lower=_unsqueeze_lower, grad="generic")
+
+
+def _squeeze_axes(shape, axes):
+    if axes:
+        drop = {a % len(shape) for a in axes}
+        return [d for i, d in enumerate(shape) if i not in drop]
+    return [d for d in shape if d != 1]
+
+
+def _squeeze_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", _squeeze_axes(list(v.shape),
+                                             op_.attr("axes", [])), v.dtype)
+    if op_.output("XShape"):
+        set_out(op_, block, "XShape", (0,) + tuple(v.shape), v.dtype)
+
+
+def _squeeze_lower(ctx, op_):
+    x = ctx.in1(op_, "X")
+    ctx.out(op_, "Out", x.reshape(_squeeze_axes(list(x.shape),
+                                                op_.attr("axes", []))))
+    if op_.output("XShape"):
+        ctx.out(op_, "XShape", _empty_like_shape(x))
+
+
+register_op("squeeze2", infer_shape=_squeeze_infer, lower=_squeeze_lower,
+            grad="generic")
+
+
+def _concat_infer(op_, block):
+    vs = [block._find_var_recursive(n) for n in op_.input("X")]
+    if any(v is None for v in vs):
+        raise SkipInferShape()
+    ax = int(op_.attr("axis", 0))
+    shape = list(vs[0].shape)
+    if shape and all(v.shape for v in vs):
+        shape[ax] = sum(v.shape[ax] for v in vs)
+    set_out(op_, block, "Out", shape, vs[0].dtype)
+
+
+@op("concat", infer_shape=_concat_infer, grad="generic")
+def _concat(ctx, op_):
+    """``tensor_ops.py:388``: X joined along ``axis``."""
+    xs = ctx.ins(op_, "X")
+    ctx.out(op_, "Out", torch.cat(xs, dim=int(op_.attr("axis", 0))))
+
+
+def _split_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None or not x.shape:
+        raise SkipInferShape()
+    ax = int(op_.attr("axis", 0)) % len(x.shape)
+    sections = op_.attr("sections", [])
+    num = int(op_.attr("num", 0))
+    dim = x.shape[ax]
+    for i in range(len(op_.outputs.get("Out") or [])):
+        d = int(sections[i]) if sections else (
+            dim // num if dim >= 0 else -1)
+        set_out(op_, block, "Out", tuple(
+            d if j == ax else s for j, s in enumerate(x.shape)), x.dtype,
+            idx=i)
+
+
+@op("split", infer_shape=_split_infer, grad="generic")
+def _split(ctx, op_):
+    """``tensor_ops.py:421``: X cut along ``axis`` into ``sections`` or
+    ``num`` equal parts."""
+    x = ctx.in1(op_, "X")
+    ax = int(op_.attr("axis", 0))
+    sections = op_.attr("sections", [])
+    if sections:
+        outs = torch.split(x, [int(n) for n in sections], dim=ax)
+    else:
+        outs = torch.chunk(x, int(op_.attr("num", 0)), dim=ax)
+    ctx.outs(op_, "Out", list(outs))
+
+
+def _expand_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    times = op_.attr("expand_times", [])
+    set_out(op_, block, "Out", [d * t if d >= 0 else -1
+                                for d, t in zip(v.shape, times)], v.dtype)
+
+
+@op("expand", infer_shape=_expand_infer, grad="generic")
+def _expand(ctx, op_):
+    """``tensor_ops.py:464``: X tiled ``expand_times`` along each dim."""
+    ctx.out(op_, "Out", ctx.in1(op_, "X").repeat(
+        *[int(t) for t in op_.attr("expand_times")]))
+
+
+@op("gather", grad="generic")
+def _gather(ctx, op_):
+    """``tensor_ops.py:493``: rows of X at Index."""
+    x = ctx.in1(op_, "X")
+    ctx.out(op_, "Out", x[ctx.in1(op_, "Index").reshape(-1).long()])
 
 
 @op("slice", grad="generic")

@@ -1,5 +1,6 @@
 """Optimizers (port of ``Optimizer``, ``SGDOptimizer`` / ``SGD``,
-``MomentumOptimizer`` / ``Momentum`` and ``AdamOptimizer`` / ``Adam`` in
+``MomentumOptimizer`` / ``Momentum``, ``AdagradOptimizer`` / ``Adagrad``,
+``AdamOptimizer`` / ``Adam`` and ``RecomputeOptimizer`` in
 ``paddle_tpu/fluid/optimizer.py``).
 
 As in the reference, one class serves both uses:
@@ -33,7 +34,8 @@ from .layer_helper import LayerHelper
 from .ops import optimizer_ops
 
 __all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
-           "Momentum", "AdamOptimizer", "Adam"]
+           "Momentum", "AdagradOptimizer", "Adagrad", "AdamOptimizer",
+           "Adam", "RecomputeOptimizer"]
 
 
 class Optimizer(object):
@@ -212,6 +214,36 @@ class MomentumOptimizer(Optimizer):
         )
 
 
+class AdagradOptimizer(Optimizer):
+    """Adagrad (``optimizer.py:398``): one ``adagrad`` op per parameter
+    with a ``moment`` accumulator created at
+    ``initial_accumulator_value``."""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self.initial_accumulator_value = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p,
+                                  fill_value=self.initial_accumulator_value)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": [param], "Grad": [grad], "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "MomentOut": [moment]},
+            attrs={"epsilon": self._epsilon, OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
 class AdamOptimizer(Optimizer):
     """Adam with the reference's update rule (``optimizer_ops.adam``, ε
     not bias-corrected): per-parameter moments created at zero and β-pow
@@ -318,6 +350,43 @@ class AdamOptimizer(Optimizer):
         self.clear_grad()
 
 
+class RecomputeOptimizer(Optimizer):
+    """Activation recompute around another optimizer
+    (``optimizer.py:970``): its backward is ``append_backward`` with the
+    checkpoints set by ``_set_checkpoints``, and the update is the
+    wrapped optimizer's."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        ckpts = [c.name if isinstance(c, Variable) else c
+                 for c in (self._checkpoints or [])]
+        return append_backward(loss, parameter_list, no_grad_set, callbacks,
+                               checkpoints=ckpts)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self._optimizer.apply_optimize(loss, startup_program,
+                                              params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, grad_clip=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        optimize_ops = self.apply_optimize(loss, startup_program,
+                                           params_grads)
+        return optimize_ops, params_grads
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

@@ -83,26 +83,29 @@ def build_resnet_train(depth=50, class_num=1000, image_size=224,
     accuracy, Momentum. ``use_amp``: the optimizer decorated with
     ``contrib.mixed_precision.decorate`` (bf16 convolutions and fc, batch
     norm following its input with fp32 statistics, fp32 master weights
-    and update). ``recompute`` (activation recompute at block
-    boundaries) is not ported: it raises ``NotImplementedError``."""
-    if recompute:
-        raise NotImplementedError(
-            "build_resnet_train(recompute=True): activation recompute "
-            "(RecomputeOptimizer) is not ported yet (ROADMAP A8)")
+    and update). ``recompute``: activation recompute at every other
+    residual block's output (``RecomputeOptimizer`` with checkpoints
+    ``ckpts[1::2]``, inside the AMP decorator as at ``resnet.py:106-124``:
+    AMP's backward rewrites the program, then delegates to the
+    checkpointed ``append_backward``)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         img = fluid.layers.data(name="img",
                                 shape=[3, image_size, image_size],
                                 dtype="float32")
         label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        ckpts = [] if recompute else None
         logits = resnet(img, class_num=class_num, depth=depth,
-                        is_test=is_test)
+                        is_test=is_test, checkpoints=ckpts)
         loss = fluid.layers.softmax_with_cross_entropy(logits, label)
         avg_loss = fluid.layers.mean(loss)
         acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),
                                     label=label)
         opt = fluid.optimizer.Momentum(learning_rate=learning_rate,
                                        momentum=momentum)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(ckpts[1::2])
         if use_amp:
             opt = fluid.contrib.mixed_precision.decorate(opt)
         opt.minimize(avg_loss)

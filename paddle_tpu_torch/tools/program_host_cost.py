@@ -66,9 +66,9 @@ def per_op_cost(run, steps):
         c[0] += time.perf_counter() - t0
         c[1] += 1
 
-    def timed_capturing(ctx, op, grad_op, cot_names):
+    def timed_capturing(ctx, op, *args):
         t0 = time.perf_counter()
-        run_capturing(ctx, op, grad_op, cot_names)
+        run_capturing(ctx, op, *args)
         c = cost[op.type + "(captured)"]
         c[0] += time.perf_counter() - t0
         c[1] += 1

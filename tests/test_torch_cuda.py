@@ -1080,3 +1080,234 @@ def test_while_and_conditional_block_on_card_match_cpu():
     (lc, gc), (lp, gp) = out
     np.testing.assert_allclose(lc, lp, rtol=1e-5)
     assert np.linalg.norm(gc - gp) <= 1e-4 * np.linalg.norm(gp)
+
+
+def _bert_recompute_program(cfg, seq, recompute):
+    """The tiny BERT classifier with Adam, wrapped in
+    ``RecomputeOptimizer`` (checkpoints at each encoder layer's output,
+    its second ``layer_norm``) when ``recompute``."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        ids = [L.data(name=n, shape=[seq, 1], dtype="int64")
+               for n in ("src_ids", "pos_ids", "sent_ids")]
+        mask = L.data(name="input_mask", shape=[seq, 1], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        _x, pooled = bert.bert_encoder(*ids, mask, cfg)
+        logits = L.fc(input=bert._dropout(pooled, cfg.hidden_dropout,
+                                          cfg.is_test), size=2, name="cls")
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        norms = [o for o in main.global_block().ops
+                 if o.type == "layer_norm"]
+        opt = fluid.optimizer.Adam(learning_rate=1e-3)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints([main.global_block().var(o.output("Y")[0])
+                                  for o in norms[2::2]])
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def test_recompute_bert_on_card_equals_plain_at_dropout():
+    """The tiny BERT classifier (flash, hidden and attention dropout 0.1)
+    with ``RecomputeOptimizer`` against the plain program on the card,
+    from the same weights and generator state: two steps' losses and
+    every gradient within 1e-5 relative norm (the replays take the
+    forward's flash seed); ``flash_fwd`` twice a layer a step, dq and
+    dk/dv once, no generic replay."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=True, hidden_dropout=0.1,
+                               attention_dropout=0.1)
+    rs = np.random.RandomState(0)
+    B, S = 4, 32
+    mask = (np.arange(S)[None, :] < np.array([[32], [20], [9], [27]])
+            ).astype(np.float32)[..., None]
+    feed = {"src_ids": rs.randint(0, cfg.vocab_size, (B, S, 1)),
+            "pos_ids": np.tile(np.arange(S).reshape(1, S, 1), (B, 1, 1)),
+            "sent_ids": np.zeros((B, S, 1), np.int64), "input_mask": mask,
+            "label": rs.randint(0, 2, (B, 1))}
+    runs, arrays = [], None
+    for rec in (False, True):
+        main, startup, loss = _bert_recompute_program(cfg, S, rec)
+        names = sorted(p.name for p in main.all_parameters())
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            arrays = {v.name: scope.get(v.name).cpu().numpy().copy()
+                      for v in main.list_vars() if v.persistable}
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        r0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        n0 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        out = [exe.run(main, feed=feed, fetch_list=[loss] + [
+            n + "@GRAD" for n in names], scope=scope) for _ in range(2)]
+        n1 = [fa.flash_attention_lse.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches]
+        L = cfg.num_layers
+        assert [b - a for a, b in zip(n0, n1)] == [
+            2 * L * (2 if rec else 1), 2 * L, 2 * L]
+        assert profiler.get_counter(registry.REPLAY_COUNTER) == r0
+        runs.append(out)
+    for plain, rec in zip(*runs):
+        for a, b in zip(plain, rec):
+            assert np.linalg.norm(b - a) <= 1e-5 * np.linalg.norm(a) + 1e-9
+
+
+def _rnn_card_vs_cpu(build, feed):
+    """``build()`` -> (main, startup, loss) run one SGD step on the card
+    and on the CPU from the same weights; returns the (card, CPU)
+    fetches of the loss and every parameter's gradient."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    out, arrays = [], None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        main, startup, loss = build()
+        names = sorted(p.name + "@GRAD" for p in main.all_parameters())
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            arrays = {v.name: scope.get(v.name).cpu().numpy().copy()
+                      for v in main.list_vars() if v.persistable}
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        out.append([np.asarray(g) for g in exe.run(
+            main, feed=feed(main), fetch_list=[loss] + names, scope=scope)])
+    return out[1], out[0]
+
+
+@pytest.mark.parametrize("kind", ["dynamic_lstm", "basic_lstm", "rnns"])
+def test_recurrent_programs_on_card_match_cpu(kind):
+    """Small recurrent programs on ragged feeds through ``fluid.Executor``
+    on the card against the CPU from the same weights: two stacked
+    ``dynamic_lstm`` (the second reversed) over a ``DataFeeder`` LoD
+    batch with max pools; ``basic_lstm`` (2 layers, bidirectional, with
+    lengths); ``DynamicRNN`` + ``StaticRNN`` + ``IfElse``. The loss
+    within 1e-5 relative and every gradient within 1e-4 relative norm."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    rs = np.random.RandomState(3)
+    samples = [(list(rs.randint(0, 50, n)), [int(n % 2)])
+               for n in (7, 3, 11, 5, 9, 2)]
+    L = fluid.layers
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 9
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            words = L.data(name="words", shape=[-1, 1], dtype="int64",
+                           lod_level=1)
+            label = L.data(name="label", shape=[1], dtype="int64")
+            if kind == "dynamic_lstm":
+                emb = L.embedding(words, size=[50, 16])
+                fc = L.fc(emb, size=64, num_flatten_dims=2)
+                h1, _c = L.dynamic_lstm(fc, size=64)
+                fc2 = L.fc([fc, h1], size=64, num_flatten_dims=2)
+                h2, _c = L.dynamic_lstm(fc2, size=64, is_reverse=True)
+                feat = L.concat([L.sequence_pool(fc2, "max"),
+                                 L.sequence_pool(h2, "max")], axis=1)
+            elif kind == "basic_lstm":
+                emb = L.embedding(words, size=[50, 16])
+                sl = L.data(name="sl", shape=[1], dtype="int32")
+                out, _h, _c = fluid.contrib.basic_lstm(
+                    emb, None, None, 16, num_layers=2, sequence_length=sl,
+                    bidirectional=True)
+                feat = L.reduce_mean(out, dim=[1])
+            else:
+                outs = []
+                for rnn in (L.DynamicRNN(), L.StaticRNN()):
+                    with rnn.block():
+                        e = L.embedding(rnn.step_input(words),
+                                        size=[50, 16],
+                                        param_attr=fluid.ParamAttr(
+                                            name="emb"))
+                        prev = rnn.memory(shape=[16], value=0.0)
+                        h = L.fc([e, prev], size=16, act="tanh")
+                        rnn.update_memory(prev, h)
+                        rnn.output(h)
+                    outs.append(rnn())
+                feat = L.concat([L.sequence_pool(outs[0], "last"),
+                                 L.sequence_pool(outs[1], "average")],
+                                axis=1)
+                zero = L.fill_constant(shape=[1], dtype="float32",
+                                       value=0.0)
+                ie = L.IfElse(L.less_than(
+                    L.reduce_mean(feat, dim=[1], keep_dim=True), zero))
+                with ie.true_block():
+                    ie.output(L.fc(ie.input(feat), size=16, act="tanh"))
+                with ie.false_block():
+                    ie.output(L.fc(ie.input(feat), size=16))
+                (feat,) = ie()
+            pred = L.fc(feat, size=2, act="softmax")
+            loss = L.mean(L.cross_entropy(pred, label))
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        return main, startup, loss
+
+    def feed(main):
+        got = fluid.DataFeeder(["words", "label"], fluid.CPUPlace(),
+                               program=main).feed(samples)
+        if kind == "basic_lstm":
+            got["sl"] = np.array([len(s[0]) for s in samples], np.int32)
+        return got
+
+    card, cpu = _rnn_card_vs_cpu(build, feed)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for got, want in zip(card[1:], cpu[1:]):
+        assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want) \
+            + 1e-9
+
+
+def test_beam_search_on_card_matches_cpu():
+    """``BeamSearchDecoder`` + ``dynamic_decode`` over an ``LSTMCell``
+    (hid 32, vocabulary 64, beam 4, 12 steps, 3 sources) on the card
+    and on the CPU from the same weights: the same backtracked beams and
+    final scores within 1e-5."""
+    import numpy as np
+
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    rs = np.random.RandomState(4)
+    feed = {"h": rs.randn(3, 32).astype(np.float32),
+            "c": rs.randn(3, 32).astype(np.float32)}
+    out, arrays = [], None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            h = L.data(name="h", shape=[32], dtype="float32")
+            c = L.data(name="c", shape=[32], dtype="float32")
+            dec = L.BeamSearchDecoder(
+                L.LSTMCell(32), start_token=0, end_token=1, beam_size=4,
+                embedding_fn=lambda i: L.embedding(i, size=[64, 32]),
+                output_fn=lambda x: L.fc(x, size=64, bias_attr=False))
+            ids, states = L.dynamic_decode(dec, inits=[h, c],
+                                           max_step_num=12)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arrays is None:
+            arrays = {v.name: scope.get(v.name).cpu().numpy().copy()
+                      for v in main.list_vars() if v.persistable}
+        else:
+            fluid.load_program_scope(main, scope, arrays)
+        out.append(exe.run(main, feed=feed, fetch_list=[ids, states[-1]],
+                           scope=scope))
+    (cpu_ids, cpu_sc), (ids, sc) = out
+    np.testing.assert_array_equal(ids, cpu_ids)
+    np.testing.assert_allclose(sc, cpu_sc, rtol=1e-5, atol=1e-5)

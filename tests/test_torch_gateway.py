@@ -99,8 +99,13 @@ def _defaults(flags_mod, prefixes):
             if k.startswith(prefixes)}
 
 
+# every flag family the reference's serving stack reads (its gateway,
+# server, engine, router, fleet, checkpoint latch and exporters), pinned
+# to its defaults: a file run earlier on the same xdist worker may leave
+# any of them set
 _PREFIXES = ("decode_", "spmd_decode_", "kv_tier_", "sched_", "gateway_",
-             "serving_", "obs_", "trace_", "chaos_")
+             "serving_", "obs_", "trace_", "chaos_", "router_", "fleet_",
+             "ckpt_", "dist_", "sim_")
 
 
 @pytest.fixture(autouse=True)
@@ -407,7 +412,28 @@ def test_drain_503_and_stream_completion_match_reference(pair):
     assert trej == jrej == {"error": "draining", "request_id": "late"}
 
 
+def _await_log_line(path, request_id, timeout_s=30.0):
+    """Wait until the access log at ``path`` holds ``request_id``'s
+    line (the writer appends whole lines, one open per line)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        if os.path.exists(path):
+            with open(path) as f:
+                if any(json.loads(ln).get("request_id") == request_id
+                       for ln in f if ln.strip()):
+                    return
+        assert time.monotonic() < deadline, (
+            "no access-log line for %s in %s" % (request_id, path))
+        time.sleep(0.01)
+
+
 def test_access_log_keys_match_reference(pair, tmp_path):
+    """Each request's access-log line carries the reference's keys and
+    values (clock readings and random ids aside), in request order. A
+    line is written when its request's handler ends, which for the SSE
+    request comes after its last byte reaches the client: on a loaded
+    host the next request's line could land first, so each request is
+    sent only once the line of the one before it is in the log."""
     lines = {}
     for name, (mod, _gw, _pre) in PKG.items():
         path = str(tmp_path / ("%s.jsonl" % name))
@@ -416,18 +442,21 @@ def test_access_log_keys_match_reference(pair, tmp_path):
         try:
             post(base + "/v1/infer", {"inputs": [tgateway.encode_tensor(X)]},
                  {"X-Request-Id": "a1", "X-Tenant-Id": "t"})
+            _await_log_line(path, "a1")
             sse(base + "/v1/generate",
                 {"prompt_ids": [3, 4], "max_new_tokens": 4},
                 {"X-Request-Id": "a2", "X-Priority": "batch"})
+            _await_log_line(path, "a2")
             post(base + "/v1/infer", {"inputs": []}, {"X-Request-Id": "a3"})
+            _await_log_line(path, "a3")
         finally:
             gw.stop()
         with open(path) as f:
             lines[name] = [json.loads(ln) for ln in f if ln.strip()]
     jl, tl = lines["jax"], lines["torch"]
-    assert [r["request_id"] for r in tl] == ["a1", "a2", "a3"]
-    assert [sorted(r) for r in tl] == [sorted(r) for r in jl]
-    assert [_untimed(r) for r in tl] == [_untimed(r) for r in jl]
+    assert [r["request_id"] for r in tl] == ["a1", "a2", "a3"], (tl, jl)
+    assert [sorted(r) for r in tl] == [sorted(r) for r in jl], (tl, jl)
+    assert [_untimed(r) for r in tl] == [_untimed(r) for r in jl], (tl, jl)
 
 
 def test_kv_prefill_answers_503_without_an_export_path(pair):

@@ -203,6 +203,39 @@ for op_type in ("one_hot", "label_smooth", "elementwise_min",
                 "split_lod_tensor", "merge_lod_tensor", "less_than",
                 "less_equal", "greater_than", "equal", "not_equal"):
     assert registry.has_op(op_type), op_type
+# the recompute and recurrent-layers slice
+from paddle_tpu_torch.fluid import data_feeder, lod_tensor, nets
+from paddle_tpu_torch.fluid.contrib.layers import rnn_impl
+from paddle_tpu_torch.fluid.layers import compat, extended, utils
+from paddle_tpu_torch.fluid.ops import rnn_fused_ops, rnn_ops, sequence_ops
+for fn in (optimizer.RecomputeOptimizer, optimizer.Adagrad,
+           optimizer.AdagradOptimizer, optimizer_ops.adagrad,
+           backward._recompute_transform, fluid.DataFeeder,
+           fluid.create_lod_tensor, fluid.create_random_int_lodtensor,
+           data_feeder.DataToLoDTensorConverter, lod_tensor.create_lod_tensor,
+           layers.dynamic_lstm, layers.dynamic_lstmp, layers.dynamic_gru,
+           layers.gru_unit, layers.lstm_unit, layers.StaticRNN,
+           layers.DynamicRNN, layers.IfElse, layers.RNNCell, layers.GRUCell,
+           layers.LSTMCell, layers.Decoder, layers.BeamSearchDecoder,
+           layers.dynamic_decode, layers.sequence_pool,
+           layers.sequence_conv, layers.lod_reset, layers.gather_tree,
+           layers.cross_entropy, compat.lod_reset, extended.dynamic_lstm,
+           utils.flatten, rnn_impl.basic_lstm, rnn_impl.basic_gru,
+           fluid.contrib.basic_lstm, fluid.contrib.layers.basic_gru,
+           nets.simple_img_conv_pool, nets.img_conv_group, nets.glu,
+           nets.scaled_dot_product_attention, nets.sequence_conv_pool,
+           rnn_ops.gather_tree, sequence_ops.reverse_valid_prefix,
+           sequence_ops.lengths_for):
+    assert callable(fn)
+for op_type in list(sequence_ops.SEQLEN_OUT_SLOTS)[:11] + [
+        "sequence_pool", "sequence_softmax", "sequence_expand",
+        "sequence_reshape", "sequence_concat", "sequence_mask",
+        "sequence_scatter", "im2sequence", "lstm_unit", "gru_unit",
+        "recurrent", "dynamic_decode", "gather_tree", "adagrad",
+        "recompute_barrier", "concat", "split", "expand", "gather",
+        "squeeze2", "fill_constant_batch_size_like", "sigmoid",
+        "log_softmax", "clip", "cumsum", "cross_entropy"]:
+    assert registry.has_op(op_type), op_type
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -296,6 +329,44 @@ def test_fluid_reexports_the_reference_io_and_flag_names(name):
     assert callable(getattr(jfluid, name))
     assert getattr(fluid, name) is getattr(home, name)
     assert name in fluid.__all__
+
+
+# the reference ``fluid``'s LoD feed names (paddle_tpu/fluid/__init__.py:49,
+# :96-97) and the recurrent layers this port adds
+_LOD_NAMES = ("DataFeeder", "create_lod_tensor",
+              "create_random_int_lodtensor")
+_RNN_LAYERS = ("StaticRNN", "DynamicRNN", "IfElse", "RNNCell", "GRUCell",
+               "LSTMCell", "Decoder", "BeamSearchDecoder", "dynamic_decode",
+               "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
+               "lstm_unit", "sequence_pool", "sequence_first_step",
+               "sequence_last_step", "sequence_softmax", "sequence_reshape",
+               "sequence_concat", "sequence_expand", "sequence_expand_as",
+               "sequence_pad", "sequence_unpad", "sequence_slice",
+               "sequence_reverse", "sequence_mask", "sequence_enumerate",
+               "sequence_scatter", "sequence_conv", "row_conv",
+               "im2sequence", "lod_reset", "gather_tree")
+
+
+@pytest.mark.parametrize("name", _LOD_NAMES)
+def test_fluid_exports_the_reference_lod_feed_names(name):
+    """``fluid.DataFeeder``, ``create_lod_tensor`` and
+    ``create_random_int_lodtensor`` as the reference's ``fluid`` exports
+    them, in the port's ``__all__``."""
+    import paddle_tpu.fluid as jfluid
+
+    assert callable(getattr(jfluid, name))
+    assert callable(getattr(fluid, name))
+    assert name in fluid.__all__
+
+
+@pytest.mark.parametrize("name", _RNN_LAYERS)
+def test_layers_export_the_reference_recurrent_layers(name):
+    """Each recurrent and sequence layer of the reference's
+    ``fluid.layers`` is in the port's ``fluid.layers``."""
+    import paddle_tpu.fluid as jfluid
+
+    assert callable(getattr(jfluid.layers, name))
+    assert callable(getattr(fluid.layers, name))
 
 
 def test_get_flags_matches_the_reference():

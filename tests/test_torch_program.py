@@ -430,8 +430,9 @@ def test_load_fluid_scope_checks_names_and_shapes():
 
 def test_program_builder_rejects_what_it_does_not_port():
     """``use_amp`` builds and runs (the AMP program; held against the
-    reference in ``test_torch_amp.py``); recompute checkpoints still
-    raise."""
+    reference in ``test_torch_amp.py``); recompute checkpoints, which
+    raised until ROADMAP A8, build (``test_torch_recompute.py`` holds
+    them against the reference)."""
     with tfluid.unique_name.guard():
         main, startup, _feeds, loss = tgpt.build_gpt_lm_train(
             _cfg(tgpt, True), T, use_amp=True)
@@ -444,6 +445,9 @@ def test_program_builder_rejects_what_it_does_not_port():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data(name="x", shape=[3], dtype="float32")
-        loss = tfluid.layers.reduce_sum(tfluid.layers.fc(x, size=2))
-        with pytest.raises(NotImplementedError):
-            tfluid.append_backward(loss, checkpoints=[x])
+        h = tfluid.layers.fc(x, size=2)
+        loss = tfluid.layers.reduce_sum(h)
+        params_grads = tfluid.append_backward(loss, checkpoints=[h])
+    assert sorted(p.name for p, _g in params_grads) == sorted(
+        p.name for p in main.global_block().all_parameters())
+    assert "recompute_barrier" in _ops(main)

@@ -381,9 +381,16 @@ def test_builders_give_the_reference_programs(name):
 
 
 def test_resnet_recompute_raises():
-    """``recompute=True`` is not ported: it raises, naming ROADMAP A8."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        tresnet.build_resnet_train(18, 10, 32, recompute=True)
+    """``recompute=True`` raised until activation recompute was ported
+    (ROADMAP A8); it now builds the reference's desc op for op, replays
+    included (``tests/test_torch_recompute.py`` holds its values)."""
+    with tfluid.unique_name.guard():
+        main = tresnet.build_resnet_train(18, 10, 32, recompute=True)[0]
+    with jfluid.unique_name.guard():
+        ref = jresnet.build_resnet_train(18, 10, 32, recompute=True)[0]
+    types = [o.type for o in main.global_block().ops]
+    assert types == [o.type for o in ref.global_block().ops]
+    assert "recompute_barrier" in types
 
 
 def _reference_run(build, feed, steps, fetch_acc=True):
