@@ -7,12 +7,13 @@
     python3 chip_smoke.py --only bert,vision
     python3 chip_smoke.py --only nmt
     python3 chip_smoke.py --only recompute,rnn
+    python3 chip_smoke.py --only train_runtime
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
 ``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``,
-``recompute``, ``rnn``),
+``recompute``, ``rnn``, ``train_runtime``),
 ``--repeat``
 times, printing each run's line whether it passed or not. Phases, one
 JSON line each:
@@ -229,6 +230,39 @@ JSON line each:
            ``dynamic_decode``, beam 10, 50 steps, vocabulary 7709) against
            the CPU step by step, its backtrack against numpy, host syncs
            a step.
+21. train_runtime  (run after rnn) GPT-2 small's train program at 8 x
+           1024, fp32, fed by the training runtime: (a) 10 steps at
+           dropout 0 through ``DataLoader.from_generator`` and through
+           ``PyReader`` (start/reset), both double-buffered onto
+           ``cuda_places()``, held bit for bit to plain numpy feeds
+           (pinned staging, 10 H2D batches and 10 stream waits, 12
+           launches of each training kernel a step, nothing built after
+           step 1), and 10 batches mixing a LoD value (host form) with
+           staged dense ones ([8, 1024, 768]) through the double-buffered
+           ``DataLoader``, bit for bit their plain feeds, a stream wait
+           each; (b) a producer sleeping half a step a batch: the
+           double-buffered epoch at most 1.2x the numpy loop (the faster
+           of two each), the unbuffered epoch beside it; (c)
+           ``Executor.train_from_dataset`` over MultiSlot files through
+           the native parser and queue, its losses the numpy loop's; (d)
+           dropout 0.1, interval saves every 4 steps over 12: run A
+           twice (bit for bit, else the relative norm), run B preempted
+           by its own SIGTERM after step 6 with its final save, run C
+           resumed in a fresh program and scope, held to run A, its
+           generators and flash dropout seed at step 7 run A's; the
+           stall and bytes per save, the writer's ms and its crc32 and
+           fsync parts; (e) the armed guardian: a chaos NaN at step 9
+           skipped (the state bit for bit the pre-step one), a
+           constant-token batch at step 13 rolled back to the newest
+           verified checkpoint, the health fetch against the summed
+           squared gradients (1e-4); (f) one worker under ``python -m
+           paddle_tpu_torch.distributed.launch --max_restarts 1`` over
+           the first 8 batches of (d)'s stream, saving every 4 steps
+           before its next step, in its own processes beside (a), (c)
+           and (e) ((d) and then (b) run after it, alone), killed by
+           ``chaos_crash_at_step`` after step 5 while it trains,
+           restarted, resumed from its step-3 checkpoint, its final
+           checkpoint held to run A's state at step 7 as in (d).
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -266,6 +300,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -462,7 +497,8 @@ RC_BERT_STEPS, RC_BERT_RTOL = 3, 1e-5
 # embedding 128, 3 dynamic_lstm of 512 alternating direction, 2 classes,
 # the synthetic reader's vocabulary of 5148, Adagrad 0.002) on 128
 # reviews of 16-256 words fed by DataFeeder as LoD (real reviews run
-# longer: a cut); 20 steps whose loss must fall. Its card-vs-CPU check
+# longer: a cut); 10 steps (20 before the train_runtime phase took their
+# time) whose loss must fall. Its card-vs-CPU check
 # runs on the first 16 reviews of that batch (the CPU takes ~54 s for
 # the 128: a cut of the check's batch, not of the model), and its
 # predictions there are held within IMDB_PLAIN_ATOL of a plain fp64
@@ -479,7 +515,7 @@ PTB_BATCH, PTB_INIT, PTB_LR, PTB_CLIP = 20, 0.04, 1.0, 10.0
 PTB_DROPOUT, PTB_TRAIN_STEPS, PTB_LEARN_MARGIN = 0.65, 20, 0.1
 IMDB_VOCAB, IMDB_EMB, IMDB_HID, IMDB_STACKED = 5148, 128, 512, 3
 IMDB_BATCH, IMDB_MIN_LEN, IMDB_MAX_LEN = 128, 16, 256
-IMDB_LR, IMDB_STEPS, IMDB_CHECK_BATCH = 0.002, 20, 16
+IMDB_LR, IMDB_STEPS, IMDB_CHECK_BATCH = 0.002, 10, 16
 IMDB_PLAIN_ATOL = 1e-5
 CF_HID = 512
 BEAM_HID, BEAM_VOCAB, BEAM_K, BEAM_STEPS, BEAM_N = 512, 7709, 10, 50, 32
@@ -6005,6 +6041,836 @@ def rnn_phase(dev):
             "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the training runtime (DataLoader / PyReader, the file dataset
+# through Executor.train_from_dataset, checkpoints, preemption and resume,
+# the guardian, the supervised launcher)
+# ---------------------------------------------------------------------------
+TR_STEPS = 10            # the loaders, the overlap and the dataset
+TR_CKPT_STEPS = 12       # the checkpoint stream of (d)
+TR_CKPT_INTERVAL = 4
+TR_PREEMPT_AT = 6        # run B's SIGTERM, after this step
+TR_LAUNCH_STEPS = 8      # (f): the first 8 batches of (d)'s stream
+TR_LAUNCH_CRASH_AT = 5   # (f)'s chaos kill, after this step
+TR_OVERLAP_BAR = 1.2     # double-buffered epoch / numpy loop, at most
+TR_GUARD_STEPS = 16
+TR_GUARD_INTERVAL = 6    # saves after steps 5 and 11
+TR_GUARD_NAN_AT = 9      # chaos NaN poison: a skip
+TR_GUARD_SPIKE_AT = 13   # one constant-token batch: a grad-norm spike
+TR_HEALTH_RTOL = 1e-4
+TR_RESUME_RTOL = 1e-4    # only when two uninterrupted runs differ
+TR_FEED_NAMES = ("ids", "pos_ids", "input_mask")
+TR_MODEL = "gpt2"        # train_worker's --model: GPT-2 small's widths
+TR_VOCAB = 50257
+
+
+def recording_executor(place):
+    """A ``fluid.Executor`` whose runs record their first fetch (the
+    loss) as a float in ``.losses``, so a trainer's losses can be read
+    back."""
+    from paddle_tpu_torch import fluid
+
+    class Recording(fluid.Executor):
+        def run(self, *args, **kwargs):
+            outs = super().run(*args, **kwargs)
+            if outs:
+                first = outs[0]
+                self.losses.append(float(
+                    first.reshape(-1)[0] if isinstance(first, torch.Tensor)
+                    else np.asarray(first).reshape(-1)[0]))
+            return outs
+
+    exe = Recording(place)
+    exe.losses = []
+    return exe
+
+
+_TR_INIT = {}   # init_fluid_params(cfg, 0), made once for every build
+
+
+class TrRun(object):
+    """GPT-2 small's train program at full width and depth on cuda:0,
+    weights ``init_fluid_params(cfg, 0)``, a recording executor, and a
+    device copy of the starting state (every persistable and the scope's
+    generators) that ``reset`` puts back, so one build serves several
+    runs from the same start."""
+
+    def __init__(self, dropout, lr=TRAIN_LR):
+        from paddle_tpu_torch import fluid
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.tools import train_worker as tw
+
+        t = [time.perf_counter()]
+        cfg = tw.config(TR_MODEL, TRAIN_T, dropout)
+        with fluid.unique_name.guard():
+            self.main, startup, self.feeds, self.loss = \
+                gpt.build_gpt_lm_train(cfg, TRAIN_T, learning_rate=lr)
+        t.append(time.perf_counter())
+        self.exe = recording_executor(fluid.CUDAPlace(0))
+        self.scope = fluid.Scope()
+        self.exe.run(startup, scope=self.scope)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if "params" not in _TR_INIT:
+            _TR_INIT["params"] = gpt.init_fluid_params(cfg, 0)
+        t.append(time.perf_counter())
+        gpt.load_fluid_scope(self.scope, _TR_INIT["params"])
+        self.exe.losses.clear()
+        self.init = (tr_state(self.main, self.scope),
+                     self.scope.rng_states())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        self.build_s = dict(zip(("program", "startup", "init_params",
+                                 "load"), np.diff(t).tolist()))
+
+    def reset(self):
+        state, rng = self.init
+        with torch.no_grad():
+            for n, t in state.items():
+                self.scope.get(n).copy_(t)
+        self.scope.set_rng_states(rng)
+        self.exe.losses.clear()
+
+    def close(self):
+        self.main = self.exe = self.scope = self.init = None
+        torch.cuda.empty_cache()
+
+
+def tr_batches(n, seed):
+    return [train_feed(TR_VOCAB, seed + i) for i in range(n)]
+
+
+def tr_generator(batches, sleep_s=0.0):
+    def gen():
+        for b in batches:
+            if sleep_s:
+                time.sleep(sleep_s)
+            yield [b[k] for k in TR_FEED_NAMES]
+
+    return gen
+
+
+def tr_state(main, scope):
+    """{persistable name: a device clone of its tensor}."""
+    from paddle_tpu_torch.fluid.io import is_persistable
+
+    return {v.name: scope.get(v.name).detach().clone()
+            for v in main.list_vars()
+            if is_persistable(v) and isinstance(scope.get(v.name),
+                                                torch.Tensor)}
+
+
+def tr_compare(got, want):
+    """(bit for bit equal, largest relative norm of a difference)."""
+    equal = set(got) == set(want) and all(
+        torch.equal(got[n], want[n]) for n in want)
+    rel = 0.0
+    for n in want:
+        w = want[n].double()
+        d = float((got[n].double() - w).norm())
+        rel = max(rel, d / max(float(w.norm()), 1e-30))
+    return equal, rel
+
+
+def tr_rng_equal(got, want):
+    return set(got) == set(want) and all(
+        torch.equal(got[k][0], want[k][0])
+        and torch.equal(got[k][1], want[k][1]) for k in want)
+
+
+def tr_files(dirname, batches, per_file=4):
+    from paddle_tpu_torch.tools import train_worker as tw
+
+    os.makedirs(dirname, exist_ok=True)
+    for i in range(0, len(batches), per_file):
+        tw.write_multislot(os.path.join(dirname, "part-%05d.txt" % i),
+                           batches[i: i + per_file])
+    return sorted(os.path.join(dirname, f) for f in os.listdir(dirname))
+
+
+def staged_pinned(batch):
+    """Whether every value of a staged batch was copied from pinned
+    host memory."""
+    return len(batch.host) == len(TR_FEED_NAMES) and all(
+        t.is_pinned() for t in batch.host.values())
+
+
+def _counter(name):
+    from paddle_tpu_torch.fluid import profiler
+
+    return profiler.get_counter(name)
+
+
+def tr_loaders(run, batches):
+    """(a): 10 steps at dropout 0 through plain numpy feeds, then
+    DataLoader, then PyReader, each from the same starting state."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import io_pipeline
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.tools import train_worker as tw
+
+    n_layers = tw.config(TR_MODEL, TRAIN_T, 0.0).num_layers
+    main, loss, exe, scope = run.main, run.loss, run.exe, run.scope
+
+    def launches_since(before):
+        return {k: n - before[k] for k, n in flash_launches().items()}
+
+    run.reset()
+    l0 = flash_launches()
+    ms = []
+    for b in batches:
+        t0 = time.perf_counter()
+        exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"build_s": run.build_s,
+           "numpy": {"losses": list(exe.losses), "step_ms": ms,
+                     "launches": launches_since(l0)}}
+    want = list(exe.losses)
+    for kind in ("data_loader", "py_reader"):
+        run.reset()
+        if kind == "data_loader":
+            loader = fluid.DataLoader.from_generator(
+                feed_list=run.feeds, capacity=4, use_double_buffer=True)
+            loader.set_batch_generator(tr_generator(batches),
+                                       places=fluid.cuda_places())
+            it = iter(loader)
+            pull = it.__next__
+        else:
+            reader = fluid.PyReader(feed_list=run.feeds, capacity=4,
+                                    use_double_buffer=True, iterable=False)
+            reader.decorate_batch_generator(tr_generator(batches),
+                                            places=fluid.cuda_places())
+            reader.start()
+            pull = reader.next
+        h2d0 = _counter("io_pipeline_h2d_batches")
+        fast0 = _counter("executor_feed_fast_lane_steps")
+        waits0 = _counter("io_pipeline_stream_waits")
+        l0 = flash_launches()
+        pinned, staged, after_1 = [], [], None
+        t0 = time.perf_counter()
+        while True:
+            try:
+                batch = pull()
+            except StopIteration:
+                break
+            staged.append(isinstance(batch, io_pipeline.DeviceFeedBatch)
+                          and batch.device == exe.device
+                          and all(batch[k].device == exe.device
+                                  for k in TR_FEED_NAMES))
+            pinned.append(staged_pinned(batch))
+            exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+            if after_1 is None:
+                after_1 = (_build.builds, _counter("executor_plan_builds"))
+        seconds = time.perf_counter() - t0
+        if kind == "py_reader":
+            reader.reset()
+        launches = launches_since(l0)
+        row = {"losses": list(exe.losses), "seconds": seconds,
+               "h2d_batches": _counter("io_pipeline_h2d_batches") - h2d0,
+               "fast_lane_steps":
+                   _counter("executor_feed_fast_lane_steps") - fast0,
+               "stream_waits": _counter("io_pipeline_stream_waits") - waits0,
+               "all_staged_on_card": all(staged),
+               "all_pinned": all(pinned), "launches": launches,
+               "builds_after_step1": [_build.builds - after_1[0],
+                                      _counter("executor_plan_builds")
+                                      - after_1[1]]}
+        out[kind] = row
+        if row["losses"] != want:
+            raise AssertionError("%s losses %r differ from the numpy "
+                                 "loop's %r" % (kind, row["losses"], want))
+        if not (row["all_staged_on_card"] and row["all_pinned"]):
+            raise AssertionError("%s: a batch was not staged on the card "
+                                 "from pinned memory: %r" % (kind, row))
+        if not (row["h2d_batches"] == row["fast_lane_steps"]
+                == row["stream_waits"] == len(batches)):
+            raise AssertionError("%s: %d H2D batches, %d fast-lane steps, "
+                                 "%d stream waits, expected %d each" % (
+                                     kind, row["h2d_batches"],
+                                     row["fast_lane_steps"],
+                                     row["stream_waits"], len(batches)))
+        if any(n != n_layers * len(batches) for n in launches.values()):
+            raise AssertionError("%s: launches %r, expected %d a step "
+                                 "each" % (kind, launches, n_layers))
+        if row["builds_after_step1"] != [0, 0]:
+            raise AssertionError("%s: built after step 1: %r"
+                                 % (kind, row["builds_after_step1"]))
+    return out, want
+
+
+def tr_mixed_lod(n=TR_STEPS):
+    """(a), batches that mix a LoD value with dense ones: per sequence
+    the mean of a LoD feature's rows (8 sequences of 256-1024 rows of
+    768) beside the mean over 1024 positions of a dense [8, 1024, 768]
+    feature, an fc to 2 classes, softmax cross entropy, SGD. Through the
+    double-buffered ``DataLoader`` (the LoD value keeps its host form,
+    the dense ones are staged from pinned memory) and as plain feeds of
+    the same values, from the same start: the losses bit for bit, one
+    stream wait a batch, no fast lane."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import io_pipeline
+
+    L = fluid.layers
+    width = 768
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = L.data(name="mx_x", shape=[-1, width], dtype="float32",
+                   lod_level=1)
+        d = L.data(name="mx_d", shape=[TRAIN_T, width], dtype="float32")
+        label = L.data(name="mx_label", shape=[1], dtype="int64")
+        feat = L.concat([L.sequence_pool(x, "average"),
+                         L.reduce_mean(d, dim=[1])], axis=1)
+        loss = L.mean(L.softmax_with_cross_entropy(L.fc(feat, size=2),
+                                                   label))
+        fluid.optimizer.SGD(0.01).minimize(loss)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = tr_state(main, scope)
+    rs = np.random.RandomState(90)
+    batches = []
+    for _ in range(n):
+        lens = rs.randint(TRAIN_T // 4, TRAIN_T + 1, TRAIN_BATCH).tolist()
+        lod = fluid.LoDTensor(rs.rand(sum(lens), width).astype("float32"))
+        lod.set_recursive_sequence_lengths([lens])
+        batches.append([lod, rs.rand(TRAIN_BATCH, TRAIN_T, width)
+                        .astype("float32"),
+                        rs.randint(0, 2, (TRAIN_BATCH, 1)).astype("int64")])
+    names = ["mx_x", "mx_d", "mx_label"]
+    want = [exe.run(main, feed=dict(zip(names, b)), fetch_list=[loss],
+                    scope=scope)[0].item() for b in batches]
+    with torch.no_grad():
+        for name, t in init.items():
+            scope.get(name).copy_(t)
+    loader = fluid.DataLoader.from_generator(
+        feed_list=[x, d, label], capacity=4, use_double_buffer=True)
+    loader.set_batch_generator(lambda: iter(batches),
+                               places=fluid.cuda_places())
+    c0 = {k: _counter(k) for k in ("io_pipeline_stream_waits",
+                                    "executor_feed_fast_lane_steps")}
+    got, mixed = [], []
+    for b in loader:
+        mixed.append(isinstance(b, io_pipeline.DeviceFeedBatch)
+                     and b.device is None and b.event is not None
+                     and isinstance(b["mx_x"], fluid.LoDTensor)
+                     and all(b[k].device == exe.device
+                             and b.host[k].is_pinned()
+                             for k in ("mx_d", "mx_label")))
+        got.append(exe.run(main, feed=b, fetch_list=[loss],
+                           scope=scope)[0].item())
+    counts = {k: _counter(k) - v for k, v in c0.items()}
+    row = {"losses": got, "all_mixed_staged": all(mixed),
+           "batches": len(got), "counters": counts}
+    if got != want:
+        raise AssertionError("mixed LoD batches: losses %r differ from the "
+                             "plain feeds' %r" % (got, want))
+    if not (len(got) == n and all(mixed)
+            and counts == {"io_pipeline_stream_waits": n,
+                           "executor_feed_fast_lane_steps": 0}):
+        raise AssertionError("mixed LoD batches: %r" % row)
+    return row
+
+
+def tr_overlap(run, batches):
+    """(b): a producer sleeping half a step a batch; the epoch with
+    double buffering, without it, and the numpy loop over ready batches.
+    The double-buffered and the numpy epochs run twice, in turns; the bar
+    holds the faster of each. The producer's sleep is half the median
+    step of the first numpy epoch."""
+    from paddle_tpu_torch import fluid
+
+    main, loss, exe, scope = run.main, run.loss, run.exe, run.scope
+    epochs = {}
+
+    def epoch(feeds_iter, key):
+        # each step's end is a host sync (the loss fetch)
+        t0 = time.perf_counter()
+        ends = []
+        for b in feeds_iter:
+            exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+            ends.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if len(ends) != len(batches):
+            raise AssertionError("an epoch ran %d of %d batches"
+                                 % (len(ends), len(batches)))
+        epochs[key + "_step_ends_ms"] = ends
+        epochs[key] = (time.perf_counter() - t0) * 1e3
+
+    epoch(iter(batches), "numpy_ms")
+    ends = epochs["numpy_ms_step_ends_ms"]
+    sleep_s = float(np.median(np.diff([0.0] + ends))) / 2e3
+
+    def loader(double):
+        ld = fluid.DataLoader.from_generator(
+            feed_list=run.feeds, capacity=4, use_double_buffer=double)
+        ld.set_batch_generator(tr_generator(batches, sleep_s),
+                               places=fluid.cuda_places())
+        return iter(ld)
+
+    # in turns, the two the bar compares twice each: a step of any epoch
+    # can take a ~150 ms host hiccup, so each keeps its faster epoch
+    epoch(loader(True), "double_buffer_ms")
+    epoch(loader(False), "no_double_buffer_ms")
+    epoch(loader(True), "double_buffer_2_ms")
+    epoch(iter(batches), "numpy_2_ms")
+    for key in ("numpy", "double_buffer"):
+        epochs[key + "_best_ms"] = min(epochs[key + "_ms"],
+                                       epochs[key + "_2_ms"])
+    epochs["producer_sleep_ms"] = sleep_s * 1e3
+    epochs["double_over_numpy"] = epochs["double_buffer_best_ms"] \
+        / epochs["numpy_best_ms"]
+    epochs["bar"] = TR_OVERLAP_BAR
+    if epochs["double_over_numpy"] > TR_OVERLAP_BAR:
+        raise AssertionError("double-buffered epoch %.1f ms is %.3fx the "
+                             "numpy loop's %.1f ms (bar %.2f)"
+                             % (epochs["double_buffer_best_ms"],
+                                epochs["double_over_numpy"],
+                                epochs["numpy_best_ms"], TR_OVERLAP_BAR))
+    return epochs
+
+
+def tr_dataset(run, tmp, batches, want):
+    """(c): train_from_dataset over MultiSlot files of the same batches,
+    from the same starting state."""
+    from paddle_tpu_torch.fluid import native
+    from paddle_tpu_torch.tools import train_worker as tw
+
+    if not native.available():
+        raise AssertionError("the native host library did not build: %s"
+                             % native._compile_error)
+    files = tr_files(os.path.join(tmp, "c_files"), batches, per_file=5)
+    run.reset()
+    h2d0 = _counter("io_pipeline_h2d_batches")
+    t0 = time.perf_counter()
+    steps = run.exe.train_from_dataset(
+        run.main, tw.gpt_dataset(run.feeds, files, TRAIN_BATCH),
+        scope=run.scope, fetch_list=[run.loss], print_period=0)
+    seconds = time.perf_counter() - t0
+    row = {"steps": steps, "losses": list(run.exe.losses),
+           "seconds": seconds, "files": len(files), "native": True,
+           "h2d_batches": _counter("io_pipeline_h2d_batches") - h2d0}
+    if steps != len(batches) or row["losses"] != want or \
+            row["h2d_batches"] != len(batches):
+        raise AssertionError("train_from_dataset: %r, expected the numpy "
+                             "loop's losses %r" % (row, want))
+    return row
+
+
+def _saves():
+    from paddle_tpu_torch.fluid import profiler
+
+    return {k: profiler.summarize_histogram(k) for k in (
+        "ckpt_snapshot_ms", "ckpt_snapshot_bytes", "ckpt_save_ms",
+        "ckpt_crc32_ms", "ckpt_fsync_ms")}
+
+
+def tr_checkpoint(tmp, files):
+    """(d): dropout 0.1 over a 12-step stream (``files``): run A
+    uninterrupted (twice, from one build), run B with an interval save
+    every 4 steps preempted by its own SIGTERM after step 6, run C
+    resumed from B's checkpoints in a fresh program, scope and manager.
+    Returns (line, run A's state after step 7)."""
+    import signal
+
+    from paddle_tpu_torch import checkpoint, fluid
+    from paddle_tpu_torch.checkpoint import preempt as preempt_mod
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops.nn_ops import flash_dropout
+    from paddle_tpu_torch.fluid.trainer import MultiTrainer
+    from paddle_tpu_torch.tools import train_worker as tw
+
+    kept = {}
+
+    def train(run, ckpt_dir=None, on_step=None):
+        mgr = checkpoint.CheckpointManager(ckpt_dir) if ckpt_dir else None
+        t0 = time.perf_counter()
+        steps = MultiTrainer().train(
+            run.exe, run.main, tw.gpt_dataset(run.feeds, files, TRAIN_BATCH),
+            scope=run.scope, fetch_list=[run.loss], print_period=0,
+            on_step=on_step, ckpt_manager=mgr)
+        seconds = time.perf_counter() - t0
+        if mgr is not None:
+            mgr.close()
+        return {"steps": steps, "losses": list(run.exe.losses),
+                "seconds": seconds,
+                "saved_steps": mgr.all_steps() if mgr else None}
+
+    def keep_a(step):
+        if step == TR_PREEMPT_AT:
+            kept["rng"] = run.scope.rng_states()
+        elif step == TR_LAUNCH_STEPS - 1:
+            kept["state_f"] = tr_state(run.main, run.scope)
+
+    def preempt(step):
+        if step == TR_PREEMPT_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    run = TrRun(0.1)
+    run_a = train(run, on_step=keep_a)
+    state_a = tr_state(run.main, run.scope)
+    run.reset()
+    run_a2 = train(run)
+    deterministic, a2_rel = tr_compare(tr_state(run.main, run.scope),
+                                       state_a)
+    run.reset()
+    fluid.set_flags({"ckpt_save_interval_steps": TR_CKPT_INTERVAL})
+    profiler.reset_histograms()
+    try:
+        run_b = train(run, os.path.join(tmp, "ckpt_b"), preempt)
+    finally:
+        # the latch is sticky for the process: a serving phase after this
+        # one must not read it as a preemption
+        preempt_mod._reset_for_tests()
+    build_s = run.build_s
+    run.close()
+    if run_b["steps"] != TR_PREEMPT_AT + 1 or \
+            run_b["saved_steps"][-1] != TR_PREEMPT_AT:
+        raise AssertionError("run B: %r, expected a stop after step %d "
+                             "with its save" % (run_b, TR_PREEMPT_AT))
+    # run C: a fresh program, scope and manager over B's directory
+    run = TrRun(0.1)
+    resume = {"build_s": run.build_s}
+    mgr = checkpoint.CheckpointManager(os.path.join(tmp, "ckpt_b"))
+    t0 = time.perf_counter()
+    resume["restored_step"] = mgr.restore(run.main, scope=run.scope,
+                                          executor=run.exe)
+    resume["restore_s"] = time.perf_counter() - t0
+    mgr.close()
+    got = run.scope.rng_states()
+    resume["generators_equal"] = tr_rng_equal(got, kept["rng"])
+    seeds = []
+    for states in (got, kept["rng"]):
+        g = torch.Generator()
+        g.set_state(states[str(run.exe.device)][1])
+        seeds.append(flash_dropout(0.1, False, g)["dropout_seed"])
+    resume["flash_seed"] = seeds[0]
+    resume["flash_seed_equal"] = seeds[0] == seeds[1]
+    try:
+        run_c = train(run, os.path.join(tmp, "ckpt_b"))
+    finally:
+        fluid.set_flags({"ckpt_save_interval_steps": 0})
+    c_equal, c_rel = tr_compare(tr_state(run.main, run.scope), state_a)
+    run.close()
+    row = {"dropout": 0.1, "steps": TR_CKPT_STEPS, "build_s": build_s,
+           "interval": TR_CKPT_INTERVAL, "preempt_after": TR_PREEMPT_AT,
+           "run_a": run_a, "run_a2": run_a2, "run_b": run_b,
+           "run_c": run_c, "resume": resume,
+           "deterministic": deterministic, "a2_vs_a_rel_norm": a2_rel,
+           "c_equal_a": c_equal, "c_vs_a_rel_norm": c_rel,
+           "held": "bit for bit" if deterministic else
+           "relative norm %g" % TR_RESUME_RTOL,
+           "saves_runs_b_c": _saves()}
+    if resume["restored_step"] != TR_PREEMPT_AT:
+        raise AssertionError("run C restored %r" % resume)
+    if not (resume["generators_equal"] and resume["flash_seed_equal"]):
+        raise AssertionError("run C's generators at step %d are not run "
+                             "A's: %r" % (TR_PREEMPT_AT + 1, resume))
+    if deterministic and (not c_equal or run_c["losses"]
+                          != run_a["losses"][TR_PREEMPT_AT + 1:]):
+        raise AssertionError("run A repeats bit for bit but run C "
+                             "differs from it (rel norm %g)" % c_rel)
+    if not deterministic and not c_rel <= TR_RESUME_RTOL:
+        raise AssertionError("run C vs run A: relative norm %g > %g"
+                             % (c_rel, TR_RESUME_RTOL))
+    return row, kept["state_f"]
+
+
+def tr_guardian(run, tmp):
+    """(e): the armed guardian over a 16-step stream of random-token
+    batches at dropout 0, saves after steps 5 and 11 scrubbed by the
+    writer: a chaos NaN poison at step 9 (a skip), one batch of a single
+    repeated token at step 13 (its gradient norm jumps: a rollback to the
+    newest verified checkpoint), then the health fetch against the
+    gradients of one more step."""
+    from paddle_tpu_torch import checkpoint, fluid
+    from paddle_tpu_torch.distributed import guardian as gmod
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.trainer import MultiTrainer
+    from paddle_tpu_torch.tools import train_worker as tw
+
+    batches = tr_batches(TR_GUARD_STEPS, 80)
+    spike = batches[TR_GUARD_SPIKE_AT]
+    spike["ids"] = np.full_like(spike["ids"], 7)
+    spike["input_mask"] = np.ones_like(spike["input_mask"])
+    files = tr_files(os.path.join(tmp, "e_files"), batches)
+    flags = {"guardian_enable": True, "guardian_warmup_steps": 6,
+             "guardian_max_skips": 1, "guardian_max_rollbacks": 1,
+             "guardian_marker_dir": os.path.join(tmp, "e_markers"),
+             "ckpt_save_interval_steps": TR_GUARD_INTERVAL,
+             "ckpt_scrub": True,
+             "chaos_nan_grad_at_step": TR_GUARD_NAN_AT,
+             "chaos_marker_dir": os.path.join(tmp, "e_chaos")}
+    defaults = fluid.get_flags(list(flags))
+    main, scope, exe = run.main, run.scope, run.exe
+    run.reset()
+    fluid.set_flags(flags)
+    mgr = checkpoint.CheckpointManager(os.path.join(tmp, "ckpt_e"))
+    seen = {}
+
+    def on_step(step):
+        if step == TR_GUARD_NAN_AT - 1:
+            seen["pre"] = (tr_state(main, scope), scope.rng_states())
+        elif step == TR_GUARD_NAN_AT and "pre" in seen:
+            pre_state, pre_rng = seen.pop("pre")
+            seen["skip_restored"] = tr_compare(tr_state(main, scope),
+                                               pre_state)[0]
+            seen["skip_generators"] = tr_rng_equal(scope.rng_states(),
+                                                   pre_rng)
+
+    profiler.reset_histograms()
+    c0 = {k: _counter(k) for k in ("train_skipped_steps", "train_rollbacks",
+                                    "train_anomalies")}
+    t0 = time.perf_counter()
+    try:
+        steps = MultiTrainer().train(
+            exe, main, tw.gpt_dataset(run.feeds, files, TRAIN_BATCH),
+            scope=scope, fetch_list=[run.loss], print_period=0,
+            on_step=on_step, ckpt_manager=mgr)
+    finally:
+        fluid.set_flags({k[len("FLAGS_"):]: v for k, v in defaults.items()})
+        mgr.close()
+    seconds = time.perf_counter() - t0
+    counts = {k: _counter(k) - v for k, v in c0.items()}
+    rollback = profiler.summarize_histogram("guardian_rollback_ms")
+    losses = list(exe.losses)
+    # the health fetch against the gradients of one more step
+    partials = gmod.attach_health_fetch(main)
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    outs = exe.run(main, feed=batches[0], scope=scope,
+                   fetch_list=[run.loss] + partials + grads,
+                   return_numpy=False)
+    health = float(sum(o.double().sum() for o in outs[1: 1 + len(partials)]))
+    sq = float(sum((g.double() ** 2).sum() for g in outs[1 + len(partials):]))
+    health_rel = abs(health - sq) / sq
+    del outs
+    row = {"steps": steps, "losses": losses, "seconds": seconds,
+           "counters": counts, "rollback_ms": rollback,
+           "skip_restored_bit_for_bit": seen.get("skip_restored"),
+           "skip_generators_restored": seen.get("skip_generators"),
+           "nan_at": TR_GUARD_NAN_AT, "spike_at": TR_GUARD_SPIKE_AT,
+           "saved_steps": mgr.all_steps(), "saves": _saves(),
+           "health_sum_sq": health, "grads_sum_sq": sq,
+           "health_rel": health_rel, "health_params": len(grads)}
+    if counts != {"train_skipped_steps": 1, "train_rollbacks": 1,
+                  "train_anomalies": 2}:
+        raise AssertionError("guardian ladder: %r, expected one skip and "
+                             "one rollback" % counts)
+    if not (row["skip_restored_bit_for_bit"]
+            and row["skip_generators_restored"]):
+        raise AssertionError("the skip did not restore the pre-step state "
+                             "bit for bit: %r" % row)
+    if steps != TR_GUARD_STEPS or not np.all(np.isfinite(losses[-3:])):
+        raise AssertionError("after the rollback: steps %d, losses %r"
+                             % (steps, losses))
+    if not health_rel <= TR_HEALTH_RTOL:
+        raise AssertionError("health fetch %.9g vs sum of squared grads "
+                             "%.9g: rel %.3g > %g" % (health, sq, health_rel,
+                                                      TR_HEALTH_RTOL))
+    return row
+
+
+def tr_launch(tmp, files):
+    """(f): one worker under ``python -m
+    paddle_tpu_torch.distributed.launch --max_restarts 1`` on cuda:0
+    over the first 8 batches of (d)'s stream (``files``), its interval
+    saves committed before its next step (``--sync_saves``), killed by
+    the chaos hook (``chaos_crash_at_step``, once) after step
+    ``TR_LAUNCH_CRASH_AT`` while it still trains, restarted by the
+    supervisor, resumed from its newest checkpoint. Returns (line, its
+    checkpoint dir)."""
+    import re
+
+    from paddle_tpu_torch.distributed import supervisor
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sup_dir = os.path.join(tmp, "f_supervisor")
+    out_dir = os.path.join(tmp, "f_out")
+    ck = os.path.join(tmp, "f_ckpt", "rank_0")
+    f_dir = os.path.join(tmp, "f_files")
+    os.makedirs(f_dir)
+    for path in files[:TR_LAUNCH_STEPS // TR_CKPT_INTERVAL]:
+        shutil.copy(path, f_dir)
+    hb_path = os.path.join(sup_dir, "heartbeats", "heartbeat_0.json")
+    env = dict(os.environ, PYTHONPATH=root,
+               FLAGS_chaos_crash_at_step=str(TR_LAUNCH_CRASH_AT),
+               FLAGS_chaos_marker_dir=os.path.join(tmp, "f_chaos"))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--max_restarts", "1", "--selected_gpus", "0",
+           "--supervisor_dir", sup_dir,
+           os.path.join(root, "paddle_tpu_torch", "tools",
+                        "train_worker.py"),
+           "--files", f_dir, "--ckpt", os.path.dirname(ck),
+           "--out", out_dir, "--model", TR_MODEL, "--seq", str(TRAIN_T),
+           "--batch", str(TRAIN_BATCH), "--interval", str(TR_CKPT_INTERVAL),
+           "--sync_saves"]
+    log_path = os.path.join(tmp, "f_launch.log")
+    t0 = time.perf_counter()
+    beats = {}   # pid: the last heartbeat seen from it
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("launch ran past 600 s")
+                hb = supervisor.read_heartbeat(hb_path)
+                if hb:
+                    beats[int(hb["pid"])] = hb
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        log_text = f.read()
+    crash = re.findall(r"CHAOS crash_at_step=(\d+) pid=(\d+)", log_text)
+    if proc.returncode != 0 or len(crash) != 1:
+        raise AssertionError("launch exited %d, chaos crashes %r: %s" % (
+            proc.returncode, crash, log_text[-3000:]))
+    killed = {"step": int(crash[0][0]), "pid": int(crash[0][1]),
+              "last_heartbeat": beats.get(int(crash[0][1]))}
+    events = supervisor.load_events(sup_dir)
+    kinds = [e["event"] for e in events]
+    with open(os.path.join(out_dir, "rank_0.json")) as f:
+        worker = json.load(f)
+    hb = supervisor.read_heartbeat(hb_path)
+    mono = {}
+    for e in events:
+        mono.setdefault((e["event"], e.get("restart")), e["ts_mono"])
+    crashed = [t for (k, _r), t in mono.items() if k == "crash_detected"]
+    row = {"seconds": seconds, "events": kinds, "worker": worker,
+           "heartbeat": hb, "killed": killed, "steps": TR_LAUNCH_STEPS,
+           "crash_to_restart_s": mono[("gang_start", 1)] - crashed[0]
+           if crashed and ("gang_start", 1) in mono else None,
+           "restart_to_done_s": mono[("gang_done", 1)]
+           - mono[("gang_start", 1)] if ("gang_done", 1) in mono
+           and ("gang_start", 1) in mono else None}
+    for want in ("crash_detected", "restart", "gang_done"):
+        if want not in kinds:
+            raise AssertionError("supervisor log lacks %s: %r"
+                                 % (want, kinds))
+    last = killed["last_heartbeat"]
+    if not last or last.get("status") == "done" or \
+            not last.get("step", TR_LAUNCH_STEPS) < TR_LAUNCH_STEPS - 1:
+        raise AssertionError("the chaos kill did not land mid-run: the "
+                             "killed worker's last heartbeat %r" % last)
+    if not hb or hb.get("status") != "done" or \
+            hb.get("step") != TR_LAUNCH_STEPS - 1:
+        raise AssertionError("the worker's last heartbeat: %r" % hb)
+    want_restored = (TR_LAUNCH_CRASH_AT + 1) // TR_CKPT_INTERVAL \
+        * TR_CKPT_INTERVAL - 1
+    if (worker["restored"] or {}).get("step") != want_restored or \
+            worker["steps"] != TR_LAUNCH_STEPS:
+        raise AssertionError("the restarted worker did not resume from "
+                             "step %d: %r" % (want_restored, worker))
+    return row, ck
+
+
+def tr_final_state(ck, like):
+    """The newest checkpoint under ``ck``, on ``like``'s device, for
+    ``like``'s names."""
+    from paddle_tpu_torch import checkpoint
+
+    mgr = checkpoint.CheckpointManager(ck)
+    dev = next(iter(like.values())).device
+    final = {n: v.to(dev) for n, v in mgr._iter_step_tensors(
+        mgr.latest_step()) if n in like}
+    mgr.close()
+    return final
+
+
+def train_runtime_phase(dev):
+    """The training runtime on GPT-2 small at 8 x 1024, fp32: (a) the
+    loaders against numpy feeds, (b) the overlap, (c) the file dataset,
+    (d) checkpoints, preemption and resume, (e) the guardian, (f) the
+    supervised launcher, beside (a), (c) and (e); (d), then (b), after
+    it, alone. Returns (line, the three kernels' launches in this
+    process's (a)-(e))."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_runtime_")
+    parts = {}
+
+    def part(name, fn, *args):
+        # each part's seconds on stderr as it ends (stdout keeps the
+        # phase's one line)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        print(json.dumps({"train_runtime_part": name,
+                          "seconds": parts[name]}),
+              file=sys.stderr, flush=True)
+        return out
+
+    run0 = None
+    launch = {}
+    launcher_thread = None
+    try:
+        zero_flash_launches()
+        files = tr_files(os.path.join(tmp, "d_files"),
+                         tr_batches(TR_CKPT_STEPS, 60))
+
+        # (f) runs in its own processes beside (a), (c) and (e), whose
+        # checks are bit for bit and whose times then include its load;
+        # (d), whose saves and resume are timed, and (b), the one timing
+        # bar, run after it, alone
+        def launch_f():
+            try:
+                launch["row"] = tr_launch(tmp, files)
+            except BaseException as exc:  # re-raised below
+                launch["error"] = exc
+
+        launcher_thread = threading.Thread(target=launch_f, daemon=True)
+        launcher_thread.start()
+        batches = tr_batches(TR_STEPS, 40)
+        run0 = part("build", TrRun, 0.0)
+        loaders, want = part("loaders", tr_loaders, run0, batches)
+        loaders["mixed_lod"] = part("mixed_lod", tr_mixed_lod)
+        dataset = part("dataset", tr_dataset, run0, tmp, batches, want)
+        guard = part("guardian", tr_guardian, run0, tmp)
+        run0.close()
+        t0 = time.perf_counter()
+        launcher_thread.join(900)
+        parts["launcher_wait"] = time.perf_counter() - t0
+        if "row" not in launch:
+            raise launch.get("error") or AssertionError(
+                "the launcher part did not end in 900 s")
+        launcher, ck = launch["row"]
+        ckpt, state_f = part("checkpoint", tr_checkpoint, tmp, files)
+        # a fresh build: (e) appended the health fetch to run0's program
+        run0 = TrRun(0.0)
+        overlap = part("overlap", tr_overlap, run0, batches)
+        run0.close()
+        launches = flash_launches()
+        equal, rel = tr_compare(tr_final_state(ck, state_f), state_f)
+        launcher.update(final_equal_run_a=equal,
+                        final_vs_run_a_rel_norm=rel)
+        del state_f
+        torch.cuda.empty_cache()
+        if ckpt["deterministic"] and not equal:
+            raise AssertionError("the launched worker's final state "
+                                 "differs from run A (rel %g)" % rel)
+        if not ckpt["deterministic"] and not rel <= TR_RESUME_RTOL:
+            raise AssertionError("the launched worker's final state vs "
+                                 "run A: rel %g > %g" % (rel,
+                                                         TR_RESUME_RTOL))
+    finally:
+        if run0 is not None:
+            run0.close()
+        if launcher_thread is not None:
+            launcher_thread.join(900)
+        shutil.rmtree(tmp, ignore_errors=True)
+        _TR_INIT.clear()
+    return {"phase": "train_runtime", "model": "gpt2-small",
+            "batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+            "loaders": loaders, "overlap": overlap, "dataset": dataset,
+            "checkpoint": ckpt, "guardian": guard, "launcher": launcher,
+            "launches": launches, "parts_s": parts,
+            "seconds": time.perf_counter() - t_phase}, launches
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -6017,7 +6883,7 @@ def gpt2_small(dev):
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
                "gateway", "fleet", "programs", "bert", "vision", "nmt",
-               "recompute", "rnn")
+               "recompute", "rnn", "train_runtime")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -6051,6 +6917,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = recompute_phase(dev)[0]
                 elif phase == "rnn":
                     line = rnn_phase(dev)
+                elif phase == "train_runtime":
+                    line = train_runtime_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -6078,7 +6946,7 @@ def main(argv=None):
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
                          "inference_server, gateway, fleet, programs, bert, "
-                         "vision, nmt, recompute, rnn)")
+                         "vision, nmt, recompute, rnn, train_runtime)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -6171,6 +7039,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     emit(dict(rnn_phase(dev), device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
+    tr_run, tr_launches = train_runtime_phase(dev)
+    emit(dict(tr_run, device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
     served = served_gpt2(dev)
     infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
@@ -6206,13 +7077,14 @@ def main(argv=None):
                 "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
                 "launches": train_launches[kname] + program_launches[kname]
                 + bert_launches["bert"][kname] + nmt_launches["nmt"][kname]
-                + rc_launches["recompute_bert"][kname],
+                + rc_launches["recompute_bert"][kname] + tr_launches[kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
                                      "train_program": program_launches[kname],
                                      "bert": bert_launches["bert"][kname],
                                      "nmt": nmt_launches["nmt"][kname],
                                      "recompute_bert":
-                                         rc_launches["recompute_bert"][kname]},
+                                         rc_launches["recompute_bert"][kname],
+                                     "train_runtime": tr_launches[kname]},
                 "bert_form": bert_form(kname, "fp32"),
                 "nmt_form": nmt_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -6308,7 +7180,8 @@ def main(argv=None):
          + gw_launches["flash_fwd"] + fleet_launches["flash_fwd"]
          + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"]
          + nmt_launches["nmt"]["flash_fwd"]
-         + rc_launches["recompute_bert"]["flash_fwd"],
+         + rc_launches["recompute_bert"]["flash_fwd"]
+         + tr_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -6322,7 +7195,8 @@ def main(argv=None):
                               "bert": bert_launches["bert"]["flash_fwd"],
                               "nmt": nmt_launches["nmt"]["flash_fwd"],
                               "recompute_bert":
-                                  rc_launches["recompute_bert"]["flash_fwd"]},
+                                  rc_launches["recompute_bert"]["flash_fwd"],
+                              "train_runtime": tr_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],

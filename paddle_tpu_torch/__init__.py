@@ -7,7 +7,11 @@ with speculative decoding; GPT-2 trained by
 ``models.gpt.build_gpt_lm_train`` (forward, backward, Adam), saved by
 ``fluid.io.save_inference_model``, loaded by
 ``inference.AnalysisPredictor`` and served by
-``serving.InferenceServer``. The Pallas kernels those paths run (flash
+``serving.InferenceServer``; and trained through the training runtime:
+``fluid.DataLoader`` / ``PyReader`` and ``Executor.train_from_dataset``
+with asynchronous ``checkpoint``s, preemption-safe resume, the training
+guardian and the supervised launcher (``distributed``). The Pallas
+kernels those paths run (flash
 forward with dropout, its two backward kernels, flash decode, paged
 flash decode) are rewritten by hand in CUDA C++ for ``sm_90a``
 (``csrc/``, built at first use by ``kernels/_build.py``).
@@ -18,6 +22,8 @@ on the CPU every kernel wrapper runs its plain PyTorch version.
 """
 
 from . import fluid, inference, kernels, models, observability, serving
+from . import checkpoint, distributed, reader  # noqa: F401
+from .reader.decorator import batch  # noqa: F401  (paddle.batch)
 
 __all__ = ["fluid", "inference", "kernels", "models", "observability",
-           "serving"]
+           "serving", "checkpoint", "distributed", "reader", "batch"]

@@ -3,9 +3,9 @@
 
 In the port the serving fleet uses its worker-side heartbeat protocol
 (``WorkerHeartbeat``, ``worker_heartbeat``, ``read_heartbeat``,
-``HEARTBEAT_ENV``) and its event log (``_Log``, ``load_events``); the
-training launch that drives ``Supervisor`` comes with the training
-runtime, which is not ported yet.
+``HEARTBEAT_ENV``) and its event log (``_Log``, ``load_events``);
+``distributed/launch.py`` drives ``Supervisor`` for training, whose
+workers beat from ``fluid/trainer.py``.
 
 The Fluid-era reference kept jobs alive with ad-hoc pieces (the pserver
 ``HeartBeatMonitor``, ``checkpoint_notify``); the launcher itself just
@@ -42,7 +42,8 @@ and the job dies without retry. The supervisor closes the loop:
   to the survivors (never below ``min_world_size``), rank ids are
   remapped contiguously, and the new topology is injected via
   ``PADDLE_TPU_WORLD_SIZE`` / ``PADDLE_TPU_RANK`` (plus remapped legacy
-  ``PADDLE_TRAINER_*`` / ``JAX_*`` vars when the spec carried them).
+  ``PADDLE_TRAINER_*`` / ``JAX_*`` vars and torch's ``RANK`` /
+  ``WORLD_SIZE`` when the spec carried them).
   When a marker expires — ``down_for`` plans have observed it, or the
   file is deleted — the slot rejoins at the next restart boundary and
   the gang grows back. Resize decisions land as ``gang_resize`` events
@@ -734,6 +735,8 @@ class Supervisor(object):
                     ("PADDLE_TRAINERS_NUM", str(world)),
                     ("JAX_PROCESS_ID", str(j)),
                     ("JAX_NUM_PROCESSES", str(world)),
+                    ("RANK", str(j)),
+                    ("WORLD_SIZE", str(world)),
                 ):
                     if key in spec.env:
                         env[key] = val

@@ -1,5 +1,8 @@
 """The slice of ``paddle_tpu.fluid`` the serving and training paths need:
-places, flags, the always-on profiler tallies, the Program IR
+places, flags, the always-on profiler tallies, NaN/Inf checking
+(``debugger``), the input pipeline (``DataLoader``, ``PyReader``, the
+file ``dataset``s over the native host library, staged to the card by
+``io_pipeline``), the dataset trainers (``Executor.train_from_dataset``), the Program IR
 (``framework``) with its pass registry (``ir``) and its framework.proto
 serialization (``proto``), persistence (``io``), the Executor, desc-level
 autodiff (``backward``), the layers of the GPT train program,
@@ -14,9 +17,16 @@ from . import framework, initializer, param_attr  # noqa: F401
 from . import backward, clip, executor, layers, optimizer, regularizer  # noqa: F401
 from . import contrib, io, ir, proto  # noqa: F401
 from . import data_feeder, lod_tensor, nets  # noqa: F401
+from . import debugger, io_pipeline, native, reader  # noqa: F401
+from . import data_feed_desc, dataset, trainer  # noqa: F401
+from . import device_worker, trainer_desc, trainer_factory  # noqa: F401
 from .backward import append_backward, gradients
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
 from .data_feeder import DataFeeder
+from .data_feed_desc import DataFeedDesc
+from .dataset import DatasetFactory
+from .debugger import set_check_nan_inf
+from .reader import DataLoader, PyReader
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from .executor import Executor, global_scope, scope_guard
 from .flags import get_flags, set_flags
@@ -40,6 +50,8 @@ from .framework import (
     Program,
     Variable,
     default_main_program,
+    cpu_places,
+    cuda_places,
     default_startup_program,
     name_scope,
     program_guard,
@@ -60,4 +72,8 @@ __all__ = [
     "save", "load", "load_program_state", "set_program_state",
     "data_feeder", "lod_tensor", "nets", "DataFeeder", "create_lod_tensor",
     "create_random_int_lodtensor",
+    "debugger", "io_pipeline", "native", "reader", "data_feed_desc",
+    "dataset", "trainer", "device_worker", "trainer_desc",
+    "trainer_factory", "DataFeedDesc", "DatasetFactory", "DataLoader",
+    "PyReader", "set_check_nan_inf", "cpu_places", "cuda_places",
 ]

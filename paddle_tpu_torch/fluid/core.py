@@ -325,6 +325,25 @@ class Scope(object):
                 self._rngs[key] = pair
             return pair
 
+    def rng_states(self):
+        """{device key: (device generator state, CPU generator state)}
+        of every generator pair this scope made (ByteTensors)."""
+        with self._lock:
+            return {k: (dev.get_state(), cpu.get_state())
+                    for k, (dev, cpu) in self._rngs.items()}
+
+    def set_rng_states(self, states):
+        """Set the generator pairs from ``rng_states()``'s form, making a
+        pair where the scope has none; a device this machine lacks is
+        skipped."""
+        for key, (dev_state, cpu_state) in states.items():
+            device = torch.device(key)
+            if device.type == "cuda" and not torch.cuda.is_available():
+                continue
+            dev, cpu = self.rng(device)
+            dev.set_state(dev_state)
+            cpu.set_state(cpu_state)
+
 
 _global_scope = Scope()
 

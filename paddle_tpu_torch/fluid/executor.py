@@ -9,7 +9,11 @@ variables the block reads before it writes come from the
 scope; persistable variables the block writes go back to the scope,
 updated in place where the op updates its input (optimizer state).
 The only host syncs are the feeds' copies at the start and the fetches
-at the end.
+at the end. A ``DeviceFeedBatch`` that the input pipeline
+(``io_pipeline``) staged makes the run's stream wait on the batch's copy
+event before any value is read; staged on this device in full, it is the
+fast lane, whose tensors go in as they are. With ``check_nan_inf`` set,
+the fetches are scanned for NaN/Inf (``debugger.scan_fetches``).
 
 The reference lowers whole blocks to XLA in segments with a jit plan;
 this interpreter dispatches each op eagerly instead (the CUDA-graph plan
@@ -48,6 +52,8 @@ import numpy as np
 import torch
 
 from . import core, profiler
+from . import flags as _flags
+from . import io_pipeline as _io_pipeline
 from ..observability import compile_stats, trace
 from .framework import Variable, default_main_program
 from .ops import registry as _registry
@@ -345,6 +351,17 @@ class Executor(object):
         dev = self.device
         env = {}
         host_feeds = {}
+        staged_from = {}
+        if isinstance(feed, _io_pipeline.DeviceFeedBatch):
+            # tensors the feeder staged one batch ahead: the stream waits
+            # for their copies and marks them in use before any value is
+            # read, also when a LoD value kept its host form or the batch
+            # sits on another card (then moved below); all on this
+            # device is the fast lane, whose tensors go in as they are
+            feed.wait()
+            if feed.device is not None and feed.device == dev:
+                profiler.bump_counter("executor_feed_fast_lane_steps")
+            staged_from = feed.host
         for name, value in (feed or {}).items():
             if isinstance(value, core.LoDTensor):
                 var = program.global_block()._find_var_recursive(name)
@@ -355,8 +372,10 @@ class Executor(object):
                         host_feeds[key] = (t, arr)
                 continue
             env[name] = _as_tensor(value, dev)
-            if not isinstance(value, torch.Tensor):
-                # the host array stays readable without a device sync
+            # the host array stays readable without a device sync
+            if name in staged_from:
+                host_feeds[name] = (env[name], staged_from[name].numpy())
+            elif not isinstance(value, torch.Tensor):
                 host_feeds[name] = (env[name], value)
         for name in plan.scope_reads:
             if name in env:
@@ -386,9 +405,40 @@ class Executor(object):
                 v = scope.get(n)
             if v is None:
                 raise ValueError("fetch variable %r was not computed" % n)
-            outs.append(_to_numpy(v) if return_numpy else v)
+            outs.append(v)
+        if _flags.get_flag("check_nan_inf", False):
+            # the post-run fetch scan (reference operator.cc:945): a
+            # NanInfError names the first fetch holding NaN/Inf
+            from . import debugger as _debugger
+
+            _debugger.scan_fetches(fetch_names, outs)
+        if return_numpy:
+            outs = [_to_numpy(v) for v in outs]
         profiler.bump_counter("executor_runs")
         return outs
+
+    def infer_from_dataset(self, *args, **kwargs):
+        raise NotImplementedError(
+            "dataset trainers are provided via paddle_tpu_torch.fluid.trainer"
+        )
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           ckpt_manager=None, startup_program=None):
+        """Train ``program`` over every batch of ``dataset`` (reference:
+        Executor::RunFromDataset, executor.cc:157): batches are staged
+        on this Executor's device one ahead of the step
+        (``io_pipeline``); ``ckpt_manager`` turns on interval
+        checkpoints, preemption saves and resume. Returns the step count
+        reached."""
+        from . import trainer as _trainer
+
+        return _trainer.train_from_dataset(
+            self, program, dataset, scope, fetch_list, fetch_info,
+            print_period, ckpt_manager=ckpt_manager,
+            startup_program=startup_program,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Runtime flags (port of ``paddle_tpu/fluid/flags.py``: the serving,
-decode, gateway, fleet and observability knobs).
+decode, gateway, fleet, observability and training-runtime knobs).
 
 Only the knobs that the micro-batching server, the decode engine and its
 scheduler, the KV tier, the gateway, the router, the fleet controller
@@ -16,9 +16,15 @@ here.
 
 import os
 
-__all__ = ["get_flag", "get_flags", "set_flags", "version"]
+__all__ = ["get_flag", "get_flags", "set_flags", "version", "is_explicit"]
 
 _DEFAULTS = {
+    # numerics: the Executor's post-run fetch scan (fluid/debugger.py)
+    # raises NanInfError naming the first fetch holding NaN/Inf
+    "check_nan_inf": False,
+    # double-buffered device feed (fluid/io_pipeline.py): how many staged
+    # batches the producer thread may run ahead of the consuming step
+    "reader_buffer_size": 2,
     # InferenceServer's micro-batch coalescer. serving_max_batch_size caps
     # the request rows of one device batch (and tops the default
     # padding-bucket ladder); serving_batch_timeout_ms bounds how long
@@ -182,6 +188,34 @@ _DEFAULTS = {
     "dist_max_preempt_restarts": 100,
     "elastic_min_world_size": 0,
     "elastic_lr_rescale": False,
+    # checkpoint manager (checkpoint/manager.py): trainer save cadence
+    # (0 = off), retention (newest keep_max steps survive, every
+    # keep_every_n_steps-th is pinned), writer-queue depth, how long rank
+    # 0 waits for peer shards, the fallback past a damaged newest step on
+    # resume, and the writer-side scrub of committed steps
+    "ckpt_save_interval_steps": 0,
+    "ckpt_keep_max": 5,
+    "ckpt_keep_every_n_steps": 0,
+    "ckpt_async_depth": 2,
+    "ckpt_commit_timeout_s": 120.0,
+    "ckpt_restore_fallback": True,
+    "ckpt_scrub": False,
+    # training guardian (distributed/guardian.py): guardian_enable arms
+    # the in-graph health fetch and the host anomaly policy (NaN/Inf at
+    # once; spikes by a robust window at guardian_spike_sigma over
+    # guardian_spike_window samples after guardian_warmup_steps); the
+    # ladder skips guardian_max_skips times, then rolls back to the
+    # newest verified checkpoint guardian_max_rollbacks times, then gives
+    # up; guardian_marker_dir persists poisoned steps across restarts;
+    # guardian_digest_interval > 0 publishes a state digest every N steps
+    "guardian_enable": False,
+    "guardian_spike_sigma": 6.0,
+    "guardian_spike_window": 64,
+    "guardian_warmup_steps": 8,
+    "guardian_max_skips": 2,
+    "guardian_max_rollbacks": 1,
+    "guardian_digest_interval": 0,
+    "guardian_marker_dir": "",
     # flight recorder ring (one journey record per request) and the
     # bounded span dump written beside it (observability/flight.py,
     # exporter.dump_blackbox)
@@ -226,6 +260,7 @@ _DEFAULTS = {
 }
 
 _flags = {}
+_explicit = set()  # set through the environment or set_flags
 _version = 0  # bumped after every write
 
 
@@ -249,11 +284,13 @@ def _read_env():
     global _version
     _flags.clear()
     _flags.update(_DEFAULTS)
+    _explicit.clear()
     for name, default in _DEFAULTS.items():
         env = os.environ.get("FLAGS_" + name)
         if env is not None:
             try:
                 _flags[name] = _coerce(default, env)
+                _explicit.add(name)
             except ValueError:
                 pass
     _version += 1
@@ -275,6 +312,7 @@ def set_flags(flags):
         staged[key] = (_coerce(_DEFAULTS[key], v) if isinstance(v, str)
                        else v)
     _flags.update(staged)
+    _explicit.update(staged)
     _version += 1
 
 
@@ -291,6 +329,12 @@ def get_flags(names):
             raise ValueError("flag %r is not registered" % n)
         out["FLAGS_" + key] = _flags[key]
     return out
+
+
+def is_explicit(name):
+    """Whether the flag was set through the environment or
+    ``set_flags`` rather than sitting at its default."""
+    return _key(name) in _explicit
 
 
 def get_flag(name, default=None):

@@ -675,3 +675,21 @@ def name_scope(prefix=None):
 
 def get_name_scope():
     return "/".join(s for s in _name_scope_stack if s)
+
+
+def cpu_places(device_count=None):
+    """``device_count`` CPUPlaces (default 1)."""
+    return [core.CPUPlace()] * (device_count or 1)
+
+
+def cuda_places(device_ids=None):
+    """A CUDAPlace for each of ``device_ids`` (default: every visible
+    card). On a machine without a card this raises: the port has no CPU
+    fallback behind a place that names the GPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "cuda_places: no CUDA device is available; use cpu_places() "
+            "to run on the CPU")
+    if device_ids is None:
+        device_ids = range(torch.cuda.device_count())
+    return [core.CUDAPlace(i) for i in device_ids]

@@ -5,7 +5,8 @@ dtype."""
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["exp", "tanh", "sqrt", "ceil", "floor", "cos", "sigmoid"]
+_UNARY_OPS = ["exp", "tanh", "sqrt", "ceil", "floor", "cos", "sigmoid",
+              "square"]
 
 __all__ = list(_UNARY_OPS) + ["cumsum"]
 

@@ -36,7 +36,8 @@ import torch
 from .. import core
 from .registry import SkipInferShape, register_op
 
-__all__ = ["serialize_lod_tensor", "deserialize_lod_tensor"]
+__all__ = ["serialize_lod_tensor", "deserialize_lod_tensor",
+           "lod_tensor_stream_parts"]
 
 _VT = core.VarDesc.VarType
 _TORCH_TO_PROTO = {
@@ -122,14 +123,17 @@ def _host_tensor(value):
     return value.detach().cpu().contiguous(), lod
 
 
-def _raw_bytes(t):
+def _raw_view(t):
+    """The tensor's bytes as a flat uint8 array sharing its memory."""
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
-    return t.numpy().tobytes()
+    return t.numpy().reshape(-1).view(np.uint8)
 
 
-def serialize_lod_tensor(value):
-    """The stream bytes of a LoDTensor, tensor or numpy array."""
+def lod_tensor_stream_parts(value):
+    """(header bytes, raw data as a uint8 array sharing the host tensor's
+    memory) of a LoDTensor, tensor or numpy array: the stream is their
+    concatenation, which a writer can put down without joining them."""
     t, lod = _host_tensor(value)
     out = struct.pack("<I", 0)  # version
     out += struct.pack("<Q", len(lod))
@@ -141,13 +145,19 @@ def serialize_lod_tensor(value):
     desc = _tensor_desc_bytes(t)
     out += struct.pack("<i", len(desc))
     out += desc
-    out += _raw_bytes(t)
-    return out
+    return out, _raw_view(t)
 
 
-def deserialize_lod_tensor(buf, pos=0):
+def serialize_lod_tensor(value):
+    """The stream bytes of a LoDTensor, tensor or numpy array."""
+    header, raw = lod_tensor_stream_parts(value)
+    return header + raw.tobytes()
+
+
+def deserialize_lod_tensor(buf, pos=0, copy=True):
     """(LoDTensor on the CPU, position after it) read from ``buf`` at
-    ``pos``; a bf16 stream gives a bf16 tensor."""
+    ``pos``; a bf16 stream gives a bf16 tensor. ``copy=False`` shares a
+    writable ``buf``'s memory (a ``bytearray``) instead of copying."""
     (version,) = struct.unpack_from("<I", buf, pos)
     pos += 4
     if version != 0:
@@ -174,7 +184,7 @@ def deserialize_lod_tensor(buf, pos=0):
     np_dtype = torch.empty((), dtype=wire).numpy().dtype
     arr = np.frombuffer(buf, np_dtype, count, pos).reshape(dims)
     pos += arr.nbytes
-    t = torch.from_numpy(arr.copy())
+    t = torch.from_numpy(arr.copy() if copy else arr)
     if dtype == torch.bfloat16:
         t = t.view(torch.bfloat16)
     return core.LoDTensor(t, lod=lod), pos

@@ -342,6 +342,14 @@ _register_unary("floor", lambda x, op_: torch.floor(x))
 _register_unary("ceil", lambda x, op_: torch.ceil(x))
 _register_unary("exp", lambda x, op_: torch.exp(x))
 _register_unary("cos", lambda x, op_: torch.cos(x))
+_register_unary("square", lambda x, op_: x * x)
+
+
+@op("square_error_cost", infer_shape=same_shape_infer("X"), grad="generic")
+def _square_error_cost(ctx, op_):
+    """(X - Y)^2 elementwise (``math_ops.py:560``)."""
+    d = ctx.in1(op_, "X") - ctx.in1(op_, "Y")
+    ctx.out(op_, "Out", d * d)
 _register_unary("pow", lambda x, op_: torch.pow(
     x, torch.tensor(float(op_.attr("factor", 1.0)), dtype=x.dtype,
                     device=x.device)))

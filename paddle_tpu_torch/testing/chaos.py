@@ -2,9 +2,13 @@
 ``paddle_tpu/testing/chaos.py``) for elastic-training and serving tests.
 
 The serving front's hook, ``on_stream_token``, and the fleet's
-controller kill are live in the port. The training hooks come as they
-are, for the trainer still to be ported; the ``lose_rank`` fault writes
-its down marker through ``distributed.elastic``, as the reference's.
+controller kill are live in the port, and so are the training hooks
+(``on_step``, ``poison_feed``, ``maybe_bitflip_state``,
+``maybe_slow_feed``, ``corrupt_ckpt_bytes``), which the trainer, the
+input pipeline and the checkpoint writer call; ``poison_feed`` and
+``maybe_bitflip_state`` read and flip tensors where they live. The
+``lose_rank`` fault writes its down marker through
+``distributed.elastic``, as the reference's.
 
 Every injection point is a pure function of configuration + observable
 state (step index, call count) — no randomness lives here, so a failing
@@ -472,12 +476,19 @@ def poison_feed(step, feed):
     if mode is None or not _fire_once(plan, mode):
         return feed
     import numpy as np
+    import torch
 
+    wait = getattr(feed, "wait", None)
+    if wait is not None:
+        wait()  # a staged batch's copies must land before it is read
     out = {}
     poisoned = None
     for name, val in feed.items():
         if poisoned is None and not hasattr(val, "lod"):
-            arr = np.array(np.asarray(val))  # writable host copy
+            if isinstance(val, torch.Tensor):
+                arr = val.detach().cpu().numpy().copy()
+            else:
+                arr = np.array(np.asarray(val))  # writable host copy
             if np.issubdtype(arr.dtype, np.floating):
                 if mode == "nan_grad":
                     arr.reshape(-1)[0] = np.nan
@@ -517,20 +528,32 @@ def maybe_bitflip_state(step, program, scope):
         from ..fluid import core as _core
 
         scope = _core.global_scope()
+    import torch
+
     for name in sorted(p.name for p in program.all_parameters()):
         val = scope.get(name)
         if val is None:
             continue
-        arr = np.array(np.asarray(
-            val.numpy() if hasattr(val, "numpy") else val
-        ))
-        flat = arr.reshape(-1)
-        if flat.size == 0 or flat.dtype not in (np.float32, np.float64):
-            continue
-        bits = flat.view(np.uint32 if flat.dtype == np.float32
-                         else np.uint64)
-        bits[0] ^= np.array(1, bits.dtype)
-        scope.set(name, arr)
+        if isinstance(val, torch.Tensor):
+            # in place, where the tensor lives: the scope's tensor is
+            # the one the next step reads
+            if val.numel() == 0 or val.dtype not in (torch.float32,
+                                                     torch.float64):
+                continue
+            bits = val.view(torch.int32 if val.dtype == torch.float32
+                            else torch.int64).reshape(-1)
+            bits[0] ^= 1
+        else:
+            arr = np.array(np.asarray(
+                val.numpy() if hasattr(val, "numpy") else val
+            ))
+            flat = arr.reshape(-1)
+            if flat.size == 0 or flat.dtype not in (np.float32, np.float64):
+                continue
+            bits = flat.view(np.uint32 if flat.dtype == np.float32
+                             else np.uint64)
+            bits[0] ^= np.array(1, bits.dtype)
+            scope.set(name, arr)
         print(
             "CHAOS bitflip_grad step=%d var=%s pid=%d"
             % (step, name, os.getpid()),

@@ -236,6 +236,41 @@ for op_type in list(sequence_ops.SEQLEN_OUT_SLOTS)[:11] + [
         "squeeze2", "fill_constant_batch_size_like", "sigmoid",
         "log_softmax", "clip", "cumsum", "cross_entropy"]:
     assert registry.has_op(op_type), op_type
+# the training runtime slice
+import paddle_tpu_torch
+from paddle_tpu_torch import checkpoint, distributed, reader
+from paddle_tpu_torch.checkpoint import manager
+from paddle_tpu_torch.distributed import guardian, launch
+from paddle_tpu_torch.fluid import (data_feed_desc, dataset, debugger,
+                                    device_worker, io_pipeline, native,
+                                    trainer, trainer_desc, trainer_factory)
+from paddle_tpu_torch.fluid import reader as fluid_reader
+from paddle_tpu_torch.fluid.layers import loss as loss_layers
+from paddle_tpu_torch.tools import train_worker
+for fn in (reader.shuffle, reader.batch, reader.buffered, reader.xmap_readers,
+           reader.compose, reader.chain, reader.firstn, reader.cache,
+           reader.map_readers, paddle_tpu_torch.batch,
+           io_pipeline.DeviceFeeder, io_pipeline.DeviceFeedBatch,
+           io_pipeline.resolve_device, io_pipeline.buffer_size,
+           native.BlockingQueue, native.MultiSlotFile,
+           native.serialize_tensor, fluid_reader.DataLoader.from_generator,
+           fluid_reader.DataLoader.from_dataset, fluid_reader.PyReader,
+           dataset.DatasetFactory, dataset.QueueDataset,
+           dataset.InMemoryDataset, data_feed_desc.DataFeedDesc,
+           trainer.MultiTrainer, trainer.train_from_dataset,
+           trainer_factory.TrainerFactory, trainer_desc.TrainerDesc,
+           device_worker.DeviceWorkerFactory, debugger.scan_fetches,
+           debugger.set_check_nan_inf, manager.CheckpointManager,
+           checkpoint.list_steps, checkpoint.latest_step,
+           guardian.Guardian, guardian.attach_health_fetch,
+           guardian.state_digest, guardian.RobustWindow, launch.launch,
+           launch.build_specs, launch.worker_device,
+           train_worker.write_multislot, fluid.cpu_places, fluid.cuda_places,
+           fluid.Executor.train_from_dataset, layers.square,
+           layers.square_error_cost, loss_layers.square_error_cost):
+    assert callable(fn)
+for op_type in ("square", "square_error_cost"):
+    assert registry.has_op(op_type), op_type
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "paddle_tpu")
              or m.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -384,3 +419,74 @@ def test_get_flags_matches_the_reference():
     for fl in (fluid.flags, jflags):
         with pytest.raises(ValueError, match="not registered"):
             fl.get_flags(["decode_slots", "no_such_knob"])
+
+
+def test_training_runtime_defaults_to_cuda_and_raises_without_gpu(
+        monkeypatch):
+    """``DataLoader`` / ``PyReader`` places, ``cuda_places()``,
+    ``DeviceFeeder`` and the launcher's workers default to the card and
+    raise without one; the CPU runs when it is asked for."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.fluid import io_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cpu_places"):
+        fluid.cuda_places()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        io_pipeline.DeviceFeeder(iter([]))
+    assert list(io_pipeline.DeviceFeeder(iter([]), place="cpu")) == []
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.layers.data(name="gx", shape=[2], dtype="float32")
+
+    def batches():
+        yield [np.ones((1, 2), "float32")]
+
+    loader = fluid.DataLoader.from_generator(feed_list=[x])
+    loader.set_batch_generator(batches)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(iter(loader))
+    reader = fluid.PyReader(feed_list=[x], iterable=False)
+    reader.decorate_batch_generator(batches)
+    reader.start()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        reader.next()
+    reader.reset()
+    loader.set_batch_generator(batches, places=fluid.cpu_places())
+    (b,) = list(loader)
+    assert b["gx"].device == torch.device("cpu")
+    monkeypatch.delenv(launch.DEVICE_ENV, raising=False)
+    with pytest.raises(RuntimeError):
+        launch.worker_device()
+
+
+# the reference's training-runtime names (paddle_tpu/fluid/__init__.py,
+# paddle_tpu/__init__.py)
+_RUNTIME_NAMES = ("DataLoader", "PyReader", "dataset", "DatasetFactory",
+                  "debugger", "set_check_nan_inf", "cpu_places",
+                  "cuda_places", "DataFeedDesc", "trainer_desc",
+                  "trainer_factory", "device_worker")
+
+
+@pytest.mark.parametrize("name", _RUNTIME_NAMES)
+def test_fluid_exports_the_reference_training_runtime_names(name):
+    import paddle_tpu.fluid as jfluid
+
+    # the reference's DatasetFactory lives in its fluid.dataset
+    assert getattr(jfluid, name, None) is not None or getattr(
+        jfluid.dataset, name) is not None
+    assert getattr(fluid, name) is not None
+    assert name in fluid.__all__
+
+
+@pytest.mark.parametrize("name", ("reader", "batch", "checkpoint",
+                                  "distributed"))
+def test_package_exports_the_reference_top_level_names(name):
+    import paddle_tpu
+    import paddle_tpu_torch
+
+    assert getattr(paddle_tpu, name) is not None
+    assert getattr(paddle_tpu_torch, name) is not None
+    assert name in paddle_tpu_torch.__all__
