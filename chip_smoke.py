@@ -8,12 +8,13 @@
     python3 chip_smoke.py --only nmt
     python3 chip_smoke.py --only recompute,rnn
     python3 chip_smoke.py --only train_runtime
+    python3 chip_smoke.py --only dp
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
 ``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``,
-``recompute``, ``rnn``, ``train_runtime``),
+``recompute``, ``rnn``, ``train_runtime``, ``dp``),
 ``--repeat``
 times, printing each run's line whether it passed or not. Phases, one
 JSON line each:
@@ -263,6 +264,30 @@ JSON line each:
            ``chaos_crash_at_step`` after step 5 while it trains,
            restarted, resumed from its step-3 checkpoint, its final
            checkpoint held to run A's state at step 7 as in (d).
+22. dp     (run after train_runtime) data-parallel training over
+           ``torch.distributed``: one launch of two workers (``python -m
+           paddle_tpu_torch.distributed.launch --nproc_per_node 2``, this
+           script's hidden ``--dp-worker`` mode) on card 0 over gloo
+           (NCCL refuses two ranks on one GPU), in the same processes:
+           (a) every c_* op and its gradient on CUDA tensors, each rank's
+           shard through ``CompiledProgram.with_data_parallel``, against
+           numpy; the quantized sum against its bound; ``sync_batch_norm``
+           against ``batch_norm`` on the joined batch; (b) BASELINE.json
+           config 4, ``build_resnet_train(50)`` at 32 images a rank, fp32,
+           3 steps, each rank's loss, running stats and the parameters
+           after the last step held to rank 0's computation by hand (the
+           plain program's gradients on each half, their mean, the
+           momentum update), the ranks equal at the start and the end,
+           images/s per rank and the ms a step spent in collectives; (c)
+           GPT-2 small through the flash kernels, 2 ranks of 4 x 1024
+           against one process on 8 x 1024 (loss, the parameters' update
+           after 2 Adam steps), 12 launches of each training kernel a
+           step on each rank; (d) a one-rank NCCL group (``new_group([0],
+           backend="nccl")`` as ring 7) running c_allreduce_sum,
+           c_broadcast and c_allgather on the card. A worker that misses
+           a check exits non-zero and the launcher tears the gang down;
+           a launch that outlives its timeout is killed. Both ranks share
+           one card, so its rates do not show scaling.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -631,7 +656,15 @@ FLEET_ENV = {
 }
 
 
+_PHASE_SECONDS = []              # (phase, seconds since the emit before)
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj):
+    now = time.perf_counter()
+    if isinstance(obj, dict) and "phase" in obj:
+        _PHASE_SECONDS.append((obj["phase"], round(now - _LAST_EMIT[0], 1)))
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -3670,37 +3703,59 @@ def fleet_replica_main(argv):
     return rc
 
 
+# which of the probe's trials a timing bar ("throughput"-prefixed) is in
+FLEET_PROBE_TIMING_TRIALS = (("throughput: kv-tier", "kv_tier"),
+                             ("throughput: scale-up", "fleet"))
+FLEET_PROBE_TRIAL_KEYS = {
+    "fleet": ("boot", "overhead", "failover", "autoscale", "scale_down",
+              "rollout", "strict"),
+    "generate_failover": ("generate_failover",),
+    "kv_tier": ("kv_tier", "kv_tier_churn"),
+    "controller_crash": ("controller_crash",)}
+
+
 def _fleet_probe_on_card():
     """The port's closed-loop fleet probe with its replicas on the card.
     As in the CPU test, a miss of its timing bars alone (failures
-    prefixed "throughput") earns one rerun; any other miss raises."""
+    prefixed "throughput") earns one rerun; any other miss raises. The
+    rerun repeats only the trials whose bars missed (``--trials``), and
+    their rows replace the first run's."""
     root = os.path.dirname(os.path.abspath(__file__))
-    first = None
+    first, trials, merged, secs = None, None, {}, 0.0
     for attempt in (1, 2):
         t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, "-m", "paddle_tpu_torch.tools.fleet_probe",
-             "--fast", "--device", "cuda"],
-            cwd=root, capture_output=True, text=True, timeout=900)
-        secs = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.tools.fleet_probe",
+               "--fast", "--device", "cuda"]
+        if trials:
+            cmd += ["--trials", ",".join(trials)]
+        p = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=900)
+        secs += time.perf_counter() - t0
         report = None
         for ln in p.stdout.splitlines():
             if ln.startswith("REPORT "):
                 report = json.loads(ln[len("REPORT "):])
         fails = (report or {}).get("failures") or []
+        for t in (report or {}).get("trials", ()):
+            merged.update({k: report.get(k)
+                           for k in FLEET_PROBE_TRIAL_KEYS[t]})
         if p.returncode == 0 and "PROBE PASS" in p.stdout:
             break
-        if attempt == 2 or not fails or not all(
-                f.startswith("throughput") for f in fails):
+        missed = set()
+        for f in fails:
+            t = next((t for pre, t in FLEET_PROBE_TIMING_TRIALS
+                      if f.startswith(pre)), None)
+            if t is None:      # not a timing bar: no rerun
+                missed = None
+                break
+            missed.add(t)
+        if attempt == 2 or not fails or missed is None:
             raise AssertionError(
                 "fleet probe on the card failed (rc %d): %s\n%s\n%s"
                 % (p.returncode, fails, p.stdout[-3000:], p.stderr[-3000:]))
-        first = fails
-    keep = ("boot", "overhead", "failover", "autoscale", "scale_down",
-            "rollout", "strict", "generate_failover", "kv_tier",
-            "kv_tier_churn", "controller_crash")
-    return dict({k: report.get(k) for k in keep}, seconds=secs,
-                attempts=attempt, first_attempt_failures=first,
+        first, trials = fails, sorted(missed)
+    return dict(merged, seconds=secs, attempts=attempt,
+                first_attempt_failures=first, rerun_trials=trials,
                 device=report.get("device"))
 
 
@@ -6871,6 +6926,771 @@ def train_runtime_phase(dev):
             "seconds": time.perf_counter() - t_phase}, launches
 
 
+# ---------------------------------------------------------------------------
+# dp: data-parallel training over torch.distributed (one launch, 2 ranks)
+# ---------------------------------------------------------------------------
+# Two ranks of ``python -m paddle_tpu_torch.distributed.launch
+# --nproc_per_node 2`` share card 0 over gloo (NCCL refuses two ranks on
+# one GPU), each running this script's hidden ``--dp-worker`` mode: (a)
+# every c_* op, (b) ResNet-50 (config 4), (c) GPT-2 small, (d) a one-rank
+# NCCL group, in that order, in the same processes.
+DP_RANKS = 2
+DP_TIMEOUT_S = 600               # the whole launch; the launcher is killed
+DP_COLLECTIVE_TIMEOUT_S = 180    # the rendezvous and each collective
+DP_SPEC = {"device": "cuda",
+           "resnet": {"depth": 50, "classes": 1000, "size": 224,
+                      "batch": 32, "steps": 3},
+           "gpt": "gpt2", "gpt_batch": 8, "gpt_t": 1024, "gpt_steps": 2,
+           "nccl": True}
+# c_* ops against numpy on fp32 values in [0.5, 1.5): sums of 2 terms
+# and products of 2 factors, exact to an ulp or two.
+DP_OP_ATOL = 1e-5
+# sync_batch_norm against batch_norm on the joined batch (the same
+# arithmetic, the statistics summed in another order): ~1e-6 observed
+# class; a wrong group or scale moves Y by O(0.1).
+DP_BN_ATOL = 1e-4
+# ResNet-50 per rank against the hand computation (the plain program's
+# gradients on each half, their mean, the momentum update), both with
+# cuDNN's deterministic algorithms: the same kernels on the same halves,
+# the 1/2 loss-gradient scale exact, so the two agree to the gradient
+# sum's rounding. (With cuDNN's atomic weight gradients, lr 0.1 and
+# momentum 0.9 amplify run-to-run ulps to 0.4% of the loss by step 3 on
+# an NVIDIA H100 80GB HBM3 at 700 W.) The timed steps after them run
+# cuDNN's default algorithms.
+DP_RESNET_LOSS_RTOL = 1e-5
+DP_RESNET_PARAM_RTOL = 1e-5      # relative to the parameters' own norm
+DP_RESNET_TIMED_STEPS = 3
+# GPT-2 small, 2 ranks of 4 x 1024 against one process on 8 x 1024:
+# the loss to 1e-5 relative; the parameters' change over the steps to
+# 1e-3 relative norm (Adam divides each element by its own gradient's
+# size, so an element whose gradient is near 0 moves by an ulp-sized
+# difference scaled up).
+DP_GPT_LOSS_RTOL = 1e-5
+DP_GPT_UPDATE_RTOL = 1e-3
+DP_QUANT_STEPS = 4               # the quantized bound: 4 steps of absmax/127
+DP_NCCL_RING = 7
+
+
+def _dp_err(a, b):
+    """Max |a - b| of two tensors or arrays, in fp64 on the host."""
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().double().cpu()
+        return torch.as_tensor(np.asarray(v, np.float64))
+
+    return float((host(a) - host(b)).abs().max())
+
+
+def _dp_place(dev):
+    from paddle_tpu_torch import fluid
+
+    return fluid.CUDAPlace(0) if dev.type == "cuda" else fluid.CPUPlace()
+
+
+def _dp_shard(a, rank, world):
+    n = a.shape[0] // world
+    return a[rank * n:(rank + 1) * n]
+
+
+DP_OPS = (("c_allreduce_sum", {}), ("c_allreduce_max", {}),
+          ("c_allreduce_min", {}), ("c_allreduce_prod", {}),
+          ("allreduce", {}), ("c_broadcast", {"root": 1}),
+          ("broadcast", {"root": 0}), ("c_allgather", {"nranks": 2}),
+          ("c_reducescatter", {"nranks": 2}))
+
+
+def _dp_op_program(op_type, attrs, ring_id=0):
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        x.stop_gradient = False
+        cw = fluid.layers.data(name="cw", shape=[64], dtype="float32")
+        helper = fluid.layer_helper.LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(dtype="float32")
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]},
+                         attrs=dict(attrs, ring_id=ring_id))
+        loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(out, cw))
+        gx = fluid.gradients(loss, x)[0]
+    return main, startup, out, gx
+
+
+def _dp_op_oracle(op_type, attrs, xs, cws, rank):
+    """Rank ``rank``'s (out, grad of x) for the data-parallel program
+    (loss gradient scaled by 1/n): xs [n, rows, 64], cws [n, out rows,
+    64]."""
+    n = xs.shape[0]
+    c = cws.sum(0) / n
+    if op_type in ("c_allreduce_sum", "allreduce"):
+        return xs.sum(0), c
+    if op_type in ("c_allreduce_max", "c_allreduce_min"):
+        ext = xs.max(0) if op_type.endswith("max") else xs.min(0)
+        hit = (xs == ext).astype(np.float32)
+        return ext, c * hit[rank] / hit.sum(0)
+    if op_type == "c_allreduce_prod":
+        return xs.prod(0), c * np.prod(np.delete(xs, rank, 0), axis=0)
+    if op_type == "c_allgather":
+        rows = xs.shape[1]
+        return xs.reshape(-1, xs.shape[2]), c[rank * rows:(rank + 1) * rows]
+    if op_type == "c_reducescatter":
+        rows = xs.shape[1] // n
+        return (xs.sum(0)[rank * rows:(rank + 1) * rows],
+                (cws / n).reshape(-1, cws.shape[2]))
+    root = attrs["root"]
+    return xs[root], c if rank == root else np.zeros_like(c)
+
+
+def dp_ops(rank, world, dev):
+    """(a): every c_* op and its gradient on this device's tensors, each
+    rank's shard through ``with_data_parallel``, against numpy; the
+    stream syncs and bootstrap ops; the quantized sum against its bound
+    (through the op under the flag too); ``sync_batch_norm`` against
+    ``batch_norm`` on the joined batch."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.fluid.ops import nn_ops
+    from paddle_tpu_torch.parallel import quantized_allreduce as qar
+
+    place = _dp_place(dev)
+    exe = fluid.Executor(place)
+    errs = {}
+
+    def run_dp(main, startup, feed, fetch):
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        comp = fluid.CompiledProgram(main).with_data_parallel()
+        return exe.run(comp, feed=feed, fetch_list=fetch, scope=scope)
+
+    rng = np.random.default_rng(5)
+    for op_type, attrs in DP_OPS:
+        rows = 4
+        out_rows = {"c_allgather": world * rows,
+                    "c_reducescatter": rows // world}.get(op_type, rows)
+        xs = rng.uniform(0.5, 1.5, (world, rows, 64)).astype(np.float32)
+        cws = rng.standard_normal((world, out_rows, 64)).astype(np.float32)
+        main, startup, out, gx = _dp_op_program(op_type, attrs)
+        o, g = run_dp(main, startup, {"x": xs[rank], "cw": cws[rank]},
+                      [out, gx])
+        wo, wg = _dp_op_oracle(op_type, attrs, xs, cws, rank)
+        errs[op_type] = [_dp_err(o, wo), _dp_err(g, wg)]
+    # the stream syncs and the bootstrap ops
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        xv = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        helper = fluid.layer_helper.LayerHelper("sync")
+        a = helper.create_variable_for_type_inference(dtype="float32")
+        b = helper.create_variable_for_type_inference(dtype="float32")
+        helper.append_op(type="c_sync_calc_stream", inputs={"X": [xv]},
+                         outputs={"Out": [a]})
+        helper.append_op(type="c_sync_comm_stream", inputs={"X": [a]},
+                         outputs={"Out": [b]})
+        sb = startup.global_block()
+        for t in ("c_gen_nccl_id", "gen_nccl_id", "c_comm_init_all"):
+            sb.append_op(type=t, inputs={}, outputs={}, attrs={})
+        sb.append_op(type="c_comm_init", inputs={}, outputs={},
+                     attrs={"ring_id": 1, "nranks": world, "rank": rank})
+    xv = rng.uniform(0.5, 1.5, (4, 64)).astype(np.float32)
+    (bv,) = run_dp(main, startup, {"x": xv}, [b])
+    errs["c_sync_calc_stream+c_sync_comm_stream"] = [_dp_err(bv, xv), 0.0]
+    # the quantized sum: each element within DP_QUANT_STEPS steps of the
+    # joined absmax / 127, and straight through in the backward
+    xq = rng.standard_normal((world, 1 << 20)).astype(np.float32)
+    t = torch.tensor(xq[rank], device=dev, requires_grad=True)
+    s = qar.quantized_psum(t)
+    (s * s).sum().backward()
+    bound = DP_QUANT_STEPS * np.abs(xq).max() * world / 127.0
+    # d/dt of every rank's sum(s^2) through the straight-through sum
+    quant = {"max_abs_err": _dp_err(s, xq.sum(0)), "bound": bound,
+             "grad_err": _dp_err(t.grad, 2 * world * s.detach())}
+    flags.set_flags({"quantized_allreduce": True})
+    try:
+        xs = rng.uniform(0.5, 1.5, (world, 4, 64)).astype(np.float32)
+        cws = rng.standard_normal((world, 4, 64)).astype(np.float32)
+        main, startup, out, gx = _dp_op_program("c_allreduce_sum", {})
+        o, g = run_dp(main, startup, {"x": xs[rank], "cw": cws[rank]},
+                      [out, gx])
+    finally:
+        flags.set_flags({"quantized_allreduce": False})
+    wo, wg = _dp_op_oracle("c_allreduce_sum", {}, xs, cws, rank)
+    quant["op_err"] = _dp_err(o, wo)
+    quant["op_bound"] = DP_QUANT_STEPS * np.abs(xs).max() * world / 127.0
+    quant["op_grad_err"] = _dp_err(g, wg)
+    # sync_batch_norm vs batch_norm on the joined batch (forward, and the
+    # gradients of sum(Y * cw) with the rewrite's 1/n)
+    shape = (world * 4, 16, 8, 8)
+    xb = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    cwb = rng.standard_normal(shape).astype(np.float32)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=list(shape[1:]),
+                              dtype="float32")
+        x.stop_gradient = False
+        cw = fluid.layers.data(name="cw", shape=list(shape[1:]),
+                               dtype="float32")
+        y = fluid.layers.batch_norm(input=x)
+        for op_ in main.global_block().ops:
+            if op_.type == "batch_norm":
+                op_.type = "sync_batch_norm"
+        loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(y, cw))
+        gx = fluid.gradients(loss, x)[0]
+    yv, gv, gs = run_dp(main, startup, {"x": _dp_shard(xb, rank, world),
+                                        "cw": _dp_shard(cwb, rank, world)},
+                        [y, gx, "batch_norm_0.w_0@GRAD"])
+    xj = torch.tensor(xb, device=dev, requires_grad=True)
+    sc = torch.ones(16, device=dev, requires_grad=True)
+    yj = nn_ops.batch_norm(xj, sc, torch.zeros(16, device=dev),
+                           torch.zeros(16, device=dev),
+                           torch.ones(16, device=dev))[0]
+    (yj * torch.tensor(cwb, device=dev)).sum().div(world).backward()
+    bn = {"y_err": _dp_err(yv, _dp_shard(yj.detach(), rank, world)),
+          "dx_err": _dp_err(gv, _dp_shard(xj.grad, rank, world)),
+          "dscale_err": _dp_err(gs, sc.grad)}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"errs": errs, "quantized": quant, "sync_batch_norm": bn}
+
+
+class _CollectiveClock(object):
+    """Wall time inside ``torch.distributed.all_reduce`` (the device
+    drained first, so a call's own time is what is counted) and its
+    calls, while armed."""
+
+    def __init__(self, dev):
+        import torch.distributed as dist
+
+        self.dev, self.dist = dev, dist
+        self.ms, self.calls, self._orig = 0.0, 0, dist.all_reduce
+
+    def __enter__(self):
+        orig = self._orig
+
+        def timed(*a, **k):
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = orig(*a, **k)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return r
+
+        self.dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self._orig
+
+
+class _cudnn_deterministic(object):
+    """cuDNN's deterministic algorithms on (or off) inside."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = self.on
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.was
+
+
+def _dp_rank_spread(tensors):
+    """Max |rank 0's value − this rank's| over ``tensors`` (rank 0's come
+    over a broadcast), 0 on rank 0."""
+    import torch.distributed as dist
+
+    worst = 0.0
+    for t in tensors:
+        ref = t.detach().clone().contiguous()
+        dist.broadcast(ref, src=0)
+        worst = max(worst, float((ref - t).abs().max()))
+    return worst
+
+
+def _dp_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_gather(values, dev):
+    """Every rank's float list, on every rank: [rank][i]."""
+    import torch.distributed as dist
+
+    t = torch.tensor(values, dtype=torch.float64, device=dev)
+    got = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, t)
+    return [g.tolist() for g in got]
+
+
+def _dp_rel_norm(got, want, base=None):
+    """||got - want|| / ||want - base|| (||want|| without base), summed
+    over the names of ``want``."""
+    num = den = 0.0
+    for n, w in want.items():
+        num += float((got[n].double() - w.double()).norm()) ** 2
+        ref = w.double() if base is None else w.double() - base[n].double()
+        den += float(ref.norm()) ** 2
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def dp_resnet(rank, world, dev, rs):
+    """(b) BASELINE.json config 4: ``build_resnet_train(depth)`` through
+    ``CompiledProgram.with_data_parallel``, ``batch`` images a rank, fp32,
+    each rank's batch norm over its own images. Then rank 0 computes the
+    same steps by hand: the plain program's gradients on each rank's
+    half (in a scope of that half, so its running stats move as that
+    rank's), their mean, the momentum update."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+
+    place = _dp_place(dev)
+    exe = fluid.Executor(place)
+
+    def build():
+        with fluid.unique_name.guard():
+            main, startup, _f, loss, _acc = resnet.build_resnet_train(
+                rs["depth"], rs["classes"], rs["size"])
+        main.random_seed = startup.random_seed = 17
+        return main, startup, loss
+
+    def fresh_scope(startup):
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        return scope
+
+    feeds = [image_feed(world * rs["batch"], 3, rs["size"], rs["classes"],
+                        100 + s) for s in range(rs["steps"])]
+    main, startup, loss = build()
+    scope = fresh_scope(startup)
+    names = sorted(p for p, _g in main._params_grads)   # the trainable
+    stats = sorted(v.name for v in main.list_vars() if v.persistable
+                   and v.name.startswith("batch_norm")
+                   and v.name.endswith((".w_1", ".w_2")))
+    # the ranks start equal: one seeded startup on each
+    start_spread = _dp_rank_spread([scope.get(n) for n in names + stats])
+    init = {n: scope.get(n).detach().clone() for n in names + stats}
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name)
+
+    def steps(first, n):
+        losses, step_ms, coll_ms, coll_calls = [], [], [], []
+        for s in range(first, first + n):
+            feed = {k: _dp_shard(v, rank, world)
+                    for k, v in feeds[s % len(feeds)].items()}
+            _dp_sync(dev)
+            with _CollectiveClock(dev) as clock:
+                t0 = time.perf_counter()
+                (lv,) = exe.run(compiled, feed=feed, fetch_list=[loss],
+                                scope=scope)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lv.reshape(-1)[0]))
+            coll_ms.append(clock.ms)
+            coll_calls.append(clock.calls)
+        return losses, step_ms, coll_ms, coll_calls
+
+    with _cudnn_deterministic(True):
+        losses, checked_ms, _c, _n = steps(0, rs["steps"])
+    out = {"losses": losses, "checked_step_ms": checked_ms,
+           "c_allreduce_sum_ops": sum(o.type == "c_allreduce_sum"
+                                      for o in main.global_block().ops),
+           "params": len(names), "start_spread": start_spread,
+           "rank_spread": _dp_rank_spread([scope.get(n) for n in names])}
+    rank_losses = _dp_gather(losses, dev)
+    rank_stats = {}
+    for n in stats:
+        t = scope.get(n).detach().contiguous()
+        got = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(got, t)
+        rank_stats[n] = got
+    dp_params = {n: scope.get(n).detach().clone() for n in names}
+    # timed steps, cuDNN's default algorithms
+    with _cudnn_deterministic(False):
+        (out["timed_losses"], out["step_ms"], out["collective_ms"],
+         out["collective_calls"]) = steps(rs["steps"], DP_RESNET_TIMED_STEPS)
+    del compiled, scope
+    if rank == 0:
+        with _cudnn_deterministic(True):
+            out.update(_dp_resnet_by_hand(
+                build, fresh_scope, exe, init, names, stats, feeds, world,
+                rs, rank_losses, rank_stats, dp_params))
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_resnet_by_hand(build, fresh_scope, exe, init, names, stats, feeds,
+                       world, rs, rank_losses, rank_stats, dp_params):
+    """Rank 0's computation of the ranks' steps by hand, and how far the
+    ranks' losses, parameters and running stats are from it."""
+    from paddle_tpu_torch.fluid.ops import optimizer_ops
+
+    hmain, hstartup, hloss = build()
+    scopes = [fresh_scope(hstartup) for _ in range(world)]
+    for sc in scopes:
+        for n in stats:
+            sc.get(n).copy_(init[n])
+    mom = next(o for o in hmain.global_block().ops if o.type == "momentum")
+    mu = float(mom.attr("mu"))
+    lr = scopes[0].get(mom.input("LearningRate")[0])
+    p = {n: init[n].clone() for n in names}
+    vel = {n: torch.zeros_like(v) for n, v in p.items()}
+    hand = [[] for _ in range(world)]
+    for s in range(rs["steps"]):
+        total = None
+        for r, sc in enumerate(scopes):
+            for n in names:
+                sc.get(n).copy_(p[n])
+            outs = exe.run(hmain, feed={k: _dp_shard(v, r, world)
+                                        for k, v in feeds[s].items()},
+                           fetch_list=[hloss] + [n + "@GRAD" for n in names],
+                           scope=sc, return_numpy=False)
+            hand[r].append(float(outs[0].reshape(-1)[0]))
+            total = outs[1:] if total is None else [
+                a + b for a, b in zip(total, outs[1:])]
+        for n, g in zip(names, total):
+            optimizer_ops.momentum(p[n], g / world, vel[n], lr, mu)
+    return {"hand_losses": hand,
+            "loss_rel": max(abs(a - b) / abs(b) for r in range(world)
+                            for a, b in zip(rank_losses[r], hand[r])),
+            "param_rel": _dp_rel_norm(dp_params, p),
+            "param_max_abs_err": max(_dp_err(dp_params[n], p[n])
+                                     for n in names),
+            "stat_max_err": max(_dp_err(rank_stats[n][r], scopes[r].get(n))
+                                for n in stats for r in range(world))}
+
+
+def dp_gpt(rank, world, dev, spec):
+    """(c) GPT-2 small at full width through the flash kernels: each rank
+    on its ``gpt_batch / world`` rows of ``gpt_t`` tokens (no padding, so
+    every rank's loss weighs as many tokens), Adam, dropout 0; then rank
+    0 runs one process on the whole batch from the same weights. Flash
+    launches are zeroed just before the data-parallel steps and read just
+    after."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    place = _dp_place(dev)
+    T, B = spec["gpt_t"], spec["gpt_batch"]
+    kw = dict(use_flash_attention=True, hidden_dropout=0.0,
+              attention_dropout=0.0)
+    cfg = gpt.GPTConfig(**kw) if spec["gpt"] == "gpt2" else \
+        gpt.GPTConfig.tiny(max_position_embeddings=T, **kw)
+    arrays = gpt.init_fluid_params(cfg, 0)
+    rng = np.random.default_rng(21)
+    feeds = [{"ids": rng.integers(0, cfg.vocab_size, (B, T, 1)),
+              "pos_ids": np.tile(np.arange(T).reshape(1, T, 1), (B, 1, 1)),
+              "input_mask": np.ones((B, T, 1), np.float32)}
+             for _ in range(spec["gpt_steps"])]
+
+    def build():
+        with fluid.unique_name.guard():
+            main, startup, _f, loss = gpt.build_gpt_lm_train(
+                cfg, T, learning_rate=TRAIN_LR)
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        gpt.load_fluid_scope(scope, arrays)
+        return main, loss, exe, scope
+
+    main, loss, exe, scope = build()
+    names = sorted(p for p, _g in main._params_grads)
+    start_spread = _dp_rank_spread([scope.get(n) for n in names])
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name)
+    losses, step_ms, coll_ms = [], [], []
+    zero_flash_launches()
+    for s in range(spec["gpt_steps"]):
+        feed = {k: _dp_shard(v, rank, world) for k, v in feeds[s].items()}
+        _dp_sync(dev)
+        with _CollectiveClock(dev) as clock:
+            t0 = time.perf_counter()
+            (lv,) = exe.run(compiled, feed=feed, fetch_list=[loss],
+                            scope=scope)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv.reshape(-1)[0]))
+        coll_ms.append(clock.ms)
+    launches = flash_launches()
+    out = {"losses": losses, "step_ms": step_ms, "collective_ms": coll_ms,
+           "launches": launches, "start_spread": start_spread,
+           "rank_spread": _dp_rank_spread([scope.get(n) for n in names]),
+           "params": len(names)}
+    rank_losses = _dp_gather(losses, dev)
+    dp_params = {n: scope.get(n).detach().clone() for n in names}
+    del compiled, scope, exe
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        smain, sloss, sexe, sscope = build()
+        single = [float(sexe.run(smain, feed=f, fetch_list=[sloss],
+                                 scope=sscope)[0].reshape(-1)[0])
+                  for f in feeds]
+        joined = np.mean(rank_losses, axis=0)
+        base = {n: torch.as_tensor(arrays[n], device=dev) for n in names}
+        out.update(
+            single_losses=single, joined_losses=joined.tolist(),
+            loss_rel=float(np.max(np.abs(joined - single) / np.abs(single))),
+            update_rel=_dp_rel_norm(
+                dp_params, {n: sscope.get(n) for n in names}, base))
+        del sscope, base
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_nccl(rank, world, dev):
+    """(d) a one-rank NCCL group (rank 0) registered as ring
+    ``DP_NCCL_RING``: c_allreduce_sum, c_broadcast and c_allgather on the
+    card through it (one rank: each is the identity, its gradient the
+    cotangent)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.parallel import CommContext
+
+    group = dist.new_group([0], backend="nccl")
+    out = {}
+    if rank == 0:
+        CommContext.instance().register(DP_NCCL_RING, group)
+        exe = fluid.Executor(_dp_place(dev))
+        rng = np.random.default_rng(9)
+        errs = {}
+        for op_type, attrs in (("c_allreduce_sum", {}),
+                               ("c_broadcast", {"root": 0}),
+                               ("c_allgather", {"nranks": 1})):
+            main, startup, o, gx = _dp_op_program(op_type, attrs,
+                                                  ring_id=DP_NCCL_RING)
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            x = rng.standard_normal((4, 64)).astype(np.float32)
+            cw = rng.standard_normal((4, 64)).astype(np.float32)
+            ov, gv = exe.run(main, feed={"x": x, "cw": cw},
+                             fetch_list=[o, gx], scope=scope)
+            errs[op_type] = [_dp_err(ov, x), _dp_err(gv, cw)]
+        out = {"backend": str(dist.get_backend(group)), "errs": errs}
+    dist.barrier()
+    return out
+
+
+def dp_worker_main(argv):
+    """The hidden ``--dp-worker OUT_DIR SPEC_JSON`` mode: one rank of the
+    dp phase, started by the port's launcher; joins the world over gloo
+    (``env://``), runs (a)-(d) and writes ``OUT_DIR/dp_rank<r>.json``.
+    A check that misses raises, so the rank exits non-zero and the
+    launcher tears the gang down."""
+    from paddle_tpu_torch import parallel
+
+    out_dir, spec = argv[0], json.loads(argv[1])
+    parallel.initialize_distributed(backend="gloo",
+                                    timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    rank, world = parallel.rank(), parallel.world_size()
+    dev = torch.device(spec["device"], 0) if spec["device"] == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": rank, "world": world, "seconds": {}}
+    for part, fn in (("ops", lambda: dp_ops(rank, world, dev)),
+                     ("resnet", lambda: dp_resnet(rank, world, dev,
+                                                  spec["resnet"])),
+                     ("gpt", lambda: dp_gpt(rank, world, dev, spec)),
+                     ("nccl", lambda: dp_nccl(rank, world, dev)
+                      if spec["nccl"] else {})):
+        t0 = time.perf_counter()
+        res[part] = fn()
+        res["seconds"][part] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            res.setdefault("peak_bytes", {})[part] = \
+                torch.cuda.max_memory_allocated()
+        print("dp rank %d: %s %.1f s" % (rank, part, res["seconds"][part]),
+              flush=True)
+    with open(os.path.join(out_dir, "dp_rank%d.json" % rank), "w") as f:
+        json.dump(res, f, default=float)   # numpy scalars as floats
+    dp_check(res, rank, dev)
+    parallel.shutdown()
+    return 0
+
+
+def dp_check(res, rank, dev):
+    """Every check of the dp phase on one rank's results (rank 0 holds
+    the by-hand and one-process comparisons); raises on a miss."""
+    bad = []
+    for op_type, (eo, eg) in res["ops"]["errs"].items():
+        if eo > DP_OP_ATOL or eg > DP_OP_ATOL:
+            bad.append("%s: out %.3g grad %.3g > %g"
+                       % (op_type, eo, eg, DP_OP_ATOL))
+    q = res["ops"]["quantized"]
+    if not (q["max_abs_err"] <= q["bound"] and q["op_err"] <= q["op_bound"]
+            and q["grad_err"] <= DP_OP_ATOL
+            and q["op_grad_err"] <= DP_OP_ATOL):
+        bad.append("quantized sum %r" % q)
+    bn = res["ops"]["sync_batch_norm"]
+    if max(bn.values()) > DP_BN_ATOL:
+        bad.append("sync_batch_norm %r > %g" % (bn, DP_BN_ATOL))
+    for part in ("resnet", "gpt"):
+        r = res[part]
+        if r["start_spread"] != 0.0 or r["rank_spread"] != 0.0:
+            bad.append("%s: ranks differ (start %g, end %g)"
+                       % (part, r["start_spread"], r["rank_spread"]))
+        if not all(np.isfinite(r["losses"])):
+            bad.append("%s: loss not finite %r" % (part, r["losses"]))
+    rn = res["resnet"]
+    if rn["c_allreduce_sum_ops"] != rn["params"]:
+        bad.append("resnet: %d allreduces for %d parameters"
+                   % (rn["c_allreduce_sum_ops"], rn["params"]))
+    if rank == 0:
+        if rn["loss_rel"] > DP_RESNET_LOSS_RTOL:
+            bad.append("resnet loss vs by hand %.3g > %g"
+                       % (rn["loss_rel"], DP_RESNET_LOSS_RTOL))
+        if rn["param_rel"] > DP_RESNET_PARAM_RTOL:
+            bad.append("resnet params vs by hand %.3g > %g"
+                       % (rn["param_rel"], DP_RESNET_PARAM_RTOL))
+        if rn["stat_max_err"] > DP_BN_ATOL:
+            bad.append("resnet running stats vs by hand %.3g > %g"
+                       % (rn["stat_max_err"], DP_BN_ATOL))
+        g = res["gpt"]
+        if g["loss_rel"] > DP_GPT_LOSS_RTOL:
+            bad.append("gpt loss vs one process %.3g > %g"
+                       % (g["loss_rel"], DP_GPT_LOSS_RTOL))
+        if g["update_rel"] > DP_GPT_UPDATE_RTOL:
+            bad.append("gpt update vs one process %.3g > %g"
+                       % (g["update_rel"], DP_GPT_UPDATE_RTOL))
+        if res["nccl"]:
+            if res["nccl"]["backend"] != "nccl" or max(
+                    max(v) for v in res["nccl"]["errs"].values()) != 0.0:
+                bad.append("nccl ring %r" % res["nccl"])
+    if dev.type == "cuda":
+        # 12 layers, one launch of each training kernel a layer a step
+        want = 12 * len(res["gpt"]["losses"])
+        for k, n in res["gpt"]["launches"].items():
+            if n != want:
+                bad.append("gpt: %s launched %d times, not %d" % (k, n, want))
+    if bad:
+        raise AssertionError("dp rank %d: %s" % (rank, "; ".join(bad)))
+
+
+def dp_phase(dev, spec=None):
+    """The dp phase: one launch of ``DP_RANKS`` workers (this script's
+    ``--dp-worker`` mode) through ``python -m
+    paddle_tpu_torch.distributed.launch``, killed with its workers if it
+    outlives ``DP_TIMEOUT_S``. Returns (line, the flash kernels' launches
+    on the data-parallel path summed over the ranks)."""
+    import signal
+    import socket
+    import tempfile
+
+    spec = spec or DP_SPEC
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.abspath(__file__)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(DP_RANKS), "--device", spec["device"],
+           "--started_port", str(port - 1000), "--log_dir", out_dir,
+           here, "--dp-worker", out_dir, json.dumps(spec)]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(here),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        text += "\nhung past %d s and killed" % DP_TIMEOUT_S
+    logs = text[-3000:]
+    for r in range(DP_RANKS):
+        path = os.path.join(out_dir, "workerlog.%d" % r)
+        if os.path.exists(path):
+            with open(path) as f:
+                logs += "\n--- rank %d ---\n%s" % (r, f.read()[-6000:])
+    if proc.returncode != 0:
+        for r in range(DP_RANKS):   # what a rank measured before a miss
+            path = os.path.join(out_dir, "dp_rank%d.json" % r)
+            if os.path.exists(path):
+                with open(path) as f:
+                    logs += "\n--- rank %d results ---\n%s" % (
+                        r, f.read()[:6000])
+        shutil.rmtree(out_dir, ignore_errors=True)
+        raise RuntimeError("dp: the launch failed (%s)\n%s"
+                           % (proc.returncode, logs))
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, "dp_rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        dp_check(res, r, dev)   # again, on what the ranks wrote
+    rn, g = ranks[0]["resnet"], ranks[0]["gpt"]
+
+    def steady(ms):   # past the first step (rewrite, broadcast, warmup)
+        return float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+
+    resnet_rows = [{"rank": r, "images_per_s":
+                    spec["resnet"]["batch"] * 1e3 / steady(
+                        res["resnet"]["step_ms"]),
+                    "step_ms": res["resnet"]["step_ms"],
+                    "checked_step_ms": res["resnet"]["checked_step_ms"],
+                    "timed_losses": res["resnet"]["timed_losses"],
+                    "collective_ms": res["resnet"]["collective_ms"],
+                    "collective_calls": res["resnet"]["collective_calls"],
+                    "collective_share": steady(res["resnet"]["collective_ms"])
+                    / steady(res["resnet"]["step_ms"]),
+                    "losses": res["resnet"]["losses"]}
+                   for r, res in enumerate(ranks)]
+    gpt_rows = [{"rank": r, "step_ms": res["gpt"]["step_ms"],
+                 "collective_ms": res["gpt"]["collective_ms"],
+                 "tokens_per_s": spec["gpt_batch"] // DP_RANKS
+                 * spec["gpt_t"] * 1e3 / steady(res["gpt"]["step_ms"]),
+                 "launches": res["gpt"]["launches"]}
+                for r, res in enumerate(ranks)]
+    launches = {k: sum(res["gpt"]["launches"][k] for res in ranks)
+                for k in ranks[0]["gpt"]["launches"]}
+    line = {"phase": "dp", "ranks": DP_RANKS, "backend": "gloo",
+            "device_per_rank": "%s:0 (both ranks share one card, so these "
+            "numbers do not show scaling)" % spec["device"],
+            "ops": ranks[0]["ops"], "ops_rank1": ranks[1]["ops"],
+            "resnet": {"config": "BASELINE.json config 4",
+                       "spec": spec["resnet"],
+                       "params": rn["params"],
+                       "c_allreduce_sum_ops": rn["c_allreduce_sum_ops"],
+                       "loss_rel": rn["loss_rel"],
+                       "loss_rtol": DP_RESNET_LOSS_RTOL,
+                       "param_rel": rn["param_rel"],
+                       "param_max_abs_err": rn["param_max_abs_err"],
+                       "param_rtol": DP_RESNET_PARAM_RTOL,
+                       "stat_max_err": rn["stat_max_err"],
+                       "hand_losses": rn["hand_losses"],
+                       "ranks": resnet_rows},
+            "gpt": {"model": spec["gpt"], "rows_per_rank":
+                    spec["gpt_batch"] // DP_RANKS, "seq": spec["gpt_t"],
+                    "params": g["params"],
+                    "joined_losses": g["joined_losses"],
+                    "single_losses": g["single_losses"],
+                    "loss_rel": g["loss_rel"], "loss_rtol": DP_GPT_LOSS_RTOL,
+                    "update_rel": g["update_rel"],
+                    "update_rtol": DP_GPT_UPDATE_RTOL, "ranks": gpt_rows},
+            "nccl": ranks[0]["nccl"],
+            "rank_seconds": [res["seconds"] for res in ranks],
+            "peak_bytes": [res.get("peak_bytes") for res in ranks],
+            "launches": launches,
+            "seconds": time.perf_counter() - t0}
+    print("dp phase seconds: %.1f" % line["seconds"], flush=True)
+    return line, launches
+
+
 def gpt2_small(dev):
     """GPT-2 small's widths, random weights from seed 0."""
     from paddle_tpu_torch.models import gpt
@@ -6883,7 +7703,7 @@ def gpt2_small(dev):
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
                "gateway", "fleet", "programs", "bert", "vision", "nmt",
-               "recompute", "rnn", "train_runtime")
+               "recompute", "rnn", "train_runtime", "dp")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -6919,6 +7739,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = rnn_phase(dev)
                 elif phase == "train_runtime":
                     line = train_runtime_phase(dev)[0]
+                elif phase == "dp":
+                    line = dp_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -6940,13 +7762,15 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--fleet-replica"]:
         return fleet_replica_main(argv[1:])
+    if argv[:1] == ["--dp-worker"]:
+        return dp_worker_main(argv[1:])
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
                          "inference_server, gateway, fleet, programs, bert, "
-                         "vision, nmt, recompute, rnn, train_runtime)")
+                         "vision, nmt, recompute, rnn, train_runtime, dp)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -7042,6 +7866,8 @@ def main(argv=None):
     tr_run, tr_launches = train_runtime_phase(dev)
     emit(dict(tr_run, device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
+    dp_run, dp_launches = dp_phase(dev)
+    emit(dict(dp_run, device=name, nvidia_smi=smi))
     served = served_gpt2(dev)
     infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
@@ -7052,6 +7878,9 @@ def main(argv=None):
     fleet_run, fleet_launches = fleet_phase(dev)
     emit(dict(fleet_run, device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
+
+    # each phase's wall seconds (from the line before it to its own)
+    print(json.dumps({"phase_seconds": _PHASE_SECONDS}), flush=True)
 
     fwd_main = fwd_rows[-1]   # T = 1024, the largest prefill bucket
     fwd_drop = train_rows["flash_fwd_dropout"]
@@ -7077,14 +7906,16 @@ def main(argv=None):
                 "source": "paddle_tpu_torch/csrc/%s.cu" % kname,
                 "launches": train_launches[kname] + program_launches[kname]
                 + bert_launches["bert"][kname] + nmt_launches["nmt"][kname]
-                + rc_launches["recompute_bert"][kname] + tr_launches[kname],
+                + rc_launches["recompute_bert"][kname] + tr_launches[kname]
+                + dp_launches[kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
                                      "train_program": program_launches[kname],
                                      "bert": bert_launches["bert"][kname],
                                      "nmt": nmt_launches["nmt"][kname],
                                      "recompute_bert":
                                          rc_launches["recompute_bert"][kname],
-                                     "train_runtime": tr_launches[kname]},
+                                     "train_runtime": tr_launches[kname],
+                                     "dp": dp_launches[kname]},
                 "bert_form": bert_form(kname, "fp32"),
                 "nmt_form": nmt_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -7181,7 +8012,7 @@ def main(argv=None):
          + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"]
          + nmt_launches["nmt"]["flash_fwd"]
          + rc_launches["recompute_bert"]["flash_fwd"]
-         + tr_launches["flash_fwd"],
+         + tr_launches["flash_fwd"] + dp_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -7196,7 +8027,8 @@ def main(argv=None):
                               "nmt": nmt_launches["nmt"]["flash_fwd"],
                               "recompute_bert":
                                   rc_launches["recompute_bert"]["flash_fwd"],
-                              "train_runtime": tr_launches["flash_fwd"]},
+                              "train_runtime": tr_launches["flash_fwd"],
+                              "dp": dp_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],

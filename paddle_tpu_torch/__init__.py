@@ -10,7 +10,10 @@ with speculative decoding; GPT-2 trained by
 ``serving.InferenceServer``; and trained through the training runtime:
 ``fluid.DataLoader`` / ``PyReader`` and ``Executor.train_from_dataset``
 with asynchronous ``checkpoint``s, preemption-safe resume, the training
-guardian and the supervised launcher (``distributed``). The Pallas
+guardian and the supervised launcher (``distributed``); and trained
+data-parallel, one process a device, through
+``fluid.CompiledProgram.with_data_parallel`` and the ``c_*`` collective
+ops over ``torch.distributed`` (``parallel``). The Pallas
 kernels those paths run (flash
 forward with dropout, its two backward kernels, flash decode, paged
 flash decode) are rewritten by hand in CUDA C++ for ``sm_90a``
@@ -22,8 +25,9 @@ on the CPU every kernel wrapper runs its plain PyTorch version.
 """
 
 from . import fluid, inference, kernels, models, observability, serving
-from . import checkpoint, distributed, reader  # noqa: F401
+from . import checkpoint, distributed, parallel, reader  # noqa: F401
 from .reader.decorator import batch  # noqa: F401  (paddle.batch)
 
 __all__ = ["fluid", "inference", "kernels", "models", "observability",
-           "serving", "checkpoint", "distributed", "reader", "batch"]
+           "serving", "checkpoint", "distributed", "parallel", "reader",
+           "batch"]

@@ -8,9 +8,11 @@ serialization (``proto``), persistence (``io``), the Executor, desc-level
 autodiff (``backward``), the layers of the GPT train program,
 initializers, the optimizers (Adam also in its eager form, and
 activation recompute), LoD feeds (``DataFeeder``, ``create_lod_tensor``),
-automatic mixed precision (``contrib.mixed_precision``), and the op
-lowerings, which the eager models also call as plain functions on
-tensors."""
+automatic mixed precision (``contrib.mixed_precision``), data-parallel
+training over ``torch.distributed`` (``CompiledProgram``,
+``ParallelExecutor``, the collective ``transpiler`` and fleet's
+collective mode under ``incubate``), and the op lowerings, which the
+eager models also call as plain functions on tensors."""
 
 from . import core, flags, ops, profiler, unique_name  # noqa: F401
 from . import framework, initializer, param_attr  # noqa: F401
@@ -20,7 +22,13 @@ from . import data_feeder, lod_tensor, nets  # noqa: F401
 from . import debugger, io_pipeline, native, reader  # noqa: F401
 from . import data_feed_desc, dataset, trainer  # noqa: F401
 from . import device_worker, trainer_desc, trainer_factory  # noqa: F401
+from . import compiler, parallel_executor, transpiler, incubate  # noqa: F401
 from .backward import append_backward, gradients
+from .compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
+from .parallel_executor import ParallelExecutor
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         memory_optimize, release_memory)
+from .incubate import fleet
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope, resolve_device
 from .data_feeder import DataFeeder
 from .data_feed_desc import DataFeedDesc
@@ -76,4 +84,9 @@ __all__ = [
     "dataset", "trainer", "device_worker", "trainer_desc",
     "trainer_factory", "DataFeedDesc", "DatasetFactory", "DataLoader",
     "PyReader", "set_check_nan_inf", "cpu_places", "cuda_places",
+    "compiler", "parallel_executor", "transpiler", "incubate",
+    "CompiledProgram", "ExecutionStrategy", "BuildStrategy",
+    "ParallelExecutor", "DistributeTranspiler",
+    "DistributeTranspilerConfig", "memory_optimize", "release_memory",
+    "fleet",
 ]

@@ -339,7 +339,13 @@ class Executor(object):
             return_numpy=True, use_program_cache=True):
         """Run ``program``'s global block once; returns the fetched values
         (numpy arrays, bf16 as fp32; or tensors with
-        ``return_numpy=False``)."""
+        ``return_numpy=False``). A ``CompiledProgram`` runs through its
+        own ``_run`` (data parallel), as the reference dispatches it."""
+        from . import compiler as _compiler
+
+        if isinstance(program, _compiler.CompiledProgram):
+            return program._run(self, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_numpy=return_numpy)
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else core.global_scope()
         fetch_list = fetch_list or []

@@ -1,5 +1,6 @@
 """Runtime flags (port of ``paddle_tpu/fluid/flags.py``: the serving,
-decode, gateway, fleet, observability and training-runtime knobs).
+decode, gateway, fleet, observability, training-runtime and collective
+knobs).
 
 Only the knobs that the micro-batching server, the decode engine and its
 scheduler, the KV tier, the gateway, the router, the fleet controller
@@ -22,6 +23,10 @@ _DEFAULTS = {
     # numerics: the Executor's post-run fetch scan (fluid/debugger.py)
     # raises NanInfError naming the first fetch holding NaN/Inf
     "check_nan_inf": False,
+    # int8-wire gradient allreduce (EQuARX-style,
+    # parallel/quantized_allreduce.py): c_allreduce_sum on ring 0 (the
+    # gradient allreduce) quantizes its payload when enabled
+    "quantized_allreduce": False,
     # double-buffered device feed (fluid/io_pipeline.py): how many staged
     # batches the producer thread may run ahead of the consuming step
     "reader_buffer_size": 2,

@@ -4,12 +4,14 @@ REGISTER_PASS, pass_builder.h).
 
 A Pass rewrites the Program IR directly through an ``IrGraph`` view (op
 and var nodes over a Program's block), and ``PassBuilder`` keeps the
-reference's append/insert/remove API. Two passes are registered:
-``delete_dropout_pass`` and ``amp_rewrite_pass`` (the AMP program
-rewrite). The reference's ``fuse_elewise_add_act_pass``,
-``quantization_transform_pass`` and ``collective_grad_allreduce_pass``
-rewrite into ops the port has not ported yet; ``get_pass`` of one of them
-raises the reference's ``ValueError`` for an unregistered pass.
+reference's append/insert/remove API. Three passes are registered:
+``delete_dropout_pass``, ``amp_rewrite_pass`` (the AMP program rewrite)
+and ``collective_grad_allreduce_pass`` (the data-parallel gradient
+allreduce, which ``CompiledProgram.with_data_parallel`` runs). The
+reference's ``fuse_elewise_add_act_pass`` and
+``quantization_transform_pass`` rewrite into ops the port has not ported
+yet; ``get_pass`` of one of them raises the reference's ``ValueError``
+for an unregistered pass.
 """
 
 _PASS_REGISTRY = {}
@@ -273,4 +275,22 @@ class AmpRewritePass(Pass):
         lists = self.attr("amp_lists") or fp16_lists.AutoMixedPrecisionLists()
         fp16_utils.rewrite_program(
             graph.program, lists, use_bf16=self.attr("use_bf16", True)
+        )
+
+
+@register_pass("collective_grad_allreduce_pass")
+class CollectiveGradAllReducePass(Pass):
+    """Data-parallel gradient allreduce insertion (home: transpiler/
+    collective.py GradAllReduce; reference: multi_devices_graph_pass.cc:454
+    CreateAllReduceOp + transpiler/collective.py:178). Attrs: ``nranks``
+    (required), ``loss_name`` (required), ``nrings``."""
+
+    def apply(self, graph):
+        from .transpiler.collective import GradAllReduce
+
+        t = GradAllReduce(nrings=self.attr("nrings", 1))
+        t._transpile_main_program_inplace(
+            graph.program,
+            nranks=int(self.attr("nranks")),
+            loss_name=self.attr("loss_name"),
         )

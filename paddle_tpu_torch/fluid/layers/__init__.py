@@ -5,7 +5,7 @@ it patches ``Variable``'s operators (``math_op_patch``)."""
 from . import math_op_patch  # noqa: F401  (patches Variable; first)
 from . import control_flow, io, metric_op, nn, ops, tensor  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
-from . import compat, extended, loss, rnn, utils  # noqa: F401
+from . import collective, compat, extended, loss, rnn, utils  # noqa: F401
 from .tensor import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403

@@ -858,3 +858,63 @@ def _batch_norm_vjp(ctx, op_, slots):
 register_op("batch_norm", infer_shape=_batch_norm_infer,
             lower=lambda ctx, op_: _batch_norm_vjp(ctx, op_, ()),
             grad="generic", vjp=_batch_norm_vjp)
+
+
+@op("sync_batch_norm", infer_shape=_batch_norm_infer, grad="generic")
+def _sync_batch_norm(ctx, op_):
+    """Cross-rank batch norm (``nn_ops.py:338``; Paddle's
+    ``sync_batch_norm_op.cu``): the per-channel batch mean and mean of
+    squares, in fp32, averaged over ring 0's ranks (equal shards) by a
+    differentiable all-reduce, so its generic grad's tape carries the
+    sums' transposes too. The running stats are written in place as
+    ``batch_norm``'s are. In no world it is ``batch_norm``."""
+    from .collective_ops import allreduce_sum, group_for
+
+    group = group_for(ctx, 0)
+    if group is None:
+        _batch_norm_vjp(ctx, op_, ())
+        return
+    import torch.distributed as dist
+
+    x = ctx.in1(op_, "X")
+    scale = ctx.in1(op_, "Scale")
+    bias = ctx.in1(op_, "Bias")
+    mean = ctx.in1(op_, "Mean")
+    var = ctx.in1(op_, "Variance")
+    eps = float(op_.attr("epsilon", 1e-5))
+    momentum = float(op_.attr("momentum", 0.9))
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    axes = tuple(i for i in range(x.dim()) if i != 1)
+    bshape = tuple(x.shape[i] if i == 1 else 1 for i in range(x.dim()))
+    mean32, var32 = mean.to(f32), var.to(f32)
+    if bool(op_.attr("is_test", False)):
+        use_mean, use_var = mean32, var32
+        new_mean, new_var = mean32, var32
+        saved_mean = torch.zeros_like(mean32)
+        saved_var = torch.zeros_like(var32)
+    else:
+        n = dist.get_world_size(group)
+        x32 = x.to(f32)
+        stats = allreduce_sum(
+            torch.stack([x32.mean(axes), x32.square().mean(axes)]), group) / n
+        bmean, bsq = stats[0], stats[1]
+        bvar = bsq - bmean.square()
+        use_mean, use_var = bmean, bvar
+        new_mean = mean32 * momentum + bmean * (1.0 - momentum)
+        new_var = var32 * momentum + bvar * (1.0 - momentum)
+        saved_mean, saved_var = bmean, 1.0 / torch.sqrt(bvar + eps)
+        if op_.output("MeanOut") == op_.input("Mean"):
+            mean.copy_(new_mean.detach())
+            new_mean = mean
+        if op_.output("VarianceOut") == op_.input("Variance"):
+            var.copy_(new_var.detach())
+            new_var = var
+    inv = 1.0 / torch.sqrt(use_var + eps)
+    s32 = scale.to(f32)
+    g = (s32 * inv).reshape(bshape)
+    b = (bias.to(f32) - s32 * use_mean * inv).reshape(bshape)
+    ctx.out(op_, "Y", (x.to(f32) * g + b).to(x.dtype))
+    ctx.out(op_, "MeanOut", new_mean.detach().to(mean.dtype))
+    ctx.out(op_, "VarianceOut", new_var.detach().to(var.dtype))
+    ctx.out(op_, "SavedMean", saved_mean)
+    ctx.out(op_, "SavedVariance", saved_var)

@@ -1127,7 +1127,14 @@ def run_controller_crash_trial(tmp, report, failures, fast, device):
     report["controller_crash"] = cc
 
 
-def run_probe(fast=True, verbose=False, keep_workdir=False, device="cuda"):
+TRIALS = ("fleet", "generate_failover", "kv_tier", "controller_crash")
+
+
+def run_probe(fast=True, verbose=False, keep_workdir=False, device="cuda",
+              trials=TRIALS):
+    """The closed loop; ``trials`` picks which of ``TRIALS`` run ("fleet":
+    failover, autoscale, scale-down, rollout, the strict gate and the
+    merged report), so a rerun can repeat only the one that missed."""
     import numpy as np
 
     from paddle_tpu_torch.checkpoint import modeldir
@@ -1137,7 +1144,7 @@ def run_probe(fast=True, verbose=False, keep_workdir=False, device="cuda"):
     from paddle_tpu_torch.serving.gateway import decode_tensor, encode_tensor
 
     report = {"schema_version": REPORT_SCHEMA_VERSION, "fast": bool(fast),
-              "device": device}
+              "device": device, "trials": sorted(trials)}
     failures = []
     tmp = tempfile.mkdtemp(prefix="fleet_probe_")
     workdir = os.path.join(tmp, "fleet")
@@ -1159,378 +1166,383 @@ def run_probe(fast=True, verbose=False, keep_workdir=False, device="cuda"):
     # The cap is low enough that the pressure flood keeps shedding
     # even at 3 replicas — the pool must not go idle (and scale back
     # down) inside the post-scale-up measurement window.
-    _flags.set_flags({
-        "FLAGS_fleet_min_replicas": 2,
-        "FLAGS_fleet_max_replicas": 3,
-        "FLAGS_fleet_scale_interval_s": 0.4,
-        "FLAGS_fleet_queue_high": 2.0,
-        "FLAGS_fleet_queue_low": 0.5,
-        "FLAGS_fleet_scale_up_ticks": 2,
-        "FLAGS_fleet_scale_down_ticks": 6,
-        "FLAGS_fleet_restart_backoff_s": 0.2,
-        "FLAGS_router_health_interval_s": 0.25,
-    })
-    replica_env = {
-        "FLAGS_serving_strict_compiles": "1",
-        "FLAGS_serving_max_batch_size": "4",
-        "FLAGS_serving_workers": "1",
-        "FLAGS_serving_queue_depth": "64",
-        "FLAGS_gateway_rate_limit_rps": "60",
-        "FLAGS_gateway_rate_burst": "12",
-        "FLAGS_obs_snapshot_interval_s": "1.0",
-        # keep the WHOLE trial in the flight ring: the default 256 only
-        # retains the tail of the flood, and a truncated recording is a
-        # biased tape for the simulator to replay (--keep-workdir)
-        "FLAGS_trace_flight_records": "8192",
-    }
-    body = {"inputs": [encode_tensor(xd)], "deadline_ms": 10000}
-
-    ctrl = FleetController(
-        model_dir=repo, workdir=workdir, replicas=2,
-        replica_env=replica_env, autoscale=False, seed=0, device=device,
-    )
-    t_boot = time.monotonic()
-    ctrl.start()
-    url = None
-
-    def check(resp_body, version):
-        got = [decode_tensor(t) for t in resp_body["outputs"]]
-        return matching_bucket(got, oracle[version]) is not None
-
-    try:
-        ctrl.wait_ready(timeout=120 if fast else 240)
-        report["boot"] = {
-            "replicas": 2,
-            "ready_s": round(time.monotonic() - t_boot, 1),
+    if "fleet" in trials:
+        _flags.set_flags({
+            "FLAGS_fleet_min_replicas": 2,
+            "FLAGS_fleet_max_replicas": 3,
+            "FLAGS_fleet_scale_interval_s": 0.4,
+            "FLAGS_fleet_queue_high": 2.0,
+            "FLAGS_fleet_queue_low": 0.5,
+            "FLAGS_fleet_scale_up_ticks": 2,
+            "FLAGS_fleet_scale_down_ticks": 6,
+            "FLAGS_fleet_restart_backoff_s": 0.2,
+            "FLAGS_router_health_interval_s": 0.25,
+        })
+        replica_env = {
+            "FLAGS_serving_strict_compiles": "1",
+            "FLAGS_serving_max_batch_size": "4",
+            "FLAGS_serving_workers": "1",
+            "FLAGS_serving_queue_depth": "64",
+            "FLAGS_gateway_rate_limit_rps": "60",
+            "FLAGS_gateway_rate_burst": "12",
+            "FLAGS_obs_snapshot_interval_s": "1.0",
+            # keep the WHOLE trial in the flight ring: the default 256 only
+            # retains the tail of the flood, and a truncated recording is a
+            # biased tape for the simulator to replay (--keep-workdir)
+            "FLAGS_trace_flight_records": "8192",
         }
-        url = ctrl.router.url("/v1/infer")
+        body = {"inputs": [encode_tensor(xd)], "deadline_ms": 10000}
 
-        # ---- router-hop overhead -------------------------------------
-        # each phase uses its own tenant: the per-tenant rate buckets
-        # (the capacity bound) must not couple phases to each other
-        direct_port = ctrl.replica_info()[0]["gateway_port"]
-        direct_url = "http://127.0.0.1:%d/v1/infer" % direct_port
-        direct, routed = [], []
-        for target, samples in ((direct_url, direct), (url, routed)):
-            for _ in range(25):
-                t0 = time.perf_counter()
-                st, b, _h = _post(target, body,
-                                  headers={"X-Tenant-Id": "ovh"})
-                samples.append((time.perf_counter() - t0) * 1e3)
-                if st != 200 or not check(b, 1):
-                    failures.append("overhead phase: bad response "
-                                    "(%s -> %s)" % (target, st))
-                    break
-                time.sleep(0.012)  # stay under the tenant rate bucket
-        report["overhead"] = {
-            "direct_p50_ms": _percentile(direct, 50),
-            "router_p50_ms": _percentile(routed, 50),
-            "hop_p50_ms": round(
-                _percentile(routed, 50) - _percentile(direct, 50), 3
-            ),
-        }
+        ctrl = FleetController(
+            model_dir=repo, workdir=workdir, replicas=2,
+            replica_env=replica_env, autoscale=False, seed=0, device=device,
+        )
+        t_boot = time.monotonic()
+        ctrl.start()
+        url = None
 
-        # ---- failover: SIGKILL a replica mid-load --------------------
-        results = []
-        res_lock = threading.Lock()
-        stop_evt = threading.Event()
+        def check(resp_body, version):
+            got = [decode_tensor(t) for t in resp_body["outputs"]]
+            return matching_bucket(got, oracle[version]) is not None
 
-        def client(expect_versions, tag, pause=0.0):
-            hdrs = {"X-Tenant-Id": tag}
-            while not stop_evt.is_set():
-                try:
-                    st, b, h = _post(url, body, headers=hdrs, timeout=30)
-                except Exception as e:  # noqa: BLE001
+        try:
+            ctrl.wait_ready(timeout=120 if fast else 240)
+            report["boot"] = {
+                "replicas": 2,
+                "ready_s": round(time.monotonic() - t_boot, 1),
+            }
+            url = ctrl.router.url("/v1/infer")
+
+            # ---- router-hop overhead -------------------------------------
+            # each phase uses its own tenant: the per-tenant rate buckets
+            # (the capacity bound) must not couple phases to each other
+            direct_port = ctrl.replica_info()[0]["gateway_port"]
+            direct_url = "http://127.0.0.1:%d/v1/infer" % direct_port
+            direct, routed = [], []
+            for target, samples in ((direct_url, direct), (url, routed)):
+                for _ in range(25):
+                    t0 = time.perf_counter()
+                    st, b, _h = _post(target, body,
+                                      headers={"X-Tenant-Id": "ovh"})
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                    if st != 200 or not check(b, 1):
+                        failures.append("overhead phase: bad response "
+                                        "(%s -> %s)" % (target, st))
+                        break
+                    time.sleep(0.012)  # stay under the tenant rate bucket
+            report["overhead"] = {
+                "direct_p50_ms": _percentile(direct, 50),
+                "router_p50_ms": _percentile(routed, 50),
+                "hop_p50_ms": round(
+                    _percentile(routed, 50) - _percentile(direct, 50), 3
+                ),
+            }
+
+            # ---- failover: SIGKILL a replica mid-load --------------------
+            results = []
+            res_lock = threading.Lock()
+            stop_evt = threading.Event()
+
+            def client(expect_versions, tag, pause=0.0):
+                hdrs = {"X-Tenant-Id": tag}
+                while not stop_evt.is_set():
+                    try:
+                        st, b, h = _post(url, body, headers=hdrs, timeout=30)
+                    except Exception as e:  # noqa: BLE001
+                        with res_lock:
+                            results.append((time.monotonic(), -1, False, tag,
+                                            repr(e)))
+                        continue
+                    ok = False
+                    if st == 200:
+                        ver = int(h.get("X-Model-Version", "0") or 0)
+                        ok = ver in expect_versions and check(b, ver)
                     with res_lock:
-                        results.append((time.monotonic(), -1, False, tag,
-                                        repr(e)))
-                    continue
-                ok = False
-                if st == 200:
-                    ver = int(h.get("X-Model-Version", "0") or 0)
-                    ok = ver in expect_versions and check(b, ver)
-                with res_lock:
-                    results.append((time.monotonic(), st, ok, tag, None))
-                if pause:
-                    time.sleep(pause)
+                        results.append((time.monotonic(), st, ok, tag, None))
+                    if pause:
+                        time.sleep(pause)
 
-        # 6 clients at ~38 rps total: comfortably under one replica's
-        # 60 rps tenant bucket, so the kill window itself can never
-        # manufacture a legitimate 429 — any non-200 is a DROP
-        threads = [
-            threading.Thread(target=client, args=((1,), "kill", 0.15))
-            for _ in range(6)
-        ]
-        for t in threads:
-            t.start()
-        time.sleep(0.8)
-        victim = ctrl.replica_info()[0]
-        t_kill = time.monotonic()
-        os.kill(victim["pid"], signal.SIGKILL)
-        time.sleep(2.5)
-        stop_evt.set()
-        for t in threads:
-            t.join()
-        with res_lock:
-            kill_res = [r for r in results if r[3] == "kill"]
-        bad = [r for r in kill_res if r[1] != 200 or not r[2]]
-        ctrl.wait_ready(timeout=120)
-        recover_ms = (time.monotonic() - t_kill) * 1e3
-        report["failover"] = {
-            "requests": len(kill_res),
-            "failed": len(bad),
-            "killed_pid": victim["pid"],
-            "recover_ms": round(recover_ms, 1),
-        }
-        if not kill_res:
-            failures.append("failover phase produced no requests")
-        if bad:
-            failures.append(
-                "replica kill dropped %d/%d client requests: %r"
-                % (len(bad), len(kill_res), bad[:3])
-            )
-        events = fleet_mod.load_events(workdir)
-        if not any(e.get("event") == "replica_crash" for e in events):
-            failures.append("no replica_crash event after SIGKILL")
-
-        # ---- autoscale up under queue pressure -----------------------
-        # ~10x the 2-replica tenant capacity: sustained 429 sheds are
-        # the pressure signal the autoscaler scrapes
-        ctrl.autoscale = True
-        results.clear()
-        stop_evt.clear()
-        threads = [
-            threading.Thread(target=client, args=((1,), "press", 0.005))
-            for _ in range(10)
-        ]
-        t_press = time.monotonic()
-        for t in threads:
-            t.start()
-        t_up = None
-        deadline = time.monotonic() + (60 if fast else 120)
-        while time.monotonic() < deadline:
-            if ctrl.ready_count() >= 3:
-                t_up = time.monotonic()
-                break
-            time.sleep(0.05)
-        if t_up is None:
-            stop_evt.set()
+            # 6 clients at ~38 rps total: comfortably under one replica's
+            # 60 rps tenant bucket, so the kill window itself can never
+            # manufacture a legitimate 429 — any non-200 is a DROP
+            threads = [
+                threading.Thread(target=client, args=((1,), "kill", 0.15))
+                for _ in range(6)
+            ]
             for t in threads:
-                t.join()
-            failures.append("queue pressure never scaled the pool up")
-        else:
-            time.sleep(2.7)  # measure with the 3rd replica serving
+                t.start()
+            time.sleep(0.8)
+            victim = ctrl.replica_info()[0]
+            t_kill = time.monotonic()
+            os.kill(victim["pid"], signal.SIGKILL)
+            time.sleep(2.5)
             stop_evt.set()
             for t in threads:
                 t.join()
             with res_lock:
-                press = [r for r in results if r[3] == "press"]
-            errors = [r for r in press if r[1] not in (200, 429)]
-            sheds = sum(1 for r in press if r[1] == 429)
-            wrong = [r for r in press if r[1] == 200 and not r[2]]
-
-            def rps(lo, hi):
-                n = sum(1 for r in press
-                        if r[1] == 200 and lo <= r[0] < hi)
-                return n / max(1e-6, hi - lo)
-
-            before_rps = rps(t_up - 2.2, t_up - 0.2)
-            after_rps = rps(t_up + 0.5, t_up + 2.5)
-            ratio = after_rps / max(1e-6, before_rps)
-            report["autoscale"] = {
-                "requests": len(press),
-                "sheds_429": sheds,
-                "errors": len(errors),
-                "scale_up_ms": round((t_up - t_press) * 1e3, 1),
-                "before_rps": round(before_rps, 1),
-                "after_rps": round(after_rps, 1),
-                "speedup": round(ratio, 3),
+                kill_res = [r for r in results if r[3] == "kill"]
+            bad = [r for r in kill_res if r[1] != 200 or not r[2]]
+            ctrl.wait_ready(timeout=120)
+            recover_ms = (time.monotonic() - t_kill) * 1e3
+            report["failover"] = {
+                "requests": len(kill_res),
+                "failed": len(bad),
+                "killed_pid": victim["pid"],
+                "recover_ms": round(recover_ms, 1),
             }
-            if errors or wrong:
+            if not kill_res:
+                failures.append("failover phase produced no requests")
+            if bad:
                 failures.append(
-                    "pressure phase errors: %r" % (errors + wrong)[:3]
+                    "replica kill dropped %d/%d client requests: %r"
+                    % (len(bad), len(kill_res), bad[:3])
                 )
-            if not any(e.get("event") == "scale_up"
-                       for e in fleet_mod.load_events(workdir)):
-                failures.append("scale-up left no scale_up event")
-            if ratio < 1.15:
+            events = fleet_mod.load_events(workdir)
+            if not any(e.get("event") == "replica_crash" for e in events):
+                failures.append("no replica_crash event after SIGKILL")
+
+            # ---- autoscale up under queue pressure -----------------------
+            # ~10x the 2-replica tenant capacity: sustained 429 sheds are
+            # the pressure signal the autoscaler scrapes
+            ctrl.autoscale = True
+            results.clear()
+            stop_evt.clear()
+            threads = [
+                threading.Thread(target=client, args=((1,), "press", 0.005))
+                for _ in range(10)
+            ]
+            t_press = time.monotonic()
+            for t in threads:
+                t.start()
+            t_up = None
+            deadline = time.monotonic() + (60 if fast else 120)
+            while time.monotonic() < deadline:
+                if ctrl.ready_count() >= 3:
+                    t_up = time.monotonic()
+                    break
+                time.sleep(0.05)
+            if t_up is None:
+                stop_evt.set()
+                for t in threads:
+                    t.join()
+                failures.append("queue pressure never scaled the pool up")
+            else:
+                time.sleep(2.7)  # measure with the 3rd replica serving
+                stop_evt.set()
+                for t in threads:
+                    t.join()
+                with res_lock:
+                    press = [r for r in results if r[3] == "press"]
+                errors = [r for r in press if r[1] not in (200, 429)]
+                sheds = sum(1 for r in press if r[1] == 429)
+                wrong = [r for r in press if r[1] == 200 and not r[2]]
+
+                def rps(lo, hi):
+                    n = sum(1 for r in press
+                            if r[1] == 200 and lo <= r[0] < hi)
+                    return n / max(1e-6, hi - lo)
+
+                before_rps = rps(t_up - 2.2, t_up - 0.2)
+                after_rps = rps(t_up + 0.5, t_up + 2.5)
+                ratio = after_rps / max(1e-6, before_rps)
+                report["autoscale"] = {
+                    "requests": len(press),
+                    "sheds_429": sheds,
+                    "errors": len(errors),
+                    "scale_up_ms": round((t_up - t_press) * 1e3, 1),
+                    "before_rps": round(before_rps, 1),
+                    "after_rps": round(after_rps, 1),
+                    "speedup": round(ratio, 3),
+                }
+                if errors or wrong:
+                    failures.append(
+                        "pressure phase errors: %r" % (errors + wrong)[:3]
+                    )
+                if not any(e.get("event") == "scale_up"
+                           for e in fleet_mod.load_events(workdir)):
+                    failures.append("scale-up left no scale_up event")
+                if ratio < 1.15:
+                    failures.append(
+                        "throughput: scale-up did not raise throughput "
+                        "(%.1f -> %.1f rps, %.2fx < 1.15x)"
+                        % (before_rps, after_rps, ratio)
+                    )
+
+            # ---- hysteresis scale-down with a live trickle ---------------
+            results.clear()
+            stop_evt.clear()
+            trickle = threading.Thread(target=client,
+                                       args=((1,), "down", 0.05))
+            trickle.start()
+            deadline = time.monotonic() + (45 if fast else 90)
+            t_down0 = time.monotonic()
+            while time.monotonic() < deadline:
+                if ctrl.target == 2 and ctrl.ready_count() == 2:
+                    break
+                time.sleep(0.05)
+            down_ms = (time.monotonic() - t_down0) * 1e3
+            stop_evt.set()
+            trickle.join()
+            with res_lock:
+                down_res = [r for r in results if r[3] == "down"]
+            bad = [r for r in down_res if r[1] != 200 or not r[2]]
+            has_down = any(e.get("event") == "scale_down"
+                           for e in fleet_mod.load_events(workdir))
+            report["scale_down"] = {
+                "happened": bool(has_down),
+                "ms": round(down_ms, 1),
+                "trickle_requests": len(down_res),
+                "trickle_failed": len(bad),
+            }
+            if not has_down or ctrl.target != 2:
+                failures.append("idle hysteresis never scaled back down")
+            if bad:
                 failures.append(
-                    "throughput: scale-up did not raise throughput "
-                    "(%.1f -> %.1f rps, %.2fx < 1.15x)"
-                    % (before_rps, after_rps, ratio)
+                    "scale-down drain dropped %d/%d trickle requests: %r"
+                    % (len(bad), len(down_res), bad[:3])
                 )
 
-        # ---- hysteresis scale-down with a live trickle ---------------
-        results.clear()
-        stop_evt.clear()
-        trickle = threading.Thread(target=client,
-                                   args=((1,), "down", 0.05))
-        trickle.start()
-        deadline = time.monotonic() + (45 if fast else 90)
-        t_down0 = time.monotonic()
-        while time.monotonic() < deadline:
-            if ctrl.target == 2 and ctrl.ready_count() == 2:
-                break
-            time.sleep(0.05)
-        down_ms = (time.monotonic() - t_down0) * 1e3
-        stop_evt.set()
-        trickle.join()
-        with res_lock:
-            down_res = [r for r in results if r[3] == "down"]
-        bad = [r for r in down_res if r[1] != 200 or not r[2]]
-        has_down = any(e.get("event") == "scale_down"
-                       for e in fleet_mod.load_events(workdir))
-        report["scale_down"] = {
-            "happened": bool(has_down),
-            "ms": round(down_ms, 1),
-            "trickle_requests": len(down_res),
-            "trickle_failed": len(bad),
-        }
-        if not has_down or ctrl.target != 2:
-            failures.append("idle hysteresis never scaled back down")
-        if bad:
-            failures.append(
-                "scale-down drain dropped %d/%d trickle requests: %r"
-                % (len(bad), len(down_res), bad[:3])
-            )
+            # ---- zero-downtime rollout v1 -> v2 --------------------------
+            v2, v2_dir = modeldir.publish(os.path.join(tmp, "export_v2"),
+                                          repo)
+            oracle[2] = infer_oracles(v2_dir, xd, device)
+            if all(np.array_equal(a, b)
+                   for a, b in zip(oracle[1][1], oracle[2][1])):
+                failures.append("model versions are indistinguishable")
+            results.clear()
+            stop_evt.clear()
+            rollers = [
+                threading.Thread(target=client, args=((1, 2), "roll", 0.03))
+                for _ in range(2)
+            ]
+            for t in rollers:
+                t.start()
+            t_roll = time.monotonic()
+            deployed = ctrl.deploy(repo)
+            roll_ms = (time.monotonic() - t_roll) * 1e3
+            # post-flip traffic must be new-version only
+            post = []
+            for _ in range(8):
+                st, b, h = _post(url, body, headers={"X-Tenant-Id": "post"})
+                post.append((st, int(h.get("X-Model-Version", "0") or 0),
+                             st == 200 and check(b, 2)))
+                time.sleep(0.02)
+            stop_evt.set()
+            for t in rollers:
+                t.join()
+            with res_lock:
+                roll_res = [r for r in results if r[3] == "roll"]
+            bad = [r for r in roll_res if r[1] != 200 or not r[2]]
+            post_bad = [p for p in post if p[0] != 200 or p[1] != 2
+                        or not p[2]]
+            report["rollout"] = {
+                "deployed_version": deployed,
+                "ms": round(roll_ms, 1),
+                "during_requests": len(roll_res),
+                "during_failed": len(bad),
+                "post_requests": len(post),
+                "post_wrong": len(post_bad),
+            }
+            if deployed != 2:
+                failures.append("deploy returned version %r != 2" % deployed)
+            if bad:
+                failures.append(
+                    "rollout dropped or corrupted %d/%d in-flight requests: "
+                    "%r" % (len(bad), len(roll_res), bad[:3])
+                )
+            if post_bad:
+                failures.append(
+                    "post-rollout traffic not all v2-correct: %r"
+                    % post_bad[:3]
+                )
+            ev = fleet_mod.load_events(workdir)
+            if not any(e.get("event") == "rollout_done" for e in ev):
+                failures.append("rollout left no rollout_done event")
 
-        # ---- zero-downtime rollout v1 -> v2 --------------------------
-        v2, v2_dir = modeldir.publish(os.path.join(tmp, "export_v2"),
-                                      repo)
-        oracle[2] = infer_oracles(v2_dir, xd, device)
-        if all(np.array_equal(a, b)
-               for a, b in zip(oracle[1][1], oracle[2][1])):
-            failures.append("model versions are indistinguishable")
-        results.clear()
-        stop_evt.clear()
-        rollers = [
-            threading.Thread(target=client, args=((1, 2), "roll", 0.03))
-            for _ in range(2)
-        ]
-        for t in rollers:
-            t.start()
-        t_roll = time.monotonic()
-        deployed = ctrl.deploy(repo)
-        roll_ms = (time.monotonic() - t_roll) * 1e3
-        # post-flip traffic must be new-version only
-        post = []
-        for _ in range(8):
-            st, b, h = _post(url, body, headers={"X-Tenant-Id": "post"})
-            post.append((st, int(h.get("X-Model-Version", "0") or 0),
-                         st == 200 and check(b, 2)))
-            time.sleep(0.02)
-        stop_evt.set()
-        for t in rollers:
-            t.join()
-        with res_lock:
-            roll_res = [r for r in results if r[3] == "roll"]
-        bad = [r for r in roll_res if r[1] != 200 or not r[2]]
-        post_bad = [p for p in post if p[0] != 200 or p[1] != 2
-                    or not p[2]]
-        report["rollout"] = {
-            "deployed_version": deployed,
-            "ms": round(roll_ms, 1),
-            "during_requests": len(roll_res),
-            "during_failed": len(bad),
-            "post_requests": len(post),
-            "post_wrong": len(post_bad),
-        }
-        if deployed != 2:
-            failures.append("deploy returned version %r != 2" % deployed)
-        if bad:
-            failures.append(
-                "rollout dropped or corrupted %d/%d in-flight requests: "
-                "%r" % (len(bad), len(roll_res), bad[:3])
-            )
-        if post_bad:
-            failures.append(
-                "post-rollout traffic not all v2-correct: %r"
-                % post_bad[:3]
-            )
-        ev = fleet_mod.load_events(workdir)
-        if not any(e.get("event") == "rollout_done" for e in ev):
-            failures.append("rollout left no rollout_done event")
+            # ---- strict gate: 0 steady-state recompiles fleet-wide -------
+            steady = {}
+            for info in ctrl.replica_info():
+                port = info.get("metrics_port")
+                if not port or info["state"] != "ready":
+                    continue
+                try:
+                    with urllib.request.urlopen(
+                        "http://127.0.0.1:%d/metrics" % port, timeout=5
+                    ) as r:
+                        text = r.read().decode("utf-8")
+                    from paddle_tpu_torch.observability import registry as _reg
 
-        # ---- strict gate: 0 steady-state recompiles fleet-wide -------
-        steady = {}
-        for info in ctrl.replica_info():
-            port = info.get("metrics_port")
-            if not port or info["state"] != "ready":
-                continue
+                    steady[info["id"]] = int(_reg.parse_prometheus(text).get(
+                        ("serving_steady_recompiles", ""), 0
+                    ))
+                except Exception as e:  # noqa: BLE001
+                    failures.append("metrics scrape failed for replica %s: %r"
+                                    % (info["id"], e))
+            report["strict"] = {
+                "replicas_scraped": len(steady),
+                "steady_recompiles": sum(steady.values()),
+            }
+            if not steady:
+                failures.append("no replica metrics scraped")
+            if sum(steady.values()) != 0:
+                failures.append("%d steady-state recompiles across the fleet"
+                                % sum(steady.values()))
+        finally:
             try:
-                with urllib.request.urlopen(
-                    "http://127.0.0.1:%d/metrics" % port, timeout=5
-                ) as r:
-                    text = r.read().decode("utf-8")
-                from paddle_tpu_torch.observability import registry as _reg
-
-                steady[info["id"]] = int(_reg.parse_prometheus(text).get(
-                    ("serving_steady_recompiles", ""), 0
-                ))
+                ctrl.stop()
             except Exception as e:  # noqa: BLE001
-                failures.append("metrics scrape failed for replica %s: %r"
-                                % (info["id"], e))
-        report["strict"] = {
-            "replicas_scraped": len(steady),
-            "steady_recompiles": sum(steady.values()),
-        }
-        if not steady:
-            failures.append("no replica metrics scraped")
-        if sum(steady.values()) != 0:
-            failures.append("%d steady-state recompiles across the fleet"
-                            % sum(steady.values()))
-    finally:
-        try:
-            ctrl.stop()
-        except Exception as e:  # noqa: BLE001
-            failures.append("controller stop failed: %r" % e)
+                failures.append("controller stop failed: %r" % e)
 
     # ---- durable generations: mid-stream failover, token-exact -------
     _flags.set_flags({"FLAGS_router_generate_retries": 2})
-    try:
-        run_generate_failover_trial(
-            tmp, os.path.join(tmp, "export_v1"), report, failures, fast,
-            device
-        )
-    except Exception as e:  # noqa: BLE001 - the trial must report, not die
-        failures.append("gen-failover trial crashed: %r" % e)
+    if "generate_failover" in trials:
+        try:
+            run_generate_failover_trial(
+                tmp, os.path.join(tmp, "export_v1"), report, failures, fast,
+                device
+            )
+        except Exception as e:  # noqa: BLE001 - a trial reports, not dies
+            failures.append("gen-failover trial crashed: %r" % e)
 
     # ---- fleet KV tier: affinity routing + host-spill churn ----------
-    try:
-        run_kv_tier_trial(
-            tmp, os.path.join(tmp, "export_v1"), report, failures, fast,
-            device
-        )
-    except Exception as e:  # noqa: BLE001 - the trial must report, not die
-        failures.append("kv-tier trial crashed: %r" % e)
+    if "kv_tier" in trials:
+        try:
+            run_kv_tier_trial(
+                tmp, os.path.join(tmp, "export_v1"), report, failures, fast,
+                device
+            )
+        except Exception as e:  # noqa: BLE001 - a trial reports, not dies
+            failures.append("kv-tier trial crashed: %r" % e)
 
     # ---- controller durability: crash, adopt, reconcile --------------
-    try:
-        run_controller_crash_trial(tmp, report, failures, fast, device)
-    except Exception as e:  # noqa: BLE001 - the trial must report, not die
-        failures.append("controller-crash trial crashed: %r" % e)
+    if "controller_crash" in trials:
+        try:
+            run_controller_crash_trial(tmp, report, failures, fast, device)
+        except Exception as e:  # noqa: BLE001 - a trial reports, not dies
+            failures.append("controller-crash trial crashed: %r" % e)
 
     # ---- merged fleet report -----------------------------------------
-    fr_path = os.path.join(workdir, "fleet_report.json")
-    try:
-        with open(fr_path) as f:
-            fr = json.load(f)
-        report["fleet_report"] = {
-            "timeline_events": len(fr.get("replica_timeline", [])),
-            "scale_ups": fr.get("scale_ups"),
-            "scale_downs": fr.get("scale_downs"),
-            "rollouts": len(fr.get("rollouts", [])),
-            "crashes": fr.get("crashes"),
-            "replicas_reporting": len(fr.get("per_replica", {})),
-        }
-        if not fr.get("replica_timeline"):
-            failures.append("fleet_report has no replica timeline")
-        if not fr.get("per_replica"):
-            failures.append("fleet_report merged no replica snapshots")
-        if not fr.get("scale_ups") or not fr.get("rollouts"):
-            failures.append("fleet_report missing scale/rollout events")
-    except (OSError, ValueError) as e:
-        failures.append("fleet_report.json unreadable: %r" % e)
+    if "fleet" in trials:
+        fr_path = os.path.join(workdir, "fleet_report.json")
+        try:
+            with open(fr_path) as f:
+                fr = json.load(f)
+            report["fleet_report"] = {
+                "timeline_events": len(fr.get("replica_timeline", [])),
+                "scale_ups": fr.get("scale_ups"),
+                "scale_downs": fr.get("scale_downs"),
+                "rollouts": len(fr.get("rollouts", [])),
+                "crashes": fr.get("crashes"),
+                "replicas_reporting": len(fr.get("per_replica", {})),
+            }
+            if not fr.get("replica_timeline"):
+                failures.append("fleet_report has no replica timeline")
+            if not fr.get("per_replica"):
+                failures.append("fleet_report merged no replica snapshots")
+            if not fr.get("scale_ups") or not fr.get("rollouts"):
+                failures.append("fleet_report missing scale/rollout events")
+        except (OSError, ValueError) as e:
+            failures.append("fleet_report.json unreadable: %r" % e)
 
     if keep_workdir:
         # leave the flight dumps + fleet_report.json on disk so
@@ -1560,6 +1572,9 @@ def main(argv=None):
                          "path so fleet_sim can replay the recording")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where replicas and oracles run (no fallback)")
+    ap.add_argument("--trials", default=",".join(TRIALS),
+                    help="comma list of the trials to run (default: all "
+                         "of %s)" % ", ".join(TRIALS))
     # hidden: the controller-durability trial's runner child
     ap.add_argument("--runner", choices=("serve", "rollout"),
                     help=argparse.SUPPRESS)
@@ -1574,8 +1589,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.runner:
         return run_runner(args)
+    trials = [t for t in args.trials.split(",") if t]
+    unknown = sorted(set(trials) - set(TRIALS))
+    if unknown:
+        ap.error("--trials: unknown %s (of %s)" % (unknown, TRIALS))
     report = run_probe(fast=args.fast, verbose=args.verbose,
-                       keep_workdir=args.keep_workdir, device=args.device)
+                       keep_workdir=args.keep_workdir, device=args.device,
+                       trials=trials)
     print("REPORT " + json.dumps(report, sort_keys=True), flush=True)
     print("PROBE PASS" if report["pass"]
           else "PROBE FAIL: %s" % "; ".join(report["failures"]))

@@ -517,19 +517,19 @@ def test_amp_ops_match_reference_semantics():
 
 
 def test_pass_registry_matches_reference():
-    """The port registers the reference's AMP and dropout passes; the
-    three whose ops are not ported raise the reference's error for an
-    unknown pass, and a PassBuilder runs the AMP rewrite as
-    ``decorate`` does."""
+    """The port registers the reference's AMP, dropout and collective
+    gradient-allreduce passes; the two whose ops are not ported raise the
+    reference's error for an unknown pass, and a PassBuilder runs the AMP
+    rewrite as ``decorate`` does."""
     from paddle_tpu.fluid import ir as jir
 
     from paddle_tpu_torch.fluid import ir as tir
 
-    assert set(tir.all_registered_passes()) == {"amp_rewrite_pass",
-                                                "delete_dropout_pass"}
+    assert set(tir.all_registered_passes()) == {
+        "amp_rewrite_pass", "delete_dropout_pass",
+        "collective_grad_allreduce_pass"}
     assert set(tir.all_registered_passes()) < set(jir.all_registered_passes())
-    for name in ("fuse_elewise_add_act_pass", "quantization_transform_pass",
-                 "collective_grad_allreduce_pass"):
+    for name in ("fuse_elewise_add_act_pass", "quantization_transform_pass"):
         with pytest.raises(ValueError):
             tir.get_pass(name)
     built = {}

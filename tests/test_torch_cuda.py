@@ -1311,3 +1311,72 @@ def test_beam_search_on_card_matches_cpu():
     (cpu_ids, cpu_sc), (ids, sc) = out
     np.testing.assert_array_equal(ids, cpu_ids)
     np.testing.assert_allclose(sc, cpu_sc, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# data parallel: the collectives on CUDA tensors
+# ---------------------------------------------------------------------------
+def _dp_ops_rank(rank, world):
+    """Every c_* op and its gradient, the quantized sum and
+    sync_batch_norm on this rank's CUDA tensors (``chip_smoke.dp_ops``:
+    each against numpy or the joined batch)."""
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return chip_smoke.dp_ops(rank, world, torch.device("cuda", 0))
+
+
+def test_collectives_on_cuda_tensors_over_gloo(tmp_path):
+    """Two gloo ranks on card 0 (NCCL refuses two ranks on one GPU): the
+    chip_smoke dp phase's op checks, each within its limit (atol 1e-5 for
+    the c_* ops, the quantized bound, 1e-4 for sync_batch_norm)."""
+    import chip_smoke
+    from paddle_tpu_torch.testing import world
+
+    for res in world.run_world(__file__ + ":_dp_ops_rank", 2,
+                               str(tmp_path)):
+        for op_type, (eo, eg) in res["errs"].items():
+            assert eo <= chip_smoke.DP_OP_ATOL, op_type
+            assert eg <= chip_smoke.DP_OP_ATOL, op_type
+        q = res["quantized"]
+        assert q["max_abs_err"] <= q["bound"]
+        assert q["op_err"] <= q["op_bound"]
+        assert q["grad_err"] <= chip_smoke.DP_OP_ATOL
+        assert max(res["sync_batch_norm"].values()) <= chip_smoke.DP_BN_ATOL
+
+
+def test_one_rank_nccl_group_runs_the_collective_ops(tmp_path):
+    """A world of one rank over NCCL in this process: c_allreduce_sum,
+    c_broadcast and c_allgather launch through it (each the identity at
+    one rank, its gradient the cotangent)."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import chip_smoke
+    from paddle_tpu_torch import fluid, parallel
+
+    dist.init_process_group(
+        "nccl", init_method="file://" + str(tmp_path / "store"),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        parallel.CommContext.instance().reset()
+        assert dist.get_backend() == "nccl"
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        rng = np.random.default_rng(3)
+        for op_type, attrs in (("c_allreduce_sum", {}),
+                               ("c_broadcast", {"root": 0}),
+                               ("c_allgather", {"nranks": 1})):
+            main, startup, o, gx = chip_smoke._dp_op_program(op_type, attrs)
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            x = rng.standard_normal((4, 64)).astype(np.float32)
+            cw = rng.standard_normal((4, 64)).astype(np.float32)
+            ov, gv = exe.run(main, feed={"x": x, "cw": cw},
+                             fetch_list=[o, gx], scope=scope)
+            np.testing.assert_array_equal(ov, x)
+            np.testing.assert_array_equal(gv, cw)
+    finally:
+        parallel.shutdown()

@@ -285,6 +285,27 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert json.loads(p.stdout.strip().splitlines()[-1]) == []
 
 
+def test_import_starts_no_process_group():
+    """``import paddle_tpu_torch`` and its data-parallel names start no
+    ``torch.distributed`` world and load neither JAX nor the JAX
+    package; a world starts only when a caller asks
+    (``parallel.initialize_distributed``)."""
+    probe = (
+        "import json, sys\n"
+        "import paddle_tpu_torch\n"
+        "import torch.distributed as dist\n"
+        "from paddle_tpu_torch import fluid, parallel\n"
+        "from paddle_tpu_torch.fluid.incubate.fleet.collective import fleet\n"
+        "fluid.CompiledProgram, fluid.ParallelExecutor, fleet\n"
+        "print(json.dumps([dist.is_initialized(), parallel.world_size(),\n"
+        "    sorted(m for m in sys.modules if m == 'jax'\n"
+        "           or m.split('.')[0] == 'paddle_tpu')]))\n")
+    p = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == [False, 1, []]
+
+
 def test_port_sources_never_import_jax_or_the_reference():
     """Belt and braces for lazy imports the probe above cannot reach."""
     root = os.path.join(REPO, "paddle_tpu_torch")
@@ -380,6 +401,25 @@ _RNN_LAYERS = ("StaticRNN", "DynamicRNN", "IfElse", "RNNCell", "GRUCell",
                "sequence_reverse", "sequence_mask", "sequence_enumerate",
                "sequence_scatter", "sequence_conv", "row_conv",
                "im2sequence", "lod_reset", "gather_tree")
+
+
+# the reference ``fluid``'s data-parallel names
+# (paddle_tpu/fluid/__init__.py:45-46, :71-72, :92-93, :101)
+_DP_NAMES = ("CompiledProgram", "ExecutionStrategy", "BuildStrategy",
+             "ParallelExecutor", "transpiler", "DistributeTranspiler",
+             "DistributeTranspilerConfig", "memory_optimize",
+             "release_memory", "incubate", "fleet")
+
+
+@pytest.mark.parametrize("name", _DP_NAMES)
+def test_fluid_exports_the_reference_data_parallel_names(name):
+    import paddle_tpu.fluid as jfluid
+
+    assert getattr(jfluid, name) is not None
+    assert getattr(fluid, name) is not None
+    assert name in fluid.__all__
+    if name == "fleet":   # both export the fleet package, not an object
+        assert fluid.fleet.collective.fleet is not None
 
 
 @pytest.mark.parametrize("name", _LOD_NAMES)
