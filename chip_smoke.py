@@ -9,12 +9,13 @@
     python3 chip_smoke.py --only recompute,rnn
     python3 chip_smoke.py --only train_runtime
     python3 chip_smoke.py --only dp
+    python3 chip_smoke.py --only dygraph
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
 ``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``,
-``recompute``, ``rnn``, ``train_runtime``, ``dp``),
+``recompute``, ``rnn``, ``train_runtime``, ``dp``, ``dygraph``),
 ``--repeat``
 times, printing each run's line whether it passed or not. Phases, one
 JSON line each:
@@ -284,10 +285,26 @@ JSON line each:
            after 2 Adam steps), 12 launches of each training kernel a
            step on each rank; (d) a one-rank NCCL group (``new_group([0],
            backend="nccl")`` as ring 7) running c_allreduce_sum,
-           c_broadcast and c_allgather on the card. A worker that misses
+           c_broadcast and c_allgather on the card; (e) the dygraph
+           phase's ``DataParallel`` LeNet (checked and reported there).
+           A worker that misses
            a check exits non-zero and the launcher tears the gang down;
            a launch that outlives its timeout is killed. Both ranks share
            one card, so its rates do not show scaling.
+23. dygraph  (run after dp) BERT-base's classifier written as
+           ``fluid.dygraph`` Layers (``paddle_tpu_torch/testing/
+           dygraph_models.py``) at seq 384 and batch 24, fp32, under
+           ``fluid.dygraph.guard(CUDAPlace(0))``, beside the static
+           ``build_bert_classifier`` program at the same weights, dropout
+           0: 3 Adam steps each, the losses (1e-5 relative) and the
+           step-1 gradients (1e-4 relative norm) held to the program's,
+           12 launches of each training kernel a dygraph step, no generic
+           replay, no plain flash call; the dygraph and static step ms
+           p50 over 5 steps, a profiled dygraph step (idle share,
+           launches); then ``DataParallel`` LeNet on 2 ranks over gloo on
+           the card (run in the dp phase's ``--dp-worker`` processes, or
+           in a launch of its own under ``--only dygraph``), 3 SGD steps
+           held to one process on the whole batch.
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -6941,7 +6958,8 @@ DP_SPEC = {"device": "cuda",
            "resnet": {"depth": 50, "classes": 1000, "size": 224,
                       "batch": 32, "steps": 3},
            "gpt": "gpt2", "gpt_batch": 8, "gpt_t": 1024, "gpt_steps": 2,
-           "nccl": True}
+           "nccl": True, "parts": ["ops", "resnet", "gpt", "nccl", "dygraph"],
+           "lenet_batch": 64, "lenet_steps": 3, "lenet_lr": 0.05}
 # c_* ops against numpy on fp32 values in [0.5, 1.5): sums of 2 terms
 # and products of 2 factors, exact to an ulp or two.
 DP_OP_ATOL = 1e-5
@@ -7500,12 +7518,14 @@ def dp_worker_main(argv):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     res = {"rank": rank, "world": world, "seconds": {}}
-    for part, fn in (("ops", lambda: dp_ops(rank, world, dev)),
-                     ("resnet", lambda: dp_resnet(rank, world, dev,
-                                                  spec["resnet"])),
-                     ("gpt", lambda: dp_gpt(rank, world, dev, spec)),
-                     ("nccl", lambda: dp_nccl(rank, world, dev)
-                      if spec["nccl"] else {})):
+    parts = {"ops": lambda: dp_ops(rank, world, dev),
+             "resnet": lambda: dp_resnet(rank, world, dev, spec["resnet"]),
+             "gpt": lambda: dp_gpt(rank, world, dev, spec),
+             "nccl": lambda: dp_nccl(rank, world, dev)
+             if spec["nccl"] else {},
+             "dygraph": lambda: dyg_dp_lenet(rank, world, dev, spec)}
+    for part in spec["parts"]:
+        fn = parts[part]
         t0 = time.perf_counter()
         res[part] = fn()
         res["seconds"][part] = time.perf_counter() - t0
@@ -7516,7 +7536,10 @@ def dp_worker_main(argv):
               flush=True)
     with open(os.path.join(out_dir, "dp_rank%d.json" % rank), "w") as f:
         json.dump(res, f, default=float)   # numpy scalars as floats
-    dp_check(res, rank, dev)
+    if "ops" in res:
+        dp_check(res, rank, dev)
+    if "dygraph" in res:
+        dyg_dp_check(res["dygraph"], rank)
     parallel.shutdown()
     return 0
 
@@ -7579,18 +7602,17 @@ def dp_check(res, rank, dev):
         raise AssertionError("dp rank %d: %s" % (rank, "; ".join(bad)))
 
 
-def dp_phase(dev, spec=None):
-    """The dp phase: one launch of ``DP_RANKS`` workers (this script's
-    ``--dp-worker`` mode) through ``python -m
-    paddle_tpu_torch.distributed.launch``, killed with its workers if it
-    outlives ``DP_TIMEOUT_S``. Returns (line, the flash kernels' launches
-    on the data-parallel path summed over the ranks)."""
+def launch_dp_workers(spec):
+    """One launch of ``DP_RANKS`` workers (this script's ``--dp-worker``
+    mode) through ``python -m paddle_tpu_torch.distributed.launch``,
+    killed with its workers if it outlives ``DP_TIMEOUT_S``; the
+    workers run ``spec``'s parts. Returns what
+    each rank wrote, in rank order; raises with the ranks' logs if the
+    launch failed."""
     import signal
     import socket
     import tempfile
 
-    spec = spec or DP_SPEC
-    t0 = time.perf_counter()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -7631,6 +7653,19 @@ def dp_phase(dev, spec=None):
         with open(os.path.join(out_dir, "dp_rank%d.json" % r)) as f:
             ranks.append(json.load(f))
     shutil.rmtree(out_dir, ignore_errors=True)
+    return ranks
+
+
+def dp_phase(dev, spec=None):
+    """The dp phase: one launch of ``DP_RANKS`` workers
+    (``launch_dp_workers``) running (a)-(d), and the dygraph phase's
+    ``DataParallel`` LeNet in the same processes. Returns (line, the
+    flash kernels' launches on the data-parallel path summed over the
+    ranks); the line's ``dygraph_lenet`` holds each rank's LeNet
+    results, which the dygraph phase checks and reports."""
+    spec = spec or DP_SPEC
+    t0 = time.perf_counter()
+    ranks = launch_dp_workers(spec)
     for r, res in enumerate(ranks):
         dp_check(res, r, dev)   # again, on what the ranks wrote
     rn, g = ranks[0]["resnet"], ranks[0]["gpt"]
@@ -7686,8 +7721,331 @@ def dp_phase(dev, spec=None):
             "rank_seconds": [res["seconds"] for res in ranks],
             "peak_bytes": [res.get("peak_bytes") for res in ranks],
             "launches": launches,
+            "dygraph_lenet": [res.get("dygraph") for res in ranks],
             "seconds": time.perf_counter() - t0}
     print("dp phase seconds: %.1f" % line["seconds"], flush=True)
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 23: dygraph — BERT-base written as fluid.dygraph Layers beside its
+# static program, and DataParallel LeNet over 2 ranks
+# ---------------------------------------------------------------------------
+DYG_STEPS = 3           # the checked Adam steps, dygraph beside static
+DYG_TIMED_STEPS = 5
+# The dygraph classifier against the static program at the same weights:
+# the same fp32 functions (Linear's ``matmul`` where the program's fc has
+# ``mul``: the same GEMMs), so the losses agree to a few ulps; per
+# parameter gradient relative norm, floored as the bert phase floors it.
+DYG_LOSS_RTOL = 1e-5
+DYG_GRAD_RTOL = 1e-4
+# DataParallel LeNet (DP_SPEC's lenet_*: 2 ranks of 32 images against one
+# process on 64, SGD, cuDNN's deterministic algorithms): only the
+# all-reduce's sum of the two halves' gradients rounds differently. A
+# whole run takes it from the dp phase's workers; --only dygraph launches
+# its own with DYG_DP_SPEC.
+DYG_DP_SPEC = dict({k: DP_SPEC[k] for k in ("device", "lenet_batch",
+                                             "lenet_steps", "lenet_lr")},
+                   parts=["dygraph"])
+DYG_DP_LOSS_RTOL = 1e-5
+DYG_DP_UPDATE_RTOL = 1e-4
+
+
+class _PlainFlashCalls(object):
+    """Counts the flash plain versions' calls inside (the port's wrappers
+    call them only for CPU tensors): {"fwd": n, "bwd": n}."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import flash_attention as fa
+
+        self.fa = fa
+        self.saved = (fa.flash_attention_lse_plain,
+                      fa.flash_attention_bwd_plain)
+        self.calls = {"fwd": 0, "bwd": 0}
+
+        def counted(key, fn):
+            def call(*a, **k):
+                self.calls[key] += 1
+                return fn(*a, **k)
+            return call
+
+        fa.flash_attention_lse_plain = counted("fwd", self.saved[0])
+        fa.flash_attention_bwd_plain = counted("bwd", self.saved[1])
+        return self.calls
+
+    def __exit__(self, *exc):
+        (self.fa.flash_attention_lse_plain,
+         self.fa.flash_attention_bwd_plain) = self.saved
+
+
+def dyg_dp_lenet(rank, world, dev, spec):
+    """The dygraph phase's worker part: LeNet-5
+    (``testing.dygraph_models.make_lenet``) under ``fluid.dygraph.guard``
+    wrapped in ``DataParallel`` (``prepare_context``, ``scale_loss``,
+    ``apply_collective_grads``), each rank on its half of every batch,
+    SGD, cuDNN deterministic; then rank 0 runs one process on the whole
+    batches from the same weights."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.testing import dygraph_models as dm
+
+    t_part = time.perf_counter()
+    B, steps = spec["lenet_batch"], spec["lenet_steps"]
+    rs = np.random.RandomState(23)
+    batches = [(rs.rand(B, 1, 28, 28).astype(np.float32),
+                rs.randint(0, 10, (B, 1)).astype(np.int64))
+               for _ in range(steps)]
+    place = _dp_place(dev)
+    strategy = fluid.dygraph.prepare_context()
+    env = fluid.dygraph.ParallelEnv()
+    init = None
+
+    def run(data_parallel):
+        nonlocal init
+        with fluid.dygraph.guard(place):
+            lenet = dm.make_lenet(fluid)
+            if init is None:
+                wrs = np.random.RandomState(24)
+                init = {k: (wrs.standard_normal(v.shape) * 0.1).astype(
+                    np.float32) for k, v in lenet.state_dict().items()}
+            lenet.set_dict(init)
+            model = fluid.dygraph.DataParallel(lenet, strategy) \
+                if data_parallel else lenet
+            opt = fluid.optimizer.SGD(learning_rate=spec["lenet_lr"],
+                                      parameter_list=lenet.parameters())
+            per = B // world if data_parallel else B
+            lo = rank * per if data_parallel else 0
+            losses, ms = [], []
+            for img, lab in batches:
+                _dp_sync(dev)
+                t0 = time.perf_counter()
+                logits = model(fluid.dygraph.to_variable(img[lo:lo + per]))
+                loss = fluid.layers.mean(
+                    fluid.layers.softmax_with_cross_entropy(
+                        logits, fluid.dygraph.to_variable(
+                            lab[lo:lo + per])))
+                if data_parallel:
+                    loss = model.scale_loss(loss)
+                loss.backward()
+                if data_parallel:
+                    model.apply_collective_grads()
+                opt.minimize(loss)
+                lenet.clear_gradients()
+                value = float(loss.numpy().reshape(-1)[0])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(value * (world if data_parallel else 1))
+            params = {k: v.value.detach().clone()
+                      for k, v in lenet.state_dict().items()}
+        return losses, ms, params
+
+    with _cudnn_deterministic(True):
+        losses, ms, params = run(True)
+        out = {"nranks": env.nranks, "local_rank": env.local_rank,
+               "losses": losses, "step_ms": ms,
+               "rank_spread": _dp_rank_spread(list(params.values())),
+               "params": len(params)}
+        rank_losses = _dp_gather(losses, dev)
+        if rank == 0:
+            single, _ms, sparams = run(False)
+            joined = np.mean(rank_losses, axis=0)
+            base = {k: torch.as_tensor(v, device=dev)
+                    for k, v in init.items()}
+            out.update(
+                single_losses=single, joined_losses=joined.tolist(),
+                loss_rel=float(np.max(np.abs(joined - single)
+                                      / np.abs(single))),
+                update_rel=_dp_rel_norm(params, sparams, base))
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def dyg_dp_check(res, rank):
+    """The dygraph worker part's checks on one rank's results; raises on
+    a miss."""
+    bad = []
+    if (res["nranks"], res["local_rank"]) != (DP_RANKS, rank):
+        bad.append("ParallelEnv read %r" % ((res["nranks"],
+                                             res["local_rank"]),))
+    if res["rank_spread"] != 0.0:
+        bad.append("ranks end apart (%g)" % res["rank_spread"])
+    if not all(np.isfinite(res["losses"])):
+        bad.append("loss not finite %r" % (res["losses"],))
+    if rank == 0:
+        if res["loss_rel"] > DYG_DP_LOSS_RTOL:
+            bad.append("loss vs one process %.3g > %g"
+                       % (res["loss_rel"], DYG_DP_LOSS_RTOL))
+        if res["update_rel"] > DYG_DP_UPDATE_RTOL:
+            bad.append("update vs one process %.3g > %g"
+                       % (res["update_rel"], DYG_DP_UPDATE_RTOL))
+    if bad:
+        raise AssertionError("dygraph DataParallel rank %d: %s"
+                             % (rank, "; ".join(bad)))
+
+
+def dygraph_phase(dev, dp_lenet=None):
+    """BERT-base's classifier written as ``fluid.dygraph`` Layers
+    (``testing.dygraph_models.make_bert_classifier``: Embedding, Linear,
+    LayerNorm and ``fluid.layers.flash_attention`` with the mask's key
+    bias) at seq 384 and batch 24, fp32, under
+    ``fluid.dygraph.guard(CUDAPlace(0))``, beside the static
+    ``build_bert_classifier`` program at the same weights (the program's
+    startup values, copied by ``bert_static_names``), dropout 0: 3 Adam
+    steps each, the losses and the step-1 gradients held to the
+    program's; each dygraph step launches each training kernel 12 times
+    (counts zeroed just before the 3 steps and read just after), with no
+    generic replay and no plain flash call. Then 5 timed steps of each
+    (ms p50), one profiled dygraph step (idle share, launches), and
+    ``DataParallel`` LeNet on 2 ranks over gloo on the card held to one
+    process: ``dp_lenet``, each rank's results from the dp phase's
+    launch (its workers run this part too, so a whole run starts no
+    second pair of processes), else a launch of its own
+    (``launch_dp_workers`` with ``DYG_DP_SPEC``). Returns (line, the
+    training kernels' launches in the 3 steps)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.testing import dygraph_models as dm
+
+    t_phase = time.perf_counter()
+    n_layers = bert.BertConfig.base().num_layers
+    cfg = bert.BertConfig.base(use_flash_attention=True, hidden_dropout=0.0,
+                               attention_dropout=0.0)
+    feed = bert_feed(BERT_SEQ, BERT_BATCH, seed=4)
+    names = dm.bert_static_names(cfg)
+
+    # the static program: its startup weights, 3 checked steps, 5 timed
+    t0 = time.perf_counter()
+    main, loss, _acc, exe, scope = bert_program(cfg, BERT_SEQ)
+    init = {names[n]: scope.get(n).detach().to("cpu", copy=True).numpy()
+            for n in names}
+    out = exe.run(main, feed=feed, fetch_list=[loss] + [
+        n + "@GRAD" for n in names], scope=scope)
+    s_losses = [float(out[0].reshape(-1)[0])]
+    s_grads = {names[n]: g for n, g in zip(names, out[1:])}
+    del out
+    step = loss_step(exe, main, loss, feed, scope)
+    s_losses += [step() for _ in range(DYG_STEPS - 1)]
+    _l, s_ms = timed_steps(step, DYG_TIMED_STEPS)
+    static_s = time.perf_counter() - t0
+    del main, loss, exe, scope, step
+    torch.cuda.empty_cache()
+
+    # the dygraph classifier from the same weights
+    order = ("src_ids", "pos_ids", "sent_ids", "input_mask", "label")
+    t0 = time.perf_counter()
+    with fluid.dygraph.guard(fluid.CUDAPlace(0)):
+        model = dm.make_bert_classifier(fluid, cfg, BERT_SEQ)
+        model.set_dict(init)
+        del init
+        opt = fluid.optimizer.Adam(learning_rate=BERT_LR,
+                                   parameter_list=model.parameters())
+
+        def forward_backward():
+            lv = model(*[fluid.dygraph.to_variable(feed[n]) for n in order])
+            lv.backward()
+            return lv
+
+        def dy_step(lv=None):
+            lv = forward_backward() if lv is None else lv
+            opt.minimize(lv)
+            model.clear_gradients()
+            return float(lv.numpy().reshape(-1)[0])
+
+        build_s = time.perf_counter() - t0
+        replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_launches()
+        with _PlainFlashCalls() as plain:
+            lv = forward_backward()
+            d_grads = {k: v.gradient() for k, v in
+                       model.state_dict().items()}
+            d_losses = [dy_step(lv)] + [dy_step()
+                                        for _ in range(DYG_STEPS - 1)]
+        launches = flash_launches()
+        replays = profiler.get_counter(registry.REPLAY_COUNTER) - replays0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        want = n_layers * DYG_STEPS
+        if any(n != want for n in launches.values()) or replays or any(
+                plain.values()):
+            raise AssertionError(
+                "dygraph bert: %d steps launched %r (expected %d each), %d "
+                "generic replays, plain flash calls %r"
+                % (DYG_STEPS, launches, want, replays, plain))
+        loss_rel = [abs(d - s) / abs(s) for d, s in zip(d_losses,
+                                                         s_losses)]
+        rel, gnorm = rel_norms(d_grads, s_grads, GRAD_NORM_FLOOR)
+        worst = max(rel, key=rel.get)
+        del d_grads, s_grads
+        if not (max(loss_rel) <= DYG_LOSS_RTOL
+                and rel[worst] <= DYG_GRAD_RTOL):
+            raise AssertionError(
+                "dygraph bert vs the program: losses %r vs %r, gradient of "
+                "%s at relative norm %.3g" % (d_losses, s_losses, worst,
+                                              rel[worst]))
+        d_timed, d_ms = timed_steps(dy_step, DYG_TIMED_STEPS)
+        if not all(np.isfinite(d_timed)):
+            raise AssertionError("dygraph bert losses %r" % (d_timed,))
+        prof = _profile(dy_step, reps=1)
+        del model, opt
+    torch.cuda.empty_cache()
+
+    # DataParallel LeNet: 2 ranks over gloo on this card
+    t0 = time.perf_counter()
+    if dp_lenet is None:
+        dp_lenet = [res["dygraph"] for res in launch_dp_workers(DYG_DP_SPEC)]
+        launched = "its own"
+    else:
+        launched = "the dp phase's"
+    for r, res in enumerate(dp_lenet):
+        dyg_dp_check(res, r)
+    dp0 = dp_lenet[0]
+    line = {
+        "phase": "dygraph", "model": "bert-base", "seq_len": BERT_SEQ,
+        "batch": BERT_BATCH, "learning_rate": BERT_LR,
+        "static_build_and_steps_s": static_s, "dygraph_build_s": build_s,
+        "vs_static": {
+            "dygraph_losses": d_losses, "static_losses": s_losses,
+            "loss_rel": loss_rel, "loss_rtol": DYG_LOSS_RTOL,
+            "max_grad_rel_norm": rel[worst], "worst_param": worst,
+            "median_grad_rel_norm": float(np.median(list(rel.values()))),
+            "params": len(rel), "grad_rtol": DYG_GRAD_RTOL,
+            "grad_norm": gnorm},
+        "launches": launches,
+        "launches_per_step": {k: n / DYG_STEPS for k, n in launches.items()},
+        "generic_grad_replays": replays, "plain_flash_calls": plain,
+        "dygraph_step_ms": d_ms,
+        "dygraph_step_ms_p50": float(np.median(d_ms)),
+        "static_step_ms": s_ms,
+        "static_step_ms_p50": float(np.median(s_ms)),
+        "dygraph_over_static": float(np.median(d_ms) / np.median(s_ms)),
+        "device_idle_share": prof["device_idle_share"],
+        "profile_step": prof, "peak_mem_mib": peak,
+        "data_parallel": {
+            "model": "lenet", "ranks": DP_RANKS, "backend": "gloo",
+            "spec": {k: DYG_DP_SPEC[k] for k in (
+                "lenet_batch", "lenet_steps", "lenet_lr")},
+            "params": dp0["params"],
+            "joined_losses": dp0["joined_losses"],
+            "single_losses": dp0["single_losses"],
+            "loss_rel": dp0["loss_rel"], "loss_rtol": DYG_DP_LOSS_RTOL,
+            "update_rel": dp0["update_rel"],
+            "update_rtol": DYG_DP_UPDATE_RTOL,
+            "step_ms": [res["step_ms"] for res in dp_lenet],
+            "workers": "%s launch" % launched,
+            "rank_seconds": [res["seconds"] for res in dp_lenet],
+            "seconds": time.perf_counter() - t0},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    # the phase's work with the LeNet ranks' own, which a whole run spends
+    # inside the dp phase's launch (and counts in that phase's seconds)
+    line["seconds_with_lenet_ranks"] = line["seconds"] + (
+        max(line["data_parallel"]["rank_seconds"])
+        if launched != "its own" else 0.0)
+    print("dygraph phase seconds: %.1f" % line["seconds"], flush=True)
     return line, launches
 
 
@@ -7703,7 +8061,7 @@ def gpt2_small(dev):
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
                "gateway", "fleet", "programs", "bert", "vision", "nmt",
-               "recompute", "rnn", "train_runtime", "dp")
+               "recompute", "rnn", "train_runtime", "dp", "dygraph")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -7741,6 +8099,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = train_runtime_phase(dev)[0]
                 elif phase == "dp":
                     line = dp_phase(dev)[0]
+                elif phase == "dygraph":
+                    line = dygraph_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -7770,7 +8130,8 @@ def main(argv=None):
                     help="comma list of phases to run alone after the build "
                          "(engine_features, program_train, "
                          "inference_server, gateway, fleet, programs, bert, "
-                         "vision, nmt, recompute, rnn, train_runtime, dp)")
+                         "vision, nmt, recompute, rnn, train_runtime, dp, "
+                         "dygraph)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -7868,6 +8229,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     dp_run, dp_launches = dp_phase(dev)
     emit(dict(dp_run, device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
+    dyg_run, dyg_launches = dygraph_phase(dev, dp_run["dygraph_lenet"])
+    emit(dict(dyg_run, device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
     served = served_gpt2(dev)
     infer_run, infer_launches = inference_server_phase(dev, served)
     emit(dict(infer_run, device=name, nvidia_smi=smi))
@@ -7907,7 +8272,7 @@ def main(argv=None):
                 "launches": train_launches[kname] + program_launches[kname]
                 + bert_launches["bert"][kname] + nmt_launches["nmt"][kname]
                 + rc_launches["recompute_bert"][kname] + tr_launches[kname]
-                + dp_launches[kname],
+                + dp_launches[kname] + dyg_launches[kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
                                      "train_program": program_launches[kname],
                                      "bert": bert_launches["bert"][kname],
@@ -7915,7 +8280,8 @@ def main(argv=None):
                                      "recompute_bert":
                                          rc_launches["recompute_bert"][kname],
                                      "train_runtime": tr_launches[kname],
-                                     "dp": dp_launches[kname]},
+                                     "dp": dp_launches[kname],
+                                     "dygraph": dyg_launches[kname]},
                 "bert_form": bert_form(kname, "fp32"),
                 "nmt_form": nmt_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -8012,7 +8378,8 @@ def main(argv=None):
          + prog_launches["flash_fwd"] + bert_launches["bert"]["flash_fwd"]
          + nmt_launches["nmt"]["flash_fwd"]
          + rc_launches["recompute_bert"]["flash_fwd"]
-         + tr_launches["flash_fwd"] + dp_launches["flash_fwd"],
+         + tr_launches["flash_fwd"] + dp_launches["flash_fwd"]
+         + dyg_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -8028,7 +8395,8 @@ def main(argv=None):
                               "recompute_bert":
                                   rc_launches["recompute_bert"]["flash_fwd"],
                               "train_runtime": tr_launches["flash_fwd"],
-                              "dp": dp_launches["flash_fwd"]},
+                              "dp": dp_launches["flash_fwd"],
+                              "dygraph": dyg_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],

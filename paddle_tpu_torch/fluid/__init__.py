@@ -11,8 +11,10 @@ activation recompute), LoD feeds (``DataFeeder``, ``create_lod_tensor``),
 automatic mixed precision (``contrib.mixed_precision``), data-parallel
 training over ``torch.distributed`` (``CompiledProgram``,
 ``ParallelExecutor``, the collective ``transpiler`` and fleet's
-collective mode under ``incubate``), and the op lowerings, which the
-eager models also call as plain functions on tensors."""
+collective mode under ``incubate``), dygraph (``fluid.dygraph``: the
+tracer, ``Layer``s, eager optimizers, ``save_dygraph`` / ``load_dygraph``
+and ``DataParallel``), and the op lowerings, which the eager models also
+call as plain functions on tensors."""
 
 from . import core, flags, ops, profiler, unique_name  # noqa: F401
 from . import framework, initializer, param_attr  # noqa: F401
@@ -23,6 +25,8 @@ from . import debugger, io_pipeline, native, reader  # noqa: F401
 from . import data_feed_desc, dataset, trainer  # noqa: F401
 from . import device_worker, trainer_desc, trainer_factory  # noqa: F401
 from . import compiler, parallel_executor, transpiler, incubate  # noqa: F401
+from . import dygraph  # noqa: F401
+from .dygraph.checkpoint import save_dygraph, load_dygraph
 from .backward import append_backward, gradients
 from .compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from .parallel_executor import ParallelExecutor
@@ -61,6 +65,7 @@ from .framework import (
     cpu_places,
     cuda_places,
     default_startup_program,
+    in_dygraph_mode,
     name_scope,
     program_guard,
 )
@@ -88,5 +93,5 @@ __all__ = [
     "CompiledProgram", "ExecutionStrategy", "BuildStrategy",
     "ParallelExecutor", "DistributeTranspiler",
     "DistributeTranspilerConfig", "memory_optimize", "release_memory",
-    "fleet",
+    "fleet", "dygraph", "in_dygraph_mode", "save_dygraph", "load_dygraph",
 ]

@@ -61,7 +61,7 @@ class GradientClipByValue(BaseGradientClipAttr):
     def _create_operators(self, param, grad):
         helper = LayerHelper("clip_by_value")
         out = helper.create_variable_for_type_inference(dtype=grad.dtype)
-        grad.block.append_op(
+        _grad_block(grad).append_op(
             type="clip",
             inputs={"X": [grad]},
             outputs={"Out": [out]},
@@ -77,7 +77,7 @@ class GradientClipByNorm(BaseGradientClipAttr):
     def _create_operators(self, param, grad):
         helper = LayerHelper("clip_by_norm")
         out = helper.create_variable_for_type_inference(dtype=grad.dtype)
-        grad.block.append_op(
+        _grad_block(grad).append_op(
             type="clip_by_norm",
             inputs={"X": [grad]},
             outputs={"Out": [out]},
@@ -99,7 +99,7 @@ class GradientClipByGlobalNorm(BaseGradientClipAttr):
     def _process_context(self, context, param, grad):
         helper = LayerHelper("global_norm")
         sq = helper.create_variable_for_type_inference(dtype=grad.dtype)
-        grad.block.append_op(
+        _grad_block(grad).append_op(
             type="squared_l2_norm",
             inputs={"X": [grad]},
             outputs={"Out": [sq]},
@@ -135,13 +135,21 @@ class GradientClipByGlobalNorm(BaseGradientClipAttr):
             self._scale_var = self._create_scale_var()
         helper = LayerHelper("clip_scale")
         out = helper.create_variable_for_type_inference(dtype=grad.dtype)
-        grad.block.append_op(
+        _grad_block(grad).append_op(
             type="elementwise_mul",
             inputs={"X": [grad], "Y": [self._scale_var]},
             outputs={"Out": [out]},
             attrs={OP_ROLE_KEY: OpRole.Backward},
         )
         return param, out
+
+
+def _grad_block(grad):
+    """The block a clip op on ``grad`` goes to: the grad's own, or for a
+    dygraph ``VarBase`` (which has none) the global block, whose
+    ``append_op`` traces the op at once."""
+    return getattr(grad, "block", None) or \
+        default_main_program().global_block()
 
 
 _gradient_clip_attr = None

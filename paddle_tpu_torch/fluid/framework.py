@@ -81,6 +81,50 @@ def current_op_role():
 
 
 # ---------------------------------------------------------------------------
+# dygraph-mode switch (reference: framework.py:85-122). Under the guard,
+# ``Block.append_op`` hands each op to the tracer, which runs it at once.
+# ---------------------------------------------------------------------------
+_dygraph_tracer_ = None
+_dygraph_current_expected_place_ = None
+
+
+def in_dygraph_mode():
+    return _dygraph_tracer_ is not None
+
+
+def _dygraph_tracer():
+    return _dygraph_tracer_
+
+
+def _current_expected_place():
+    """The guard's place; outside a guard the card, as every entry point
+    of the port defaults to it (the reference's is the CPU)."""
+    return _dygraph_current_expected_place_ or core.CUDAPlace(0)
+
+
+@contextlib.contextmanager
+def _dygraph_guard(tracer):
+    global _dygraph_tracer_
+    old = _dygraph_tracer_
+    _dygraph_tracer_ = tracer
+    try:
+        yield
+    finally:
+        _dygraph_tracer_ = old
+
+
+@contextlib.contextmanager
+def _dygraph_place_guard(place):
+    global _dygraph_current_expected_place_
+    old = _dygraph_current_expected_place_
+    _dygraph_current_expected_place_ = place
+    try:
+        yield
+    finally:
+        _dygraph_current_expected_place_ = old
+
+
+# ---------------------------------------------------------------------------
 # Variable
 # ---------------------------------------------------------------------------
 class Variable(object):
@@ -407,6 +451,9 @@ class Block(object):
 
     # -- ops --
     def append_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        if in_dygraph_mode():
+            return _dygraph_tracer().trace_op(
+                type, inputs or {}, outputs or {}, attrs or {})
         op = Operator(self, type, inputs=inputs, outputs=outputs, attrs=attrs)
         self.ops.append(op)
         for name in op.output_arg_names:

@@ -1,7 +1,8 @@
 """LayerHelper — the single funnel from layer functions into Block.append_op
 (copy of ``paddle_tpu/fluid/layer_helper.py``; reference:
 python/paddle/fluid/layer_helper.py:42; append_op feeds Block.append_op at
-framework.py:2434).
+framework.py:2434). Under the dygraph guard it makes ``VarBase``s and
+eager parameters, and ``Block.append_op`` traces each op at once.
 """
 
 from . import unique_name
@@ -9,6 +10,7 @@ from .framework import (
     Variable,
     default_main_program,
     default_startup_program,
+    in_dygraph_mode,
 )
 from .initializer import Constant, Xavier
 from .param_attr import ParamAttr
@@ -40,7 +42,8 @@ class LayerHelper(object):
     # -- inputs --
     def multiple_input(self, input_param_name="input"):
         inputs = self.kwargs.get(input_param_name, [])
-        if isinstance(inputs, Variable):
+        if isinstance(inputs, Variable) or not isinstance(inputs,
+                                                          (list, tuple)):
             return [inputs]
         return list(inputs)
 
@@ -101,6 +104,12 @@ class LayerHelper(object):
         if attr.name is None:
             attr.name = unique_name.generate(".".join([self.name, "w" if not is_bias else "b"]))
 
+        if in_dygraph_mode():
+            from .dygraph import base as dy_base
+
+            return dy_base._create_parameter_eager(
+                attr, shape, dtype,
+                attr.initializer or (Constant(0.0) if is_bias else Xavier()))
         startup_block = self.startup_program.global_block()
         main_block = self.main_program.global_block()
         param = main_block.create_parameter(
@@ -111,6 +120,12 @@ class LayerHelper(object):
         return param
 
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
+        if in_dygraph_mode():
+            from .dygraph.tracer import VarBase
+
+            return VarBase(
+                name=unique_name.generate(".".join([self.name, "tmp"])),
+                stop_gradient=stop_gradient)
         return self.main_program.current_block().create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype,

@@ -3,12 +3,14 @@
 unary ``-`` and the compares append the ops the reference appends. A
 Python scalar operand becomes a ``scale`` op where one can express it,
 else a ``fill_constant`` [1] in the variable's dtype and the
-``elementwise_*`` op. Applied when ``fluid.layers`` is imported."""
+``elementwise_*`` op. Applied when ``fluid.layers`` is imported. A
+static ``Variable`` in arithmetic under the dygraph guard raises
+(``_error_if_dygraph``, reference :78-81)."""
 
 import numpy as np
 
 from .. import core
-from ..framework import Variable
+from ..framework import Variable, in_dygraph_mode
 from ..layer_helper import LayerHelper
 
 
@@ -28,7 +30,13 @@ def _scalar_to_var(value, ref_var):
     return fill_constant(shape=[1], dtype=ref_var.dtype, value=float(value))
 
 
+def _error_if_dygraph():
+    if in_dygraph_mode():
+        raise RuntimeError("static Variable arithmetic used in dygraph mode")
+
+
 def _binary(op_type, x, y, axis=-1, reverse=False):
+    _error_if_dygraph()
     if np.isscalar(y):
         if op_type == "elementwise_add":
             return _create_scalar_op(x, 1.0, float(y))
@@ -52,6 +60,7 @@ def _binary(op_type, x, y, axis=-1, reverse=False):
 
 
 def _compare(op_type, x, y):
+    _error_if_dygraph()
     if np.isscalar(y):
         y = _scalar_to_var(y, x)
     helper = LayerHelper(op_type)

@@ -377,8 +377,10 @@ def _vjp_of_forward(ctx, fwd_type, fwd_inputs, fwd_outputs, attrs, wrt,
     given = set(env)
     with torch.enable_grad():
         fwd_def.lower(sub, fake)
-    edges = [get_gradient_edge(env[n]) if env[n].requires_grad else None
-             for n in cot_names]
+    # an output the rule left unset, or set to a non-tensor, takes none
+    edges = [get_gradient_edge(env[n]) if isinstance(env.get(n),
+                                                     torch.Tensor)
+             and env[n].requires_grad else None for n in cot_names]
     # the outputs, and what else the rule set (an output's @SEQ_LEN)
     outs = {n for names in fwd_outputs.values() for n in names}
     values = {n: v.detach() if isinstance(v, torch.Tensor) else v
@@ -414,32 +416,57 @@ def _rule_vjp(ctx, op, rule, wrt, cot_names):
     return vjp_fn
 
 
-def run_op_capturing(ctx, op, grad_op, cot_names, grad_cot_names):
-    """Run forward ``op`` once, through its ``vjp`` rule or on the
-    autograd tape, and keep the vjp closure for its generic ``grad_op``
-    (same run). ``cot_names``: the float outputs of ``op`` that receive a
-    gradient in the block; ``grad_cot_names``: their cotangents, the grad
-    op's ``S@GRAD`` inputs at their places (a recompute replay's
-    ``v@RECOMPUTE@k`` gets ``v@GRAD``).
-    The grads are taken with respect to ``op``'s own inputs at the slots
-    and places the grad op asks for."""
+def rule_output(op):
+    """The output a ``vjp`` rule's pullback differentiates: the first of
+    ``Out``, ``Y`` and ``Output`` the op has."""
+    for slot in ("Out", "Y", "Output"):
+        names = op.outputs.get(slot)
+        if names and names[0] != EMPTY_VAR:
+            return names[0]
+    return None
+
+
+def differentiable_outputs(op):
+    """The outputs a gradient flows back from when nothing says which
+    ones receive one (the dygraph tracer): an op with a ``vjp`` rule,
+    the output its rule differentiates; any other op, all of them."""
+    if get_op_def(op.type).vjp is not None and rule_output(op) is not None:
+        return [rule_output(op)]
+    return [n for names in op.outputs.values() for n in names]
+
+
+def capture_vjp(ctx, op, wrt, cot_names):
+    """Run forward ``op`` once, through its ``vjp`` rule when the only
+    cotangent is its rule's output, else on the autograd tape; returns
+    (vjp_fn, {name: value} to set in the environment).
+    ``vjp_fn`` takes a cotangent (or None) for each of ``cot_names`` and
+    returns the grads of the ``wrt`` inputs [(name, grad name, slot)]."""
     prev = ctx._cur_op
     ctx._cur_op = op
-    values = {}
     try:
-        wrt = [(op.inputs[slot][idx], gname, slot)
-               for _n, gname, slot, idx in _grad_wrt(ctx, grad_op, op)]
         rule = get_op_def(op.type).vjp
-        if rule is not None and len(cot_names) == 1:
-            vjp_fn = _rule_vjp(ctx, op, rule, wrt, cot_names)
-        else:
-            vjp_fn, values = _vjp_of_forward(
-                ctx, op.type, op.inputs, op.outputs, op.attrs, wrt,
-                cot_names)
+        if rule is not None and list(cot_names) == [rule_output(op)]:
+            return _rule_vjp(ctx, op, rule, wrt, cot_names), {}
+        return _vjp_of_forward(ctx, op.type, op.inputs, op.outputs,
+                               op.attrs, wrt, cot_names)
     except Exception as e:
         _raise_op_error(op, e)
     finally:
         ctx._cur_op = prev
+
+
+def run_op_capturing(ctx, op, grad_op, cot_names, grad_cot_names):
+    """Run forward ``op`` once (``capture_vjp``) and keep the vjp closure
+    for its generic ``grad_op`` (same run). ``cot_names``: the float
+    outputs of ``op`` that receive a gradient in the block;
+    ``grad_cot_names``: their cotangents, the grad op's ``S@GRAD`` inputs
+    at their places (a recompute replay's ``v@RECOMPUTE@k`` gets
+    ``v@GRAD``).
+    The grads are taken with respect to ``op``'s own inputs at the slots
+    and places the grad op asks for."""
+    wrt = [(op.inputs[slot][idx], gname, slot)
+           for _n, gname, slot, idx in _grad_wrt(ctx, grad_op, op)]
+    vjp_fn, values = capture_vjp(ctx, op, wrt, cot_names)
     for n, v in values.items():
         ctx.set(n, v)
     ctx.vjps[id(grad_op)] = (vjp_fn, wrt, list(grad_cot_names))

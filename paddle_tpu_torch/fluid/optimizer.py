@@ -11,14 +11,21 @@ As in the reference, one class serves both uses:
   program (reference: optimizer.py ``_create_optimization_pass``);
 - eager: given ``parameter_list`` tensors, ``minimize(loss_tensor)`` runs
   autograd's backward and the update at once over every parameter
-  (``optimizer_ops.adam``, the reference's rule; Adam only).
+  (``optimizer_ops.adam``, the reference's rule; Adam only);
+- dygraph (under ``fluid.dygraph.guard``): given ``parameter_list``
+  ``VarBase``s, ``minimize(loss)`` after ``loss.backward()`` traces one
+  update op per parameter that has a gradient, with the regularization
+  and clip ops before it (reference: optimizer.py:259-313). The ops
+  update the parameters' tensors in place, outside autograd. The
+  learning rate is a float, a ``VarBase`` [1] or a dygraph
+  ``LearningRateDecay``, called once a ``minimize``.
 """
 
 from collections import defaultdict
 
 import torch
 
-from . import unique_name
+from . import core, unique_name
 from .backward import append_backward
 from .framework import (
     OP_ROLE_KEY,
@@ -26,6 +33,7 @@ from .framework import (
     Variable,
     default_main_program,
     default_startup_program,
+    in_dygraph_mode,
     op_role_guard,
     program_guard,
 )
@@ -44,7 +52,7 @@ class Optimizer(object):
     regularization + one update op per parameter."""
 
     def __init__(self, learning_rate, regularization=None, name=None,
-                 grad_clip=None):
+                 grad_clip=None, parameter_list=None):
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._name = name
@@ -52,9 +60,15 @@ class Optimizer(object):
         self._accumulators = defaultdict(dict)
         self.helper = None
         self._grad_clip = grad_clip
+        # dygraph: the VarBases bound at construction
+        self._parameter_list = parameter_list
+        self._dygraph_lr = None
 
     # -- learning rate --
     def _create_global_learning_rate(self):
+        if in_dygraph_mode():
+            self._dygraph_lr = self._dygraph_learning_rate()
+            return
         program = default_main_program()
         if self._learning_rate_map.get(program) is not None:
             return
@@ -69,7 +83,26 @@ class Optimizer(object):
             lr_var, Constant(value=float(self._learning_rate)))
         self._learning_rate_map[program] = lr_var
 
+    def _dygraph_learning_rate(self):
+        """This step's learning rate as a VarBase [1]: a VarBase as it
+        is, a ``LearningRateDecay`` called (one step), a float made once."""
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+        from .dygraph.tracer import VarBase, _expected_device
+
+        lr = self._learning_rate
+        if isinstance(lr, VarBase):
+            return lr
+        if isinstance(lr, LearningRateDecay):
+            lr = lr()
+        elif self._dygraph_lr is not None:
+            return self._dygraph_lr
+        return VarBase(torch.full((1,), float(lr), dtype=torch.float32,
+                                  device=_expected_device()),
+                       stop_gradient=True)
+
     def _global_learning_rate(self, program=None):
+        if in_dygraph_mode():
+            return self._dygraph_lr
         return self._learning_rate_map.get(program or default_main_program())
 
     def _create_param_lr(self, param_and_grad):
@@ -78,6 +111,10 @@ class Optimizer(object):
         base = self._global_learning_rate()
         if param_lr == 1.0:
             return base
+        if in_dygraph_mode():
+            from .dygraph.tracer import VarBase
+
+            return VarBase(base.value * float(param_lr), stop_gradient=True)
         helper = LayerHelper("param_lr")
         out = helper.create_variable_for_type_inference("float32")
         helper.append_op(
@@ -90,6 +127,18 @@ class Optimizer(object):
                          shape=None):
         if param.name in self._accumulators[name]:
             return self._accumulators[name][param.name]
+        if in_dygraph_mode():
+            from .dygraph.tracer import VarBase
+
+            acc = VarBase(
+                torch.full(tuple(param.shape if shape is None else shape),
+                           float(fill_value), dtype=param.value.dtype
+                           if dtype is None else core.dtype_to_torch(dtype),
+                           device=param.value.device),
+                name=unique_name.generate(param.name + "_" + name),
+                stop_gradient=True)
+            self._accumulators[name][param.name] = acc
+            return acc
         var = default_main_program().global_block().create_var(
             name=unique_name.generate(param.name + "_" + name),
             shape=shape if shape is not None else param.shape,
@@ -156,7 +205,12 @@ class Optimizer(object):
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, grad_clip=None):
         """Append the backward and the update ops for the program
-        variable ``loss``; returns (optimize ops, [(param, grad)])."""
+        variable ``loss``; returns (optimize ops, [(param, grad)]). Under
+        the dygraph guard: the update of ``parameter_list`` (or the
+        constructor's) from the gradients ``loss.backward()`` left."""
+        if in_dygraph_mode():
+            return self._dygraph_minimize(
+                loss, parameter_list or self._parameter_list)
         params_grads = self.backward(loss, startup_program=startup_program,
                                      parameter_list=parameter_list,
                                      no_grad_set=no_grad_set)
@@ -167,6 +221,36 @@ class Optimizer(object):
         optimize_ops = self.apply_optimize(loss, startup_program,
                                            params_grads)
         return optimize_ops, params_grads
+
+
+    def _dygraph_minimize(self, loss, parameter_list):
+        """Trace, outside autograd, the regularization and clip ops and one
+        update op per parameter with a gradient, each updating its
+        tensors in place (reference: optimizer.py:276)."""
+        if not parameter_list:
+            raise ValueError("dygraph optimizer needs parameter_list "
+                             "(pass it to the constructor or minimize)")
+        from . import clip as _clip
+        from . import regularizer as _regularizer
+        from .dygraph.base import no_grad
+        from .dygraph.tracer import VarBase
+
+        with no_grad(), torch.no_grad():
+            params_grads = [(p, VarBase(p.grad, stop_gradient=True))
+                            for p in parameter_list if p.grad is not None]
+            params_grads = _regularizer.append_regularization_ops(
+                params_grads, self.regularization)
+            if self._grad_clip is not None:
+                params_grads = _clip.append_clip_with(params_grads,
+                                                      self._grad_clip)
+            self.helper = LayerHelper(self.__class__.__name__)
+            self._create_global_learning_rate()
+            block = default_main_program().global_block()
+            self._create_accumulators(block, [p for p, _g in params_grads])
+            ops = [self._append_optimize_op(block, pg)
+                   for pg in params_grads]
+            self._finish_update(block, params_grads)
+        return ops, params_grads
 
 
 class SGDOptimizer(Optimizer):
@@ -270,7 +354,9 @@ class AdamOptimizer(Optimizer):
         self._epsilon = epsilon
         self._lazy_mode = lazy_mode
         self._params = None
-        if parameter_list is not None:
+        if in_dygraph_mode():
+            self._parameter_list = parameter_list
+        elif parameter_list is not None:
             self._bind(parameter_list)
 
     # -- static (program) form --
@@ -340,7 +426,7 @@ class AdamOptimizer(Optimizer):
         ``Optimizer.minimize``). A tensor ``loss``: backward, one update,
         then the grads are cleared (set to None); binds
         ``parameter_list`` on first use."""
-        if isinstance(loss, Variable):
+        if isinstance(loss, Variable) or in_dygraph_mode():
             return super().minimize(loss, startup_program, parameter_list,
                                     no_grad_set, grad_clip)
         if self._params is None and parameter_list is not None:

@@ -4,7 +4,7 @@ python/paddle/fluid/regularizer.py). L2 decay lowers through ``scale``
 and ``elementwise_add``; L1's ``sign`` op is not lowered in the port
 yet."""
 
-from .framework import OP_ROLE_KEY, OpRole
+from .framework import OP_ROLE_KEY, OpRole, default_main_program
 from .layer_helper import LayerHelper
 
 __all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer"]
@@ -70,7 +70,10 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
             params_and_grads.append((param, grad))
             continue
         regularization_term = None
-        block = grad.block
+        # a dygraph VarBase has no block; the global block's append_op
+        # traces the op there, so one code path serves both modes
+        block = getattr(grad, "block", None) or \
+            default_main_program().global_block()
         if getattr(param, "regularizer", None) is not None:
             regularization_term = param.regularizer(param, grad, block)
         elif regularization is not None:

@@ -530,3 +530,49 @@ def test_package_exports_the_reference_top_level_names(name):
     assert getattr(paddle_tpu, name) is not None
     assert getattr(paddle_tpu_torch, name) is not None
     assert name in paddle_tpu_torch.__all__
+
+
+def test_dygraph_import_loads_no_jax_and_no_reference_package():
+    """``fluid.dygraph`` and the dygraph model programs load neither JAX
+    nor the JAX package."""
+    probe = (
+        "import json, sys\n"
+        "import paddle_tpu_torch.fluid as f\n"
+        "f.dygraph.guard, f.dygraph.Layer, f.dygraph.DataParallel\n"
+        "from paddle_tpu_torch.fluid.dygraph import (checkpoint, jit, nn,\n"
+        "    parallel, tracer)\n"
+        "from paddle_tpu_torch.testing import dygraph_models\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))))\n")
+    p = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == []
+
+
+def test_dygraph_guard_defaults_to_cuda_and_raises_without_gpu():
+    """``dygraph.guard()`` with no place is the card and raises on a
+    machine without one; ``guard(CPUPlace())`` runs its ops on the
+    CPU."""
+    import numpy as np
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with fluid.dygraph.guard():
+            pass
+    with pytest.raises(RuntimeError):
+        fluid.dygraph.enable_dygraph()
+    assert not fluid.in_dygraph_mode()
+    # a tracer built by hand is the card too, unless given the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fluid.dygraph.Tracer()
+    assert fluid.dygraph.Tracer(torch.device("cpu")).device.type == "cpu"
+    with fluid.dygraph.guard(CPUPlace()):
+        assert fluid.in_dygraph_mode()
+        y = fluid.layers.relu(fluid.dygraph.to_variable(
+            np.array([-1.0, 2.0], np.float32)))
+        assert y.value.device == torch.device("cpu")
+        assert y.numpy().tolist() == [0.0, 2.0]
+    assert not fluid.in_dygraph_mode()
