@@ -10,12 +10,14 @@
     python3 chip_smoke.py --only train_runtime
     python3 chip_smoke.py --only dp
     python3 chip_smoke.py --only dygraph
+    python3 chip_smoke.py --only op_corpus
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or
 ``paddle_tpu``. ``--only`` runs the named phases alone after the build
 (``engine_features``, ``program_train``, ``inference_server``,
 ``gateway``, ``fleet``, ``programs``, ``bert``, ``vision``, ``nmt``,
-``recompute``, ``rnn``, ``train_runtime``, ``dp``, ``dygraph``),
+``recompute``, ``rnn``, ``train_runtime``, ``dp``, ``dygraph``,
+``op_corpus``),
 ``--repeat``
 times, printing each run's line whether it passed or not. Phases, one
 JSON line each:
@@ -305,6 +307,25 @@ JSON line each:
            the card (run in the dp phase's ``--dp-worker`` processes, or
            in a launch of its own under ``--only dygraph``), 3 SGD steps
            held to one process on the whole batch.
+24. op_corpus  (run after bert) the ops of ROADMAP A16's first part:
+           every op type the slice ported (the math, tensor and optimizer
+           ops, ``conv2d_transpose``, ``group_norm``, ...) run through its
+           registered lowering on CUDA tensors against the same lowering
+           on CPU tensors of the same inputs, forward and (where it has
+           one) its gradient through the op's vjp: fp32 within 1e-5 of
+           the largest value, integer and boolean outputs exactly, the
+           random ops by shape, dtype and range; BERT-base's classifier
+           under ``fluid.optimizer.Lamb`` (``testing/bert_lamb.py``) at
+           seq 384 and batch 24, fp32: 3 steps at dropout 0 whose updates
+           of every layer's Q/K/V weight, a LayerNorm scale and the
+           classifier weight equal a float64 numpy Lamb of the fetched
+           gradients (1e-5), 12 launches of each training kernel a step,
+           no generic replay, then 20 steps at dropout 0.1 whose loss
+           falls (the main path), the step p50 and peak memory beside
+           the bert phase's Adam step; then the other optimizers, 2 steps
+           each on BERT at 2 layers and full width (seq 128, batch 8),
+           every parameter and accumulator against the same program on
+           the CPU (1e-5 relative norm).
 
 The kernels phase also checks and times the general-bias
 instantiations at the train shape with dropout 0.1, for the per-head
@@ -4773,6 +4794,692 @@ def bert_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the op corpus (ROADMAP A16, first part): every op the slice
+# ported, on the card against the same lowering on the CPU; BERT-base
+# under Lamb at full width through the Executor; the other optimizers
+# on BERT at 2 layers against the CPU
+# ---------------------------------------------------------------------------
+OC_BATCH = 24                  # BERT-base, seq 384, as the bert phase
+OC_CHECK_STEPS = 3             # dropout 0: each update against numpy
+OC_STEPS = 20                  # dropout 0.1: the loss must fall
+OC_LR = 1e-3                   # Lamb's trust ratio scales it by |p|/|r|
+OC_WD = 0.01
+OC_LEARN_MARGIN = 0.05
+OC_TIMED_ADAM = 6              # --only: the Adam step timed in-phase
+OC_OP_RTOL = 1e-5              # card vs CPU, fp32, TF32 off
+OC_UPDATE_RTOL = 1e-5
+OC_OPT_RTOL = 1e-5             # a run's whole state, card vs CPU
+OC_OPT_TENSOR_RTOL = 1e-4      # each tensor of it (see op_corpus_optimizers)
+OC_DGC_BOUNDARY = 5e-3         # DGC entries sent on one device only
+OC_SMALL = dict(num_layers=2)  # the other optimizers: 2 layers, full width
+OC_SMALL_SEQ, OC_SMALL_BATCH = 128, 8
+OC_SAMPLE = tuple("layer_%d_att_%s.w_0" % (i, t) for i in range(12)
+                  for t in "qkv") + ("layer_5_ln1.w_0", "cls.w_0")
+
+
+def _oc_u(rs, shape, lo=-1.0, hi=1.0):
+    return rs.uniform(lo, hi, shape).astype(np.float32)
+
+
+def op_corpus_specs():
+    """{case: (op type, inputs {slot: [array]}, output slots {slot: n},
+    attrs, input slots to differentiate, the output the cotangent
+    meets, kind)} for every op type this slice ported: ``kind`` is
+    "float" (1e-5 relative), "exact" or "random" (shape, dtype, range)."""
+    rs = np.random.default_rng(24)
+    u = lambda *s, lo=-1.0, hi=1.0: _oc_u(rs, s, lo, hi)  # noqa: E731
+    X = u(256, 512, lo=-2.0, hi=2.0)
+    pos = u(256, 512, lo=0.1, hi=0.9)
+    specs = {}
+
+    def add(name, op_type, ins, outs, attrs=None, grad=None, cot=None,
+            kind="float"):
+        specs[name] = (op_type, {k: v if isinstance(v, list) else [v]
+                                 for k, v in ins.items()}, outs,
+                       attrs or {}, grad or (), cot, kind)
+
+    for a in ("abs", "atan", "brelu", "elu", "erf", "hard_shrink",
+              "hard_sigmoid", "hard_swish", "leaky_relu", "logsigmoid",
+              "relu6", "round", "sin", "soft_relu", "softplus", "softshrink",
+              "softsign", "stanh", "swish", "tanh_shrink",
+              "thresholded_relu"):
+        add(a, a, {"X": X}, {"Out": 1}, grad=("X",), cot="Out")
+    for a in ("acos", "asin", "log", "reciprocal", "rsqrt"):
+        add(a, a, {"X": pos}, {"Out": 1}, grad=("X",), cot="Out")
+    add("prelu", "prelu", {"X": u(8, 16, 12, 12), "Alpha": u(1, 16, 1, 1,
+                                                               lo=0.1,
+                                                               hi=0.5)},
+        {"Out": 1}, {"mode": "channel"}, ("X", "Alpha"), "Out")
+    for r in ("reduce_max", "reduce_min", "reduce_prod"):
+        add(r, r, {"X": u(64, 32, 16, lo=0.5, hi=1.5)}, {"Out": 1},
+            {"dim": [1, 2]}, ("X",), "Out")
+    add("reduce_all", "reduce_all", {"X": u(64, 32) > -0.9}, {"Out": 1},
+        {"dim": [1]}, kind="exact")
+    add("reduce_any", "reduce_any", {"X": u(64, 32) > 0.9}, {"Out": 1},
+        {"reduce_all": True}, kind="exact")
+    add("frobenius_norm", "frobenius_norm", {"X": X}, {"Out": 1},
+        grad=("X",), cot="Out")
+    add("clip_by_norm", "clip_by_norm", {"X": X}, {"Out": 1},
+        {"max_norm": 10.0}, ("X",), "Out")
+    add("l2_normalize", "l2_normalize", {"X": X}, {"Out": 1, "Norm": 1},
+        {"axis": 1, "epsilon": 1e-10}, ("X",), "Out")
+    add("bmm", "bmm", {"X": u(16, 64, 48), "Y": u(16, 48, 32)}, {"Out": 1},
+        grad=("X", "Y"), cot="Out")
+    add("dot", "dot", {"X": X, "Y": u(256, 512)}, {"Out": 1},
+        grad=("X", "Y"), cot="Out")
+    add("bilinear_tensor_product", "bilinear_tensor_product",
+        {"X": u(64, 32), "Y": u(64, 24), "Weight": u(16, 32, 24),
+         "Bias": u(1, 16)}, {"Out": 1},
+        grad=("X", "Y", "Weight", "Bias"), cot="Out")
+    add("fsp", "fsp", {"X": u(8, 16, 12, 12), "Y": u(8, 24, 12, 12)},
+        {"Out": 1}, grad=("X", "Y"), cot="Out")
+    add("cos_sim", "cos_sim", {"X": X, "Y": u(256, 512)},
+        {"Out": 1, "XNorm": 1, "YNorm": 1}, grad=("X", "Y"), cot="Out")
+    add("squared_l2_distance", "squared_l2_distance",
+        {"X": X, "Y": u(256, 512)}, {"Out": 1, "sub_result": 1},
+        grad=("X", "Y"), cot="Out")
+    add("sigmoid_cross_entropy_with_logits",
+        "sigmoid_cross_entropy_with_logits",
+        {"X": X, "Label": (u(256, 512) > 0).astype(np.float32)},
+        {"Out": 1}, {"normalize": True}, ("X",), "Out")
+    add("huber_loss", "huber_loss", {"X": u(256, 1, lo=-3, hi=3),
+                                     "Y": u(256, 1)},
+        {"Out": 1, "Residual": 1}, {"delta": 1.0}, ("X", "Y"), "Out")
+    add("smooth_l1_loss", "smooth_l1_loss", {"X": u(256, 8, lo=-3, hi=3),
+                                             "Y": u(256, 8)},
+        {"Out": 1, "Diff": 1}, {"sigma": 1.0}, ("X", "Y"), "Out")
+    add("maximum", "maximum", {"X": X, "Y": u(256, 512)}, {"Out": 1},
+        grad=("X", "Y"), cot="Out")
+    add("sign", "sign", {"X": X}, {"Out": 1})
+    add("maxout", "maxout", {"X": u(8, 16, 12, 12)}, {"Out": 1},
+        {"groups": 2}, ("X",), "Out")
+    add("unfold", "unfold", {"X": u(8, 16, 12, 12)}, {"Y": 1},
+        {"kernel_sizes": [3, 3], "strides": [2, 2],
+         "paddings": [1, 1, 1, 1], "dilations": [1, 1]}, ("X",), "Y")
+    add("add_position_encoding", "add_position_encoding",
+        {"X": u(8, 128, 64)}, {"Out": 1}, {"alpha": 1.0, "beta": 1.0},
+        ("X",), "Out")
+    add("similarity_focus", "similarity_focus", {"X": u(4, 3, 16, 20)},
+        {"Out": 1}, {"axis": 1, "indexes": [0, 2]}, kind="exact")
+    add("sampling_id", "sampling_id", {"X": np.full((512, 10), 0.1,
+                                                    np.float32)},
+        {"Out": 1}, kind="random")
+    add("uniform_random_batch_size_like", "uniform_random_batch_size_like",
+        {"Input": X}, {"Out": 1}, {"shape": [-1, 64], "min": -2.0,
+                                   "max": 3.0, "dtype": 5}, kind="random")
+    # tensor_ops.py
+    add("reshape", "reshape", {"X": X}, {"Out": 1}, {"shape": [512, 256]},
+        ("X",), "Out")
+    add("transpose", "transpose", {"X": X}, {"Out": 1}, {"axis": [1, 0]},
+        ("X",), "Out")
+    add("squeeze", "squeeze", {"X": u(256, 1, 512)}, {"Out": 1},
+        {"axes": [1]}, ("X",), "Out")
+    add("unsqueeze", "unsqueeze", {"X": X}, {"Out": 1}, {"axes": [1]},
+        ("X",), "Out")
+    for f in ("flatten", "flatten2"):
+        add(f, f, {"X": u(8, 16, 12, 12)}, {"Out": 1}, {"axis": 2},
+            ("X",), "Out")
+    add("range", "range", {"Start": np.array([1.0], np.float32),
+                           "End": np.array([700.5], np.float32),
+                           "Step": np.array([0.5], np.float32)},
+        {"Out": 1})
+    add("fill_zeros_like", "fill_zeros_like", {"X": X}, {"Out": 1},
+        kind="exact")
+    add("fill_any_like", "fill_any_like", {"X": X}, {"Out": 1},
+        {"value": 2.5, "dtype": -1}, kind="exact")
+    add("fill", "fill", {}, {"Out": 1}, {"shape": [2, 3], "dtype": 5,
+                                         "value": [1, 2, 3, 4, 5, 6.5]},
+        kind="exact")
+    add("fill_zeros_like2", "fill_zeros_like2", {"X": X}, {"Out": 1},
+        {"dtype": 5}, kind="exact")
+    add("linspace", "linspace", {"Start": np.array([-1.0], np.float32),
+                                 "Stop": np.array([2.0], np.float32),
+                                 "Num": np.array([1000], np.int32)},
+        {"Out": 1})
+    add("diag", "diag", {"Diagonal": u(300)}, {"Out": 1}, kind="exact")
+    add("eye", "eye", {}, {"Out": 1}, {"num_rows": 300, "num_columns": 200,
+                                       "dtype": 5}, kind="exact")
+    add("gaussian_random_batch_size_like", "gaussian_random_batch_size_like",
+        {"Input": X}, {"Out": 1}, {"shape": [-1, 64], "mean": 1.0,
+                                   "std": 2.0, "dtype": 5}, kind="random")
+    add("share_data", "share_data", {"X": X}, {"Out": 1}, grad=("X",),
+        cot="Out")
+    add("shape", "shape", {"Input": X}, {"Out": 1}, kind="exact")
+    add("size", "size", {"Input": X}, {"Out": 1}, kind="exact")
+    ties = np.round(u(256, 512) * 4) / 4
+    add("arg_max", "arg_max", {"X": ties}, {"Out": 1}, {"axis": 1},
+        kind="exact")
+    add("arg_min", "arg_min", {"X": ties}, {"Out": 1}, {"axis": 0},
+        kind="exact")
+    add("argsort", "argsort", {"X": ties}, {"Out": 1, "Indices": 1},
+        {"axis": 1}, kind="exact")
+    add("where_index", "where_index", {"Condition": u(64, 48) > 0.3},
+        {"Out": 1}, kind="exact")
+    add("isinf", "isinf", {"X": X}, {"Out": 1}, kind="exact")
+    add("isnan", "isnan", {"X": np.where(X > 1.9, np.nan, X).astype(
+        np.float32)}, {"Out": 1}, kind="exact")
+    add("stack", "stack", {"X": [X, u(256, 512), u(256, 512)]}, {"Y": 1},
+        {"axis": 1}, ("X",), "Y")
+    add("unstack", "unstack", {"X": u(3, 256, 512)}, {"Y": 3},
+        {"axis": 0, "num": 3}, ("X",), "Y")
+    add("scatter", "scatter", {"X": X, "Ids": np.arange(0, 256, 3),
+                               "Updates": u(86, 512)}, {"Out": 1},
+        {"overwrite": False}, ("X", "Updates"), "Out")
+    add("pad", "pad", {"X": X}, {"Out": 1},
+        {"paddings": [1, 2, 3, 0], "pad_value": 0.5}, ("X",), "Out")
+    add("pad2d", "pad2d", {"X": u(8, 16, 12, 12)}, {"Out": 1},
+        {"paddings": [1, 2, 0, 1], "mode": "reflect"}, ("X",), "Out")
+    add("reverse", "reverse", {"X": X}, {"Out": 1}, {"axis": [0, 1]},
+        ("X",), "Out")
+    add("lookup_table_v2", "lookup_table_v2",
+        {"W": u(1000, 64), "Ids": rs.integers(0, 1000, (32, 20))},
+        {"Out": 1}, {"padding_idx": 3}, ("W",), "Out")
+    add("one_hot_v2", "one_hot_v2",
+        {"X": rs.integers(0, 12, (32, 20, 1))}, {"Out": 1},
+        {"depth": 10}, kind="exact")
+    add("random_crop", "random_crop", {"X": u(8, 3, 32, 32)}, {"Out": 1},
+        {"shape": [24, 24]}, kind="random")
+    add("tensor_array_to_tensor", "tensor_array_to_tensor",
+        {"X": u(6, 32, 64)}, {"Out": 1, "OutIndex": 1}, {"axis": 1})
+    # nn_ops.py
+    add("conv2d_transpose", "conv2d_transpose",
+        {"Input": u(8, 16, 14, 14), "Filter": u(16, 8, 3, 3, lo=-0.3,
+                                                 hi=0.3)},
+        {"Output": 1}, {"strides": [2, 2], "paddings": [1, 1],
+                        "dilations": [1, 1], "groups": 2},
+        ("Input", "Filter"), "Output")
+    add("depthwise_conv2d_transpose", "depthwise_conv2d_transpose",
+        {"Input": u(8, 16, 14, 14), "Filter": u(16, 1, 3, 3, lo=-0.3,
+                                                 hi=0.3)},
+        {"Output": 1}, {"strides": [2, 2], "paddings": [0, 0],
+                        "dilations": [2, 2]}, ("Input", "Filter"),
+        "Output")
+    add("group_norm", "group_norm", {"X": u(8, 16, 12, 12),
+                                     "Scale": u(16, lo=0.5, hi=1.5),
+                                     "Bias": u(16)},
+        {"Y": 1, "Mean": 1, "Variance": 1}, {"groups": 4, "epsilon": 1e-5},
+        ("X", "Scale", "Bias"), "Y")
+    # optimizer_ops.py (in place: the outputs name the inputs)
+    p, g = u(512, 256), u(512, 256)
+    lr = np.array([0.01], np.float32)
+    ppos = lambda: u(512, 256, lo=0.1, hi=1.0)  # noqa: E731
+    b = lambda v: np.array([v], np.float32)  # noqa: E731
+    upd = {
+        "lars_momentum": ({"Velocity": u(512, 256)},
+                          {"mu": 0.9, "lars_coeff": 0.001,
+                           "lars_weight_decay": 0.0005}),
+        "adamax": ({"Moment": u(512, 256), "InfNorm": ppos(),
+                    "Beta1Pow": b(0.81)}, {}),
+        "decayed_adagrad": ({"Moment": ppos()}, {"decay": 0.9}),
+        "rmsprop": ({"MeanSquare": ppos(), "Moment": u(512, 256),
+                     "MeanGrad": u(512, 256, lo=-0.1, hi=0.1)},
+                    {"momentum": 0.5, "centered": True}),
+        "adadelta": ({"AvgSquaredGrad": ppos(), "AvgSquaredUpdate": ppos()},
+                     {}),
+        "ftrl": ({"SquaredAccumulator": ppos(),
+                  "LinearAccumulator": u(512, 256)},
+                 {"l1": 0.01, "l2": 0.02}),
+        "lamb": ({"Moment1": u(512, 256), "Moment2": ppos(),
+                  "Beta1Pow": b(0.9), "Beta2Pow": b(0.999)},
+                 {"weight_decay": 0.01}),
+        "dpsgd": ({}, {"clip": 0.5, "batch_size": 4.0, "sigma": 0.0}),
+        "dgc_momentum": ({"Velocity": u(512, 256), "U": u(512, 256),
+                          "V": u(512, 256), "CurrentStep": b(3.0)},
+                         {"mu": 0.9, "sparsity_ratio": 0.99,
+                          "rampup_begin_step": 2.0}),
+        "lookahead_update": ({"SlowParam": u(512, 256),
+                              "Step": np.array([10], np.int64)},
+                             {"alpha": 0.3, "k": 5}),
+    }
+    for op_type, (state, attrs) in upd.items():
+        ins = {"Param": p}
+        if op_type != "lookahead_update":
+            ins["Grad"] = g
+        if op_type not in ("adadelta", "lookahead_update"):
+            ins["LearningRate"] = lr
+        ins.update(state)
+        add(op_type, op_type, ins, {"inplace": 1}, attrs)
+    return specs
+
+
+_OC_INPLACE = {"ParamOut": "Param", "VelocityOut": "Velocity",
+               "MomentOut": "Moment", "InfNormOut": "InfNorm",
+               "MeanSquareOut": "MeanSquare", "MeanGradOut": "MeanGrad",
+               "AvgSquaredGradOut": "AvgSquaredGrad",
+               "AvgSquaredUpdateOut": "AvgSquaredUpdate",
+               "SquaredAccumOut": "SquaredAccumulator",
+               "LinearAccumOut": "LinearAccumulator",
+               "Moment1Out": "Moment1", "Moment2Out": "Moment2",
+               "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow",
+               "UOut": "U", "VOut": "V", "SlowParamOut": "SlowParam"}
+
+
+def op_corpus_run(spec, device, cot=None):
+    """One op's lowering on ``device`` (an op of the registry, run as the
+    Executor runs it): {output name: numpy} and, with ``cot`` (the
+    cotangent of the spec's output), {input name: gradient} through the
+    op's vjp (``registry.capture_vjp``: its rule, or the autograd tape)."""
+    from paddle_tpu_torch.fluid.ops import registry
+
+    op_type, ins, outs, attrs, grad, cot_slot, _kind = spec
+    inputs = {s: ["%s_%d" % (s, i) for i in range(len(v))]
+              for s, v in ins.items()}
+    env = {n: torch.from_numpy(np.array(a)).to(device)
+           for s, v in ins.items() for n, a in zip(inputs[s], v)}
+    if "inplace" in outs:
+        outputs = {o: inputs[i] for o, i in _OC_INPLACE.items()
+                   if i in inputs and not (op_type == "adamax"
+                                           and i == "Beta1Pow")}
+    else:
+        outputs = {s: ["%s_out_%d" % (s, i) for i in range(n)]
+                   for s, n in outs.items()}
+    op_ = registry._FakeOp(op_type, inputs, outputs, dict(attrs))
+    rng = (torch.Generator(device=device).manual_seed(7),
+           torch.Generator().manual_seed(7))
+    ctx = registry.LowerCtx(env=env, device=device, rng=rng)
+    grads = {}
+    if cot is None:
+        registry.run_op(ctx, op_)
+    else:
+        wrt = [(n, n + "@GRAD", s) for s in grad for n in inputs[s]]
+        vjp_fn, values = registry.capture_vjp(ctx, op_, wrt,
+                                              [outputs[cot_slot][0]])
+        env.update(values)
+        got = vjp_fn((torch.from_numpy(cot).to(device),))
+        grads = {n: g.detach().cpu().numpy() for (n, _g, _s), g in
+                 zip(wrt, got)}
+    names = sorted({n for v in outputs.values() for n in v})
+    return {n: env[n].detach().cpu().numpy() for n in names}, grads
+
+
+def _oc_rel(got, want):
+    """max |got − want| over max |want| (1 where want is all zero)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    scale = float(np.abs(want).max()) if want.size else 1.0
+    return float(np.abs(got - want).max() / (scale or 1.0)) \
+        if want.size else 0.0
+
+
+def op_corpus_ops(dev):
+    """Part 1: every op type of the slice on the card against the same
+    lowering on the CPU, forward and (where it has one) its gradient."""
+    from paddle_tpu_torch.fluid.ops import registry
+
+    specs = op_corpus_specs()
+    worst, failures, types = {}, [], set()
+    cpu_dev = torch.device("cpu")
+    for name, spec in specs.items():
+        op_type, _ins, _outs, _attrs, grad, cot_slot, kind = spec
+        types.add(op_type)
+        cot = None
+        if grad and registry.get_op_def(op_type).grad_maker is not None:
+            want = op_corpus_run(spec, cpu_dev)[0]
+            cot = np.random.default_rng(3).standard_normal(want[sorted(
+                n for n in want if n.startswith(cot_slot))[0]].shape).astype(
+                    np.float32)
+        card, gc = op_corpus_run(spec, dev, cot)
+        cpu, gp = op_corpus_run(spec, cpu_dev, cot)
+        errs = [_oc_rel(gc[n], gp[n]) for n in gp]
+        for n, want in cpu.items():
+            got = card[n]
+            if kind == "random":
+                ok = got.shape == want.shape and got.dtype == want.dtype
+                if op_type == "sampling_id":
+                    ok = ok and got.min() >= 0 and got.max() < 10
+                elif op_type == "uniform_random_batch_size_like":
+                    ok = ok and got.min() >= -2.0 and got.max() < 3.0
+                elif op_type == "gaussian_random_batch_size_like":
+                    ok = ok and abs(got.mean() - 1.0) < 0.1 and abs(
+                        got.std() - 2.0) < 0.1
+                else:
+                    ok = ok and np.isin(got, spec[1]["X"][0]).all()
+                errs.append(0.0 if ok else float("inf"))
+            elif kind == "exact" or want.dtype.kind in "biu":
+                errs.append(0.0 if got.dtype == want.dtype and np.array_equal(
+                    got, want, equal_nan=want.dtype.kind == "f")
+                    else float("inf"))
+            else:
+                errs.append(_oc_rel(got, want))
+        worst[name] = max(errs) if errs else 0.0
+        if worst[name] > OC_OP_RTOL:
+            failures.append((name, worst[name]))
+    if failures:
+        raise AssertionError("op corpus: card vs CPU beyond %g: %r"
+                             % (OC_OP_RTOL, failures))
+    return {"op_types": len(types), "cases": len(specs),
+            "max_rel": max(worst.values()),
+            "worst_case": max(worst, key=worst.get), "rtol": OC_OP_RTOL}
+
+
+def lamb_program(cfg, seq, arrays=None, lr=OC_LR, device=None):
+    """BERT's classifier under Lamb (``testing.bert_lamb``), startup run
+    on the card (or ``device`` "cpu"); ``arrays`` loaded in. Returns
+    (main, loss, executor, scope)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.testing import bert_lamb
+
+    with fluid.unique_name.guard():
+        main, startup, _f, loss, _acc = bert_lamb.build_bert_classifier_lamb(
+            cfg, seq, learning_rate=lr, lamb_weight_decay=OC_WD)
+    exe = fluid.Executor(fluid.CPUPlace() if device == "cpu"
+                         else fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if arrays is not None:
+        fluid.load_program_scope(main, scope, arrays)
+    return main, loss, exe, scope
+
+
+def numpy_lamb(p, g, m1, m2, b1p, b2p, lr, wd, b1=0.9, b2=0.999, eps=1e-6):
+    """The ``lamb`` update in float64 numpy from the op's fp32 inputs
+    (the constants rounded to fp32 first, as the op's are): (p, m1, m2)
+    after the step."""
+    f = lambda v: float(np.float32(v))  # noqa: E731
+    b1, b2, eps, wd = f(b1), f(b2), f(eps), f(wd)
+    p, g, m1, m2 = (np.asarray(a, np.float64) for a in (p, g, m1, m2))
+    m1 = b1 * m1 + (1 - b1) * g
+    m2 = b2 * m2 + (1 - b2) * g * g
+    r = (m1 / (1 - b1p)) / (np.sqrt(m2 / (1 - b2p)) + eps) + wd * p
+    pn, rn = np.linalg.norm(p), np.linalg.norm(r)
+    trust = pn / rn if pn > 0 and rn > 0 else 1.0
+    return p - lr * trust * r, m1, m2
+
+
+def lamb_bert_base(dev, feed, adam=None):
+    """Part 2: BERT-base under Lamb at seq 384, batch 24, fp32."""
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.ops import registry
+    from paddle_tpu_torch.models import bert
+
+    n_layers = bert.BertConfig.base().num_layers
+    cfg0 = bert.BertConfig.base(use_flash_attention=True,
+                                hidden_dropout=0.0, attention_dropout=0.0)
+    t0 = time.perf_counter()
+    main, loss, exe, scope = lamb_program(cfg0, BERT_SEQ)
+    build_s = time.perf_counter() - t0
+    n_lamb = sum(o.type == "lamb" for o in main.global_block().ops)
+    arrays = program_arrays(main, scope)
+
+    def acc(n, a):
+        return scope.get("%s_%s_0" % (n, a)).detach().cpu().numpy().copy()
+
+    checked, launches_checked = [], []
+    for step in range(OC_CHECK_STEPS):
+        before = {n: (scope.get(n).detach().cpu().numpy().copy(),
+                      acc(n, "moment1"), acc(n, "moment2"),
+                      float(acc(n, "beta1_pow_acc")[0]),
+                      float(acc(n, "beta2_pow_acc")[0])) for n in OC_SAMPLE}
+        replays0 = profiler.get_counter(registry.REPLAY_COUNTER)
+        zero_flash_launches()
+        out = exe.run(main, feed=feed, fetch_list=[loss] + [
+            n + "@GRAD" for n in OC_SAMPLE], scope=scope)
+        launched = flash_launches()
+        launches_checked.append(launched)
+        if any(v != n_layers for v in launched.values()) or \
+                profiler.get_counter(registry.REPLAY_COUNTER) != replays0:
+            raise AssertionError("lamb bert step %d launched %r, replays"
+                                 % (step + 1, launched))
+        worst = (0.0, None)
+        for n, g in zip(OC_SAMPLE, out[1:]):
+            p, m1, m2, b1p, b2p = before[n]
+            want_p, want_m1, want_m2 = numpy_lamb(p, g, m1, m2, b1p, b2p,
+                                                  OC_LR, OC_WD)
+            got_p = scope.get(n).detach().cpu().numpy()
+            # the update, less the fp32 rounding of the new parameter
+            # (half an ulp of it a element)
+            du, dw = got_p - p, want_p - p
+            ulp = np.spacing(np.abs(want_p).astype(np.float32)) / 2
+            upd = float(np.linalg.norm(du - dw) - np.linalg.norm(ulp)) \
+                / float(np.linalg.norm(dw))
+            rel = max(upd, _oc_rel_norm(acc(n, "moment1"), want_m1),
+                      _oc_rel_norm(acc(n, "moment2"), want_m2),
+                      _oc_rel_norm(got_p, want_p))
+            if rel > worst[0]:
+                worst = (rel, n)
+        checked.append({"loss": float(out[0].reshape(-1)[0]),
+                        "max_rel": worst[0], "worst_param": worst[1]})
+        if worst[0] > OC_UPDATE_RTOL:
+            raise AssertionError("lamb bert step %d: %s off the float64 "
+                                 "Lamb by %g" % (step + 1, worst[1],
+                                                 worst[0]))
+        del out
+    del main, loss, exe, scope
+    torch.cuda.empty_cache()
+
+    # the main path: dropout 0.1, 20 Lamb steps on one fixed batch
+    cfg = bert.BertConfig.base(use_flash_attention=True)
+    main, loss, exe, scope = lamb_program(cfg, BERT_SEQ, arrays=arrays)
+    step = loss_step(exe, main, loss, feed, scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()
+    losses, ms = timed_steps(step, OC_STEPS)
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del main, loss, exe, scope, step
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not np.mean(
+            losses[-5:]) < np.mean(losses[:5]) - OC_LEARN_MARGIN:
+        raise AssertionError("lamb bert loss did not fall by %g: %r"
+                             % (OC_LEARN_MARGIN, losses))
+    for kname, n in launches.items():
+        if n != n_layers * OC_STEPS:
+            raise AssertionError("lamb bert: %s launched %d times in %d "
+                                 "steps" % (kname, n, OC_STEPS))
+    if adam is None:   # --only: the bert phase's Adam step, timed here
+        main, aloss, _acc, exe, scope = bert_program(cfg, BERT_SEQ,
+                                                     arrays=None)
+        torch.cuda.reset_peak_memory_stats()
+        _l, ams = timed_steps(loss_step(exe, main, aloss, feed, scope),
+                              OC_TIMED_ADAM)
+        adam = {"step_ms_p50": float(np.median(ams[1:])),
+                "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "from": "timed in this phase (%d steps, first left out)"
+                        % OC_TIMED_ADAM}
+        del main, aloss, exe, scope
+        torch.cuda.empty_cache()
+    lamb_p50 = float(np.median(ms[1:]))
+    return {"build_and_startup_s": build_s, "lamb_ops": n_lamb,
+            "checked_steps": checked, "launches_checked": launches_checked,
+            "update_rtol": OC_UPDATE_RTOL, "learning_rate": OC_LR,
+            "weight_decay": OC_WD,
+            "learning": {"steps": OC_STEPS, "losses": losses,
+                         "margin": OC_LEARN_MARGIN, "launches": launches,
+                         "launches_per_step": {k: v / OC_STEPS for k, v
+                                               in launches.items()}},
+            "lamb_step_ms": ms, "lamb_step_ms_p50": lamb_p50,
+            "lamb_peak_mem_mib": peak, "adam": adam,
+            "lamb_over_adam": lamb_p50 / adam["step_ms_p50"]}, launches
+
+
+def _oc_rel_norm(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(float(np.linalg.norm(want)), 1e-30))
+
+
+def _oc_optimizers(fluid):
+    o = fluid.optimizer
+    return {
+        "lars_momentum": lambda: o.LarsMomentumOptimizer(
+            0.1, 0.9, lars_coeff=0.01),
+        "adamax": lambda: o.Adamax(1e-4),
+        "dpsgd": lambda: o.Dpsgd(0.05, clip=1.0, batch_size=8.0, sigma=0.0),
+        "decayed_adagrad": lambda: o.DecayedAdagrad(1e-4),
+        "adadelta": lambda: o.Adadelta(1.0),
+        "rmsprop": lambda: o.RMSProp(1e-4, momentum=0.5),
+        "rmsprop_centered": lambda: o.RMSProp(1e-4, centered=True),
+        "ftrl": lambda: o.Ftrl(0.05, l1=1e-4, l2=1e-3),
+        "dgc": lambda: o.DGCMomentumOptimizer(0.05, 0.9,
+                                              rampup_begin_step=1,
+                                              sparsity=[0.99]),
+        "lookahead": lambda: o.LookaheadOptimizer(o.SGD(0.05), alpha=0.5,
+                                                  k=2),
+        "gradient_merge": lambda: o.GradientMergeOptimizer(o.SGD(0.05),
+                                                           k_steps=2),
+        "ema": lambda: o.SGD(0.05),
+    }
+
+
+def _oc_small_program(cfg, name, make):
+    """BERT's classifier at ``cfg`` with optimizer ``name``; -> (main,
+    startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        layers = fluid.layers
+        feeds = [layers.data(name=n, shape=[OC_SMALL_SEQ, 1], dtype="int64")
+                 for n in ("src_ids", "pos_ids", "sent_ids")]
+        feeds.append(layers.data(name="input_mask", shape=[OC_SMALL_SEQ, 1],
+                                 dtype="float32"))
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        _x, pooled = bert.bert_encoder(*feeds, cfg)
+        logits = layers.fc(input=pooled, size=2, name="cls")
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        make().minimize(loss)
+        if name == "ema":
+            fluid.optimizer.ExponentialMovingAverage(0.9).update()
+    return main, startup, loss
+
+
+def _oc_dgc_masks(card, cpu):
+    """DGC's sent entries, where the step zeroed V: {V name: (entries
+    the two devices sent differently, entries sent on the CPU)}. The
+    top-k threshold is a step function of V, so an entry at the boundary
+    can fall either side on two devices whose gradients differ by fp32
+    rounding; it then differs by its whole value in U, V and the
+    parameter."""
+    out = {}
+    for n in card:
+        if "_dgc_v_" in n:
+            a, b = card[n] == 0, cpu[n] == 0
+            out[n] = (int((a != b).sum()), int(b.sum()))
+    return out
+
+
+def op_corpus_optimizers(dev):
+    """Part 3: the other optimizers, 2 steps each on BERT at 2 layers and
+    full width (hidden 768, seq 128, batch 8), the same program run on
+    the card and on the CPU from the card's startup values: the run's
+    parameters and accumulators together within 1e-5 relative norm, each
+    tensor within 1e-4 (the gradient the steps read differs by fp32
+    rounding between the devices, and the normalizing updates carry
+    that into values they compute from nothing: zero-initialized
+    biases, FTRL's parameters). DGC (2 steps, rampup 1: a warm-up and a
+    sparse step): the entries its top-k sent on one device and not the
+    other (boundary ties, ``_oc_dgc_masks``) at most 0.5% of those sent,
+    its U and V held elsewhere. The k-projection biases and their
+    accumulators are held to 1e-5 of the whole state's norm."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(use_flash_attention=True, hidden_dropout=0.0,
+                               attention_dropout=0.0, **OC_SMALL)
+    feeds = [bert_feed(OC_SMALL_SEQ, OC_SMALL_BATCH, seed=9 + s)
+             for s in range(2)]
+    out = {}
+    for name, make in _oc_optimizers(fluid).items():
+        t0 = time.perf_counter()
+        main, startup, loss = _oc_small_program(cfg, name, make)
+        states = {}
+        for side in ("card", "cpu"):
+            place = fluid.CUDAPlace(0) if side == "card" \
+                else fluid.CPUPlace()
+            exe = fluid.Executor(place)
+            scope = fluid.Scope()
+            if side == "card":
+                exe.run(startup, scope=scope)
+                init = program_arrays(main, scope)
+            else:
+                for n, a in init.items():
+                    scope.set(n, torch.from_numpy(a))
+            with fluid.scope_guard(scope):
+                for f in feeds:
+                    exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+            states[side] = program_arrays(main, scope)
+            del exe, scope
+        card, cpu = states["card"], states["cpu"]
+        masks = _oc_dgc_masks(card, cpu)
+        agree = {v.split("_dgc_v_")[0]: (card[v] == 0) == (cpu[v] == 0)
+                 for v in masks}
+        diff2 = total2 = 0.0
+        rel, kb = {}, {}
+        for n, want in cpu.items():
+            got = card[n]
+            keep = agree.get(n.split("_dgc_")[0])
+            if keep is not None and keep.shape == want.shape:
+                got, want = got[keep], want[keep]
+            d = float(np.linalg.norm(got - want))
+            w = float(np.linalg.norm(want))
+            diff2, total2 = diff2 + d * d, total2 + w * w
+            (kb if "_att_k.b_0" in n else rel)[n] = (d, w)
+        whole = (diff2 / max(total2, 1e-60)) ** 0.5
+        # the k-projection biases' exact gradient is 0 (softmax ignores a
+        # shift shared by every key of a query), so their values, and
+        # which of their entries DGC sends, are each side's rounding:
+        # held against the whole state's norm
+        kb_share = max((d for d, _w in kb.values()), default=0.0) / max(
+            total2 ** 0.5, 1e-30)
+        rel = {n: d / max(w, 1e-30) for n, (d, w) in rel.items()}
+        worst = max(rel, key=rel.get)
+        swaps = max((a / max(b, 1) for v, (a, b) in masks.items()
+                     if "_att_k.b_0" not in v), default=0.0)
+        out[name] = {"state_rel": whole, "max_rel": rel[worst],
+                     "worst": worst, "k_bias_share": kb_share,
+                     "vars": len(card), "seconds": time.perf_counter() - t0}
+        if masks:
+            out[name]["dgc_boundary_share"] = swaps
+            out[name]["dgc_boundary_entries"] = sum(
+                a for a, _b in masks.values())
+        del main, startup, states, card, cpu, init
+        torch.cuda.empty_cache()
+    bad = {n: r for n, r in out.items()
+           if max(r["state_rel"], r["k_bias_share"]) > OC_OPT_RTOL
+           or r["max_rel"] > OC_OPT_TENSOR_RTOL
+           or r.get("dgc_boundary_share", 0.0) > OC_DGC_BOUNDARY}
+    if bad:
+        raise AssertionError("optimizers on the card vs the CPU: %s"
+                             % json.dumps(out))
+    try:
+        fluid.optimizer.ModelAverage(0.15).apply(None)
+        raise AssertionError("ModelAverage.apply did not raise")
+    except NotImplementedError:
+        out["model_average"] = "apply raises NotImplementedError, as the " \
+                               "reference's"
+    return out
+
+
+def op_corpus_phase(dev, adam=None):
+    """The op corpus: every op the slice ported on the card against the
+    CPU; BERT-base under Lamb (3 steps against float64 numpy Lamb at
+    dropout 0, 12 launches of each training kernel a step, then 20 steps
+    at dropout 0.1 that learn: the main path, launch counts zeroed just
+    before them and read just after); the other optimizers against the
+    CPU. ``adam``: the bert phase's Adam step (timed here when None)."""
+    t_phase = time.perf_counter()
+    ops = op_corpus_ops(dev)
+    t_ops = time.perf_counter() - t_phase
+    print(json.dumps({"op_corpus_ops": ops, "seconds": t_ops}),
+          file=sys.stderr, flush=True)
+    feed = bert_feed(BERT_SEQ, OC_BATCH, seed=4)
+    lamb, launches = lamb_bert_base(dev, feed, adam)
+    t_lamb = time.perf_counter() - t_phase - t_ops
+    print(json.dumps({"op_corpus_lamb": lamb, "seconds": t_lamb}),
+          file=sys.stderr, flush=True)
+    opts = op_corpus_optimizers(dev)
+    return {"phase": "op_corpus", "ops": ops, "lamb_bert_base": lamb,
+            "seq_len": BERT_SEQ, "batch": OC_BATCH, "optimizers": opts,
+            "seconds": time.perf_counter() - t_phase,
+            "seconds_by_part": {"ops": t_ops, "lamb": t_lamb,
+                                "optimizers": time.perf_counter() - t_phase
+                                - t_ops - t_lamb}}, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 18: Transformer NMT and sub-block control flow through the Executor
 # ---------------------------------------------------------------------------
 def nmt_lengths(batch, seq, seed):
@@ -8061,7 +8768,8 @@ def gpt2_small(dev):
 
 ONLY_PHASES = ("engine_features", "program_train", "inference_server",
                "gateway", "fleet", "programs", "bert", "vision", "nmt",
-               "recompute", "rnn", "train_runtime", "dp", "dygraph")
+               "recompute", "rnn", "train_runtime", "dp", "dygraph",
+               "op_corpus")
 
 
 def run_only(phases, repeat, dev, name, smi):
@@ -8101,6 +8809,8 @@ def run_only(phases, repeat, dev, name, smi):
                     line = dp_phase(dev)[0]
                 elif phase == "dygraph":
                     line = dygraph_phase(dev)[0]
+                elif phase == "op_corpus":
+                    line = op_corpus_phase(dev)[0]
                 else:
                     line = program_train_phase(dev)[0]
                 line = dict(line, run=run, ok=True)
@@ -8131,7 +8841,7 @@ def main(argv=None):
                          "(engine_features, program_train, "
                          "inference_server, gateway, fleet, programs, bert, "
                          "vision, nmt, recompute, rnn, train_runtime, dp, "
-                         "dygraph)")
+                         "dygraph, op_corpus)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="with --only: how many times to run them")
     args = ap.parse_args(argv)
@@ -8214,6 +8924,12 @@ def main(argv=None):
     bert_run, bert_launches = bert_phase(dev)
     emit(dict(bert_run, device=name, nvidia_smi=smi))
     amp_launches["bert_amp"] = bert_launches["bert_amp"]
+    oc_run, oc_launches = op_corpus_phase(dev, adam={
+        "step_ms_p50": bert_run["fp32"]["step_ms_p50"],
+        "peak_mem_mib": bert_run["fp32"]["peak_mem_mib"],
+        "from": "the bert phase"})
+    emit(dict(oc_run, device=name, nvidia_smi=smi))
+    torch.cuda.empty_cache()
     emit(dict(vision_phase(dev), device=name, nvidia_smi=smi))
     torch.cuda.empty_cache()
     nmt_run, nmt_launches = nmt_phase(dev)
@@ -8272,7 +8988,8 @@ def main(argv=None):
                 "launches": train_launches[kname] + program_launches[kname]
                 + bert_launches["bert"][kname] + nmt_launches["nmt"][kname]
                 + rc_launches["recompute_bert"][kname] + tr_launches[kname]
-                + dp_launches[kname] + dyg_launches[kname],
+                + dp_launches[kname] + dyg_launches[kname]
+                + oc_launches[kname],
                 "launches_by_path": {"train_eager": train_launches[kname],
                                      "train_program": program_launches[kname],
                                      "bert": bert_launches["bert"][kname],
@@ -8281,7 +8998,8 @@ def main(argv=None):
                                          rc_launches["recompute_bert"][kname],
                                      "train_runtime": tr_launches[kname],
                                      "dp": dp_launches[kname],
-                                     "dygraph": dyg_launches[kname]},
+                                     "dygraph": dyg_launches[kname],
+                                     "op_corpus": oc_launches[kname]},
                 "bert_form": bert_form(kname, "fp32"),
                 "nmt_form": nmt_form(kname, "fp32"),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -8379,7 +9097,7 @@ def main(argv=None):
          + nmt_launches["nmt"]["flash_fwd"]
          + rc_launches["recompute_bert"]["flash_fwd"]
          + tr_launches["flash_fwd"] + dp_launches["flash_fwd"]
-         + dyg_launches["flash_fwd"],
+         + dyg_launches["flash_fwd"] + oc_launches["flash_fwd"],
          "launches_by_path": {"engine": launches["flash_fwd"],
                               "engine_features":
                                   feature_launches["flash_fwd"],
@@ -8396,7 +9114,8 @@ def main(argv=None):
                                   rc_launches["recompute_bert"]["flash_fwd"],
                               "train_runtime": tr_launches["flash_fwd"],
                               "dp": dp_launches["flash_fwd"],
-                              "dygraph": dyg_launches["flash_fwd"]},
+                              "dygraph": dyg_launches["flash_fwd"],
+                              "op_corpus": oc_launches["flash_fwd"]},
          "max_abs_err": max(fwd_err, fwd_drop["max_abs_err"]),
          "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
          "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],

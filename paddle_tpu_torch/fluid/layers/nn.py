@@ -8,6 +8,7 @@ attention layers of the serving programs included.
 import numpy as np
 
 from .. import core
+from ..framework import Variable
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..ops.nn_ops import _pair
@@ -32,7 +33,14 @@ __all__ = [
     "sequence_expand", "sequence_expand_as", "sequence_pad",
     "sequence_unpad", "sequence_slice", "sequence_reverse", "sequence_mask",
     "sequence_enumerate", "sequence_scatter", "sequence_conv", "row_conv",
-    "im2sequence",
+    "im2sequence", "relu6", "leaky_relu", "elu", "swish", "hard_sigmoid",
+    "hard_swish", "brelu", "soft_relu", "pow", "stanh", "sign", "prelu",
+    "l2_normalize", "mul", "clip_by_norm", "reduce_max", "reduce_min",
+    "reduce_prod", "reduce_all", "reduce_any", "flatten", "stack",
+    "unstack", "scatter", "shape", "pad", "pad2d", "maxout", "unfold",
+    "cos_sim", "logical_or", "logical_xor", "adaptive_pool2d",
+    "uniform_random_batch_size_like", "gaussian_random", "sampling_id",
+    "conv2d_transpose", "group_norm",
 ]
 
 
@@ -1060,3 +1068,361 @@ def im2sequence(input, filter_size=1, stride=1, padding=0,
                      outputs={"Out": [out]},
                      attrs={"kernels": fs, "strides": st, "paddings": pd})
     return out
+
+
+# ---------------------------------------------------------------------------
+# the op corpus's layers (``nn.py``): activations with attrs, reductions,
+# products, padding and data movement, the transposed convolution and
+# group norm; each appends the reference's op, slots and attrs
+# ---------------------------------------------------------------------------
+def _unary_attr_layer(op_type, x, attrs, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _unary_attr_layer("relu6", x, {"threshold": threshold}, name)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary_attr_layer("leaky_relu", x, {"alpha": alpha}, name)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _unary_attr_layer("elu", x, {"alpha": alpha}, name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary_attr_layer("swish", x, {"beta": beta}, name)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _unary_attr_layer("hard_sigmoid", x,
+                             {"slope": slope, "offset": offset}, name)
+
+
+def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
+    return _unary_attr_layer(
+        "hard_swish", x,
+        {"threshold": threshold, "scale": scale, "offset": offset}, name)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _unary_attr_layer("brelu", x, {"t_min": t_min, "t_max": t_max},
+                             name)
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _unary_attr_layer("soft_relu", x, {"threshold": threshold}, name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _unary_attr_layer("pow", x, {"factor": factor}, name)
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _unary_attr_layer("stanh", x,
+                             {"scale_a": scale_a, "scale_b": scale_b}, name)
+
+
+def sign(x):
+    return _unary_attr_layer("sign", x, {})
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """max(x, 0) + α·min(x, 0) with a learnable α (``nn.py:671``): one
+    (``all``), one a channel (``channel``) or one an element of x's
+    trailing dims (``element``), created at 0.25."""
+    helper = LayerHelper("prelu", **locals())
+    alpha_shape = [1]
+    if mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1]
+    elif mode == "element":
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype="float32",
+        is_bias=False, default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim, name)
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [x_shape]},
+                     attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    if isinstance(x, Variable):
+        x = [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(dtype=x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def shape(input):
+    """Input's shape as an int32 [rank] tensor (``nn.py:1026``)."""
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(
+        dtype=core.VarDesc.VarType.INT32)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value),
+                            "data_format": data_format})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="maxout", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"groups": groups})
+    return out
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    helper = LayerHelper("unfold", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="unfold", inputs={"X": [x]}, outputs={"Y": [out]},
+        attrs={"kernel_sizes": _pair(kernel_sizes),
+               "strides": _pair(strides),
+               "paddings": list(paddings if isinstance(paddings, (list, tuple))
+                                else [paddings] * 4),
+               "dilations": _pair(dilations)})
+    return out
+
+
+def cos_sim(X, Y):
+    """The rows' cosine similarity (``nn.py:1555``)."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(dtype=X.dtype)
+    xnorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    ynorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical("logical_or", x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical("logical_xor", x, y, out, name)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """``pool2d`` with ``adaptive`` set (``nn.py:358``)."""
+    helper = LayerHelper("adaptive_pool2d", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(type="pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair(pool_size), "adaptive": True})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like", **locals())
+    dt = core.np_to_dtype(np.dtype(dtype))
+    out = helper.create_variable_for_type_inference(dt)
+    helper.append_op(
+        type="uniform_random_batch_size_like", inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx, "min": min, "max": max,
+               "seed": seed, "dtype": dt})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    dt = core.np_to_dtype(np.dtype(dtype))
+    out = helper.create_variable_for_type_inference(dt)
+    helper.append_op(type="gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": mean, "std": std,
+                            "seed": seed, "dtype": dt})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64)
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"min": min, "max": max, "seed": seed})
+    return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """The transposed 2-D convolution (``nn.py:272``): Filter
+    [C_in, num_filters/groups, kh, kw]; ``output_size`` without
+    ``filter_size`` sets the filter size that gives it."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("filter_size or output_size must be set")
+        output_size = _pair(output_size)
+        filter_size = [
+            output_size[0] - (input.shape[2] - 1) * stride[0]
+            + 2 * padding[0],
+            output_size[1] - (input.shape[3] - 1) * stride[1]
+            + 2 * padding[1],
+        ]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_channels, num_filters // groups] + filter_size,
+        dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """Group normalization (``nn.py:495``): scale created at 1 and bias
+    at 0, one a channel (either omitted with ``False``)."""
+    helper = LayerHelper("group_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=[channels], dtype=dtype,
+            default_initializer=Constant(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[channels], dtype=dtype,
+            is_bias=True)]
+    mean_out = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    variance_out = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean_out],
+                              "Variance": [variance_out]},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(out)

@@ -1,5 +1,5 @@
-"""Tensor-creation layers the GPT train program uses (port of the
-matching functions of ``paddle_tpu/fluid/layers/tensor.py``)."""
+"""Tensor-creation layers (port of
+``paddle_tpu/fluid/layers/tensor.py``)."""
 
 import numpy as np
 
@@ -7,9 +7,17 @@ from .. import core
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "sums", "assign", "fill_constant",
-           "fill_constant_batch_size_like", "isfinite"]
+__all__ = ["create_tensor", "create_parameter", "create_global_var",
+           "cast", "concat", "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "ones", "zeros", "ones_like",
+           "zeros_like", "reverse", "has_inf", "has_nan", "isfinite",
+           "range", "linspace", "argmin", "argmax", "argsort", "diag"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(
@@ -137,4 +145,124 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
                "output_dim_idx": output_dim_idx},
     )
     out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0,
+                         force_cpu=force_cpu)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0,
+                         force_cpu=force_cpu)
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"value": 1.0, "dtype": -1})
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="reverse", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"axis": axis if isinstance(axis, (list, tuple)) else [axis]})
+    return out
+
+
+def has_inf(x):
+    helper = LayerHelper("isinf")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="isinf", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def has_nan(x):
+    helper = LayerHelper("isnan")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="isnan", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def range(start, end, step, dtype):
+    """[start, end) by step; a number becomes a ``fill_constant`` [1]."""
+    helper = LayerHelper("range")
+    if not isinstance(start, Variable):
+        start = fill_constant([1], dtype, start)
+    if not isinstance(end, Variable):
+        end = fill_constant([1], dtype, end)
+    if not isinstance(step, Variable):
+        step = fill_constant([1], dtype, step)
+    out = helper.create_variable_for_type_inference(dtype=start.dtype)
+    helper.append_op(type="range",
+                     inputs={"Start": [start], "End": [end], "Step": [step]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def linspace(start, stop, num, dtype):
+    helper = LayerHelper("linspace")
+    if not isinstance(start, Variable):
+        start = fill_constant([1], dtype, start)
+    if not isinstance(stop, Variable):
+        stop = fill_constant([1], dtype, stop)
+    if not isinstance(num, Variable):
+        num = fill_constant([1], "int32", num)
+    out = helper.create_variable_for_type_inference(dtype=start.dtype)
+    helper.append_op(type="linspace",
+                     inputs={"Start": [start], "Stop": [stop], "Num": [num]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64)
+    helper.append_op(type="arg_min", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64)
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argsort(x, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ids = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64)
+    helper.append_op(type="argsort", inputs={"X": [x]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def diag(diagonal):
+    helper = LayerHelper("diag")
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    helper.append_op(type="diag", inputs={"Diagonal": [diagonal]},
+                     outputs={"Out": [out]})
     return out

@@ -1,13 +1,14 @@
-"""Math ops the GPT, BERT and vision paths rely on (port of the matching
-lowerings in ``paddle_tpu/fluid/ops/math_ops.py``): plain functions on
-tensors, which the eager models call, and the registered op lowerings
-the Executor runs (elementwise with Fluid's axis broadcast, ``mul``,
-``matmul``, reductions, ``softmax``, ``softmax_with_cross_entropy`` with
-its grad, ``layer_norm``, ``label_smooth``, and the ``gelu``, ``relu``,
-``tanh`` and ``sqrt`` activations with the unary ops the learning-rate
-schedules build: ``floor``, ``ceil``, ``exp``, ``cos`` and ``pow``).
-These stay PyTorch calls; what matters is that they mean what the
-reference's ops mean."""
+"""Math ops (port of ``paddle_tpu/fluid/ops/math_ops.py``): plain
+functions on tensors, which the eager models call, and the registered
+op lowerings the Executor runs: elementwise with Fluid's axis broadcast,
+``mul``, ``matmul``, ``bmm``, ``dot``, the reductions, the activation
+table (``_ACTIVATIONS``, one registrar as the reference's), ``prelu``,
+``softmax`` and the cross-entropy losses with their grads,
+``layer_norm``, the norms and clips, the products
+(``bilinear_tensor_product``, ``fsp``, ``cos_sim``,
+``squared_l2_distance``), the regression losses, ``label_smooth`` and
+the rest of the reference's module. These stay PyTorch calls; what
+matters is that they mean what the reference's ops mean."""
 
 import math
 
@@ -251,7 +252,7 @@ def _reduce_infer(op_, block):
     set_out(op_, block, "Out", shape, v.dtype)
 
 
-def _register_reduce(name, fn):
+def _register_reduce(name, fn, grad="generic"):
     def lower(ctx, op_, _fn=fn):
         x = ctx.in1(op_, "X")
         if op_.attr("reduce_all", False):
@@ -264,12 +265,26 @@ def _register_reduce(name, fn):
             out = out.reshape((1,))
         ctx.out(op_, "Out", out)
 
-    register_op(name, infer_shape=_reduce_infer, lower=lower, grad="generic")
+    register_op(name, infer_shape=_reduce_infer, lower=lower, grad=grad)
+
+
+def _prod(x, axes, keep):
+    """The product over ``axes`` (``torch.prod`` takes one dim a call)."""
+    for a in sorted(axes, reverse=True):
+        x = torch.prod(x, dim=a, keepdim=keep)
+    return x
 
 
 _register_reduce("reduce_sum", lambda x, a, k: torch.sum(x, dim=a, keepdim=k))
 _register_reduce("reduce_mean",
                  lambda x, a, k: torch.mean(x, dim=a, keepdim=k))
+_register_reduce("reduce_max", lambda x, a, k: torch.amax(x, dim=a, keepdim=k))
+_register_reduce("reduce_min", lambda x, a, k: torch.amin(x, dim=a, keepdim=k))
+_register_reduce("reduce_prod", _prod)
+_register_reduce("reduce_all", lambda x, a, k: torch.all(x, dim=a, keepdim=k),
+                 grad=None)
+_register_reduce("reduce_any", lambda x, a, k: torch.any(x, dim=a, keepdim=k),
+                 grad=None)
 
 
 @op("mean", grad="generic")
@@ -323,26 +338,90 @@ register_op("tanh", infer_shape=same_shape_infer("X"),
             vjp=_tanh_vjp)
 
 
-@op("sqrt", infer_shape=same_shape_infer("X"), grad="generic")
-def _sqrt(ctx, op_):
-    ctx.out(op_, "Out", torch.sqrt(ctx.in1(op_, "X")))
-
-
-def _register_unary(name, fn):
-    """An activation-table op of the reference (``math_ops.py:52-91``):
-    ``Out = fn(X, op)``, grad through the generic vjp."""
+# ---------------------------------------------------------------------------
+# the activation table (``math_ops.py:52-106``): Out = fn(X, op), each
+# attr read with the reference's default; relu, tanh and gelu above keep
+# their hand-written pullbacks
+# ---------------------------------------------------------------------------
+def _register_activation(name, fn, grad=True):
     def lower(ctx, op_, _fn=fn):
         ctx.out(op_, "Out", _fn(ctx.in1(op_, "X"), op_))
 
     register_op(name, infer_shape=same_shape_infer("X"), lower=lower,
-                grad="generic")
+                grad="generic" if grad else None)
 
 
-_register_unary("floor", lambda x, op_: torch.floor(x))
-_register_unary("ceil", lambda x, op_: torch.ceil(x))
-_register_unary("exp", lambda x, op_: torch.exp(x))
-_register_unary("cos", lambda x, op_: torch.cos(x))
-_register_unary("square", lambda x, op_: x * x)
+def _f(a, name, default):
+    return float(a.attr(name, default))
+
+
+def _soft_relu(x, a):
+    t = _f(a, "threshold", 40.0)
+    return torch.log(1.0 + torch.exp(torch.clamp(x, -t, t)))
+
+
+_ACTIVATIONS = {
+    "sigmoid": lambda x, a: torch.sigmoid(x),
+    "logsigmoid": lambda x, a: F.logsigmoid(x),
+    "tanh_shrink": lambda x, a: x - torch.tanh(x),
+    "sqrt": lambda x, a: torch.sqrt(x),
+    "rsqrt": lambda x, a: 1.0 / torch.sqrt(x),
+    "abs": lambda x, a: torch.abs(x),
+    "ceil": lambda x, a: torch.ceil(x),
+    "floor": lambda x, a: torch.floor(x),
+    "round": lambda x, a: torch.round(x),
+    "cos": lambda x, a: torch.cos(x),
+    "sin": lambda x, a: torch.sin(x),
+    "acos": lambda x, a: torch.acos(x),
+    "asin": lambda x, a: torch.asin(x),
+    "atan": lambda x, a: torch.atan(x),
+    "reciprocal": lambda x, a: 1.0 / x,
+    "square": lambda x, a: x * x,
+    "exp": lambda x, a: torch.exp(x),
+    "log": lambda x, a: torch.log(x),
+    "softplus": lambda x, a: torch.logaddexp(x, torch.zeros_like(x)),
+    "softsign": lambda x, a: x / (1.0 + torch.abs(x)),
+    "softshrink": lambda x, a: F.softshrink(x, _f(a, "lambda", 0.5)),
+    "hard_shrink": lambda x, a: F.hardshrink(x, _f(a, "threshold", 0.5)),
+    "hard_sigmoid": lambda x, a: torch.clamp(
+        _f(a, "slope", 0.2) * x + _f(a, "offset", 0.5), 0.0, 1.0),
+    "hard_swish": lambda x, a: x * torch.clamp(
+        x + _f(a, "offset", 3.0), 0.0, _f(a, "threshold", 6.0))
+    / _f(a, "scale", 6.0),
+    "brelu": lambda x, a: torch.clamp(x, _f(a, "t_min", 0.0),
+                                      _f(a, "t_max", 24.0)),
+    "leaky_relu": lambda x, a: torch.where(x >= 0, x,
+                                           _f(a, "alpha", 0.02) * x),
+    "elu": lambda x, a: F.elu(x, _f(a, "alpha", 1.0)),
+    "relu6": lambda x, a: torch.clamp(x, 0.0, _f(a, "threshold", 6.0)),
+    "pow": lambda x, a: torch.pow(x, torch.tensor(
+        _f(a, "factor", 1.0), dtype=x.dtype, device=x.device)),
+    "stanh": lambda x, a: _f(a, "scale_b", 1.7159) * torch.tanh(
+        _f(a, "scale_a", 0.67) * x),
+    "swish": lambda x, a: x * torch.sigmoid(_f(a, "beta", 1.0) * x),
+    "thresholded_relu": lambda x, a: torch.where(
+        x > _f(a, "threshold", 1.0), x, torch.zeros_like(x)),
+    "soft_relu": _soft_relu,
+    "erf": lambda x, a: torch.erf(x),
+}
+
+for _name, _fn in _ACTIVATIONS.items():
+    _register_activation(_name, _fn)
+
+
+@op("prelu", infer_shape=same_shape_infer("X"), grad="generic")
+def _prelu(ctx, op_):
+    """``math_ops.py:127``: X where positive, else Alpha·X; Alpha one
+    value (``all``), one a channel (``channel``, dim 1) or one an
+    element of X's trailing dims (``element``)."""
+    x = ctx.in1(op_, "X")
+    alpha = ctx.in1(op_, "Alpha")
+    mode = op_.attr("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "all":
+        alpha = alpha.reshape(())
+    ctx.out(op_, "Out", torch.where(x > 0, x, alpha * x))
 
 
 @op("square_error_cost", infer_shape=same_shape_infer("X"), grad="generic")
@@ -350,9 +429,6 @@ def _square_error_cost(ctx, op_):
     """(X - Y)^2 elementwise (``math_ops.py:560``)."""
     d = ctx.in1(op_, "X") - ctx.in1(op_, "Y")
     ctx.out(op_, "Out", d * d)
-_register_unary("pow", lambda x, op_: torch.pow(
-    x, torch.tensor(float(op_.attr("factor", 1.0)), dtype=x.dtype,
-                    device=x.device)))
 
 
 @op("label_smooth", infer_shape=same_shape_infer("X"), grad="generic")
@@ -463,11 +539,6 @@ register_op("layer_norm", infer_shape=_layer_norm_infer,
 # ---------------------------------------------------------------------------
 # what the recurrent layers and decoders add (``math_ops.py``)
 # ---------------------------------------------------------------------------
-@op("sigmoid", infer_shape=same_shape_infer("X"), grad="generic")
-def _sigmoid(ctx, op_):
-    ctx.out(op_, "Out", torch.sigmoid(ctx.in1(op_, "X")))
-
-
 @op("log_softmax", infer_shape=same_shape_infer("X"), grad="generic")
 def _log_softmax(ctx, op_):
     ctx.out(op_, "Out", F.log_softmax(ctx.in1(op_, "X"),
@@ -537,3 +608,302 @@ def _squared_l2_norm(ctx, op_):
     """Σ X² as a [1] tensor (``math_ops.py:411``; the global-norm clip)."""
     x = ctx.in1(op_, "X")
     ctx.out(op_, "Out", (x * x).sum().reshape((1,)))
+
+
+@op("frobenius_norm", infer_shape=_scalar1_infer, grad="generic")
+def _frobenius_norm(ctx, op_):
+    """√(Σ X²) over the whole of X as a [1] tensor (``math_ops.py:417``;
+    the reference reads no ``dim``)."""
+    x = ctx.in1(op_, "X")
+    ctx.out(op_, "Out", torch.sqrt((x * x).sum()).reshape((1,)))
+
+
+@op("clip_by_norm", infer_shape=same_shape_infer("X"), grad="generic")
+def _clip_by_norm(ctx, op_):
+    """``math_ops.py:652``: X scaled to L2 norm ``max_norm`` when its norm
+    is larger, chosen on the device."""
+    x = ctx.in1(op_, "X")
+    max_norm = float(op_.attr("max_norm"))
+    norm = torch.sqrt((x * x).sum())
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    ctx.out(op_, "Out", x * scale.to(x.dtype))
+
+
+def _l2_normalize_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", v.shape, v.dtype)
+    ax = int(op_.attr("axis", -1)) % max(len(v.shape), 1)
+    set_out(op_, block, "Norm", tuple(1 if i == ax else d
+                                      for i, d in enumerate(v.shape)),
+            v.dtype)
+
+
+@op("l2_normalize", infer_shape=_l2_normalize_infer, grad="generic")
+def _l2_normalize(ctx, op_):
+    """``math_ops.py:632``: X / max(‖X‖₂ along ``axis``, ε), and the norm
+    (kept dim) as ``Norm``."""
+    x = ctx.in1(op_, "X")
+    ax = int(op_.attr("axis", -1))
+    eps = float(op_.attr("epsilon", 1e-10))
+    norm = torch.sqrt((x * x).sum(dim=ax, keepdim=True))
+    ctx.out(op_, "Out", x / torch.clamp(norm, min=eps))
+    ctx.out(op_, "Norm", norm)
+
+
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+@op("bmm", grad="generic")
+def _bmm(ctx, op_):
+    """``math_ops.py:334``: batched X·Y."""
+    ctx.out(op_, "Out", torch.matmul(ctx.in1(op_, "X"), ctx.in1(op_, "Y")))
+
+
+@op("dot", grad="generic")
+def _dot(ctx, op_):
+    """``math_ops.py:339``: Σ X·Y over the last axis, kept as size 1."""
+    ctx.out(op_, "Out", (ctx.in1(op_, "X") * ctx.in1(op_, "Y")).sum(
+        -1, keepdim=True))
+
+
+def _bilinear_tp_infer(op_, block):
+    x = in_var(op_, block, "X")
+    w = in_var(op_, block, "Weight")
+    if x is None or w is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", [x.shape[0], w.shape[0]], x.dtype)
+
+
+@op("bilinear_tensor_product", infer_shape=_bilinear_tp_infer,
+    grad="generic")
+def _bilinear_tensor_product(ctx, op_):
+    """``math_ops.py:825``: Out[b, k] = X[b]·W[k]·Y[b]ᵀ (+ Bias[k]); X
+    [B, M], Y [B, N], Weight [K, M, N]."""
+    x = ctx.in1(op_, "X")
+    y = ctx.in1(op_, "Y")
+    w = ctx.in1(op_, "Weight")
+    out = torch.einsum("bm,kmn,bn->bk", x, w, y)
+    b = ctx.in1(op_, "Bias", optional=True)
+    if b is not None:
+        out = out + b.reshape(1, -1)
+    ctx.out(op_, "Out", out)
+
+
+@op("fsp", grad="generic")
+def _fsp(ctx, op_):
+    """``math_ops.py:895``: the FSP matrix Out[n, i, j] = mean over h, w
+    of X[n, i, h, w]·Y[n, j, h, w]."""
+    x = ctx.in1(op_, "X")
+    y = ctx.in1(op_, "Y")
+    hw = x.shape[2] * x.shape[3]
+    ctx.out(op_, "Out", torch.einsum("nihw,njhw->nij", x, y) / hw)
+
+
+def _cos_sim_infer(op_, block):
+    v = in_var(op_, block, "X")
+    yv = in_var(op_, block, "Y")
+    if v is None or yv is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", [v.shape[0], 1], v.dtype)
+    set_out(op_, block, "XNorm", [v.shape[0], 1], v.dtype)
+    set_out(op_, block, "YNorm", [yv.shape[0], 1], yv.dtype)
+
+
+@op("cos_sim", infer_shape=_cos_sim_infer, grad="generic")
+def _cos_sim(ctx, op_):
+    """``math_ops.py:786``: the rows' cosine similarity (Y of one row
+    broadcasts), with each side's row norms."""
+    x = ctx.in1(op_, "X")
+    y = ctx.in1(op_, "Y")
+    xn = torch.sqrt((x * x).sum(1, keepdim=True))
+    yn = torch.sqrt((y * y).sum(1, keepdim=True))
+    ctx.out(op_, "Out", (x * y).sum(1, keepdim=True) / (xn * yn + 1e-12))
+    ctx.out(op_, "XNorm", xn)
+    ctx.out(op_, "YNorm", yn)
+
+
+def _sq_l2_distance_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", [v.shape[0], 1], v.dtype)
+    set_out(op_, block, "sub_result", list(v.shape), v.dtype)
+
+
+@op("squared_l2_distance", infer_shape=_sq_l2_distance_infer,
+    grad="generic")
+def _squared_l2_distance(ctx, op_):
+    """``math_ops.py:808``: Σ (X − Y)² over each row, and X − Y."""
+    sub = ctx.in1(op_, "X") - ctx.in1(op_, "Y")
+    ctx.out(op_, "sub_result", sub)
+    ctx.out(op_, "Out", (sub * sub).sum(
+        tuple(range(1, sub.dim()))).reshape(-1, 1))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+@op("sigmoid_cross_entropy_with_logits", infer_shape=same_shape_infer("X"),
+    grad="generic")
+def _sigmoid_xent(ctx, op_):
+    """``math_ops.py:545``: max(x, 0) − x·label + log(1 + e^−|x|); 0
+    where the label is ``ignore_index`` (when it is not −100); divided by
+    the count of labels other than ``ignore_index`` with ``normalize``."""
+    x = ctx.in1(op_, "X")
+    label = ctx.in1(op_, "Label")
+    ignore_index = int(op_.attr("ignore_index", -100))
+    loss = torch.clamp(x, min=0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    if ignore_index != -100:
+        loss = torch.where(label == ignore_index, torch.zeros_like(loss),
+                           loss)
+    if op_.attr("normalize", False):
+        n = torch.clamp((label != ignore_index).to(x.dtype).sum(), min=1.0)
+        loss = loss / n
+    ctx.out(op_, "Out", loss)
+
+
+@op("huber_loss", grad="generic")
+def _huber_loss(ctx, op_):
+    """``math_ops.py:568``: r = Y − X; ½r² where |r| ≤ δ, else
+    δ(|r| − ½δ); the residual as ``Residual``."""
+    r = ctx.in1(op_, "Y") - ctx.in1(op_, "X")
+    delta = float(op_.attr("delta", 1.0))
+    a = torch.abs(r)
+    ctx.out(op_, "Out", torch.where(a <= delta, 0.5 * r * r,
+                                    delta * (a - 0.5 * delta)))
+    ctx.out(op_, "Residual", r)
+
+
+@op("smooth_l1_loss", grad="generic")
+def _smooth_l1_loss(ctx, op_):
+    """``math_ops.py:581``: d = X − Y; ½σ²d² where |d| < 1/σ², else
+    |d| − ½/σ², summed over each row ([N, 1]); d as ``Diff``."""
+    d = ctx.in1(op_, "X") - ctx.in1(op_, "Y")
+    sigma = float(op_.attr("sigma", 1.0))
+    s2 = sigma * sigma
+    a = torch.abs(d)
+    val = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    ctx.out(op_, "Diff", d)
+    ctx.out(op_, "Out", val.sum(tuple(range(1, val.dim()))).reshape(-1, 1))
+
+
+# ---------------------------------------------------------------------------
+# the rest
+# ---------------------------------------------------------------------------
+@op("maximum", grad="generic")
+def _maximum(ctx, op_):
+    ctx.out(op_, "Out", torch.maximum(ctx.in1(op_, "X"), ctx.in1(op_, "Y")))
+
+
+@op("sign", infer_shape=same_shape_infer("X"))
+def _sign(ctx, op_):
+    """``math_ops.py:690``: −1, 0 or 1; no gradient, as the reference's."""
+    ctx.out(op_, "Out", torch.sign(ctx.in1(op_, "X")))
+
+
+@op("maxout", grad="generic")
+def _maxout(ctx, op_):
+    """``math_ops.py:709``: the max over each run of ``groups`` channels
+    of X [N, C, H, W]."""
+    x = ctx.in1(op_, "X")
+    groups = int(op_.attr("groups"))
+    n, c, h, w = x.shape
+    ctx.out(op_, "Out", x.reshape(n, c // groups, groups, h, w).amax(2))
+
+
+@op("unfold", grad="generic")
+def _unfold(ctx, op_):
+    """``math_ops.py:755``: the im2col patches of X [N, C, H, W] as
+    [N, C·kh·kw, L], channel-major; ``paddings`` [top, left, bottom,
+    right]."""
+    x = ctx.in1(op_, "X")
+    ks = [int(k) for k in op_.attr("kernel_sizes")]
+    st = [int(v) for v in op_.attr("strides", [1, 1])]
+    pd = [int(v) for v in op_.attr("paddings", [0, 0, 0, 0])]
+    dl = [int(v) for v in op_.attr("dilations", [1, 1])]
+    if any(pd):
+        x = F.pad(x, (pd[1], pd[3], pd[0], pd[2]))
+    ctx.out(op_, "Y", F.unfold(x, ks, dilation=dl, stride=st))
+
+
+@op("add_position_encoding", infer_shape=same_shape_infer("X"),
+    grad="generic")
+def _add_position_encoding(ctx, op_):
+    """``math_ops.py:841``: α·X + β·the sinusoid table of X [B, T, D]:
+    sin on the first ⌊D/2⌋ columns, cos on the rest, wavelengths
+    10000^(i/⌊D/2⌋)."""
+    x = ctx.in1(op_, "X")
+    alpha = float(op_.attr("alpha", 1.0))
+    beta = float(op_.attr("beta", 1.0))
+    _b, t, d = x.shape
+    half = d // 2
+    pos = torch.arange(t, dtype=torch.float32, device=x.device)[:, None]
+
+    def wavelen(n):
+        return torch.pow(10000.0, torch.arange(
+            n, dtype=torch.float32, device=x.device) / max(half, 1))
+
+    enc = torch.cat([torch.sin(pos / wavelen(half)),
+                     torch.cos(pos / wavelen(d - half))], dim=1)
+    ctx.out(op_, "Out", alpha * x + beta * enc[None].to(x.dtype))
+
+
+@op("similarity_focus", infer_shape=same_shape_infer("X"))
+def _similarity_focus(ctx, op_):
+    """``math_ops.py:863``: for each channel of ``indexes`` of X
+    [B, C, H, W] (``axis`` 1), min(H, W) times the largest cell whose row
+    and column are both still free is marked and its row and column
+    retired; Out is the union of the marks, broadcast over C. All on the
+    device: a fixed number of masked argmaxes."""
+    x = ctx.in1(op_, "X")
+    if int(op_.attr("axis", 1)) != 1:
+        raise NotImplementedError("similarity_focus: only axis=1 supported")
+    bsz, _c, h, w = x.shape
+    rows = torch.arange(bsz, device=x.device)
+    neg = torch.finfo(x.dtype).min
+    mask = torch.zeros((bsz, h, w), dtype=x.dtype, device=x.device)
+    for ch in [int(i) for i in op_.attr("indexes", [])]:
+        fm = x[:, ch]
+        row_used = torch.zeros((bsz, h), dtype=torch.bool, device=x.device)
+        col_used = torch.zeros((bsz, w), dtype=torch.bool, device=x.device)
+        for _ in range(min(h, w)):
+            avail = ~row_used[:, :, None] & ~col_used[:, None, :]
+            flat = torch.where(avail, fm, torch.full_like(fm, neg)).reshape(
+                bsz, -1).argmax(1)
+            ri, ci = flat // w, flat % w
+            mask[rows, ri, ci] = 1
+            row_used[rows, ri] = True
+            col_used[rows, ci] = True
+    ctx.out(op_, "Out", mask[:, None].expand(x.shape).contiguous())
+
+
+@op("sampling_id")
+def _sampling_id(ctx, op_):
+    """``math_ops.py:718``: one class drawn from each row of the
+    probabilities X [B, K], int64 [B], from the op's generator."""
+    x = ctx.in1(op_, "X")
+    ids = torch.multinomial(x.float() + 1e-20, 1,
+                            generator=ctx.generator(op_))
+    ctx.out(op_, "Out", ids.reshape(-1))
+
+
+@op("uniform_random_batch_size_like")
+def _uniform_random_bsl(ctx, op_):
+    """``math_ops.py:732``: U(min, max) of ``shape`` with dim
+    ``output_dim_idx`` taken from Input's ``input_dim_idx``."""
+    from .. import core
+
+    ref = ctx.in1(op_, "Input")
+    shape = [int(s) for s in op_.attr("shape", [])]
+    shape[int(op_.attr("output_dim_idx", 0))] = ref.shape[
+        int(op_.attr("input_dim_idx", 0))]
+    out = torch.empty(shape, dtype=core.dtype_to_torch(op_.attr("dtype", 5)),
+                      device=ctx.device)
+    ctx.out(op_, "Out", out.uniform_(float(op_.attr("min", -1.0)),
+                                     float(op_.attr("max", 1.0)),
+                                     generator=ctx.generator(op_)))

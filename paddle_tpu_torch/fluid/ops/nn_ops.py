@@ -659,6 +659,101 @@ for _conv in ("conv2d", "depthwise_conv2d"):
                 grad="generic", vjp=_conv2d_vjp)
 
 
+def _conv_t_out_dim(size, k, pad, stride, dilation=1):
+    if size < 0:
+        return -1
+    return (size - 1) * stride - 2 * pad + dilation * (k - 1) + 1
+
+
+def _conv2d_transpose_infer(op_, block):
+    """The reference's infer (``nn_ops.py:123-138``): (H − 1)·stride −
+    2·pad + dilation·(k − 1) + 1, channels Filter's dim 1 times
+    ``groups``; ``output_size`` is the layer's (it sets the filter
+    size), not the op's."""
+    x = in_var(op_, block, "Input")
+    w = in_var(op_, block, "Filter")
+    if x is None or w is None or len(x.shape) != 4:
+        raise SkipInferShape()
+    strides = _pair(op_.attr("strides", [1, 1]))
+    pads = _pair(op_.attr("paddings", [0, 0]))
+    dil = _pair(op_.attr("dilations", [1, 1]))
+    n, c, h, wd = x.shape
+    _ic, oc_g, kh, kw = w.shape
+    groups = c if op_.type == "depthwise_conv2d_transpose" else int(
+        op_.attr("groups", 1) or 1)
+    set_out(op_, block, "Output",
+            (n, oc_g * groups,
+             _conv_t_out_dim(h, kh, pads[0], strides[0], dil[0]),
+             _conv_t_out_dim(wd, kw, pads[1], strides[1], dil[1])), x.dtype)
+
+
+def _conv2d_transpose_vjp(ctx, op_, slots):
+    """``conv2d_transpose`` (``nn_ops.py:139``) and
+    ``depthwise_conv2d_transpose`` (``:790``, groups = the input's
+    channels): the transpose of ``conv2d`` on NCHW X with Filter
+    [C_in, C_out/groups, kh, kw], with its pullback (one
+    ``convolution_backward``)."""
+    x = ctx.in1(op_, "Input")
+    w = ctx.in1(op_, "Filter")
+    strides = _pair(op_.attr("strides", [1, 1]))
+    pads = _pair(op_.attr("paddings", [0, 0]))
+    dil = _pair(op_.attr("dilations", [1, 1]))
+    groups = int(op_.attr("groups", 1) or 1)
+    if op_.type == "depthwise_conv2d_transpose":
+        groups = int(x.shape[1])
+    ctx.out(op_, "Output", F.conv_transpose2d(x, w, None, strides, pads, 0,
+                                              groups, dil))
+    mask = ["Input" in slots, "Filter" in slots, False]
+
+    def pullback(g):
+        dx, dw, _db = torch.ops.aten.convolution_backward(
+            g, x, w, None, strides, pads, dil, True, [0, 0], groups, mask)
+        return {"Input": dx, "Filter": dw}
+
+    return pullback
+
+
+for _conv in ("conv2d_transpose", "depthwise_conv2d_transpose"):
+    register_op(_conv, infer_shape=_conv2d_transpose_infer,
+                lower=lambda ctx, op_: _conv2d_transpose_vjp(ctx, op_, ()),
+                grad="generic", vjp=_conv2d_transpose_vjp)
+
+
+def _group_norm_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None or len(x.shape) < 2:
+        raise SkipInferShape()
+    groups = int(op_.attr("groups", 1))
+    set_out(op_, block, "Y", x.shape, x.dtype)
+    for slot in ("Mean", "Variance"):
+        set_out(op_, block, slot, (x.shape[0], groups), x.dtype)
+
+
+@op("group_norm", infer_shape=_group_norm_infer, grad="generic")
+def _group_norm(ctx, op_):
+    """``nn_ops.py:417``: X [N, C, ...] normalized over each group of
+    C/``groups`` channels and the spatial dims (biased variance), then
+    scaled and shifted by channel; Mean and Variance [N, groups]."""
+    x = ctx.in1(op_, "X")
+    groups = int(op_.attr("groups", 1))
+    eps = float(op_.attr("epsilon", 1e-5))
+    n, c = x.shape[0], x.shape[1]
+    xr = x.reshape(n, groups, -1)
+    mean = xr.mean(-1, keepdim=True)
+    var = (xr - mean).square().mean(-1, keepdim=True)
+    y = ((xr - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    scale = ctx.in1(op_, "Scale", optional=True)
+    bias = ctx.in1(op_, "Bias", optional=True)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    ctx.out(op_, "Y", y)
+    ctx.out(op_, "Mean", mean.reshape(n, groups))
+    ctx.out(op_, "Variance", var.reshape(n, groups))
+
+
 def pool2d(x, pooling_type="max", ksize=1, strides=1, paddings=0,
            global_pooling=False, adaptive=False, ceil_mode=False,
            exclusive=True):

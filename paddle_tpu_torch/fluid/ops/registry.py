@@ -43,6 +43,12 @@ FWD_OUTPUTS_ATTR = "__fwd_outputs__"
 
 REPLAY_COUNTER = "generic_grad_replays"
 
+# reads of a tensor's values on the host by an op whose output shape
+# depends on them (``range``, ``linspace``, ``where_index``, ...): each
+# waits on the device, as ``control_flow_host_syncs`` counts a loop's
+# condition
+HOST_READ_COUNTER = "op_host_reads"
+
 _REPLAY_TAG = re.compile(r"@(RECOMPUTE|CKPT)@\d+$")
 
 
@@ -180,6 +186,21 @@ class LowerCtx(object):
             return [int(x) for x in t.reshape(-1).tolist()]
 
         return self.memo(("host_ints", name), (t,), read)
+
+    def host_values(self, op, slot):
+        """Input ``slot`` of ``op`` as a flat list of Python numbers for
+        an output shape that depends on them: from the host array the
+        feed came from, else read from the tensor, counted in
+        ``op_host_reads``."""
+        name = op.input(slot)[0]
+        t = self.get(name)
+        fed = self.host_feeds.get(name)
+        if fed is not None and fed[0] is t:
+            return np.asarray(fed[1]).reshape(-1).tolist()
+        if t.device.type == "meta":  # shape inference: no values to read
+            raise SkipInferShape()
+        profiler.bump_counter(HOST_READ_COUNTER)
+        return t.reshape(-1).tolist()
 
     # -- env access --
     def get(self, name):

@@ -1,11 +1,15 @@
-"""Tensor creation and manipulation op lowerings (port of the matching
-rules in ``paddle_tpu/fluid/ops/tensor_ops.py`` and of ``assign_value``
-in ``paddle_tpu/fluid/initializer.py``).
+"""Tensor creation and manipulation op lowerings (port of
+``paddle_tpu/fluid/ops/tensor_ops.py`` and of ``assign_value`` in
+``paddle_tpu/fluid/initializer.py``).
 
 Random creation ops draw from the run's generator on the executor's
 device (``LowerCtx.generator``): the startup program's ``uniform_random``
 initializes parameters on the card. Shape ops return views where torch
-can; gradients come from the generic vjp path.
+can; gradients come from the generic vjp path. An op whose output shape
+depends on values (``range``, ``linspace``, ``where_index``) reads them
+on the host and counts the read in ``op_host_reads``; ``shape`` and
+``size`` read the tensor's own metadata. Index outputs keep the desc's
+int64 where the reference's JAX gives int32.
 """
 
 import numpy as np
@@ -13,7 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import core
+from .. import profiler
 from .registry import (
+    HOST_READ_COUNTER,
     SkipInferShape,
     in_var,
     op,
@@ -205,8 +211,9 @@ def _reshape_vjp(ctx, op_, slots):
     return lambda g: {"X": g.reshape(shape)}
 
 
-register_op("reshape2", infer_shape=_reshape_infer, lower=_reshape_lower,
-            grad="generic", vjp=_reshape_vjp)
+for _t in ("reshape", "reshape2"):
+    register_op(_t, infer_shape=_reshape_infer, lower=_reshape_lower,
+                grad="generic", vjp=_reshape_vjp)
 
 
 def _transpose_infer(op_, block):
@@ -235,8 +242,9 @@ def _transpose_vjp(ctx, op_, slots):
     return lambda g: {"X": g.permute(*inverse)}
 
 
-register_op("transpose2", infer_shape=_transpose_infer,
-            lower=_transpose_lower, grad="generic", vjp=_transpose_vjp)
+for _t in ("transpose", "transpose2"):
+    register_op(_t, infer_shape=_transpose_infer, lower=_transpose_lower,
+                grad="generic", vjp=_transpose_vjp)
 
 
 def _unsqueeze_shape(shape, axes):
@@ -264,8 +272,9 @@ def _unsqueeze_lower(ctx, op_):
         ctx.out(op_, "XShape", _empty_like_shape(x))
 
 
-register_op("unsqueeze2", infer_shape=_unsqueeze_infer,
-            lower=_unsqueeze_lower, grad="generic")
+for _t in ("unsqueeze", "unsqueeze2"):
+    register_op(_t, infer_shape=_unsqueeze_infer, lower=_unsqueeze_lower,
+                grad="generic")
 
 
 def _squeeze_axes(shape, axes):
@@ -293,8 +302,41 @@ def _squeeze_lower(ctx, op_):
         ctx.out(op_, "XShape", _empty_like_shape(x))
 
 
-register_op("squeeze2", infer_shape=_squeeze_infer, lower=_squeeze_lower,
-            grad="generic")
+for _t in ("squeeze", "squeeze2"):
+    register_op(_t, infer_shape=_squeeze_infer, lower=_squeeze_lower,
+                grad="generic")
+
+
+def _flatten_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    ax = int(op_.attr("axis", 1))
+    shape = list(v.shape)
+    if all(s >= 0 for s in shape):
+        out = [int(np.prod(shape[:ax])) if ax else 1,
+               int(np.prod(shape[ax:]))]
+    else:
+        out = [-1, -1]
+    set_out(op_, block, "Out", out, v.dtype)
+    if op_.output("XShape"):
+        set_out(op_, block, "XShape", (0,) + tuple(v.shape), v.dtype)
+
+
+def _flatten_lower(ctx, op_):
+    """``tensor_ops.py:355``: X as 2-D, the dims before ``axis`` in the
+    rows and the rest in the columns."""
+    x = ctx.in1(op_, "X")
+    ax = int(op_.attr("axis", 1))
+    lead = int(np.prod(x.shape[:ax])) if ax else 1
+    ctx.out(op_, "Out", x.reshape(lead, -1))
+    if op_.output("XShape"):
+        ctx.out(op_, "XShape", _empty_like_shape(x))
+
+
+for _t in ("flatten", "flatten2"):
+    register_op(_t, infer_shape=_flatten_infer, lower=_flatten_lower,
+                grad="generic")
 
 
 def _concat_infer(op_, block):
@@ -391,18 +433,18 @@ def _lookup_table_infer(op_, block):
     if w is None or ids is None:
         raise SkipInferShape()
     id_shape = list(ids.shape)
-    if id_shape and id_shape[-1] == 1:
+    if op_.type == "lookup_table" and id_shape and id_shape[-1] == 1:
         id_shape = id_shape[:-1]
     set_out(op_, block, "Out", tuple(id_shape) + (w.shape[-1],), w.dtype)
 
 
-@op("lookup_table", infer_shape=_lookup_table_infer, grad="generic")
 def _lookup_table(ctx, op_):
-    """Rows of W at Ids ([..., 1] int ids; the port keeps int64, where the
-    reference's JAX runs them as int32). Rows at ``padding_idx`` read 0."""
+    """Rows of W at Ids ([..., 1] int ids for ``lookup_table``, any shape
+    for ``lookup_table_v2``; the port keeps int64, where the reference's
+    JAX runs them as int32). Rows at ``padding_idx`` read 0."""
     w = ctx.in1(op_, "W")
     ids = ctx.in1(op_, "Ids")
-    if ids.dim() and ids.shape[-1] == 1:
+    if op_.type == "lookup_table" and ids.dim() and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     out = F.embedding(ids, w)
     padding_idx = int(op_.attr("padding_idx", -1))
@@ -411,6 +453,11 @@ def _lookup_table(ctx, op_):
             padding_idx += w.shape[0]
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     ctx.out(op_, "Out", out)
+
+
+for _t in ("lookup_table", "lookup_table_v2"):
+    register_op(_t, infer_shape=_lookup_table_infer, lower=_lookup_table,
+                grad="generic")
 
 
 def top_k(x, k):
@@ -451,15 +498,18 @@ def _one_hot_infer(op_, block):
             core.VarDesc.VarType.FP32)
 
 
-@op("one_hot", infer_shape=_one_hot_infer)
 def _one_hot(ctx, op_):
-    """fp32 [..., depth] rows of ids X ([..., 1] or [...]); an id outside
+    """fp32 [..., depth] rows of ids X ([..., 1] or [...] for ``one_hot``;
+    any shape, the trailing 1 kept, for ``one_hot_v2``, whose depth may
+    come from ``depth_tensor``, read on the host); an id outside
     [0, depth) gives a row of zeros, with or without
     ``allow_out_of_range``, as the reference's ``jax.nn.one_hot``
-    (``tensor_ops.py:562``)."""
+    (``tensor_ops.py:562``, ``:734``)."""
     x = ctx.in1(op_, "X")
-    depth = int(op_.attr("depth"))
-    if x.dim() and x.shape[-1] == 1:
+    depth = int(op_.attr("depth", -1))
+    if op_.input("depth_tensor"):
+        depth = int(ctx.host_values(op_, "depth_tensor")[0])
+    if op_.type == "one_hot" and x.dim() and x.shape[-1] == 1:
         x = x.reshape(x.shape[:-1])
     x = x.long()
     inside = (x >= 0) & (x < depth)
@@ -468,3 +518,317 @@ def _one_hot(ctx, op_):
     out.scatter_(-1, x.clamp(0, depth - 1).unsqueeze(-1),
                  inside.unsqueeze(-1).to(torch.float32))
     ctx.out(op_, "Out", out)
+
+
+def _one_hot_v2_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None:
+        raise SkipInferShape()
+    set_out(op_, block, "Out", list(v.shape) + [int(op_.attr("depth", -1))],
+            core.VarDesc.VarType.FP32)
+
+
+register_op("one_hot", infer_shape=_one_hot_infer, lower=_one_hot)
+register_op("one_hot_v2", infer_shape=_one_hot_v2_infer, lower=_one_hot)
+
+
+# -- creation (``tensor_ops.py:101-135``, ``:672-748``) ---------------------
+@op("range")
+def _range(ctx, op_):
+    """``tensor_ops.py:101``: Start + Step·[0, n) with n =
+    ⌊(End − Start)/Step⌋; n is read on the host (``host_values``), the
+    values are computed on the device from the tensors."""
+    start = ctx.in1(op_, "Start").reshape(())
+    step = ctx.in1(op_, "Step").reshape(())
+    lo = float(ctx.host_values(op_, "Start")[0])
+    hi = float(ctx.host_values(op_, "End")[0])
+    by = float(ctx.host_values(op_, "Step")[0])
+    n = int(np.floor((hi - lo) / by))
+    ctx.out(op_, "Out", start + step * torch.arange(
+        n, dtype=start.dtype, device=start.device))
+
+
+@op("fill_zeros_like", infer_shape=same_shape_infer("X"))
+def _fill_zeros_like(ctx, op_):
+    ctx.out(op_, "Out", torch.zeros_like(ctx.in1(op_, "X")))
+
+
+@op("fill_any_like", infer_shape=same_shape_infer("X"))
+def _fill_any_like(ctx, op_):
+    """``tensor_ops.py:135``: ``value`` in X's shape, in ``dtype`` (-1:
+    X's)."""
+    x = ctx.in1(op_, "X")
+    dt = op_.attr("dtype", -1)
+    dtype = x.dtype if dt in (-1, None) else _dtype(dt)
+    ctx.out(op_, "Out", torch.full(x.shape, op_.attr("value", 0.0),
+                                   dtype=dtype, device=x.device))
+
+
+@op("fill")
+def _fill(ctx, op_):
+    """``tensor_ops.py:702``: the attr ``value`` list reshaped to
+    ``shape``."""
+    vals = np.asarray(op_.attr("value", []), np.float64)
+    shape = [int(s) for s in op_.attr("shape", [])]
+    ctx.out(op_, "Out", torch.as_tensor(
+        vals.reshape(shape), dtype=_dtype(op_.attr("dtype"))
+    ).to(ctx.device))
+
+
+@op("fill_zeros_like2", infer_shape=same_shape_infer("X"))
+def _fill_zeros_like2(ctx, op_):
+    x = ctx.in1(op_, "X")
+    dt = op_.attr("dtype", None)
+    ctx.out(op_, "Out", torch.zeros(
+        x.shape, dtype=x.dtype if dt is None else _dtype(dt),
+        device=x.device))
+
+
+@op("linspace")
+def _linspace(ctx, op_):
+    """``tensor_ops.py:672``: ``Num`` points from Start to Stop, both
+    ends included; ``Num`` read on the host, the points computed on the
+    device, the last one Stop exactly."""
+    start = ctx.in1(op_, "Start").reshape(())
+    stop = ctx.in1(op_, "Stop").reshape(())
+    num = int(ctx.host_values(op_, "Num")[0])
+    if num == 1:
+        out = start.reshape(1)
+    else:
+        i = torch.arange(num, dtype=start.dtype, device=start.device)
+        out = start + i * ((stop - start) / (num - 1))
+        out = torch.cat([out[:-1], stop.reshape(1).to(out.dtype)])
+    ctx.out(op_, "Out", out)
+
+
+@op("diag")
+def _diag(ctx, op_):
+    """``tensor_ops.py:682``: the square matrix with Diagonal on its
+    diagonal."""
+    ctx.out(op_, "Out", torch.diag(ctx.in1(op_, "Diagonal")))
+
+
+@op("eye")
+def _eye(ctx, op_):
+    rows = int(op_.attr("num_rows"))
+    cols = int(op_.attr("num_columns", -1))
+    ctx.out(op_, "Out", torch.eye(
+        rows, rows if cols < 0 else cols,
+        dtype=_dtype(op_.attr("dtype", core.VarDesc.VarType.FP32)),
+        device=ctx.device))
+
+
+@op("gaussian_random_batch_size_like")
+def _gaussian_random_bsl(ctx, op_):
+    """``tensor_ops.py:748``: N(mean, std) of ``shape`` with dim
+    ``output_dim_idx`` taken from Input's ``input_dim_idx``."""
+    ref = ctx.in1(op_, "Input")
+    shape = [int(s) for s in op_.attr("shape", [])]
+    shape[int(op_.attr("output_dim_idx", 0))] = ref.shape[
+        int(op_.attr("input_dim_idx", 0))]
+    out = torch.empty(shape, dtype=_dtype(op_.attr("dtype")),
+                      device=ctx.device)
+    ctx.out(op_, "Out", out.normal_(float(op_.attr("mean", 0.0)),
+                                    float(op_.attr("std", 1.0)),
+                                    generator=ctx.generator(op_)))
+
+
+# -- shape and index --------------------------------------------------------
+@op("share_data", infer_shape=same_shape_infer("X"), grad="generic")
+def _share_data(ctx, op_):
+    ctx.out(op_, "Out", ctx.in1(op_, "X"))
+
+
+@op("shape")
+def _shape(ctx, op_):
+    """``tensor_ops.py:512``: Input's shape as int32 [rank], made from
+    the tensor's own metadata (no read of the card)."""
+    x = ctx.in1(op_, "Input")
+    ctx.out(op_, "Out", torch.tensor(list(x.shape), dtype=torch.int32,
+                                     device=ctx.device))
+
+
+@op("size")
+def _size(ctx, op_):
+    """``tensor_ops.py:722``: Input's element count, an int64 scalar
+    (the layer's declared type; the reference's JAX gives int32), from
+    the tensor's metadata."""
+    x = ctx.in1(op_, "Input")
+    ctx.out(op_, "Out", torch.tensor(x.numel(), dtype=torch.int64,
+                                     device=ctx.device))
+
+
+def _arg_infer(op_, block):
+    v = in_var(op_, block, "X")
+    if v is None or not v.shape:
+        raise SkipInferShape()
+    ax = int(op_.attr("axis", -1)) % len(v.shape)
+    set_out(op_, block, "Out", [d for i, d in enumerate(v.shape) if i != ax],
+            core.VarDesc.VarType.INT64)
+
+
+@op("arg_max", infer_shape=_arg_infer)
+def _arg_max(ctx, op_):
+    """``tensor_ops.py:573``: the index of the largest entry along
+    ``axis`` (the first of equal ones), int64 as the desc declares."""
+    ctx.out(op_, "Out", torch.argmax(ctx.in1(op_, "X"),
+                                     dim=int(op_.attr("axis", -1))))
+
+
+@op("arg_min", infer_shape=_arg_infer)
+def _arg_min(ctx, op_):
+    ctx.out(op_, "Out", torch.argmin(ctx.in1(op_, "X"),
+                                     dim=int(op_.attr("axis", -1))))
+
+
+@op("argsort")
+def _argsort(ctx, op_):
+    """``tensor_ops.py:661``: X sorted ascending along ``axis`` (equal
+    entries in their order) and the int64 indices."""
+    vals, idx = torch.sort(ctx.in1(op_, "X"), dim=int(op_.attr("axis", -1)),
+                           stable=True)
+    ctx.out(op_, "Out", vals)
+    ctx.out(op_, "Indices", idx)
+
+
+@op("where_index")
+def _where_index(ctx, op_):
+    """``tensor_ops.py:600``: the int64 [n, rank] coordinates of the
+    nonzero entries of Condition. n depends on the data: the count is
+    read on the host (``op_host_reads``). The reference's JAX cannot
+    give a shape from data and raises."""
+    cond = ctx.in1(op_, "Condition")
+    if cond.device.type == "meta":
+        raise SkipInferShape()
+    profiler.bump_counter(HOST_READ_COUNTER)
+    ctx.out(op_, "Out", torch.nonzero(cond))
+
+
+def _any_infer(op_, block):
+    set_out(op_, block, "Out", (1,), core.VarDesc.VarType.BOOL)
+
+
+@op("isinf", infer_shape=_any_infer)
+def _isinf(ctx, op_):
+    """``tensor_ops.py:645``: one bool [1], any entry of X infinite."""
+    ctx.out(op_, "Out", torch.isinf(ctx.in1(op_, "X")).any().reshape((1,)))
+
+
+@op("isnan", infer_shape=_any_infer)
+def _isnan(ctx, op_):
+    ctx.out(op_, "Out", torch.isnan(ctx.in1(op_, "X")).any().reshape((1,)))
+
+
+# -- data movement ----------------------------------------------------------
+@op("stack", grad="generic")
+def _stack(ctx, op_):
+    ctx.out(op_, "Y", torch.stack(ctx.ins(op_, "X"),
+                                  dim=int(op_.attr("axis", 0))))
+
+
+@op("unstack", grad="generic")
+def _unstack(ctx, op_):
+    ctx.outs(op_, "Y", list(torch.unbind(ctx.in1(op_, "X"),
+                                         dim=int(op_.attr("axis", 0)))))
+
+
+@op("scatter", grad="generic")
+def _scatter(ctx, op_):
+    """``tensor_ops.py:500``: X with its rows at Ids set to Updates
+    (``overwrite``), or Updates added to them."""
+    x = ctx.in1(op_, "X")
+    ids = ctx.in1(op_, "Ids").reshape(-1).long()
+    upd = ctx.in1(op_, "Updates")
+    if op_.attr("overwrite", True):
+        out = x.index_put((ids,), upd)
+    else:
+        out = x.index_add(0, ids, upd)
+    ctx.out(op_, "Out", out)
+
+
+@op("pad", grad="generic")
+def _pad(ctx, op_):
+    """``tensor_ops.py:608``: X padded by ``paddings`` (before, after
+    for each dim) with ``pad_value``."""
+    x = ctx.in1(op_, "X")
+    p = [int(v) for v in op_.attr("paddings")]
+    pairs = []
+    for i in reversed(range(x.dim())):
+        pairs += [p[2 * i], p[2 * i + 1]]
+    ctx.out(op_, "Out", F.pad(x, pairs,
+                              value=float(op_.attr("pad_value", 0.0))))
+
+
+_PAD2D_MODES = {"constant": "constant", "reflect": "reflect",
+                "edge": "replicate"}
+
+
+@op("pad2d", grad="generic")
+def _pad2d(ctx, op_):
+    """``tensor_ops.py:619``: the H and W dims of X padded by
+    ``paddings`` [top, bottom, left, right]: ``constant`` (``pad_value``),
+    ``reflect`` or ``edge``, NCHW or NHWC."""
+    x = ctx.in1(op_, "X")
+    p = [int(v) for v in op_.attr("paddings")]
+    nhwc = op_.attr("data_format", "NCHW") == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    mode = _PAD2D_MODES[op_.attr("mode", "constant")]
+    pads = (p[2], p[3], p[0], p[1])
+    if mode == "constant":
+        out = F.pad(x, pads, value=float(op_.attr("pad_value", 0.0)))
+    else:
+        out = F.pad(x, pads, mode=mode)
+    ctx.out(op_, "Out", out.permute(0, 2, 3, 1) if nhwc else out)
+
+
+@op("reverse", grad="generic")
+def _reverse(ctx, op_):
+    ctx.out(op_, "Out", torch.flip(ctx.in1(op_, "X"),
+                                   [int(a) for a in op_.attr("axis")]))
+
+
+# -- the rest ---------------------------------------------------------------
+@op("random_crop")
+def _random_crop(ctx, op_):
+    """``tensor_ops.py:764``: each sample's trailing ``len(shape)`` dims
+    cropped to ``shape`` at offsets drawn from the op's generator, on the
+    device (one gather, no read of the offsets)."""
+    x = ctx.in1(op_, "X")
+    crop = [int(s) for s in op_.attr("shape", [])]
+    k = len(crop)
+    lead = x.dim() - k
+    flat = x.reshape((-1,) + tuple(x.shape[lead:]))
+    n = flat.shape[0]
+    maxoff = torch.tensor([x.shape[lead + i] - crop[i] + 1 for i in range(k)],
+                          device=x.device)
+    u = torch.rand((n, k), generator=ctx.generator(op_), device=x.device)
+    off = torch.minimum((u * maxoff).long(), maxoff - 1)
+    index = [torch.arange(n, device=x.device).reshape((n,) + (1,) * k)]
+    for i in range(k):
+        shape = [1] * (k + 1)
+        shape[1 + i] = crop[i]
+        index.append((off[:, i].reshape((n,) + (1,) * k) + torch.arange(
+            crop[i], device=x.device).reshape(shape)))
+    out = flat[tuple(index)]
+    ctx.out(op_, "Out", out.reshape(tuple(x.shape[:lead]) + tuple(crop)))
+
+
+@op("tensor_array_to_tensor")
+def _tensor_array_to_tensor(ctx, op_):
+    """``tensor_ops.py:791``: a LoD array (the stacked [T, ...] tensor)
+    joined along ``axis`` (``use_stack``: stacked there), and each
+    step's extent along it as int32 ``OutIndex``; sizes come from the
+    array's shape, so nothing is read on the host."""
+    arr = ctx.in1(op_, "X")
+    axis = int(op_.attr("axis", 0))
+    n = arr.shape[0]
+    if op_.attr("use_stack", False):
+        out = torch.movedim(arr, 0, axis)
+        sizes = [1] * n
+    else:
+        out = torch.cat(list(torch.unbind(arr, 0)), dim=axis)
+        sizes = [arr.shape[1 + axis]] * n
+    ctx.out(op_, "Out", out)
+    ctx.out(op_, "OutIndex", torch.tensor(sizes, dtype=torch.int32,
+                                          device=arr.device))

@@ -1,7 +1,5 @@
-"""Optimizers (port of ``Optimizer``, ``SGDOptimizer`` / ``SGD``,
-``MomentumOptimizer`` / ``Momentum``, ``AdagradOptimizer`` / ``Adagrad``,
-``AdamOptimizer`` / ``Adam`` and ``RecomputeOptimizer`` in
-``paddle_tpu/fluid/optimizer.py``).
+"""Optimizers (port of ``paddle_tpu/fluid/optimizer.py``: every class
+but ``PipelineOptimizer``, with the short aliases ``SGD`` … ``Lamb``).
 
 As in the reference, one class serves both uses:
 
@@ -43,7 +41,13 @@ from .ops import optimizer_ops
 
 __all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
            "Momentum", "AdagradOptimizer", "Adagrad", "AdamOptimizer",
-           "Adam", "RecomputeOptimizer"]
+           "Adam", "RecomputeOptimizer", "LarsMomentumOptimizer",
+           "AdamaxOptimizer", "Adamax", "DpsgdOptimizer", "Dpsgd",
+           "DecayedAdagradOptimizer", "DecayedAdagrad", "AdadeltaOptimizer",
+           "Adadelta", "RMSPropOptimizer", "RMSProp", "FtrlOptimizer",
+           "Ftrl", "LambOptimizer", "Lamb", "DGCMomentumOptimizer",
+           "ModelAverage", "LookaheadOptimizer", "ExponentialMovingAverage",
+           "GradientMergeOptimizer"]
 
 
 class Optimizer(object):
@@ -472,7 +476,577 @@ class RecomputeOptimizer(Optimizer):
         return optimize_ops, params_grads
 
 
+class LarsMomentumOptimizer(MomentumOptimizer):
+    """Momentum with LARS's layer-wise learning rate
+    (``optimizer.py:364``): one ``lars_momentum`` op per parameter."""
+
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kwargs):
+        super().__init__(learning_rate, momentum, **kwargs)
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class AdamaxOptimizer(Optimizer):
+    """Adamax (``optimizer.py:494``): ``moment`` and ``inf_norm``
+    accumulators and a β₁-pow one advanced by a ``scale`` op after the
+    updates."""
+
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str, param)
+        beta1_pow = self._get_accumulator(self._beta1_pow_acc_str, param)
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": [param], "Grad": [grad], "Moment": [moment],
+                    "InfNorm": [inf_norm], "Beta1Pow": [beta1_pow],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "MomentOut": [moment],
+                     "InfNormOut": [inf_norm]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+    def _finish_update(self, block, parameters_and_grads):
+        for param, grad in parameters_and_grads:
+            if grad is None:
+                continue
+            beta1_pow = self._get_accumulator(self._beta1_pow_acc_str, param)
+            block.append_op(
+                type="scale", inputs={"X": [beta1_pow]},
+                outputs={"Out": [beta1_pow]},
+                attrs={"scale": self._beta1, OP_ROLE_KEY: OpRole.Optimize})
+
+
+class DpsgdOptimizer(Optimizer):
+    """Differentially private SGD (``optimizer.py:558``): one ``dpsgd``
+    op per parameter; its noise comes from the run's generator (or the
+    op's ``seed``). The constructor takes no other argument, as the
+    reference's."""
+
+    def __init__(self, learning_rate=0.001, clip=0.9, batch_size=0.999,
+                 sigma=1e-8):
+        super().__init__(learning_rate)
+        self._clip = clip
+        self._batch_size = batch_size
+        self._sigma = sigma
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            type="dpsgd",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param]},
+            attrs={"clip": self._clip, "batch_size": self._batch_size,
+                   "sigma": self._sigma, OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    """Adagrad with a decaying sum (``optimizer.py:584``)."""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator(self._moment_acc_str, param)
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": [param], "Grad": [grad], "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "MomentOut": [moment]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta (``optimizer.py:616``); its op takes no learning rate."""
+
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        avg_g = self._get_accumulator(self._avg_squared_grad_acc_str, param)
+        avg_u = self._get_accumulator(self._avg_squared_update_acc_str,
+                                      param)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [param], "Grad": [grad],
+                    "AvgSquaredGrad": [avg_g], "AvgSquaredUpdate": [avg_u]},
+            outputs={"ParamOut": [param], "AvgSquaredGradOut": [avg_g],
+                     "AvgSquaredUpdateOut": [avg_u]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class RMSPropOptimizer(Optimizer):
+    """RMSProp (``optimizer.py:655``), centered or not, with momentum."""
+
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+    _mean_grad_acc_str = "mean_grad"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+            self._add_accumulator(self._mean_grad_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        momentum = self._get_accumulator(self._momentum_acc_str, param)
+        mean_square = self._get_accumulator(self._mean_square_acc_str, param)
+        mean_grad = self._get_accumulator(self._mean_grad_acc_str, param)
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": [param], "Grad": [grad], "Moment": [momentum],
+                    "MeanSquare": [mean_square], "MeanGrad": [mean_grad],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "MomentOut": [momentum],
+                     "MeanSquareOut": [mean_square],
+                     "MeanGradOut": [mean_grad]},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum, "centered": self._centered,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class FtrlOptimizer(Optimizer):
+    """FTRL-proximal (``optimizer.py:712``)."""
+
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        squared = self._get_accumulator(self._squared_acc_str, param)
+        linear = self._get_accumulator(self._linear_acc_str, param)
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": [param], "Grad": [grad],
+                    "SquaredAccumulator": [squared],
+                    "LinearAccumulator": [linear],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "SquaredAccumOut": [squared],
+                     "LinearAccumOut": [linear]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power, OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class LambOptimizer(AdamOptimizer):
+    """LAMB (``optimizer.py:754``; You et al., 2019): Adam's accumulators,
+    one ``lamb`` op per parameter; ``exclude_from_weight_decay_fn(param)``
+    true gives that parameter's op a weight decay of 0. Program and
+    dygraph forms only (no eager tensor form)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6,
+                 exclude_from_weight_decay_fn=None, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self._weight_decay = lamb_weight_decay
+        self._exclude_from_weight_decay_fn = exclude_from_weight_decay_fn
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, grad_clip=None):
+        return Optimizer.minimize(self, loss, startup_program,
+                                  parameter_list, no_grad_set, grad_clip)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        wd = self._weight_decay
+        if self._exclude_from_weight_decay_fn is not None and \
+                self._exclude_from_weight_decay_fn(param):
+            wd = 0.0
+        moment1 = self._get_accumulator(self._moment1_acc_str, param)
+        moment2 = self._get_accumulator(self._moment2_acc_str, param)
+        beta1_pow = self._get_accumulator(self._beta1_pow_acc_str, param)
+        beta2_pow = self._get_accumulator(self._beta2_pow_acc_str, param)
+        return block.append_op(
+            type="lamb",
+            inputs={"Param": [param], "Grad": [grad], "Moment1": [moment1],
+                    "Moment2": [moment2], "Beta1Pow": [beta1_pow],
+                    "Beta2Pow": [beta2_pow],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "Moment1Out": [moment1],
+                     "Moment2Out": [moment2], "Beta1PowOut": [beta1_pow],
+                     "Beta2PowOut": [beta2_pow]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, "weight_decay": wd,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Deep Gradient Compression momentum (``optimizer.py:807``): one
+    ``dgc_momentum`` op per parameter with U (momentum correction) and V
+    (error accumulation) accumulators; in a program, a step counter
+    (``CurrentStep``) selects plain momentum before
+    ``rampup_begin_step``. The ``sparsity`` schedule is taken at its last
+    value, as the reference does."""
+
+    _u_acc_str = "dgc_u"
+    _v_acc_str = "dgc_v"
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 local_grad_clip_norm=None, num_trainers=None, **kw):
+        super().__init__(learning_rate, momentum, use_nesterov, **kw)
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._sparsity = list(sparsity)
+        self._local_grad_clip_norm = local_grad_clip_norm
+        self._num_trainers = num_trainers
+        self._step_var = None
+
+    def _create_accumulators(self, block, parameters):
+        super()._create_accumulators(block, parameters)
+        for p in parameters:
+            self._add_accumulator(self._u_acc_str, p)
+            self._add_accumulator(self._v_acc_str, p)
+        if self._step_var is None and not in_dygraph_mode():
+            self._step_var = self._add_accumulator(
+                "dgc_step", parameters[0], dtype="float32", shape=(1,))
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        inputs = {
+            "Param": [param], "Grad": [grad],
+            "Velocity": [self._get_accumulator(self._velocity_acc_str,
+                                               param)],
+            "U": [self._get_accumulator(self._u_acc_str, param)],
+            "V": [self._get_accumulator(self._v_acc_str, param)],
+            "LearningRate": [self._create_param_lr(param_and_grad)],
+        }
+        if self._step_var is not None:
+            inputs["CurrentStep"] = [self._step_var]
+        return block.append_op(
+            type="dgc_momentum",
+            inputs=inputs,
+            outputs={"ParamOut": [param],
+                     "VelocityOut": inputs["Velocity"],
+                     "UOut": inputs["U"], "VOut": inputs["V"]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "sparsity_ratio": float(self._sparsity[-1]),
+                   "rampup_begin_step": float(self._rampup_begin_step),
+                   "local_grad_clip_norm": self._local_grad_clip_norm,
+                   OP_ROLE_KEY: OpRole.Optimize},
+        )
+
+    def _finish_update(self, block, parameters_and_grads):
+        if self._step_var is not None:
+            block.append_op(
+                type="increment", inputs={"X": [self._step_var]},
+                outputs={"Out": [self._step_var]},
+                attrs={"step": 1.0, OP_ROLE_KEY: OpRole.Optimize})
+
+
+class ModelAverage(Optimizer):
+    """``optimizer.py:896``, as far as the reference goes: it takes the
+    window settings, appends no update op of its own (``minimize`` raises
+    as an ``Optimizer`` without ``_append_optimize_op`` does) and
+    ``apply`` raises ``NotImplementedError``."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+
+    def apply(self, executor, need_restore=True):
+        raise NotImplementedError(
+            "ModelAverage.apply requires the trainer loop integration")
+
+
+class LookaheadOptimizer(object):
+    """Lookahead (``optimizer.py:928``; Zhang et al., 2019): the inner
+    optimizer's update, then a step counter and one
+    ``lookahead_update`` op per trainable parameter against a slow copy
+    created at zero."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        self.inner_optimizer = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+
+    def minimize(self, loss, startup_program=None):
+        mini_out = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program)
+        block = default_main_program().global_block()
+        helper = LayerHelper("lookahead")
+        with op_role_guard(OpRole.Optimize):
+            step = block.create_var(
+                name=unique_name.generate("lookahead_step"), shape=[1],
+                dtype="int64", persistable=True)
+            helper.set_variable_initializer(step, Constant(0.0))
+            block.append_op(type="increment", inputs={"X": [step]},
+                            outputs={"Out": [step]}, attrs={"step": 1.0})
+            for param in block.all_parameters():
+                if not param.trainable:
+                    continue
+                slow = block.create_var(
+                    name=unique_name.generate(param.name + "_slow"),
+                    shape=param.shape, dtype=param.dtype, persistable=True)
+                helper.set_variable_initializer(slow, Constant(0.0))
+                block.append_op(
+                    type="lookahead_update",
+                    inputs={"Param": [param], "SlowParam": [slow],
+                            "Step": [step]},
+                    outputs={"ParamOut": [param], "SlowParamOut": [slow]},
+                    attrs={"alpha": self.alpha, "k": self.k})
+        return mini_out
+
+
+class ExponentialMovingAverage(object):
+    """``optimizer.py:1012``: ``update()`` (after ``minimize``) appends,
+    for each trainable parameter, ``shadow = decay·shadow +
+    (1 − decay)·param`` as two ``scale`` ops and an ``elementwise_add``,
+    and a step counter. ``apply(executor)`` is a context in which the
+    global scope's parameters hold the bias-corrected shadows
+    (shadow/(1 − decayˢᵗᵉᵖ), written into their tensors); ``restore``
+    writes the training values back. Before any update step, ``apply``
+    changes nothing."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = float(decay)
+        self._name = name or ""
+        self._shadows = {}
+        self._step = None
+        self._backup = {}
+
+    def update(self):
+        block = default_main_program().global_block()
+        helper = LayerHelper(self._name or "ema")
+        with op_role_guard(OpRole.Optimize):
+            self._step = block.create_var(
+                name=unique_name.generate("ema_step"), shape=[1],
+                dtype="int64", persistable=True)
+            self._step.stop_gradient = True
+            helper.set_variable_initializer(self._step, Constant(0.0))
+            block.append_op(type="increment", inputs={"X": [self._step]},
+                            outputs={"Out": [self._step]},
+                            attrs={"step": 1.0})
+            for param in block.all_parameters():
+                if not param.trainable:
+                    continue
+                shadow = block.create_var(
+                    name=unique_name.generate(param.name + ".ema"),
+                    shape=param.shape, dtype=param.dtype, persistable=True)
+                shadow.stop_gradient = True
+                helper.set_variable_initializer(shadow, Constant(0.0))
+                tmp = helper.create_variable_for_type_inference(param.dtype)
+                block.append_op(type="scale", inputs={"X": [shadow]},
+                                outputs={"Out": [tmp]},
+                                attrs={"scale": self._decay})
+                tmp2 = helper.create_variable_for_type_inference(param.dtype)
+                block.append_op(type="scale", inputs={"X": [param]},
+                                outputs={"Out": [tmp2]},
+                                attrs={"scale": 1.0 - self._decay})
+                block.append_op(type="elementwise_add",
+                                inputs={"X": [tmp], "Y": [tmp2]},
+                                outputs={"Out": [shadow]})
+                self._shadows[param.name] = shadow
+
+    def apply(self, executor, need_restore=True):
+        import contextlib
+
+        @contextlib.contextmanager
+        def _ctx():
+            scope = core.global_scope()
+            step = float(scope.get(self._step.name).reshape(-1)[0])
+            if step < 1.0:
+                yield
+                return
+            corr = 1.0 - self._decay ** step
+            self._backup = {}
+            with torch.no_grad():
+                for pname, shadow in self._shadows.items():
+                    param = scope.get(pname)
+                    self._backup[pname] = param.clone()
+                    param.copy_(scope.get(shadow.name) / corr)
+            try:
+                yield
+            finally:
+                if need_restore:
+                    self.restore(executor)
+
+        return _ctx()
+
+    def restore(self, executor):
+        scope = core.global_scope()
+        with torch.no_grad():
+            for pname, val in self._backup.items():
+                scope.get(pname).copy_(val)
+        self._backup = {}
+
+
+class GradientMergeOptimizer(object):
+    """Gradient merge over ``k_steps`` (``optimizer.py:1284``): each
+    step adds the gradients into persistable buffers; every k-th step a
+    ``Switch`` case applies the inner optimizer to their mean and zeroes
+    them (the reference's ``PipelineOptimizer`` without cut points;
+    ``avg=False`` raises as the reference's does)."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self._inner = inner_optimizer
+        self._k = max(int(k_steps), 1)
+        self._avg = bool(avg)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        if not self._avg:
+            raise NotImplementedError(
+                "GradientMergeOptimizer(avg=False) (summed merged grads) is "
+                "not supported: the in-graph merge averages; scale the "
+                "learning rate by k_steps for equivalent SGD-family updates")
+        from .layers import control_flow as _cf
+        from .layers import tensor as _tensor
+
+        k = self._k
+        program = loss.block.program
+        startup = startup_program or default_startup_program()
+        with program_guard(program, startup):
+            params_grads = self._inner.backward(
+                loss, startup_program=startup_program,
+                parameter_list=parameter_list, no_grad_set=no_grad_set)
+            if k <= 1:
+                return (self._inner.apply_optimize(loss, startup_program,
+                                                   params_grads),
+                        params_grads)
+        block = program.global_block()
+        helper = LayerHelper("pipeline")
+        with program_guard(program, startup), op_role_guard(OpRole.Optimize):
+            step = block.create_var(
+                name=unique_name.generate("pipe_step"), shape=[1],
+                dtype="int64", persistable=True)
+            step.stop_gradient = True
+            helper.set_variable_initializer(step, Constant(0.0))
+            block.append_op(type="increment", inputs={"X": [step]},
+                            outputs={"Out": [step]}, attrs={"step": 1.0})
+            accums = []
+            for p, g in params_grads:
+                if g is None:
+                    continue
+                acc = block.create_var(
+                    name=unique_name.generate(p.name + ".grad_merge"),
+                    shape=p.shape, dtype=p.dtype, persistable=True)
+                acc.stop_gradient = True
+                helper.set_variable_initializer(acc, Constant(0.0))
+                block.append_op(type="elementwise_add",
+                                inputs={"X": [acc], "Y": [g]},
+                                outputs={"Out": [acc]})
+                accums.append((p, acc))
+            kvar = _tensor.fill_constant(shape=[1], dtype="int64",
+                                         value=float(k))
+            rem = block.create_var(name=unique_name.generate("pipe_rem"),
+                                   shape=[1], dtype="int64")
+            block.append_op(type="elementwise_mod",
+                            inputs={"X": [step], "Y": [kvar]},
+                            outputs={"Out": [rem]})
+            zero = _tensor.fill_constant(shape=[1], dtype="int64", value=0.0)
+            boundary = _cf.equal(rem, zero)
+            with _cf.Switch() as switch:
+                with switch.case(boundary):
+                    merged = []
+                    for p, acc in accums:
+                        avg = helper.create_variable_for_type_inference(
+                            p.dtype)
+                        program.current_block().append_op(
+                            type="scale", inputs={"X": [acc]},
+                            outputs={"Out": [avg]},
+                            attrs={"scale": 1.0 / k})
+                        merged.append((p, avg))
+                    self._inner.apply_gradients(merged)
+                    for _p, acc in accums:
+                        program.current_block().append_op(
+                            type="scale", inputs={"X": [acc]},
+                            outputs={"Out": [acc]}, attrs={"scale": 0.0})
+        return [], params_grads
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+Dpsgd = DpsgdOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+Lamb = LambOptimizer

@@ -240,6 +240,19 @@ def _lowered_cases():
         "RowConv": (lambda fl: fl.dygraph.RowConv("rc",
                                                   future_context_size=2),
                     [_f32(rs, 2, 5, 3)], D()),
+        "PRelu": (lambda fl: fl.dygraph.PRelu("pr", mode="channel",
+                                              channel=3),
+                  [_f32(rs, 2, 3, 4, 4)], D()),
+        "GroupNorm": (lambda fl: fl.dygraph.GroupNorm("gn", groups=2,
+                                                      act="relu"),
+                      [_f32(rs, 2, 4, 3, 3)], D()),
+        "Conv2DTranspose": (lambda fl: fl.dygraph.Conv2DTranspose(
+            "ct", num_filters=2, filter_size=3, stride=2, padding=1),
+            [_f32(rs, 1, 2, 4, 4)], D()),
+        "BilinearTensorProduct": (
+            lambda fl: fl.dygraph.BilinearTensorProduct("btp", size=3,
+                                                        act="tanh"),
+            [_f32(rs, 4, 5), _f32(rs, 4, 6)], D()),
     }
 
 
@@ -298,16 +311,8 @@ def test_lowered_layer_forward_and_gradients_match_reference(name):
 def _unlowered_cases():
     rs = np.random.RandomState(4)
     return {
-        "PRelu": ("prelu", lambda fl: fl.dygraph.PRelu(
-            "pr", mode="channel", channel=3), [_f32(rs, 2, 3, 4, 4)]),
-        "GroupNorm": ("group_norm", lambda fl: fl.dygraph.GroupNorm(
-            "gn", groups=2), [_f32(rs, 2, 4, 3, 3)]),
         "Conv3D": ("conv3d", lambda fl: fl.dygraph.Conv3D(
             "c3", num_filters=2, filter_size=3), [_f32(rs, 1, 2, 4, 4, 4)]),
-        "Conv2DTranspose": ("conv2d_transpose",
-                            lambda fl: fl.dygraph.Conv2DTranspose(
-                                "ct", num_filters=2, filter_size=3),
-                            [_f32(rs, 1, 2, 4, 4)]),
         "Conv3DTranspose": ("conv3d_transpose",
                             lambda fl: fl.dygraph.Conv3DTranspose(
                                 "ct3", num_filters=2, filter_size=3),
@@ -315,10 +320,6 @@ def _unlowered_cases():
         "NCE": ("nce", lambda fl: fl.dygraph.NCE(
             "nce", num_total_classes=10, num_neg_samples=3),
             [_f32(rs, 4, 6), rs.randint(0, 10, (4, 1)).astype("int64")]),
-        "BilinearTensorProduct": ("bilinear_tensor_product",
-                                  lambda fl: fl.dygraph.BilinearTensorProduct(
-                                      "btp", size=3),
-                                  [_f32(rs, 4, 5), _f32(rs, 4, 6)]),
         "TreeConv": ("tree_conv", lambda fl: fl.dygraph.TreeConv(
             "tc", output_size=3, num_filters=2, max_depth=2),
             [_f32(rs, 1, 5, 4),
@@ -568,6 +569,15 @@ def _ptb_loss(fl, model, batch):
     return fl.layers.scale(total, scale=1.0 / len(steps))
 
 
+def _ptb_stack_loss(fl, model, batch):
+    """The reference parity file's PTB loss: the mean of the ``stack`` of
+    the steps' mean losses."""
+    toks, labs = batch
+    terms = [_xent(fl, logits, labs[:, t, :])
+             for t, logits in enumerate(model(var(fl, toks)))]
+    return fl.layers.mean(fl.layers.stack(terms))
+
+
 def _model_case(name):
     rs = np.random.RandomState(6)
     if name == "mnist":
@@ -589,14 +599,18 @@ def _model_case(name):
     return (lambda fl: dm.make_ptb(fl, PTB_V, PTB_E, PTB_H, PTB_T),
             lambda fl, ps: fl.optimizer.SGD(learning_rate=0.2,
                                             parameter_list=ps),
-            batches, _ptb_loss, None)
+            batches, _ptb_stack_loss if name == "ptb_lstm_stack"
+            else _ptb_loss, None)
 
 
-@pytest.mark.parametrize("name", ["mnist", "resnet18", "ptb_lstm"])
+@pytest.mark.parametrize("name", ["mnist", "resnet18", "ptb_lstm",
+                                  "ptb_lstm_stack"])
 def test_parity_models_train_as_reference(name):
     """Small versions of the reference's dygraph parity models (MNIST
     convnet with SGD, a narrow ResNet-18 with batch norm and Momentum, the
-    PTB LSTM LM with SGD), port against reference from the same weights:
+    PTB LSTM LM with SGD, its loss also in the parity file's form, the
+    mean of the ``stack`` of the steps' losses), port against reference
+    from the same weights:
     every step's loss within 1e-4 relative, the first step's gradients
     within 1e-4 and the final state (parameters and running statistics)
     within 1e-4; no generic replay in the port."""
