@@ -11,9 +11,9 @@ from .ops import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
-from .metric_op import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .extended import *  # noqa: F401,F403
+from .metric_op import *  # noqa: F401,F403  (its auc, as the reference's)
 from .compat import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403

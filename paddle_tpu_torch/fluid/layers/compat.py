@@ -12,7 +12,9 @@ __all__ = ["lod_reset", "gather_tree", "add_position_encoding",
            "bilinear_tensor_product", "dice_loss", "eye", "fsp_matrix",
            "gaussian_random_batch_size_like", "mse_loss", "random_crop",
            "rank", "similarity_focus", "size", "sum",
-           "tensor_array_to_tensor", "uniform_random"]
+           "tensor_array_to_tensor", "uniform_random",
+           "continuous_value_model", "ctc_greedy_decoder",
+           "image_resize_short", "mean_iou", "teacher_student_sigmoid_loss"]
 
 
 def _single_out(op_type, inputs, attrs=None, dtype="float32",
@@ -193,3 +195,62 @@ def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
                      outputs={"Out": [out], "OutIndex": [out_index]},
                      attrs={"axis": axis, "use_stack": use_stack})
     return out, out_index
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    """The ``cvm`` op (``nn.py:16746``)."""
+    return _single_out("cvm", {"X": [input], "CVM": [cvm]},
+                       {"use_cvm": use_cvm}, dtype=input.dtype, out_slot="Y")
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """``arg_max`` over the classes, then ``ctc_align`` (repeats merged,
+    blanks dropped): the padded [B, T] form of the reference's LoD
+    result (``nn.py:7231``), its lengths in the ``@SEQ_LEN`` companion."""
+    helper = LayerHelper("ctc_greedy_decoder")
+    topk = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="arg_max", inputs={"X": [input]},
+                     outputs={"Out": [topk]},
+                     attrs={"axis": -1, "keepdims": False})
+    out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="ctc_align", inputs={"Input": [topk]},
+                     outputs={"Output": [out]},
+                     attrs={"blank": blank, "merge_repeated": True})
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """``image_resize`` so the short side is ``out_short_len``, keeping
+    the aspect ratio (``nn.py:10683``)."""
+    from . import nn as _nn
+
+    h, w = int(input.shape[2]), int(input.shape[3])
+    short = min(h, w)
+    out_shape = [int(round(h * out_short_len / short)),
+                 int(round(w * out_short_len / short))]
+    return _nn.image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def mean_iou(input, label, num_classes):
+    """The ``mean_iou`` op (``nn.py:11351``): (mean IoU float32 [1],
+    wrong int32 [num_classes], correct int32 [num_classes])."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference(dtype="float32")
+    wrong = helper.create_variable_for_type_inference(dtype="int32")
+    correct = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [miou], "OutWrong": [wrong],
+                              "OutCorrect": [correct]},
+                     attrs={"num_classes": num_classes})
+    return miou, wrong, correct
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    """The ``teacher_student_sigmoid_loss`` op (``loss.py``)."""
+    return _single_out("teacher_student_sigmoid_loss",
+                       {"X": [input], "Label": [label]},
+                       {"soft_max_up_bound": soft_max_up_bound,
+                        "soft_max_lower_bound": soft_max_lower_bound},
+                       dtype=input.dtype, out_slot="Y")

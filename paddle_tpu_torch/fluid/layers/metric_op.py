@@ -1,11 +1,10 @@
-"""Metric layers (port of ``accuracy`` in
-``paddle_tpu/fluid/layers/metric_op.py``)."""
+"""Metric layers (port of ``paddle_tpu/fluid/layers/metric_op.py``)."""
 
 from .. import core
 from ..layer_helper import LayerHelper
 from .nn import topk
 
-__all__ = ["accuracy"]
+__all__ = ["accuracy", "auc"]
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -31,3 +30,13 @@ def accuracy(input, label, k=1, correct=None, total=None):
     )
     acc_out.stop_gradient = True
     return acc_out
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming AUC over the stateful ``auc`` op (``metric_op.py:34``),
+    built by ``extended.auc``."""
+    from .extended import auc as _auc
+
+    return _auc(input, label, curve=curve, num_thresholds=num_thresholds,
+                topk=topk, slide_steps=slide_steps)

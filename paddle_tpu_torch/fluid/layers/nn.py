@@ -40,7 +40,9 @@ __all__ = [
     "unstack", "scatter", "shape", "pad", "pad2d", "maxout", "unfold",
     "cos_sim", "logical_or", "logical_xor", "adaptive_pool2d",
     "uniform_random_batch_size_like", "gaussian_random", "sampling_id",
-    "conv2d_transpose", "group_norm",
+    "conv2d_transpose", "group_norm", "instance_norm", "lrn",
+    "image_resize", "resize_bilinear", "resize_nearest", "grid_sampler",
+    "hsigmoid", "nce",
 ]
 
 
@@ -1426,3 +1428,150 @@ def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
                               "Variance": [variance_out]},
                      attrs={"epsilon": epsilon, "groups": groups})
     return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    """Instance normalization (``nn.py:528``): scale created at 1 and
+    bias at 0, one a channel; SavedMean / SavedVariance kept out of the
+    gradient."""
+    helper = LayerHelper("instance_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=[channels], dtype=dtype,
+        default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[channels],
+                                   dtype=dtype, is_bias=True)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="instance_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias]},
+                     outputs={"Y": [out], "SavedMean": [saved_mean],
+                              "SavedVariance": [saved_var]},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization over ``n`` channels (``nn.py:1064``)."""
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    mid = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    stop_gradient=True)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    """``bilinear_interp`` (``resample`` "BILINEAR") or
+    ``nearest_interp`` of NCHW ``input`` to ``out_shape`` [h, w], or by
+    ``scale`` (``nn.py:1115``; ``actual_shape`` is not read, as
+    there)."""
+    op_type = "bilinear_interp" if resample == "BILINEAR" else \
+        "nearest_interp"
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    attrs = {"out_h": out_shape[0] if out_shape else 0,
+             "out_w": out_shape[1] if out_shape else 0,
+             "scale": scale or 0.0, "align_corners": align_corners,
+             "align_mode": align_mode}
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None, **kwargs):
+    return image_resize(input, out_shape, scale, name, "BILINEAR", **kwargs)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None, **kwargs):
+    return image_resize(input, out_shape, scale, name, "NEAREST", **kwargs)
+
+
+def grid_sampler(x, grid, name=None):
+    """Bilinear sampling of ``x`` at ``grid`` (``nn.py:1287``)."""
+    helper = LayerHelper("grid_sampler", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="grid_sampler", inputs={"X": [x], "Grid": [grid]},
+                     outputs={"Output": [out]})
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Hierarchical sigmoid loss (``nn.py:1839``): W [num_classes − 1, D]
+    for the default tree (num_classes rows for a custom one), a bias
+    [rows, 1] unless ``bias_attr`` is False."""
+    helper = LayerHelper("hsigmoid", **locals())
+    dtype = helper.input_dtype()
+    num_nodes = num_classes - 1 if not is_custom else num_classes
+    w = helper.create_parameter(attr=param_attr,
+                                shape=[max(num_nodes, 1), input.shape[-1]],
+                                dtype=dtype)
+    inputs = {"X": [input], "Label": [label], "W": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=bias_attr, shape=[max(num_nodes, 1), 1], dtype=dtype,
+            is_bias=True)]
+    if path_table is not None:
+        inputs["PathTable"] = [path_table]
+    if path_code is not None:
+        inputs["PathCode"] = [path_code]
+    out = helper.create_variable_for_type_inference(dtype)
+    pre_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [out], "PreOut": [pre_out]},
+                     attrs={"num_classes": num_classes,
+                            "is_sparse": is_sparse})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation cost (``nn.py:1882``): Weight
+    [classes, D], a bias [classes, 1] unless ``bias_attr`` is False; a
+    ``custom_dist`` becomes a persistable [classes] variable assigned
+    from it."""
+    helper = LayerHelper("nce", **locals())
+    dtype = helper.input_dtype()
+    w = helper.create_parameter(attr=param_attr,
+                                shape=[num_total_classes, input.shape[-1]],
+                                dtype=dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=bias_attr, shape=[num_total_classes, 1], dtype=dtype,
+            is_bias=True)]
+    if custom_dist is not None:
+        from .tensor import assign
+
+        probs = helper.main_program.current_block().create_var(
+            name=helper.name + "_custom_dist", dtype=dtype,
+            shape=[num_total_classes], persistable=True)
+        assign(np.asarray(custom_dist, dtype=np.float32), output=probs)
+        inputs["CustomDistProbs"] = [probs]
+    cost = helper.create_variable_for_type_inference(dtype)
+    sample_logits = helper.create_variable_for_type_inference(dtype)
+    sample_labels = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples or 10, "seed": seed,
+               "sampler": {"uniform": 0, "log_uniform": 1,
+                           "custom_dist": 2}[sampler],
+               "is_sparse": is_sparse})
+    return cost

@@ -5,14 +5,21 @@
 ``flash_decode_paged_attention``, ``kv_cache_write``, ``kv_cache_copy``,
 ``kv_cache_gather``, ``kv_cache_write_paged``, ``kv_cache_gather_paged``
 and ``kv_cache_block_copy`` lowerings in
-``paddle_tpu/fluid/ops/nn_ops.py``): plain functions on tensors, which
+``paddle_tpu/fluid/ops/nn_ops.py``, with the rest of that file: the
+transposed convolutions, ``group_norm``, ``instance_norm``, ``lrn``, the
+interpolations, ``fc``, max pooling with indices, ``unpool``, ``spp``
+and ``relu_grad``): plain functions on tensors, which
 the eager models and the serving session call, and the registered
 lowerings the Executor runs, which call them."""
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...kernels import flash_attention as _fa
+from .. import core
 from .registry import (EMPTY_VAR, SkipInferShape, _generic_grad_lower,
                        in_var, op, register_op, same_shape_infer, set_out,
                        unreplayed_name)
@@ -35,6 +42,11 @@ __all__ = [
     "kv_cache_gather_paged",
     "kv_cache_block_copy",
     "paged_write_index",
+    "interp_source",
+    "interp_matrix",
+    "nearest_interp",
+    "bilinear_interp",
+    "max_pool_with_index",
 ]
 
 
@@ -1013,3 +1025,322 @@ def _sync_batch_norm(ctx, op_):
     ctx.out(op_, "VarianceOut", new_var.detach().to(var.dtype))
     ctx.out(op_, "SavedMean", saved_mean)
     ctx.out(op_, "SavedVariance", saved_var)
+
+
+# ---------------------------------------------------------------------------
+# the rest of ``nn_ops.py``: instance norm, local response norm, the
+# interpolations, ``fc``, max pooling with its indices, unpooling, spatial
+# pyramid pooling and the standalone ``relu_grad``
+# ---------------------------------------------------------------------------
+@op("instance_norm", infer_shape=same_shape_infer("X", "Y"), grad="generic")
+def _instance_norm(ctx, op_):
+    """``nn_ops.py:412``: each (sample, channel) plane of X [N, C, ...]
+    normalized over its spatial dims (biased variance), then scaled and
+    shifted by channel; SavedMean and SavedVariance [N, C] are the
+    plane's mean and variance (``nn_ops.py:408-409``)."""
+    x = ctx.in1(op_, "X")
+    eps = float(op_.attr("epsilon", 1e-5))
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(axes, keepdim=True)
+    var = (x - mean).square().mean(axes, keepdim=True)
+    y = (x - mean) / torch.sqrt(var + eps)
+    bshape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    scale = ctx.in1(op_, "Scale", optional=True)
+    bias = ctx.in1(op_, "Bias", optional=True)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    ctx.out(op_, "Y", y)
+    ctx.out(op_, "SavedMean", mean.reshape(x.shape[:2]))
+    ctx.out(op_, "SavedVariance", var.reshape(x.shape[:2]))
+
+
+@op("lrn", infer_shape=same_shape_infer("X"), grad="generic")
+def _lrn(ctx, op_):
+    """``nn_ops.py:509``: Out = X / (k + α·Σx²)^β, the sum over a window
+    of ``n`` channels padded n//2 before and n−1−n//2 after (α is not
+    divided by n, as ``F.local_response_norm`` divides it); MidOut the
+    denominator's base k + α·Σx²."""
+    x = ctx.in1(op_, "X")
+    n = int(op_.attr("n", 5))
+    k = float(op_.attr("k", 2.0))
+    alpha = float(op_.attr("alpha", 1e-4))
+    beta = float(op_.attr("beta", 0.75))
+    half = n // 2
+    c = x.shape[1]
+    sq = F.pad(x.square(), (0, 0) * (x.dim() - 2) + (half, n - 1 - half))
+    acc = sq[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + c]
+    mid = k + alpha * acc
+    ctx.out(op_, "MidOut", mid)
+    ctx.out(op_, "Out", x / mid.pow(beta))
+
+
+def _interp_out_hw(op_, x):
+    """(out_h, out_w) of an interpolation (``nn_ops.py:534``): the attrs,
+    else ``scale`` times the input's."""
+    oh = int(op_.attr("out_h", 0))
+    ow = int(op_.attr("out_w", 0))
+    scale = op_.attr("scale", 0.0)
+    if (not oh or not ow) and scale:
+        oh, ow = int(x.shape[2] * scale), int(x.shape[3] * scale)
+    return oh, ow
+
+
+def interp_source(out_n, in_n, align_corners, align_mode):
+    """The fp32 source coordinate of each of ``out_n`` output positions
+    (``_src_coords``, ``nn_ops.py:543``), in numpy's fp32 arithmetic as
+    the reference's: corner-anchored (in−1)/(out−1) under
+    ``align_corners``, else dst·in/out (``align_mode`` 1) or the
+    half-pixel (dst + ½)·in/out − ½ clamped at 0 (``align_mode`` 0)."""
+    d = np.arange(out_n, dtype=np.float32)
+    if align_corners:
+        return d * np.float32((in_n - 1.0) / (out_n - 1.0)
+                              if out_n > 1 else 0.0)
+    ratio = np.float32(in_n / float(out_n))
+    if int(align_mode) == 1:
+        return d * ratio
+    return np.maximum((d + np.float32(0.5)) * ratio - np.float32(0.5),
+                      np.float32(0.0))
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_index(out_n, in_n, align_corners, device):
+    s = interp_source(out_n, in_n, align_corners, 1)
+    i = np.round(s) if align_corners else np.floor(s)
+    return torch.from_numpy(np.clip(i.astype(np.int64), 0, in_n - 1)).to(
+        device)
+
+
+@functools.lru_cache(maxsize=64)
+def interp_matrix(out_n, in_n, align_corners, align_mode, dtype, device):
+    """The [out_n, in_n] bilinear weights along one axis: row i holds
+    1 − w at floor(s_i) and w at floor(s_i) + 1 (both clamped into the
+    input), w = s_i − floor(s_i), as ``nn_ops.py:576-596`` weighs its
+    four gathers."""
+    s = interp_source(out_n, in_n, align_corners, align_mode)
+    i0 = np.clip(np.floor(s).astype(np.int64), 0, in_n - 1)
+    i1 = np.clip(i0 + 1, 0, in_n - 1)
+    w = s - i0.astype(np.float32)
+    m = np.zeros((out_n, in_n), np.float32)
+    rows = np.arange(out_n)
+    np.add.at(m, (rows, i0), np.float32(1) - w)
+    np.add.at(m, (rows, i1), w)
+    return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+
+def nearest_interp(x, out_h, out_w, align_corners=True):
+    """``nearest_interp`` (``nn_ops.py:559``) on NCHW ``x``: the source
+    index rounds under ``align_corners`` and floors otherwise."""
+    iy = _nearest_index(out_h, x.shape[2], bool(align_corners), x.device)
+    ix = _nearest_index(out_w, x.shape[3], bool(align_corners), x.device)
+    return x.index_select(2, iy).index_select(3, ix)
+
+
+def bilinear_interp(x, out_h, out_w, align_corners=True, align_mode=1):
+    """``bilinear_interp`` (``nn_ops.py:576``) on NCHW ``x`` as two
+    products with the axes' weight matrices (``interp_matrix``): the
+    reference's four weighted gathers, summed in a product's order, with
+    a product's pullback."""
+    ac, am = bool(align_corners), int(align_mode)
+    my = interp_matrix(out_h, x.shape[2], ac, am, x.dtype, x.device)
+    mx = interp_matrix(out_w, x.shape[3], ac, am, x.dtype, x.device)
+    return torch.matmul(my, torch.matmul(x, mx.t()))
+
+
+def _interp_lower(fn):
+    def lower(ctx, op_):
+        x = ctx.in1(op_, "X")
+        oh, ow = _interp_out_hw(op_, x)
+        kw = {"align_corners": bool(op_.attr("align_corners", True))}
+        if fn is bilinear_interp:
+            kw["align_mode"] = int(op_.attr("align_mode", 1))
+        ctx.out(op_, "Out", fn(x, oh, ow, **kw))
+
+    return lower
+
+
+register_op("nearest_interp", lower=_interp_lower(nearest_interp),
+            grad="generic")
+register_op("interp_nearest", lower=_interp_lower(nearest_interp),
+            grad="generic")
+register_op("bilinear_interp", lower=_interp_lower(bilinear_interp),
+            grad="generic")
+
+
+def _fc_infer(op_, block):
+    x = in_var(op_, block, "Input")
+    w = in_var(op_, block, "W")
+    if x is None or w is None:
+        raise SkipInferShape()
+    ncd = int(op_.attr("in_num_col_dims", 1))
+    set_out(op_, block, "Out", list(x.shape[:ncd]) + [w.shape[-1]], x.dtype)
+
+
+@op("fc", infer_shape=_fc_infer, grad="generic")
+def _fc(ctx, op_):
+    """``nn_ops.py:610``: Input flattened to 2-D at ``in_num_col_dims``,
+    times W, plus Bias, through relu when ``activation_type`` says so."""
+    x = ctx.in1(op_, "Input")
+    w = ctx.in1(op_, "W")
+    ncd = int(op_.attr("in_num_col_dims", 1))
+    lead = tuple(x.shape[:ncd])
+    x2 = x.reshape(int(np.prod(lead)) if lead else 1, -1)
+    out = x2 @ w.reshape(x2.shape[1], -1)
+    b = ctx.in1(op_, "Bias", optional=True)
+    if b is not None:
+        out = out + b.reshape(1, -1)
+    if op_.attr("activation_type", "") == "relu":
+        out = torch.relu(out)
+    ctx.out(op_, "Out", out.reshape(lead + (w.shape[-1],)))
+
+
+def _pool_with_index_infer(op_, block):
+    x = in_var(op_, block, "X")
+    if x is None:
+        raise SkipInferShape()
+    k = len(x.shape) - 2
+    ksize = [int(v) for v in op_.attr("ksize")]
+    if op_.attr("global_pooling", False):
+        shape = list(x.shape[:2]) + [1] * k
+    elif op_.attr("adaptive", False):
+        shape = list(x.shape[:2]) + ksize
+    else:
+        strides = [int(v) for v in op_.attr("strides", [1] * k)]
+        pads = [int(v) for v in op_.attr("paddings", [0] * k)]
+        shape = list(x.shape[:2]) + [
+            _conv_out_dim(x.shape[2 + i], ksize[i], pads[i], strides[i])
+            for i in range(k)]
+    set_out(op_, block, "Out", shape, x.dtype)
+    set_out(op_, block, "Mask", shape, core.VarDesc.VarType.INT32)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_coords(spatial, k, strides, pads, device):
+    """[output positions, window offsets] int32: the flat index, within
+    the unpadded plane, of each window element (row-major over both)."""
+    nd = len(spatial)
+    out = [(spatial[i] + 2 * pads[i] - k[i]) // strides[i] + 1
+           for i in range(nd)]
+    flat = np.zeros((int(np.prod(out)), int(np.prod(k))), np.int64)
+    for p, o in enumerate(np.ndindex(*out)):
+        for q, off in enumerate(np.ndindex(*k)):
+            f = 0
+            for i in range(nd):
+                f = f * spatial[i] + o[i] * strides[i] + off[i] - pads[i]
+            flat[p, q] = f
+    return torch.from_numpy(flat.astype(np.int32)).to(device)
+
+
+def max_pool_with_index(x, ksize, strides, paddings, global_pooling=False,
+                        adaptive=False):
+    """``max_pool{2,3}d_with_index`` (``nn_ops.py:651``) on [N, C,
+    *spatial] ``x``: (Out, Mask), Mask the int32 flat index within the
+    unpadded plane of each window's first largest element (row-major
+    over the window); padding takes fp32's lowest value, as the
+    reference's. ``adaptive`` needs dims the bins divide."""
+    nd = x.dim() - 2
+    spatial = tuple(int(s) for s in x.shape[2:])
+    k = [int(v) for v in ksize]
+    if adaptive and not global_pooling:
+        if any(spatial[i] % k[i] for i in range(nd)):
+            raise ValueError("adaptive max_pool_with_index needs divisible "
+                             "dims")
+        k = [spatial[i] // k[i] for i in range(nd)]
+        strides, pads = list(k), [0] * nd
+    elif global_pooling:
+        k, strides, pads = list(spatial), [1] * nd, [0] * nd
+    else:
+        strides = [int(v) for v in strides]
+        pads = [int(v) for v in paddings]
+    n, c = x.shape[:2]
+    xp = x
+    if any(pads):
+        xp = F.pad(x, [p for p in reversed(pads) for _ in (0, 1)],
+                   value=float(np.finfo(np.float32).min))
+    for i in range(nd):
+        xp = xp.unfold(2 + i, k[i], strides[i])
+    out_dims = tuple(xp.shape[2:2 + nd])
+    patches = xp.reshape(n, c, -1, int(np.prod(k)))
+    amax = patches.argmax(-1, keepdim=True)
+    out = patches.gather(-1, amax).reshape((n, c) + out_dims)
+    coords = _window_coords(spatial, tuple(k), tuple(strides), tuple(pads),
+                            x.device)
+    mask = coords.expand(n, c, -1, -1).gather(-1, amax)
+    return out, mask.reshape((n, c) + out_dims)
+
+
+def _max_pool_with_index_op(ctx, op_):
+    x = ctx.in1(op_, "X")
+    nd = x.dim() - 2
+    out, mask = max_pool_with_index(
+        x, op_.attr("ksize"), op_.attr("strides", [1] * nd),
+        op_.attr("paddings", [0] * nd),
+        bool(op_.attr("global_pooling", False)),
+        bool(op_.attr("adaptive", False)))
+    ctx.out(op_, "Out", out)
+    ctx.out(op_, "Mask", mask)
+
+
+register_op("max_pool2d_with_index", infer_shape=_pool_with_index_infer,
+            lower=_max_pool_with_index_op, grad="generic")
+register_op("max_pool3d_with_index", infer_shape=_pool_with_index_infer,
+            lower=_max_pool_with_index_op, grad="generic")
+
+
+@op("unpool", grad="generic")
+def _unpool(ctx, op_):
+    """``nn_ops.py:741``: each X [N, C, H, W] value put at its Indices
+    entry (flat within the output plane). The plane is ``unpooled_size``,
+    else ``ksize``, as the reference sizes it; an index outside it is
+    dropped (a negative one counts from the end), as the reference's
+    scatter drops it."""
+    x = ctx.in1(op_, "X")
+    idx = ctx.in1(op_, "Indices").long()
+    out_hw = [int(v) for v in op_.attr("unpooled_size",
+                                       op_.attr("ksize", []))]
+    n, c = x.shape[:2]
+    oh, ow = out_hw[-2], out_hw[-1]
+    size = oh * ow
+    idx = idx.reshape(n, c, -1)
+    idx = torch.where(idx < 0, idx + size, idx)
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    flat = x.new_zeros((n, c, size + 1)).scatter(2, idx, x.reshape(n, c, -1))
+    ctx.out(op_, "Out", flat[:, :, :size].reshape(n, c, oh, ow))
+
+
+@op("spp", grad="generic")
+def _spp(ctx, op_):
+    """``nn_ops.py:761``: ``pyramid_height`` levels of 2^l × 2^l bins
+    (bin i of a level spans [⌊h·i/b⌋, max(⌊h·(i+1)/b⌋, ⌊h·i/b⌋ + 1))),
+    each max or mean pooled, flattened channel-major and concatenated."""
+    x = ctx.in1(op_, "X")
+    levels = int(op_.attr("pyramid_height", 1))
+    ptype = op_.attr("pooling_type", "max")
+    n, _c, h, w = x.shape
+    outs = []
+    for lv in range(levels):
+        bins = 2 ** lv
+        hb = [h * i // bins for i in range(bins + 1)]
+        wb = [w * i // bins for i in range(bins + 1)]
+        cells = []
+        for i in range(bins):
+            for j in range(bins):
+                cell = x[:, :, hb[i]:max(hb[i + 1], hb[i] + 1),
+                         wb[j]:max(wb[j + 1], wb[j] + 1)]
+                cells.append(cell.amax((2, 3)) if ptype == "max"
+                             else cell.mean((2, 3)))
+        outs.append(torch.stack(cells, -1).reshape(n, -1))
+    ctx.out(op_, "Out", torch.cat(outs, 1))
+
+
+@op("relu_grad")
+def _relu_grad(ctx, op_):
+    """``nn_ops.py:500``: the standalone grad op of ``relu``, Out@GRAD
+    where Out is positive, else 0, read from the forward's Out (no
+    forward closure kept)."""
+    out = ctx.in1(op_, "Out")
+    dout = ctx.in1(op_, "Out@GRAD")
+    ctx.out(op_, "X@GRAD", torch.where(out > 0, dout, torch.zeros_like(dout)))

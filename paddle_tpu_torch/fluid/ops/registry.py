@@ -202,6 +202,31 @@ class LowerCtx(object):
         profiler.bump_counter(HOST_READ_COUNTER)
         return t.reshape(-1).tolist()
 
+    def host_array(self, name):
+        """Env entry ``name`` as a numpy array, for an op that computes
+        on the host: the host array the feed came from, else the tensor
+        read once, counted in ``op_host_reads``."""
+        t = self.get(name)
+        fed = self.host_feeds.get(name)
+        if fed is not None and fed[0] is t:
+            return np.asarray(fed[1])
+        if t.device.type == "meta":
+            raise SkipInferShape()
+        profiler.bump_counter(HOST_READ_COUNTER)
+        return t.detach().cpu().numpy()
+
+    def write_state(self, op, in_slot, out_slot, value):
+        """The new value of a state input (``auc``'s buckets, a center
+        table): copied into the input's tensor when ``out_slot`` names
+        the same variable, as the layers build it (the update ops'
+        in-place form), else set as a tensor of its own."""
+        t = self.in1(op, in_slot)
+        if op.outputs.get(out_slot) == op.inputs.get(in_slot):
+            with torch.no_grad():
+                t.copy_(value)
+            value = t
+        self.out(op, out_slot, value)
+
     # -- env access --
     def get(self, name):
         if name == EMPTY_VAR:

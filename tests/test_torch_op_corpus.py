@@ -74,7 +74,8 @@ def test_registry_holds_every_op_of_the_three_reference_modules():
     ``math_ops.py``, ``tensor_ops.py`` and ``optimizer_ops.py``, plus
     ``lookahead_update``, ``conv2d_transpose``,
     ``depthwise_conv2d_transpose`` and ``group_norm``, is in the port's
-    registry, which holds 258 of the reference's 407."""
+    registry, which holds 315 of the reference's 407 (the second slice's
+    op types: ``tests/test_torch_op_corpus_2.py``)."""
     import inspect
     import re
 
@@ -93,7 +94,7 @@ def test_registry_holds_every_op_of_the_three_reference_modules():
             if not tregistry.is_generic_grad(t)}
     assert not sorted(want - port)
     assert set(SLICE_OPS) <= want
-    assert len(port) == 258
+    assert len(port) == 315
 
 
 # ---------------------------------------------------------------------------
@@ -826,21 +827,17 @@ def test_every_reference_layer_of_the_five_modules_is_ported():
     import importlib
 
     left = {
-        "nn": {"crf_decoding", "grid_sampler", "hsigmoid", "image_resize",
-               "instance_norm", "linear_chain_crf", "lrn", "nce",
-               "resize_bilinear", "resize_nearest"},
+        "nn": {"crf_decoding", "linear_chain_crf"},
         "compat": {"adaptive_pool3d", "box_decoder_and_assign",
-                   "collect_fpn_proposals", "continuous_value_model",
-                   "ctc_greedy_decoder", "deformable_conv",
+                   "collect_fpn_proposals", "deformable_conv",
                    "deformable_roi_pooling", "detection_output",
                    "distribute_fpn_proposals", "filter_by_instag",
                    "generate_mask_labels", "generate_proposal_labels",
-                   "get_tensor_from_selected_rows", "image_resize_short",
-                   "mean_iou", "merge_selected_rows", "prroi_pool",
-                   "psroi_pool", "py_func", "resize_trilinear",
+                   "get_tensor_from_selected_rows", "merge_selected_rows",
+                   "prroi_pool", "psroi_pool", "py_func", "resize_trilinear",
                    "retinanet_detection_output", "retinanet_target_assign",
                    "roi_perspective_transform", "rpn_target_assign",
-                   "teacher_student_sigmoid_loss", "yolov3_loss"},
+                   "yolov3_loss"},
     }
     for mod in ("ops", "tensor", "nn", "loss", "compat"):
         ref = importlib.import_module("paddle_tpu.fluid.layers." + mod)
